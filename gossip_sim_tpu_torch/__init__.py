@@ -1,0 +1,18 @@
+"""gossip_sim_tpu_torch — the Solana gossip push-protocol simulator on
+PyTorch and CUDA (NVIDIA H100).
+
+A port of the ``gossip_sim_tpu`` package that imports nothing of it and no
+JAX.  It keeps its own copies of the modules it needs and is held bit for
+bit against the reference package's engine and CLI.
+
+Layout:
+  constants, identity, config, faults, ingest, rustrng   own copies
+  rng        threefry keys and uniforms, bit-equal to jax.random
+  engine     make_cluster_tables / init_state / round_step / run_rounds
+  kernels    hand-written CUDA kernels (csrc/) + their plain versions
+  stats      GossipStats suite (gossip_stats.rs)
+  convert    carry state between the two packages as numpy arrays
+  cli        single-origin experiment driver (python -m gossip_sim_tpu_torch)
+"""
+
+__version__ = "0.1.0"

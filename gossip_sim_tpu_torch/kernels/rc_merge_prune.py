@@ -1,0 +1,187 @@
+"""``rc_merge_prune``: received-cache merge fused with the prune decision.
+
+Replaces the reference engine's ``round/rc_merge`` and
+``round/verb3_prune_decide`` blocks plus the fired-row cache reset
+(gossip_sim_tpu/engine/core.py:743-862, 943-948).  The CUDA kernel is
+``csrc/rc_merge_prune.cu``; :func:`rc_merge_prune_plain` is the same
+function in plain PyTorch, used for CPU tensors and as the spec.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import _build
+
+NAME = "rc_merge_prune"
+MAX_ROW = 128          # C + K entries per row (csrc/rc_merge_prune.cu kMaxW)
+BIG = 0x7FFFFFFF
+I32_MAX = 0x7FFFFFFF
+
+
+class MergePruneOut(NamedTuple):
+    rc_src: torch.Tensor       # [O, N, C] i32 merged cache (empty if fired)
+    rc_score: torch.Tensor     # [O, N, C] i32
+    rc_shi: torch.Tensor       # [O, N, C] i32
+    rc_slo: torch.Tensor       # [O, N, C] i32
+    rc_upserts: torch.Tensor   # [O, N] i32 (0 if fired)
+    src_sorted: torch.Tensor   # [O, N, C] i32 members in prune order, N pad
+    pruned_slot: torch.Tensor  # [O, N, C] bool prune decision per slot
+    n_pruned: torch.Tensor     # [O, N] i32
+    rc_overflow: torch.Tensor  # [O] i32 sum of max(n_valid - C, 0)
+
+
+def _lexsort(keys):
+    """Permutation sorting the last axis lexicographically by ``keys``
+    (most significant first): successive stable sorts from the least
+    significant key."""
+    perm = None
+    for key in reversed(keys):
+        k = key if perm is None else key.gather(-1, perm)
+        order = torch.sort(k, dim=-1, stable=True).indices
+        perm = order if perm is None else perm.gather(-1, order)
+    return perm
+
+
+def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
+                         shi, slo, stakes, origins, *, received_cap: int,
+                         min_num_upserts: int, min_ingress_nodes: int,
+                         prune_stake_threshold: float) -> MergePruneOut:
+    """Plain PyTorch merge + prune decide over every (origin, node) row.
+
+    ``rc_*`` [O, N, C] the carried cache (src sorted ascending, N = empty),
+    ``rc_upserts`` [O, N], ``inb`` [O, N, K] ranked inbound sources,
+    ``shi``/``slo`` [N + 1] and ``stakes`` [N + 1] the cluster tables,
+    ``origins`` [O]."""
+    O, N, C = rc_src.shape
+    K = inb.shape[-1]
+    dev = rc_src.device
+    r = torch.arange(K, device=dev)
+    member = rc_src < N
+    valid_inb = inb < N
+    same = inb[..., :, None] == rc_src[..., None, :]             # [O,N,K,C]
+    found = same.any(-1) & valid_inb
+    # rank-order capacity scan: ranks < 2 insert unconditionally, the rest
+    # honor received_cap (received_cache.rs:92-97)
+    want = valid_inb & ~found
+    ln = member.sum(-1, dtype=torch.int32)
+    cols = []
+    for j in range(K):
+        a = want[..., j] & ((j < 2) | (ln < received_cap))
+        cols.append(a)
+        ln = ln + a.to(torch.int32)
+    allowed = torch.stack(cols, -1)
+    bump = found & (r < 2)
+    score_c = rc_score + (same & bump[..., :, None]).any(-2).to(torch.int32)
+
+    inb_l = inb.long()
+    m_src = torch.cat([torch.where(member, rc_src, BIG),
+                       torch.where(allowed, inb, BIG)], -1)
+    m_sc = torch.cat([score_c, (allowed & (r < 2)).to(torch.int32)], -1)
+    m_hi = torch.cat([rc_shi, shi[inb_l]], -1)
+    m_lo = torch.cat([rc_slo, slo[inb_l]], -1)
+    order = torch.sort(m_src, dim=-1, stable=True).indices[..., :C]
+    s_src = m_src.gather(-1, order)
+    n_valid = (m_src != BIG).sum(-1, dtype=torch.int32)
+    rc_overflow = torch.clamp(n_valid - C, min=0).sum(-1, dtype=torch.int32)
+    live = s_src != BIG
+    new_src = torch.where(live, s_src, N)
+    new_sc = torch.where(live, m_sc.gather(-1, order), 0)
+    new_hi = torch.where(live, m_hi.gather(-1, order), 0)
+    new_lo = torch.where(live, m_lo.gather(-1, order), 0)
+    ups = rc_upserts + valid_inb[..., 0].to(torch.int32)
+
+    # prune decide (received_cache.rs:38-63,100-131)
+    fired = ups >= min_num_upserts
+    org = origins.long()
+    min_stake = torch.minimum(stakes[:N][None, :], stakes[org][:, None])
+    min_ingress_stake = (min_stake.to(torch.float64)
+                         * prune_stake_threshold).to(torch.int64)
+    memb = new_src < N
+    perm = _lexsort([torch.where(memb, -new_sc, I32_MAX),
+                     torch.where(memb, -new_hi, I32_MAX),
+                     torch.where(memb, -new_lo, I32_MAX), new_src])
+    src_sorted = new_src.gather(-1, perm)
+    stake = ((new_hi.gather(-1, perm).long() << 31)
+             | new_lo.gather(-1, perm).long())
+    cum_excl = torch.cumsum(stake, -1) - stake
+    posn = torch.arange(C, device=dev)
+    pruned_slot = ((src_sorted < N) & (posn >= min_ingress_nodes)
+                   & (cum_excl >= min_ingress_stake[..., None])
+                   & (src_sorted != origins[:, None, None])
+                   & fired[..., None])
+    n_pruned = pruned_slot.sum(-1, dtype=torch.int32)
+
+    # mem::take on fire: the whole entry resets (received_cache.rs:48-55)
+    f3 = fired[..., None]
+    return MergePruneOut(
+        rc_src=torch.where(f3, N, new_src).to(torch.int32),
+        rc_score=torch.where(f3, 0, new_sc).to(torch.int32),
+        rc_shi=torch.where(f3, 0, new_hi).to(torch.int32),
+        rc_slo=torch.where(f3, 0, new_lo).to(torch.int32),
+        rc_upserts=torch.where(fired, 0, ups).to(torch.int32),
+        src_sorted=src_sorted.to(torch.int32), pruned_slot=pruned_slot,
+        n_pruned=n_pruned, rc_overflow=rc_overflow)
+
+
+def _lib():
+    lib = _build.library(NAME)
+    fn = lib.rc_merge_prune_launch
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([vp] * 19 + [ci] * 7
+                       + [ctypes.c_double, vp])
+        fn.restype = ci
+    return fn
+
+
+def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
+                   slo, stakes, origins, *, received_cap: int,
+                   min_num_upserts: int, min_ingress_nodes: int,
+                   prune_stake_threshold: float) -> MergePruneOut:
+    """Merge + prune decide: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    kw = dict(received_cap=received_cap, min_num_upserts=min_num_upserts,
+              min_ingress_nodes=min_ingress_nodes,
+              prune_stake_threshold=prune_stake_threshold)
+    if not rc_src.is_cuda:
+        return rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo,
+                                    rc_upserts, inb, shi, slo, stakes,
+                                    origins, **kw)
+    O, N, C = rc_src.shape
+    K = inb.shape[-1]
+    if C + K > MAX_ROW:
+        raise ValueError(f"{NAME}: rc_slots + k_inbound = {C + K} exceeds "
+                         f"the kernel's row width {MAX_ROW}")
+    dev = rc_src.device
+    i32 = torch.int32
+    for name, t in (("rc_src", rc_src), ("rc_score", rc_score),
+                    ("rc_shi", rc_shi), ("rc_slo", rc_slo)):
+        _build.check(t, name, i32, (O, N, C), dev)
+    _build.check(rc_upserts, "rc_upserts", i32, (O, N), dev)
+    _build.check(inb, "inb", i32, (O, N, K), dev)
+    _build.check(shi, "shi", i32, (N + 1,), dev)
+    _build.check(slo, "slo", i32, (N + 1,), dev)
+    _build.check(stakes, "stakes", torch.int64, (N + 1,), dev)
+    _build.check(origins, "origins", i32, (O,), dev)
+    out = MergePruneOut(
+        rc_src=torch.empty((O, N, C), dtype=i32, device=dev),
+        rc_score=torch.empty((O, N, C), dtype=i32, device=dev),
+        rc_shi=torch.empty((O, N, C), dtype=i32, device=dev),
+        rc_slo=torch.empty((O, N, C), dtype=i32, device=dev),
+        rc_upserts=torch.empty((O, N), dtype=i32, device=dev),
+        src_sorted=torch.empty((O, N, C), dtype=i32, device=dev),
+        pruned_slot=torch.empty((O, N, C), dtype=torch.bool, device=dev),
+        n_pruned=torch.empty((O, N), dtype=i32, device=dev),
+        rc_overflow=torch.empty((O,), dtype=i32, device=dev))
+    p = _build.ptr
+    rc = _lib()(p(rc_src), p(rc_score), p(rc_shi), p(rc_slo), p(rc_upserts),
+                p(inb), p(shi), p(slo), p(stakes), p(origins),
+                *(p(t) for t in out), O, N, C, K, int(received_cap),
+                int(min_num_upserts), int(min_ingress_nodes),
+                float(prune_stake_threshold), _build.stream_of(rc_src))
+    _build.launched(NAME, rc)
+    return out

@@ -37,3 +37,7 @@ def pytest_configure(config):
         "markers",
         "slow: heavy end-to-end tests excluded from the tier-1 "
         "'-m not slow' suite (still run by a plain pytest invocation)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the hand-written kernels have no CPU "
+        "mode); skips inside the test when none is present")

@@ -1,0 +1,121 @@
+"""The port's CLI main path against the reference package's, and the
+port's isolation and device rules.
+
+* ``run_simulation`` of the port on ``device="cpu"`` and of the reference
+  package (``--backend tpu``, JAX on the CPU) give equal
+  ``parity_snapshot()``s at 300 nodes, unimpaired and impaired;
+* asking for the default device without a GPU raises;
+* a fresh interpreter that imports every port module (and the chip smoke
+  script) has no ``jax`` and no ``gossip_sim_tpu``/``gossip_sim_tpu.*``
+  module loaded.
+
+Tolerance: 0 everywhere (exact equality of every snapshot series)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import gossip_sim_tpu.engine  # noqa: F401  (64-bit types first)
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gossip_sim_tpu import cli as ref_cli
+from gossip_sim_tpu.identity import reset_unique_pubkeys as ref_reset
+from gossip_sim_tpu.stats.gossip_stats import GossipStatsCollection
+from gossip_sim_tpu_torch import cli, rng
+from gossip_sim_tpu_torch.engine import core
+from gossip_sim_tpu_torch.identity import reset_unique_pubkeys
+
+ROOT = Path(__file__).resolve().parents[1]
+BASE = ["--num-synthetic-nodes", "300", "--iterations", "45",
+        "--warm-up-rounds", "15"]
+
+
+@pytest.fixture
+def partitionable():
+    old = jax.config.jax_threefry_partitionable
+    old_port = rng.partitionable()
+    jax.config.update("jax_threefry_partitionable", True)
+    rng.set_partitionable(True)
+    yield
+    jax.config.update("jax_threefry_partitionable", old)
+    rng.set_partitionable(old_port)
+
+
+def _strings(snap: dict) -> dict:
+    """Map the two packages' distinct Pubkey classes to base58 strings."""
+    def key(k):
+        return k.to_string() if hasattr(k, "to_string") else k
+    return {name: ({key(k): x for k, x in v.items()} if isinstance(v, dict)
+                   else {key(k) for k in v} if isinstance(v, set) else v)
+            for name, v in snap.items()}
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--packet-loss-rate", "0.1", "--churn-fail-rate", "0.01",
+     "--churn-recover-rate", "0.2", "--partition-at", "20", "--heal-at",
+     "30", "--test-type", "fail-nodes", "--when-to-fail", "25",
+     "--fraction-to-fail", "0.2"],
+], ids=["unimpaired", "impaired_fail_nodes"])
+def test_run_simulation_parity_snapshot(partitionable, extra):
+    argv = BASE + extra
+    ref_reset()
+    ref_cfg = ref_cli.config_from_args(ref_cli.build_parser().parse_args(
+        argv + ["--backend", "tpu"]))
+    ref_coll = GossipStatsCollection()
+    ref_cli.run_simulation(ref_cfg, "", ref_coll, None, 0, "0", 0.0)
+    reset_unique_pubkeys()
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        argv + ["--device", "cpu"]))
+    coll = cli.simulate(cfg)
+    want = _strings(ref_coll.collection[0].parity_snapshot())
+    got = _strings(coll.collection[0].parity_snapshot())
+    assert set(want) == set(got)
+    for k in want:
+        assert got[k] == want[k], k
+    assert len(got["coverage"]) == 30
+
+
+def test_default_device_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stakes = np.arange(1, 41, dtype=np.int64) * 10**9
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        core.make_cluster_tables(stakes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.simulate(cli.config_from_args(cli.build_parser().parse_args(
+            BASE)))
+    assert core.make_cluster_tables(stakes, device="cpu").stakes.device.type \
+        == "cpu"
+
+
+def test_unported_flags_are_rejected():
+    for argv in (["--backend", "oracle"], ["--num-simulations", "2"],
+                 ["--test-type", "push-fanout"], ["--all-origins"]):
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args(BASE + argv)
+
+
+def test_imports_no_jax_and_nothing_of_the_reference_package():
+    code = """
+import importlib, pkgutil, runpy, sys
+import gossip_sim_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "gossip_sim_tpu" or m.startswith("gossip_sim_tpu."))
+print("LOADED", len([m for m in sys.modules
+                     if m.startswith("gossip_sim_tpu_torch")]))
+print("BAD", bad)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert int(out.stdout.split("LOADED")[1].split()[0]) >= 20
