@@ -19,7 +19,8 @@ Phases (any failure exits non-zero before the final line):
   (d) run the CLI main path in process: 10,000 synthetic nodes,
       --iterations 300 --warm-up-rounds 200 on cuda; wall time, coverage
       and RMR means; this run's kernel launch counts go into the
-      ``kernels`` line;
+      ``kernels`` line, and each kernel is held against its plain version
+      on this run's own inputs of rounds 19 and 299 (O=1);
   (e) run the CLI on cuda and on cpu at 2,000 nodes for 60 rounds and
       require equal ``parity_snapshot()``s;
   (f) print the card's name and power limit, the ``kernels`` JSON line and
@@ -338,17 +339,51 @@ def main() -> int:
     # ---- (d) CLI main path at N=10,000 on cuda ---------------------------
     argv = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
             "--warm-up-rounds", "200", "--device", "cuda"]
+    # keep the main path's own kernel inputs of two rounds (one call per
+    # kernel per round): the first round the upsert counters fire, and the
+    # last one
+    check_at = (19, 299)
+    calls = {name: 0 for name in names}
+    main_args = {}
+
+    def main_recorder(name):
+        def rec(*args, **kw):
+            if calls[name] in check_at:
+                main_args[(name, calls[name])] = (args, kw)
+            calls[name] += 1
+            return real[name](*args, **kw)
+        return rec
+
     reset_unique_pubkeys()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    coll = cli.simulate(cli.config_from_args(
-        cli.build_parser().parse_args(argv)))
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    for name in names:
+        setattr(kernels, name, main_recorder(name))
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        coll = cli.simulate(cli.config_from_args(
+            cli.build_parser().parse_args(argv)))
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for name in names:
+            setattr(kernels, name, real[name])
     missing = [n for n in names if launches[n] <= 0]
     if missing:
         fail(f"(d) kernels never launched on the main path: {missing}")
+    if len(main_args) != len(names) * len(check_at):
+        fail(f"(d) expected each kernel's inputs at rounds {check_at}, got "
+             f"{sorted(main_args)}")
+    for (name, k), (args, kw) in sorted(main_args.items()):
+        err = max_abs_err(real[name](*args, **kw), plain[name](*args, **kw))
+        if err != 0:
+            fail(f"(d) {name} differs from its plain version on the main "
+                 f"path's round {k} inputs (max_abs_err {err})")
+    torch.cuda.synchronize()
+    say(f"(d) each kernel exact vs plain on the main path's own inputs of "
+        f"rounds {check_at} (O=1, N={N_FULL}, shapes "
+        f"{tuple(main_args[('rc_merge_prune', 19)][0][0].shape)})")
+    del main_args
     stats = coll.collection[0]
     cov_mean, rmr_mean = stats.coverage_stats.mean, stats.rmr_stats.mean
     if len(stats.coverage_stats.collection) != 100:

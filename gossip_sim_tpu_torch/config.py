@@ -132,7 +132,7 @@ class Config:
     @property
     def impairments_on(self) -> bool:
         """Any fault-injection knob beyond the reference's one-shot
-        FAIL_NODES (mirrors EngineParams.has_impairments)."""
+        FAIL_NODES (the engine's loss, churn and partition gates)."""
         return (self.packet_loss_rate > 0.0 or self.churn_fail_rate > 0.0
                 or self.churn_recover_rate > 0.0 or self.partition_at >= 0)
 

@@ -130,23 +130,6 @@ def make_cluster_tables(stakes_lamports: np.ndarray,
         side=t(side), stake_decile=t(stake_decile))
 
 
-def _check_supported(p) -> None:
-    """Raise for the parts of the reference engine this port lacks yet."""
-    if p.has_pull:
-        raise NotImplementedError(
-            f"gossip_mode={p.gossip_mode!r}: pull and adaptive modes are not "
-            f"ported yet (ROADMAP A10)")
-    if p.has_traffic:
-        raise NotImplementedError(
-            "concurrent traffic is not ported yet (ROADMAP A11)")
-    if p.health:
-        raise NotImplementedError(
-            "node-health planes are not ported yet (ROADMAP A12)")
-    if p.representation != "dense":
-        raise NotImplementedError(
-            "representation='sparse' is not ported yet (ROADMAP A7)")
-
-
 def _lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[o, idx[o, ...]]`` per origin row: the reference's sort-join
     ``_lookup`` (a query past the table reads its last entry)."""
@@ -170,7 +153,6 @@ def init_state(key: torch.Tensor, tables: ClusterTables,
     (push_active_set.rs:165-185).  ``key`` is a [2] threefry key
     (:func:`rng.prng_key`)."""
     p = params.validate()
-    _check_supported(p)
     N, S, E = p.num_nodes, p.active_set_size, p.init_draws
     dev = tables.stakes.device
     origins = origins.to(device=dev, dtype=torch.int32)
@@ -225,8 +207,7 @@ def round_step(params: EngineParams, tables: ClusterTables,
     if trace:
         raise NotImplementedError(
             "the flight recorder (trace=True) is not ported yet (ROADMAP A13)")
-    p, kn = params.split()
-    _check_supported(p)
+    p, kn = params.validate().split()
     N, S, F, C, Kin, H = (p.num_nodes, p.active_set_size, p.push_fanout,
                           p.rc_slots, p.k_inbound, p.hist_bins)
     F = min(F, S)

@@ -1,24 +1,31 @@
-"""Engine parameters: static geometry vs numeric knobs.
+"""Engine parameters: shapes and block gates vs numeric knobs.
 
-The port's copy of the reference package's ``engine/params.py``, field for
-field and dtype for dtype, so a parameter set means the same thing to both
-engines.  Mirrors the reference's flat ``Config`` (gossip.rs:111-133) plus
-the dense shapes the engine introduces.  ``EngineParams`` is the single
-user-facing NamedTuple; ``split`` divides it in two:
+The port's copy of the reference package's ``engine/params.py``, cut to the
+fields the single-origin push round reads.  Every field it keeps has the
+reference's name, default and dtype, so a parameter set means the same thing
+to both engines.  ``EngineParams`` is the user-facing NamedTuple; ``split``
+gives the two views ``round_step`` reads:
 
-* ``EngineStatic`` — shape/structure fields (array extents, ranking widths)
-  plus the coarse booleans that select which impairment blocks run
-  (``has_loss``/``has_churn``/``has_partition``/``has_fail``);
-* ``EngineKnobs`` — every numeric tuning knob as a fixed-dtype numpy scalar.
+* ``EngineStatic`` — array extents, ranking widths and the booleans that
+  select which impairment blocks run
+  (``has_fail``/``has_loss``/``has_churn``/``has_partition``);
+* ``EngineKnobs`` — every numeric knob as a fixed-dtype numpy scalar.
 
-The field comments below are the reference package's: its engine traces the
-knobs into one compiled program, while this engine runs eagerly and reads
-them on the host.  The knob dtypes are part of the bit-exactness contract:
+The knob dtypes are part of the bit-exactness contract:
 
 * ``probability_of_rotation`` is f32 — it is compared against f32 uniforms;
 * the stake-threshold / impairment rates are f64 — thresholds derive from
   host double products (``int(rate * 2**32)``, received_cache.rs:112-115);
 * iteration boundaries are i32 and ``impair_seed`` is u32 (faults.py).
+
+Of the reference's features this port lacks yet, only the selectors are
+kept: ``gossip_mode``, ``traffic_values`` and the queue caps, ``health`` and
+``representation``.  :meth:`EngineParams.validate` refuses a non-default
+value of each with ``NotImplementedError`` naming its ROADMAP item.  The
+knobs that only shape those features (pull fanout and interval, adaptive
+thresholds, traffic rate), the reference's prune-apply budget ``pa_slots``
+(the ``prune_apply`` kernel needs none) and the flight recorder's capture
+width come back with the slice that reads them.
 """
 
 from __future__ import annotations
@@ -27,17 +34,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from ..constants import (MIN_NUM_UPSERTS, NUM_PUSH_ACTIVE_SET_ENTRIES,
-                         RECEIVED_CACHE_CAPACITY)
-
-
-def _resolve_prune_cap(trace_prune_cap: int, num_nodes: int,
-                       rc_slots: int) -> int:
-    """Flight-recorder prune-pair capture width (0 = auto 16*N, never more
-    than the theoretical N*rc_slots maximum) — the single source both
-    EngineParams and EngineStatic resolve through."""
-    cap = trace_prune_cap or 16 * num_nodes
-    return min(cap, num_nodes * rc_slots)
+from ..constants import MIN_NUM_UPSERTS, RECEIVED_CACHE_CAPACITY
 
 
 def _resolve_k_inbound(inbound_cap: int, push_fanout: int) -> int:
@@ -47,27 +44,9 @@ def _resolve_k_inbound(inbound_cap: int, push_fanout: int) -> int:
     return max(16, 2 * push_fanout)
 
 
-def _resolve_pull_slots(pull_slots: int, pull_fanout: int) -> int:
-    """Physical pull-request slots per node (0 = auto: max(8, fanout)).
-
-    The slot count is the *static* array width; the traced ``pull_fanout``
-    knob masks slots beyond itself, so a PULL_FANOUT sweep within the
-    resolved width reuses one compiled executable (sweeping past it flips
-    the static shape and recompiles once — same contract as push_fanout
-    vs k_inbound)."""
-    if pull_slots > 0:
-        return pull_slots
-    return max(8, pull_fanout)
-
-
 class EngineKnobs(NamedTuple):
-    """Dynamic numeric knobs, traced into the compiled round.
-
-    Each leaf is a fixed-dtype numpy scalar so every sweep step presents
-    the identical abstract value (shape ``()``, same dtype) to the jit
-    cache — the executable compiled for step 1 serves steps 2..K.
-    Construct via :meth:`EngineParams.split`.
-    """
+    """Numeric knobs at the reference's dtypes.  Construct via
+    :meth:`EngineParams.split`."""
 
     probability_of_rotation: np.float32   # gossip_main.rs:124
     prune_stake_threshold: np.float64     # received_cache.rs:112-115 (f64)
@@ -81,34 +60,12 @@ class EngineKnobs(NamedTuple):
     partition_at: np.int32                # bipartition window start
     heal_at: np.int32                     # bipartition window end (-1 never)
     impair_seed: np.uint32                # counter-hash seed (faults.py)
-    # pull-gossip knobs (pull.py); the pull phase itself is gated on the
-    # static ``gossip_mode`` — these only shape it, so a PULL sweep
-    # (fanout/interval/bloom-fp/cap) reuses one compiled executable
-    pull_fanout: np.int32                 # pull requests per node per round
-    pull_interval: np.int32               # rounds between pull exchanges
-    pull_bloom_fp_rate: np.float64        # bloom false-positive probability
-    pull_request_cap: np.int32            # served requests per peer (<=0 off)
-    # adaptive push-pull knobs (gossip_mode="adaptive"); the direction
-    # switch is compiled in under the static mode, these only position it —
-    # an ADAPTIVE_THRESHOLD sweep reuses one compiled executable
-    adaptive_switch_threshold: np.float64  # coverage fraction flipping a
-                                           # sim/value into its pull phase
-    adaptive_switch_hysteresis: np.float64  # window below the threshold
-                                            # before flipping back to push
-    # concurrent-traffic knobs (traffic.py); the traffic engine itself is
-    # gated on the static ``traffic_slots`` — these only shape it, so a
-    # traffic-rate or queue-cap sweep reuses one compiled executable
-    traffic_rate: np.int32                # values injected per round
-    node_ingress_cap: np.int32            # msgs accepted/node/round (<=0 off)
-    node_egress_cap: np.int32             # msgs sent/node/round (<=0 off)
-    traffic_stall_rounds: np.int32        # no-progress rounds before retire
 
 
 class EngineStatic(NamedTuple):
-    """Static compile geometry: array shapes, ranking widths, and the
-    coarse booleans selecting which impairment blocks exist in the graph.
-    Hashable — this tuple (plus array shapes/dtypes) IS the jit cache key;
-    changing any field compiles a new executable."""
+    """Array shapes, ranking widths, and the booleans selecting which
+    impairment blocks run.  With all four gates False the round is the
+    exact unimpaired reference round."""
 
     num_nodes: int
     push_fanout: int
@@ -120,85 +77,10 @@ class EngineStatic(NamedTuple):
     hist_bins: int
     rot_tries: int
     init_draws: int
-    pa_slots: int
-    trace_prune_cap: int
-    # Coarse graph-selection gates.  With all four False the compiled round
-    # is the exact unimpaired reference graph; a knob crossing its on/off
-    # boundary (e.g. packet_loss_rate 0 -> 0.1) flips a gate and recompiles
-    # once, after which any further numeric stepping is compile-free.
     has_fail: bool = False
     has_loss: bool = False
     has_churn: bool = False
     has_partition: bool = False
-    # Gossip mode selects which protocol phases exist in the compiled graph
-    # (pull.py): "push" is the reference graph (bit-identical to the
-    # pre-pull engine), "pull" disables the push phase, "push-pull" runs
-    # both, "adaptive" compiles both phases plus the direction-optimizing
-    # switch (push while coverage is low, pull-phase activation once it
-    # crosses the traced threshold).  ``pull_slots`` is the RESOLVED static
-    # pull-request width (0 when the mode has no pull phase).
-    gossip_mode: str = "push"
-    pull_slots: int = 0
-    # Concurrent-traffic geometry (traffic.py / engine/traffic.py):
-    # ``traffic_slots`` is the static M-value slot capacity (the state's
-    # value axis).  0 = the traffic subsystem is OFF and no traffic code
-    # exists in any compiled graph — the M=1/caps-off bit-identity gate.
-    traffic_slots: int = 0
-    # Node-health observatory gate (obs/health.py): True compiles the
-    # per-node health-plane accumulation (prune-received counts,
-    # first-delivery rounds/latencies) into the round.  False (default)
-    # leaves the health planes untouched zeros and the compiled graph
-    # free of any health code — the same bit-identity contract as the
-    # trace/traffic gates (parity snapshots and deterministic Influx
-    # wire lines are byte-identical with the gate off).
-    health: bool = False
-    # Round-representation selector (engine/sparse.py): "dense" compiles
-    # the reference full-width [O,N]-plane sort graph, bit-identical to a
-    # build without the key.  "sparse" compiles the frontier/edge-list
-    # round: segment-sum routing over the O(N*fanout) candidate edges,
-    # scatter compaction into the inbound ranking, and the rc_shi/rc_slo
-    # received-cache planes derived from ClusterTables instead of carried
-    # (state keeps them as zero-width [O,N,0] arrays).  Static gate —
-    # each value is its own executable; the outputs are bit-exact.
-    representation: str = "dense"
-
-    @property
-    def num_buckets(self) -> int:
-        return NUM_PUSH_ACTIVE_SET_ENTRIES
-
-    @property
-    def has_impairments(self) -> bool:
-        return self.has_loss or self.has_churn or self.has_partition
-
-    @property
-    def has_traffic(self) -> bool:
-        return self.traffic_slots > 0
-
-    @property
-    def has_pull(self) -> bool:
-        return self.gossip_mode != "push"
-
-    @property
-    def has_push(self) -> bool:
-        return self.gossip_mode != "pull"
-
-    @property
-    def has_adaptive(self) -> bool:
-        return self.gossip_mode == "adaptive"
-
-    @property
-    def prune_cap(self) -> int:
-        return _resolve_prune_cap(self.trace_prune_cap, self.num_nodes,
-                                  self.rc_slots)
-
-    @property
-    def traffic_prune_cap(self) -> int:
-        """Flight-recorder prune-pair capture width per (value, round) in
-        traffic mode: the single-origin cap bounded to 4*N — the capture
-        buffer carries a whole value axis, and per-value prune bursts are
-        far smaller than the all-prunes-for-one-origin bursts the 16*N
-        default was sized for.  Truncation is counted, never silent."""
-        return min(self.prune_cap, 4 * self.num_nodes)
 
     @property
     def k_inbound(self) -> int:
@@ -206,7 +88,7 @@ class EngineStatic(NamedTuple):
 
 
 class EngineParams(NamedTuple):
-    """The full user-facing parameter set (static + dynamic, concrete)."""
+    """The full user-facing parameter set."""
 
     num_nodes: int
     push_fanout: int = 6                 # gossip_main.rs:90
@@ -224,9 +106,9 @@ class EngineParams(NamedTuple):
     # Network-impairment / fault-injection knobs (faults.py; no reference
     # equivalent beyond the one-shot fail_at above).  All decisions are
     # stateless counter hashes of (impair_seed, iteration, node ids), shared
-    # bit-exactly with the oracle's FaultInjector.  With every knob at its
-    # default the compiled round is IDENTICAL to the unimpaired engine
-    # (the blocks are gated on the EngineStatic booleans derived here).
+    # bit-exactly with the reference engine.  With every knob at its default
+    # the round is IDENTICAL to the unimpaired engine (the blocks are gated
+    # on the EngineStatic booleans derived here).
     packet_loss_rate: float = 0.0    # per-message Bernoulli drop probability
     churn_fail_rate: float = 0.0     # per-iteration P(alive node fails)
     churn_recover_rate: float = 0.0  # per-iteration P(failed node recovers)
@@ -234,55 +116,16 @@ class EngineParams(NamedTuple):
     heal_at: int = -1                # iteration it heals (-1 = never)
     impair_seed: int = 0             # hash seed for all impairment streams
 
-    # Pull-gossip (anti-entropy) knobs (pull.py).  ``gossip_mode`` is the
-    # static phase selector: "push" (default) compiles the exact reference
-    # graph, "pull" disables the push phase, "push-pull" runs both.  The
-    # numeric knobs are traced (EngineKnobs), so sweeping any of them
-    # reuses one compiled executable; every pull decision is a stateless
-    # counter hash of (impair_seed, iteration, node ids) shared bit-exactly
-    # with the oracle's PullOracle.
-    gossip_mode: str = "push"
-    pull_fanout: int = 2             # pull requests per live node per round
-    pull_interval: int = 1           # rounds between pull exchanges
-    pull_bloom_fp_rate: float = 0.1  # bloom FP probability (Solana's 0.1)
-    pull_request_cap: int = 0        # requests served per peer per round
-                                     # (<= 0 = unlimited)
-    pull_slots: int = 0              # physical pull-request slots per node
-                                     # (static shape; 0 = auto:
-                                     # max(8, pull_fanout) so fanout sweeps
-                                     # within 8 compile once)
+    # Selectors of reference features not ported yet; only the defaults
+    # are accepted (validate raises NotImplementedError otherwise).
+    gossip_mode: str = "push"        # "pull"/"push-pull"/"adaptive": A10
+    traffic_values: int = 1          # > 1 or a queue cap: A11
+    node_ingress_cap: int = 0
+    node_egress_cap: int = 0
+    health: bool = False             # node-health planes: A12
+    representation: str = "dense"    # "sparse": A7
 
-    # Adaptive push-pull (gossip_mode="adaptive"): direction-optimizing
-    # gossip per "Implementing Push-Pull Efficiently in GraphBLAS" — push
-    # while the infected set is small, activate the pull phase once
-    # coverage crosses the switch threshold (and push RMR explodes).  Both
-    # knobs are traced (EngineKnobs): threshold sweeps compile once.  The
-    # decision compares integer coverage counts against ``threshold * N``
-    # in f64, identically in both backends (bit-exact by construction).
-    adaptive_switch_threshold: float = 0.9   # coverage fraction that flips
-                                             # a sim/value into pull phase
-    adaptive_switch_hysteresis: float = 0.05  # flip back to push only when
-                                              # coverage < thr - hysteresis
-
-    # Concurrent-traffic knobs (traffic.py).  ``traffic_values`` is the
-    # static M-value slot capacity; with the default 1 AND both queue caps
-    # off the traffic subsystem is fully gated out and the simulator is
-    # bit-identical to the pre-traffic engine.  The numeric knobs are
-    # traced (EngineKnobs), so traffic-rate / queue-cap sweeps reuse one
-    # compiled executable; every traffic decision is a stateless counter
-    # hash shared bit-exactly with the oracle's TrafficOracle.
-    traffic_values: int = 1          # concurrent value slots (static M)
-    traffic_rate: int = 1            # new values injected per round
-    node_ingress_cap: int = 0        # msgs accepted per node per round
-                                     # across ALL values (<= 0 = no cap)
-    node_egress_cap: int = 0         # msgs sent per node per round across
-                                     # ALL values (<= 0 = no cap; excess
-                                     # candidates defer to the next round)
-    traffic_stall_rounds: int = 3    # consecutive no-progress rounds
-                                     # before a value retires un-converged
-
-    # Dense-shape knobs (see engine/core.py for the
-    # documented divergences they introduce):
+    # Dense-shape knobs (see engine/core.py):
     rc_slots: int = 64      # physical received-cache slots per (origin, node)
     inbound_cap: int = 0    # inbound peers ranked per (origin, dest, round);
                             # 0 = auto: max(16, 2*push_fanout) so fanout
@@ -290,41 +133,6 @@ class EngineParams(NamedTuple):
     hist_bins: int = 64     # on-device hop-histogram bins
     rot_tries: int = 8      # rejection-sampling tries per rotation event
     init_draws: int = 64    # candidate draws per entry at initialization
-    pa_slots: int = 8       # prune-apply fast-path budget (pruned peers per
-                            # row per round); overflow falls back to the
-                            # full-width sort via lax.cond — exact either way
-    trace_prune_cap: int = 0  # flight-recorder (obs/trace.py) prune-pair
-                              # slots captured per (origin, round); 0 = auto
-                              # (16*num_nodes — the first prune burst is
-                              # nearly synchronized across nodes, so the
-                              # cap must hold several pairs per node at
-                              # once).  Overflow is counted, never silently
-                              # dropped — only the trace truncates, the
-                              # simulation itself is unaffected.
-    health: bool = False    # node-health observatory (obs/health.py):
-                            # accumulate the per-node health planes
-                            # (prune-received, first-delivery) inside the
-                            # jitted round scan.  Static gate — off, the
-                            # compiled round carries zero health code and
-                            # every output is bit-identical to today.
-    representation: str = "dense"  # round representation (engine/sparse.py):
-                            # "dense" = the reference full-width sort graph
-                            # (bit-identical to a build without the key);
-                            # "sparse" = frontier/edge-list segment-sum
-                            # routing with the rc_shi/rc_slo planes derived
-                            # from ClusterTables instead of carried — same
-                            # bits, ~half the received-cache memory.
-
-    @property
-    def num_buckets(self) -> int:
-        return NUM_PUSH_ACTIVE_SET_ENTRIES
-
-    @property
-    def has_impairments(self) -> bool:
-        """True when any fault-injection knob beyond the reference's one-shot
-        ``fail_at`` is active (selects the impairment-aware compiled round)."""
-        return (self.packet_loss_rate > 0.0 or self.has_churn
-                or self.partition_at >= 0)
 
     @property
     def has_churn(self) -> bool:
@@ -332,36 +140,10 @@ class EngineParams(NamedTuple):
 
     @property
     def has_traffic(self) -> bool:
-        """True when the concurrent-traffic subsystem (traffic.py) is
-        engaged: more than one value slot, or a queue cap constraining the
-        single-value stream.  False = the compiled graphs carry zero
-        traffic code (the M=1/caps-off bit-identity contract)."""
+        """True when the reference would engage its concurrent-traffic
+        subsystem: more than one value slot, or a queue cap."""
         return (self.traffic_values > 1 or self.node_ingress_cap > 0
                 or self.node_egress_cap > 0)
-
-    @property
-    def has_pull(self) -> bool:
-        """True when the gossip mode includes the pull (anti-entropy)
-        phase (pull.py)."""
-        return self.gossip_mode != "push"
-
-    @property
-    def has_push(self) -> bool:
-        return self.gossip_mode != "pull"
-
-    @property
-    def pull_slots_resolved(self) -> int:
-        """Resolved static pull-request width (``pull_slots``; 0 = auto:
-        max(8, pull_fanout))."""
-        return _resolve_pull_slots(self.pull_slots, self.pull_fanout)
-
-    @property
-    def prune_cap(self) -> int:
-        """Resolved flight-recorder prune-pair capture width per round
-        (``trace_prune_cap``; 0 = auto: 16*num_nodes, never more than the
-        theoretical N*rc_slots maximum)."""
-        return _resolve_prune_cap(self.trace_prune_cap, self.num_nodes,
-                                  self.rc_slots)
 
     @property
     def k_inbound(self) -> int:
@@ -370,9 +152,9 @@ class EngineParams(NamedTuple):
         ``rows["inb_dropped"]`` and warned about by the CLI."""
         return _resolve_k_inbound(self.inbound_cap, self.push_fanout)
 
-    def static_part(self) -> EngineStatic:
-        """The hashable compile key this parameter set selects."""
-        return EngineStatic(
+    def split(self) -> tuple[EngineStatic, EngineKnobs]:
+        """(shapes and block gates, knobs at their dtypes)."""
+        static = EngineStatic(
             num_nodes=self.num_nodes,
             push_fanout=self.push_fanout,
             active_set_size=self.active_set_size,
@@ -383,22 +165,12 @@ class EngineParams(NamedTuple):
             hist_bins=self.hist_bins,
             rot_tries=self.rot_tries,
             init_draws=self.init_draws,
-            pa_slots=self.pa_slots,
-            trace_prune_cap=self.trace_prune_cap,
             has_fail=self.fail_at >= 0 and self.fail_fraction > 0.0,
             has_loss=self.packet_loss_rate > 0.0,
             has_churn=self.has_churn,
             has_partition=self.partition_at >= 0,
-            gossip_mode=self.gossip_mode,
-            pull_slots=self.pull_slots_resolved if self.has_pull else 0,
-            traffic_slots=self.traffic_values if self.has_traffic else 0,
-            health=self.health,
-            representation=self.representation,
         )
-
-    def knob_values(self) -> EngineKnobs:
-        """The dynamic knobs, canonicalized to their traced dtypes."""
-        return EngineKnobs(
+        knobs = EngineKnobs(
             probability_of_rotation=np.float32(self.probability_of_rotation),
             prune_stake_threshold=np.float64(self.prune_stake_threshold),
             min_ingress_nodes=np.int32(self.min_ingress_nodes),
@@ -411,25 +183,26 @@ class EngineParams(NamedTuple):
             partition_at=np.int32(self.partition_at),
             heal_at=np.int32(self.heal_at),
             impair_seed=np.uint32(self.impair_seed & 0xFFFFFFFF),
-            pull_fanout=np.int32(self.pull_fanout),
-            pull_interval=np.int32(max(1, self.pull_interval)),
-            pull_bloom_fp_rate=np.float64(self.pull_bloom_fp_rate),
-            pull_request_cap=np.int32(self.pull_request_cap),
-            adaptive_switch_threshold=np.float64(
-                self.adaptive_switch_threshold),
-            adaptive_switch_hysteresis=np.float64(
-                self.adaptive_switch_hysteresis),
-            traffic_rate=np.int32(self.traffic_rate),
-            node_ingress_cap=np.int32(self.node_ingress_cap),
-            node_egress_cap=np.int32(self.node_egress_cap),
-            traffic_stall_rounds=np.int32(max(1, self.traffic_stall_rounds)),
         )
-
-    def split(self) -> tuple[EngineStatic, EngineKnobs]:
-        """(static compile key, traced knob pytree) — the jit boundary."""
-        return self.static_part(), self.knob_values()
+        return static, knobs
 
     def validate(self) -> "EngineParams":
+        """Refuse the unported features (NotImplementedError naming the
+        ROADMAP item), then check the slice's own fields."""
+        if self.gossip_mode != "push":
+            raise NotImplementedError(
+                f"gossip_mode={self.gossip_mode!r}: pull and adaptive modes "
+                f"are not ported yet (ROADMAP A10)")
+        if self.has_traffic:
+            raise NotImplementedError(
+                "concurrent traffic is not ported yet (ROADMAP A11)")
+        if self.health:
+            raise NotImplementedError(
+                "node-health planes are not ported yet (ROADMAP A12)")
+        if self.representation != "dense":
+            raise NotImplementedError(
+                f"representation={self.representation!r} is not ported yet "
+                f"(ROADMAP A7)")
         assert self.num_nodes >= 2
         # The node-id cap (engine/core.py MAX_NODES) is enforced with a
         # ValueError in make_cluster_tables.
@@ -446,53 +219,4 @@ class EngineParams(NamedTuple):
         if self.partition_at >= 0 and self.heal_at >= 0:
             assert self.heal_at >= self.partition_at, (
                 "heal_at must not precede partition_at")
-        assert self.gossip_mode in ("push", "pull", "push-pull",
-                                    "adaptive"), (
-            f"unknown gossip_mode: {self.gossip_mode!r}")
-        assert self.representation in ("dense", "sparse"), (
-            f"unknown representation: {self.representation!r}")
-        if self.representation == "sparse":
-            assert self.gossip_mode == "push", (
-                "the sparse frontier round implements the push phase only; "
-                "pull/adaptive modes need the dense representation")
-            assert not self.has_traffic, (
-                "the sparse frontier round does not carry the traffic "
-                "subsystem yet; use representation='dense' with traffic")
-        if self.gossip_mode == "adaptive":
-            assert 0.0 < self.adaptive_switch_threshold <= 1.0, (
-                "adaptive_switch_threshold must be in (0, 1]")
-            assert 0.0 <= self.adaptive_switch_hysteresis \
-                < self.adaptive_switch_threshold, (
-                "adaptive_switch_hysteresis must be in "
-                "[0, adaptive_switch_threshold)")
-        if self.has_pull:
-            assert self.pull_fanout >= 1, "pull_fanout must be >= 1"
-            assert self.pull_interval >= 1, "pull_interval must be >= 1"
-            assert 0.0 <= self.pull_bloom_fp_rate <= 1.0, (
-                "pull_bloom_fp_rate must be in [0, 1]")
-            assert self.pull_fanout <= self.pull_slots_resolved, (
-                "pull_fanout exceeds the static pull_slots width — raise "
-                "EngineParams.pull_slots")
-        assert self.traffic_values >= 1, "traffic_values must be >= 1"
-        if self.has_traffic:
-            assert self.traffic_rate >= 0, "traffic_rate must be >= 0"
-            assert self.traffic_stall_rounds >= 1, (
-                "traffic_stall_rounds must be >= 1")
-            assert self.gossip_mode in ("push", "adaptive"), (
-                "the traffic subsystem models concurrent PUSH streams; "
-                "fixed pull modes are not supported with traffic_values "
-                "> 1 or queue caps — per-value pull RESCUES are: use "
-                "--gossip-mode adaptive (adaptive.py)")
-            assert not (self.fail_at >= 0 and self.fail_fraction > 0.0), (
-                "one-shot fail_at uses PRNG draws the traffic oracle "
-                "cannot replay; use churn_fail_rate with traffic instead")
-            if self.gossip_mode == "adaptive":
-                # the pull-rescue ingress continuation routes the peer's
-                # consumed push budget through the i32 sort-join fast path,
-                # whose packed values must stay under the minimum node-id
-                # packing base (engine/core.py PACK)
-                assert self.node_ingress_cap < 16384, (
-                    "adaptive traffic requires node_ingress_cap < 16384 "
-                    "(sort-key packing bound); caps that large are "
-                    "equivalent to no cap — use 0")
         return self

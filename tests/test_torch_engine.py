@@ -110,7 +110,25 @@ def test_run_rounds_equal(scenario, layout):
 def test_unported_features_raise():
     tt = tc.make_cluster_tables(_stakes(40), device="cpu")
     o = torch.zeros(1, dtype=torch.int32)
-    for kw in (dict(gossip_mode="push-pull"), dict(traffic_values=2),
-               dict(health=True), dict(representation="sparse")):
+    for kw in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tc.init_state(rng.prng_key(1), tt, o, PortParams(40, **kw))
+
+
+UNPORTED = (dict(gossip_mode="push-pull"), dict(gossip_mode="pull"),
+            dict(gossip_mode="adaptive"), dict(traffic_values=2),
+            dict(node_egress_cap=4), dict(health=True),
+            dict(representation="sparse"))
+
+
+def test_round_step_refuses_unported_features():
+    """The round refuses what ``init_state`` refuses, and the flight
+    recorder, before it touches the state."""
+    tt = tc.make_cluster_tables(_stakes(40), device="cpu")
+    o = torch.zeros(1, dtype=torch.int32)
+    ts = tc.init_state(rng.prng_key(1), tt, o, PortParams(40))
+    for kw in UNPORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tc.round_step(PortParams(40, **kw), tt, o, ts, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        tc.round_step(PortParams(40), tt, o, ts, 0, trace=True)
