@@ -8,19 +8,26 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero before the final line):
 
   (a) build the four CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
-      nvcc for sm_90a (one nvcc per source, in parallel);
+      nvcc for sm_90a (one nvcc per source, in parallel); print each
+      kernel's registers, shared memory and spills (``-Xptxas -v``) and the
+      launch geometry of the two redesigned kernels (cluster size, rows per
+      block, shared memory);
   (b) capture each kernel's inputs from a real round (round 19, when the
       upsert counters fire) at O=32 origins, N=10,000 nodes, and hold the
       kernel against its plain PyTorch version on the card: exact equality
       (tolerance 0: the data are integers); time kernel, plain version and
-      a PyTorch yardstick with CUDA events;
+      a PyTorch yardstick with CUDA events; then run the engine at
+      rc_slots=128 (a row of C + K = 144) and hold ``rc_merge_prune``
+      against its plain version on its round-19 inputs;
   (c) run the engine for 50 rounds at O=32, N=10,000: rounds/s, peak
       device memory, every kernel launched;
   (d) run the CLI main path in process: 10,000 synthetic nodes,
       --iterations 300 --warm-up-rounds 200 on cuda; wall time, coverage
       and RMR means; this run's kernel launch counts go into the
       ``kernels`` line, and each kernel is held against its plain version
-      on this run's own inputs of rounds 19 and 299 (O=1);
+      on this run's own inputs of rounds 19 and 299 (O=1) and timed on
+      those of round 19 (CUDA events, and device time under the
+      profiler);
   (e) run the CLI on cuda and on cpu at 2,000 nodes for 60 rounds and
       require equal ``parity_snapshot()``s;
   (f) print the card's name and power limit, the ``kernels`` JSON line and
@@ -31,8 +38,10 @@ Imports nothing of JAX and nothing of the reference package.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -115,8 +124,53 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                   "prune_apply": ("prune_apply_kernel",)}
 
 
+def device_ms(fn, symbols, reps: int = 10):
+    """Mean device milliseconds per call of ``fn`` spent in the kernels whose
+    names contain one of ``symbols``, under torch.profiler (None if the
+    profiler recorded no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0)))
+             for ev in prof.key_averages()
+             if any(sym in ev.key for sym in symbols))
+    return us / 1e3 / reps if us > 0 else None
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel function of an ``nvcc -Xptxas -v`` log:
+    registers, static shared memory, stack and spills."""
+    lines, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((sym for syms in KERNEL_SYMBOLS.values()
+                         for sym in syms if sym in m.group(1)), m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = (f"stack {m.group(1)} B, spills {m.group(2)} B stored / "
+                     f"{m.group(3)} B loaded")
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            lines.append(f"{name}: {m.group(1)} registers, static shared "
+                         f"memory {smem.group(1) if smem else 0} B, {frame}")
+            name, frame = None, ""
+    return lines
+
+
 def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
-                   rounds: int = 5) -> None:
+                   rounds: int = 5) -> dict:
     """Where a round's time goes: device time per kernel group and for the
     plain PyTorch ops, over ``rounds`` rounds under torch.profiler, against
     the host wall clock (device idle share = 1 - busy / wall)."""
@@ -147,7 +201,7 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
     busy_ms = (sum(groups.values()) + sum(other.values())) / 1e3
     if busy_ms <= 0:
         say("(c) profiler: no device time recorded; breakdown not measured")
-        return
+        return {name: None for name in groups}
     top = sorted(other.items(), key=lambda kv: -kv[1])[:12]
     lines = [f"{rounds} rounds at O={origins.numel()}: wall {wall_ms:.3f} ms,"
              f" device busy {busy_ms:.3f} ms"]
@@ -168,6 +222,7 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
         f" ms in {n_other / rounds:.0f} launches")
     for line in lines[6:]:
         say(f"(c)   {line.strip()}")
+    return {k: v / 1e3 / rounds for k, v in groups.items()}
 
 
 def main() -> int:
@@ -184,6 +239,9 @@ def main() -> int:
                                              run_rounds)
     from gossip_sim_tpu_torch.identity import NodeIndex, reset_unique_pubkeys
     from gossip_sim_tpu_torch.kernels import _build
+    bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
+    merge_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.rc_merge_prune")
 
     for mod in list(sys.modules):
         if mod == "jax" or mod == "gossip_sim_tpu" or mod.startswith(
@@ -203,6 +261,19 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ptxas.txt").write_text(
         "\n".join(f"--- {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
+    for name in names:
+        for line in ptxas_summary(_build.BUILD_LOG[name]):
+            say(f"(a) ptxas {line}")
+    sms = _build.sm_count(dev)
+    for o in (1, O_KERNEL):
+        cs, smem = bfs_mod.launch_geometry(o, N_FULL, sms)
+        say(f"(a) bfs_relax at O={o} N={N_FULL} on {sms} SMs: cluster size "
+            f"{cs}, slice {bfs_mod.slice_len(N_FULL, cs)} nodes, {smem} B "
+            f"shared memory per CTA")
+    for c, k in ((64, 16), (128, 16)):
+        rows, smem = merge_mod.launch_geometry(c, k)
+        say(f"(a) rc_merge_prune at C={c} K={k}: {rows} rows (warps) per "
+            f"block, {smem} B shared memory per block")
 
     # ---- (b) kernels vs plain on a real round's inputs -------------------
     reset_unique_pubkeys()
@@ -309,6 +380,37 @@ def main() -> int:
         del r["out"]
     torch.cuda.empty_cache()
 
+    # rc_slots = 128 with the default k_inbound: a row of C + K = 144
+    wide = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, rc_slots=128)
+    wide_o = origins[:8]
+    state = init_state(rng.prng_key(42, dev), tables, wide_o, wide)
+    for it in range(19):
+        state, _ = round_step(wide, tables, wide_o, state, it)
+    wide_in = {}
+
+    def wide_rec(*args, **kw):
+        wide_in["mp"] = (args, kw)
+        return real["rc_merge_prune"](*args, **kw)
+
+    kernels.rc_merge_prune = wide_rec
+    try:
+        state, rows_w = round_step(wide, tables, wide_o, state, 19)
+    finally:
+        kernels.rc_merge_prune = real["rc_merge_prune"]
+    args, kw = wide_in["mp"]
+    err = max_abs_err(real["rc_merge_prune"](*args, **kw),
+                      plain["rc_merge_prune"](*args, **kw))
+    torch.cuda.synchronize()
+    if err != 0 or args[0].shape[-1] + args[5].shape[-1] != 144:
+        fail(f"(b) rc_slots=128: rc_merge_prune differs from its plain "
+             f"version (max_abs_err {err}) or the row is not 144 wide")
+    say(f"(b) rc_slots=128 K=16 (row 144) at O={wide_o.numel()} N={N_FULL}, "
+        f"round 19: rc_merge_prune exact vs plain; kernel "
+        f"{cuda_ms(lambda: real['rc_merge_prune'](*args, **kw)):.4f} ms; "
+        f"prunes {int(rows_w['prunes_sent'].sum())}")
+    del state, wide_in, args, rows_w
+    torch.cuda.empty_cache()
+
     # ---- (c) engine, 50 rounds at O=32, N=10,000 -------------------------
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -332,7 +434,8 @@ def main() -> int:
         f"origin-rounds/s), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, mean coverage "
         f"{float(cov.double().mean()):.6f}, launches {engine_launches}")
-    profile_rounds(run_rounds, params, tables, origins, state, out_dir)
+    engine_device = profile_rounds(run_rounds, params, tables, origins,
+                                   state, out_dir)
     del state, rows
     torch.cuda.empty_cache()
 
@@ -383,6 +486,16 @@ def main() -> int:
     say(f"(d) each kernel exact vs plain on the main path's own inputs of "
         f"rounds {check_at} (O=1, N={N_FULL}, shapes "
         f"{tuple(main_args[('rc_merge_prune', 19)][0][0].shape)})")
+    main_t = {}
+    for name in names:
+        args, kw = main_args[(name, 19)]
+        main_t[name] = (cuda_ms(lambda: real[name](*args, **kw), reps=50),
+                        device_ms(lambda: real[name](*args, **kw),
+                                  KERNEL_SYMBOLS[name], reps=50))
+        dev_txt = ("not measured" if main_t[name][1] is None
+                   else f"{main_t[name][1]:.4f} ms")
+        say(f"(d) {name} on the main path's round-19 inputs (O=1): wrapper "
+            f"{main_t[name][0]:.4f} ms, device {dev_txt}")
     del main_args
     stats = coll.collection[0]
     cov_mean, rmr_mean = stats.coverage_stats.mean, stats.rmr_stats.mean
@@ -445,7 +558,10 @@ def main() -> int:
          "max_abs_err": res[name]["max_abs_err"],
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": "bytes",
-         "library_ms": res[name]["library_ms"]} for name in names]}
+         "library_ms": res[name]["library_ms"],
+         "device_ms": engine_device[name],
+         "main_ms": main_t[name][0], "main_device_ms": main_t[name][1]}
+        for name in names]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,98 +8,204 @@
 // Input:  tgt [O, N, F] i32 push target per (source, fanout slot), N = none;
 //         origins [O] i32.
 // Output: reached [O, N] u8 (bool), dist [O, N] i32 (1 << 20 = unreached).
-// Scratch: frontier and next-frontier planes [2, O, N] u8.
 //
 // Seeding follows core.py:627-633 exactly: the origin's own targets are the
 // hop-1 frontier (reached, dist 1), then the origin itself is reached at 0.
-// Each hop marks every target of a frontier node in the next plane (plain
-// stores of 1: concurrent writers store the same value, so the result does
-// not depend on their order), then newly = next & !reached gets dist h + 1.
+// Each hop ORs the bit of every target of a frontier node into a bitmap,
+// then newly = (OR of those bits) & ~reached gets dist h + 1.  An OR does
+// not depend on the order of its writers, so the result is exact.
 //
-// Bound on the H100: memory.  The function must read tgt once
-// (O*N*F*4 bytes) and write reached/dist once; each hop re-reads the
-// frontier plane and the targets of frontier nodes, which stay in the 50 MB
-// L2 at the main path's sizes.  Design: one block per origin loops over
-// the hops with __syncthreads / __syncthreads_or, so there is no host sync
-// and no relaunch per hop.  With O = 32 origins only 32 of the 132 SMs work;
-// splitting an origin over several blocks (a grid-wide barrier per hop) is
-// work for a later change.
+// Bound on the H100: memory, and at these sizes latency.  The function must
+// read tgt once (O*N*F*4 bytes) and write reached/dist once; that is a few
+// microseconds, while the BFS needs one dependent step per hop (~10 hops on
+// the 10k-node cluster, hundreds on a path), each a chain of latencies: an
+// L2 load of the targets, a cluster barrier, a DSMEM load, a block barrier.
+// Design: a thread block cluster of cs CTAs per origin (cs from O, chosen
+// by the wrapper so that O * cs fills the SMs; 8 at O = 1).  CTA r owns
+// the word-aligned node slice [r*S, (r+1)*S), S = ceil(N / cs) rounded up
+// to 32, so no bitmap word is shared by two CTAs.  Per-node state stays in
+// the owner's shared memory: reached and frontier bitmaps and a 16-bit hop
+// per node (N <= 65535).  Besides, each CTA keeps two "sent" bitmaps over
+// all N nodes, by hop parity.  Each hop:
+//   1. each warp takes frontier words of its CTA's slice, skips zero words,
+//      and each lane whose bit is set reads its node's F targets (L2) and
+//      ORs each target's bit into its own CTA's sent bitmap of this hop's
+//      parity (a local shared-memory atomic, skipped if the bit is already
+//      in either sent bitmap); a CTA whose frontier is not empty also sets
+//      the hop's "live" flag in every CTA of the cluster;
+//   2. one cluster barrier; if no CTA was live, the BFS is over;
+//   3. one thread per word of the CTA's slice reads that word of the cs
+//      sent bitmaps of this parity through distributed shared memory (cs
+//      loads in flight together) and ORs them: newly = that & ~reached.
+//      A sent bitmap only grows, but every bit it held before this hop was
+//      reached by then, so the mask leaves exactly this hop's new nodes;
+//      they get hop h + 1 and become the frontier.
+// The parity double buffer makes one cluster barrier per hop enough: a CTA
+// writes the bitmap of this parity again only in hop h + 2, after the
+// barrier of hop h + 1, which every owner reaches after its step 3 of hop
+// h.  Remote traffic is cs plain loads per slice word per hop, not one
+// remote atomic per edge; only the frontier's edges are touched, and device
+// memory is written once, coalesced, at the end.  (Setting each target's
+// bit in its owner's bitmap with one remote atomic per edge measured
+// slower at O = 1 and at O = 32; PERF.md.)
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int32_t kInf = 1 << 20;
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
+constexpr int kBatch = 8;  // fanout targets loaded together per frontier node
+constexpr int kMaxCluster = 8;
+constexpr int kMaxNodes = 65535;
+constexpr int kSmemPerBlock = 232448;
+
+// Mirrors kernels/bfs_relax.py slice_len and smem_bytes.
+__host__ __device__ inline int slice_len(int n, int cs) {
+  return (((n + cs - 1) / cs + 31) / 32) * 32;
+}
+
+__host__ __device__ inline int smem_bytes(int n, int cs) {
+  const int s = slice_len(n, cs);
+  return 4 * ((2 + 2 * cs) * (s / 32) + 2) + 2 * s;
+}
 
 __global__ void __launch_bounds__(kThreads)
 bfs_relax_kernel(const int32_t* __restrict__ tgt,
                  const int32_t* __restrict__ origins,
                  uint8_t* __restrict__ reached, int32_t* __restrict__ dist,
-                 uint8_t* __restrict__ frontier, uint8_t* __restrict__ next,
-                 int n, int f) {
-  const int o = blockIdx.x;
+                 int n, int f, int cs, int slen) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int o = blockIdx.x / cs;
+  const int words = slen >> 5;         // words of one slice
+  uint32_t* re = sm;                   // reached (own slice)
+  uint32_t* fr = re + words;           // frontier (own slice)
+  uint32_t* sent = fr + words;         // two bitmaps over all cs slices
+  uint32_t* live_flag = sent + 2 * cs * words;  // two flags by hop parity
+  uint16_t* hop = reinterpret_cast<uint16_t*>(live_flag + 2);
+  const int lo = rank * slen;
+  const int len = max(0, min(n, lo + slen) - lo);
+  const int lwords = (len + 31) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   const int32_t* tg = tgt + (size_t)o * n * f;
-  uint8_t* re = reached + (size_t)o * n;
-  int32_t* di = dist + (size_t)o * n;
-  uint8_t* fr = frontier + (size_t)o * n;
-  uint8_t* nx = next + (size_t)o * n;
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    re[i] = 0;
-    di[i] = kInf;
-    fr[i] = 0;
-    nx[i] = 0;
-  }
+  for (int w = threadIdx.x; w < (2 + 2 * cs) * words + 2; w += blockDim.x)
+    sm[w] = 0;
   __syncthreads();
   const int org = origins[o];
   for (int j = threadIdx.x; j < f; j += blockDim.x) {
     const int t = tg[(size_t)org * f + j];
-    if (t >= 0 && t < n) {
-      fr[t] = 1;
-      re[t] = 1;
-      di[t] = 1;
+    if (t >= lo && t < lo + len) {
+      const int i = t - lo;
+      atomicOr(&fr[i >> 5], 1u << (i & 31));
+      atomicOr(&re[i >> 5], 1u << (i & 31));
+      hop[i] = 1;
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    re[org] = 1;
-    di[org] = 0;
+  if (threadIdx.x == 0 && org >= lo && org < lo + len) {
+    const int i = org - lo;
+    re[i >> 5] |= 1u << (i & 31);
+    hop[i] = 0;
   }
-  __syncthreads();
+  int live = 0;
+  for (int w = threadIdx.x; w < lwords; w += blockDim.x) live |= fr[w] != 0;
+  live = __syncthreads_or(live);
+  // every CTA of the cluster runs and has cleared its bitmaps before the
+  // first remote access
+  cluster.sync();
 
-  const int nf = n * f;
+  const int all_words = cs * words;
   for (int h = 1;; ++h) {
-    for (int e = threadIdx.x; e < nf; e += blockDim.x) {
-      if (fr[e / f]) {
-        const int t = tg[e];
-        if (t >= 0 && t < n) nx[t] = 1;
+    const int b = h & 1;
+    uint32_t* sb = sent + b * all_words;
+    uint32_t* sother = sent + (b ^ 1) * all_words;
+    if (live && threadIdx.x < cs)
+      atomicOr(cluster.map_shared_rank(&live_flag[b], threadIdx.x), 1u);
+    for (int w = warp; w < lwords; w += nwarps) {
+      const uint32_t bits = fr[w];
+      if (bits == 0 || !((bits >> lane) & 1u)) continue;
+      const int32_t* tp = tg + (size_t)(lo + (w << 5) + lane) * f;
+      for (int j0 = 0; j0 < f; j0 += kBatch) {
+        int t[kBatch];  // all loads of the batch before any atomic
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          t[u] = j0 + u < f ? __ldg(tp + j0 + u) : -1;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (t[u] < 0 || t[u] >= n) continue;
+          // slices are word-aligned, so the global word is the sent word
+          const int gw = t[u] >> 5;
+          const uint32_t bit = 1u << (t[u] & 31);
+          if (!((sb[gw] | sother[gw]) & bit)) atomicOr(&sb[gw], bit);
+        }
       }
     }
-    __syncthreads();
-    int any = 0;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint8_t nw = nx[i] & (re[i] ^ 1);
-      fr[i] = nw;
-      nx[i] = 0;
-      if (nw) {
-        re[i] = 1;
-        di[i] = h + 1;
-        any = 1;
-      }
+    cluster.sync();
+    if (live_flag[b] == 0) break;
+    int got = 0;
+    for (int w = threadIdx.x; w < lwords; w += blockDim.x) {
+      uint32_t nx = 0;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < cs) nx |= *cluster.map_shared_rank(&sb[rank * words + w], r);
+      uint32_t nw = nx & ~re[w];
+      re[w] |= nw;
+      fr[w] = nw;
+      got |= nw != 0;
+      for (; nw; nw &= nw - 1)
+        hop[(w << 5) + __ffs(nw) - 1] = (uint16_t)(h + 1);
     }
-    if (!__syncthreads_or(any)) break;
+    live = __syncthreads_or(got);
+    if (threadIdx.x == 0) live_flag[b] = 0;
+  }
+  // No remote access follows the last cluster barrier, so a CTA may write
+  // its slice and exit.
+  uint8_t* ro = reached + (size_t)o * n + lo;
+  int32_t* dd = dist + (size_t)o * n + lo;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const bool r = (re[i >> 5] >> (i & 31)) & 1u;
+    ro[i] = r ? 1 : 0;
+    dd[i] = r ? (int32_t)hop[i] : kInf;
   }
 }
 
 }  // namespace
 
 extern "C" int bfs_relax_launch(const int32_t* tgt, const int32_t* origins,
-                                uint8_t* reached, int32_t* dist,
-                                uint8_t* scratch, int o, int n, int f,
-                                cudaStream_t stream) {
-  bfs_relax_kernel<<<o, kThreads, 0, stream>>>(
-      tgt, origins, reached, dist, scratch, scratch + (size_t)o * n, n, f);
+                                uint8_t* reached, int32_t* dist, int o, int n,
+                                int f, int cs, int smem, cudaStream_t stream) {
+  if (o < 1 || n < 1 || n > kMaxNodes || f < 1 || cs < 1 ||
+      cs > kMaxCluster || smem != smem_bytes(n, cs) || smem > kSmemPerBlock)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        bfs_relax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(o * cs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bfs_relax_kernel, tgt, origins, reached,
+                           dist, n, f, cs, slice_len(n, cs));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -6,12 +6,12 @@
 // 4-key prune-order sort and an i64 cumsum), and the received-cache reset
 // of `round/verb4_prune_apply` (core.py:943-948).
 //
-// One thread per (origin, node) row:
+// Per (origin, node) row:
 //   1. member lookup: an inbound source found among the cache members gets
 //      +1 score if its rank is < 2 (received_cache.rs:83-98);
 //   2. rank-order capacity scan: a new source inserts with score (rank < 2)
 //      if its rank is < 2 or the running length is below received_cap;
-//   3. the merged entries are sorted by source; the C smallest stay and
+//   3. the merged entries in source order; the C smallest stay and
 //      rc_overflow[o] counts max(n_valid - C, 0); the upsert counter gains
 //      one if the row received anything;
 //   4. prune decide: members ordered by (score desc, stake hi desc, stake lo
@@ -20,35 +20,115 @@
 //      stake_org)) * threshold), src != origin and the row fired
 //      (upserts >= min_num_upserts);
 //   5. a fired row's cache resets to empty.
-// Sources are unique within a row, so both orders are strict and the
-// result is exact.
+//
+// Precondition (the cache invariant, which this function's own output
+// keeps): each rc_src row holds its members sorted ascending and unique,
+// followed by N (empty).  Inbound sources are unique within a row (a source
+// pushes to distinct peers).  So every order below is strict and the result
+// is exact.
 //
 // Bound on the H100: memory.  Each call reads four [O, N, C] i32 planes and
-// the [O, N, K] inbound rows and writes five [O, N, C] planes; the sorts
-// are ~(C + K)^2 / 4 register/local-memory steps per row.  Design: a row
-// per thread keeps the merge in thread-local arrays (no shared-memory
-// staging), simple and exact; the per-thread row reads are uncoalesced.  A
-// warp-per-row layout with coalesced loads is work for a later change.
+// the [O, N, K] inbound rows and writes five [O, N, C] planes; the row-local
+// work is a few hundred warp instructions per row.  Design: one warp per
+// row, several rows per block, each row staged in dynamic shared memory
+// (sized from C and K by the wrapper; no per-thread row arrays; ptxas keeps
+// a 16-byte register spill at 48 registers, which ran faster than the
+// 64-register build without it):
+//   - lane j loads slots j, j+32, ... (16-byte vectors where C % 4 == 0),
+//     so every plane load and store of a warp is contiguous;
+//   - member lookup: each lane binary-searches one inbound source in the
+//     sorted members (the position is also the count of smaller members);
+//   - the capacity scan is a ballot prefix count: below received_cap every
+//     new source inserts, so the length before rank r >= 2 is members +
+//     (inserted among ranks 0-1) + (new sources among ranks [2, r));
+//   - merge by rank instead of a sort: a member's merged position is its
+//     slot plus the inserted sources smaller than it; an inserted source's
+//     is the members smaller than it plus the inserted sources before it;
+//   - prune order: a bitonic sort in shared memory of 128-bit keys over the
+//     kept entries, padded to a power of two;
+//   - the stake cumsum is a warp shuffle scan carried across 32-slot chunks,
+//     run only on a fired row's chunks that hold kept entries.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxW = 128;  // C + K
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr uint32_t kSign = 0x80000000u;
+constexpr int kMaxRowsPerBlock = 8;
+constexpr int kSmemPerBlock = 232448;
 
-__device__ __forceinline__ bool prune_before(int32_t sa, int32_t ha,
-                                             int32_t la, int32_t xa,
-                                             int32_t sb, int32_t hb,
-                                             int32_t lb, int32_t xb) {
-  if (sa != sb) return sa > sb;
-  if (ha != hb) return ha > hb;
-  if (la != lb) return la > lb;
-  return xa < xb;
+__host__ __device__ inline int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Mirrors kernels/rc_merge_prune.py row_smem_bytes: keys (16 B per slot,
+// padded to a power of two), the staged member planes (16 B per slot) and
+// the inserted inbound sources (12 B per rank), rounded up to 16 B.
+__host__ __device__ inline int row_smem_bytes(int c, int k) {
+  return (16 * pow2_ceil(c) + 16 * c + 12 * k + 15) / 16 * 16;
+}
+
+// Order-preserving map of a signed word onto an unsigned one, and back.
+__device__ __forceinline__ uint32_t enc(int32_t x) {
+  return (uint32_t)x ^ kSign;
+}
+__device__ __forceinline__ int32_t dec(uint32_t u) {
+  return (int32_t)(u ^ kSign);
+}
+
+// Prune-order key: ascending (x, y) is (score desc, shi desc, slo desc,
+// src asc).  The padding key sorts after every entry.
+__device__ __forceinline__ ulonglong2 make_key(int32_t src, int32_t sc,
+                                               int32_t hi, int32_t lo) {
+  ulonglong2 key;
+  key.x = ((unsigned long long)~enc(sc) << 32) | ~enc(hi);
+  key.y = ((unsigned long long)~enc(lo) << 32) | enc(src);
+  return key;
+}
+
+__device__ __forceinline__ void split_key(ulonglong2 key, int32_t& src,
+                                          int32_t& sc, int32_t& hi,
+                                          int32_t& lo) {
+  sc = dec(~(uint32_t)(key.x >> 32));
+  hi = dec(~(uint32_t)key.x);
+  lo = dec(~(uint32_t)(key.y >> 32));
+  src = dec((uint32_t)key.y);
+}
+
+__device__ __forceinline__ bool key_less(ulonglong2 a, ulonglong2 b) {
+  return a.x < b.x || (a.x == b.x && a.y < b.y);
+}
+
+__device__ __forceinline__ void stage(int32_t* dst,
+                                      const int32_t* __restrict__ src, int c,
+                                      int lane) {
+  if ((c & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int j = lane; j < (c >> 2); j += 32) d4[j] = __ldg(s4 + j);
+  } else {
+    for (int j = lane; j < c; j += 32) dst[j] = __ldg(src + j);
+  }
+}
+
+__device__ __forceinline__ int lower_bound(const int32_t* a, int len,
+                                           int32_t v) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(32 * kMaxRowsPerBlock)
 rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
                       const int32_t* __restrict__ rc_score,
                       const int32_t* __restrict__ rc_shi,
@@ -59,123 +139,169 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
                       const int32_t* __restrict__ slo,
                       const int64_t* __restrict__ stakes,
                       const int32_t* __restrict__ origins,
-                      int32_t* __restrict__ o_src, int32_t* __restrict__ o_score,
+                      int32_t* __restrict__ o_src,
+                      int32_t* __restrict__ o_score,
                       int32_t* __restrict__ o_shi, int32_t* __restrict__ o_slo,
                       int32_t* __restrict__ o_ups,
                       int32_t* __restrict__ src_sorted,
                       uint8_t* __restrict__ pruned,
                       int32_t* __restrict__ n_pruned,
                       int32_t* __restrict__ overflow, long long rows, int n,
-                      int c, int k, int received_cap, int min_num_upserts,
-                      int min_ingress_nodes, double threshold) {
-  const long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  const int o = (int)(row / n);
-  const int node = (int)(row % n);
+                      int c, int k, int row_bytes, int received_cap,
+                      int min_num_upserts, int min_ingress_nodes,
+                      double threshold) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;  // whole warp; no block-wide barrier follows
+  ulonglong2* key =
+      reinterpret_cast<ulonglong2*>(smem + (size_t)warp * row_bytes);
+  int32_t* ms = reinterpret_cast<int32_t*>(key + pow2_ceil(c));
+  int32_t* msc = ms + c;
+  int32_t* mhi = msc + c;
+  int32_t* mlo = mhi + c;
+  int32_t* ins_v = mlo + c;
+  int32_t* ins_lt = ins_v + k;
+  int32_t* ins_sc = ins_lt + k;
+  const int o = (int)((unsigned)row / (unsigned)n);  // rows < 2^31
+  const int node = (int)row - o * n;
   const long long base_c = row * c;
   const int32_t* ib = inb + row * k;
 
-  int32_t es[kMaxW], ec[kMaxW], eh[kMaxW], el[kMaxW];
-  int m = 0;
-  for (int j = 0; j < c; ++j) {
-    const int32_t s = rc_src[base_c + j];
-    if (s < n) {
-      es[m] = s;
-      ec[m] = rc_score[base_c + j];
-      eh[m] = rc_shi[base_c + j];
-      el[m] = rc_slo[base_c + j];
-      ++m;
-    }
+  stage(ms, rc_src + base_c, c, lane);
+  stage(msc, rc_score + base_c, c, lane);
+  stage(mhi, rc_shi + base_c, c, lane);
+  stage(mlo, rc_slo + base_c, c, lane);
+  __syncwarp();
+  int members = 0;
+  for (int j0 = 0; j0 < c; j0 += 32) {
+    const int j = j0 + lane;
+    members += __popc(__ballot_sync(kFull, j < c && ms[j] < n));
   }
-  const int members = m;
-  int ln = members;
-  for (int r = 0; r < k; ++r) {
-    const int32_t v = ib[r];
-    if (v >= n) continue;
-    int hit = -1;
-    for (int j = 0; j < members; ++j) {
-      if (es[j] == v) {
-        hit = j;
-        break;
-      }
-    }
-    if (hit >= 0) {
-      if (r < 2) ec[hit] += 1;
-      continue;
-    }
-    if (r < 2 || ln < received_cap) {
-      es[m] = v;
-      ec[m] = (r < 2) ? 1 : 0;
-      eh[m] = shi[v];
-      el[m] = slo[v];
-      ++m;
-      ++ln;
-    }
-  }
-  if (m > c) atomicAdd(&overflow[o], m - c);
 
-  // merged row sorted by source (sources are unique)
-  for (int i = 1; i < m; ++i) {
-    const int32_t s = es[i], sc = ec[i], h = eh[i], l = el[i];
-    int j = i;
-    while (j > 0 && es[j - 1] > s) {
-      es[j] = es[j - 1];
-      ec[j] = ec[j - 1];
-      eh[j] = eh[j - 1];
-      el[j] = el[j - 1];
-      --j;
+  // 1 + 2: lookup, score bump, capacity scan; compact the inserted sources
+  const int32_t v0 = __ldg(ib);
+  int n01 = 0, wanted = 0, n_ins = 0;
+  for (int r0 = 0; r0 < k; r0 += 32) {
+    const int r = r0 + lane;
+    const int32_t v = r < k ? __ldg(ib + r) : n;
+    const bool valid = v < n;
+    int lt = 0;
+    bool found = false;
+    if (valid) {
+      lt = lower_bound(ms, members, v);
+      found = lt < members && ms[lt] == v;
     }
-    es[j] = s;
-    ec[j] = sc;
-    eh[j] = h;
-    el[j] = l;
+    if (found && (r == 0 || (r == 1 && v != v0))) msc[lt] += 1;
+    const bool want = valid && !found;
+    if (r0 == 0) n01 = __popc(__ballot_sync(kFull, want && r < 2));
+    const unsigned wmask = __ballot_sync(kFull, want && r >= 2);
+    const bool ins =
+        want && (r < 2 || members + n01 + wanted + __popc(wmask & below) <
+                              received_cap);
+    wanted += __popc(wmask);
+    const unsigned imask = __ballot_sync(kFull, ins);
+    if (ins) {
+      const int t = n_ins + __popc(imask & below);
+      ins_v[t] = v;
+      ins_lt[t] = lt;
+      ins_sc[t] = r < 2 ? 1 : 0;
+    }
+    n_ins += __popc(imask);
   }
+  __syncwarp();
+
+  // 3: merge by rank; the C smallest sources stay
+  const int m = members + n_ins;
   const int kept = m < c ? m : c;
-  const int ups = rc_ups[row] + (ib[0] < n ? 1 : 0);
-  const bool fired = ups >= min_num_upserts;
-  for (int j = 0; j < c; ++j) {
-    const bool live = !fired && j < kept;
-    o_src[base_c + j] = live ? es[j] : n;
-    o_score[base_c + j] = live ? ec[j] : 0;
-    o_shi[base_c + j] = live ? eh[j] : 0;
-    o_slo[base_c + j] = live ? el[j] : 0;
+  if (lane == 0 && m > c) atomicAdd(&overflow[o], m - c);
+  for (int j = lane; j < members; j += 32) {
+    const int32_t s = ms[j];
+    int pos = j;
+    for (int t = 0; t < n_ins; ++t) pos += ins_v[t] < s;
+    if (pos < c) key[pos] = make_key(s, msc[j], mhi[j], mlo[j]);
   }
-  o_ups[row] = fired ? 0 : ups;
-
-  // prune order over the kept members
-  for (int i = 1; i < kept; ++i) {
-    const int32_t s = es[i], sc = ec[i], h = eh[i], l = el[i];
-    int j = i;
-    while (j > 0 && prune_before(sc, h, l, s, ec[j - 1], eh[j - 1],
-                                 el[j - 1], es[j - 1])) {
-      es[j] = es[j - 1];
-      ec[j] = ec[j - 1];
-      eh[j] = eh[j - 1];
-      el[j] = el[j - 1];
-      --j;
+  for (int t = lane; t < n_ins; t += 32) {
+    const int32_t v = ins_v[t];
+    int pos = ins_lt[t];
+    for (int u = 0; u < n_ins; ++u) {
+      const int32_t w = ins_v[u];
+      pos += w < v || (w == v && u < t);
     }
-    es[j] = s;
-    ec[j] = sc;
-    eh[j] = h;
-    el[j] = l;
+    if (pos < c) key[pos] = make_key(v, ins_sc[t], __ldg(shi + v),
+                                     __ldg(slo + v));
   }
-  const int org = origins[o];
-  const long long sd = stakes[node], so = stakes[org];
+  const int p = pow2_ceil(kept);
+  for (int j = kept + lane; j < p; j += 32)
+    key[j] = make_ulonglong2(~0ull, ~0ull);
+  __syncwarp();
+
+  const int ups = __ldg(rc_ups + row) + (v0 < n ? 1 : 0);
+  const bool fired = ups >= min_num_upserts;
+  if (lane == 0) o_ups[row] = fired ? 0 : ups;
+  for (int j = lane; j < c; j += 32) {
+    int32_t s = n, sc = 0, hi = 0, lo = 0;
+    if (!fired && j < kept) split_key(key[j], s, sc, hi, lo);
+    o_src[base_c + j] = s;
+    o_score[base_c + j] = sc;
+    o_shi[base_c + j] = hi;
+    o_slo[base_c + j] = lo;
+  }
+
+  // 4: prune order (bitonic sort of the kept keys), stake scan, decide
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < (p >> 1); t += 32) {
+        const int i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
+        const ulonglong2 a = key[i], b = key[i + stride];
+        if (key_less(b, a) == ((i & size) == 0)) {
+          key[i] = b;
+          key[i + stride] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  const int org = __ldg(origins + o);
+  const long long sd = __ldg(stakes + node), so = __ldg(stakes + org);
   const long long min_stake =
       (long long)((double)(sd < so ? sd : so) * threshold);
-  long long cum = 0;
+  long long carry = 0;
   int count = 0;
-  for (int j = 0; j < c; ++j) {
+  for (int j0 = 0; j0 < c; j0 += 32) {
+    const int j = j0 + lane;
     const bool member = j < kept;
-    const int32_t s = member ? es[j] : n;
-    const bool p = member && fired && j >= min_ingress_nodes &&
-                   cum >= min_stake && s != org;
-    src_sorted[base_c + j] = s;
-    pruned[base_c + j] = p ? 1 : 0;
-    count += p ? 1 : 0;
-    if (member) cum += ((long long)eh[j] << 31) | (long long)el[j];
+    if (!fired || j0 >= kept) {  // nothing to prune in this chunk
+      if (j < c) {
+        src_sorted[base_c + j] = member ? dec((uint32_t)key[j].y) : n;
+        pruned[base_c + j] = 0;
+      }
+      continue;
+    }
+    int32_t s = n, sc = 0, hi = 0, lo = 0;
+    if (member) split_key(key[j], s, sc, hi, lo);
+    const long long st =
+        member ? (long long)(((unsigned long long)(long long)hi << 31) |
+                             (unsigned long long)(long long)lo)
+               : 0;
+    long long x = st;
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(kFull, x, d);
+      if (lane >= d) x += y;
+    }
+    const long long cum = carry + x - st;
+    carry += __shfl_sync(kFull, x, 31);
+    const bool pr = member && fired && j >= min_ingress_nodes &&
+                    cum >= min_stake && s != org;
+    if (j < c) {
+      src_sorted[base_c + j] = s;
+      pruned[base_c + j] = pr ? 1 : 0;
+    }
+    count += __popc(__ballot_sync(kFull, pr));
   }
-  n_pruned[row] = count;
+  if (lane == 0) n_pruned[row] = count;
 }
 
 }  // namespace
@@ -187,17 +313,32 @@ extern "C" int rc_merge_prune_launch(
     const int32_t* origins, int32_t* o_src, int32_t* o_score, int32_t* o_shi,
     int32_t* o_slo, int32_t* o_ups, int32_t* src_sorted, uint8_t* pruned,
     int32_t* n_pruned, int32_t* overflow, int o, int n, int c, int k,
-    int received_cap, int min_num_upserts, int min_ingress_nodes,
-    double threshold, cudaStream_t stream) {
-  if (c < 1 || k < 1 || c + k > kMaxW) return (int)cudaErrorInvalidValue;
+    int rows_per_block, int row_bytes, int received_cap, int min_num_upserts,
+    int min_ingress_nodes, double threshold, cudaStream_t stream) {
+  if (c < 1 || k < 1 || (long long)o * n > 0x7FFFFFFF ||
+      rows_per_block < 1 || rows_per_block > kMaxRowsPerBlock ||
+      row_bytes != row_smem_bytes(c, k) ||
+      (long long)rows_per_block * row_bytes > kSmemPerBlock)
+    return (int)cudaErrorInvalidValue;
+  const int smem = rows_per_block * row_bytes;
+  cudaError_t err =
+      cudaMemsetAsync(overflow, 0, sizeof(int32_t) * (size_t)o, stream);
+  if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)o * n;
-  cudaMemsetAsync(overflow, 0, sizeof(int32_t) * (size_t)o, stream);
-  if (rows > 0)
-    rc_merge_prune_kernel<<<(unsigned)((rows + kThreads - 1) / kThreads),
-                            kThreads, 0, stream>>>(
+  if (rows > 0) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(rc_merge_prune_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    rc_merge_prune_kernel<<<(unsigned)((rows + rows_per_block - 1) /
+                                       rows_per_block),
+                            32 * rows_per_block, smem, stream>>>(
         rc_src, rc_score, rc_shi, rc_slo, rc_ups, inb, shi, slo, stakes,
         origins, o_src, o_score, o_shi, o_slo, o_ups, src_sorted, pruned,
-        n_pruned, overflow, rows, n, c, k, received_cap, min_num_upserts,
-        min_ingress_nodes, threshold);
+        n_pruned, overflow, rows, n, c, k, row_bytes, received_cap,
+        min_num_upserts, min_ingress_nodes, threshold);
+  }
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply")
+SMEM_PER_BLOCK = 232_448   # opt-in dynamic shared memory of one H100 block
 
 #: Kernel launches per wrapper since the last reset.  A wrapper adds one
 #: where it launches its kernel on the card, and nowhere else.
@@ -104,6 +105,11 @@ def library(name: str) -> ctypes.CDLL:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

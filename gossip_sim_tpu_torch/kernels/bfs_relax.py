@@ -16,6 +16,49 @@ from . import _build
 
 NAME = "bfs_relax"
 INF = 1 << 20
+MAX_CLUSTER = 8        # the portable thread block cluster size
+H100_SMS = 132         # streaming multiprocessors of an H100 SXM
+MAX_NODES = 65_535     # the kernel keeps each node's hop in 16 bits
+
+
+def cluster_size(o: int, sms: int = H100_SMS) -> int:
+    """CTAs per origin: the largest power of two <= ``MAX_CLUSTER`` with
+    ``o * cs <= sms``, and at least 1."""
+    cs = MAX_CLUSTER
+    while cs > 1 and o * cs > sms:
+        cs //= 2
+    return cs
+
+
+def slice_len(n: int, cs: int) -> int:
+    """Nodes per CTA: ceil(n / cs) rounded up to a whole 32-bit word, so
+    no bitmap word is shared by two CTAs."""
+    return -(-(-(-n // cs)) // 32) * 32
+
+
+def slice_bounds(n: int, cs: int) -> list[tuple[int, int]]:
+    """The node range [lo, hi) each CTA rank of a cluster owns (empty for a
+    rank past N)."""
+    s = slice_len(n, cs)
+    return [(min(n, r * s), min(n, (r + 1) * s)) for r in range(cs)]
+
+
+def smem_bytes(n: int, cs: int) -> int:
+    """Dynamic shared memory per CTA: reached and frontier bitmaps of its
+    slice, two "sent" bitmaps over all ``cs`` slices, two live flags, and a
+    16-bit hop per node of the slice."""
+    s = slice_len(n, cs)
+    return 4 * ((2 + 2 * cs) * (s // 32) + 2) + 2 * s
+
+
+def launch_geometry(o: int, n: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """(cluster size, shared-memory bytes per CTA) for ``o`` origins over
+    ``n`` nodes; raises where the kernel cannot take the shape."""
+    if n > MAX_NODES:
+        raise ValueError(f"{NAME}: N = {n} nodes exceeds the kernel's "
+                         f"{MAX_NODES} (16-bit hop counts)")
+    cs = cluster_size(o, sms)
+    return cs, smem_bytes(n, cs)
 
 
 def bfs_relax_plain(tgt: torch.Tensor, origins: torch.Tensor):
@@ -59,7 +102,7 @@ def _lib():
     fn = lib.bfs_relax_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return fn
 
@@ -73,11 +116,10 @@ def bfs_relax(tgt: torch.Tensor, origins: torch.Tensor):
     dev = tgt.device
     _build.check(tgt, "tgt", torch.int32, (O, N, F), dev)
     _build.check(origins, "origins", torch.int32, (O,), dev)
+    cs, smem = launch_geometry(O, N, _build.sm_count(dev))
     reached = torch.empty((O, N), dtype=torch.bool, device=dev)
     dist = torch.empty((O, N), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2, O, N), dtype=torch.uint8, device=dev)
     rc = _lib()(_build.ptr(tgt), _build.ptr(origins), _build.ptr(reached),
-                _build.ptr(dist), _build.ptr(scratch), O, N, F,
-                _build.stream_of(tgt))
+                _build.ptr(dist), O, N, F, cs, smem, _build.stream_of(tgt))
     _build.launched(NAME, rc)
     return reached, dist

@@ -17,9 +17,35 @@ import torch
 from . import _build
 
 NAME = "rc_merge_prune"
-MAX_ROW = 128          # C + K entries per row (csrc/rc_merge_prune.cu kMaxW)
 BIG = 0x7FFFFFFF
 I32_MAX = 0x7FFFFFFF
+ROWS_PER_BLOCK = 8         # one warp per row
+
+
+def row_smem_bytes(c: int, k: int) -> int:
+    """Shared memory the kernel stages for one row of ``c`` cache slots and
+    ``k`` inbound ranks: the 16-byte prune keys padded to a power of two,
+    the four member planes, and three words per inserted inbound source,
+    rounded up to 16 bytes."""
+    p = 1 << max(c - 1, 0).bit_length()
+    return -(-(16 * p + 16 * c + 12 * k) // 16) * 16
+
+
+def launch_geometry(c: int, k: int) -> tuple[int, int]:
+    """(rows per block, shared-memory bytes per block) for rows of ``c``
+    cache slots and ``k`` inbound ranks; raises where one row does not fit
+    the shared memory of a block."""
+    if c < 1 or k < 1:
+        raise ValueError(f"{NAME}: needs rc_slots >= 1 and k_inbound >= 1, "
+                         f"got {c} and {k}")
+    row, limit = row_smem_bytes(c, k), _build.SMEM_PER_BLOCK
+    if row > limit:
+        raise ValueError(
+            f"{NAME}: a row of rc_slots={c} and k_inbound={k} needs {row} "
+            f"bytes of shared memory, more than the {limit} bytes of one "
+            f"block")
+    rows = min(ROWS_PER_BLOCK, limit // row)
+    return rows, rows * row
 
 
 class MergePruneOut(NamedTuple):
@@ -132,7 +158,7 @@ def _lib():
     fn = lib.rc_merge_prune_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 19 + [ci] * 7
+        fn.argtypes = ([vp] * 19 + [ci] * 9
                        + [ctypes.c_double, vp])
         fn.restype = ci
     return fn
@@ -143,7 +169,11 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
                    min_num_upserts: int, min_ingress_nodes: int,
                    prune_stake_threshold: float) -> MergePruneOut:
     """Merge + prune decide: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors.
+
+    The kernel takes each ``rc_src`` row as the engine keeps it (and as this
+    function returns it): members sorted ascending and unique, then N; and
+    the inbound sources of a row unique."""
     kw = dict(received_cap=received_cap, min_num_upserts=min_num_upserts,
               min_ingress_nodes=min_ingress_nodes,
               prune_stake_threshold=prune_stake_threshold)
@@ -153,9 +183,7 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
                                     origins, **kw)
     O, N, C = rc_src.shape
     K = inb.shape[-1]
-    if C + K > MAX_ROW:
-        raise ValueError(f"{NAME}: rc_slots + k_inbound = {C + K} exceeds "
-                         f"the kernel's row width {MAX_ROW}")
+    rows_per_block, smem = launch_geometry(C, K)
     dev = rc_src.device
     i32 = torch.int32
     for name, t in (("rc_src", rc_src), ("rc_score", rc_score),
@@ -180,7 +208,8 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
     p = _build.ptr
     rc = _lib()(p(rc_src), p(rc_score), p(rc_shi), p(rc_slo), p(rc_upserts),
                 p(inb), p(shi), p(slo), p(stakes), p(origins),
-                *(p(t) for t in out), O, N, C, K, int(received_cap),
+                *(p(t) for t in out), O, N, C, K, rows_per_block,
+                smem // rows_per_block, int(received_cap),
                 int(min_num_upserts), int(min_ingress_nodes),
                 float(prune_stake_threshold), _build.stream_of(rc_src))
     _build.launched(NAME, rc)

@@ -107,6 +107,19 @@ def test_run_rounds_equal(scenario, layout):
         assert int(np.asarray(jrows["failed_count"])[-1].sum()) == 3 * 30
 
 
+def test_run_rounds_equal_at_rc_slots_128(layout):
+    """rc_slots = 128 with the default k_inbound of 16: rows of C + K = 144
+    entries, which the kernel's former fixed row width refused."""
+    kw = dict(warm_up_rounds=5, rc_slots=128)
+    (jt, jp, jo, js), (tt, tp, to, ts) = _both(150, [0, 37, 101], **kw)
+    assert tp.rc_slots + tp.k_inbound == 144
+    js, jrows = je.run_rounds(jp, jt, jo, js, 22, start_it=0, detail=True)
+    ts, trows = tc.run_rounds(tp, tt, to, ts, 22, start_it=0, detail=True)
+    _assert_state_equal(js, ts, "rc_slots=128")
+    _assert_rows_equal(jrows, trows)
+    assert int(np.asarray(jrows["prunes_sent"]).sum()) > 0
+
+
 def test_unported_features_raise():
     tt = tc.make_cluster_tables(_stakes(40), device="cpu")
     o = torch.zeros(1, dtype=torch.int32)

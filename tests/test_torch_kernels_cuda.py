@@ -10,6 +10,8 @@ also runs on a machine with the card and no JAX:
 
 Tolerance: 0 everywhere (exact equality of every output tensor)."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,8 @@ import torch
 from gossip_sim_tpu_torch import kernels, rng
 from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
                                          make_cluster_tables, run_rounds)
+
+bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +98,182 @@ def test_wrappers_check_their_inputs(cuda):
                           org)
     with pytest.raises(ValueError, match="device"):
         kernels.bfs_relax(tgt, org.cpu())
+
+
+def _assert_equal(got, want, what):
+    for g, w in zip(_outputs(got), _outputs(want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        assert torch.equal(g, w), what
+
+
+def _random_edges(seed, o, n, f, p_none=0.3):
+    """Seeded push targets: none to itself, a repeated peer of a source
+    dropped to N (none), and a share ``p_none`` of the slots N."""
+    r = np.random.default_rng(seed)
+    peers = r.integers(0, n - 1, size=(o, n, f))
+    src = np.arange(n)[None, :, None]
+    tgt = (peers + (peers >= src)).astype(np.int32)
+    srt = np.sort(tgt, axis=-1)
+    dup = np.zeros_like(tgt, dtype=bool)
+    dup[..., 1:] = srt[..., 1:] == srt[..., :-1]
+    tgt = np.where(dup, n, srt).astype(np.int32)
+    tgt[r.random((o, n, f)) < p_none] = n
+    origins = r.choice(n, size=o, replace=o > n).astype(np.int32)
+    return tgt, origins
+
+
+def _path_edges(seed, o, n):
+    """F = 1: each origin's graph is one path through a random order of
+    the nodes, starting at the origin, so the BFS runs n - 1 hops."""
+    r = np.random.default_rng(seed)
+    tgt = np.full((o, n, 1), n, np.int32)
+    origins = np.empty(o, np.int32)
+    for i in range(o):
+        order = r.permutation(n)
+        tgt[i, order[:-1], 0] = order[1:]
+        origins[i] = order[0]
+    return tgt, origins
+
+
+BFS_CASES = {
+    # name: (edges, O, N, F, cluster size on a 132-SM card)
+    "o1": ("random", 1, 1000, 6, 8),
+    "o3_ragged": ("random", 3, 1001, 6, 8),
+    "o32": ("random", 32, 2000, 6, 4),
+    "o200": ("random", 200, 500, 6, 1),
+    "n_below_threads": ("random", 3, 40, 6, 8),
+    "opt_in_smem": ("random", 67, 20000, 2, 1),
+    "path_600_hops": ("path", 2, 600, 1, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(BFS_CASES))
+def test_bfs_relax_equals_plain(cuda, case):
+    kind, o, n, f, cs = BFS_CASES[case]
+    assert bfs_mod.cluster_size(o, 132) == cs
+    tgt, origins = (_random_edges(7, o, n, f) if kind == "random"
+                    else _path_edges(7, o, n))
+    if case == "o3_ragged":
+        tgt[1, origins[1]] = n                  # an origin with no targets
+    t, org = torch.as_tensor(tgt, device=cuda), torch.as_tensor(
+        origins, device=cuda)
+    kernels.reset_launch_counts()
+    got = kernels.bfs_relax(t, org)
+    assert kernels.LAUNCHES["bfs_relax"] == 1
+    want = kernels.bfs_relax_plain(t, org)
+    _assert_equal(got, want, case)
+    reached, dist = got
+    if kind == "path":
+        assert int(dist[reached].max()) == n - 1   # > 255 hops
+    if case == "o3_ragged":
+        assert int(reached[1].sum()) == 1 and int(dist[1, origins[1]]) == 0
+
+
+def _merge_inputs(seed, c, k, o=2):
+    """Seeded adversarial rc_merge_prune rows that keep the cache invariant
+    (members sorted ascending and unique, then N; inbound sources unique
+    per row).  Rows cycle through 0, C-1 and C members with no, all-new,
+    all-member and mixed inbound sources, so merged rows hold 0, C-1, C and
+    C+K entries; ranks 0/1 hit members (score bumps); upsert counters fire
+    about half the rows; stakes take three `shi` values and repeat one
+    `slo`, so ties fall through to `slo` and `src`."""
+    r = np.random.default_rng(seed)
+    n = 2 * (c + k) + 50
+    hi = r.integers(0, 3, size=n)
+    lo = r.integers(0, 1 << 31, size=n)
+    lo[r.random(n) < 0.25] = 12345
+    stakes = np.concatenate([(hi << 31) | lo, [0]]).astype(np.int64)
+    shi = (stakes >> 31).astype(np.int32)
+    slo = (stakes & 0x7FFFFFFF).astype(np.int32)
+    rows = o * n
+    rc_src = np.full((rows, c), n, np.int32)
+    rc_score = np.zeros((rows, c), np.int32)
+    rc_shi = np.zeros((rows, c), np.int32)
+    rc_slo = np.zeros((rows, c), np.int32)
+    inb = np.full((rows, k), n, np.int32)
+    fills = (0, max(c - 1, 0), c)
+    modes = ("none", "new", "hits", "mixed")
+    for i in range(rows):
+        mc = fills[i % 3] if i % 7 else int(r.integers(0, c + 1))
+        mem = np.sort(r.choice(n, size=mc, replace=False))
+        rc_src[i, :mc] = mem
+        rc_score[i, :mc] = r.integers(0, 6, size=mc)
+        rc_shi[i, :mc] = shi[mem]
+        rc_slo[i, :mc] = slo[mem]
+        mode = modes[(i // 3) % 4]
+        if mode == "none":
+            continue
+        if mode == "hits":
+            pool = mem
+        elif mode == "new":
+            pool = np.setdiff1d(np.arange(n), mem)
+        else:
+            pool = np.arange(n)
+        nin = min(len(pool), k if i % 2 else int(r.integers(1, k + 1)))
+        inb[i, :nin] = r.permutation(pool)[:nin]
+    ups = r.choice([0, 18, 19, 20], size=rows).astype(np.int32)
+    origins = r.choice(n, size=o, replace=False).astype(np.int32)
+    planes = [x.reshape(o, n, -1) for x in (rc_src, rc_score, rc_shi,
+                                            rc_slo)]
+    return (*planes, ups.reshape(o, n), inb.reshape(o, n, k), shi, slo,
+            stakes, origins)
+
+
+@pytest.mark.parametrize("k", [4, 16, 64])
+@pytest.mark.parametrize("c", [16, 64, 128, 256])
+def test_rc_merge_prune_equals_plain_on_adversarial_rows(cuda, c, k):
+    args = [torch.as_tensor(a, device=cuda) for a in _merge_inputs(c + k, c,
+                                                                  k)]
+    for cap in (50, c + k):
+        kw = dict(received_cap=cap, min_num_upserts=20, min_ingress_nodes=2,
+                  prune_stake_threshold=0.15)
+        kernels.reset_launch_counts()
+        got = kernels.rc_merge_prune(*args, **kw)
+        assert kernels.LAUNCHES["rc_merge_prune"] == 1
+        want = kernels.rc_merge_prune_plain(*args, **kw)
+        _assert_equal(got, want, (c, k, cap))
+        assert int(want.n_pruned.sum()) > 0
+        assert bool((want.rc_upserts == 0).any())
+        if cap == c + k:
+            assert int(want.rc_overflow.sum()) > 0
+
+
+def test_engine_runs_at_rc_slots_128(cuda):
+    """rc_slots = 128 with the default k_inbound of 16 (a row of 144)."""
+    n, n_origins, rounds = 600, 2, 22
+    stakes = np.random.default_rng(1).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    params = EngineParams(num_nodes=n, warm_up_rounds=0, rc_slots=128)
+    assert params.rc_slots + params.k_inbound == 144
+    tables = make_cluster_tables(stakes, device=cuda)
+    origins = torch.arange(n_origins, dtype=torch.int32, device=cuda)
+    state = init_state(rng.prng_key(5, cuda), tables, origins, params)
+    calls = []
+    real = kernels.rc_merge_prune
+
+    def recorder(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    kernels.rc_merge_prune = recorder
+    try:
+        run_rounds(params, tables, origins, state, rounds)
+    finally:
+        kernels.rc_merge_prune = real
+    assert len(calls) == rounds
+    for args, kw in calls:
+        _assert_equal(real(*args, **kw),
+                      kernels.rc_merge_prune_plain(*args, **kw), "rc128")
+
+
+def test_rc_merge_prune_refuses_rows_beyond_shared_memory(cuda):
+    c = 8192
+    rc = torch.full((1, 4, c), 4, dtype=torch.int32, device=cuda)
+    z = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    inb = torch.full((1, 4, 16), 4, dtype=torch.int32, device=cuda)
+    tab = torch.zeros(5, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        kernels.rc_merge_prune(rc, rc, rc, rc, z, inb, tab, tab, tab.long(),
+                               torch.zeros(1, dtype=torch.int32, device=cuda),
+                               received_cap=50, min_num_upserts=20,
+                               min_ingress_nodes=2, prune_stake_threshold=0.15)
