@@ -264,16 +264,16 @@ def main() -> int:
     for name in names:
         for line in ptxas_summary(_build.BUILD_LOG[name]):
             say(f"(a) ptxas {line}")
-    sms = _build.sm_count(dev)
+    sms, smem_limit = _build.sm_count(dev), _build.smem_optin(dev)
     for o in (1, O_KERNEL):
-        cs, smem = bfs_mod.launch_geometry(o, N_FULL, sms)
+        g = bfs_mod.launch_geometry(o, N_FULL, sms, smem_limit)
         say(f"(a) bfs_relax at O={o} N={N_FULL} on {sms} SMs: cluster size "
-            f"{cs}, slice {bfs_mod.slice_len(N_FULL, cs)} nodes, {smem} B "
-            f"shared memory per CTA")
+            f"{g.cs}, slice {g.slice_len} nodes, {g.smem} B shared memory "
+            f"per CTA (of {smem_limit} B)")
     for c, k in ((64, 16), (128, 16)):
-        rows, smem = merge_mod.launch_geometry(c, k)
-        say(f"(a) rc_merge_prune at C={c} K={k}: {rows} rows (warps) per "
-            f"block, {smem} B shared memory per block")
+        g = merge_mod.launch_geometry(c, k, smem_limit)
+        say(f"(a) rc_merge_prune at C={c} K={k}: {g.rows_per_block} rows "
+            f"(warps) per block, {g.smem} B shared memory per block")
 
     # ---- (b) kernels vs plain on a real round's inputs -------------------
     reset_unique_pubkeys()

@@ -23,10 +23,9 @@
 // Design: a thread block cluster of cs CTAs per origin (cs from O, chosen
 // by the wrapper so that O * cs fills the SMs; 8 at O = 1).  CTA r owns
 // the word-aligned node slice [r*S, (r+1)*S), S = ceil(N / cs) rounded up
-// to 32, so no bitmap word is shared by two CTAs.  Per-node state stays in
-// the owner's shared memory: reached and frontier bitmaps and a 16-bit hop
-// per node (N <= 65535).  Besides, each CTA keeps two "sent" bitmaps over
-// all N nodes, by hop parity.  Each hop:
+// to 32, so no bitmap word is shared by two CTAs.  Each CTA keeps its
+// bitmaps in shared memory: reached and frontier for its slice, and two
+// "sent" bitmaps over all N nodes, by hop parity.  Each hop:
 //   1. each warp takes frontier words of its CTA's slice, skips zero words,
 //      and each lane whose bit is set reads its node's F targets (L2) and
 //      ORs each target's bit into its own CTA's sent bitmap of this hop's
@@ -39,15 +38,23 @@
 //      loads in flight together) and ORs them: newly = that & ~reached.
 //      A sent bitmap only grows, but every bit it held before this hop was
 //      reached by then, so the mask leaves exactly this hop's new nodes;
-//      they get hop h + 1 and become the frontier.
+//      they become the frontier, and their dist h + 1 goes straight to
+//      device memory.
 // The parity double buffer makes one cluster barrier per hop enough: a CTA
 // writes the bitmap of this parity again only in hop h + 2, after the
 // barrier of hop h + 1, which every owner reaches after its step 3 of hop
 // h.  Remote traffic is cs plain loads per slice word per hop, not one
-// remote atomic per edge; only the frontier's edges are touched, and device
-// memory is written once, coalesced, at the end.  (Setting each target's
-// bit in its owner's bitmap with one remote atomic per edge measured
-// slower at O = 1 and at O = 32; PERF.md.)
+// remote atomic per edge; only the frontier's edges are touched.  At the
+// end each CTA writes reached for its slice, and dist = 1 << 20 where
+// unreached, coalesced.  (Setting each target's bit in its owner's bitmap
+// with one remote atomic per edge measured slower at O = 1 and at O = 32;
+// PERF.md.)
+// The sent bitmaps cost N / 4 bytes per CTA, so past about 800k nodes the
+// state no longer fits a block's shared memory.  Then the same kernel keeps
+// each CTA's state in a device-memory scratch buffer instead (kInSmem
+// false): a CTA reads its peers' sent words from L2 (ld.global.cg) after
+// the cluster barrier, which orders device memory across the cluster too.
+// The wrapper picks the variant from the bytes (kernels/bfs_relax.py).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -61,34 +68,39 @@ constexpr int32_t kInf = 1 << 20;
 constexpr int kThreads = 512;
 constexpr int kBatch = 8;  // fanout targets loaded together per frontier node
 constexpr int kMaxCluster = 8;
-constexpr int kMaxNodes = 65535;
-constexpr int kSmemPerBlock = 232448;
 
-// Mirrors kernels/bfs_relax.py slice_len and smem_bytes.
-__host__ __device__ inline int slice_len(int n, int cs) {
-  return (((n + cs - 1) / cs + 31) / 32) * 32;
+// Word `i` of the sent bitmap of cluster rank `r`: through distributed
+// shared memory, or from L2 when the state lives in device memory.
+template <bool kInSmem>
+__device__ __forceinline__ uint32_t peer_word(cg::cluster_group& cluster,
+                                              uint32_t* own, int rank, int r,
+                                              int state_words, int i) {
+  if constexpr (kInSmem) {
+    return *cluster.map_shared_rank(own + i, r);
+  } else {
+    return __ldcg(own + (ptrdiff_t)(r - rank) * state_words + i);
+  }
 }
 
-__host__ __device__ inline int smem_bytes(int n, int cs) {
-  const int s = slice_len(n, cs);
-  return 4 * ((2 + 2 * cs) * (s / 32) + 2) + 2 * s;
-}
-
+// Per-CTA state, `state_words` words: reached and frontier bitmaps of the
+// slice (`words` each), two sent bitmaps over all cs slices, two live flags.
+template <bool kInSmem>
 __global__ void __launch_bounds__(kThreads)
 bfs_relax_kernel(const int32_t* __restrict__ tgt,
                  const int32_t* __restrict__ origins,
                  uint8_t* __restrict__ reached, int32_t* __restrict__ dist,
-                 int n, int f, int cs, int slen) {
+                 uint32_t* __restrict__ scratch, int n, int f, int cs,
+                 int slen, int state_words) {
   extern __shared__ __align__(16) uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int o = blockIdx.x / cs;
   const int words = slen >> 5;         // words of one slice
-  uint32_t* re = sm;                   // reached (own slice)
+  uint32_t* re =                       // reached (own slice)
+      kInSmem ? sm : scratch + (size_t)blockIdx.x * state_words;
   uint32_t* fr = re + words;           // frontier (own slice)
   uint32_t* sent = fr + words;         // two bitmaps over all cs slices
   uint32_t* live_flag = sent + 2 * cs * words;  // two flags by hop parity
-  uint16_t* hop = reinterpret_cast<uint16_t*>(live_flag + 2);
   const int lo = rank * slen;
   const int len = max(0, min(n, lo + slen) - lo);
   const int lwords = (len + 31) >> 5;
@@ -96,9 +108,9 @@ bfs_relax_kernel(const int32_t* __restrict__ tgt,
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int32_t* tg = tgt + (size_t)o * n * f;
+  int32_t* dd = dist + (size_t)o * n + lo;
 
-  for (int w = threadIdx.x; w < (2 + 2 * cs) * words + 2; w += blockDim.x)
-    sm[w] = 0;
+  for (int w = threadIdx.x; w < state_words; w += blockDim.x) re[w] = 0;
   __syncthreads();
   const int org = origins[o];
   for (int j = threadIdx.x; j < f; j += blockDim.x) {
@@ -107,19 +119,19 @@ bfs_relax_kernel(const int32_t* __restrict__ tgt,
       const int i = t - lo;
       atomicOr(&fr[i >> 5], 1u << (i & 31));
       atomicOr(&re[i >> 5], 1u << (i & 31));
-      hop[i] = 1;
+      dd[i] = 1;
     }
   }
   __syncthreads();
   if (threadIdx.x == 0 && org >= lo && org < lo + len) {
     const int i = org - lo;
     re[i >> 5] |= 1u << (i & 31);
-    hop[i] = 0;
+    dd[i] = 0;
   }
   int live = 0;
   for (int w = threadIdx.x; w < lwords; w += blockDim.x) live |= fr[w] != 0;
   live = __syncthreads_or(live);
-  // every CTA of the cluster runs and has cleared its bitmaps before the
+  // every CTA of the cluster runs and has cleared its state before the
   // first remote access
   cluster.sync();
 
@@ -128,8 +140,14 @@ bfs_relax_kernel(const int32_t* __restrict__ tgt,
     const int b = h & 1;
     uint32_t* sb = sent + b * all_words;
     uint32_t* sother = sent + (b ^ 1) * all_words;
-    if (live && threadIdx.x < cs)
-      atomicOr(cluster.map_shared_rank(&live_flag[b], threadIdx.x), 1u);
+    if (live && threadIdx.x < cs) {
+      if constexpr (kInSmem)
+        atomicOr(cluster.map_shared_rank(&live_flag[b], threadIdx.x), 1u);
+      else
+        atomicOr(&live_flag[b] +
+                     (ptrdiff_t)((int)threadIdx.x - rank) * state_words,
+                 1u);
+    }
     for (int w = warp; w < lwords; w += nwarps) {
       const uint32_t bits = fr[w];
       if (bits == 0 || !((bits >> lane) & 1u)) continue;
@@ -150,48 +168,45 @@ bfs_relax_kernel(const int32_t* __restrict__ tgt,
       }
     }
     cluster.sync();
-    if (live_flag[b] == 0) break;
+    const uint32_t any_live =
+        kInSmem ? live_flag[b] : __ldcg(&live_flag[b]);
+    if (any_live == 0) break;
     int got = 0;
     for (int w = threadIdx.x; w < lwords; w += blockDim.x) {
       uint32_t nx = 0;
 #pragma unroll
       for (int r = 0; r < kMaxCluster; ++r)
-        if (r < cs) nx |= *cluster.map_shared_rank(&sb[rank * words + w], r);
+        if (r < cs)
+          nx |= peer_word<kInSmem>(cluster, sb, rank, r, state_words,
+                                   rank * words + w);
       uint32_t nw = nx & ~re[w];
       re[w] |= nw;
       fr[w] = nw;
       got |= nw != 0;
-      for (; nw; nw &= nw - 1)
-        hop[(w << 5) + __ffs(nw) - 1] = (uint16_t)(h + 1);
+      for (; nw; nw &= nw - 1) dd[(w << 5) + __ffs(nw) - 1] = h + 1;
     }
     live = __syncthreads_or(got);
     if (threadIdx.x == 0) live_flag[b] = 0;
   }
   // No remote access follows the last cluster barrier, so a CTA may write
-  // its slice and exit.
+  // its slice and exit.  Reached nodes got their dist when first reached.
   uint8_t* ro = reached + (size_t)o * n + lo;
-  int32_t* dd = dist + (size_t)o * n + lo;
   for (int i = threadIdx.x; i < len; i += blockDim.x) {
     const bool r = (re[i >> 5] >> (i & 31)) & 1u;
     ro[i] = r ? 1 : 0;
-    dd[i] = r ? (int32_t)hop[i] : kInf;
+    if (!r) dd[i] = kInf;
   }
 }
 
-}  // namespace
-
-extern "C" int bfs_relax_launch(const int32_t* tgt, const int32_t* origins,
-                                uint8_t* reached, int32_t* dist, int o, int n,
-                                int f, int cs, int smem, cudaStream_t stream) {
-  if (o < 1 || n < 1 || n > kMaxNodes || f < 1 || cs < 1 ||
-      cs > kMaxCluster || smem != smem_bytes(n, cs) || smem > kSmemPerBlock)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        bfs_relax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+template <bool kInSmem>
+cudaError_t launch(const int32_t* tgt, const int32_t* origins,
+                   uint8_t* reached, int32_t* dist, uint32_t* scratch, int o,
+                   int n, int f, int cs, int slen, int state_words, int smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      bfs_relax_kernel<kInSmem>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
@@ -204,8 +219,32 @@ extern "C" int bfs_relax_launch(const int32_t* tgt, const int32_t* origins,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bfs_relax_kernel, tgt, origins, reached,
-                           dist, n, f, cs, slice_len(n, cs));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  err = cudaLaunchKernelEx(&cfg, bfs_relax_kernel<kInSmem>, tgt, origins,
+                           reached, dist, scratch, n, f, cs, slen,
+                           state_words);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The geometry (cs, slen, state_words, smem) comes from the wrapper
+// (kernels/bfs_relax.py launch_geometry); only its bounds are checked here.
+// A null `scratch` keeps the state in `smem` bytes of shared memory per CTA;
+// else `scratch` holds o * cs * state_words words of device memory.
+extern "C" int bfs_relax_launch(const int32_t* tgt, const int32_t* origins,
+                                uint8_t* reached, int32_t* dist,
+                                uint32_t* scratch, int o, int n, int f,
+                                int cs, int slen, int state_words, int smem,
+                                cudaStream_t stream) {
+  if (o < 1 || n < 1 || f < 1 || cs < 1 || cs > kMaxCluster ||
+      slen < 32 || slen % 32 != 0 || (long long)slen * cs < n ||
+      state_words < (2 + 2 * cs) * (slen / 32) + 2 ||
+      (scratch == nullptr ? smem < 4 * state_words : smem != 0))
+    return (int)cudaErrorInvalidValue;
+  return (int)(scratch == nullptr
+                   ? launch<true>(tgt, origins, reached, dist, scratch, o, n,
+                                  f, cs, slen, state_words, smem, stream)
+                   : launch<false>(tgt, origins, reached, dist, scratch, o,
+                                   n, f, cs, slen, state_words, smem, stream));
 }

@@ -57,19 +57,11 @@ namespace {
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kSign = 0x80000000u;
 constexpr int kMaxRowsPerBlock = 8;
-constexpr int kSmemPerBlock = 232448;
 
-__host__ __device__ inline int pow2_ceil(int x) {
+__device__ __forceinline__ int pow2_ceil(int x) {
   int p = 1;
   while (p < x) p <<= 1;
   return p;
-}
-
-// Mirrors kernels/rc_merge_prune.py row_smem_bytes: keys (16 B per slot,
-// padded to a power of two), the staged member planes (16 B per slot) and
-// the inserted inbound sources (12 B per rank), rounded up to 16 B.
-__host__ __device__ inline int row_smem_bytes(int c, int k) {
-  return (16 * pow2_ceil(c) + 16 * c + 12 * k + 15) / 16 * 16;
 }
 
 // Order-preserving map of a signed word onto an unsigned one, and back.
@@ -147,7 +139,8 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
                       uint8_t* __restrict__ pruned,
                       int32_t* __restrict__ n_pruned,
                       int32_t* __restrict__ overflow, long long rows, int n,
-                      int c, int k, int row_bytes, int received_cap,
+                      int c, int k, int key_slots, int row_bytes,
+                      int received_cap,
                       int min_num_upserts, int min_ingress_nodes,
                       double threshold) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -156,9 +149,11 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
   const int warp = threadIdx.x >> 5;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= rows) return;  // whole warp; no block-wide barrier follows
+  // row layout (kernels/rc_merge_prune.py row_smem_bytes): key_slots prune
+  // keys, the four member planes, three words per inserted inbound source
   ulonglong2* key =
       reinterpret_cast<ulonglong2*>(smem + (size_t)warp * row_bytes);
-  int32_t* ms = reinterpret_cast<int32_t*>(key + pow2_ceil(c));
+  int32_t* ms = reinterpret_cast<int32_t*>(key + key_slots);
   int32_t* msc = ms + c;
   int32_t* mhi = msc + c;
   int32_t* mlo = mhi + c;
@@ -249,6 +244,7 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
     o_shi[base_c + j] = hi;
     o_slo[base_c + j] = lo;
   }
+  __syncwarp();  // every lane has read key[] before the sort moves it
 
   // 4: prune order (bitonic sort of the kept keys), stake scan, decide
   for (int size = 2; size <= p; size <<= 1) {
@@ -306,6 +302,9 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
 
 }  // namespace
 
+// The geometry (rows_per_block, key_slots, row_bytes) comes from the
+// wrapper (kernels/rc_merge_prune.py launch_geometry); only its bounds are
+// checked here.
 extern "C" int rc_merge_prune_launch(
     const int32_t* rc_src, const int32_t* rc_score, const int32_t* rc_shi,
     const int32_t* rc_slo, const int32_t* rc_ups, const int32_t* inb,
@@ -313,12 +312,14 @@ extern "C" int rc_merge_prune_launch(
     const int32_t* origins, int32_t* o_src, int32_t* o_score, int32_t* o_shi,
     int32_t* o_slo, int32_t* o_ups, int32_t* src_sorted, uint8_t* pruned,
     int32_t* n_pruned, int32_t* overflow, int o, int n, int c, int k,
-    int rows_per_block, int row_bytes, int received_cap, int min_num_upserts,
-    int min_ingress_nodes, double threshold, cudaStream_t stream) {
+    int rows_per_block, int key_slots, int row_bytes, int received_cap,
+    int min_num_upserts, int min_ingress_nodes, double threshold,
+    cudaStream_t stream) {
   if (c < 1 || k < 1 || (long long)o * n > 0x7FFFFFFF ||
       rows_per_block < 1 || rows_per_block > kMaxRowsPerBlock ||
-      row_bytes != row_smem_bytes(c, k) ||
-      (long long)rows_per_block * row_bytes > kSmemPerBlock)
+      key_slots < c || (key_slots & (key_slots - 1)) != 0 ||
+      row_bytes % 16 != 0 ||
+      row_bytes < 16 * key_slots + 16 * c + 12 * k)
     return (int)cudaErrorInvalidValue;
   const int smem = rows_per_block * row_bytes;
   cudaError_t err =
@@ -326,19 +327,17 @@ extern "C" int rc_merge_prune_launch(
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)o * n;
   if (rows > 0) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(rc_merge_prune_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-    }
+    err = cudaFuncSetAttribute(rc_merge_prune_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
     rc_merge_prune_kernel<<<(unsigned)((rows + rows_per_block - 1) /
                                        rows_per_block),
                             32 * rows_per_block, smem, stream>>>(
         rc_src, rc_score, rc_shi, rc_slo, rc_ups, inb, shi, slo, stakes,
         origins, o_src, o_score, o_shi, o_slo, o_ups, src_sorted, pruned,
-        n_pruned, overflow, rows, n, c, k, row_bytes, received_cap,
-        min_num_upserts, min_ingress_nodes, threshold);
+        n_pruned, overflow, rows, n, c, k, key_slots, row_bytes,
+        received_cap, min_num_upserts, min_ingress_nodes, threshold);
   }
   return (int)cudaGetLastError();
 }

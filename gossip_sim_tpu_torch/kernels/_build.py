@@ -29,7 +29,6 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply")
-SMEM_PER_BLOCK = 232_448   # opt-in dynamic shared memory of one H100 block
 
 #: Kernel launches per wrapper since the last reset.  A wrapper adds one
 #: where it launches its kernel on the card, and nowhere else.
@@ -110,6 +109,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def smem_optin(device: torch.device) -> int:
+    """Bytes of shared memory one block of a CUDA device may opt in to."""
+    props = torch.cuda.get_device_properties(device)
+    return props.shared_memory_per_block_optin
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

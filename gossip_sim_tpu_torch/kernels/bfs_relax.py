@@ -9,6 +9,7 @@ same function in plain PyTorch, used for CPU tensors and as the spec.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,11 +18,17 @@ from . import _build
 NAME = "bfs_relax"
 INF = 1 << 20
 MAX_CLUSTER = 8        # the portable thread block cluster size
-H100_SMS = 132         # streaming multiprocessors of an H100 SXM
-MAX_NODES = 65_535     # the kernel keeps each node's hop in 16 bits
 
 
-def cluster_size(o: int, sms: int = H100_SMS) -> int:
+class Geometry(NamedTuple):
+    cs: int            # CTAs per origin (thread block cluster size)
+    slice_len: int     # nodes per CTA, a whole number of 32-bit words
+    state_words: int   # 32-bit words of state per CTA
+    smem: int          # dynamic shared memory per CTA; 0 = state in scratch
+    scratch_words: int  # device-memory state of all CTAs; 0 = in smem
+
+
+def cluster_size(o: int, sms: int) -> int:
     """CTAs per origin: the largest power of two <= ``MAX_CLUSTER`` with
     ``o * cs <= sms``, and at least 1."""
     cs = MAX_CLUSTER
@@ -43,22 +50,22 @@ def slice_bounds(n: int, cs: int) -> list[tuple[int, int]]:
     return [(min(n, r * s), min(n, (r + 1) * s)) for r in range(cs)]
 
 
-def smem_bytes(n: int, cs: int) -> int:
-    """Dynamic shared memory per CTA: reached and frontier bitmaps of its
-    slice, two "sent" bitmaps over all ``cs`` slices, two live flags, and a
-    16-bit hop per node of the slice."""
-    s = slice_len(n, cs)
-    return 4 * ((2 + 2 * cs) * (s // 32) + 2) + 2 * s
+def state_words(n: int, cs: int) -> int:
+    """32-bit words of state per CTA: reached and frontier bitmaps of its
+    slice, two "sent" bitmaps over all ``cs`` slices, two live flags."""
+    return (2 + 2 * cs) * (slice_len(n, cs) // 32) + 2
 
 
-def launch_geometry(o: int, n: int, sms: int = H100_SMS) -> tuple[int, int]:
-    """(cluster size, shared-memory bytes per CTA) for ``o`` origins over
-    ``n`` nodes; raises where the kernel cannot take the shape."""
-    if n > MAX_NODES:
-        raise ValueError(f"{NAME}: N = {n} nodes exceeds the kernel's "
-                         f"{MAX_NODES} (16-bit hop counts)")
+def launch_geometry(o: int, n: int, sms: int, smem_limit: int) -> Geometry:
+    """The launch of ``o`` origins over ``n`` nodes on a card of ``sms``
+    SMs and ``smem_limit`` bytes of opt-in shared memory per block.  The
+    state of a CTA lives in shared memory where it fits, else in a
+    device-memory scratch buffer (any ``n``)."""
     cs = cluster_size(o, sms)
-    return cs, smem_bytes(n, cs)
+    words = state_words(n, cs)
+    if 4 * words <= smem_limit:
+        return Geometry(cs, slice_len(n, cs), words, 4 * words, 0)
+    return Geometry(cs, slice_len(n, cs), words, 0, o * cs * words)
 
 
 def bfs_relax_plain(tgt: torch.Tensor, origins: torch.Tensor):
@@ -102,7 +109,7 @@ def _lib():
     fn = lib.bfs_relax_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         fn.restype = ci
     return fn
 
@@ -116,10 +123,21 @@ def bfs_relax(tgt: torch.Tensor, origins: torch.Tensor):
     dev = tgt.device
     _build.check(tgt, "tgt", torch.int32, (O, N, F), dev)
     _build.check(origins, "origins", torch.int32, (O,), dev)
-    cs, smem = launch_geometry(O, N, _build.sm_count(dev))
+    return _launch(tgt, origins, launch_geometry(O, N, _build.sm_count(dev),
+                                                 _build.smem_optin(dev)))
+
+
+def _launch(tgt: torch.Tensor, origins: torch.Tensor, g: Geometry):
+    O, N, F = tgt.shape
+    dev = tgt.device
     reached = torch.empty((O, N), dtype=torch.bool, device=dev)
     dist = torch.empty((O, N), dtype=torch.int32, device=dev)
+    scratch = (torch.empty(g.scratch_words, dtype=torch.int32, device=dev)
+               if g.scratch_words else None)
     rc = _lib()(_build.ptr(tgt), _build.ptr(origins), _build.ptr(reached),
-                _build.ptr(dist), O, N, F, cs, smem, _build.stream_of(tgt))
+                _build.ptr(dist),
+                None if scratch is None else _build.ptr(scratch), O, N, F,
+                g.cs, g.slice_len, g.state_words, g.smem,
+                _build.stream_of(tgt))
     _build.launched(NAME, rc)
     return reached, dist

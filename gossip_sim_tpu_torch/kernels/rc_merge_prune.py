@@ -22,30 +22,42 @@ I32_MAX = 0x7FFFFFFF
 ROWS_PER_BLOCK = 8         # one warp per row
 
 
+class Geometry(NamedTuple):
+    rows_per_block: int  # rows (warps) per block
+    key_slots: int       # prune keys per row: C padded to a power of two
+    row_bytes: int       # shared memory per row
+    smem: int            # shared memory per block
+
+
+def key_slots(c: int) -> int:
+    """The prune keys of a row: ``c`` padded to a power of two (the
+    bitonic sort's width)."""
+    return 1 << max(c - 1, 0).bit_length()
+
+
 def row_smem_bytes(c: int, k: int) -> int:
     """Shared memory the kernel stages for one row of ``c`` cache slots and
     ``k`` inbound ranks: the 16-byte prune keys padded to a power of two,
     the four member planes, and three words per inserted inbound source,
     rounded up to 16 bytes."""
-    p = 1 << max(c - 1, 0).bit_length()
-    return -(-(16 * p + 16 * c + 12 * k) // 16) * 16
+    return -(-(16 * key_slots(c) + 16 * c + 12 * k) // 16) * 16
 
 
-def launch_geometry(c: int, k: int) -> tuple[int, int]:
-    """(rows per block, shared-memory bytes per block) for rows of ``c``
-    cache slots and ``k`` inbound ranks; raises where one row does not fit
-    the shared memory of a block."""
+def launch_geometry(c: int, k: int, smem_limit: int) -> Geometry:
+    """The launch for rows of ``c`` cache slots and ``k`` inbound ranks on
+    a card of ``smem_limit`` bytes of opt-in shared memory per block;
+    raises where one row does not fit."""
     if c < 1 or k < 1:
         raise ValueError(f"{NAME}: needs rc_slots >= 1 and k_inbound >= 1, "
                          f"got {c} and {k}")
-    row, limit = row_smem_bytes(c, k), _build.SMEM_PER_BLOCK
-    if row > limit:
+    row = row_smem_bytes(c, k)
+    if row > smem_limit:
         raise ValueError(
             f"{NAME}: a row of rc_slots={c} and k_inbound={k} needs {row} "
-            f"bytes of shared memory, more than the {limit} bytes of one "
-            f"block")
-    rows = min(ROWS_PER_BLOCK, limit // row)
-    return rows, rows * row
+            f"bytes of shared memory, more than the {smem_limit} bytes of "
+            f"one block")
+    rows = min(ROWS_PER_BLOCK, smem_limit // row)
+    return Geometry(rows, key_slots(c), row, rows * row)
 
 
 class MergePruneOut(NamedTuple):
@@ -158,7 +170,7 @@ def _lib():
     fn = lib.rc_merge_prune_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 19 + [ci] * 9
+        fn.argtypes = ([vp] * 19 + [ci] * 10
                        + [ctypes.c_double, vp])
         fn.restype = ci
     return fn
@@ -183,8 +195,8 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
                                     origins, **kw)
     O, N, C = rc_src.shape
     K = inb.shape[-1]
-    rows_per_block, smem = launch_geometry(C, K)
     dev = rc_src.device
+    g = launch_geometry(C, K, _build.smem_optin(dev))
     i32 = torch.int32
     for name, t in (("rc_src", rc_src), ("rc_score", rc_score),
                     ("rc_shi", rc_shi), ("rc_slo", rc_slo)):
@@ -208,8 +220,8 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
     p = _build.ptr
     rc = _lib()(p(rc_src), p(rc_score), p(rc_shi), p(rc_slo), p(rc_upserts),
                 p(inb), p(shi), p(slo), p(stakes), p(origins),
-                *(p(t) for t in out), O, N, C, K, rows_per_block,
-                smem // rows_per_block, int(received_cap),
+                *(p(t) for t in out), O, N, C, K, g.rows_per_block,
+                g.key_slots, g.row_bytes, int(received_cap),
                 int(min_num_upserts), int(min_ingress_nodes),
                 float(prune_stake_threshold), _build.stream_of(rc_src))
     _build.launched(NAME, rc)

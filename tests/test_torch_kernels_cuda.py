@@ -144,6 +144,12 @@ BFS_CASES = {
     "n_below_threads": ("random", 3, 40, 6, 8),
     "opt_in_smem": ("random", 67, 20000, 2, 1),
     "path_600_hops": ("path", 2, 600, 1, 8),
+    # past the 16-bit hop counts of an earlier design, in shared memory
+    "n_100k": ("random", 1, 100_000, 6, 8),
+    "n_70k_o32": ("random", 32, 70_000, 6, 4),
+    # past a block's shared memory: the state goes to device memory
+    "n_1m_scratch": ("random", 1, 1_000_000, 6, 8),
+    "n_600k_o67_scratch": ("random", 67, 600_000, 2, 1),
 }
 
 
@@ -167,6 +173,25 @@ def test_bfs_relax_equals_plain(cuda, case):
         assert int(dist[reached].max()) == n - 1   # > 255 hops
     if case == "o3_ragged":
         assert int(reached[1].sum()) == 1 and int(dist[1, origins[1]]) == 0
+    g = bfs_mod.launch_geometry(o, n, 132, 232_448)
+    assert (g.scratch_words > 0) == case.endswith("_scratch")
+
+
+@pytest.mark.parametrize("case", ["o1", "o3_ragged", "o32", "o200",
+                                  "path_600_hops"])
+def test_bfs_relax_state_in_device_memory_equals_plain(cuda, case):
+    """The device-memory variant of the kernel at small shapes: the same
+    launch with a shared-memory limit of 0 bytes."""
+    kind, o, n, f, _ = BFS_CASES[case]
+    tgt, origins = (_random_edges(11, o, n, f) if kind == "random"
+                    else _path_edges(11, o, n))
+    t, org = torch.as_tensor(tgt, device=cuda), torch.as_tensor(
+        origins, device=cuda)
+    g = bfs_mod.launch_geometry(o, n, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, 0)
+    assert g.smem == 0 and g.scratch_words > 0
+    _assert_equal(bfs_mod._launch(t, org, g),
+                  kernels.bfs_relax_plain(t, org), case)
 
 
 def _merge_inputs(seed, c, k, o=2):

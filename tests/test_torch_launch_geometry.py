@@ -1,7 +1,8 @@
 """The Python around the two redesigned kernels, on the CPU.
 
 * ``bfs_relax``: the cluster size from O, the word-aligned node slices of
-  a cluster's CTAs, and the shared-memory bytes per CTA;
+  a cluster's CTAs, and the state per CTA: in shared memory where it fits,
+  else in a device-memory scratch buffer (so any N is taken);
 * ``rc_merge_prune``: the shared-memory bytes of a row, the rows per block,
   and the row-width limit (raised in bytes, beyond one block's shared
   memory);
@@ -21,22 +22,25 @@ import torch
 from gossip_sim_tpu_torch import rng
 from gossip_sim_tpu_torch.engine import core as tc
 from gossip_sim_tpu_torch.engine.params import EngineParams
-from gossip_sim_tpu_torch.kernels._build import SMEM_PER_BLOCK
 
 bfs = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
 mp = importlib.import_module("gossip_sim_tpu_torch.kernels.rc_merge_prune")
+
+# an H100 SXM: streaming multiprocessors, opt-in shared memory per block
+SMS, SMEM_PER_BLOCK = 132, 232_448
 
 
 @pytest.mark.parametrize("o,cs", [(1, 8), (3, 8), (16, 8), (17, 4), (32, 4),
                                   (33, 4), (34, 2), (66, 2), (67, 1),
                                   (200, 1), (10_000, 1)])
 def test_cluster_size_fills_132_sms(o, cs):
-    assert bfs.cluster_size(o) == cs
+    assert bfs.cluster_size(o, SMS) == cs
     assert o * cs <= 132 or cs == 1
     assert cs == bfs.MAX_CLUSTER or o * cs * 2 > 132
 
 
-@pytest.mark.parametrize("n", [1, 31, 40, 1000, 1001, 10_000, 32_767, 65_535])
+@pytest.mark.parametrize("n", [1, 31, 40, 1000, 1001, 10_000, 32_767, 65_535,
+                               65_536, 1_000_003])
 @pytest.mark.parametrize("cs", [1, 2, 4, 8])
 def test_slices_tile_the_nodes_word_aligned(n, cs):
     bounds = bfs.slice_bounds(n, cs)
@@ -51,22 +55,43 @@ def test_slices_tile_the_nodes_word_aligned(n, cs):
         assert lo == n or lo == r * s           # each slice starts a word
 
 
-@pytest.mark.parametrize("n,cs,want", [(10_000, 8, 5448), (10_000, 4, 8224),
-                                       (40, 8, 144), (32_767, 1, 81_928)])
+@pytest.mark.parametrize("n,cs,want", [(10_000, 8, 2888), (10_000, 4, 3168),
+                                       (40, 8, 80), (32_767, 1, 16_392),
+                                       (100_000, 8, 28_160)])
 def test_bfs_shared_memory_per_cta(n, cs, want):
     # reached and frontier bitmaps of the slice, two sent bitmaps of all cs
-    # slices, two flag words, a 16-bit hop per node of the slice
+    # slices, two flag words
     s = bfs.slice_len(n, cs)
-    assert bfs.smem_bytes(n, cs) == want == (4 * ((2 + 2 * cs) * s // 32 + 2)
-                                             + 2 * s)
+    words = bfs.state_words(n, cs)
+    assert 4 * words == want == 4 * ((2 + 2 * cs) * s // 32 + 2)
+    o = {8: 1, 4: 32, 1: 67}[cs]
+    g = bfs.launch_geometry(o, n, SMS, SMEM_PER_BLOCK)
+    assert g == (cs, s, words, want, 0)
 
 
 def test_bfs_geometry_takes_every_node_count_to_its_limit():
-    for o in (1, 32, 67):
-        cs, smem = bfs.launch_geometry(o, bfs.MAX_NODES)
-        assert smem <= SMEM_PER_BLOCK and cs == bfs.cluster_size(o)
-    with pytest.raises(ValueError, match="16-bit"):
-        bfs.launch_geometry(1, bfs.MAX_NODES + 1)
+    """State that fits a block's shared memory stays there; beyond it, the
+    state of every CTA goes to one device-memory scratch buffer, so the
+    kernel takes any N the engine does."""
+    for o in (1, 32, 67, 200):
+        _check_node_counts(o)
+
+
+def _check_node_counts(o):
+    cs = bfs.cluster_size(o, SMS)
+    fits = max(n for n in range(32, 1 << 21, 32)
+               if 4 * bfs.state_words(n, cs) <= SMEM_PER_BLOCK)
+    assert fits > 400_000                         # far past 16-bit hops
+    g = bfs.launch_geometry(o, fits, SMS, SMEM_PER_BLOCK)
+    assert g.smem == 4 * g.state_words <= SMEM_PER_BLOCK
+    assert g.scratch_words == 0
+    for n in (fits + 1, 5_000_000, 1 << 24):
+        g = bfs.launch_geometry(o, n, SMS, SMEM_PER_BLOCK)
+        assert g.cs == cs and g.smem == 0
+        assert g.scratch_words == o * cs * bfs.state_words(n, cs)
+        assert 4 * g.state_words > SMEM_PER_BLOCK
+    # a smaller shared memory moves the same shape to scratch
+    assert bfs.launch_geometry(o, 10_000, SMS, 1024).scratch_words > 0
 
 
 @pytest.mark.parametrize("c,k,row", [(1, 1, 48), (3, 1, 128), (16, 4, 560),
@@ -76,27 +101,29 @@ def test_merge_row_shared_memory(c, k, row):
     p = 1 << (c - 1).bit_length()
     assert mp.row_smem_bytes(c, k) == row == -(-(16 * p + 16 * c + 12 * k)
                                               // 16) * 16
-    rows, smem = mp.launch_geometry(c, k)
-    assert rows == mp.ROWS_PER_BLOCK and smem == rows * row
+    g = mp.launch_geometry(c, k, SMEM_PER_BLOCK)
+    assert g == (mp.ROWS_PER_BLOCK, p, row, mp.ROWS_PER_BLOCK * row)
 
 
 def test_merge_row_width_limit_is_shared_memory():
     # the old fixed limit of 128 entries per row is gone: rc_slots = 128
     # with the default k_inbound of 16, and 256 with 64, are taken
-    assert mp.launch_geometry(128, 16)[0] == mp.ROWS_PER_BLOCK
-    assert mp.launch_geometry(256, 64)[0] == mp.ROWS_PER_BLOCK
+    geo = mp.launch_geometry
+    assert geo(128, 16, SMEM_PER_BLOCK).rows_per_block == mp.ROWS_PER_BLOCK
+    assert geo(256, 64, SMEM_PER_BLOCK).rows_per_block == mp.ROWS_PER_BLOCK
     # wide rows take fewer rows per block, down to one
-    c = 4096
-    rows, smem = mp.launch_geometry(c, 64)
-    assert 1 <= rows < mp.ROWS_PER_BLOCK and smem <= SMEM_PER_BLOCK
+    g = geo(4096, 64, SMEM_PER_BLOCK)
+    assert 1 <= g.rows_per_block < mp.ROWS_PER_BLOCK
+    assert g.smem == g.rows_per_block * g.row_bytes <= SMEM_PER_BLOCK
     widest = max(c for c in range(1, 8192)
                  if mp.row_smem_bytes(c, 64) <= SMEM_PER_BLOCK)
-    assert mp.launch_geometry(widest, 64) == (1, mp.row_smem_bytes(widest,
-                                                                   64))
+    row = mp.row_smem_bytes(widest, 64)
+    assert geo(widest, 64, SMEM_PER_BLOCK) == (1, mp.key_slots(widest), row,
+                                               row)
     with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
-        mp.launch_geometry(widest + 1, 64)
+        geo(widest + 1, 64, SMEM_PER_BLOCK)
     with pytest.raises(ValueError, match="k_inbound >= 1"):
-        mp.launch_geometry(64, 0)
+        geo(64, 0, SMEM_PER_BLOCK)
 
 
 @pytest.mark.parametrize("kw", [
