@@ -142,7 +142,8 @@ BFS_CASES = {
     "o32": ("random", 32, 2000, 6, 4),
     "o200": ("random", 200, 500, 6, 1),
     "n_below_threads": ("random", 3, 40, 6, 8),
-    "opt_in_smem": ("random", 67, 20000, 2, 1),
+    # state over the 48 KB default: 100 KB of opt-in shared memory per CTA
+    "opt_in_smem": ("random", 67, 200_000, 2, 1),
     "path_600_hops": ("path", 2, 600, 1, 8),
     # past the 16-bit hop counts of an earlier design, in shared memory
     "n_100k": ("random", 1, 100_000, 6, 8),
