@@ -7,27 +7,36 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero before the final line):
 
-  (a) build the four CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
+  (a) build the five CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
       nvcc for sm_90a (one nvcc per source, in parallel); print each
-      kernel's registers, shared memory and spills (``-Xptxas -v``) and the
-      launch geometry of the two redesigned kernels (cluster size, rows per
-      block, shared memory);
+      kernel's registers, shared memory and spills (``-Xptxas -v``), the
+      launch geometry of the cluster and row kernels (cluster size, rows or
+      warps per block, shared memory), and the instructions of one threefry
+      block in the kernel's SASS (``cuobjdump -sass``);
   (b) capture each kernel's inputs from a real round (round 19, when the
-      upsert counters fire) at O=32 origins, N=10,000 nodes, and hold the
-      kernel against its plain PyTorch version on the card: exact equality
-      (tolerance 0: the data are integers); time kernel, plain version and
-      a PyTorch yardstick with CUDA events; then run the engine at
-      rc_slots=128 (a row of C + K = 144) and hold ``rc_merge_prune``
-      against its plain version on its round-19 inputs;
+      upsert counters fire) at O=32 origins, N=10,000 nodes (every call of
+      the round: ``threefry`` draws four times), and hold the kernel against
+      its plain PyTorch version on the card: exact equality (tolerance 0:
+      the data are integers and the uniforms are bit patterns); time the
+      round's calls of kernel, plain version and a PyTorch yardstick with
+      CUDA events; then run the engine at rc_slots=128 (a row of C + K =
+      144) and at inbound_cap=128 and hold ``rc_merge_prune`` and
+      ``rank_inbound`` against their plain versions on their round-19
+      inputs;
   (c) run the engine for 50 rounds at O=32, N=10,000: rounds/s, peak
-      device memory, every kernel launched;
+      device memory, every kernel launched; then a 5-round profile: device
+      busy and idle share, device time and launches per round of each
+      kernel and of the plain PyTorch ops, beside the same profile with
+      the draws routed to ``threefry``'s plain version (the draws as the
+      port made them before the kernel, for comparison only);
   (d) run the CLI main path in process: 10,000 synthetic nodes,
       --iterations 300 --warm-up-rounds 200 on cuda; wall time, coverage
       and RMR means; this run's kernel launch counts go into the
       ``kernels`` line, and each kernel is held against its plain version
       on this run's own inputs of rounds 19 and 299 (O=1) and timed on
       those of round 19 (CUDA events, and device time under the
-      profiler);
+      profiler); ``init_state`` at O=1 is timed alone, with the kernel and
+      with the plain draws;
   (e) run the CLI on cuda and on cpu at 2,000 nodes for 60 rounds and
       require equal ``parity_snapshot()``s;
   (f) print the card's name and power limit, the ``kernels`` JSON line and
@@ -41,6 +50,7 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -49,6 +59,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
+# 32-bit integer operations per second: 132 SMs x 64 INT32 lanes (Hopper
+# architecture white paper) x the 1.98 GHz boost clock (H100 SXM data sheet)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 O_KERNEL, N_FULL = 32, 10_000
 SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
                          "round/bfs_propagate"),
@@ -57,7 +70,10 @@ SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
            "rc_merge_prune": ("gossip_sim_tpu/engine/core.py:743",
                               "round/rc_merge + round/verb3_prune_decide"),
            "prune_apply": ("gossip_sim_tpu/engine/core.py:894",
-                           "round/verb4_prune_apply")}
+                           "round/verb4_prune_apply"),
+           "threefry": ("gossip_sim_tpu/engine/core.py:328",
+                        "jax.random fold_in/split/uniform at core.py:328-339,"
+                        " 507-509, 522, 952-958")}
 
 
 def fail(msg: str) -> None:
@@ -118,10 +134,10 @@ def snapshot_strings(snap: dict) -> dict:
 
 
 KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
-                  "rank_inbound": ("count_kernel", "place_kernel",
-                                   "select_kernel"),
+                  "rank_inbound": ("rank_inbound_kernel",),
                   "rc_merge_prune": ("rc_merge_prune_kernel",),
-                  "prune_apply": ("prune_apply_kernel",)}
+                  "prune_apply": ("prune_apply_kernel",),
+                  "threefry": ("threefry_kernel",)}
 
 
 def device_ms(fn, symbols, reps: int = 10):
@@ -170,10 +186,11 @@ def ptxas_summary(log: str) -> list:
 
 
 def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
-                   rounds: int = 5) -> dict:
-    """Where a round's time goes: device time per kernel group and for the
-    plain PyTorch ops, over ``rounds`` rounds under torch.profiler, against
-    the host wall clock (device idle share = 1 - busy / wall)."""
+                   rounds: int = 5, tag: str = "") -> dict:
+    """Where a round's time goes: device time and launches per kernel group
+    and for the plain PyTorch ops, over ``rounds`` rounds under
+    torch.profiler, against the host wall clock (device idle share = 1 -
+    busy / wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -184,6 +201,7 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {name: 0.0 for name in KERNEL_SYMBOLS}
+    counts = {name: 0 for name in KERNEL_SYMBOLS}
     other, n_other = {}, 0
     for ev in prof.key_averages():
         us = float(getattr(ev, "self_device_time_total",
@@ -194,35 +212,81 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
         for name, syms in KERNEL_SYMBOLS.items():
             if any(s in ev.key for s in syms):
                 groups[name] += us
+                counts[name] += ev.count
                 break
         else:
             other[ev.key] = other.get(ev.key, 0.0) + us
             n_other += ev.count
     busy_ms = (sum(groups.values()) + sum(other.values())) / 1e3
     if busy_ms <= 0:
-        say("(c) profiler: no device time recorded; breakdown not measured")
-        return {name: None for name in groups}
+        say(f"(c){tag} profiler: no device time recorded; breakdown not "
+            f"measured")
+        return {"device": {name: None for name in groups}}
     top = sorted(other.items(), key=lambda kv: -kv[1])[:12]
-    lines = [f"{rounds} rounds at O={origins.numel()}: wall {wall_ms:.3f} ms,"
-             f" device busy {busy_ms:.3f} ms"]
-    lines += [f"  {k:>16}: {v / 1e3 / rounds:.4f} ms/round"
-              for k, v in groups.items()]
+    launches = (sum(counts.values()) + n_other) / rounds
+    lines = [f"{rounds} rounds at O={origins.numel()}{tag}: wall "
+             f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+             f"{launches:.1f} device launches per round"]
+    lines += [f"  {k:>16}: {v / 1e3 / rounds:.4f} ms/round in "
+              f"{counts[k] / rounds:.1f} launches" for k, v in groups.items()]
     lines += [f"  other PyTorch kernels: "
               f"{sum(other.values()) / 1e3 / rounds:.4f} ms/round "
-              f"({n_other / rounds:.0f} launches/round)"]
+              f"({n_other / rounds:.1f} launches/round)"]
     lines += [f"    {v / 1e3 / rounds:.4f} ms/round  {k[:100]}"
               for k, v in top]
-    (out_dir / "profile_round.txt").write_text("\n".join(lines) + "\n")
-    say(f"(c) profile over {rounds} rounds: per round wall "
-        f"{wall_ms / rounds:.3f} ms, device busy {busy_ms / rounds:.3f} ms "
-        f"(idle share {1 - busy_ms / wall_ms:.3f}); kernels "
-        + ", ".join(f"{k} {v / 1e3 / rounds:.4f} ms"
-                    for k, v in groups.items())
+    name = "profile_round" + tag.strip().replace(" ", "_") + ".txt"
+    (out_dir / name).write_text("\n".join(lines) + "\n")
+    say(f"(c){tag} profile over {rounds} rounds: per round wall "
+        f"{wall_ms / rounds:.3f} ms, device busy {busy_ms / rounds:.4f} ms "
+        f"(idle share {1 - busy_ms / wall_ms:.3f}), {launches:.1f} device "
+        f"launches; kernels "
+        + ", ".join(f"{k} {v / 1e3 / rounds:.4f} ms in "
+                    f"{counts[k] / rounds:.0f}" for k, v in groups.items())
         + f"; other PyTorch kernels {sum(other.values()) / 1e3 / rounds:.4f}"
         f" ms in {n_other / rounds:.0f} launches")
-    for line in lines[6:]:
-        say(f"(c)   {line.strip()}")
-    return {k: v / 1e3 / rounds for k, v in groups.items()}
+    for line in lines[len(groups) + 2:]:
+        say(f"(c){tag}   {line.strip()}")
+    return {"device": {k: v / 1e3 / rounds for k, v in groups.items()},
+            "busy_ms": busy_ms / rounds, "wall_ms": wall_ms / rounds,
+            "launches": launches}
+
+
+def threefry_sass_ops(out_dir) -> int:
+    """32-bit integer instructions of one threefry block as the card runs
+    it, counted in the SASS (``cuobjdump -sass``) of the kernel's uniform
+    mode (:func:`count_block_ops`); the SASS goes to
+    ``chiprun_out/sass_threefry.txt``."""
+    from gossip_sim_tpu_torch.kernels import _build
+    lib = _build._build_dir() / "libthreefry.so"
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed: {sass.stderr.strip()}")
+    (out_dir / "sass_threefry.txt").write_text(sass.stdout)
+    return count_block_ops(sass.stdout)
+
+
+def count_block_ops(sass: str) -> int:
+    """The instructions of the uniform-mode kernel from the first to the
+    20th rotation (``SHF.L.W``, one funnel shift each) of its threefry
+    block, plus the two key additions before the first rotation and the
+    xor and two key additions after the last one."""
+    body, on = [], False
+    for line in sass.splitlines():
+        if "Function" in line:
+            on = "threefry_kernelILi3E" in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)",
+                      line)
+        if on and m:
+            body.append(m.group(2))
+    rot = [i for i, op in enumerate(body) if op.startswith("SHF.L.W")]
+    if len(rot) != 20:
+        fail(f"threefry SASS: expected 20 rotations in the uniform kernel, "
+             f"found {len(rot)}")
+    return rot[19] - rot[0] + 1 + 2 + 3
 
 
 def main() -> int:
@@ -239,9 +303,13 @@ def main() -> int:
                                              run_rounds)
     from gossip_sim_tpu_torch.identity import NodeIndex, reset_unique_pubkeys
     from gossip_sim_tpu_torch.kernels import _build
+    core_mod = importlib.import_module("gossip_sim_tpu_torch.engine.core")
     bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
     merge_mod = importlib.import_module(
         "gossip_sim_tpu_torch.kernels.rc_merge_prune")
+    rank_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.rank_inbound")
+    tf_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.threefry")
 
     for mod in list(sys.modules):
         if mod == "jax" or mod == "gossip_sim_tpu" or mod.startswith(
@@ -274,6 +342,18 @@ def main() -> int:
         g = merge_mod.launch_geometry(c, k, smem_limit)
         say(f"(a) rc_merge_prune at C={c} K={k}: {g.rows_per_block} rows "
             f"(warps) per block, {g.smem} B shared memory per block")
+    for o, k in ((1, 16), (O_KERNEL, 16), (8, 128)):
+        g = rank_mod.launch_geometry(o, N_FULL, k, sms, smem_limit,
+                                     rank_mod.max_clusters)
+        say(f"(a) rank_inbound at O={o} N={N_FULL} K={k}: cluster size "
+            f"{g.cs} ({rank_mod.max_clusters(g)} such clusters fit the "
+            f"card at once), slice {g.slice_len} nodes, {g.threads} "
+            f"threads, {g.smem} B shared memory per CTA ({g.csr_cap} CSR "
+            f"keys), counts in "
+            f"{'device memory' if g.scratch_words else 'shared memory'}")
+    tf_ops_per_block = threefry_sass_ops(out_dir)
+    say(f"(a) threefry SASS: {tf_ops_per_block} integer instructions per "
+        f"threefry block (chiprun_out/sass_threefry.txt)")
 
     # ---- (b) kernels vs plain on a real round's inputs -------------------
     reset_unique_pubkeys()
@@ -288,12 +368,12 @@ def main() -> int:
     state = init_state(rng.prng_key(42, dev), tables, origins, params)
     for it in range(19):
         state, _ = round_step(params, tables, origins, state, it)
-    captured = {}
+    captured = {name: [] for name in names}
     real = {name: getattr(kernels, name) for name in names}
 
     def recorder(name):
         def rec(*args, **kw):
-            captured[name] = (args, kw)
+            captured[name].append((args, kw))
             return real[name](*args, **kw)
         return rec
 
@@ -310,28 +390,35 @@ def main() -> int:
         f"{int(rows19['rc_overflow'].sum())}, inb_dropped "
         f"{int(rows19['inb_dropped'].sum())}")
 
-    plain = {"bfs_relax": kernels.bfs_relax_plain,
-             "rank_inbound": kernels.rank_inbound_plain,
-             "rc_merge_prune": kernels.rc_merge_prune_plain,
-             "prune_apply": kernels.prune_apply_plain}
+    plain = {name: getattr(kernels, f"{name}_plain") for name in names}
     res = {}
     for name in names:
-        args, kw = captured[name]
-        got = real[name](*args, **kw)
-        want = plain[name](*args, **kw)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if err != 0:
-            fail(f"{name}: kernel differs from its plain version "
-                 f"(max_abs_err {err})")
+        calls = captured[name]
+        outs = []
+        for args, kw in calls:
+            got = real[name](*args, **kw)
+            want = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err != 0:
+                scalars = [a for a in args if not torch.is_tensor(a)]
+                fail(f"{name}: kernel differs from its plain version "
+                     f"(max_abs_err {err}; call arguments {scalars} {kw})")
+            outs.append(got)
+
+        def run_all(fn, calls=calls):
+            for args, kw in calls:
+                fn(*args, **kw)
+
         res[name] = dict(
-            out=got, max_abs_err=err,
-            ms=cuda_ms(lambda: real[name](*args, **kw)),
-            plain_ms=cuda_ms(lambda: plain[name](*args, **kw), reps=3,
-                             warm=1))
+            out=outs[0], outs=outs, calls=len(calls), max_abs_err=0,
+            ms=cuda_ms(lambda: run_all(real[name])),
+            plain_ms=cuda_ms(lambda: run_all(plain[name]), reps=3, warm=1))
+    say(f"(b) calls in round 19: " + ", ".join(
+        f"{n} {res[n]['calls']}" for n in names))
 
     # PyTorch yardsticks (timed here, used nowhere in the port) and bounds
-    tgt, org = captured["bfs_relax"][0]
+    tgt, org = captured["bfs_relax"][0][0]
     reached, dist = res["bfs_relax"]["out"]
     O, N, F = tgt.shape
     hops = int(dist[reached].max())
@@ -343,11 +430,11 @@ def main() -> int:
         for _ in range(hops):
             hop_out.scatter_reduce_(1, hop_idx, hop_val, "amax")
 
-    r_args = captured["rank_inbound"][0]
+    r_args = captured["rank_inbound"][0][0]
     r_tgt, r_del, r_hop1 = r_args[:3]
     packed = ((torch.where(r_del, r_tgt, N).reshape(O, -1).long() << 32)
               | r_hop1.long().repeat_interleave(F, dim=1))
-    mp_args = captured["rc_merge_prune"][0]
+    mp_args = captured["rc_merge_prune"][0][0]
     row_keys = torch.cat([mp_args[0], mp_args[5]], -1)
     library = {
         "bfs_relax": (cuda_ms(bfs_library),
@@ -357,27 +444,45 @@ def main() -> int:
         "rc_merge_prune": (cuda_ms(lambda: torch.sort(row_keys, dim=-1)),
                            "torch.sort of the [O, N, C+K] row keys"),
         "prune_apply": (None, "none"),
+        "threefry": (None, "none: no PyTorch call computes JAX's threefry"),
     }
-    pa_args = captured["prune_apply"][0]
+    pa_args = captured["prune_apply"][0][0]
+    tf_keys = sum(int(math.prod(a[0].shape[:-1]))
+                  for a, _ in captured["threefry"])
+    tf_blocks = sum(int(math.prod(a[0].shape[:-1]))
+                    * tf_mod.pairs(a[1], int(a[2]) if a[1] != "fold_in"
+                                   else 1, a[3] if len(a) > 3 else True)
+                    for a, _ in captured["threefry"])
     moved = {
         "bfs_relax": nbytes(tgt, org, reached, dist),
         "rank_inbound": nbytes(r_tgt, r_del, r_hop1,
                                *res["rank_inbound"]["out"]),
         "rc_merge_prune": nbytes(*mp_args, *res["rc_merge_prune"]["out"]),
         "prune_apply": nbytes(*pa_args, res["prune_apply"]["out"]),
+        # the keys read once (two words each) and every output written
+        "threefry": 16 * tf_keys + nbytes(*res["threefry"]["outs"]),
     }
+    int_ops = {name: 0 for name in names}
+    int_ops["threefry"] = tf_blocks * tf_ops_per_block
     for name in names:
         r = res[name]
-        r["bound_ms"] = moved[name] / HBM_BYTES_PER_S * 1e3
+        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = int_ops[name] / INT32_OPS_PER_S * 1e3
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
         r["library_ms"], what = library[name]
         lib_txt = ("null" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
-        say(f"(b) {name}: exact vs plain; kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib_txt} ({what}), bound "
-            f"{r['bound_ms']:.4f} ms ({moved[name]} bytes)")
+        say(f"(b) {name}: exact vs plain on its {r['calls']} call(s) of the "
+            f"round; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {lib_txt} ({what}), bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({moved[name]} bytes: {bytes_ms:.4f} ms; "
+            f"{int_ops[name]} int32 operations: {ops_ms:.4f} ms)")
+    say(f"(b) threefry in round 19: {tf_keys} keys, {tf_blocks} threefry "
+        f"blocks x {tf_ops_per_block} instructions")
     del captured, state, packed, row_keys, hop_idx, hop_val, hop_out
     for r in res.values():
-        del r["out"]
+        del r["out"], r["outs"]
     torch.cuda.empty_cache()
 
     # rc_slots = 128 with the default k_inbound: a row of C + K = 144
@@ -409,6 +514,38 @@ def main() -> int:
         f"{cuda_ms(lambda: real['rc_merge_prune'](*args, **kw)):.4f} ms; "
         f"prunes {int(rows_w['prunes_sent'].sum())}")
     del state, wide_in, args, rows_w
+
+    # inbound_cap = 128: past the former 64-entry limit of rank_inbound
+    wide = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, inbound_cap=128)
+    state = init_state(rng.prng_key(42, dev), tables, wide_o, wide)
+    for it in range(19):
+        state, _ = round_step(wide, tables, wide_o, state, it)
+    wide_in = {}
+
+    def wide_rank(*args, **kw):
+        wide_in["ri"] = (args, kw)
+        return real["rank_inbound"](*args, **kw)
+
+    kernels.rank_inbound = wide_rank
+    try:
+        state, rows_w = round_step(wide, tables, wide_o, state, 19)
+    finally:
+        kernels.rank_inbound = real["rank_inbound"]
+    args, kw = wide_in["ri"]
+    got = real["rank_inbound"](*args, **kw)
+    err = max_abs_err(got, plain["rank_inbound"](*args, **kw))
+    torch.cuda.synchronize()
+    if err != 0 or args[4] != 128:
+        fail(f"(b) inbound_cap=128: rank_inbound differs from its plain "
+             f"version (max_abs_err {err}) or K is not 128")
+    g = rank_mod.launch_geometry(wide_o.numel(), N_FULL, 128, sms,
+                                 smem_limit, rank_mod.max_clusters)
+    say(f"(b) inbound_cap=128 at O={wide_o.numel()} N={N_FULL}, round 19: "
+        f"rank_inbound exact vs plain; kernel "
+        f"{cuda_ms(lambda: real['rank_inbound'](*args, **kw)):.4f} ms "
+        f"({g.threads} threads, {g.smem} B shared memory per CTA); largest "
+        f"ingress {int(got[1].max())}, dropped {int(got[2].sum())}")
+    del state, wide_in, args, rows_w, got
     torch.cuda.empty_cache()
 
     # ---- (c) engine, 50 rounds at O=32, N=10,000 -------------------------
@@ -434,30 +571,53 @@ def main() -> int:
         f"origin-rounds/s), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, mean coverage "
         f"{float(cov.double().mean()):.6f}, launches {engine_launches}")
-    engine_device = profile_rounds(run_rounds, params, tables, origins,
-                                   state, out_dir)
+    engine_prof = profile_rounds(run_rounds, params, tables, origins,
+                                 state, out_dir)
+    engine_device = engine_prof["device"]
+    # the same rounds with the draws in plain PyTorch on the card, as the
+    # port made them before the threefry kernel (a comparison only)
+    kernels.threefry = kernels.threefry_plain
+    try:
+        plain_prof = profile_rounds(run_rounds, params, tables, origins,
+                                    state, out_dir, tag=" plain draws")
+    finally:
+        kernels.threefry = real["threefry"]
+    if "busy_ms" in engine_prof and "busy_ms" in plain_prof:
+        say(f"(c) device busy per round {engine_prof['busy_ms']:.4f} ms with "
+            f"the threefry kernel, {plain_prof['busy_ms']:.4f} ms with the "
+            f"plain draws; launches per round {engine_prof['launches']:.1f} "
+            f"against {plain_prof['launches']:.1f}")
     del state, rows
     torch.cuda.empty_cache()
 
     # ---- (d) CLI main path at N=10,000 on cuda ---------------------------
     argv = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
             "--warm-up-rounds", "200", "--device", "cuda"]
-    # keep the main path's own kernel inputs of two rounds (one call per
-    # kernel per round): the first round the upsert counters fire, and the
-    # last one
+    # keep the main path's own kernel inputs of two rounds (every call of
+    # the round, found by the round the engine is in): the first round the
+    # upsert counters fire, and the last one
     check_at = (19, 299)
-    calls = {name: 0 for name in names}
-    main_args = {}
+    main_args = {(name, k): [] for name in names for k in check_at}
+    in_round = [None]
+    real_round_step = core_mod.round_step
+
+    def tagged_round_step(params_, tables_, origins_, state_, it, *a, **kw):
+        in_round[0] = int(it)
+        try:
+            return real_round_step(params_, tables_, origins_, state_, it,
+                                   *a, **kw)
+        finally:
+            in_round[0] = None
 
     def main_recorder(name):
         def rec(*args, **kw):
-            if calls[name] in check_at:
-                main_args[(name, calls[name])] = (args, kw)
-            calls[name] += 1
+            if in_round[0] in check_at:
+                main_args[(name, in_round[0])].append((args, kw))
             return real[name](*args, **kw)
         return rec
 
     reset_unique_pubkeys()
+    core_mod.round_step = tagged_round_step
     for name in names:
         setattr(kernels, name, main_recorder(name))
     try:
@@ -469,33 +629,44 @@ def main() -> int:
         cli_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
     finally:
+        core_mod.round_step = real_round_step
         for name in names:
             setattr(kernels, name, real[name])
     missing = [n for n in names if launches[n] <= 0]
     if missing:
         fail(f"(d) kernels never launched on the main path: {missing}")
-    if len(main_args) != len(names) * len(check_at):
-        fail(f"(d) expected each kernel's inputs at rounds {check_at}, got "
-             f"{sorted(main_args)}")
-    for (name, k), (args, kw) in sorted(main_args.items()):
-        err = max_abs_err(real[name](*args, **kw), plain[name](*args, **kw))
-        if err != 0:
-            fail(f"(d) {name} differs from its plain version on the main "
-                 f"path's round {k} inputs (max_abs_err {err})")
+    per_round = {"threefry": 4}
+    short = [key for key, c in main_args.items()
+             if len(c) != per_round.get(key[0], 1)]
+    if short:
+        fail(f"(d) expected each kernel's calls in rounds {check_at}, got "
+             f"{ {key: len(main_args[key]) for key in short} }")
+    for (name, k), calls in sorted(main_args.items()):
+        for args, kw in calls:
+            err = max_abs_err(real[name](*args, **kw),
+                              plain[name](*args, **kw))
+            if err != 0:
+                fail(f"(d) {name} differs from its plain version on the "
+                     f"main path's round {k} inputs (max_abs_err {err})")
     torch.cuda.synchronize()
     say(f"(d) each kernel exact vs plain on the main path's own inputs of "
         f"rounds {check_at} (O=1, N={N_FULL}, shapes "
-        f"{tuple(main_args[('rc_merge_prune', 19)][0][0].shape)})")
+        f"{tuple(main_args[('rc_merge_prune', 19)][0][0][0].shape)})")
     main_t = {}
     for name in names:
-        args, kw = main_args[(name, 19)]
-        main_t[name] = (cuda_ms(lambda: real[name](*args, **kw), reps=50),
-                        device_ms(lambda: real[name](*args, **kw),
-                                  KERNEL_SYMBOLS[name], reps=50))
+        calls = main_args[(name, 19)]
+
+        def run_all(calls=calls, fn=real[name]):
+            for args, kw in calls:
+                fn(*args, **kw)
+
+        main_t[name] = (cuda_ms(run_all, reps=50),
+                        device_ms(run_all, KERNEL_SYMBOLS[name], reps=50))
         dev_txt = ("not measured" if main_t[name][1] is None
                    else f"{main_t[name][1]:.4f} ms")
-        say(f"(d) {name} on the main path's round-19 inputs (O=1): wrapper "
-            f"{main_t[name][0]:.4f} ms, device {dev_txt}")
+        say(f"(d) {name} on the main path's round-19 inputs (O=1, "
+            f"{len(calls)} call(s)): wrapper {main_t[name][0]:.4f} ms, "
+            f"device {dev_txt}")
     del main_args
     stats = coll.collection[0]
     cov_mean, rmr_mean = stats.coverage_stats.mean, stats.rmr_stats.mean
@@ -520,9 +691,23 @@ def main() -> int:
     torch.cuda.synchronize()
     engine_300_s = time.perf_counter() - t0
     del state
+    init_s = {}
+    for what, fn in (("kernel", real["threefry"]),
+                     ("plain draws", kernels.threefry_plain),
+                     ("kernel again", real["threefry"])):
+        kernels.threefry = fn
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            init_state(rng.prng_key(42, dev), tables, one, params)
+            torch.cuda.synchronize()
+            init_s[what] = time.perf_counter() - t0
+        finally:
+            kernels.threefry = real["threefry"]
     say(f"(d) parts: cluster build (ChaCha stakes + index) "
         f"{build_cluster_s:.3f} s; engine init + 300 rounds at O=1 "
-        f"{engine_300_s:.3f} s")
+        f"{engine_300_s:.3f} s; init_state alone at O=1 "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in init_s.items()))
 
     # ---- (e) cuda vs cpu parity at N=2,000, 60 rounds --------------------
     snaps = {}
@@ -557,7 +742,9 @@ def main() -> int:
          "launches": launches[name],
          "max_abs_err": res[name]["max_abs_err"],
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
-         "bound_ms": res[name]["bound_ms"], "bound_by": "bytes",
+         "bound_ms": res[name]["bound_ms"],
+         "bound_by": res[name]["bound_by"],
+         "calls_per_round": res[name]["calls"],
          "library_ms": res[name]["library_ms"],
          "device_ms": engine_device[name],
          "main_ms": main_t[name][0], "main_device_ms": main_t[name][1]}

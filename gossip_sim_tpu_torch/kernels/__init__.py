@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the round's cross-node blocks.
+"""Hand-written CUDA kernels for the round's cross-node blocks and draws.
 
 Each kernel has a wrapper (launches the CUDA kernel for CUDA tensors, and
 uses the plain PyTorch version for CPU tensors — never as a fallback for a
@@ -12,6 +12,7 @@ from .bfs_relax import bfs_relax, bfs_relax_plain
 from .prune_apply import prune_apply, prune_apply_plain
 from .rank_inbound import rank_inbound, rank_inbound_plain
 from .rc_merge_prune import MergePruneOut, rc_merge_prune, rc_merge_prune_plain
+from .threefry import threefry, threefry_plain
 
 __all__ = [
     "KERNEL_NAMES",
@@ -27,4 +28,6 @@ __all__ = [
     "rc_merge_prune",
     "rc_merge_prune_plain",
     "reset_launch_counts",
+    "threefry",
+    "threefry_plain",
 ]

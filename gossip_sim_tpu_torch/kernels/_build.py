@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply")
+KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
+                "threefry")
 
 #: Kernel launches per wrapper since the last reset.  A wrapper adds one
 #: where it launches its kernel on the card, and nowhere else.

@@ -2,20 +2,94 @@
 
 Replaces the reference engine's ``round/verb2_consume`` block
 (gossip_sim_tpu/engine/core.py:663-741; twin engine/sparse.py:98-149).
-The CUDA kernel is ``csrc/rank_inbound.cu``; :func:`rank_inbound_plain` is
-the same function in plain PyTorch, used for CPU tensors and as the spec.
+The CUDA kernel is ``csrc/rank_inbound.cu``, one launch per call (a thread
+block cluster per origin); :func:`rank_inbound_plain` is the same function
+in plain PyTorch, used for CPU tensors and as the spec.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 NAME = "rank_inbound"
-MAX_K = 64             # csrc/rank_inbound.cu kMaxK
+MAX_WARPS = 32         # csrc/rank_inbound.cu kMaxThreads / 32
+MAX_CLUSTER = 8        # the portable thread block cluster size
+MISC_WORDS = 64        # csrc/rank_inbound.cu kMiscWords
+
+
+class Geometry(NamedTuple):
+    cs: int             # CTAs per origin (thread block cluster size)
+    slice_len: int      # targets per CTA
+    threads: int        # threads per CTA: four targets a warp in the select
+    state_words: int    # 32-bit words of state per CTA (counts, starts)
+    csr_cap: int        # CSR keys a CTA keeps in shared memory
+    smem: int           # dynamic shared memory per CTA
+    scratch_words: int  # device-memory state of all CTAs; 0 = in smem
+
+
+def warp_buffer_words(k: int) -> int:
+    """Shared-memory words of one warp's selection: two buffers of the K
+    best keys and 64 more, for a chunk of 32 candidates or the ranked keys
+    of the warp's (or its four quarters') rows."""
+    return 2 * k + 64
+
+
+def shape(o: int, n: int, k: int, cs: int, smem_limit: int) -> Geometry:
+    """The launch of ``o`` origins over ``n`` nodes at inbound width ``k``
+    with ``cs`` CTAs per origin, on a card of ``smem_limit`` bytes of
+    opt-in shared memory per block.  Each warp's selection buffers live in
+    shared memory, with up to 32 warps per CTA; the counts and segment
+    starts of a CTA's targets follow them where they fit, else they go to
+    a device-memory scratch buffer (any ``n``); the rest of the shared
+    memory holds up to ``csr_cap`` of the CTA's CSR keys (a slice with
+    more keeps them in device memory).  Raises only where one warp's
+    buffers do not fit."""
+    if o < 1 or n < 1 or k < 1:
+        raise ValueError(f"{NAME}: needs O, N and k_inbound >= 1, got "
+                         f"{o}, {n} and {k}")
+    per_warp = 4 * warp_buffer_words(k)
+    warps = min(MAX_WARPS, (smem_limit - 4 * MISC_WORDS) // per_warp)
+    if warps < 1:
+        raise ValueError(
+            f"{NAME}: k_inbound={k} needs {4 * MISC_WORDS + per_warp} bytes "
+            f"of shared memory for one warp's selection, more than the "
+            f"{smem_limit} bytes of one block")
+    slen = -(-n // cs)
+    words = 2 * slen
+    used, scratch = 4 * MISC_WORDS + warps * per_warp, 0
+    if used + 4 * words <= smem_limit:
+        used += 4 * words
+    else:
+        scratch = o * cs * words
+    cap = (smem_limit - used) // 4
+    return Geometry(cs, slen, 32 * warps, words, cap, used + 4 * cap,
+                    scratch)
+
+
+def launch_geometry(o: int, n: int, k: int, sms: int, smem_limit: int,
+                    max_clusters=None) -> Geometry:
+    """:func:`shape` with the most CTAs per origin (up to 8, at most
+    ``sms`` CTAs in all) whose clusters the card holds at once
+    (``max_clusters(geometry)``, read from the device; None = any), else
+    one CTA per origin.  Every CTA reads all edges of its origin and
+    selects for its slice of the targets, so more CTAs per origin split
+    the select over more SMs."""
+    for cs in range(min(MAX_CLUSTER, sms // o), 1, -1):
+        g = shape(o, n, k, cs, smem_limit)
+        if max_clusters is None or o <= max_clusters(g):
+            return g
+    return shape(o, n, k, 1, smem_limit)
+
+
+def max_k_inbound(smem_limit: int) -> int:
+    """The widest inbound ranking the kernel takes on a card of
+    ``smem_limit`` bytes of opt-in shared memory per block."""
+    return ((smem_limit - 4 * MISC_WORDS) // 4 - 64) // 2
 
 
 def rank_inbound_plain(tgt: torch.Tensor, delivered: torch.Tensor,
@@ -54,14 +128,15 @@ def rank_inbound_plain(tgt: torch.Tensor, delivered: torch.Tensor,
 
 
 def _lib():
-    lib = _build.library(NAME)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    if lib.rank_inbound_count.argtypes is None:
-        lib.rank_inbound_count.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-        lib.rank_inbound_count.restype = ci
-        lib.rank_inbound_place.argtypes = [vp] * 9 + [ci] * 5 + [vp]
-        lib.rank_inbound_place.restype = ci
-    return lib
+    fn = _build.library(NAME).rank_inbound_launch
+    if fn.argtypes is None:
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp] * 8 + [ci] * 8 + [cl, ci, ci, vp]
+        fn.restype = ci
+    return fn
+
+
+_GEOMETRY: dict = {}
 
 
 def rank_inbound(tgt: torch.Tensor, delivered: torch.Tensor,
@@ -76,27 +151,50 @@ def rank_inbound(tgt: torch.Tensor, delivered: torch.Tensor,
     _build.check(tgt, "tgt", torch.int32, (O, N, F), dev)
     _build.check(delivered, "delivered", torch.bool, (O, N, F), dev)
     _build.check(hop1, "hop1", torch.int32, (O, N), dev)
-    if O * N * F >= 1 << 31:
-        raise ValueError(f"{NAME}: O*N*F edges must fit int32 offsets")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{NAME}: k_inbound = {k} outside [1, {MAX_K}]")
-    lib = _lib()
-    stream = _build.stream_of(tgt)
-    ingress = torch.empty((O, N), dtype=torch.int32, device=dev)
-    rc = lib.rank_inbound_count(_build.ptr(tgt), _build.ptr(delivered),
-                                _build.ptr(ingress), O, N, F, stream)
+    if N * F >= 1 << 30:
+        raise ValueError(f"{NAME}: N*F = {N * F} edges per origin; the "
+                         f"kernel takes fewer than 2^30")
+    key = (O, N, k, dev)
+    g = _GEOMETRY.get(key)
+    if g is None:
+        g = _GEOMETRY[key] = launch_geometry(
+            O, N, k, _build.sm_count(dev), _build.smem_optin(dev),
+            max_clusters)
+    return _launch(tgt, delivered, hop1, pb, k, g)
+
+
+def max_clusters(g: Geometry) -> int:
+    """Clusters of launch ``g`` the current CUDA device holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    fn = _build.library(NAME).rank_inbound_max_clusters
+    if fn.argtypes is None:
+        ci = ctypes.c_int
+        fn.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+        fn.restype = ci
+    out = ctypes.c_int(0)
+    rc = fn(g.cs, g.threads, g.smem, int(g.scratch_words == 0),
+            ctypes.byref(out))
     if rc != 0:
-        raise RuntimeError(f"{NAME}: CUDA launch failed with error {rc}")
-    offsets = (torch.cumsum(ingress.reshape(-1), 0, dtype=torch.int32)
-               - ingress.reshape(-1))
-    cursor = torch.empty(O * N, dtype=torch.int32, device=dev)
-    csr = torch.empty(max(O * N * F, 1), dtype=torch.int32, device=dev)
+        raise RuntimeError(f"{NAME}: cudaOccupancyMaxActiveClusters failed "
+                           f"with error {rc}")
+    return out.value
+
+
+def _launch(tgt: torch.Tensor, delivered: torch.Tensor, hop1: torch.Tensor,
+            pb: int, k: int, g: Geometry):
+    O, N, F = tgt.shape
+    dev = tgt.device
+    ingress = torch.empty((O, N), dtype=torch.int32, device=dev)
     inb = torch.empty((O, N, k), dtype=torch.int32, device=dev)
     dropped = torch.empty((O,), dtype=torch.int32, device=dev)
-    rc = lib.rank_inbound_place(
-        _build.ptr(tgt), _build.ptr(delivered), _build.ptr(hop1),
-        _build.ptr(ingress), _build.ptr(offsets), _build.ptr(cursor),
-        _build.ptr(csr), _build.ptr(inb), _build.ptr(dropped),
-        O, N, F, k, pb, stream)
+    csr = torch.empty(O * N * F, dtype=torch.int32, device=dev)
+    scratch = (torch.empty(g.scratch_words, dtype=torch.int32, device=dev)
+               if g.scratch_words else None)
+    rc = _lib()(_build.ptr(tgt), _build.ptr(delivered), _build.ptr(hop1),
+                _build.ptr(ingress), _build.ptr(inb), _build.ptr(dropped),
+                _build.ptr(csr),
+                None if scratch is None else _build.ptr(scratch),
+                O, N, F, k, pb, g.cs, g.slice_len, g.threads, g.state_words,
+                g.csr_cap, g.smem, _build.stream_of(tgt))
     _build.launched(NAME, rc)
     return inb, ingress, dropped

@@ -120,6 +120,19 @@ def test_run_rounds_equal_at_rc_slots_128(layout):
     assert int(np.asarray(jrows["prunes_sent"]).sum()) > 0
 
 
+def test_run_rounds_equal_at_inbound_cap_128():
+    """inbound_cap = 128, twice the former 64-entry limit of the
+    rank_inbound kernel (the plain version has none)."""
+    kw = dict(warm_up_rounds=5, inbound_cap=128)
+    (jt, jp, jo, js), (tt, tp, to, ts) = _both(300, [0, 151], **kw)
+    assert tp.k_inbound == jp.k_inbound == 128
+    js, jrows = je.run_rounds(jp, jt, jo, js, 20, start_it=0, detail=True)
+    ts, trows = tc.run_rounds(tp, tt, to, ts, 20, start_it=0, detail=True)
+    _assert_state_equal(js, ts, "inbound_cap=128")
+    _assert_rows_equal(jrows, trows)
+    assert int(np.asarray(jrows["prunes_sent"]).sum()) > 0
+
+
 def test_unported_features_raise():
     tt = tc.make_cluster_tables(_stakes(40), device="cpu")
     o = torch.zeros(1, dtype=torch.int32)

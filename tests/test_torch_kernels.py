@@ -78,7 +78,7 @@ def test_bfs_relax_plain_matches_reference(seed):
     assert int(got_d[got_r].max()) >= 3            # several hops ran
 
 
-@pytest.mark.parametrize("seed,k", [(3, 16), (4, 4)])
+@pytest.mark.parametrize("seed,k", [(3, 16), (4, 4), (5, 128)])
 def test_rank_inbound_plain_matches_reference(seed, k):
     tgt, _ = _edges(seed)
     O, N, F = tgt.shape

@@ -21,10 +21,14 @@ from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
                                          make_cluster_tables, run_rounds)
 
 bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
+rank_mod = importlib.import_module(
+    "gossip_sim_tpu_torch.kernels.rank_inbound")
+tf_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.threefry")
 
 pytestmark = pytest.mark.cuda
 
-NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply")
+NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
+         "threefry")
 CONFIGS = {
     # full rotation + tiny insert cap: caches overflow and rows prune
     # more than 8 peers at round 19
@@ -35,7 +39,24 @@ CONFIGS = {
         churn_recover_rate=0.2, partition_at=3, heal_at=12, impair_seed=5)),
     # a narrow inbound width so the ranking truncates
     "truncated": (3000, 3, 21, dict(warm_up_rounds=0, inbound_cap=4)),
+    # an inbound width past the former 64-entry limit of rank_inbound
+    "wide_inbound": (1500, 2, 21, dict(warm_up_rounds=0, inbound_cap=128)),
+    # the one-shot failure draws one more uniform in its round
+    "fail_nodes": (800, 2, 12, dict(warm_up_rounds=0, fail_at=6,
+                                    fail_fraction=0.2)),
 }
+
+
+def _launches_per_run(params, rounds):
+    """Kernel launches of ``rounds`` rounds: one per kernel and round, and
+    four ``threefry`` draws a round (fold_in, split, two uniforms) plus the
+    fail draw in the fail round."""
+    want = {name: rounds for name in NAMES}
+    n_fail = int(np.floor(np.float64(params.fail_fraction)
+                          * params.num_nodes))
+    fail_round = 0 <= params.fail_at < rounds and n_fail > 0
+    want["threefry"] = 4 * rounds + int(fail_round)
+    return want
 
 
 @pytest.fixture
@@ -75,7 +96,8 @@ def test_kernels_equal_plain_on_engine_rounds(cuda, config):
     finally:
         for name in NAMES:
             setattr(kernels, name, real[name])
-    assert all(kernels.LAUNCHES[name] == rounds for name in NAMES)
+    assert {name: kernels.LAUNCHES[name]
+            for name in NAMES} == _launches_per_run(params, rounds)
     for name in NAMES:
         plain = getattr(kernels, f"{name}_plain")
         for args, kw in calls[name]:
@@ -86,6 +108,10 @@ def test_kernels_equal_plain_on_engine_rounds(cuda, config):
         assert int(rows["rc_overflow"].sum()) > 0
     if config == "truncated":
         assert int(rows["inb_dropped"].sum()) > 0
+    if config == "wide_inbound":
+        assert all(args[4] == 128 for args, _ in calls["rank_inbound"])
+    if config == "fail_nodes":
+        assert int(rows["failed_count"][-1].sum()) > 0
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -303,3 +329,198 @@ def test_rc_merge_prune_refuses_rows_beyond_shared_memory(cuda):
                                torch.zeros(1, dtype=torch.int32, device=cuda),
                                received_cap=50, min_num_upserts=20,
                                min_ingress_nodes=2, prune_stake_threshold=0.15)
+
+
+# ---- threefry ------------------------------------------------------------
+
+def _keys(cuda, seed, shape):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 1 << 32, (*shape, 2), generator=g,
+                         dtype=torch.int64).to(cuda)
+
+
+#: (op, arg): sizes below, at and past the 256-thread block, odd and even
+TF_OPS = [("split", 1), ("split", 10), ("split", 257), ("bits", 1),
+          ("bits", 7), ("bits", 256), ("bits", 1001), ("uniform", 2),
+          ("uniform", 255), ("uniform", 20_001), ("fold_in", 0),
+          ("fold_in", 0x696E6974)]
+
+
+@pytest.mark.parametrize("part", [True, False],
+                         ids=["partitionable", "original"])
+def test_threefry_equals_plain(cuda, part):
+    base = _keys(cuda, 1, (5, 10))
+    batches = {
+        "one_key": base[0, 0],
+        "o_keys": base[:, 0],
+        "o_t_slice": base[:, 2:2 + 6],          # subs[:, 2:2+T], in place
+        "broadcast": base[1, 1][None, :].expand(4, 2),
+        "three_dims": base.reshape(5, 2, 5, 2)[:, :, 1:4],
+    }
+    for what, keys in batches.items():
+        for op, arg in TF_OPS:
+            kernels.reset_launch_counts()
+            got = kernels.threefry(keys, op, arg, part)
+            assert kernels.LAUNCHES["threefry"] == 1
+            _assert_equal(got, tf_mod.threefry_plain(keys, op, arg, part),
+                          (what, op, arg))
+    # a per-key fold_in counter, as init_state folds in the origins
+    keys = base[:, 3]
+    data = torch.arange(5, dtype=torch.int32, device=cuda) * 977 + 3
+    _assert_equal(kernels.threefry(keys, "fold_in", data, part),
+                  tf_mod.threefry_plain(keys, "fold_in", data, part),
+                  "per-key counter")
+    inner = torch.arange(6, device=cuda) * 31
+    _assert_equal(kernels.threefry(base[:, 2:8], "fold_in", inner, part),
+                  tf_mod.threefry_plain(base[:, 2:8], "fold_in", inner,
+                                        part), "broadcast counter")
+
+
+def test_threefry_past_the_grid_of_keys(cuda):
+    """More keys than a grid's 65,535 rows of blocks: the kernel walks the
+    rest of the keys in a loop."""
+    keys = _keys(cuda, 2, (70_000,))
+    for part in (True, False):
+        for op, arg in (("uniform", 3), ("split", 2), ("fold_in", 5)):
+            _assert_equal(kernels.threefry(keys, op, arg, part),
+                          tf_mod.threefry_plain(keys, op, arg, part),
+                          (op, part))
+
+
+def test_rng_routes_every_draw_to_the_kernel(cuda):
+    from gossip_sim_tpu_torch import rng as trng
+    key = trng.prng_key(11, cuda)
+    kernels.reset_launch_counts()
+    k2 = trng.fold_in(key, 3)
+    subs = trng.split(k2[None, :], 4)
+    trng.uniform(subs[:, 1:3], (7, 2))
+    trng.random_bits(subs[:, 0], 9)
+    assert kernels.LAUNCHES["threefry"] == 4
+
+
+# ---- rank_inbound ----------------------------------------------------------
+
+def _skewed_edges(seed, o, n, f, p_none=0.1):
+    """Seeded push targets skewed towards low node ids, so some targets
+    take segments far longer than a warp; none to itself, repeats of a
+    source dropped to N."""
+    r = np.random.default_rng(seed)
+    peers = (r.random((o, n, f)) ** 4 * (n - 1)).astype(np.int64)
+    src = np.arange(n)[None, :, None]
+    tgt = (peers + (peers >= src)).astype(np.int32)
+    srt = np.sort(tgt, axis=-1)
+    dup = np.zeros_like(tgt, dtype=bool)
+    dup[..., 1:] = srt[..., 1:] == srt[..., :-1]
+    tgt = np.where(dup, n, srt).astype(np.int32)
+    tgt[r.random((o, n, f)) < p_none] = n
+    reached = r.random((o, n)) < 0.9
+    hop1 = r.integers(1, 64, size=(o, n)).astype(np.int32)
+    return tgt, (tgt < n) & reached[:, :, None], hop1
+
+
+RANK_CASES = {
+    # name: (O, N, K); the counts of every case up to n_300k fit shared
+    # memory, the last two do not (see the geometry assertion)
+    "o1_k4": (1, 3000, 4),
+    "o3_k16": (3, 5000, 16),
+    "o32_k16": (32, 10_000, 16),
+    "o2_k128": (2, 4000, 128),
+    "o5_k256": (5, 4000, 256),
+    "o200_k16": (200, 300, 16),
+    "tiny_n": (3, 5, 16),
+    # N * F not a multiple of 4: edges read one at a time, not four
+    "odd_edges": (3, 3001, 16),
+    "n_300k_scratch": (1, 300_000, 16),
+    "n_150k_o32_k128_scratch": (32, 150_000, 128),
+}
+
+
+def _rank_inputs(cuda, seed, o, n, f=6):
+    tgt, delivered, hop1 = _skewed_edges(seed, o, n, f)
+    return (torch.as_tensor(tgt, device=cuda),
+            torch.as_tensor(delivered, device=cuda),
+            torch.as_tensor(hop1, device=cuda))
+
+
+@pytest.mark.parametrize("case", list(RANK_CASES))
+def test_rank_inbound_equals_plain(cuda, case):
+    o, n, k = RANK_CASES[case]
+    t, d, h = _rank_inputs(cuda, 5, o, n)
+    pb = max(n - 1, 1).bit_length()
+    kernels.reset_launch_counts()
+    got = kernels.rank_inbound(t, d, h, pb, k)
+    assert kernels.LAUNCHES["rank_inbound"] == 1
+    want = kernels.rank_inbound_plain(t, d, h, pb, k)
+    _assert_equal(got, want, case)
+    if n > 100:
+        assert int(want[1].max()) > 32             # a segment past a warp
+    g = rank_mod.launch_geometry(o, n, k, 132, 232_448)
+    assert (g.scratch_words > 0) == case.endswith("_scratch")
+
+
+@pytest.mark.parametrize("cs", range(1, 9))
+def test_rank_inbound_every_cluster_size_equals_plain(cuda, cs):
+    """Any number of CTAs per origin (the wrapper takes the most whose
+    clusters the card holds in one wave, not only powers of two)."""
+    o, n, k = RANK_CASES["o3_k16"]
+    t, d, h = _rank_inputs(cuda, 9, o, n)
+    pb = max(n - 1, 1).bit_length()
+    g = rank_mod.shape(o, n, k, cs, 232_448)
+    _assert_equal(rank_mod._launch(t, d, h, pb, k, g),
+                  kernels.rank_inbound_plain(t, d, h, pb, k), cs)
+
+
+@pytest.mark.parametrize("case", ["o1_k4", "o3_k16", "o2_k128", "o5_k256",
+                                  "o200_k16", "tiny_n", "odd_edges"])
+def test_rank_inbound_state_in_device_memory_equals_plain(cuda, case):
+    """The device-memory variant at small shapes: the launch of a card
+    whose shared memory holds the selection buffers only."""
+    o, n, k = RANK_CASES[case]
+    t, d, h = _rank_inputs(cuda, 6, o, n)
+    pb = max(n - 1, 1).bit_length()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    limit = 4 * (rank_mod.MISC_WORDS + 4 * rank_mod.warp_buffer_words(k))
+    g = rank_mod.launch_geometry(o, n, k, sms, limit)
+    assert g.scratch_words > 0 and g.threads == 128
+    _assert_equal(rank_mod._launch(t, d, h, pb, k, g),
+                  kernels.rank_inbound_plain(t, d, h, pb, k), case)
+
+
+@pytest.mark.parametrize("case", ["o1_k4", "o3_k16", "o32_k16", "o5_k256"])
+def test_rank_inbound_csr_past_shared_memory_equals_plain(cuda, case):
+    """Slices whose keys do not fit the CSR room of shared memory keep them
+    in device memory: no room at all, and a room that the slices of the
+    skewed targets outgrow while the others fit."""
+    o, n, k = RANK_CASES[case]
+    t, d, h = _rank_inputs(cuda, 8, o, n)
+    pb = max(n - 1, 1).bit_length()
+    g = rank_mod.launch_geometry(o, n, k, 132, 232_448)
+    want = kernels.rank_inbound_plain(t, d, h, pb, k)
+    per_slice = int(want[1].sum()) // (o * g.cs)
+    for cap in (0, per_slice):
+        small = g._replace(csr_cap=cap, smem=g.smem - 4 * (g.csr_cap - cap))
+        _assert_equal(rank_mod._launch(t, d, h, pb, k, small), want,
+                      (case, cap))
+
+
+def _device_kernels(fn):
+    """Names of the device activities (kernels, memsets, copies) that one
+    call of ``fn`` records under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_rank_inbound_is_one_launch_per_call(cuda):
+    t, d, h = _rank_inputs(cuda, 7, 4, 2000)
+    names = _device_kernels(lambda: kernels.rank_inbound(t, d, h, 11, 16))
+    assert len(names) == 1 and "rank_inbound_kernel" in names[0], names
+    keys = _keys(cuda, 3, (4, 8))
+    names = _device_kernels(
+        lambda: kernels.threefry(keys[:, 2:6], "uniform", 1000, True))
+    assert len(names) == 1 and "threefry_kernel" in names[0], names

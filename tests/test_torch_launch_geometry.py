@@ -6,6 +6,11 @@
 * ``rc_merge_prune``: the shared-memory bytes of a row, the rows per block,
   and the row-width limit (raised in bytes, beyond one block's shared
   memory);
+* ``rank_inbound``: the CTAs of an origin (the most whose clusters the
+  card holds in one wave), each CTA's target slice, the warps of the
+  selection and their buffers, the counts and segment starts per CTA (in
+  shared memory where they fit, else in a device-memory scratch buffer, so
+  any N and any K the engine takes run) and the room for CSR keys;
 * the precondition of the ``rc_merge_prune`` kernel: every received-cache
   row the engine carries holds its members sorted ascending and unique,
   then N.
@@ -25,6 +30,7 @@ from gossip_sim_tpu_torch.engine.params import EngineParams
 
 bfs = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
 mp = importlib.import_module("gossip_sim_tpu_torch.kernels.rc_merge_prune")
+ri = importlib.import_module("gossip_sim_tpu_torch.kernels.rank_inbound")
 
 # an H100 SXM: streaming multiprocessors, opt-in shared memory per block
 SMS, SMEM_PER_BLOCK = 132, 232_448
@@ -151,3 +157,81 @@ def test_engine_keeps_the_merge_kernels_precondition(kw):
         assert bool((src[~member] == n).all())
         live_rows += int(member.any(-1).sum())
     assert live_rows > 0
+
+
+def _check_rank_geometry(o, n, k, g):
+    words = ri.warp_buffer_words(k)
+    sel = 4 * (ri.MISC_WORDS + g.threads // 32 * words)
+    assert g.cs == max(1, min(ri.MAX_CLUSTER, SMS // o))
+    assert g.slice_len == -(-n // g.cs)            # ranks past N own nothing
+    assert g.threads == 32 * ri.MAX_WARPS           # K <= 256: all warps
+    assert g.state_words == 2 * g.slice_len
+    if g.scratch_words == 0:
+        used = sel + 4 * g.state_words
+    else:
+        used = sel
+        assert sel + 4 * g.state_words > SMEM_PER_BLOCK
+        assert g.scratch_words == o * g.cs * g.state_words
+    # the CSR keys of the slice take the rest of the shared memory
+    assert g.csr_cap == (SMEM_PER_BLOCK - used) // 4
+    assert SMEM_PER_BLOCK - 4 < g.smem <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("k", [1, 4, 16, 64, 128, 256])
+@pytest.mark.parametrize("o", [1, 32, 67, 200])
+def test_rank_geometry_takes_every_node_count(o, k):
+    """Every N up to the engine's 2^24 launches: the counts and segment
+    starts of a CTA's slice sit in shared memory up to a limit, past it in
+    device memory; the selection buffers always fit."""
+    cs = max(1, min(ri.MAX_CLUSTER, SMS // o))
+    sel = 4 * (ri.MISC_WORDS + ri.MAX_WARPS * ri.warp_buffer_words(k))
+    fits = cs * ((SMEM_PER_BLOCK - sel) // 8)        # largest N in smem
+    assert fits > 19_000
+    for n in sorted({1, 2, 31, 1000, 10_000, fits - 1, fits, fits + 1,
+                     1_000_003, 1 << 24}):
+        g = ri.launch_geometry(o, n, k, SMS, SMEM_PER_BLOCK)
+        _check_rank_geometry(o, n, k, g)
+        assert (g.scratch_words == 0) == (n <= fits), n
+
+
+def test_rank_geometry_fills_the_card_in_one_wave():
+    """The most CTAs per origin (at most one per SM) whose clusters the
+    card holds at once: a card that holds 30 clusters of 4 takes O = 32 in
+    clusters of 3."""
+    held = {8: 15, 7: 16, 6: 20, 5: 24, 4: 30, 3: 40, 2: 64}
+    pick = lambda o: ri.launch_geometry(o, 10_000, 16, SMS, SMEM_PER_BLOCK,
+                                        lambda g: held[g.cs]).cs
+    assert [pick(o) for o in (1, 15, 16, 20, 30, 32, 44, 64, 65, 200)] == [
+        8, 8, 7, 6, 4, 3, 2, 2, 1, 1]
+    g = ri.launch_geometry(32, 10_000, 16, SMS, SMEM_PER_BLOCK,
+                           lambda g: held[g.cs])
+    assert g == ri.shape(32, 10_000, 16, 3, SMEM_PER_BLOCK)
+
+
+def test_rank_geometry_k_limit_is_shared_memory():
+    """No fixed K limit: wide rankings take fewer warps per CTA, down to
+    one, and the wrapper raises, naming the bytes, only where one warp's
+    buffers exceed a block's shared memory, a K far past what the
+    rc_merge_prune row of the engine (rc_slots >= 1) can take."""
+    g = ri.launch_geometry(1, 10_000, 4096, SMS, SMEM_PER_BLOCK)
+    assert 1 <= g.threads // 32 < ri.MAX_WARPS
+    kmax = ri.max_k_inbound(SMEM_PER_BLOCK)
+    assert kmax > max(k for k in range(1, 40_000)
+                      if mp.row_smem_bytes(1, k) <= SMEM_PER_BLOCK)
+    g = ri.launch_geometry(1, 10_000, kmax, SMS, SMEM_PER_BLOCK)
+    assert g.threads == 32 and g.smem <= SMEM_PER_BLOCK
+    assert g.scratch_words > 0 and g.csr_cap == 0
+    with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
+        ri.launch_geometry(1, 10_000, kmax + 1, SMS, SMEM_PER_BLOCK)
+    with pytest.raises(ValueError, match="k_inbound >= 1"):
+        ri.launch_geometry(1, 10_000, 0, SMS, SMEM_PER_BLOCK)
+
+
+@pytest.mark.parametrize("o,n,k,want", [
+    (32, 10_000, 16, (4, 2500, 1024, 5000, 49_976, 232_448, 0)),
+    (1, 10_000, 16, (8, 1250, 1024, 2500, 52_476, 232_448, 0)),
+    (32, 10_000, 128, (4, 2500, 1024, 5000, 42_808, 232_448, 0)),
+    (1, 300_000, 16, (8, 37_500, 1024, 75_000, 54_976, 232_448, 600_000)),
+])
+def test_rank_geometry_of_the_main_shapes(o, n, k, want):
+    assert tuple(ri.launch_geometry(o, n, k, SMS, SMEM_PER_BLOCK)) == want

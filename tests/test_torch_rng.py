@@ -3,6 +3,8 @@ under both ``jax_threefry_partitionable`` layouts.
 
 Tolerance: 0 everywhere (exact equality of u32 words and f32 values)."""
 
+import importlib
+
 import gossip_sim_tpu.engine  # noqa: F401  (64-bit types, as the engine runs)
 import jax
 import jax.numpy as jnp
@@ -74,3 +76,83 @@ def test_explicit_layout_argument_overrides_the_default(layout):
                                          dtype=jnp.float32))
     assert np.array_equal(want, _np(rng.uniform(key, (9,),
                                                 partitionable=other)))
+
+
+# ---- the threefry kernel module's plain version ---------------------------
+
+tf = importlib.import_module("gossip_sim_tpu_torch.kernels.threefry")
+
+
+def _jax_keys(shape):
+    """A [*shape, 2] batch of distinct JAX keys and the port's copy."""
+    n = int(np.prod(shape))
+    keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(
+        jax.random.PRNGKey(21), jnp.arange(n, dtype=jnp.uint32))
+    keys = np.asarray(keys).astype(np.int64).reshape(*shape, 2)
+    return keys, torch.as_tensor(keys)
+
+
+def _jax_batched(fn, keys_np):
+    """Apply a one-key JAX function over every key of a [..., 2] batch."""
+    flat = jnp.asarray(keys_np.reshape(-1, 2).astype(np.uint32))
+    out = np.asarray(jax.vmap(fn)(flat))
+    return out.reshape(*keys_np.shape[:-1], *out.shape[1:])
+
+
+@pytest.mark.parametrize("size", [1, 8, 33])
+def test_threefry_plain_draws_equal_jax(layout, size):
+    """split, bits and uniform of odd and even sizes under an [O, T] key
+    batch, and under a non-contiguous slice of it (as subs[:, 2:2+T])."""
+    keys_np, keys = _jax_keys((3, 6))
+    cases = {"o_t": (keys_np, keys),
+             "slice": (keys_np[:, 2:5], keys[:, 2:5])}
+    assert not keys[:, 2:5].is_contiguous()
+    for what, (knp, kt) in cases.items():
+        want = {
+            "split": _jax_batched(lambda k: jax.random.split(k, size), knp),
+            "bits": _jax_batched(
+                lambda k: jax.random.bits(k, (size,), jnp.uint32), knp),
+            "uniform": _jax_batched(
+                lambda k: jax.random.uniform(k, (size,), jnp.float32), knp),
+        }
+        for op, w in want.items():
+            got = tf.threefry_plain(kt, op, size, layout).numpy()
+            if op != "uniform":
+                w = w.astype(np.int64)
+            assert got.dtype == w.dtype and np.array_equal(w, got), (what, op)
+
+
+def test_threefry_plain_fold_in_equals_jax(layout):
+    """fold_in with a scalar counter and a per-key counter (as init_state
+    folds each origin into its copy of the key)."""
+    keys_np, keys = _jax_keys((5,))
+    data = np.array([0, 3, 0x696E6974, 2**32 - 1, 12], np.uint32)
+    want = jax.vmap(jax.random.fold_in)(jnp.asarray(keys_np.astype(np.uint32)),
+                                        jnp.asarray(data))
+    got = tf.threefry_plain(keys, "fold_in", torch.as_tensor(
+        data.astype(np.int64)), layout)
+    assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())
+    want = jax.vmap(jax.random.fold_in, in_axes=(0, None))(
+        jnp.asarray(keys_np.astype(np.uint32)), 77)
+    got = tf.threefry_plain(keys, "fold_in", 77, layout)
+    assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())
+
+
+def test_rng_goes_through_the_kernel_module(layout, monkeypatch):
+    """Every public draw of ``rng`` is one call of ``kernels.threefry``,
+    looked up at call time (so a recorder sees each call)."""
+    from gossip_sim_tpu_torch import kernels
+    seen = []
+    real = kernels.threefry
+
+    def recorder(keys, op, arg, *rest):
+        seen.append(op)
+        return real(keys, op, arg, *rest)
+
+    monkeypatch.setattr(kernels, "threefry", recorder)
+    key = rng.prng_key(4)
+    k2 = rng.fold_in(key, 1)
+    subs = rng.split(k2[None, :], 3)
+    rng.uniform(subs[:, 1:3], (4, 2))
+    rng.random_bits(subs[:, 0], 5)
+    assert seen == ["fold_in", "split", "uniform", "bits"]
