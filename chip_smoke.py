@@ -12,7 +12,7 @@ Phases (any failure exits non-zero before the final line):
       kernel's registers, shared memory and spills (``-Xptxas -v``), the
       launch geometry of the cluster and row kernels (cluster size, rows or
       warps per block, shared memory), and the instructions of one threefry
-      block in the kernel's SASS (``cuobjdump -sass``);
+      block in the kernel's SASS (``cuobjdump -sass``), by pipe;
   (b) capture each kernel's inputs from a real round (round 19, when the
       upsert counters fire) at O=32 origins, N=10,000 nodes (every call of
       the round: ``threefry`` draws four times), and hold the kernel against
@@ -59,9 +59,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
-# 32-bit integer operations per second: 132 SMs x 64 INT32 lanes (Hopper
-# architecture white paper) x the 1.98 GHz boost clock (H100 SXM data sheet)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Integer issue of the H100 SXM: 132 SMs at the 1.98 GHz boost clock (data
+# sheet); per SM and clock, 64 lanes of the INT32 (ALU) pipe, 64 lanes of
+# the FMA pipe, which runs IMAD, and 128 thread-instructions issued (four
+# schedulers of one warp instruction each; Hopper architecture white paper)
+SM_CLOCKS_PER_S = 132 * 1.98e9
+ALU_LANES, FMA_LANES, ISSUE_LANES = 64, 64, 128
 O_KERNEL, N_FULL = 32, 10_000
 SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
                          "round/bfs_propagate"),
@@ -251,10 +254,10 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
             "launches": launches}
 
 
-def threefry_sass_ops(out_dir) -> int:
-    """32-bit integer instructions of one threefry block as the card runs
-    it, counted in the SASS (``cuobjdump -sass``) of the kernel's uniform
-    mode (:func:`count_block_ops`); the SASS goes to
+def threefry_sass_ops(out_dir) -> dict:
+    """Instructions of one threefry block as the card runs it, counted per
+    pipe in the SASS (``cuobjdump -sass``) of the kernel's uniform mode
+    (:func:`count_block_ops`); the SASS goes to
     ``chiprun_out/sass_threefry.txt``."""
     from gossip_sim_tpu_torch.kernels import _build
     lib = _build._build_dir() / "libthreefry.so"
@@ -268,25 +271,62 @@ def threefry_sass_ops(out_dir) -> int:
     return count_block_ops(sass.stdout)
 
 
-def count_block_ops(sass: str) -> int:
-    """The instructions of the uniform-mode kernel from the first to the
-    20th rotation (``SHF.L.W``, one funnel shift each) of its threefry
-    block, plus the two key additions before the first rotation and the
-    xor and two key additions after the last one."""
+def count_block_ops(sass: str) -> dict:
+    """The instructions of one threefry block in the uniform-mode kernel,
+    by pipe: ``{"alu": n, "fma": n, "total": n}``.
+
+    Counted are the instructions that read a value derived from the key
+    words the kernel loads (``LDG``), from the first to the block's last key
+    injection, the third such instruction after the 20th rotation
+    (``SHF.L.W``, one funnel shift each); index and address arithmetic
+    reads no key word and is left out.  ``IMAD*`` runs on the FMA pipe,
+    every other integer instruction on the ALU pipe."""
     body, on = [], False
     for line in sass.splitlines():
         if "Function" in line:
             on = "threefry_kernelILi3E" in line
             continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)",
-                      line)
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)"
+                      r"\s*([^;]*);", line)
         if on and m:
-            body.append(m.group(2))
-    rot = [i for i, op in enumerate(body) if op.startswith("SHF.L.W")]
-    if len(rot) != 20:
-        fail(f"threefry SASS: expected 20 rotations in the uniform kernel, "
-             f"found {len(rot)}")
-    return rot[19] - rot[0] + 1 + 2 + 3
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", m.group(3))]
+            body.append((m.group(2), regs))
+    tainted, block, rot, after = set(), [], 0, 0
+    for op, regs in body:
+        if not regs:
+            continue
+        # a 64-bit result (IMAD.WIDE, LDG.E.64) writes a register pair
+        width = 2 if ".WIDE" in op or ".64" in op else 1
+        dst, srcs = set(range(regs[0], regs[0] + width)), regs[1:]
+        if op.startswith("LDG"):
+            tainted |= dst
+            continue
+        if not any(r in tainted for r in srcs):
+            tainted -= dst
+            continue
+        tainted |= dst
+        block.append(op)
+        if op.startswith("SHF.L.W"):
+            rot += 1
+        elif rot == 20:
+            after += 1
+            if after == 3:
+                break
+    if rot != 20 or after != 3:
+        fail(f"threefry SASS: expected 20 rotations and 3 key-injection "
+             f"instructions after them in the uniform kernel, found {rot} "
+             f"and {after}")
+    fma = sum(op.startswith("IMAD") for op in block)
+    return {"alu": len(block) - fma, "fma": fma, "total": len(block)}
+
+
+def issue_s(ops: dict, blocks: int) -> float:
+    """Seconds the card's integer pipes need for ``blocks`` threefry blocks
+    of ``ops`` instructions each: the busiest of the ALU pipe, the FMA pipe
+    and the issue of all of them."""
+    per_sm_clock = max(ops["alu"] / ALU_LANES, ops["fma"] / FMA_LANES,
+                       ops["total"] / ISSUE_LANES)
+    return blocks * per_sm_clock / SM_CLOCKS_PER_S
 
 
 def main() -> int:
@@ -351,9 +391,10 @@ def main() -> int:
             f"threads, {g.smem} B shared memory per CTA ({g.csr_cap} CSR "
             f"keys), counts in "
             f"{'device memory' if g.scratch_words else 'shared memory'}")
-    tf_ops_per_block = threefry_sass_ops(out_dir)
-    say(f"(a) threefry SASS: {tf_ops_per_block} integer instructions per "
-        f"threefry block (chiprun_out/sass_threefry.txt)")
+    tf_ops = threefry_sass_ops(out_dir)
+    say(f"(a) threefry SASS: {tf_ops['total']} integer instructions per "
+        f"threefry block, {tf_ops['alu']} on the ALU pipe and "
+        f"{tf_ops['fma']} on the FMA pipe (chiprun_out/sass_threefry.txt)")
 
     # ---- (b) kernels vs plain on a real round's inputs -------------------
     reset_unique_pubkeys()
@@ -463,11 +504,12 @@ def main() -> int:
         "threefry": 16 * tf_keys + nbytes(*res["threefry"]["outs"]),
     }
     int_ops = {name: 0 for name in names}
-    int_ops["threefry"] = tf_blocks * tf_ops_per_block
+    int_ops["threefry"] = tf_blocks * tf_ops["total"]
     for name in names:
         r = res[name]
         bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = int_ops[name] / INT32_OPS_PER_S * 1e3
+        ops_ms = (issue_s(tf_ops, tf_blocks) * 1e3 if name == "threefry"
+                  else 0.0)
         r["bound_ms"] = max(bytes_ms, ops_ms)
         r["bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
         r["library_ms"], what = library[name]
@@ -479,7 +521,8 @@ def main() -> int:
             f"{r['bound_by']} ({moved[name]} bytes: {bytes_ms:.4f} ms; "
             f"{int_ops[name]} int32 operations: {ops_ms:.4f} ms)")
     say(f"(b) threefry in round 19: {tf_keys} keys, {tf_blocks} threefry "
-        f"blocks x {tf_ops_per_block} instructions")
+        f"blocks x {tf_ops['total']} instructions ({tf_ops['alu']} ALU, "
+        f"{tf_ops['fma']} FMA)")
     del captured, state, packed, row_keys, hop_idx, hop_val, hop_out
     for r in res.values():
         del r["out"], r["outs"]

@@ -36,13 +36,12 @@
 //      device-memory CSR at the slice's start);
 //   4. select, four targets a warp at a time.  A segment of at most 16
 //      keys sits two keys per lane of a quarter warp, which counts each
-//      key's rank by shuffles.  A longer one goes to the whole warp: up to 32
-//      keys one per lane, ranked the same way; past that it streams in
-//      chunks of 32 through a sorted buffer of the best K in shared
-//      memory: a ballot keeps the keys under the buffer's largest, which
-//      are ranked among themselves by shuffles and merged by rank (binary
-//      search for the other side).  No per-thread array bounds K, and a
-//      long segment is shared by 32 lanes.
+//      key's rank by shuffles.  A longer one goes to the whole warp and
+//      streams in chunks of 32 (a key per lane) through a sorted buffer of
+//      the best K in shared memory: a ballot keeps the keys under the
+//      buffer's largest, which are ranked among themselves by shuffles and
+//      merged by rank (binary search for the other side).  No per-thread
+//      array bounds K, and a long segment is shared by 32 lanes.
 // Bound on the H100: memory (read tgt/delivered/hop1 once, write
 // inb/ingress once).  Each CTA reads all N*F edges of its origin (from L2
 // after the first), and the select issues a few warp instructions per
@@ -137,17 +136,6 @@ __device__ __forceinline__ void select_k(const int32_t* seg, int len,
                                          int32_t* out, int32_t* buf, int k,
                                          int n, int32_t mask) {
   const int lane = threadIdx.x & 31;
-  if (len <= 32) {
-    const int32_t key = lane < len ? seg_key<kSmemSeg>(seg, lane) : kNoKey;
-    int r = 0;
-#pragma unroll 4
-    for (int j = 0; j < len; ++j) r += __shfl_sync(kFull, key, j) < key;
-    if (lane < len) buf[r] = key;
-    __syncwarp();
-    for (int q = lane; q < k; q += 32) out[q] = q < len ? (buf[q] & mask) : n;
-    __syncwarp();  // the buffer is reused by this warp's next target
-    return;
-  }
   int32_t* a = buf;          // the best m keys so far, ascending
   int32_t* b = buf + k;      // the next merge's output
   int32_t* chunk = buf + 2 * k;  // this chunk's candidates, ascending

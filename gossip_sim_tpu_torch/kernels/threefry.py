@@ -125,7 +125,11 @@ def pairs(op: str, n: int, partitionable: bool) -> int:
 def batch2(shape: tuple, strides: tuple) -> tuple[int, int, int, int] | None:
     """A batch of at most two dimensions as (b0, b1, s0, s1): sizes and
     element strides of an outer and an inner batch axis; None for more
-    dimensions (the wrapper then copies)."""
+    dimensions.  The engine's key batches have at most two (``[O, T]``);
+    ``rng.py``'s public functions take a ``[..., 2]`` batch of any rank, as
+    ``jax.random`` and the plain version do, and for a deeper one the
+    wrapper merges the outer axes (``reshape``, which copies only where
+    they cannot be merged in place)."""
     if len(shape) == 0:
         return 1, 1, 0, 0
     if len(shape) == 1:
