@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero before the final line):
 
-  (a) build the five CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
+  (a) build the seven CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
       nvcc for sm_90a (one nvcc per source, in parallel); print each
       kernel's registers, shared memory and spills (``-Xptxas -v``), the
       launch geometry of the cluster and row kernels (cluster size, rows or
@@ -20,18 +20,22 @@ Phases (any failure exits non-zero before the final line):
       the data are integers and the uniforms are bit patterns); time the
       round's calls of kernel, plain version and a PyTorch yardstick with
       CUDA events; then run the engine at rc_slots=128 (a row of C + K =
-      144) and at inbound_cap=128 and hold ``rc_merge_prune`` and
-      ``rank_inbound`` against their plain versions on their round-19
-      inputs;
+      144), at inbound_cap=128 and under loss + partition + churn, and hold
+      ``rc_merge_prune``, ``rank_inbound``, and ``push_targets`` (with its
+      suppression and loss masks) and ``rotate`` against their plain
+      versions on their round-19 inputs;
   (c) run the engine for 50 rounds at O=32, N=10,000: rounds/s, peak
       device memory, every kernel launched; then a 5-round profile: device
       busy and idle share, device time and launches per round of each
       kernel and of the plain PyTorch ops, beside the same profile with
-      the draws routed to ``threefry``'s plain version (the draws as the
-      port made them before the kernel, for comparison only);
+      the draws routed to ``threefry``'s plain version, and with verbs 1
+      and 5 routed to ``push_targets``' and ``rotate``'s plain versions
+      (each as the port made it before its kernel, for comparison only);
   (d) run the CLI main path in process: 10,000 synthetic nodes,
       --iterations 300 --warm-up-rounds 200 on cuda; wall time, coverage
-      and RMR means; this run's kernel launch counts go into the
+      and RMR means (and the same run in turns with verbs 1 and 5 in
+      their plain versions, plain, kernels, plain, for the wall time and
+      equal means); the first run's kernel launch counts go into the
       ``kernels`` line, and each kernel is held against its plain version
       on this run's own inputs of rounds 19 and 299 (O=1) and timed on
       those of round 19 (CUDA events, and device time under the
@@ -76,7 +80,12 @@ SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
                            "round/verb4_prune_apply"),
            "threefry": ("gossip_sim_tpu/engine/core.py:328",
                         "jax.random fold_in/split/uniform at core.py:328-339,"
-                        " 507-509, 522, 952-958")}
+                        " 507-509, 522, 952-958"),
+           "push_targets": ("gossip_sim_tpu/engine/core.py:559",
+                            "round/verb1_push_targets + the loss hash of "
+                            "faults.py:76-121"),
+           "rotate": ("gossip_sim_tpu/engine/core.py:950",
+                      "round/verb5_rotate + _sample_fast at core.py:274")}
 
 
 def fail(msg: str) -> None:
@@ -105,16 +114,20 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def max_abs_err(got, want) -> int:
     """Largest absolute difference over every output tensor (-1 if a shape
-    or dtype differs)."""
+    or dtype differs, or an output is None in one version only)."""
     got = tuple(got) if isinstance(got, tuple) else (got,)
     want = tuple(want) if isinstance(want, tuple) else (want,)
     err = 0
     for x, y in zip(got, want):
+        if x is None or y is None:
+            if x is not y:
+                return -1
+            continue
         if x.shape != y.shape or x.dtype != y.dtype:
             return -1
         if x.numel():
@@ -140,7 +153,9 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                   "rank_inbound": ("rank_inbound_kernel",),
                   "rc_merge_prune": ("rc_merge_prune_kernel",),
                   "prune_apply": ("prune_apply_kernel",),
-                  "threefry": ("threefry_kernel",)}
+                  "threefry": ("threefry_kernel",),
+                  "push_targets": ("push_targets_kernel",),
+                  "rotate": ("rotate_kernel",)}
 
 
 def device_ms(fn, symbols, reps: int = 10):
@@ -225,7 +240,7 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
         say(f"(c){tag} profiler: no device time recorded; breakdown not "
             f"measured")
         return {"device": {name: None for name in groups}}
-    top = sorted(other.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:16]
     launches = (sum(counts.values()) + n_other) / rounds
     lines = [f"{rounds} rounds at O={origins.numel()}{tag}: wall "
              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
@@ -329,6 +344,42 @@ def issue_s(ops: dict, blocks: int) -> float:
     return blocks * per_sm_clock / SM_CLOCKS_PER_S
 
 
+def push_targets_bytes(args, outs) -> int:
+    """Bytes ``push_targets`` must move on these inputs: the three slot
+    planes and the origins in, the targets (and each mask that is on) out,
+    and the sides while the partition window is on."""
+    active, pruned, tfail, origins, side, _, partition = args[:7]
+    return (nbytes(active, pruned, tfail, origins, *outs)
+            + (nbytes(side) if partition else 0))
+
+
+def rotate_bytes(args, outs, rot_mod) -> int:
+    """Bytes ``rotate`` must move on these inputs: the three slot planes in
+    and out, each row's rotation uniform, the class tables, ``rot_failed``;
+    and for each row that rotates, its origin's and its own bucket, and the
+    uniform pair and ``perm`` entry of each try it takes (up to its first
+    new peer), and the new peer's ``failed`` byte."""
+    import torch
+    (active, pruned, tfail, failed, rot_u, u_all, origins, buckets, perm,
+     start, count, cdf, prob) = args
+    O, N, _ = active.shape
+    T = u_all.shape[1]
+    u = u_all.permute(0, 2, 1, 3)
+    members = rot_mod.sample_members_plain(buckets, origins, cdf, start,
+                                           count, u[..., 0], u[..., 1])
+    cands = perm[members.clamp(max=N - 1).long()]                 # [O, N, T]
+    iota = torch.arange(N, device=active.device)[None, :, None]
+    fresh = (cands != iota) & ~(active[:, :, None, :]
+                                == cands[..., None]).any(-1)
+    found = fresh.any(-1)
+    tries = torch.where(found, fresh.int().argmax(-1) + 1, T)
+    rot = rot_u < prob
+    per_row = (8 + 12 * tries + found.int()).masked_fill(~rot, 0)
+    return (nbytes(active, pruned, tfail, rot_u, origins, start, count, cdf,
+                   *outs)
+            + int(per_row.sum()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -350,6 +401,9 @@ def main() -> int:
     rank_mod = importlib.import_module(
         "gossip_sim_tpu_torch.kernels.rank_inbound")
     tf_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.threefry")
+    rot_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.rotate")
+    pt_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.push_targets")
 
     for mod in list(sys.modules):
         if mod == "jax" or mod == "gossip_sim_tpu" or mod.startswith(
@@ -372,6 +426,13 @@ def main() -> int:
     for name in names:
         for line in ptxas_summary(_build.BUILD_LOG[name]):
             say(f"(a) ptxas {line}")
+    table = re.search(r"rotate_kernel: \d+ registers, static shared memory "
+                      r"(\d+) B", "\n".join(ptxas_summary(
+                          _build.BUILD_LOG["rotate"])))
+    if not table or int(table.group(1)) != rot_mod.TABLE_BYTES:
+        fail(f"rotate_kernel's static shared memory per ptxas "
+             f"({table and table.group(1)} B) is not kernels/rotate.py "
+             f"TABLE_BYTES ({rot_mod.TABLE_BYTES} B)")
     sms, smem_limit = _build.sm_count(dev), _build.smem_optin(dev)
     for o in (1, O_KERNEL):
         g = bfs_mod.launch_geometry(o, N_FULL, sms, smem_limit)
@@ -391,6 +452,13 @@ def main() -> int:
             f"threads, {g.smem} B shared memory per CTA ({g.csr_cap} CSR "
             f"keys), counts in "
             f"{'device memory' if g.scratch_words else 'shared memory'}")
+    for s_, f_ in ((12, 6), (25, 6)):
+        pt_rows, pt_smem = pt_mod.launch_geometry(s_, f_, smem_limit)
+        rot_rows, rot_smem = rot_mod.launch_geometry(s_, smem_limit)
+        say(f"(a) push_targets at S={s_} F={f_}: {pt_rows} rows (threads) "
+            f"per block, {pt_smem} B shared memory per block; rotate at "
+            f"S={s_}: {rot_rows} rows per block, {rot_smem} B of staged rows "
+            f"+ {rot_mod.TABLE_BYTES} B of class tables")
     tf_ops = threefry_sass_ops(out_dir)
     say(f"(a) threefry SASS: {tf_ops['total']} integer instructions per "
         f"threefry block, {tf_ops['alu']} on the ALU pipe and "
@@ -406,46 +474,56 @@ def main() -> int:
     top = np.argsort(-stakes_np, kind="stable")[:O_KERNEL].astype(np.int32)
     origins = torch.as_tensor(top, device=dev)
     params = EngineParams(num_nodes=N_FULL, warm_up_rounds=0)
-    state = init_state(rng.prng_key(42, dev), tables, origins, params)
-    for it in range(19):
-        state, _ = round_step(params, tables, origins, state, it)
-    captured = {name: [] for name in names}
     real = {name: getattr(kernels, name) for name in names}
+    plain = {name: getattr(kernels, f"{name}_plain") for name in names}
 
-    def recorder(name):
-        def rec(*args, **kw):
-            captured[name].append((args, kw))
-            return real[name](*args, **kw)
-        return rec
+    def round19_calls(prm, orgs, which):
+        """Run rounds 0-18 of ``prm`` at origins ``orgs``; return round 19's
+        rows and the calls of the kernels ``which`` in it."""
+        st = init_state(rng.prng_key(42, dev), tables, orgs, prm)
+        for it in range(19):
+            st, _ = round_step(prm, tables, orgs, st, it)
+        calls = {name: [] for name in which}
 
-    for name in names:
-        setattr(kernels, name, recorder(name))
-    try:
-        state, rows19 = round_step(params, tables, origins, state, 19)
-    finally:
-        for name in names:
-            setattr(kernels, name, real[name])
-    torch.cuda.synchronize()
+        def recorder(name):
+            def rec(*args, **kw):
+                calls[name].append((args, kw))
+                return real[name](*args, **kw)
+            return rec
+
+        for name in which:
+            setattr(kernels, name, recorder(name))
+        try:
+            _, rows_ = round_step(prm, tables, orgs, st, 19)
+        finally:
+            for name in which:
+                setattr(kernels, name, real[name])
+        torch.cuda.synchronize()
+        return rows_, calls
+
+    def exact(name, args, kw, where):
+        """The kernel's output on ``args``, after holding it against the
+        plain version's (exit on any difference)."""
+        got = real[name](*args, **kw)
+        err = max_abs_err(got, plain[name](*args, **kw))
+        torch.cuda.synchronize()
+        if err != 0:
+            scalars = [a for a in args if not torch.is_tensor(a)]
+            fail(f"{where}: {name} differs from its plain version "
+                 f"(max_abs_err {err}; call arguments {scalars} {kw})")
+        return got
+
+    rows19, captured = round19_calls(params, origins, names)
     say(f"(b) round 19 at O={O_KERNEL} N={N_FULL}: prunes "
         f"{int(rows19['prunes_sent'].sum())}, rc_overflow "
         f"{int(rows19['rc_overflow'].sum())}, inb_dropped "
-        f"{int(rows19['inb_dropped'].sum())}")
+        f"{int(rows19['inb_dropped'].sum())}, rot_failed "
+        f"{int(rows19['rot_failed'].sum())}")
 
-    plain = {name: getattr(kernels, f"{name}_plain") for name in names}
     res = {}
     for name in names:
         calls = captured[name]
-        outs = []
-        for args, kw in calls:
-            got = real[name](*args, **kw)
-            want = plain[name](*args, **kw)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            if err != 0:
-                scalars = [a for a in args if not torch.is_tensor(a)]
-                fail(f"{name}: kernel differs from its plain version "
-                     f"(max_abs_err {err}; call arguments {scalars} {kw})")
-            outs.append(got)
+        outs = [exact(name, args, kw, "(b)") for args, kw in calls]
 
         def run_all(fn, calls=calls):
             for args, kw in calls:
@@ -477,6 +555,11 @@ def main() -> int:
               | r_hop1.long().repeat_interleave(F, dim=1))
     mp_args = captured["rc_merge_prune"][0][0]
     row_keys = torch.cat([mp_args[0], mp_args[5]], -1)
+    pt_args = captured["push_targets"][0][0]
+    S = pt_args[0].shape[-1]
+    slot_key = torch.where(pt_args[0] < N, torch.arange(
+        S, device=dev, dtype=torch.int32), S)
+    slot_sort_ms = cuda_ms(lambda: torch.sort(slot_key, dim=-1, stable=True))
     library = {
         "bfs_relax": (cuda_ms(bfs_library),
                       f"{hops} x scatter_reduce_ amax (one per hop)"),
@@ -486,6 +569,11 @@ def main() -> int:
                            "torch.sort of the [O, N, C+K] row keys"),
         "prune_apply": (None, "none"),
         "threefry": (None, "none: no PyTorch call computes JAX's threefry"),
+        "push_targets": (None, "none: no one PyTorch call takes the first F "
+                         "valid slots and gates them (the stable slot sort "
+                         f"it replaces alone: {slot_sort_ms:.4f} ms)"),
+        "rotate": (None, "none: no one PyTorch call draws, dedups and "
+                   "shifts in a stake-weighted peer"),
     }
     pa_args = captured["prune_apply"][0][0]
     tf_keys = sum(int(math.prod(a[0].shape[:-1]))
@@ -502,6 +590,10 @@ def main() -> int:
         "prune_apply": nbytes(*pa_args, res["prune_apply"]["out"]),
         # the keys read once (two words each) and every output written
         "threefry": 16 * tf_keys + nbytes(*res["threefry"]["outs"]),
+        "push_targets": push_targets_bytes(pt_args,
+                                           res["push_targets"]["out"]),
+        "rotate": rotate_bytes(captured["rotate"][0][0],
+                               res["rotate"]["out"], rot_mod),
     }
     int_ops = {name: 0 for name in names}
     int_ops["threefry"] = tf_blocks * tf_ops["total"]
@@ -523,7 +615,11 @@ def main() -> int:
     say(f"(b) threefry in round 19: {tf_keys} keys, {tf_blocks} threefry "
         f"blocks x {tf_ops['total']} instructions ({tf_ops['alu']} ALU, "
         f"{tf_ops['fma']} FMA)")
-    del captured, state, packed, row_keys, hop_idx, hop_val, hop_out
+    rot_args = captured["rotate"][0][0]
+    say(f"(b) rotate in round 19: "
+        f"{int((rot_args[4] < rot_args[-1]).sum())} of {O * N} rows rotate")
+    del captured, packed, row_keys, hop_idx, hop_val, hop_out, slot_key
+    del pt_args, rot_args
     for r in res.values():
         del r["out"], r["outs"]
     torch.cuda.empty_cache()
@@ -531,56 +627,24 @@ def main() -> int:
     # rc_slots = 128 with the default k_inbound: a row of C + K = 144
     wide = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, rc_slots=128)
     wide_o = origins[:8]
-    state = init_state(rng.prng_key(42, dev), tables, wide_o, wide)
-    for it in range(19):
-        state, _ = round_step(wide, tables, wide_o, state, it)
-    wide_in = {}
-
-    def wide_rec(*args, **kw):
-        wide_in["mp"] = (args, kw)
-        return real["rc_merge_prune"](*args, **kw)
-
-    kernels.rc_merge_prune = wide_rec
-    try:
-        state, rows_w = round_step(wide, tables, wide_o, state, 19)
-    finally:
-        kernels.rc_merge_prune = real["rc_merge_prune"]
-    args, kw = wide_in["mp"]
-    err = max_abs_err(real["rc_merge_prune"](*args, **kw),
-                      plain["rc_merge_prune"](*args, **kw))
-    torch.cuda.synchronize()
-    if err != 0 or args[0].shape[-1] + args[5].shape[-1] != 144:
-        fail(f"(b) rc_slots=128: rc_merge_prune differs from its plain "
-             f"version (max_abs_err {err}) or the row is not 144 wide")
+    rows_w, calls = round19_calls(wide, wide_o, ["rc_merge_prune"])
+    args, kw = calls["rc_merge_prune"][0]
+    exact("rc_merge_prune", args, kw, "(b) rc_slots=128")
+    if args[0].shape[-1] + args[5].shape[-1] != 144:
+        fail("(b) rc_slots=128: the row is not 144 wide")
     say(f"(b) rc_slots=128 K=16 (row 144) at O={wide_o.numel()} N={N_FULL}, "
         f"round 19: rc_merge_prune exact vs plain; kernel "
         f"{cuda_ms(lambda: real['rc_merge_prune'](*args, **kw)):.4f} ms; "
         f"prunes {int(rows_w['prunes_sent'].sum())}")
-    del state, wide_in, args, rows_w
+    del calls, args, rows_w
 
     # inbound_cap = 128: past the former 64-entry limit of rank_inbound
     wide = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, inbound_cap=128)
-    state = init_state(rng.prng_key(42, dev), tables, wide_o, wide)
-    for it in range(19):
-        state, _ = round_step(wide, tables, wide_o, state, it)
-    wide_in = {}
-
-    def wide_rank(*args, **kw):
-        wide_in["ri"] = (args, kw)
-        return real["rank_inbound"](*args, **kw)
-
-    kernels.rank_inbound = wide_rank
-    try:
-        state, rows_w = round_step(wide, tables, wide_o, state, 19)
-    finally:
-        kernels.rank_inbound = real["rank_inbound"]
-    args, kw = wide_in["ri"]
-    got = real["rank_inbound"](*args, **kw)
-    err = max_abs_err(got, plain["rank_inbound"](*args, **kw))
-    torch.cuda.synchronize()
-    if err != 0 or args[4] != 128:
-        fail(f"(b) inbound_cap=128: rank_inbound differs from its plain "
-             f"version (max_abs_err {err}) or K is not 128")
+    _, calls = round19_calls(wide, wide_o, ["rank_inbound"])
+    args, kw = calls["rank_inbound"][0]
+    got = exact("rank_inbound", args, kw, "(b) inbound_cap=128")
+    if args[4] != 128:
+        fail("(b) inbound_cap=128: K is not 128")
     g = rank_mod.launch_geometry(wide_o.numel(), N_FULL, 128, sms,
                                  smem_limit, rank_mod.max_clusters)
     say(f"(b) inbound_cap=128 at O={wide_o.numel()} N={N_FULL}, round 19: "
@@ -588,7 +652,27 @@ def main() -> int:
         f"{cuda_ms(lambda: real['rank_inbound'](*args, **kw)):.4f} ms "
         f"({g.threads} threads, {g.smem} B shared memory per CTA); largest "
         f"ingress {int(got[1].max())}, dropped {int(got[2].sum())}")
-    del state, wide_in, args, rows_w, got
+    del calls, args, got
+
+    # loss + partition + churn: push_targets' suppression and loss masks
+    impaired = EngineParams(
+        num_nodes=N_FULL, warm_up_rounds=0, packet_loss_rate=0.1,
+        churn_fail_rate=0.01, churn_recover_rate=0.2, partition_at=10,
+        heal_at=30, impair_seed=7)
+    rows_i, calls = round19_calls(impaired, origins,
+                                  ["push_targets", "rotate"])
+    args, kw = calls["push_targets"][0]
+    _, sup, drop = exact("push_targets", args, kw, "(b) impaired")
+    exact("rotate", *calls["rotate"][0], "(b) impaired")
+    if not (bool(sup.any()) and bool(drop.any())):
+        fail("(b) impaired round: no edge was suppressed or dropped")
+    say(f"(b) loss 0.1 + partition + churn at O={O_KERNEL} N={N_FULL}, "
+        f"round 19: push_targets (masks on) and rotate exact vs plain; "
+        f"push_targets kernel "
+        f"{cuda_ms(lambda: real['push_targets'](*args, **kw)):.4f} ms; "
+        f"suppressed {int(sup.sum())}, dropped {int(drop.sum())}, failed "
+        f"nodes {int(rows_i['failed_count'].sum())}")
+    del calls, args, sup, drop, rows_i
     torch.cuda.empty_cache()
 
     # ---- (c) engine, 50 rounds at O=32, N=10,000 -------------------------
@@ -617,19 +701,26 @@ def main() -> int:
     engine_prof = profile_rounds(run_rounds, params, tables, origins,
                                  state, out_dir)
     engine_device = engine_prof["device"]
-    # the same rounds with the draws in plain PyTorch on the card, as the
-    # port made them before the threefry kernel (a comparison only)
-    kernels.threefry = kernels.threefry_plain
-    try:
-        plain_prof = profile_rounds(run_rounds, params, tables, origins,
-                                    state, out_dir, tag=" plain draws")
-    finally:
-        kernels.threefry = real["threefry"]
-    if "busy_ms" in engine_prof and "busy_ms" in plain_prof:
-        say(f"(c) device busy per round {engine_prof['busy_ms']:.4f} ms with "
-            f"the threefry kernel, {plain_prof['busy_ms']:.4f} ms with the "
-            f"plain draws; launches per round {engine_prof['launches']:.1f} "
-            f"against {plain_prof['launches']:.1f}")
+    # the same rounds with kernels routed to their plain versions on the
+    # card, as the port made those blocks before the kernels (comparisons
+    # only): the draws (threefry), and verbs 1 and 5
+    for tag, swap in ((" plain draws", ("threefry",)),
+                      (" plain verbs 1 and 5", ("push_targets", "rotate"))):
+        for name in swap:
+            setattr(kernels, name, plain[name])
+        try:
+            other = profile_rounds(run_rounds, params, tables, origins,
+                                   state, out_dir, tag=tag)
+        finally:
+            for name in swap:
+                setattr(kernels, name, real[name])
+        if "busy_ms" in engine_prof and "busy_ms" in other:
+            say(f"(c) device busy per round {engine_prof['busy_ms']:.4f} ms "
+                f"with the kernels, {other['busy_ms']:.4f} ms with the"
+                f"{tag}; launches per round {engine_prof['launches']:.1f} "
+                f"against {other['launches']:.1f}; wall per round "
+                f"{engine_prof['wall_ms']:.3f} against "
+                f"{other['wall_ms']:.3f} ms")
     del state, rows
     torch.cuda.empty_cache()
 
@@ -719,6 +810,31 @@ def main() -> int:
         fail(f"(d) implausible means: coverage {cov_mean}, rmr {rmr_mean}")
     say(f"(d) CLI {' '.join(argv)}: wall {cli_s:.3f} s, coverage mean "
         f"{cov_mean:.6f}, RMR mean {rmr_mean:.6f}, launches {launches}")
+    # the same CLI run in turns with verbs 1 and 5 in their plain versions
+    # (as the port made them before their kernels; a comparison only):
+    # plain, kernels, plain, after the run above
+    walls = {"kernels": [cli_s], "plain verbs 1 and 5": []}
+    for what in ("plain verbs 1 and 5", "kernels", "plain verbs 1 and 5"):
+        swap = ("push_targets", "rotate") if what != "kernels" else ()
+        for name in swap:
+            setattr(kernels, name, plain[name])
+        try:
+            reset_unique_pubkeys()
+            t0 = time.perf_counter()
+            c = cli.simulate(cli.config_from_args(
+                cli.build_parser().parse_args(argv)))
+            torch.cuda.synchronize()
+            walls[what].append(time.perf_counter() - t0)
+        finally:
+            for name in swap:
+                setattr(kernels, name, real[name])
+        st = c.collection[0]
+        if (st.coverage_stats.mean, st.rmr_stats.mean) != (cov_mean,
+                                                           rmr_mean):
+            fail(f"(d) the CLI run with {what} gave other means")
+    say("(d) CLI wall in turns: " + "; ".join(
+        f"{k} " + ", ".join(f"{w:.3f}" for w in v) + " s"
+        for k, v in walls.items()))
     # parts of the main path timed alone, after it: the host-side cluster
     # build, and the engine's 300 rounds for one origin without the harvest
     reset_unique_pubkeys()

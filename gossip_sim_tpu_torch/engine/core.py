@@ -2,22 +2,26 @@
 
 The port of the reference engine's ``engine/core.py``: same state layout,
 same per-round semantics, and bit-exact results under the same stakes, seed
-and knobs.  The round's four cross-node blocks run through the hand-written
-kernels of :mod:`gossip_sim_tpu_torch.kernels` (CUDA tensors) or their plain
-versions (CPU tensors):
+and knobs.  The round's blocks run through the hand-written kernels of
+:mod:`gossip_sim_tpu_torch.kernels` (CUDA tensors) or their plain versions
+(CPU tensors):
 
+* verb 1 push targets with the fault gates and the
+  packet-loss hash (gossip.rs:494-615)            -> ``push_targets``
 * BFS frontier relaxation (gossip.rs:494-615)     -> ``bfs_relax``
 * inbound ranking, verb 2 (gossip.rs:618-653)     -> ``rank_inbound``
 * received-cache merge + prune decide, verb 3
   (received_cache.rs:38-131)                      -> ``rc_merge_prune``
 * prune application, verb 4
   (push_active_set.rs:56-71)                      -> ``prune_apply``
+* rotation with its stake-weighted sampler, verb 5
+  (gossip.rs:739-754; push_active_set.rs:153-186) -> ``rotate``
 
-Everything else is row-local over the S, T or F slots of a node, or
-elementwise, and stays plain PyTorch: the threefry draws (``rng``), the
-fault gates, verb 1 slot compaction, verb 5 rotation sampling and the round
-statistics.  The reference's sort-join ``_lookup`` computes exactly
-``table[queries]`` and is a gather here.
+and every threefry draw goes to the ``threefry`` kernel (``rng``).  What
+stays plain PyTorch is elementwise or a reduction: the fault events, the
+round statistics and ``init_state``'s draw loop.  The reference's
+sort-join ``_lookup`` computes exactly ``table[queries]`` and is a gather
+here.
 
 Float rows follow the reference's type promotion with 64-bit types on:
 ``hop_mean``/``hop_median`` divide int64 sums in float64 and cast to
@@ -35,9 +39,8 @@ import torch
 
 from .. import kernels as K
 from .. import rng
-from ..faults import (SALT_CHURN, SALT_EDGE, edge_u32_t, node_u32_t,
-                      partition_active, rate_threshold, round_basis,
-                      stake_bipartition)
+from ..faults import (SALT_CHURN, SALT_EDGE, node_u32_t, partition_active,
+                      rate_threshold, round_basis, stake_bipartition)
 from ..identity import stake_buckets_array
 from .params import EngineParams
 from .sampler import SamplerTables, build_sampler_tables, sample_members
@@ -115,7 +118,8 @@ def make_cluster_tables(stakes_lamports: np.ndarray,
         raise ValueError("stakes must be in [0, 2^62)")
     buckets = stake_buckets_array(stakes.astype(np.uint64)).astype(np.int32)
     padded = np.concatenate([stakes, [0]])
-    side = np.concatenate([stake_bipartition(stakes).astype(np.int32), [0]])
+    side = np.concatenate([stake_bipartition(stakes),
+                           [False]]).astype(np.int32)
     n = stakes.shape[0]
     order = np.argsort(stakes, kind="stable")
     rank = np.empty(n, dtype=np.int64)
@@ -217,7 +221,6 @@ def round_step(params: EngineParams, tables: ClusterTables,
     origins = origins.to(device=dev, dtype=torch.int32)
     O = int(origins.shape[0])
     i32 = torch.int32
-    iota_n = torch.arange(N, device=dev, dtype=i32)[None, :]
 
     kr = rng.fold_in(state.key, it)
     subs = rng.split(kr, p.rot_tries + 2)                         # [O, T+2, 2]
@@ -244,31 +247,15 @@ def round_step(params: EngineParams, tables: ClusterTables,
         failed = torch.where(failed, ~rec_ev[None, :], fail_ev[None, :])
         tfail = _lookup_rows(failed, state.active) & (state.active < N)
 
-    # ---- verb 1: push targets (gossip.rs:494-615) ------------------------
+    # ---- verb 1: push targets (kernel; gossip.rs:494-615) ---------------
     peer = state.active
-    is_peer = peer < N
-    # bloom-contains(origin) == pruned bit OR peer == origin
-    valid = is_peer & ~state.pruned & (peer != origins[:, None, None])
-    # first F valid slots; failed targets consume a slot but receive nothing
-    skey = torch.where(valid, torch.arange(S, device=dev, dtype=i32), S)
-    order = torch.sort(skey, dim=-1, stable=True).indices[..., :F]
-    slot_ok = skey.gather(-1, order) < S
-    peerF = peer.gather(-1, order)
-    deliver_ok = slot_ok & ~tfail.gather(-1, order)               # [O, N, F]
-    sup_mask = drop_mask = None
-    if p.has_partition:
-        part_on = partition_active(it, int(kn.partition_at), int(kn.heal_at))
-        side_dst = tables.side[peerF.clamp(max=N).long()]
-        sup_mask = (deliver_ok & (tables.side[:N][None, :, None] != side_dst)
-                    if part_on else torch.zeros_like(deliver_ok))
-        deliver_ok = deliver_ok & ~sup_mask
-    if p.has_loss:
-        basis_e = round_basis(int(kn.impair_seed), it, SALT_EDGE)
-        ue = edge_u32_t(basis_e, iota_n[:, :, None], peerF)
-        drop_mask = deliver_ok & (
-            ue < rate_threshold(float(kn.packet_loss_rate)))
-        deliver_ok = deliver_ok & ~drop_mask
-    tgt = torch.where(deliver_ok, peerF, N).to(i32).contiguous()  # [O, N, F]
+    partition = (partition_active(it, int(kn.partition_at), int(kn.heal_at))
+                 if p.has_partition else None)
+    loss = ((round_basis(int(kn.impair_seed), it, SALT_EDGE),
+             rate_threshold(float(kn.packet_loss_rate)))
+            if p.has_loss else None)
+    tgt, sup_mask, drop_mask = K.push_targets(
+        peer, state.pruned, tfail, origins, tables.side, F, partition, loss)
 
     # ---- BFS frontier relaxation (kernel) --------------------------------
     reached, dist = K.bfs_relax(tgt, origins)
@@ -302,42 +289,15 @@ def round_step(params: EngineParams, tables: ClusterTables,
     pruned_bits = K.prune_apply(state.pruned, peer, mp.src_sorted,
                                 mp.pruned_slot)
 
-    # ---- verb 5: rotate (gossip.rs:739-754; push_active_set.rs:153-186) --
+    # ---- verb 5: rotate (kernel; gossip.rs:739-754;
+    # push_active_set.rs:153-186) -----------------------------------------
     rot_u = rng.uniform(subs[:, 1], (N,))                         # [O, N]
-    rotate = rot_u < float(np.float32(kn.probability_of_rotation))
-    T = p.rot_tries
-    u_all = rng.uniform(subs[:, 2:2 + T], (N, 2)).permute(0, 2, 1, 3)
-    members = sample_members(tables.sampler, tables.buckets, origins,
-                             u_all[..., 0], u_all[..., 1])        # [O, N, T]
-    cands = tables.sampler.perm[members.clamp(max=N - 1).long()]
-
-    chosen = torch.full((O, N), N, dtype=i32, device=dev)
-    found_new = torch.zeros((O, N), dtype=torch.bool, device=dev)
-    for t in range(T):
-        cand = cands[..., t]
-        ok = (cand != iota_n) & ~(peer == cand[..., None]).any(-1)
-        chosen = torch.where(ok & ~found_new, cand, chosen)
-        found_new = found_new | ok
-    do_rot = rotate & found_new
-    rot_failed = (rotate & ~found_new).sum(-1, dtype=i32)
-    chosen_failed = _lookup_rows(failed, chosen)
-
-    mcnt = is_peer.sum(-1, dtype=i32)
-    full_row = (mcnt >= S)[..., None]
-    shift_act = torch.cat([peer[..., 1:], chosen[..., None]], -1)
-    shift_prn = torch.cat([pruned_bits[..., 1:],
-                           torch.zeros_like(pruned_bits[..., :1])], -1)
-    shift_tf = torch.cat([tfail[..., 1:], chosen_failed[..., None]], -1)
-    slot_oh = (torch.arange(S, device=dev)[None, None, :]
-               == torch.clamp(mcnt, max=S - 1)[..., None]) & ~full_row
-    append_act = torch.where(slot_oh, chosen[..., None], peer)
-    append_tf = torch.where(slot_oh, chosen_failed[..., None], tfail)
-    rot3 = do_rot[..., None]
-    new_active = torch.where(rot3, torch.where(full_row, shift_act,
-                                               append_act), peer)
-    new_pruned = torch.where(rot3 & full_row, shift_prn, pruned_bits)
-    new_tfail = torch.where(rot3, torch.where(full_row, shift_tf, append_tf),
-                            tfail)
+    u_all = rng.uniform(subs[:, 2:2 + p.rot_tries], (N, 2))       # [O,T,N,2]
+    sm = tables.sampler
+    new_active, new_pruned, new_tfail, rot_failed = K.rotate(
+        peer, pruned_bits, tfail, failed, rot_u, u_all, origins,
+        tables.buckets, sm.perm, sm.class_start, sm.class_count,
+        sm.class_cdf, float(np.float32(kn.probability_of_rotation)))
 
     # ---- statistics (gossip_stats.rs) -------------------------------------
     f64 = torch.float64
@@ -374,8 +334,8 @@ def round_step(params: EngineParams, tables: ClusterTables,
 
     g = 1 if it >= int(kn.warm_up_rounds) else 0
     new_state = SimState(
-        key=state.key, active=new_active.contiguous(),
-        pruned=new_pruned.contiguous(), tfail=new_tfail.contiguous(),
+        key=state.key, active=new_active, pruned=new_pruned,
+        tfail=new_tfail,
         rc_src=mp.rc_src, rc_score=mp.rc_score, rc_shi=mp.rc_shi,
         rc_slo=mp.rc_slo, rc_upserts=mp.rc_upserts, failed=failed,
         egress_acc=state.egress_acc + g * deg_out,

@@ -12,7 +12,9 @@ factorizes exactly:
   3. map through the bucket-sorted permutation back to the node id.
 
 The tables are built on the host with numpy (stakes are static) and moved
-to the engine's device once.
+to the engine's device once.  The draw itself is the ``rotate`` kernel's
+sampler (``kernels/rotate.py``); :func:`sample_members` runs its plain
+version for ``init_state``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..constants import NUM_PUSH_ACTIVE_SET_ENTRIES
+from ..kernels.rotate import sample_members_plain
 
 NB = NUM_PUSH_ACTIVE_SET_ENTRIES  # 25
 
@@ -34,7 +37,6 @@ class SamplerTables(NamedTuple):
     class_start: torch.Tensor   # [NB] i32 offset of each bucket class in perm
     class_count: torch.Tensor   # [NB] i32 nodes per bucket class
     class_cdf: torch.Tensor     # [NB, NB] f32 normalized inclusive CDF per k
-    cdf_own: torch.Tensor       # [N, NB] f32 == class_cdf[bucket(n)]
 
 
 def build_sampler_tables(buckets: np.ndarray, device) -> SamplerTables:
@@ -56,28 +58,15 @@ def build_sampler_tables(buckets: np.ndarray, device) -> SamplerTables:
     cdf[:, -1] = 1.0
     t = lambda a: torch.as_tensor(a, device=device)
     return SamplerTables(perm=t(perm), class_start=t(class_start),
-                         class_count=t(class_count), class_cdf=t(cdf),
-                         cdf_own=t(cdf[buckets]))
+                         class_count=t(class_count), class_cdf=t(cdf))
 
 
 def sample_members(tables: SamplerTables, buckets: torch.Tensor,
                    origins: torch.Tensor, u_class: torch.Tensor,
                    u_member: torch.Tensor) -> torch.Tensor:
-    """Weighted draw for entry ``k = min(bucket(n), bucket(o))``.
-
-    ``u_class``/``u_member``: [O, N, T] f32 uniforms.  Returns class-member
-    positions [O, N, T] i32 in bucket-sorted space (``perm[pos]`` is the
-    node id).  The CDF row is ``cdf_own[n]`` when ``b_n <= b_o`` and the
-    origin's row otherwise, exactly as the reference's ``_sample_fast``
-    selects it."""
-    b_o = buckets[origins.long()]                                 # [O]
-    cdf_org = tables.class_cdf[b_o.long()]                        # [O, NB]
-    own = (buckets[None, :] <= b_o[:, None])[..., None, None]     # [O,N,1,1]
-    cdf = torch.where(own, tables.cdf_own[None, :, None, :],
-                      cdf_org[:, None, None, :])                  # [O,N,1,NB]
-    cls = (u_class[..., None] >= cdf[..., :-1]).sum(-1)           # [O, N, T]
-    start = tables.class_start[cls]
-    count = tables.class_count[cls]
-    member = start + torch.floor(
-        u_member * count.to(torch.float32)).to(torch.int32)
-    return torch.minimum(member, start + torch.clamp(count - 1, min=0))
+    """Weighted draw for entry ``k = min(bucket(n), bucket(o))``:
+    class-member positions [O, N, T] i32 for [O, N, T] f32 uniforms
+    (``kernels.rotate.sample_members_plain``)."""
+    return sample_members_plain(buckets, origins, tables.class_cdf,
+                                tables.class_start, tables.class_count,
+                                u_class, u_member)

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface and loaded with ``ctypes``.  The
 libraries go to ``build/kernels/<hash>/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of every source and the compiler flags, so
-a fresh checkout builds them at first use and a changed source rebuilds.
+``.gitignore``), keyed by a hash of every file in ``csrc/`` (sources and
+the headers they include) and the compiler flags, so a fresh checkout
+builds them at first use and a changed file rebuilds.
 All sources compile in parallel: one ``nvcc`` process each, started
 together.
 
@@ -29,7 +30,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
-                "threefry")
+                "threefry", "push_targets", "rotate")
+#: Rows (threads) per block of the kernels that give a thread to each row.
+ROWS_PER_BLOCK = 128
 
 #: Kernel launches per wrapper since the last reset.  A wrapper adds one
 #: where it launches its kernel on the card, and nowhere else.
@@ -56,9 +59,9 @@ def _nvcc() -> str:
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in KERNEL_NAMES:
-        h.update(name.encode())
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -116,6 +119,19 @@ def smem_optin(device: torch.device) -> int:
     """Bytes of shared memory one block of a CUDA device may opt in to."""
     props = torch.cuda.get_device_properties(device)
     return props.shared_memory_per_block_optin
+
+
+def row_blocks(name: str, row_bytes: int, smem_limit: int) -> tuple[int, int]:
+    """Rows per block and the block's shared memory for a kernel that stages
+    ``row_bytes`` of shared memory per row: ``ROWS_PER_BLOCK`` rows, fewer
+    where they would pass ``smem_limit`` bytes; raises where one row does
+    not fit."""
+    if row_bytes > smem_limit:
+        raise ValueError(f"{name}: a row needs {row_bytes} bytes of shared "
+                         f"memory, more than the {smem_limit} bytes of one "
+                         f"block")
+    rows = min(ROWS_PER_BLOCK, smem_limit // max(row_bytes, 1))
+    return rows, rows * row_bytes
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

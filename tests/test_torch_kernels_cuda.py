@@ -19,6 +19,8 @@ import torch
 from gossip_sim_tpu_torch import kernels, rng
 from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
                                          make_cluster_tables, run_rounds)
+from gossip_sim_tpu_torch.engine.sampler import build_sampler_tables
+from gossip_sim_tpu_torch.faults import rate_threshold
 
 bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
 rank_mod = importlib.import_module(
@@ -28,7 +30,7 @@ tf_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.threefry")
 pytestmark = pytest.mark.cuda
 
 NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
-         "threefry")
+         "threefry", "push_targets", "rotate")
 CONFIGS = {
     # full rotation + tiny insert cap: caches overflow and rows prune
     # more than 8 peers at round 19
@@ -67,7 +69,10 @@ def cuda():
 
 
 def _outputs(x):
-    return tuple(x) if isinstance(x, tuple) else (x,)
+    """The output tensors of a kernel call (a gate's mask that is off is
+    None in both versions, and left out)."""
+    outs = tuple(x) if isinstance(x, tuple) else (x,)
+    return tuple(t for t in outs if t is not None)
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
@@ -101,9 +106,7 @@ def test_kernels_equal_plain_on_engine_rounds(cuda, config):
     for name in NAMES:
         plain = getattr(kernels, f"{name}_plain")
         for args, kw in calls[name]:
-            got, want = real[name](*args, **kw), plain(*args, **kw)
-            for g, w in zip(_outputs(got), _outputs(want)):
-                assert g.dtype == w.dtype and torch.equal(g, w), name
+            _assert_equal(real[name](*args, **kw), plain(*args, **kw), name)
     if config == "overflow":
         assert int(rows["rc_overflow"].sum()) > 0
     if config == "truncated":
@@ -127,7 +130,9 @@ def test_wrappers_check_their_inputs(cuda):
 
 
 def _assert_equal(got, want, what):
-    for g, w in zip(_outputs(got), _outputs(want)):
+    got, want = _outputs(got), _outputs(want)
+    assert len(got) == len(want), what
+    for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, what
         assert torch.equal(g, w), what
 
@@ -524,3 +529,126 @@ def test_rank_inbound_is_one_launch_per_call(cuda):
     names = _device_kernels(
         lambda: kernels.threefry(keys[:, 2:6], "uniform", 1000, True))
     assert len(names) == 1 and "threefry_kernel" in names[0], names
+
+
+# Defined here, right after the first profiler test: with torch 2.11 on an
+# H100, a process's torch.profiler sessions stopped recording device events
+# some 45 s after its first session, and the large-shape tests below take
+# longer than that.
+def test_verb_kernels_are_one_launch_and_a_memset(cuda):
+    r = np.random.default_rng(9)
+    active, pruned, tfail, origins = _active_rows(r, 4, 3000, 12, cuda)
+    side = torch.zeros(3001, dtype=torch.int32, device=cuda)
+    names = _device_kernels(lambda: kernels.push_targets(
+        active, pruned, tfail, origins, side, 6, True, (5, 1 << 31)))
+    assert len(names) == 1 and "push_targets_kernel" in names[0], names
+    args = _rotate_inputs(r, 4, 3000, 12, 8, cuda)
+    names = _device_kernels(lambda: kernels.rotate(*args, 0.5))
+    assert len(names) == 2, names
+    assert any("memset" in name.lower() for name in names), names
+    assert any("rotate_kernel" in name for name in names), names
+
+
+def _active_rows(r, o, n, s, cuda):
+    """Seeded active-set rows of any content the kernels take: peers
+    (repeats and the node itself included), a tenth of the slots empty
+    (N), the origin in some rows, a fifth of the slots pruned and a tenth
+    failed."""
+    origins = r.choice(n, size=o, replace=o > n).astype(np.int32)
+    active = r.integers(0, n, size=(o, n, s)).astype(np.int32)
+    active[r.random((o, n, s)) < 0.1] = n
+    at_origin = r.random((o, n, s)) < 0.02
+    active[at_origin] = np.broadcast_to(origins[:, None, None],
+                                        active.shape)[at_origin]
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    return (t(active), t(r.random((o, n, s)) < 0.2),
+            t(r.random((o, n, s)) < 0.1), t(origins))
+
+
+VERB_SHAPES = [(1, 10_000), (32, 10_000), (1, 100_000), (32, 100_000)]
+#: (partition window, loss rate): None = the gate is off
+PUSH_GATES = {"none": (None, None), "partition_loss": (True, 0.3),
+              "window_off_loss_all": (False, 1.0),
+              "partition_only": (True, None)}
+
+
+@pytest.mark.parametrize("gates", list(PUSH_GATES))
+@pytest.mark.parametrize("o,n", VERB_SHAPES)
+def test_push_targets_equals_plain(cuda, o, n, gates):
+    r = np.random.default_rng(o * 7 + n)
+    active, pruned, tfail, origins = _active_rows(r, o, n, 12, cuda)
+    side = torch.as_tensor(r.integers(0, 2, size=n + 1).astype(np.int32),
+                           device=cuda)
+    partition, rate = PUSH_GATES[gates]
+    loss = None if rate is None else (0x9E3779B1 + n, rate_threshold(rate))
+    kernels.reset_launch_counts()
+    got = kernels.push_targets(active, pruned, tfail, origins, side, 6,
+                               partition, loss)
+    assert kernels.LAUNCHES["push_targets"] == 1
+    want = kernels.push_targets_plain(active, pruned, tfail, origins, side,
+                                      6, partition, loss)
+    _assert_equal(got, want, gates)
+    tgt, sup, drop = got
+    assert (sup is None) == (partition is None)
+    assert (drop is None) == (loss is None)
+    if gates == "window_off_loss_all":
+        assert not bool((tgt < n).any()) and bool(drop.any())
+        assert not bool(sup.any())
+    if gates == "partition_loss":
+        assert bool(sup.any()) and bool(drop.any()) and bool((tgt < n).any())
+
+
+#: (S, T, rotation probability)
+ROTATE_CASES = {"s12_t8_p1": (12, 8, 1.0), "s25_t1_p1": (25, 1, 1.0),
+                "s12_t8_p0": (12, 8, 0.0), "s25_t8_half": (25, 8, 0.5)}
+
+
+def _rotate_inputs(r, o, n, s, t, cuda):
+    active, pruned, tfail, origins = _active_rows(r, o, n, s, cuda)
+    buckets = r.integers(0, 25, size=n).astype(np.int32)
+    sm = build_sampler_tables(buckets, cuda)
+    u_all = r.random((o, t, n, 2), dtype=np.float32)
+    # class uniforms at a CDF boundary of the row's entry, and member
+    # uniforms one ulp below 1.0
+    org = origins.cpu().numpy()
+    k = np.minimum(buckets[None, :], buckets[org][:, None])       # [O, N]
+    cdf = sm.class_cdf.cpu().numpy()[k]                           # [O,N,25]
+    pick = r.integers(0, 24, size=(o, t, n))
+    at_bound = np.take_along_axis(cdf[:, None], pick[..., None], -1)[..., 0]
+    hit = r.random((o, t, n)) < 0.2
+    u_all[..., 0][hit] = at_bound[hit]
+    u_all[..., 1][r.random((o, t, n)) < 0.1] = np.nextafter(
+        np.float32(1), np.float32(0))
+    dev = lambda a: torch.as_tensor(a, device=cuda)
+    failed = dev(r.random((o, n)) < 0.2)
+    rot_u = dev(r.random((o, n), dtype=np.float32))
+    return (active, pruned, tfail, failed, rot_u, dev(u_all), origins,
+            dev(buckets), sm.perm, sm.class_start, sm.class_count,
+            sm.class_cdf)
+
+
+@pytest.mark.parametrize("case", list(ROTATE_CASES))
+@pytest.mark.parametrize("o,n", VERB_SHAPES)
+def test_rotate_equals_plain(cuda, o, n, case):
+    s, t, prob = ROTATE_CASES[case]
+    args = _rotate_inputs(np.random.default_rng(o + n + s + t), o, n, s, t,
+                          cuda)
+    kernels.reset_launch_counts()
+    got = kernels.rotate(*args, prob)
+    assert kernels.LAUNCHES["rotate"] == 1
+    _assert_equal(got, kernels.rotate_plain(*args, prob), case)
+    moved = int((got[0] != args[0]).any(-1).sum())
+    assert moved == 0 if prob == 0.0 else moved > 0
+
+
+def test_rotate_counts_rows_with_no_new_peer(cuda):
+    """N = 16 and S = 12: rows full of 12 of the 15 other nodes often find
+    no new peer in their tries, so ``rot_failed`` counts them."""
+    args = _rotate_inputs(np.random.default_rng(5), 3, 16, 12, 8, cuda)
+    r = np.random.default_rng(6)
+    rows = np.stack([np.stack([r.permutation(np.delete(np.arange(16), v))[:12]
+                               for v in range(16)]) for _ in range(3)])
+    args = (torch.as_tensor(rows.astype(np.int32), device=cuda),) + args[1:]
+    got = kernels.rotate(*args, 1.0)
+    _assert_equal(got, kernels.rotate_plain(*args, 1.0), "n16")
+    assert int(got[3].sum()) > 0

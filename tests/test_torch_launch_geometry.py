@@ -13,7 +13,10 @@
   any N and any K the engine takes run) and the room for CSR keys;
 * the precondition of the ``rc_merge_prune`` kernel: every received-cache
   row the engine carries holds its members sorted ascending and unique,
-  then N.
+  then N;
+* ``push_targets`` and ``rotate`` (a thread per row, the block's rows
+  staged in shared memory): 128 rows per block, fewer for wide rows, down
+  to one, and a raise, in bytes, past one block's shared memory.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_cuda.py).
 """
@@ -31,6 +34,8 @@ from gossip_sim_tpu_torch.engine.params import EngineParams
 bfs = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
 mp = importlib.import_module("gossip_sim_tpu_torch.kernels.rc_merge_prune")
 ri = importlib.import_module("gossip_sim_tpu_torch.kernels.rank_inbound")
+pt = importlib.import_module("gossip_sim_tpu_torch.kernels.push_targets")
+rot = importlib.import_module("gossip_sim_tpu_torch.kernels.rotate")
 
 # an H100 SXM: streaming multiprocessors, opt-in shared memory per block
 SMS, SMEM_PER_BLOCK = 132, 232_448
@@ -235,3 +240,28 @@ def test_rank_geometry_k_limit_is_shared_memory():
 ])
 def test_rank_geometry_of_the_main_shapes(o, n, k, want):
     assert tuple(ri.launch_geometry(o, n, k, SMS, SMEM_PER_BLOCK)) == want
+
+
+@pytest.mark.parametrize("s,f", [(12, 6), (25, 6), (1, 1), (64, 64)])
+def test_row_kernels_stage_128_rows_of_the_engine_widths(s, f):
+    assert pt.launch_geometry(s, f, SMEM_PER_BLOCK) == (128, 128 * (6 * s
+                                                                    + 6 * f))
+    assert rot.launch_geometry(s, SMEM_PER_BLOCK) == (128, 128 * 6 * s)
+
+
+@pytest.mark.parametrize("kernel", ["push_targets", "rotate"])
+def test_row_kernels_take_wide_rows_down_to_one_per_block(kernel):
+    if kernel == "push_targets":
+        geo = lambda s: pt.launch_geometry(s, 6, SMEM_PER_BLOCK)
+        room, per_slot, fixed = SMEM_PER_BLOCK, 6, 36
+    else:
+        geo = lambda s: rot.launch_geometry(s, SMEM_PER_BLOCK)
+        room, per_slot, fixed = SMEM_PER_BLOCK - rot.TABLE_BYTES, 6, 0
+    assert rot.TABLE_BYTES == 2704     # 2,700 B of tables, 16-byte padded
+    rows, smem = geo(1000)
+    assert rows == room // (6000 + fixed) < 128
+    assert smem == rows * (6000 + fixed) <= room
+    widest = (room - fixed) // per_slot
+    assert geo(widest) == (1, widest * per_slot + fixed)
+    with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
+        geo(widest + 1)
