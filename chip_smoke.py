@@ -9,36 +9,45 @@ Phases (any failure exits non-zero before the final line):
 
   (a) build the seven CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
       nvcc for sm_90a (one nvcc per source, in parallel); print each
-      kernel's registers, shared memory and spills (``-Xptxas -v``), the
-      launch geometry of the cluster and row kernels (cluster size, rows or
-      warps per block, shared memory), and the instructions of one threefry
-      block in the kernel's SASS (``cuobjdump -sass``), by pipe;
+      kernel's registers, shared memory and spills (``-Xptxas -v``), check
+      ``rotate``'s static shared memory (the class tables) against ptxas
+      and its sub keys and rows beside them against the block's limit,
+      print the launch geometry of the cluster and row kernels (cluster
+      size, rows or warps per block, shared memory, ``push_targets``' tiles
+      and one-wave grid), and the instructions of one threefry block in the
+      SASS (``cuobjdump -sass``) of ``threefry`` and of ``rotate``, by pipe;
   (b) capture each kernel's inputs from a real round (round 19, when the
       upsert counters fire) at O=32 origins, N=10,000 nodes (every call of
-      the round: ``threefry`` draws four times), and hold the kernel against
-      its plain PyTorch version on the card: exact equality (tolerance 0:
-      the data are integers and the uniforms are bit patterns); time the
-      round's calls of kernel, plain version and a PyTorch yardstick with
-      CUDA events; then run the engine at rc_slots=128 (a row of C + K =
-      144), at inbound_cap=128 and under loss + partition + churn, and hold
-      ``rc_merge_prune``, ``rank_inbound``, and ``push_targets`` (with its
-      suppression and loss masks) and ``rotate`` against their plain
-      versions on their round-19 inputs;
+      the round; it launches no ``threefry``, whose calls are taken from
+      ``init_state`` at O=32), and hold the kernel against its plain PyTorch
+      version on the card: exact equality (tolerance 0: the data are
+      integers and the uniforms are bit patterns); time the calls of
+      kernel, plain version and a PyTorch yardstick with CUDA events; then
+      run the engine at rc_slots=128 (a row of C + K = 144), at
+      inbound_cap=128, and in both threefry layouts unimpaired, under loss
+      + partition + churn and in a fail round, and hold ``rc_merge_prune``,
+      ``rank_inbound``, ``push_targets`` (with its suppression and loss
+      masks), ``rotate`` and the fail round's three ``threefry`` draws
+      against their plain versions on their round-19 inputs;
   (c) run the engine for 50 rounds at O=32, N=10,000: rounds/s, peak
-      device memory, every kernel launched; then a 5-round profile: device
-      busy and idle share, device time and launches per round of each
-      kernel and of the plain PyTorch ops, beside the same profile with
-      the draws routed to ``threefry``'s plain version, and with verbs 1
-      and 5 routed to ``push_targets``' and ``rotate``'s plain versions
-      (each as the port made it before its kernel, for comparison only);
+      device memory, every kernel launched, ``threefry`` launched in
+      ``init_state`` only; then a 5-round profile: device busy and idle
+      share, device time and launches per round of each kernel and of the
+      plain PyTorch ops, and ``init_state``'s profile, beside the same
+      5-round profile with the draws routed to plain versions (``threefry``
+      and ``rotate``, whose plain version draws with ``threefry``'s), and
+      with verbs 1 and 5 routed to ``push_targets``' and ``rotate``'s plain
+      versions (each as the port made it before its kernel, for comparison
+      only);
   (d) run the CLI main path in process: 10,000 synthetic nodes,
       --iterations 300 --warm-up-rounds 200 on cuda; wall time, coverage
-      and RMR means (and the same run in turns with verbs 1 and 5 in
-      their plain versions, plain, kernels, plain, for the wall time and
-      equal means); the first run's kernel launch counts go into the
-      ``kernels`` line, and each kernel is held against its plain version
-      on this run's own inputs of rounds 19 and 299 (O=1) and timed on
-      those of round 19 (CUDA events, and device time under the
+      and RMR means, ``threefry``'s launches (``init_state``'s only), and
+      the same run in turns with verbs 1 and 5 in their plain versions
+      (plain, kernels, plain, for the wall time and equal means); the first
+      run's kernel launch counts go into the ``kernels`` line, and each
+      kernel is held against its plain version on this run's own inputs of
+      rounds 19 and 299 (O=1; ``threefry`` on ``init_state``'s) and timed
+      on those of round 19 (CUDA events, and device time under the
       profiler); ``init_state`` at O=1 is timed alone, with the kernel and
       with the plain draws;
   (e) run the CLI on cuda and on cpu at 2,000 nodes for 60 rounds and
@@ -178,6 +187,27 @@ def device_ms(fn, symbols, reps: int = 10):
     return us / 1e3 / reps if us > 0 else None
 
 
+def cold_device_ms(fn, symbols, flush, reps: int = 20):
+    """Mean device milliseconds of the kernels whose names contain one of
+    ``symbols`` per call of ``fn``, each call after ``flush.zero_()`` (a
+    buffer past the L2 cache) so that it finds its inputs in device memory,
+    as a round does; under torch.profiler (None if it recorded none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0)))
+             for ev in prof.key_averages()
+             if any(sym in ev.key for sym in symbols))
+    return us / 1e3 / reps if us > 0 else None
+
+
 def ptxas_summary(log: str) -> list:
     """One line per kernel function of an ``nvcc -Xptxas -v`` log:
     registers, static shared memory, stack and spills."""
@@ -269,54 +299,72 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
             "launches": launches}
 
 
-def threefry_sass_ops(out_dir) -> dict:
-    """Instructions of one threefry block as the card runs it, counted per
-    pipe in the SASS (``cuobjdump -sass``) of the kernel's uniform mode
-    (:func:`count_block_ops`); the SASS goes to
-    ``chiprun_out/sass_threefry.txt``."""
+#: (library, kernel symbol in its SASS) whose inlined threefry block is
+#: counted: threefry's uniform mode, and rotate (csrc/threefry.cuh in both)
+SASS_BLOCKS = {"threefry": ("threefry", "threefry_kernelILi3E"),
+               "rotate": ("rotate", "rotate_kernel")}
+
+
+def sass_block_ops(name: str, out_dir) -> dict:
+    """Instructions of one threefry block as the card runs it inside kernel
+    ``name``, counted per pipe in the SASS (``cuobjdump -sass``) of the
+    kernel (:func:`count_block_ops`); the SASS goes to
+    ``chiprun_out/sass_<name>.txt``."""
     from gossip_sim_tpu_torch.kernels import _build
-    lib = _build._build_dir() / "libthreefry.so"
+    lib_name, symbol = SASS_BLOCKS[name]
+    lib = _build._build_dir() / f"lib{lib_name}.so"
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=120)
     if sass.returncode != 0:
         fail(f"cuobjdump failed: {sass.stderr.strip()}")
-    (out_dir / "sass_threefry.txt").write_text(sass.stdout)
-    return count_block_ops(sass.stdout)
+    (out_dir / f"sass_{name}.txt").write_text(sass.stdout)
+    ops = count_block_ops(sass.stdout, symbol)
+    if ops is None:
+        fail(f"{name} SASS: found no threefry block (20 rotations and 3 "
+             f"key-injection instructions after them, from a key load) in "
+             f"{symbol}")
+    return ops
 
 
-def count_block_ops(sass: str) -> dict:
-    """The instructions of one threefry block in the uniform-mode kernel,
-    by pipe: ``{"alu": n, "fma": n, "total": n}``.
-
-    Counted are the instructions that read a value derived from the key
-    words the kernel loads (``LDG``), from the first to the block's last key
-    injection, the third such instruction after the 20th rotation
-    (``SHF.L.W``, one funnel shift each); index and address arithmetic
-    reads no key word and is left out.  ``IMAD*`` runs on the FMA pipe,
-    every other integer instruction on the ALU pipe."""
+def sass_body(sass: str, symbol: str) -> list:
+    """(opcode, registers) of each instruction of the kernel whose name
+    contains ``symbol``."""
     body, on = [], False
     for line in sass.splitlines():
         if "Function" in line:
-            on = "threefry_kernelILi3E" in line
+            on = symbol in line
             continue
         m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)"
                       r"\s*([^;]*);", line)
         if on and m:
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b", m.group(3))]
             body.append((m.group(2), regs))
-    tainted, block, rot, after = set(), [], 0, 0
-    for op, regs in body:
+    return body
+
+
+def block_from(body: list, start: int):
+    """The threefry block fed by the key load at ``body[start]`` (with the
+    loads among the next three instructions: a key's two words), or None.
+
+    Counted are the instructions that read a value derived from those
+    loads, up to the block's last key injection, the third such
+    instruction after the 20th rotation (``SHF.L.W``, one funnel shift
+    each); index and address arithmetic reads no key word and is left
+    out."""
+    tainted = set()
+    for op, regs in body[start:start + 4]:
+        if op.startswith("LDG") and regs:
+            tainted |= set(range(regs[0], regs[0] + (2 if ".64" in op else 1)))
+    block, rot, after = [], 0, 0
+    for op, regs in body[start + 1:]:
         if not regs:
             continue
         # a 64-bit result (IMAD.WIDE, LDG.E.64) writes a register pair
         width = 2 if ".WIDE" in op or ".64" in op else 1
         dst, srcs = set(range(regs[0], regs[0] + width)), regs[1:]
-        if op.startswith("LDG"):
-            tainted |= dst
-            continue
-        if not any(r in tainted for r in srcs):
+        if op.startswith("LDG") or not any(r in tainted for r in srcs):
             tainted -= dst
             continue
         tainted |= dst
@@ -326,13 +374,24 @@ def count_block_ops(sass: str) -> dict:
         elif rot == 20:
             after += 1
             if after == 3:
-                break
-    if rot != 20 or after != 3:
-        fail(f"threefry SASS: expected 20 rotations and 3 key-injection "
-             f"instructions after them in the uniform kernel, found {rot} "
-             f"and {after}")
-    fma = sum(op.startswith("IMAD") for op in block)
-    return {"alu": len(block) - fma, "fma": fma, "total": len(block)}
+                return block
+    return None
+
+
+def count_block_ops(sass: str, symbol: str):
+    """The instructions of the first threefry block of kernel ``symbol``
+    that a key load feeds, by pipe: ``{"alu": n, "fma": n, "total": n}``
+    (None if there is none).  ``IMAD*`` runs on the FMA pipe, every other
+    integer instruction on the ALU pipe."""
+    body = sass_body(sass, symbol)
+    for i, (op, _) in enumerate(body):
+        if op.startswith("LDG"):
+            block = block_from(body, i)
+            if block is not None:
+                fma = sum(o.startswith("IMAD") for o in block)
+                return {"alu": len(block) - fma, "fma": fma,
+                        "total": len(block)}
+    return None
 
 
 def issue_s(ops: dict, blocks: int) -> float:
@@ -353,17 +412,22 @@ def push_targets_bytes(args, outs) -> int:
             + (nbytes(side) if partition else 0))
 
 
-def rotate_bytes(args, outs, rot_mod) -> int:
-    """Bytes ``rotate`` must move on these inputs: the three slot planes in
-    and out, each row's rotation uniform, the class tables, ``rot_failed``;
-    and for each row that rotates, its origin's and its own bucket, and the
-    uniform pair and ``perm`` entry of each try it takes (up to its first
-    new peer), and the new peer's ``failed`` byte."""
+def rotate_work(args, outs, rot_mod) -> tuple[int, int, int]:
+    """What ``rotate`` must do on these inputs: (bytes moved, threefry
+    blocks hashed, rows that rotate).
+
+    Bytes: the three slot planes in and out, the keys, the class tables,
+    ``rot_failed``; and for each row that rotates, its origin's and its
+    own bucket, the ``perm`` entry of each try it takes (up to its first
+    new peer) and the new peer's ``failed`` byte.  Blocks: each origin's
+    round key and its T + 1 sub keys (one block a key in the partitionable
+    layout, two in the original one), each row's rotation uniform, and two
+    words for each try a rotating row takes."""
     import torch
-    (active, pruned, tfail, failed, rot_u, u_all, origins, buckets, perm,
-     start, count, cdf, prob) = args
+    (active, pruned, tfail, failed, key, it, origins, buckets, perm,
+     start, count, cdf, prob, tries, part) = args
     O, N, _ = active.shape
-    T = u_all.shape[1]
+    rot_u, u_all = rot_mod.draws_plain(key, it, N, tries, part)
     u = u_all.permute(0, 2, 1, 3)
     members = rot_mod.sample_members_plain(buckets, origins, cdf, start,
                                            count, u[..., 0], u[..., 1])
@@ -372,12 +436,14 @@ def rotate_bytes(args, outs, rot_mod) -> int:
     fresh = (cands != iota) & ~(active[:, :, None, :]
                                 == cands[..., None]).any(-1)
     found = fresh.any(-1)
-    tries = torch.where(found, fresh.int().argmax(-1) + 1, T)
+    taken = torch.where(found, fresh.int().argmax(-1) + 1, tries)
     rot = rot_u < prob
-    per_row = (8 + 12 * tries + found.int()).masked_fill(~rot, 0)
-    return (nbytes(active, pruned, tfail, rot_u, origins, start, count, cdf,
-                   *outs)
-            + int(per_row.sum()))
+    per_row = (8 + 4 * taken + found.int()).masked_fill(~rot, 0)
+    moved = (nbytes(active, pruned, tfail, key, origins, start, count, cdf,
+                    *outs) + int(per_row.sum()))
+    blocks = (O * (1 + (tries + 1) * (1 if part else 2)) + O * N
+              + 2 * int(taken.masked_fill(~rot, 0).sum()))
+    return moved, blocks, int(rot.sum())
 
 
 def main() -> int:
@@ -426,6 +492,9 @@ def main() -> int:
     for name in names:
         for line in ptxas_summary(_build.BUILD_LOG[name]):
             say(f"(a) ptxas {line}")
+    sms, smem_limit = _build.sm_count(dev), _build.smem_optin(dev)
+    # rotate's shared memory: ptxas's static bytes are the class tables, and
+    # the sub keys and the rows (dynamic) fit beside them at every shape
     table = re.search(r"rotate_kernel: \d+ registers, static shared memory "
                       r"(\d+) B", "\n".join(ptxas_summary(
                           _build.BUILD_LOG["rotate"])))
@@ -433,7 +502,19 @@ def main() -> int:
         fail(f"rotate_kernel's static shared memory per ptxas "
              f"({table and table.group(1)} B) is not kernels/rotate.py "
              f"TABLE_BYTES ({rot_mod.TABLE_BYTES} B)")
-    sms, smem_limit = _build.sm_count(dev), _build.smem_optin(dev)
+    for s_, t_, n_, o_ in ((12, 8, N_FULL, O_KERNEL), (12, 8, N_FULL, 1),
+                           (25, 32, 40, 5), (12, 8, 1, 200)):
+        g = rot_mod.launch_geometry(s_, t_, n_, o_, smem_limit)
+        total = int(table.group(1)) + g.smem
+        if total > smem_limit:
+            fail(f"rotate at S={s_} T={t_} N={n_} O={o_}: {total} B of "
+                 f"shared memory per block, past the {smem_limit} B limit")
+        say(f"(a) rotate at S={s_} T={t_} N={n_} O={o_}: {g.rows} rows "
+            f"per block, {g.key_bytes} B of sub keys "
+            f"({rot_mod.key_origins(g.rows, n_, o_)} origins x {t_ + 1} "
+            f"keys) + {g.smem - g.key_bytes} B of staged rows + "
+            f"{table.group(1)} B of class tables (ptxas) = {total} B of "
+            f"{smem_limit} B")
     for o in (1, O_KERNEL):
         g = bfs_mod.launch_geometry(o, N_FULL, sms, smem_limit)
         say(f"(a) bfs_relax at O={o} N={N_FULL} on {sms} SMs: cluster size "
@@ -454,15 +535,19 @@ def main() -> int:
             f"{'device memory' if g.scratch_words else 'shared memory'}")
     for s_, f_ in ((12, 6), (25, 6)):
         pt_rows, pt_smem = pt_mod.launch_geometry(s_, f_, smem_limit)
-        rot_rows, rot_smem = rot_mod.launch_geometry(s_, smem_limit)
-        say(f"(a) push_targets at S={s_} F={f_}: {pt_rows} rows (threads) "
-            f"per block, {pt_smem} B shared memory per block; rotate at "
-            f"S={s_}: {rot_rows} rows per block, {rot_smem} B of staged rows "
-            f"+ {rot_mod.TABLE_BYTES} B of class tables")
-    tf_ops = threefry_sass_ops(out_dir)
-    say(f"(a) threefry SASS: {tf_ops['total']} integer instructions per "
-        f"threefry block, {tf_ops['alu']} on the ALU pipe and "
-        f"{tf_ops['fma']} on the FMA pipe (chiprun_out/sass_threefry.txt)")
+        per_sm = pt_mod.blocks_per_sm(dev, pt_rows, pt_smem)
+        for o in (1, O_KERNEL):
+            tiles, grid = pt_mod.persistent_grid(o * N_FULL, pt_rows, sms,
+                                                 per_sm)
+            say(f"(a) push_targets at S={s_} F={f_} O={o}: tiles of "
+                f"{pt_rows} rows, {pt_smem} B shared memory per block "
+                f"(two input buffers), {per_sm} blocks per SM: {tiles} "
+                f"tiles on a grid of {grid} blocks")
+    tf_ops = {name: sass_block_ops(name, out_dir) for name in SASS_BLOCKS}
+    for name, ops in tf_ops.items():
+        say(f"(a) {name} SASS: {ops['total']} integer instructions per "
+            f"threefry block, {ops['alu']} on the ALU pipe and "
+            f"{ops['fma']} on the FMA pipe (chiprun_out/sass_{name}.txt)")
 
     # ---- (b) kernels vs plain on a real round's inputs -------------------
     reset_unique_pubkeys()
@@ -477,27 +562,37 @@ def main() -> int:
     real = {name: getattr(kernels, name) for name in names}
     plain = {name: getattr(kernels, f"{name}_plain") for name in names}
 
-    def round19_calls(prm, orgs, which):
-        """Run rounds 0-18 of ``prm`` at origins ``orgs``; return round 19's
-        rows and the calls of the kernels ``which`` in it."""
-        st = init_state(rng.prng_key(42, dev), tables, orgs, prm)
-        for it in range(19):
-            st, _ = round_step(prm, tables, orgs, st, it)
-        calls = {name: [] for name in which}
-
+    def recording(which, calls, fn, *args):
+        """``fn(*args)`` with the calls of the kernels ``which`` appended
+        to ``calls[name]``."""
         def recorder(name):
-            def rec(*args, **kw):
-                calls[name].append((args, kw))
-                return real[name](*args, **kw)
+            def rec(*a, **kw):
+                calls[name].append((a, kw))
+                return real[name](*a, **kw)
             return rec
 
         for name in which:
             setattr(kernels, name, recorder(name))
         try:
-            _, rows_ = round_step(prm, tables, orgs, st, 19)
+            return fn(*args)
         finally:
             for name in which:
                 setattr(kernels, name, real[name])
+
+    def round19_calls(prm, orgs, which, part=True):
+        """Run rounds 0-18 of ``prm`` at origins ``orgs`` in threefry layout
+        ``part``; return round 19's rows and the calls of the kernels
+        ``which`` in it."""
+        rng.set_partitionable(part)
+        try:
+            st = init_state(rng.prng_key(42, dev), tables, orgs, prm)
+            for it in range(19):
+                st, _ = round_step(prm, tables, orgs, st, it)
+            calls = {name: [] for name in which}
+            _, rows_ = recording(which, calls, round_step, prm, tables, orgs,
+                                 st, 19)
+        finally:
+            rng.set_partitionable(True)
         torch.cuda.synchronize()
         return rows_, calls
 
@@ -518,7 +613,15 @@ def main() -> int:
         f"{int(rows19['prunes_sent'].sum())}, rc_overflow "
         f"{int(rows19['rc_overflow'].sum())}, inb_dropped "
         f"{int(rows19['inb_dropped'].sum())}, rot_failed "
-        f"{int(rows19['rot_failed'].sum())}")
+        f"{int(rows19['rot_failed'].sum())}; threefry calls in the round "
+        f"{len(captured['threefry'])}")
+    if captured["threefry"]:
+        fail("(b) an unimpaired round launched the threefry kernel")
+    round_calls = {name: len(captured[name]) for name in names}
+    # threefry's work is init_state's draws: held and timed on its calls
+    captured["threefry"] = []
+    recording(["threefry"], captured, init_state, rng.prng_key(42, dev),
+              tables, origins, params)
 
     res = {}
     for name in names:
@@ -530,11 +633,14 @@ def main() -> int:
                 fn(*args, **kw)
 
         res[name] = dict(
-            out=outs[0], outs=outs, calls=len(calls), max_abs_err=0,
+            out=outs[0], outs=outs, calls=len(calls),
+            calls_per_round=round_calls[name], max_abs_err=0,
             ms=cuda_ms(lambda: run_all(real[name])),
             plain_ms=cuda_ms(lambda: run_all(plain[name]), reps=3, warm=1))
     say(f"(b) calls in round 19: " + ", ".join(
-        f"{n} {res[n]['calls']}" for n in names))
+        f"{n} {round_calls[n]}" for n in names) + f"; threefry held and "
+        f"timed on init_state's {res['threefry']['calls']} draws at "
+        f"O={O_KERNEL}")
 
     # PyTorch yardsticks (timed here, used nowhere in the port) and bounds
     tgt, org = captured["bfs_relax"][0][0]
@@ -592,34 +698,39 @@ def main() -> int:
         "threefry": 16 * tf_keys + nbytes(*res["threefry"]["outs"]),
         "push_targets": push_targets_bytes(pt_args,
                                            res["push_targets"]["out"]),
-        "rotate": rotate_bytes(captured["rotate"][0][0],
-                               res["rotate"]["out"], rot_mod),
     }
-    int_ops = {name: 0 for name in names}
-    int_ops["threefry"] = tf_blocks * tf_ops["total"]
+    moved["rotate"], rot_blocks, n_rot = rotate_work(
+        captured["rotate"][0][0], res["rotate"]["out"], rot_mod)
+    blocks = {name: 0 for name in names}
+    blocks.update(threefry=tf_blocks, rotate=rot_blocks)
+    int_ops = {name: blocks[name] * tf_ops[name]["total"] if blocks[name]
+               else 0 for name in names}
     for name in names:
         r = res[name]
         bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = (issue_s(tf_ops, tf_blocks) * 1e3 if name == "threefry"
+        ops_ms = (issue_s(tf_ops[name], blocks[name]) * 1e3 if blocks[name]
                   else 0.0)
         r["bound_ms"] = max(bytes_ms, ops_ms)
         r["bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
         r["library_ms"], what = library[name]
         lib_txt = ("null" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
-        say(f"(b) {name}: exact vs plain on its {r['calls']} call(s) of the "
-            f"round; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        say(f"(b) {name}: exact vs plain on its {r['calls']} call(s); "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {lib_txt} ({what}), bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']} ({moved[name]} bytes: {bytes_ms:.4f} ms; "
             f"{int_ops[name]} int32 operations: {ops_ms:.4f} ms)")
-    say(f"(b) threefry in round 19: {tf_keys} keys, {tf_blocks} threefry "
-        f"blocks x {tf_ops['total']} instructions ({tf_ops['alu']} ALU, "
-        f"{tf_ops['fma']} FMA)")
-    rot_args = captured["rotate"][0][0]
-    say(f"(b) rotate in round 19: "
-        f"{int((rot_args[4] < rot_args[-1]).sum())} of {O * N} rows rotate")
+    say(f"(b) threefry in init_state at O={O_KERNEL}: {tf_keys} keys, "
+        f"{tf_blocks} threefry blocks x {tf_ops['threefry']['total']} "
+        f"instructions ({tf_ops['threefry']['alu']} ALU, "
+        f"{tf_ops['threefry']['fma']} FMA)")
+    say(f"(b) rotate in round 19: {n_rot} of {O * N} rows rotate; "
+        f"{rot_blocks} threefry blocks (keys, rotation uniforms and the "
+        f"tries taken) x {tf_ops['rotate']['total']} instructions "
+        f"({tf_ops['rotate']['alu']} ALU, {tf_ops['rotate']['fma']} FMA)")
+    pt_call = captured["push_targets"][0]
     del captured, packed, row_keys, hop_idx, hop_val, hop_out, slot_key
-    del pt_args, rot_args
+    del pt_args
     for r in res.values():
         del r["out"], r["outs"]
     torch.cuda.empty_cache()
@@ -659,20 +770,47 @@ def main() -> int:
         num_nodes=N_FULL, warm_up_rounds=0, packet_loss_rate=0.1,
         churn_fail_rate=0.01, churn_recover_rate=0.2, partition_at=10,
         heal_at=30, impair_seed=7)
-    rows_i, calls = round19_calls(impaired, origins,
-                                  ["push_targets", "rotate"])
-    args, kw = calls["push_targets"][0]
-    _, sup, drop = exact("push_targets", args, kw, "(b) impaired")
-    exact("rotate", *calls["rotate"][0], "(b) impaired")
-    if not (bool(sup.any()) and bool(drop.any())):
-        fail("(b) impaired round: no edge was suppressed or dropped")
-    say(f"(b) loss 0.1 + partition + churn at O={O_KERNEL} N={N_FULL}, "
-        f"round 19: push_targets (masks on) and rotate exact vs plain; "
-        f"push_targets kernel "
-        f"{cuda_ms(lambda: real['push_targets'](*args, **kw)):.4f} ms; "
-        f"suppressed {int(sup.sum())}, dropped {int(drop.sum())}, failed "
-        f"nodes {int(rows_i['failed_count'].sum())}")
-    del calls, args, sup, drop, rows_i
+    # verbs 1 and 5 in both threefry layouts, unimpaired (round 19 again in
+    # the original layout) and impaired; the fail round's three draws
+    fail_prm = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, fail_at=19,
+                            fail_fraction=0.1)
+    for part in (True, False):
+        lay = "partitionable" if part else "original"
+        if not part:
+            _, calls = round19_calls(params, origins,
+                                     ["push_targets", "rotate"], part)
+            exact("push_targets", *calls["push_targets"][0],
+                  f"(b) {lay} layout")
+            exact("rotate", *calls["rotate"][0], f"(b) {lay} layout")
+        rows_i, calls = round19_calls(impaired, origins,
+                                      ["push_targets", "rotate", "threefry"],
+                                      part)
+        args, kw = calls["push_targets"][0]
+        _, sup, drop = exact("push_targets", args, kw,
+                             f"(b) impaired, {lay} layout")
+        exact("rotate", *calls["rotate"][0], f"(b) impaired, {lay} layout")
+        if calls["threefry"]:
+            fail("(b) the impaired round launched the threefry kernel")
+        if not (bool(sup.any()) and bool(drop.any())):
+            fail("(b) impaired round: no edge was suppressed or dropped")
+        say(f"(b) loss 0.1 + partition + churn at O={O_KERNEL} "
+            f"N={N_FULL}, round 19, {lay} layout: push_targets (masks on) "
+            f"and rotate exact vs plain, no threefry launch; push_targets "
+            f"kernel {cuda_ms(lambda: real['push_targets'](*args, **kw)):.4f}"
+            f" ms; suppressed {int(sup.sum())}, dropped {int(drop.sum())}, "
+            f"failed nodes {int(rows_i['failed_count'].sum())}")
+        rows_f, calls = round19_calls(fail_prm, origins,
+                                      ["threefry", "rotate"], part)
+        for args, kw in calls["threefry"]:
+            exact("threefry", args, kw, f"(b) fail round, {lay} layout")
+        exact("rotate", *calls["rotate"][0], f"(b) fail round, {lay} layout")
+        if len(calls["threefry"]) != 3:
+            fail(f"(b) the fail round made {len(calls['threefry'])} threefry "
+                 f"draws, not 3")
+        say(f"(b) fail round (fail_at=19, fraction 0.1), {lay} layout: "
+            f"threefry's 3 draws and rotate exact vs plain; failed nodes "
+            f"{int(rows_f['failed_count'].sum())}")
+    del calls, args, sup, drop, rows_i, rows_f
     torch.cuda.empty_cache()
 
     # ---- (c) engine, 50 rounds at O=32, N=10,000 -------------------------
@@ -680,11 +818,16 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     state = init_state(rng.prng_key(7, dev), tables, origins, params)
     torch.cuda.synchronize()
+    init_tf = kernels.LAUNCHES["threefry"]
     t0 = time.perf_counter()
     state, rows = run_rounds(params, tables, origins, state, 50)
     torch.cuda.synchronize()
     eng_s = time.perf_counter() - t0
     engine_launches = dict(kernels.LAUNCHES)
+    tf_per_round = (engine_launches["threefry"] - init_tf) / 50
+    if tf_per_round:
+        fail(f"(c) the engine's rounds launched threefry {tf_per_round} "
+             f"times a round")
     cov = rows["coverage"]
     if cov.shape != (50, O_KERNEL) or not bool(torch.isfinite(cov).all()):
         fail(f"(c) coverage rows malformed: {tuple(cov.shape)}")
@@ -697,14 +840,41 @@ def main() -> int:
         f"{50 / eng_s:.2f} rounds/s ({50 * O_KERNEL / eng_s:.1f} "
         f"origin-rounds/s), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, mean coverage "
-        f"{float(cov.double().mean()):.6f}, launches {engine_launches}")
+        f"{float(cov.double().mean()):.6f}, launches {engine_launches} "
+        f"(threefry: {init_tf} in init_state, {tf_per_round:g} a round)")
     engine_prof = profile_rounds(run_rounds, params, tables, origins,
                                  state, out_dir)
     engine_device = engine_prof["device"]
+    # threefry's work now: init_state's draws, profiled once at O=32
+    init_prof = profile_rounds(
+        lambda prm, tab, orgs, _st, _r: init_state(rng.prng_key(7, dev), tab,
+                                                   orgs, prm),
+        params, tables, origins, None, out_dir, rounds=1,
+        tag=" init_state")
+    engine_device["threefry"] = init_prof["device"]["threefry"]
+    # push_targets on round 19's inputs, and a device-to-device copy that
+    # moves as many bytes (half read, half written), both with a cold L2:
+    # the practical floor for that traffic on this card
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    copy_src = torch.zeros(moved["push_targets"] // 2, dtype=torch.uint8,
+                           device=dev)
+    copy_dst = torch.empty_like(copy_src)
+    pt_cold = cold_device_ms(lambda: real["push_targets"](*pt_call[0],
+                                                          **pt_call[1]),
+                             KERNEL_SYMBOLS["push_targets"], flush)
+    copy_cold = cold_device_ms(lambda: copy_dst.copy_(copy_src),
+                               ("Memcpy DtoD",), flush)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    say(f"(c) cold L2 at O={O_KERNEL}: push_targets {fmt(pt_cold)} on "
+        f"round 19's inputs ({moved['push_targets']} bytes to move, bound "
+        f"{res['push_targets']['bound_ms']:.4f} ms); a device-to-device "
+        f"copy moving as many bytes {fmt(copy_cold)}")
+    del flush, copy_src, copy_dst, pt_call
     # the same rounds with kernels routed to their plain versions on the
     # card, as the port made those blocks before the kernels (comparisons
-    # only): the draws (threefry), and verbs 1 and 5
-    for tag, swap in ((" plain draws", ("threefry",)),
+    # only): the draws (rotate's with threefry's plain version, inside
+    # rotate_plain), and verbs 1 and 5 (and verb 5's draws)
+    for tag, swap in ((" plain draws", ("threefry", "rotate")),
                       (" plain verbs 1 and 5", ("push_targets", "rotate"))):
         for name in swap:
             setattr(kernels, name, plain[name])
@@ -729,9 +899,11 @@ def main() -> int:
             "--warm-up-rounds", "200", "--device", "cuda"]
     # keep the main path's own kernel inputs of two rounds (every call of
     # the round, found by the round the engine is in): the first round the
-    # upsert counters fire, and the last one
+    # upsert counters fire, and the last one; and threefry's draws outside
+    # the rounds (init_state's)
     check_at = (19, 299)
     main_args = {(name, k): [] for name in names for k in check_at}
+    main_args[("threefry", "init")] = []
     in_round = [None]
     real_round_step = core_mod.round_step
 
@@ -747,6 +919,8 @@ def main() -> int:
         def rec(*args, **kw):
             if in_round[0] in check_at:
                 main_args[(name, in_round[0])].append((args, kw))
+            elif in_round[0] is None and name == "threefry":
+                main_args[(name, "init")].append((args, kw))
             return real[name](*args, **kw)
         return rec
 
@@ -769,13 +943,25 @@ def main() -> int:
     missing = [n for n in names if launches[n] <= 0]
     if missing:
         fail(f"(d) kernels never launched on the main path: {missing}")
-    per_round = {"threefry": 4}
+    # calls in each captured round: one per kernel, no threefry draw; and
+    # init_state's draws: two fold_ins, then a fold_in and a uniform for
+    # each of the 64 init draws
+    init_draws = 2 + 2 * params.init_draws
+    per_round = {("threefry", 19): 0, ("threefry", 299): 0,
+                 ("threefry", "init"): init_draws}
     short = [key for key, c in main_args.items()
-             if len(c) != per_round.get(key[0], 1)]
+             if len(c) != per_round.get(key, 1)]
     if short:
-        fail(f"(d) expected each kernel's calls in rounds {check_at}, got "
+        fail(f"(d) expected each kernel's calls in rounds {check_at} and "
+             f"init_state, got "
              f"{ {key: len(main_args[key]) for key in short} }")
-    for (name, k), calls in sorted(main_args.items()):
+    if launches["threefry"] != init_draws:
+        fail(f"(d) threefry launched {launches['threefry']} times on the "
+             f"main path, not only init_state's {init_draws}")
+    say(f"(d) threefry launches: {init_draws} in init_state, "
+        f"{(launches['threefry'] - init_draws) / 300:g} per round")
+    for (name, k), calls in sorted(main_args.items(),
+                                     key=lambda kv: str(kv[0])):
         for args, kw in calls:
             err = max_abs_err(real[name](*args, **kw),
                               plain[name](*args, **kw))
@@ -788,7 +974,7 @@ def main() -> int:
         f"{tuple(main_args[('rc_merge_prune', 19)][0][0][0].shape)})")
     main_t = {}
     for name in names:
-        calls = main_args[(name, 19)]
+        calls = main_args[(name, "init" if name == "threefry" else 19)]
 
         def run_all(calls=calls, fn=real[name]):
             for args, kw in calls:
@@ -798,8 +984,9 @@ def main() -> int:
                         device_ms(run_all, KERNEL_SYMBOLS[name], reps=50))
         dev_txt = ("not measured" if main_t[name][1] is None
                    else f"{main_t[name][1]:.4f} ms")
-        say(f"(d) {name} on the main path's round-19 inputs (O=1, "
-            f"{len(calls)} call(s)): wrapper {main_t[name][0]:.4f} ms, "
+        say(f"(d) {name} on the main path's "
+            f"{'init_state' if name == 'threefry' else 'round-19'} inputs "
+            f"(O=1, {len(calls)} call(s)): wrapper {main_t[name][0]:.4f} ms, "
             f"device {dev_txt}")
     del main_args
     stats = coll.collection[0]
@@ -811,8 +998,8 @@ def main() -> int:
     say(f"(d) CLI {' '.join(argv)}: wall {cli_s:.3f} s, coverage mean "
         f"{cov_mean:.6f}, RMR mean {rmr_mean:.6f}, launches {launches}")
     # the same CLI run in turns with verbs 1 and 5 in their plain versions
-    # (as the port made them before their kernels; a comparison only):
-    # plain, kernels, plain, after the run above
+    # (as the port made them before their kernels, verb 5 with its plain
+    # draws; a comparison only): plain, kernels, plain, after the run above
     walls = {"kernels": [cli_s], "plain verbs 1 and 5": []}
     for what in ("plain verbs 1 and 5", "kernels", "plain verbs 1 and 5"):
         swap = ("push_targets", "rotate") if what != "kernels" else ()
@@ -903,7 +1090,8 @@ def main() -> int:
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"],
-         "calls_per_round": res[name]["calls"],
+         "calls_per_round": res[name]["calls_per_round"],
+         "calls_timed": res[name]["calls"],
          "library_ms": res[name]["library_ms"],
          "device_ms": engine_device[name],
          "main_ms": main_t[name][0], "main_device_ms": main_t[name][1]}

@@ -19,11 +19,20 @@
 // the loss threshold: the reference's order of precedence.  One forward
 // scan of the row takes the first F valid slots, so no sort is needed.
 //
-// One thread per (origin, node) row; a block stages its rows through
-// shared memory (row_stage.cuh) so that every load and store of device
-// memory is coalesced.  Bound on the H100: memory.  Each row reads 6 S
-// bytes and writes 4 F (plus F per mask); the hash is a few integer
-// operations per delivered edge.
+// One thread per (origin, node) row of a tile of rows_per_block rows; the
+// rows are staged through shared memory (row_stage.cuh) so that every load
+// and store of device memory is coalesced.  Bound on the H100: memory.
+// Each row reads 6 S bytes and writes 4 F (plus F per mask); the hash is a
+// few integer operations per delivered edge.  So the grid is one wave (as
+// many blocks as the SMs hold at once, from the occupancy of this shared
+// memory), each block walks the tiles with a grid stride, and a tile's
+// three slot planes are staged by asynchronous copies into a ring of
+// kStages buffers: the next tile's load is in flight while the current
+// tile is scanned and its targets and masks are stored (through shared
+// memory, so the stores are coalesced too).  Two buffers measured fastest
+// on the H100: a third costs blocks per SM and gains no bytes in flight.
+// The kernel is instantiated for the gates that are present, so an absent
+// gate costs the scan no instruction.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,6 +42,9 @@
 namespace {
 
 constexpr int kDefaultSmem = 48 * 1024;
+// Input buffers in the ring: a tile in use and kStages - 1 in flight
+// (kernels/push_targets.py STAGES).
+constexpr int kStages = 2;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -49,6 +61,9 @@ __device__ __forceinline__ uint32_t edge_u32(uint32_t basis, uint32_t src,
   return fmix32(basis ^ (src * 0x85EBCA6Bu) ^ (dst * 0xC2B2AE35u));
 }
 
+// kPart: the partition gate is present (sup is set); kLoss: the loss gate
+// is (drop is set).  A gate that is absent costs the scan nothing.
+template <bool kPart, bool kLoss>
 __global__ void push_targets_kernel(
     const int32_t* __restrict__ active, const uint8_t* __restrict__ pruned,
     const uint8_t* __restrict__ tfail, const int32_t* __restrict__ origins,
@@ -58,88 +73,177 @@ __global__ void push_targets_kernel(
     unsigned long long threshold) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int rpb = blockDim.x;
-  const long long r0 = (long long)blockIdx.x * rpb;
-  const int nr = (int)min((long long)rpb, rows - r0);
-  int32_t* s_act = reinterpret_cast<int32_t*>(smem);
-  int32_t* s_tgt = s_act + rpb * s;
-  uint8_t* s_prn = reinterpret_cast<uint8_t*>(s_tgt + rpb * f);
-  uint8_t* s_tf = s_prn + rpb * s;
-  uint8_t* s_sup = s_tf + rpb * s;
+  const long long tiles = (rows + rpb - 1) / rpb;
+  // kStages input buffers of a tile's slot planes (16-byte padded), then
+  // the tile's outputs
+  const int in_bytes = (rpb * s * 6 + 15) & ~15;
+  int32_t* s_tgt = reinterpret_cast<int32_t*>(smem + kStages * in_bytes);
+  uint8_t* s_sup = reinterpret_cast<uint8_t*>(s_tgt + rpb * f);
   uint8_t* s_drop = s_sup + rpb * f;
-  stage_in(reinterpret_cast<uint8_t*>(s_act),
-           reinterpret_cast<const uint8_t*>(active + r0 * s), nr * s * 4);
-  stage_in(s_prn, pruned + r0 * s, nr * s);
-  stage_in(s_tf, tfail + r0 * s, nr * s);
-  __syncthreads();
 
-  const int i = threadIdx.x;
-  if (i < nr) {
-    const long long row = r0 + i;
-    const int o = (int)(row / n);
-    const int node = (int)(row - (long long)o * n);
-    const int org = __ldg(origins + o);
-    const bool loss = drop != nullptr;
-    const int side_n = part_on ? __ldg(side + node) : 0;
-    const int32_t* a = s_act + i * s;
-    const uint8_t* pr = s_prn + i * s;
-    const uint8_t* tf = s_tf + i * s;
-    int32_t* t_out = s_tgt + i * f;
-    uint8_t* sup_out = s_sup + i * f;
-    uint8_t* drop_out = s_drop + i * f;
-    int k = 0;
-    for (int j = 0; j < s && k < f; ++j) {
-      const int p = a[j];
-      if (p >= n || pr[j] || p == org) continue;
-      bool ok = !tf[j];
-      bool su = false, dr = false;
-      if (ok && part_on && __ldg(side + p) != side_n) {
-        su = true;
-        ok = false;
-      }
-      if (ok && loss &&
-          (unsigned long long)edge_u32(basis, (uint32_t)node, (uint32_t)p) <
-              threshold) {
-        dr = true;
-        ok = false;
-      }
-      t_out[k] = ok ? p : n;
-      sup_out[k] = su;
-      drop_out[k] = dr;
-      ++k;
+  // the copies of the block's k-th tile (if it has one) into buffer
+  // k % kStages, as one group: a group is committed for every k, empty past
+  // the last tile, so that a wait for all but the newest kStages - 1 groups
+  // is a wait for tile k
+  auto load = [&](int k) {
+    const long long tile = blockIdx.x + (long long)k * gridDim.x;
+    if (tile < tiles) {
+      const long long r0 = tile * rpb;
+      const int nr = (int)min((long long)rpb, rows - r0);
+      uint8_t* b = smem + (k % kStages) * in_bytes;
+      stage_in_async(b, reinterpret_cast<const uint8_t*>(active + r0 * s),
+                     nr * s * 4);
+      stage_in_async(b + rpb * s * 4, pruned + r0 * s, nr * s);
+      stage_in_async(b + rpb * s * 5, tfail + r0 * s, nr * s);
     }
-    for (; k < f; ++k) {
-      t_out[k] = n;
-      sup_out[k] = 0;
-      drop_out[k] = 0;
+    stage_commit();
+  };
+
+  for (int k = 0; k + 1 < kStages; ++k) load(k);
+  long long tile = blockIdx.x;
+  for (int k = 0; tile < tiles; tile += gridDim.x, ++k) {
+    // tile k + kStages - 1 goes into the buffer tile k - 1 was scanned
+    // from: every thread passed the barrier after that scan
+    load(k + kStages - 1);
+    stage_wait<kStages - 1>();
+    __syncthreads();
+
+    const long long r0 = tile * rpb;
+    const int nr = (int)min((long long)rpb, rows - r0);
+    const uint8_t* b = smem + (k % kStages) * in_bytes;
+    const int i = threadIdx.x;
+    if (i < nr) {
+      // the row's origin and node from the tile's first row: one 64-bit
+      // division per tile, a 32-bit one where the tile passes an origin
+      int o = (int)(r0 / n);
+      int node = (int)(r0 - (long long)o * n) + i;
+      if (node >= n) {
+        const int q = node / n;
+        o += q;
+        node -= q * n;
+      }
+      const int org = __ldg(origins + o);
+      const int side_n = kPart && part_on ? __ldg(side + node) : 0;
+      const int32_t* a = reinterpret_cast<const int32_t*>(b) + i * s;
+      const uint8_t* pr = b + rpb * s * 4 + i * s;
+      const uint8_t* tf = b + rpb * s * 5 + i * s;
+      int32_t* t_out = s_tgt + i * f;
+      uint8_t* sup_out = s_sup + i * f;
+      uint8_t* drop_out = s_drop + i * f;
+      int kk = 0;
+      for (int j = 0; j < s && kk < f; ++j) {
+        const int p = a[j];
+        if (p >= n || pr[j] || p == org) continue;
+        bool ok = !tf[j];
+        if constexpr (kPart) {
+          const bool su = ok && part_on && __ldg(side + p) != side_n;
+          sup_out[kk] = su;
+          ok &= !su;
+        }
+        if constexpr (kLoss) {
+          const bool dr =
+              ok && (unsigned long long)edge_u32(basis, (uint32_t)node,
+                                                 (uint32_t)p) < threshold;
+          drop_out[kk] = dr;
+          ok &= !dr;
+        }
+        t_out[kk] = ok ? p : n;
+        ++kk;
+      }
+      for (; kk < f; ++kk) {
+        t_out[kk] = n;
+        if constexpr (kPart) sup_out[kk] = 0;
+        if constexpr (kLoss) drop_out[kk] = 0;
+      }
     }
+    __syncthreads();
+    stage_out(reinterpret_cast<uint8_t*>(tgt + r0 * f),
+              reinterpret_cast<const uint8_t*>(s_tgt), nr * f * 4);
+    if constexpr (kPart) stage_out(sup + r0 * f, s_sup, nr * f);
+    if constexpr (kLoss) stage_out(drop + r0 * f, s_drop, nr * f);
   }
-  __syncthreads();
-  stage_out(reinterpret_cast<uint8_t*>(tgt + r0 * f),
-            reinterpret_cast<const uint8_t*>(s_tgt), nr * f * 4);
-  if (sup != nullptr) stage_out(sup + r0 * f, s_sup, nr * f);
-  if (drop != nullptr) stage_out(drop + r0 * f, s_drop, nr * f);
+}
+
+
+template <bool kPart, bool kLoss>
+cudaError_t launch(const int32_t* active, const uint8_t* pruned,
+                   const uint8_t* tfail, const int32_t* origins,
+                   const int32_t* side, int32_t* tgt, uint8_t* sup,
+                   uint8_t* drop, long long rows, int n, int s, int f,
+                   int rows_per_block, int grid, int smem, int part_on,
+                   uint32_t basis, unsigned long long threshold,
+                   cudaStream_t stream, int* blocks_per_sm) {
+  auto* kernel = push_targets_kernel<kPart, kLoss>;
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (blocks_per_sm != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, rows_per_block, (size_t)smem);
+  kernel<<<(unsigned)grid, rows_per_block, smem, stream>>>(
+      active, pruned, tfail, origins, side, tgt, sup, drop, rows, n, s, f,
+      part_on, basis, threshold);
+  return cudaGetLastError();
+}
+
+// The instantiation of the gates that are present, launched (or, with
+// blocks_per_sm set, its occupancy read: the blocks of rows_per_block
+// threads and smem bytes of dynamic shared memory that one SM holds).
+cudaError_t dispatch(const int32_t* active, const uint8_t* pruned,
+                     const uint8_t* tfail, const int32_t* origins,
+                     const int32_t* side, int32_t* tgt, uint8_t* sup,
+                     uint8_t* drop, long long rows, int n, int s, int f,
+                     int rows_per_block, int grid, int smem, int part_on,
+                     uint32_t basis, unsigned long long threshold,
+                     cudaStream_t stream, int* blocks_per_sm) {
+  if (sup != nullptr && drop != nullptr)
+    return launch<true, true>(active, pruned, tfail, origins, side, tgt, sup,
+                              drop, rows, n, s, f, rows_per_block, grid,
+                              smem, part_on, basis, threshold, stream,
+                              blocks_per_sm);
+  if (sup != nullptr)
+    return launch<true, false>(active, pruned, tfail, origins, side, tgt,
+                               sup, drop, rows, n, s, f, rows_per_block, grid,
+                               smem, part_on, basis, threshold, stream,
+                               blocks_per_sm);
+  if (drop != nullptr)
+    return launch<false, true>(active, pruned, tfail, origins, side, tgt,
+                               sup, drop, rows, n, s, f, rows_per_block, grid,
+                               smem, part_on, basis, threshold, stream,
+                               blocks_per_sm);
+  return launch<false, false>(active, pruned, tfail, origins, side, tgt, sup,
+                              drop, rows, n, s, f, rows_per_block, grid, smem,
+                              part_on, basis, threshold, stream,
+                              blocks_per_sm);
 }
 
 }  // namespace
 
-// rows = O * N; rows_per_block and smem come from the wrapper's launch
-// geometry (kernels/push_targets.py launch_geometry).  sup and drop may be
-// null; drop set means the loss gate is on.
+// rows = O * N; rows_per_block, grid and smem come from the wrapper's
+// launch geometry (kernels/push_targets.py launch_geometry and
+// persistent_grid, the latter from push_targets_blocks_per_sm).  sup and
+// drop may be null; sup set means the partition gate is present, drop set
+// the loss gate.
 extern "C" int push_targets_launch(
     const int32_t* active, const uint8_t* pruned, const uint8_t* tfail,
     const int32_t* origins, const int32_t* side, int32_t* tgt, uint8_t* sup,
     uint8_t* drop, long long rows, int n, int s, int f, int rows_per_block,
-    int smem, int part_on, uint32_t basis, unsigned long long threshold,
-    cudaStream_t stream) {
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        push_targets_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  push_targets_kernel<<<(unsigned)blocks, rows_per_block, smem, stream>>>(
-      active, pruned, tfail, origins, side, tgt, sup, drop, rows, n, s, f,
-      part_on, basis, threshold);
-  return (int)cudaGetLastError();
+    int grid, int smem, int part_on, uint32_t basis,
+    unsigned long long threshold, cudaStream_t stream) {
+  return (int)dispatch(active, pruned, tfail, origins, side, tgt, sup, drop,
+                       rows, n, s, f, rows_per_block, grid, smem, part_on,
+                       basis, threshold, stream, nullptr);
+}
+
+// Blocks of the instantiation for these gates (part: sup set, loss: drop
+// set), of rows_per_block threads and smem bytes of dynamic shared memory,
+// that one SM holds at once, into *blocks; returns the CUDA error.
+extern "C" int push_targets_blocks_per_sm(int rows_per_block, int smem,
+                                          int part, int loss, int* blocks) {
+  uint8_t* set = reinterpret_cast<uint8_t*>(1);
+  return (int)dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       part ? set : nullptr, loss ? set : nullptr, 0, 1, 1, 1,
+                       rows_per_block, 0, smem, 0, 0, 0, nullptr, blocks);
 }

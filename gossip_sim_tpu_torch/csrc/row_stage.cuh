@@ -42,3 +42,38 @@ __device__ __forceinline__ void stage_out(uint8_t* __restrict__ dst,
   for (int i = (nvec << 4) + threadIdx.x; i < nbytes; i += blockDim.x)
     dst[i] = src[i];
 }
+
+// Asynchronous staging, for a kernel that loads its next rows while it
+// works on the current ones (cp.async, sm_80 and later).  The 16-byte part
+// of an aligned span is copied by cp.async.cg, neighbouring threads on
+// neighbouring addresses, and lands in shared memory without passing
+// through registers; an unaligned span, and the bytes past its last 16,
+// are copied byte by byte at once, as stage_in does.  The copies a thread
+// issued before stage_commit() form one group; stage_wait<k>() waits until
+// at most k of the thread's groups are still in flight, and a
+// __syncthreads() after it makes every thread's copies visible to all.
+__device__ __forceinline__ void stage_in_async(uint8_t* dst,
+                                               const uint8_t* __restrict__ src,
+                                               int nbytes) {
+  int nvec = 0;
+  if (((reinterpret_cast<uintptr_t>(src) |
+        reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    nvec = nbytes >> 4;
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + 16 * i);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(d), "l"(src + 16 * i) : "memory");
+    }
+  }
+  for (int i = (nvec << 4) + threadIdx.x; i < nbytes; i += blockDim.x)
+    dst[i] = src[i];
+}
+
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kInFlight>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kInFlight) : "memory");
+}

@@ -1,11 +1,12 @@
-// threefry — the round's threefry-2x32 draws, bit for bit as jax.random.
+// threefry — threefry-2x32 draws, bit for bit as jax.random.
 //
-// Replaces the reference engine's key derivation and uniforms
-// (gossip_sim_tpu/engine/core.py:328-339 in init_state, :507-509 fold_in
-// and split, :522 the fail draw, :952-958 the rotation uniforms), which
-// jax.random lowers to elementwise u32 arithmetic.  The plain PyTorch
-// version is kernels/threefry.py threefry_plain; the layouts are described
-// there.
+// Replaces the reference engine's key derivation and uniforms that are not
+// drawn inside a kernel (gossip_sim_tpu/engine/core.py:328-339 in
+// init_state, :507-509 fold_in and split and :522 the draw of the fail
+// round), which jax.random lowers to elementwise u32 arithmetic; verb 5's
+// draws (:952-958) are made inside rotate.cu.  The block and the word maps
+// are in threefry.cuh, shared with rotate.cu.  The plain PyTorch version is
+// kernels/threefry.py threefry_plain; the layouts are described there.
 //
 // Input:  keys [b0, b1, 2] i64 holding u32 words, at element strides
 //         (s0, s1, sw), so a key slice such as subs[:, 2:2+T] is read in
@@ -26,49 +27,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kMaxGridYZ = 65535;
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-#define TF_ROUND(r)    \
-  x0 += x1;            \
-  x1 = rotl(x1, r) ^ x0;
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1;
-  x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2;
-  x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0;
-  x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1;
-  x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2;
-  x1 += k0 + 5u;
-}
-
-#undef TF_ROUND
-
 __device__ __forceinline__ uint32_t ld_word(const int64_t* p) {
   return (uint32_t)__ldg(reinterpret_cast<const long long*>(p));
-}
-
-__device__ __forceinline__ float to_uniform(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
 template <int kMode>
@@ -84,10 +51,9 @@ threefry_kernel(const int64_t* __restrict__ keys, int b0, int b1,
     const int i0 = (int)(b / b1);
     const int i1 = (int)(b - (long long)i0 * b1);
     const int64_t* kp = keys + i0 * s0 + i1 * s1;
-    uint32_t x0 = 0;
-    uint32_t x1 =
-        data ? ld_word(data + i0 * ds0 + i1 * ds1) : scalar;
-    threefry2x32(ld_word(kp), ld_word(kp + sw), x0, x1);
+    uint32_t x0, x1;
+    tf_fold_in(ld_word(kp), ld_word(kp + sw),
+               data ? ld_word(data + i0 * ds0 + i1 * ds1) : scalar, x0, x1);
     reinterpret_cast<longlong2*>(out)[b] =
         make_longlong2((long long)x0, (long long)x1);
     return;

@@ -15,11 +15,15 @@ and knobs.  The round's blocks run through the hand-written kernels of
 * prune application, verb 4
   (push_active_set.rs:56-71)                      -> ``prune_apply``
 * rotation with its stake-weighted sampler, verb 5
-  (gossip.rs:739-754; push_active_set.rs:153-186) -> ``rotate``
+  (gossip.rs:739-754; push_active_set.rs:153-186), and its draws: the
+  round key, its sub keys and the uniforms        -> ``rotate``
 
-and every threefry draw goes to the ``threefry`` kernel (``rng``).  What
-stays plain PyTorch is elementwise or a reduction: the fault events, the
-round statistics and ``init_state``'s draw loop.  The reference's
+An unimpaired, churn, loss or partition round makes no other draw.  The
+other threefry draws go to the ``threefry`` kernel (``rng``):
+``init_state``'s keys and uniforms, and in the fail round the round key,
+its sub keys and sub key 0's uniforms.  What stays plain PyTorch is
+elementwise or a reduction: the fault events, the round statistics and
+``init_state``'s draw loop.  The reference's
 sort-join ``_lookup`` computes exactly ``table[queries]`` and is a gather
 here.
 
@@ -222,9 +226,6 @@ def round_step(params: EngineParams, tables: ClusterTables,
     O = int(origins.shape[0])
     i32 = torch.int32
 
-    kr = rng.fold_in(state.key, it)
-    subs = rng.split(kr, p.rot_tries + 2)                         # [O, T+2, 2]
-
     # ---- fault injection (gossip.rs:756-771; fires at it == when_to_fail)
     failed, tfail = state.failed, state.tfail
     if p.has_fail:
@@ -232,6 +233,9 @@ def round_step(params: EngineParams, tables: ClusterTables,
         # f64 product matches the host double arithmetic bit for bit
         n_fail = int(np.floor(np.float64(kn.fail_fraction) * N))
         if it == int(kn.fail_at) and n_fail > 0:
+            # sub key 0 of the round key (rotate draws from keys 1 .. T + 1)
+            kr = rng.fold_in(state.key, it)
+            subs = rng.split(kr, p.rot_tries + 2)                 # [O, T+2, 2]
             r = rng.uniform(subs[:, 0], (N,))
             kidx = min(max(n_fail - 1, 0), N - 1)
             kth = torch.sort(r, dim=-1).values[:, kidx:kidx + 1]
@@ -290,14 +294,14 @@ def round_step(params: EngineParams, tables: ClusterTables,
                                 mp.pruned_slot)
 
     # ---- verb 5: rotate (kernel; gossip.rs:739-754;
-    # push_active_set.rs:153-186) -----------------------------------------
-    rot_u = rng.uniform(subs[:, 1], (N,))                         # [O, N]
-    u_all = rng.uniform(subs[:, 2:2 + p.rot_tries], (N, 2))       # [O,T,N,2]
+    # push_active_set.rs:153-186), drawing its uniforms from sub keys
+    # 1 .. T + 1 of the round key fold_in(key, it) itself ------------------
     sm = tables.sampler
     new_active, new_pruned, new_tfail, rot_failed = K.rotate(
-        peer, pruned_bits, tfail, failed, rot_u, u_all, origins,
+        peer, pruned_bits, tfail, failed, state.key, it, origins,
         tables.buckets, sm.perm, sm.class_start, sm.class_count,
-        sm.class_cdf, float(np.float32(kn.probability_of_rotation)))
+        sm.class_cdf, float(np.float32(kn.probability_of_rotation)),
+        p.rot_tries, rng.partitionable())
 
     # ---- statistics (gossip_stats.rs) -------------------------------------
     f64 = torch.float64

@@ -10,6 +10,7 @@ plain PyTorch, used for CPU tensors and as the spec.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,17 +18,64 @@ from ..faults import edge_u32_t
 from . import _build
 
 NAME = "push_targets"
+#: Input buffers in the kernel's ring (csrc/push_targets.cu kStages): the
+#: tile being scanned and the next ones, in flight.
+STAGES = 2
 
 
 def row_bytes(s: int, f: int) -> int:
     """Shared memory the kernel stages per row: the S slots (i32 peer,
-    pruned and tfail bytes) and the F targets (i32 peer, two mask bytes)."""
-    return 6 * s + 6 * f
+    pruned and tfail bytes) in each of the ``STAGES`` buffers and the F
+    targets (i32 peer, two mask bytes)."""
+    return STAGES * 6 * s + 6 * f
+
+
+def stage_bytes(rows: int, s: int, f: int) -> int:
+    """Shared memory of a block of ``rows`` rows: ``STAGES`` buffers of the
+    slot planes, each 16-byte padded, and the targets and masks."""
+    return STAGES * (-(-rows * 6 * s // 16) * 16) + rows * 6 * f
 
 
 def launch_geometry(s: int, f: int, smem_limit: int) -> tuple[int, int]:
-    """Rows per block and shared memory per block (``_build.row_blocks``)."""
-    return _build.row_blocks(NAME, row_bytes(s, f), smem_limit)
+    """Rows per block (a tile) and shared memory per block
+    (``_build.row_blocks``, and fewer rows where the buffers' padding
+    passes the limit)."""
+    rows, _ = _build.row_blocks(NAME, row_bytes(s, f), smem_limit)
+    while rows > 1 and stage_bytes(rows, s, f) > smem_limit:
+        rows -= 1
+    if stage_bytes(rows, s, f) > smem_limit:
+        raise ValueError(f"{NAME}: a row needs {stage_bytes(1, s, f)} bytes "
+                         f"of shared memory, more than the {smem_limit} "
+                         f"bytes of one block")
+    return rows, stage_bytes(rows, s, f)
+
+
+def persistent_grid(rows: int, rows_per_block: int, sms: int,
+                    blocks_per_sm: int) -> tuple[int, int]:
+    """Tiles of ``rows_per_block`` rows and the blocks of the grid: one
+    wave (``sms`` x ``blocks_per_sm``, the blocks the card holds at once),
+    or one block per tile where there are fewer tiles."""
+    tiles = -(-rows // rows_per_block)
+    return tiles, max(1, min(tiles, sms * blocks_per_sm))
+
+
+@functools.lru_cache(maxsize=64)
+def blocks_per_sm(device: torch.device, rows_per_block: int, smem: int,
+                  part: bool = False, loss: bool = False) -> int:
+    """Blocks of the kernel (its instantiation for the gates that are
+    present) one SM of ``device`` holds at once at this geometry
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, read once per
+    device, geometry and gates)."""
+    fn = _build.library(NAME).push_targets_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(rows_per_block, smem, int(part), int(loss), ctypes.byref(out))
+    if rc != 0 or out.value < 1:
+        raise RuntimeError(f"{NAME}: occupancy query failed (error {rc}, "
+                           f"{out.value} blocks per SM)")
+    return out.value
 
 
 def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
@@ -76,7 +124,7 @@ def _lib():
     fn = _build.library(NAME).push_targets_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 8 + [ctypes.c_longlong] + [ci] * 6
+        fn.argtypes = ([vp] * 8 + [ctypes.c_longlong] + [ci] * 7
                        + [ctypes.c_uint32, ctypes.c_ulonglong, vp])
         fn.restype = ci
     return fn
@@ -109,10 +157,13 @@ def push_targets(active: torch.Tensor, pruned: torch.Tensor,
     if tgt.numel() == 0:
         return tgt, sup, drop
     rows, smem = launch_geometry(S, F, _build.smem_optin(dev))
+    _, grid = persistent_grid(
+        O * N, rows, _build.sm_count(dev),
+        blocks_per_sm(dev, rows, smem, sup is not None, drop is not None))
     p = _build.ptr
     opt = lambda t: None if t is None else p(t)
     rc = _lib()(p(active), p(pruned), p(tfail), p(origins), p(side), p(tgt),
-                opt(sup), opt(drop), O * N, N, S, F, rows, smem,
+                opt(sup), opt(drop), O * N, N, S, F, rows, grid, smem,
                 int(bool(partition)), basis & 0xFFFFFFFF, threshold,
                 _build.stream_of(active))
     _build.launched(NAME, rc)

@@ -3,7 +3,9 @@ set.
 
 Replaces the reference engine's ``round/verb5_rotate`` block
 (gossip_sim_tpu/engine/core.py:950-1011) with its sampler ``_sample_fast``
-(core.py:274-305).  The CUDA kernel is ``csrc/rotate.cu``;
+(core.py:274-305) and its draws (the round key and its sub keys,
+core.py:507-509, and the uniforms, :952-958).  The CUDA kernel is
+``csrc/rotate.cu``, which draws its own uniforms from each origin's key;
 :func:`rotate_plain` is the same function in plain PyTorch, used for CPU
 tensors and as the spec, and :func:`sample_members_plain` is its sampler
 (``engine/sampler.py`` draws ``init_state``'s peers with it too).
@@ -12,17 +14,33 @@ tensors and as the spec, and :func:`sample_members_plain` is its sampler
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from ..constants import NUM_PUSH_ACTIVE_SET_ENTRIES as NB
 from . import _build
+from .threefry import threefry_plain
 
 NAME = "rotate"
 #: Static shared memory of the kernel: the class CDF table and the class
 #: starts and counts (csrc/rotate.cu), padded to 16 bytes ahead of the
 #: dynamic shared memory (ptxas reports it; chip_smoke.py checks it).
 TABLE_BYTES = -(-(4 * NB * NB + 8 * NB) // 16) * 16
+#: Bytes of one sub key in shared memory: two u32 words.
+KEY_BYTES = 8
+
+
+class Geometry(NamedTuple):
+    """Rows (threads) per block, the bytes of the block's sub keys (16-byte
+    padded, ahead of the staged rows) and the block's dynamic shared
+    memory (keys and rows)."""
+
+    rows: int
+    key_bytes: int
+    smem: int
 
 
 def row_bytes(s: int) -> int:
@@ -31,10 +49,44 @@ def row_bytes(s: int) -> int:
     return 6 * s
 
 
-def launch_geometry(s: int, smem_limit: int) -> tuple[int, int]:
-    """Rows per block and dynamic shared memory per block
-    (``_build.row_blocks``, beside the static class tables)."""
-    return _build.row_blocks(NAME, row_bytes(s), smem_limit - TABLE_BYTES)
+def key_origins(rows: int, n: int, o: int) -> int:
+    """The most origins that a block of ``rows`` consecutive rows of an
+    ``[O, N]`` row space spans, where the blocks start at multiples of
+    ``rows``: a block starts ``g = gcd(rows, N)``-aligned within its origin,
+    at worst ``N - g`` rows in, so it spans ``(N - g + rows - 1) // N + 1``
+    origins, at most O (two for N = 10,000 and 128 rows; one where N is a
+    multiple of the rows, ``rows / N`` where the rows are a multiple of
+    N)."""
+    g = math.gcd(rows, n)
+    return min(o, (n - g + rows - 1) // n + 1)
+
+
+def key_bytes(rows: int, n: int, o: int, tries: int) -> int:
+    """Shared memory of a block's sub keys: ``T + 1`` keys (the rotation
+    uniforms' and each try's) of every origin its rows span, 16-byte
+    padded."""
+    return -(-key_origins(rows, n, o) * (tries + 1) * KEY_BYTES // 16) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def launch_geometry(s: int, tries: int, n: int, o: int,
+                    smem_limit: int) -> Geometry:
+    """Rows per block and shared memory (beside the static class tables):
+    ``_build.ROWS_PER_BLOCK`` rows, fewer where their slots and sub keys
+    would pass the block's shared memory; raises, naming the bytes, where
+    one row and its origin's keys do not fit."""
+    room = smem_limit - TABLE_BYTES
+    rb = row_bytes(s)
+    if rb + key_bytes(1, n, o, tries) > room:
+        raise ValueError(
+            f"{NAME}: a row needs {rb} bytes of shared memory and its "
+            f"origin's {tries + 1} sub keys {key_bytes(1, n, o, tries)} "
+            f"bytes, more than the {room} bytes of one block")
+    rows = min(_build.ROWS_PER_BLOCK, room // max(rb, 1))
+    while rows * rb + key_bytes(rows, n, o, tries) > room:
+        rows -= 1
+    kb = key_bytes(rows, n, o, tries)
+    return Geometry(rows, kb, kb + rows * rb)
 
 
 def sample_members_plain(buckets: torch.Tensor, origins: torch.Tensor,
@@ -61,23 +113,40 @@ def sample_members_plain(buckets: torch.Tensor, origins: torch.Tensor,
     return torch.minimum(member, start + torch.clamp(count - 1, min=0))
 
 
-def rotate_plain(active, pruned, tfail, failed, rot_u, u_all, origins,
-                 buckets, perm, class_start, class_count, class_cdf,
-                 probability: float):
+def draws_plain(key: torch.Tensor, it: int, n: int, tries: int,
+                partitionable: bool = True):
+    """Verb 5's uniforms as the reference round draws them, in plain
+    PyTorch: the round key ``fold_in(key, it)``, its ``T + 2`` sub keys, the
+    rotation uniforms ``rot_u`` [O, N] (sub key 1) and the tries' class and
+    member uniforms ``u_all`` [O, T, N, 2] (sub keys 2 .. T + 1)."""
+    kr = threefry_plain(key, "fold_in", it)
+    subs = threefry_plain(kr, "split", tries + 2, partitionable)
+    rot_u = threefry_plain(subs[:, 1], "uniform", n, partitionable)
+    u_all = threefry_plain(subs[:, 2:2 + tries], "uniform", 2 * n,
+                           partitionable)
+    return rot_u, u_all.reshape(key.shape[0], tries, n, 2)
+
+
+def rotate_plain(active, pruned, tfail, failed, key, it, origins, buckets,
+                 perm, class_start, class_count, class_cdf,
+                 probability: float, tries: int, partitionable: bool = True):
     """Verb 5 over every (origin, node) row.
 
     ``active`` [O, N, S] i32, ``pruned`` (this round's bits after verb 4)
-    and ``tfail`` [O, N, S] bool, ``failed`` [O, N] bool, ``rot_u`` [O, N]
-    f32, ``u_all`` [O, T, N, 2] f32 (class and member uniform of each of T
-    tries), ``origins`` [O], ``buckets`` and ``perm`` [N] i32, the class
-    tables (``engine/sampler.py``), ``probability`` the rotation
-    probability as a float32 value.  Returns ``new_active``,
-    ``new_pruned``, ``new_tfail`` [O, N, S] and ``rot_failed`` [O] i32."""
+    and ``tfail`` [O, N, S] bool, ``failed`` [O, N] bool, ``key`` [O, 2]
+    i64 (each origin's threefry key), ``it`` the iteration, ``origins``
+    [O], ``buckets`` and ``perm`` [N] i32, the class tables
+    (``engine/sampler.py``), ``probability`` the rotation probability as a
+    float32 value, ``tries`` the tries T per rotating row, ``partitionable``
+    the threefry layout.  The uniforms are :func:`draws_plain`'s.  Returns
+    ``new_active``, ``new_pruned``, ``new_tfail`` [O, N, S] and
+    ``rot_failed`` [O] i32."""
     O, N, S = active.shape
-    T = u_all.shape[1]
+    T = int(tries)
     dev = active.device
     i32 = torch.int32
     iota_n = torch.arange(N, device=dev, dtype=i32)[None, :]
+    rot_u, u_all = draws_plain(key, it, N, T, partitionable)
     rotate = rot_u < probability
     u = u_all.permute(0, 2, 1, 3)                                 # [O,N,T,2]
     members = sample_members_plain(buckets, origins, class_cdf, class_start,
@@ -119,51 +188,53 @@ def _lib():
     fn = _build.library(NAME).rotate_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 16 + [ci, ctypes.c_longlong, ci, ci, ci,
-                                    ctypes.c_float, ci, ci, vp])
+        fn.argtypes = ([vp] * 15 + [ci, ctypes.c_longlong, ci, ci, ci,
+                                    ctypes.c_float, ctypes.c_uint32, ci, ci,
+                                    ci, ci, vp])
         fn.restype = ci
     return fn
 
 
-def rotate(active, pruned, tfail, failed, rot_u, u_all, origins, buckets,
-           perm, class_start, class_count, class_cdf, probability: float):
+def rotate(active, pruned, tfail, failed, key, it, origins, buckets, perm,
+           class_start, class_count, class_cdf, probability: float,
+           tries: int, partitionable: bool = True):
     """Verb 5: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors.  Returns what :func:`rotate_plain` does."""
     if not active.is_cuda:
-        return rotate_plain(active, pruned, tfail, failed, rot_u, u_all,
-                            origins, buckets, perm, class_start, class_count,
-                            class_cdf, probability)
+        return rotate_plain(active, pruned, tfail, failed, key, it, origins,
+                            buckets, perm, class_start, class_count,
+                            class_cdf, probability, tries, partitionable)
     O, N, S = active.shape
-    T = u_all.shape[1]
+    T = int(tries)
+    if T < 0:
+        raise ValueError(f"{NAME}: tries must be >= 0, got {T}")
     dev = active.device
     chk = _build.check
     chk(active, "active", torch.int32, (O, N, S), dev)
     chk(pruned, "pruned", torch.bool, (O, N, S), dev)
     chk(tfail, "tfail", torch.bool, (O, N, S), dev)
     chk(failed, "failed", torch.bool, (O, N), dev)
-    chk(rot_u, "rot_u", torch.float32, (O, N), dev)
-    chk(u_all, "u_all", torch.float32, (O, T, N, 2), dev)
+    chk(key, "key", torch.int64, (O, 2), dev)
     chk(origins, "origins", torch.int32, (O,), dev)
     chk(buckets, "buckets", torch.int32, (N,), dev)
     chk(perm, "perm", torch.int32, (N,), dev)
     chk(class_start, "class_start", torch.int32, (NB,), dev)
     chk(class_count, "class_count", torch.int32, (NB,), dev)
     chk(class_cdf, "class_cdf", torch.float32, (NB, NB), dev)
-    if u_all.data_ptr() % 8:
-        raise ValueError(f"{NAME}: u_all must be 8-byte aligned (the kernel "
-                         f"reads each try's pair as one float2)")
     new_active = torch.empty_like(active)
     new_pruned = torch.empty_like(pruned)
     new_tfail = torch.empty_like(tfail)
     rot_failed = torch.empty((O,), dtype=torch.int32, device=dev)
     if active.numel() == 0:
         return new_active, new_pruned, new_tfail, rot_failed.zero_()
-    rows, smem = launch_geometry(S, _build.smem_optin(dev))
+    g = launch_geometry(S, T, N, O, _build.smem_optin(dev))
     p = _build.ptr
-    rc = _lib()(p(active), p(pruned), p(tfail), p(failed), p(rot_u),
-                p(u_all), p(origins), p(buckets), p(perm), p(class_start),
+    rc = _lib()(p(active), p(pruned), p(tfail), p(failed), p(key),
+                p(origins), p(buckets), p(perm), p(class_start),
                 p(class_count), p(class_cdf), p(new_active), p(new_pruned),
                 p(new_tfail), p(rot_failed), O, O * N, N, S, T,
-                float(probability), rows, smem, _build.stream_of(active))
+                float(probability), int(it) & 0xFFFFFFFF,
+                int(bool(partitionable)), g.rows, g.key_bytes, g.smem,
+                _build.stream_of(active))
     _build.launched(NAME, rc)
     return new_active, new_pruned, new_tfail, rot_failed

@@ -1,12 +1,15 @@
-"""``threefry``: the round's threefry-2x32 draws, as ``jax.random`` makes them.
+"""``threefry``: threefry-2x32 draws, as ``jax.random`` makes them.
 
 Replaces the reference engine's key derivation and uniforms
 (gossip_sim_tpu/engine/core.py:328-339 in ``init_state``, :507-509
-``fold_in``/``split`` at the top of ``round_step``, :522 the fail draw and
-:952-958 the rotation uniforms), which ``jax.random`` lowers to elementwise
-u32 arithmetic.  The CUDA kernel is ``csrc/threefry.cu``;
-:func:`threefry_plain` is the same function in plain PyTorch, used for CPU
-tensors and as the spec.  ``rng.py`` routes its public functions here.
+``fold_in``/``split`` and :522 the draw of the fail round), which
+``jax.random`` lowers to elementwise u32 arithmetic.  The CUDA kernel is
+``csrc/threefry.cu``; :func:`threefry_plain` is the same function in plain
+PyTorch, used for CPU tensors and as the spec.  ``rng.py`` routes its public
+functions here.  Verb 5's draws (core.py:952-958) are made inside the
+``rotate`` kernel from the same block (``csrc/threefry.cuh``), one word at a
+time: :func:`word_at` and :func:`split_word` are the plain mirrors of that
+header's word maps.
 
 One function, four operations (``op``) on a batch of keys ``[..., 2]``
 (int64 tensors holding u32 words; CPU PyTorch lacks ``>>`` on uint32):
@@ -110,6 +113,42 @@ def threefry_plain(keys: torch.Tensor, op: str, arg,
         y0, y1 = _hash_counters(keys, _iota(h, dev), x1)
         bits = torch.cat([y0, y1], dim=-1)[..., :n]
     return bits if op == "bits" else bits_to_uniform(bits)
+
+
+def word_at(keys: torch.Tensor, f, n: int,
+            partitionable: bool = True) -> torch.Tensor:
+    """The 32-bit word at flat index ``f`` of an ``n``-word draw
+    (``"bits"``) under each key, one threefry block each: the plain mirror
+    of ``tf_word`` in ``csrc/threefry.cuh``.  ``keys`` ``[..., 2]``; ``f``
+    an int or an int64 tensor broadcastable to ``keys.shape[:-1]``."""
+    f = torch.as_tensor(f, dtype=torch.int64, device=keys.device)
+    k0, k1 = keys[..., 0], keys[..., 1]
+    if partitionable:
+        y0, y1 = threefry2x32(k0, k1, torch.zeros_like(f), f)
+        return y0 ^ y1
+    h = (n + 1) // 2
+    hi = f >= h
+    p = torch.where(hi, f - h, f)
+    x1 = torch.where((n % 2 == 1) & (p == h - 1), 0, p + h)
+    y0, y1 = threefry2x32(k0, k1, p, x1)
+    return torch.where(hi, y1, y0)
+
+
+def split_word(keys: torch.Tensor, i, w: int, m: int,
+               partitionable: bool = True) -> torch.Tensor:
+    """Word ``w`` (0 or 1) of key ``i`` of ``split(key, m)`` under each key,
+    one threefry block each: the plain mirror of ``tf_split_word`` in
+    ``csrc/threefry.cuh``."""
+    i = torch.as_tensor(i, dtype=torch.int64, device=keys.device)
+    k0, k1 = keys[..., 0], keys[..., 1]
+    if partitionable:
+        y0, y1 = threefry2x32(k0, k1, torch.zeros_like(i), i)
+        return y1 if w else y0
+    g = 2 * i + w
+    hi = g >= m
+    x0 = torch.where(hi, g - m, g)
+    y0, y1 = threefry2x32(k0, k1, x0, x0 + m)
+    return torch.where(hi, y1, y0)
 
 
 def pairs(op: str, n: int, partitionable: bool) -> int:

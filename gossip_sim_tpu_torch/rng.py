@@ -13,6 +13,10 @@ default) or per call.  The layouts and the arithmetic are in
 ``kernels/threefry.py``: every function here is one call of the
 ``threefry`` kernel for CUDA tensors, and of its plain version for CPU
 tensors.  The kernel is looked up on the ``kernels`` module at call time.
+The engine draws ``init_state``'s keys and uniforms and the fail round's
+uniforms here; verb 5's draws are made inside the ``rotate`` kernel, which
+hashes the same words from each origin's key and reads the layout from
+:func:`partitionable`.
 """
 
 from __future__ import annotations

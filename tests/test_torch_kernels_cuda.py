@@ -18,7 +18,8 @@ import torch
 
 from gossip_sim_tpu_torch import kernels, rng
 from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
-                                         make_cluster_tables, run_rounds)
+                                         make_cluster_tables, round_step,
+                                         run_rounds)
 from gossip_sim_tpu_torch.engine.sampler import build_sampler_tables
 from gossip_sim_tpu_torch.faults import rate_threshold
 
@@ -26,6 +27,8 @@ bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
 rank_mod = importlib.import_module(
     "gossip_sim_tpu_torch.kernels.rank_inbound")
 tf_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.threefry")
+pt_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.push_targets")
+rot_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.rotate")
 
 pytestmark = pytest.mark.cuda
 
@@ -51,13 +54,14 @@ CONFIGS = {
 
 def _launches_per_run(params, rounds):
     """Kernel launches of ``rounds`` rounds: one per kernel and round, and
-    four ``threefry`` draws a round (fold_in, split, two uniforms) plus the
-    fail draw in the fail round."""
+    ``threefry`` only in the fail round (the round key, its sub keys and
+    sub key 0's uniforms: three draws); ``rotate`` draws verb 5's
+    uniforms itself."""
     want = {name: rounds for name in NAMES}
     n_fail = int(np.floor(np.float64(params.fail_fraction)
                           * params.num_nodes))
     fail_round = 0 <= params.fail_at < rounds and n_fail > 0
-    want["threefry"] = 4 * rounds + int(fail_round)
+    want["threefry"] = 3 * int(fail_round)
     return want
 
 
@@ -115,6 +119,30 @@ def test_kernels_equal_plain_on_engine_rounds(cuda, config):
         assert all(args[4] == 128 for args, _ in calls["rank_inbound"])
     if config == "fail_nodes":
         assert int(rows["failed_count"][-1].sum()) > 0
+
+
+def test_only_the_fail_round_launches_threefry(cuda):
+    """Round by round: an unimpaired round, and a churn, loss and
+    partition round, launch no ``threefry`` kernel; the fail round
+    launches three (its round key, sub keys and uniforms)."""
+    n = 500
+    stakes = np.random.default_rng(2).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    tables = make_cluster_tables(stakes, device=cuda)
+    origins = torch.arange(3, dtype=torch.int32, device=cuda)
+    for kw, fail_at in ((dict(), -1),
+                        (dict(packet_loss_rate=0.1, churn_fail_rate=0.01,
+                              churn_recover_rate=0.2, partition_at=1,
+                              heal_at=4, impair_seed=3), -1),
+                        (dict(fail_at=2, fail_fraction=0.2), 2)):
+        params = EngineParams(num_nodes=n, warm_up_rounds=0, **kw)
+        state = init_state(rng.prng_key(1, cuda), tables, origins, params)
+        for it in range(4):
+            kernels.reset_launch_counts()
+            state, _ = round_step(params, tables, origins, state, it)
+            assert kernels.LAUNCHES["threefry"] == (3 if it == fail_at
+                                                     else 0), (kw, it)
+            assert kernels.LAUNCHES["rotate"] == 1
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -542,8 +570,8 @@ def test_verb_kernels_are_one_launch_and_a_memset(cuda):
     names = _device_kernels(lambda: kernels.push_targets(
         active, pruned, tfail, origins, side, 6, True, (5, 1 << 31)))
     assert len(names) == 1 and "push_targets_kernel" in names[0], names
-    args = _rotate_inputs(r, 4, 3000, 12, 8, cuda)
-    names = _device_kernels(lambda: kernels.rotate(*args, 0.5))
+    args = _rotate_inputs(r, 4, 3000, 12, cuda)
+    names = _device_kernels(lambda: kernels.rotate(*args, 0.5, 8, True))
     assert len(names) == 2, names
     assert any("memset" in name.lower() for name in names), names
     assert any("rotate_kernel" in name for name in names), names
@@ -566,20 +594,30 @@ def _active_rows(r, o, n, s, cuda):
 
 
 VERB_SHAPES = [(1, 10_000), (32, 10_000), (1, 100_000), (32, 100_000)]
-#: (partition window, loss rate): None = the gate is off
+#: push_targets' tiles against its one-wave grid: fewer tiles than blocks
+#: (one each, nothing prefetched), a ragged last tile, and 25,000 tiles
+#: (some 20 per block)
+PUSH_SHAPES = VERB_SHAPES + [(1, 1000), (3, 10_001)]
+#: (partition window, loss rate): None = the gate is off; every pair of
+#: gates present or absent (the kernel's four instantiations)
 PUSH_GATES = {"none": (None, None), "partition_loss": (True, 0.3),
               "window_off_loss_all": (False, 1.0),
-              "partition_only": (True, None)}
+              "partition_only": (True, None), "loss_only": (None, 0.3)}
 
 
 @pytest.mark.parametrize("gates", list(PUSH_GATES))
-@pytest.mark.parametrize("o,n", VERB_SHAPES)
+@pytest.mark.parametrize("o,n", PUSH_SHAPES)
 def test_push_targets_equals_plain(cuda, o, n, gates):
+    partition, rate = PUSH_GATES[gates]
+    rows, smem = pt_mod.launch_geometry(12, 6, 232_448)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles, grid = pt_mod.persistent_grid(o * n, rows, sms, pt_mod.blocks_per_sm(
+        cuda, rows, smem, partition is not None, rate is not None))
+    assert tiles % grid != 0 or tiles == grid
     r = np.random.default_rng(o * 7 + n)
     active, pruned, tfail, origins = _active_rows(r, o, n, 12, cuda)
     side = torch.as_tensor(r.integers(0, 2, size=n + 1).astype(np.int32),
                            device=cuda)
-    partition, rate = PUSH_GATES[gates]
     loss = None if rate is None else (0x9E3779B1 + n, rate_threshold(rate))
     kernels.reset_launch_counts()
     got = kernels.push_targets(active, pruned, tfail, origins, side, 6,
@@ -596,59 +634,97 @@ def test_push_targets_equals_plain(cuda, o, n, gates):
         assert not bool(sup.any())
     if gates == "partition_loss":
         assert bool(sup.any()) and bool(drop.any()) and bool((tgt < n).any())
+    if gates == "loss_only":
+        assert bool(drop.any()) and bool((tgt < n).any())
+
+
+@pytest.mark.parametrize("o,n,s", [(20, 700, 1000), (3, 1001, 7)])
+def test_push_targets_unaligned_tiles_equal_plain(cuda, o, n, s):
+    """Tiles whose slot spans are not 16-byte aligned go byte by byte: 19
+    rows of S = 1000 per tile (737 tiles), and S = 7 with a ragged last
+    tile of 59 rows."""
+    r = np.random.default_rng(o + n + s)
+    active, pruned, tfail, origins = _active_rows(r, o, n, s, cuda)
+    side = torch.as_tensor(r.integers(0, 2, size=n + 1).astype(np.int32),
+                           device=cuda)
+    loss = (0x1234567 + n, rate_threshold(0.3))
+    for partition in (None, True):
+        got = kernels.push_targets(active, pruned, tfail, origins, side, 6,
+                                   partition, loss)
+        _assert_equal(got, kernels.push_targets_plain(
+            active, pruned, tfail, origins, side, 6, partition, loss),
+            (s, partition))
+    rows, _ = pt_mod.launch_geometry(s, 6, 232_448)
+    assert (rows * s) % 16 != 0 or (o * n) % rows != 0
 
 
 #: (S, T, rotation probability)
 ROTATE_CASES = {"s12_t8_p1": (12, 8, 1.0), "s25_t1_p1": (25, 1, 1.0),
-                "s12_t8_p0": (12, 8, 0.0), "s25_t8_half": (25, 8, 0.5)}
+                "s12_t8_p0": (12, 8, 0.0), "s25_t8_half": (25, 8, 0.5),
+                "s12_t32_p1": (12, 32, 1.0)}
+#: (O, N): the engine's shapes, an odd N (the original layout's zero pad),
+#: and N below the 128 rows of a block, whose blocks span many origins
+ROTATE_SHAPES = VERB_SHAPES + [(3, 10_001), (5, 40), (40, 1), (7, 127)]
 
 
-def _rotate_inputs(r, o, n, s, t, cuda):
+def _rotate_inputs(r, o, n, s, cuda):
+    """Seeded verb 5 inputs: active-set rows (_active_rows), stake buckets
+    and their class tables, failed nodes and the origins' threefry keys."""
     active, pruned, tfail, origins = _active_rows(r, o, n, s, cuda)
     buckets = r.integers(0, 25, size=n).astype(np.int32)
     sm = build_sampler_tables(buckets, cuda)
-    u_all = r.random((o, t, n, 2), dtype=np.float32)
-    # class uniforms at a CDF boundary of the row's entry, and member
-    # uniforms one ulp below 1.0
-    org = origins.cpu().numpy()
-    k = np.minimum(buckets[None, :], buckets[org][:, None])       # [O, N]
-    cdf = sm.class_cdf.cpu().numpy()[k]                           # [O,N,25]
-    pick = r.integers(0, 24, size=(o, t, n))
-    at_bound = np.take_along_axis(cdf[:, None], pick[..., None], -1)[..., 0]
-    hit = r.random((o, t, n)) < 0.2
-    u_all[..., 0][hit] = at_bound[hit]
-    u_all[..., 1][r.random((o, t, n)) < 0.1] = np.nextafter(
-        np.float32(1), np.float32(0))
     dev = lambda a: torch.as_tensor(a, device=cuda)
     failed = dev(r.random((o, n)) < 0.2)
-    rot_u = dev(r.random((o, n), dtype=np.float32))
-    return (active, pruned, tfail, failed, rot_u, dev(u_all), origins,
-            dev(buckets), sm.perm, sm.class_start, sm.class_count,
-            sm.class_cdf)
+    key = dev(r.integers(0, 1 << 32, size=(o, 2), dtype=np.int64))
+    it = int(r.integers(0, 1000))
+    return (active, pruned, tfail, failed, key, it, origins, dev(buckets),
+            sm.perm, sm.class_start, sm.class_count, sm.class_cdf)
 
 
-@pytest.mark.parametrize("case", list(ROTATE_CASES))
-@pytest.mark.parametrize("o,n", VERB_SHAPES)
-def test_rotate_equals_plain(cuda, o, n, case):
+#: every case at every shape, but T = 32 only up to O=32, N=10,000 (the
+#: plain version's [O, N, T, 24] class compare grows past 10 GB beyond)
+ROTATE_PARAMS = [(o, n, case) for o, n in ROTATE_SHAPES
+                 for case in ROTATE_CASES
+                 if ROTATE_CASES[case][1] < 32 or o * n <= 320_000]
+
+
+@pytest.mark.parametrize("part", [True, False],
+                         ids=["partitionable", "original"])
+@pytest.mark.parametrize("o,n,case", ROTATE_PARAMS)
+def test_rotate_equals_plain(cuda, o, n, case, part):
     s, t, prob = ROTATE_CASES[case]
-    args = _rotate_inputs(np.random.default_rng(o + n + s + t), o, n, s, t,
+    args = _rotate_inputs(np.random.default_rng(o + n + s + t), o, n, s,
                           cuda)
     kernels.reset_launch_counts()
-    got = kernels.rotate(*args, prob)
+    got = kernels.rotate(*args, prob, t, part)
     assert kernels.LAUNCHES["rotate"] == 1
-    _assert_equal(got, kernels.rotate_plain(*args, prob), case)
+    _assert_equal(got, kernels.rotate_plain(*args, prob, t, part), case)
     moved = int((got[0] != args[0]).any(-1).sum())
-    assert moved == 0 if prob == 0.0 else moved > 0
+    if n > 1:
+        assert moved == 0 if prob == 0.0 else moved > 0
+    g = rot_mod.launch_geometry(s, t, n, o, 232_448)
+    assert g.key_bytes >= rot_mod.key_origins(g.rows, n, o) * (t + 1) * 8
+
+
+@pytest.mark.parametrize("it", [2**31 - 1, 2**31 + 5, 2**32 + 3])
+def test_rotate_folds_the_iteration_mod_2_32(cuda, it):
+    """``fold_in`` takes the iteration's low 32 bits, in both versions."""
+    args = list(_rotate_inputs(np.random.default_rng(4), 4, 3001, 12, cuda))
+    args[5] = it
+    for part in (True, False):
+        _assert_equal(kernels.rotate(*args, 1.0, 8, part),
+                      kernels.rotate_plain(*args, 1.0, 8, part), (it, part))
 
 
 def test_rotate_counts_rows_with_no_new_peer(cuda):
     """N = 16 and S = 12: rows full of 12 of the 15 other nodes often find
     no new peer in their tries, so ``rot_failed`` counts them."""
-    args = _rotate_inputs(np.random.default_rng(5), 3, 16, 12, 8, cuda)
+    args = _rotate_inputs(np.random.default_rng(5), 3, 16, 12, cuda)
     r = np.random.default_rng(6)
     rows = np.stack([np.stack([r.permutation(np.delete(np.arange(16), v))[:12]
                                for v in range(16)]) for _ in range(3)])
     args = (torch.as_tensor(rows.astype(np.int32), device=cuda),) + args[1:]
-    got = kernels.rotate(*args, 1.0)
-    _assert_equal(got, kernels.rotate_plain(*args, 1.0), "n16")
-    assert int(got[3].sum()) > 0
+    for part in (True, False):
+        got = kernels.rotate(*args, 1.0, 8, part)
+        _assert_equal(got, kernels.rotate_plain(*args, 1.0, 8, part), "n16")
+        assert int(got[3].sum()) > 0

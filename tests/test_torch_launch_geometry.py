@@ -16,7 +16,9 @@
   then N;
 * ``push_targets`` and ``rotate`` (a thread per row, the block's rows
   staged in shared memory): 128 rows per block, fewer for wide rows, down
-  to one, and a raise, in bytes, past one block's shared memory.
+  to one, and a raise, in bytes, past one block's shared memory;
+  ``rotate``'s sub keys, T + 1 of each origin a block spans, and
+  ``push_targets``' one-wave grid of tiles.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_cuda.py).
 """
@@ -244,24 +246,90 @@ def test_rank_geometry_of_the_main_shapes(o, n, k, want):
 
 @pytest.mark.parametrize("s,f", [(12, 6), (25, 6), (1, 1), (64, 64)])
 def test_row_kernels_stage_128_rows_of_the_engine_widths(s, f):
-    assert pt.launch_geometry(s, f, SMEM_PER_BLOCK) == (128, 128 * (6 * s
+    # push_targets: two buffers of the slot planes, then the targets
+    assert pt.launch_geometry(s, f, SMEM_PER_BLOCK) == (128, 128 * (12 * s
                                                                     + 6 * f))
-    assert rot.launch_geometry(s, SMEM_PER_BLOCK) == (128, 128 * 6 * s)
+    # rotate: the sub keys of two origins (N = 10,000, T = 8), then the rows
+    g = rot.launch_geometry(s, 8, 10_000, 32, SMEM_PER_BLOCK)
+    assert g == (128, 2 * 9 * 8, 2 * 9 * 8 + 128 * 6 * s)
 
 
 @pytest.mark.parametrize("kernel", ["push_targets", "rotate"])
 def test_row_kernels_take_wide_rows_down_to_one_per_block(kernel):
     if kernel == "push_targets":
+        # two 16-byte padded buffers of 6 S bytes and 36 bytes of targets
         geo = lambda s: pt.launch_geometry(s, 6, SMEM_PER_BLOCK)
-        room, per_slot, fixed = SMEM_PER_BLOCK, 6, 36
+        room = SMEM_PER_BLOCK
+        one = lambda s: 2 * (-(-6 * s // 16) * 16) + 36
     else:
-        geo = lambda s: rot.launch_geometry(s, SMEM_PER_BLOCK)
-        room, per_slot, fixed = SMEM_PER_BLOCK - rot.TABLE_BYTES, 6, 0
+        # the staged rows after the keys of one origin (T = 8: 9 keys of 8
+        # bytes, 16-byte padded), or of two beside more rows
+        geo = lambda s: tuple(rot.launch_geometry(s, 8, 10_000, 32,
+                                                  SMEM_PER_BLOCK))[::2]
+        room = SMEM_PER_BLOCK - rot.TABLE_BYTES
+        one = lambda s: 6 * s + 80
     assert rot.TABLE_BYTES == 2704     # 2,700 B of tables, 16-byte padded
     rows, smem = geo(1000)
-    assert rows == room // (6000 + fixed) < 128
-    assert smem == rows * (6000 + fixed) <= room
-    widest = (room - fixed) // per_slot
-    assert geo(widest) == (1, widest * per_slot + fixed)
+    assert 1 < rows < 128
+    assert smem <= room < smem + one(1000)
+    widest = max(s for s in range(room // 24, room // 6 + 1)
+                 if one(s) <= room)
+    assert geo(widest) == (1, one(widest))
     with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
         geo(widest + 1)
+
+
+@pytest.mark.parametrize("n", [1, 16, 127, 128, 10_000])
+@pytest.mark.parametrize("o", [1, 3, 32, 200])
+def test_rotate_key_buffer_holds_every_origin_a_block_spans(n, o):
+    """The sub keys a block derives: T + 1 keys of each origin its rows
+    span.  ``key_origins`` is the most origins any block of the launch
+    spans (counted block by block), and equal to it where the rows reach
+    that many."""
+    t = 8
+    g = rot.launch_geometry(12, t, n, o, SMEM_PER_BLOCK)
+    rows = o * n
+    spans = [(min(r0 + g.rows, rows) - 1) // n - r0 // n + 1
+             for r0 in range(0, rows, g.rows)]
+    k = rot.key_origins(g.rows, n, o)
+    assert max(spans) <= k
+    # with origins enough, some block spans that many: over one period of
+    # the blocks' starting offsets within an origin
+    worst = max((b * g.rows % n + g.rows - 1) // n + 1 for b in range(n))
+    assert k == min(o, worst)
+    assert g.key_bytes == -(-k * (t + 1) * 8 // 16) * 16
+    assert g.smem == g.key_bytes + g.rows * 6 * 12
+    want = {1: 128, 16: 8, 127: 2, 128: 1, 10_000: 2}[n]
+    assert k == min(o, want)
+
+
+def test_rotate_key_buffer_shrinks_the_block_before_it_refuses():
+    """Many tries at N = 1 (a block spans one origin per row): fewer rows
+    per block, down to one row and its origin's keys; past that a raise
+    that names the bytes."""
+    room = SMEM_PER_BLOCK - rot.TABLE_BYTES
+    g = rot.launch_geometry(12, 1000, 1, 512, SMEM_PER_BLOCK)
+    assert g.rows == room // (1001 * 8 + 72) < 128
+    assert g.smem <= room < g.smem + 1001 * 8 + 72
+    tries = room // 8 - 1 - 10
+    assert rot.launch_geometry(12, tries, 1, 512, SMEM_PER_BLOCK).rows == 1
+    with pytest.raises(ValueError, match=r"sub keys \d+ bytes, more than"):
+        rot.launch_geometry(12, room // 8, 1, 512, SMEM_PER_BLOCK)
+
+
+@pytest.mark.parametrize("o,n,per_sm,want", [
+    (32, 10_000, 9, (2500, 1188)),      # the main shape: one wave of 1,188
+    (1, 10_000, 9, (79, 79)),           # fewer tiles than the wave
+    (32, 100_000, 9, (25_000, 1188)),   # some 21 tiles per block
+    (3, 10_001, 16, (235, 235)),
+    (1, 1, 9, (1, 1)),
+])
+def test_push_targets_runs_one_wave_of_tiles(o, n, per_sm, want):
+    rows, _ = pt.launch_geometry(12, 6, SMEM_PER_BLOCK)
+    tiles, grid = pt.persistent_grid(o * n, rows, SMS, per_sm)
+    assert (tiles, grid) == want
+    assert tiles * rows >= o * n > (tiles - 1) * rows
+    assert grid == min(tiles, SMS * per_sm)
+    # the blocks walk the tiles with a grid stride: each tile once
+    walked = sorted(t for b in range(grid) for t in range(b, tiles, grid))
+    assert walked == list(range(tiles))

@@ -1,5 +1,7 @@
 """The port's threefry keys and uniforms equal ``jax.random`` bit for bit,
-under both ``jax_threefry_partitionable`` layouts.
+under both ``jax_threefry_partitionable`` layouts; so do the word maps of
+``csrc/threefry.cuh`` (their Python mirrors), with which ``rotate`` draws
+one word at a time.
 
 Tolerance: 0 everywhere (exact equality of u32 words and f32 values)."""
 
@@ -156,3 +158,45 @@ def test_rng_goes_through_the_kernel_module(layout, monkeypatch):
     rng.uniform(subs[:, 1:3], (4, 2))
     rng.random_bits(subs[:, 0], 5)
     assert seen == ["fold_in", "split", "uniform", "bits"]
+
+
+# ---- the word maps of csrc/threefry.cuh (rotate draws one word at a time) --
+
+@pytest.mark.parametrize("n", [1, 2, 7, 40, 41, 1001])
+def test_word_at_mirrors_every_flat_index(layout, n):
+    """``word_at`` (the mirror of ``tf_word``) gives word f of an n-word
+    draw for every f: the words of ``rng.random_bits`` and, mapped to
+    floats, ``rng.uniform``; odd n takes the original layout's zero pad."""
+    _, keys = _jax_keys((3, 2))
+    f = torch.arange(n)
+    got = tf.word_at(keys[..., None, :], f, n, layout)            # [3, 2, n]
+    assert torch.equal(got, rng.random_bits(keys, n))
+    assert torch.equal(tf.bits_to_uniform(got), rng.uniform(keys, (n,)))
+    # as rotate draws them: word node of an N-word draw, and words 2 node
+    # and 2 node + 1 of a 2N-word draw
+    u2 = rng.uniform(keys, (n, 2))
+    for c in (0, 1):
+        assert torch.equal(tf.bits_to_uniform(
+            tf.word_at(keys[..., None, :], 2 * f + c, 2 * n, layout)),
+            u2[..., c])
+
+
+@pytest.mark.parametrize("tries", [1, 8, 32])
+def test_split_word_mirrors_every_key(layout, tries):
+    """``split_word`` (the mirror of ``tf_split_word``) gives both words of
+    every key of ``split(key, T + 2)``, and the round's sub keys of the
+    reference engine: ``jax.random.split(fold_in(key, it), T + 2)``."""
+    keys_np, keys = _jax_keys((4,))
+    m = tries + 2
+    want = rng.split(keys, m)                                     # [4, m, 2]
+    i = torch.arange(m)
+    for w in (0, 1):
+        assert torch.equal(tf.split_word(keys[:, None, :], i, w, m, layout),
+                           want[..., w])
+    kr = jax.vmap(jax.random.fold_in, in_axes=(0, None))(
+        jnp.asarray(keys_np.astype(np.uint32)), 2**31 + 9)
+    subs = np.asarray(jax.vmap(lambda k: jax.random.split(k, m))(kr))
+    kr_t = tf.threefry_plain(keys, "fold_in", 2**31 + 9)
+    for w in (0, 1):
+        got = tf.split_word(kr_t[:, None, :], i, w, m, layout)
+        assert np.array_equal(got.numpy(), subs[..., w].astype(np.int64))

@@ -10,10 +10,11 @@ reference package.
 * ``sample_members_plain`` equals the reference's ``_sample_fast`` on
   uniforms placed at 0.0, at each CDF boundary and one ulp below it, and on
   member uniforms of 0.0 and one ulp below 1.0;
-* ``rotate_plain`` equals one reference round's new ``active``/``pruned``/
+* ``rotate_plain``, which draws its uniforms from the origins' keys and
+  the iteration, equals one reference round's new ``active``/``pruned``/
   ``tfail`` and its ``rot_failed`` row, on a state built so that full rows
   shift, rows that are not full append, rows find no new peer in their
-  tries, and chosen peers are failed.
+  tries, and chosen peers are failed, at an even and an odd N.
 
 Both threefry layouts are pinned in turn.  The kernels themselves are held
 against these plain versions on the card by tests/test_torch_kernels_cuda.py
@@ -190,7 +191,7 @@ def test_sampler_plain_matches_reference_sample_fast():
     assert np.isin(got.numpy(), (starts + counts - 1)[wide]).any()
 
 
-ROT_N, ROT_HEAVY, ROT_AT = 40, 12, 7
+ROT_HEAVY, ROT_AT = 12, 7
 
 
 def _rotation_state(jt, jp, origins, seed):
@@ -203,7 +204,7 @@ def _rotation_state(jt, jp, origins, seed):
     peers (they append).  A fifth of the nodes are failed, heavy ones
     among them, and the tfail bits agree."""
     r = np.random.default_rng(seed)
-    n, S = ROT_N, jp.active_set_size
+    n, S = jp.num_nodes, jp.active_set_size
     js = je.init_state(jax.random.PRNGKey(seed), jt, jnp.asarray(origins), jp)
     O = len(origins)
     active = np.full((O, n, S), n, np.int32)
@@ -229,9 +230,11 @@ def _rotation_state(jt, jp, origins, seed):
                        failed=jnp.asarray(failed))
 
 
+@pytest.mark.parametrize("n", [40, 41])
 @pytest.mark.parametrize("prob", [1.0, 0.6])
-def test_rotate_plain_matches_one_reference_round(layout, prob):
-    n = ROT_N
+def test_rotate_plain_matches_one_reference_round(layout, prob, n):
+    """N = 41 is odd: in the original layout the rotation uniforms' last
+    counter pair takes the zero pad (the tries' 2N-word draws are even)."""
     stakes = np.concatenate([
         np.full(ROT_HEAVY, 1 << 60) + np.arange(ROT_HEAVY),
         100_000 + np.arange(n - ROT_HEAVY)]).astype(np.int64)
@@ -246,6 +249,8 @@ def test_rotate_plain_matches_one_reference_round(layout, prob):
                                start_it=ROT_AT)
     args, kwargs = _capture("rotate", PortParams(num_nodes=n, **kw), tt,
                             torch.as_tensor(origins), ts, ROT_AT)
+    # the round hands rotate the state's keys and the iteration, not draws
+    assert args[4] is ts.key and args[5] == ROT_AT
     new_active, new_pruned, new_tfail, rot_failed = kernels.rotate_plain(
         *args, **kwargs)
     assert np.array_equal(new_active.numpy(), np.asarray(want.active))
