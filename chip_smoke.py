@@ -11,7 +11,7 @@ Phases (any failure exits non-zero before the final line):
       nvcc for sm_90a (one nvcc per source, in parallel); print each
       kernel's registers, shared memory and spills (``-Xptxas -v``), check
       ``rotate``'s static shared memory (the class tables) against ptxas
-      and its sub keys and rows beside them against the block's limit,
+      and its keys and rows beside them against the block's limit,
       print the launch geometry of the cluster and row kernels (cluster
       size, rows or warps per block, shared memory, ``push_targets``' tiles
       and one-wave grid), and the instructions of one threefry block in the
@@ -33,7 +33,10 @@ Phases (any failure exits non-zero before the final line):
       device memory, every kernel launched, ``threefry`` launched in
       ``init_state`` only; then a 5-round profile: device busy and idle
       share, device time and launches per round of each kernel and of the
-      plain PyTorch ops, and ``init_state``'s profile, beside the same
+      plain PyTorch ops, and ``init_state``'s profile; ``push_targets`` on
+      round 19's inputs with a cold L2 beside a copy of as many bytes, and
+      on its one-wave grid in turns with the single-pass schedule (a block
+      per tile, one buffer); beside the same
       5-round profile with the draws routed to plain versions (``threefry``
       and ``rotate``, whose plain version draws with ``threefry``'s), and
       with verbs 1 and 5 routed to ``push_targets``' and ``rotate``'s plain
@@ -60,6 +63,7 @@ Imports nothing of JAX and nothing of the reference package.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -299,6 +303,29 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
             "launches": launches}
 
 
+@contextlib.contextmanager
+def single_pass_schedule(pt_mod):
+    """``push_targets`` launched on the single-pass schedule while inside:
+    a block per tile with shared memory for one input buffer, so each
+    block loads its tile, scans it and stores it, with no load in flight
+    across tiles (for timing against the one-wave grid only)."""
+    geometry, grid = pt_mod.launch_geometry, pt_mod.persistent_grid
+
+    def one_buffer(s, f, smem_limit):
+        rows, _ = geometry(s, f, smem_limit)
+        return rows, pt_mod.stage_bytes(rows, s, f, buffers=1)
+
+    def block_per_tile(rows, rows_per_block, sms, blocks_per_sm):
+        tiles, _ = grid(rows, rows_per_block, sms, blocks_per_sm)
+        return tiles, tiles
+
+    pt_mod.launch_geometry, pt_mod.persistent_grid = one_buffer, block_per_tile
+    try:
+        yield
+    finally:
+        pt_mod.launch_geometry, pt_mod.persistent_grid = geometry, grid
+
+
 #: (library, kernel symbol in its SASS) whose inlined threefry block is
 #: counted: threefry's uniform mode, and rotate (csrc/threefry.cuh in both)
 SASS_BLOCKS = {"threefry": ("threefry", "threefry_kernelILi3E"),
@@ -494,7 +521,7 @@ def main() -> int:
             say(f"(a) ptxas {line}")
     sms, smem_limit = _build.sm_count(dev), _build.smem_optin(dev)
     # rotate's shared memory: ptxas's static bytes are the class tables, and
-    # the sub keys and the rows (dynamic) fit beside them at every shape
+    # the keys and the rows (dynamic) fit beside them at every shape
     table = re.search(r"rotate_kernel: \d+ registers, static shared memory "
                       r"(\d+) B", "\n".join(ptxas_summary(
                           _build.BUILD_LOG["rotate"])))
@@ -510,9 +537,10 @@ def main() -> int:
             fail(f"rotate at S={s_} T={t_} N={n_} O={o_}: {total} B of "
                  f"shared memory per block, past the {smem_limit} B limit")
         say(f"(a) rotate at S={s_} T={t_} N={n_} O={o_}: {g.rows} rows "
-            f"per block, {g.key_bytes} B of sub keys "
-            f"({rot_mod.key_origins(g.rows, n_, o_)} origins x {t_ + 1} "
-            f"keys) + {g.smem - g.key_bytes} B of staged rows + "
+            f"per block, {g.key_bytes} B of keys "
+            f"({rot_mod.key_origins(g.rows, n_, o_)} origins x {t_ + 2}: "
+            f"the round key and {t_ + 1} sub keys) + "
+            f"{g.smem - g.key_bytes} B of staged rows + "
             f"{table.group(1)} B of class tables (ptxas) = {total} B of "
             f"{smem_limit} B")
     for o in (1, O_KERNEL):
@@ -869,6 +897,23 @@ def main() -> int:
         f"round 19's inputs ({moved['push_targets']} bytes to move, bound "
         f"{res['push_targets']['bound_ms']:.4f} ms); a device-to-device "
         f"copy moving as many bytes {fmt(copy_cold)}")
+    # push_targets' schedules on the same inputs, cold L2, in turns: the
+    # one-wave grid with two buffers, and the single pass (a block per
+    # tile, one buffer, no load in flight while a tile is scanned)
+    with single_pass_schedule(pt_mod):
+        exact("push_targets", *pt_call, "(c) single-pass schedule")
+    sched = {"one wave": [], "single pass": []}
+    for which in ("one wave", "single pass", "single pass", "one wave"):
+        with (single_pass_schedule(pt_mod) if which == "single pass"
+              else contextlib.nullcontext()):
+            sched[which].append(cold_device_ms(
+                lambda: real["push_targets"](*pt_call[0], **pt_call[1]),
+                KERNEL_SYMBOLS["push_targets"], flush))
+    say(f"(c) push_targets schedules, cold L2 at O={O_KERNEL}, in turns "
+        f"(one wave, single pass, single pass, one wave): one wave "
+        + " and ".join(fmt(v) for v in sched["one wave"])
+        + ", single pass (exact vs plain) "
+        + " and ".join(fmt(v) for v in sched["single pass"]))
     del flush, copy_src, copy_dst, pt_call
     # the same rounds with kernels routed to their plain versions on the
     # card, as the port made those blocks before the kernels (comparisons

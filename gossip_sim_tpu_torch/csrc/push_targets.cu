@@ -31,6 +31,9 @@
 // tile is scanned and its targets and masks are stored (through shared
 // memory, so the stores are coalesced too).  Two buffers measured fastest
 // on the H100: a third costs blocks per SM and gains no bytes in flight.
+// The same kernel on a single pass (a block per tile, shared memory for
+// one buffer) times the same there: its resident blocks keep as many
+// loads in flight (chip_smoke.py times both).
 // The kernel is instantiated for the gates that are present, so an absent
 // gate costs the scan no instruction.
 
@@ -74,12 +77,15 @@ __global__ void push_targets_kernel(
   extern __shared__ __align__(16) uint8_t smem[];
   const int rpb = blockDim.x;
   const long long tiles = (rows + rpb - 1) / rpb;
-  // kStages input buffers of a tile's slot planes (16-byte padded), then
-  // the tile's outputs
+  // the tile's outputs, then kStages input buffers of a tile's slot
+  // planes, each part 16-byte padded: a grid of one block per tile touches
+  // the first buffer only, and may be given shared memory for that one
+  const int out_bytes = (rpb * f * 6 + 15) & ~15;
   const int in_bytes = (rpb * s * 6 + 15) & ~15;
-  int32_t* s_tgt = reinterpret_cast<int32_t*>(smem + kStages * in_bytes);
+  int32_t* s_tgt = reinterpret_cast<int32_t*>(smem);
   uint8_t* s_sup = reinterpret_cast<uint8_t*>(s_tgt + rpb * f);
   uint8_t* s_drop = s_sup + rpb * f;
+  uint8_t* s_in = smem + out_bytes;
 
   // the copies of the block's k-th tile (if it has one) into buffer
   // k % kStages, as one group: a group is committed for every k, empty past
@@ -90,7 +96,7 @@ __global__ void push_targets_kernel(
     if (tile < tiles) {
       const long long r0 = tile * rpb;
       const int nr = (int)min((long long)rpb, rows - r0);
-      uint8_t* b = smem + (k % kStages) * in_bytes;
+      uint8_t* b = s_in + (k % kStages) * in_bytes;
       stage_in_async(b, reinterpret_cast<const uint8_t*>(active + r0 * s),
                      nr * s * 4);
       stage_in_async(b + rpb * s * 4, pruned + r0 * s, nr * s);
@@ -110,7 +116,7 @@ __global__ void push_targets_kernel(
 
     const long long r0 = tile * rpb;
     const int nr = (int)min((long long)rpb, rows - r0);
-    const uint8_t* b = smem + (k % kStages) * in_bytes;
+    const uint8_t* b = s_in + (k % kStages) * in_bytes;
     const int i = threadIdx.x;
     if (i < nr) {
       // the row's origin and node from the tile's first row: one 64-bit
@@ -164,59 +170,22 @@ __global__ void push_targets_kernel(
   }
 }
 
+using Kernel = void (*)(const int32_t*, const uint8_t*, const uint8_t*,
+                        const int32_t*, const int32_t*, int32_t*, uint8_t*,
+                        uint8_t*, long long, int, int, int, int, uint32_t,
+                        unsigned long long);
 
-template <bool kPart, bool kLoss>
-cudaError_t launch(const int32_t* active, const uint8_t* pruned,
-                   const uint8_t* tfail, const int32_t* origins,
-                   const int32_t* side, int32_t* tgt, uint8_t* sup,
-                   uint8_t* drop, long long rows, int n, int s, int f,
-                   int rows_per_block, int grid, int smem, int part_on,
-                   uint32_t basis, unsigned long long threshold,
-                   cudaStream_t stream, int* blocks_per_sm) {
-  auto* kernel = push_targets_kernel<kPart, kLoss>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  if (blocks_per_sm != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel, rows_per_block, (size_t)smem);
-  kernel<<<(unsigned)grid, rows_per_block, smem, stream>>>(
-      active, pruned, tfail, origins, side, tgt, sup, drop, rows, n, s, f,
-      part_on, basis, threshold);
-  return cudaGetLastError();
-}
-
-// The instantiation of the gates that are present, launched (or, with
-// blocks_per_sm set, its occupancy read: the blocks of rows_per_block
-// threads and smem bytes of dynamic shared memory that one SM holds).
-cudaError_t dispatch(const int32_t* active, const uint8_t* pruned,
-                     const uint8_t* tfail, const int32_t* origins,
-                     const int32_t* side, int32_t* tgt, uint8_t* sup,
-                     uint8_t* drop, long long rows, int n, int s, int f,
-                     int rows_per_block, int grid, int smem, int part_on,
-                     uint32_t basis, unsigned long long threshold,
-                     cudaStream_t stream, int* blocks_per_sm) {
-  if (sup != nullptr && drop != nullptr)
-    return launch<true, true>(active, pruned, tfail, origins, side, tgt, sup,
-                              drop, rows, n, s, f, rows_per_block, grid,
-                              smem, part_on, basis, threshold, stream,
-                              blocks_per_sm);
-  if (sup != nullptr)
-    return launch<true, false>(active, pruned, tfail, origins, side, tgt,
-                               sup, drop, rows, n, s, f, rows_per_block, grid,
-                               smem, part_on, basis, threshold, stream,
-                               blocks_per_sm);
-  if (drop != nullptr)
-    return launch<false, true>(active, pruned, tfail, origins, side, tgt,
-                               sup, drop, rows, n, s, f, rows_per_block, grid,
-                               smem, part_on, basis, threshold, stream,
-                               blocks_per_sm);
-  return launch<false, false>(active, pruned, tfail, origins, side, tgt, sup,
-                              drop, rows, n, s, f, rows_per_block, grid, smem,
-                              part_on, basis, threshold, stream,
-                              blocks_per_sm);
+// The instantiation for the gates that are present (part: sup is set,
+// loss: drop is), with its dynamic shared memory limit raised to smem
+// where that passes the default.
+cudaError_t kernel_for(bool part, bool loss, int smem, Kernel* kernel) {
+  *kernel = part ? (loss ? push_targets_kernel<true, true>
+                         : push_targets_kernel<true, false>)
+                 : (loss ? push_targets_kernel<false, true>
+                         : push_targets_kernel<false, false>);
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
@@ -232,9 +201,14 @@ extern "C" int push_targets_launch(
     uint8_t* drop, long long rows, int n, int s, int f, int rows_per_block,
     int grid, int smem, int part_on, uint32_t basis,
     unsigned long long threshold, cudaStream_t stream) {
-  return (int)dispatch(active, pruned, tfail, origins, side, tgt, sup, drop,
-                       rows, n, s, f, rows_per_block, grid, smem, part_on,
-                       basis, threshold, stream, nullptr);
+  Kernel kernel;
+  const cudaError_t err =
+      kernel_for(sup != nullptr, drop != nullptr, smem, &kernel);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)grid, rows_per_block, smem, stream>>>(
+      active, pruned, tfail, origins, side, tgt, sup, drop, rows, n, s, f,
+      part_on, basis, threshold);
+  return (int)cudaGetLastError();
 }
 
 // Blocks of the instantiation for these gates (part: sup set, loss: drop
@@ -242,8 +216,9 @@ extern "C" int push_targets_launch(
 // that one SM holds at once, into *blocks; returns the CUDA error.
 extern "C" int push_targets_blocks_per_sm(int rows_per_block, int smem,
                                           int part, int loss, int* blocks) {
-  uint8_t* set = reinterpret_cast<uint8_t*>(1);
-  return (int)dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                       part ? set : nullptr, loss ? set : nullptr, 0, 1, 1, 1,
-                       rows_per_block, 0, smem, 0, 0, 0, nullptr, blocks);
+  Kernel kernel;
+  const cudaError_t err = kernel_for(part != 0, loss != 0, smem, &kernel);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, rows_per_block, (size_t)smem);
 }

@@ -20,11 +20,13 @@
 // kr = fold_in(key[o], it); sub key 1 of split(kr, T + 2) draws the
 // rotation uniforms (word `node` of an N-word draw) and sub key 2 + t the
 // class and member uniform of try t (words 2 node and 2 node + 1 of a
-// 2N-word draw).  A block derives kr and sub keys 1 .. T + 1 once for each
-// origin its rows span, into shared memory; every row hashes its own
-// rotation uniform, and only a row that rotates hashes its tries, up to the
-// first that finds a new peer.  Sub key 0 draws the fail round's uniforms,
-// which the engine draws with the threefry kernel.
+// 2N-word draw).  A block derives kr once for each origin its rows span,
+// then that origin's sub keys 1 .. T + 1 a thread per key, into T + 2
+// slots of shared memory per origin (kr in slot 0, sub key q in slot q; a
+// barrier between the two); every row hashes its own rotation uniform, and
+// only a row that rotates hashes its tries, up to the first that finds a
+// new peer.  Sub key 0 draws the fail round's uniforms, which the engine
+// draws with the threefry kernel.
 //
 // Per row: rotate iff rot_u < p (one f32 compare).  Try t draws a class as
 // #{j < 24 : u_class >= class_cdf[min(b_n, b_o)][j]} and a member
@@ -83,24 +85,31 @@ __global__ void rotate_kernel(
     s_start[j] = class_start[j];
     s_count[j] = class_count[j];
   }
+  // the round key of each origin the block's rows span, once per origin,
+  // into slot 0 of the origin's T + 2 slots; then its sub keys 1 .. T + 1
+  // into slots 1 .. T + 1, a thread per key
+  const bool pt = part != 0;
+  const int o_first = (int)(r0 / n);
+  const int n_org = (int)((r0 + nr - 1) / n) - o_first + 1;
+  const int nk = tries + 2;
+  for (int j = threadIdx.x; j < n_org; j += rpb) {
+    const long long* kp =
+        reinterpret_cast<const long long*>(key) + 2LL * (o_first + j);
+    uint32_t kr0, kr1;
+    tf_fold_in((uint32_t)__ldg(kp), (uint32_t)__ldg(kp + 1), it, kr0, kr1);
+    s_key[j * nk] = make_uint2(kr0, kr1);
+  }
   stage_in(reinterpret_cast<uint8_t*>(s_act),
            reinterpret_cast<const uint8_t*>(active + r0 * s), nr * s * 4);
   stage_in(s_prn, pruned + r0 * s, nr * s);
   stage_in(s_tf, tfail + r0 * s, nr * s);
-  // sub keys 1 .. T + 1 of each origin the block's rows span: a thread per
-  // key, each folding the iteration into its origin's key first
-  const bool pt = part != 0;
-  const int o_first = (int)(r0 / n);
-  const int n_org = (int)((r0 + nr - 1) / n) - o_first + 1;
-  const int nk = tries + 1;
-  for (int j = threadIdx.x; j < n_org * nk; j += rpb) {
-    const int oj = j / nk;
-    const long long* kp =
-        reinterpret_cast<const long long*>(key) + 2LL * (o_first + oj);
-    uint32_t kr0, kr1;
-    tf_fold_in((uint32_t)__ldg(kp), (uint32_t)__ldg(kp + 1), it, kr0, kr1);
-    s_key[j] = tf_split_key(kr0, kr1, (uint32_t)(j - oj * nk + 1),
-                            (uint32_t)tries + 2u, pt);
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_org * (tries + 1); j += rpb) {
+    const int oj = j / (tries + 1);
+    const int q = j - oj * (tries + 1) + 1;
+    const uint2 kr = s_key[oj * nk];
+    s_key[oj * nk + q] =
+        tf_split_key(kr.x, kr.y, (uint32_t)q, (uint32_t)nk, pt);
   }
   __syncthreads();
 
@@ -115,8 +124,8 @@ __global__ void rotate_kernel(
       o += q;
       node -= q * n;
     }
-    const uint2* ko = s_key + (o - o_first) * nk;
-    if (to_uniform(tf_word(ko[0].x, ko[0].y, (uint32_t)node, (uint32_t)n,
+    const uint2* ko = s_key + (o - o_first) * nk;   // ko[q]: sub key q
+    if (to_uniform(tf_word(ko[1].x, ko[1].y, (uint32_t)node, (uint32_t)n,
                            pt)) < prob) {
       int32_t* a = s_act + i * s;
       uint8_t* pr = s_prn + i * s;
@@ -127,7 +136,7 @@ __global__ void rotate_kernel(
       int chosen = n;
       bool found = false;
       for (int t = 0; t < tries && !found; ++t) {
-        const uint2 kt = ko[1 + t];
+        const uint2 kt = ko[2 + t];
         const float ux =
             to_uniform(tf_word(kt.x, kt.y, 2u * node, two_n, pt));
         const float uy =
@@ -178,8 +187,8 @@ __global__ void rotate_kernel(
 
 }  // namespace
 
-// rows = O * N, o = O; rows_per_block, key_bytes (the sub keys, 16-byte
-// padded, ahead of the staged rows) and smem (both; the class tables are
+// rows = O * N, o = O; rows_per_block, key_bytes (the round keys and sub
+// keys, 16-byte padded, ahead of the staged rows) and smem (both; the class tables are
 // static shared memory) come from kernels/rotate.py launch_geometry.
 extern "C" int rotate_launch(
     const int32_t* active, const uint8_t* pruned, const uint8_t* tfail,

@@ -30,10 +30,13 @@ def row_bytes(s: int, f: int) -> int:
     return STAGES * 6 * s + 6 * f
 
 
-def stage_bytes(rows: int, s: int, f: int) -> int:
-    """Shared memory of a block of ``rows`` rows: ``STAGES`` buffers of the
-    slot planes, each 16-byte padded, and the targets and masks."""
-    return STAGES * (-(-rows * 6 * s // 16) * 16) + rows * 6 * f
+def stage_bytes(rows: int, s: int, f: int, buffers: int = STAGES) -> int:
+    """Shared memory of a block of ``rows`` rows: the targets and masks,
+    then ``buffers`` buffers of the slot planes, each part 16-byte padded.
+    A grid of one block per tile uses only the first buffer, so one is
+    enough for it."""
+    pad = lambda b: -(-b // 16) * 16
+    return pad(rows * 6 * f) + buffers * pad(rows * 6 * s)
 
 
 def launch_geometry(s: int, f: int, smem_limit: int) -> tuple[int, int]:

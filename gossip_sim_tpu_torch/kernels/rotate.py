@@ -29,14 +29,15 @@ NAME = "rotate"
 #: starts and counts (csrc/rotate.cu), padded to 16 bytes ahead of the
 #: dynamic shared memory (ptxas reports it; chip_smoke.py checks it).
 TABLE_BYTES = -(-(4 * NB * NB + 8 * NB) // 16) * 16
-#: Bytes of one sub key in shared memory: two u32 words.
+#: Bytes of one key (the round key or a sub key) in shared memory: two u32
+#: words.
 KEY_BYTES = 8
 
 
 class Geometry(NamedTuple):
-    """Rows (threads) per block, the bytes of the block's sub keys (16-byte
-    padded, ahead of the staged rows) and the block's dynamic shared
-    memory (keys and rows)."""
+    """Rows (threads) per block, the bytes of the block's round keys and sub
+    keys (16-byte padded, ahead of the staged rows) and the block's dynamic
+    shared memory (keys and rows)."""
 
     rows: int
     key_bytes: int
@@ -62,10 +63,10 @@ def key_origins(rows: int, n: int, o: int) -> int:
 
 
 def key_bytes(rows: int, n: int, o: int, tries: int) -> int:
-    """Shared memory of a block's sub keys: ``T + 1`` keys (the rotation
-    uniforms' and each try's) of every origin its rows span, 16-byte
-    padded."""
-    return -(-key_origins(rows, n, o) * (tries + 1) * KEY_BYTES // 16) * 16
+    """Shared memory of a block's keys: ``T + 2`` of every origin its rows
+    span (the round key, derived once per origin, and the sub keys of the
+    rotation uniforms and of each try), 16-byte padded."""
+    return -(-key_origins(rows, n, o) * (tries + 2) * KEY_BYTES // 16) * 16
 
 
 @functools.lru_cache(maxsize=64)
@@ -74,14 +75,15 @@ def launch_geometry(s: int, tries: int, n: int, o: int,
     """Rows per block and shared memory (beside the static class tables):
     ``_build.ROWS_PER_BLOCK`` rows, fewer where their slots and sub keys
     would pass the block's shared memory; raises, naming the bytes, where
-    one row and its origin's keys do not fit."""
+    one row and its origin's round key and sub keys do not fit."""
     room = smem_limit - TABLE_BYTES
     rb = row_bytes(s)
     if rb + key_bytes(1, n, o, tries) > room:
         raise ValueError(
             f"{NAME}: a row needs {rb} bytes of shared memory and its "
-            f"origin's {tries + 1} sub keys {key_bytes(1, n, o, tries)} "
-            f"bytes, more than the {room} bytes of one block")
+            f"origin's round key and {tries + 1} sub keys "
+            f"{key_bytes(1, n, o, tries)} bytes, more than the {room} bytes "
+            f"of one block")
     rows = min(_build.ROWS_PER_BLOCK, room // max(rb, 1))
     while rows * rb + key_bytes(rows, n, o, tries) > room:
         rows -= 1

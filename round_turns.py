@@ -12,18 +12,23 @@ origins and N=10,000 nodes of the synthetic cluster (chip_smoke.py's
 shape): ``init_state``, 10 rounds of warm-up, 50 rounds timed on the host
 clock (wall per round, ending in a synchronize), the peak device memory of
 those rounds above the state, and a 5-round profile (device busy per
-round, launches per round, device time per kernel).  One JSON line per
-tree, then the card's name and power limit.  Needs a CUDA device.
+round, launches per round, device time per kernel), read by
+chip_smoke.py's ``profile_rounds`` (its text goes to
+``chiprun_out/profile_roundturns_<tree>.txt``).  One JSON line per tree,
+then the card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+ROOT = Path(__file__).resolve().parent
 O, N, WARM, TIMED, PROFILED = 32, 10_000, 10, 50, 5
 
 
@@ -31,12 +36,17 @@ def one(tree: str) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gossip_sim_tpu_torch import cli, kernels, rng
     from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
                                              make_cluster_tables, run_rounds)
     from gossip_sim_tpu_torch.identity import NodeIndex, reset_unique_pubkeys
+    # the profile is read as chip_smoke.py reads it: this script's own
+    # chip_smoke.py, whichever tree the package comes from
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT
+                                                  / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     if not torch.cuda.is_available():
         raise SystemExit("round_turns: needs a CUDA device")
     dev = torch.device("cuda")
@@ -62,31 +72,18 @@ def one(tree: str) -> dict:
     wall = (time.perf_counter() - t0) / TIMED
     peak = torch.cuda.max_memory_allocated() - base
     wrapper_launches = {k: v / TIMED for k, v in kernels.LAUNCHES.items()}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_rounds(params, tables, origins, state, PROFILED,
-                   start_it=WARM + TIMED)
-        torch.cuda.synchronize()
-    busy, launches, per_kernel = 0.0, 0, {}
-    for ev in prof.key_averages():
-        us = float(getattr(ev, "self_device_time_total",
-                           getattr(ev, "self_cuda_time_total", 0.0)))
-        if us <= 0 or getattr(ev, "device_type", None) not in (
-                None, torch.autograd.DeviceType.CUDA):
-            continue
-        busy += us
-        launches += ev.count
-        for name in kernels.KERNEL_NAMES:
-            if f"{name}_kernel" in ev.key:
-                per_kernel[name] = per_kernel.get(name, 0.0) + us
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    prof = smoke.profile_rounds(run_rounds, params, tables, origins, state,
+                                out_dir, rounds=PROFILED,
+                                tag=" turns " + re.sub(r"\W", "_", tree))
     return {"tree": tree, "device": torch.cuda.get_device_name(0),
             "wall_ms_per_round": wall * 1e3,
-            "busy_ms_per_round": (busy / 1e3 / PROFILED) if busy else None,
-            "launches_per_round": launches / PROFILED,
+            "busy_ms_per_round": prof.get("busy_ms"),
+            "launches_per_round": prof.get("launches"),
             "peak_bytes_over_state": peak,
             "kernel_launches_per_round": wrapper_launches,
-            "kernel_device_ms_per_round": {
-                k: v / 1e3 / PROFILED for k, v in per_kernel.items()}}
+            "kernel_device_ms_per_round": prof["device"]}
 
 
 def main(argv: list) -> int:

@@ -681,6 +681,47 @@ def _rotate_inputs(r, o, n, s, cuda):
             sm.perm, sm.class_start, sm.class_count, sm.class_cdf)
 
 
+def _at_the_edges(args, tries, prob, part, r):
+    """``_rotate_inputs``' args with the class tables aimed at this call's
+    own draws (``draws_plain``), so that the sampler meets its edges: the
+    first try's class uniform of up to six rotating rows per entry is made
+    a CDF value of the row's entry (the ``u >= cdf[j]`` compare at
+    equality), and each class that those tries land in gets the count under
+    which one of their member uniforms times the count lies closest below
+    an integer (the f32 product that may round up onto it, then the floor
+    and the cap at the class's last member).  Returns the args and the
+    number of uniforms placed on a CDF value."""
+    (active, pruned, tfail, failed, key, it, origins, buckets, perm, start,
+     count, cdf) = args
+    o, n, _ = active.shape
+    rot_u, u_all = rot_mod.draws_plain(key, it, n, tries, part)
+    rows = r.permutation(np.flatnonzero(rot_u.cpu().numpy().ravel() < prob))
+    if tries == 0 or rows.size == 0:
+        return args, 0
+    u0 = u_all[:, 0].cpu().numpy().reshape(o * n, 2)   # try 0: (class, member)
+    b = buckets.cpu().numpy()
+    k = np.minimum(b[None, :], b[origins.cpu().numpy()][:, None]).ravel()
+    cdf_np = cdf.cpu().numpy().copy()
+    hit = 0
+    for kk in np.unique(k[rows]):
+        mine = rows[k[rows] == kk][:6]
+        cdf_np[kk, r.choice(24, size=mine.size, replace=False)] = u0[mine, 0]
+        cdf_np[kk, :24] = np.sort(cdf_np[kk, :24])
+        hit += mine.size
+    cls = (u0[rows, 0][:, None] >= cdf_np[k[rows], :24]).sum(-1)
+    count_np = count.cpu().numpy().copy()
+    # exact in f64: a 24-bit significand times a count of at most 18 bits
+    counts = np.arange(1, max(n, 2) + 1, dtype=np.float64)
+    for c in np.unique(cls):
+        prod = np.float64(u0[rows[cls == c][0], 1]) * counts
+        below = np.ceil(prod) - prod
+        below[below == 0] = 2.0
+        count_np[c] = int(counts[np.argmin(below)])
+    dev = active.device
+    return (args[:10] + (torch.as_tensor(count_np, device=dev),
+                         torch.as_tensor(cdf_np, device=dev))), hit
+
+
 #: every case at every shape, but T = 32 only up to O=32, N=10,000 (the
 #: plain version's [O, N, T, 24] class compare grows past 10 GB beyond)
 ROTATE_PARAMS = [(o, n, case) for o, n in ROTATE_SHAPES
@@ -693,8 +734,10 @@ ROTATE_PARAMS = [(o, n, case) for o, n in ROTATE_SHAPES
 @pytest.mark.parametrize("o,n,case", ROTATE_PARAMS)
 def test_rotate_equals_plain(cuda, o, n, case, part):
     s, t, prob = ROTATE_CASES[case]
-    args = _rotate_inputs(np.random.default_rng(o + n + s + t), o, n, s,
-                          cuda)
+    r = np.random.default_rng(o + n + s + t)
+    args, hit = _at_the_edges(_rotate_inputs(r, o, n, s, cuda), t, prob,
+                              part, r)
+    assert hit > 0 or prob == 0.0
     kernels.reset_launch_counts()
     got = kernels.rotate(*args, prob, t, part)
     assert kernels.LAUNCHES["rotate"] == 1
@@ -709,11 +752,13 @@ def test_rotate_equals_plain(cuda, o, n, case, part):
 @pytest.mark.parametrize("it", [2**31 - 1, 2**31 + 5, 2**32 + 3])
 def test_rotate_folds_the_iteration_mod_2_32(cuda, it):
     """``fold_in`` takes the iteration's low 32 bits, in both versions."""
-    args = list(_rotate_inputs(np.random.default_rng(4), 4, 3001, 12, cuda))
+    r = np.random.default_rng(4)
+    args = list(_rotate_inputs(r, 4, 3001, 12, cuda))
     args[5] = it
     for part in (True, False):
-        _assert_equal(kernels.rotate(*args, 1.0, 8, part),
-                      kernels.rotate_plain(*args, 1.0, 8, part), (it, part))
+        edge, _ = _at_the_edges(tuple(args), 8, 1.0, part, r)
+        _assert_equal(kernels.rotate(*edge, 1.0, 8, part),
+                      kernels.rotate_plain(*edge, 1.0, 8, part), (it, part))
 
 
 def test_rotate_counts_rows_with_no_new_peer(cuda):
@@ -725,6 +770,7 @@ def test_rotate_counts_rows_with_no_new_peer(cuda):
                                for v in range(16)]) for _ in range(3)])
     args = (torch.as_tensor(rows.astype(np.int32), device=cuda),) + args[1:]
     for part in (True, False):
-        got = kernels.rotate(*args, 1.0, 8, part)
-        _assert_equal(got, kernels.rotate_plain(*args, 1.0, 8, part), "n16")
+        edge, _ = _at_the_edges(args, 8, 1.0, part, r)
+        got = kernels.rotate(*edge, 1.0, 8, part)
+        _assert_equal(got, kernels.rotate_plain(*edge, 1.0, 8, part), "n16")
         assert int(got[3].sum()) > 0

@@ -17,7 +17,7 @@
 * ``push_targets`` and ``rotate`` (a thread per row, the block's rows
   staged in shared memory): 128 rows per block, fewer for wide rows, down
   to one, and a raise, in bytes, past one block's shared memory;
-  ``rotate``'s sub keys, T + 1 of each origin a block spans, and
+  ``rotate``'s keys, T + 2 of each origin a block spans, and
   ``push_targets``' one-wave grid of tiles.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_cuda.py).
@@ -246,24 +246,26 @@ def test_rank_geometry_of_the_main_shapes(o, n, k, want):
 
 @pytest.mark.parametrize("s,f", [(12, 6), (25, 6), (1, 1), (64, 64)])
 def test_row_kernels_stage_128_rows_of_the_engine_widths(s, f):
-    # push_targets: two buffers of the slot planes, then the targets
+    # push_targets: the targets, then two buffers of the slot planes
     assert pt.launch_geometry(s, f, SMEM_PER_BLOCK) == (128, 128 * (12 * s
                                                                     + 6 * f))
-    # rotate: the sub keys of two origins (N = 10,000, T = 8), then the rows
+    # rotate: the round key and the sub keys of two origins (N = 10,000,
+    # T = 8), then the rows
     g = rot.launch_geometry(s, 8, 10_000, 32, SMEM_PER_BLOCK)
-    assert g == (128, 2 * 9 * 8, 2 * 9 * 8 + 128 * 6 * s)
+    assert g == (128, 2 * 10 * 8, 2 * 10 * 8 + 128 * 6 * s)
 
 
 @pytest.mark.parametrize("kernel", ["push_targets", "rotate"])
 def test_row_kernels_take_wide_rows_down_to_one_per_block(kernel):
     if kernel == "push_targets":
-        # two 16-byte padded buffers of 6 S bytes and 36 bytes of targets
+        # 36 bytes of targets and two buffers of 6 S bytes, each part
+        # 16-byte padded
         geo = lambda s: pt.launch_geometry(s, 6, SMEM_PER_BLOCK)
         room = SMEM_PER_BLOCK
-        one = lambda s: 2 * (-(-6 * s // 16) * 16) + 36
+        one = lambda s: 48 + 2 * (-(-6 * s // 16) * 16)
     else:
-        # the staged rows after the keys of one origin (T = 8: 9 keys of 8
-        # bytes, 16-byte padded), or of two beside more rows
+        # the staged rows after the keys of one origin (T = 8: the round
+        # key and 9 sub keys of 8 bytes), or of two beside more rows
         geo = lambda s: tuple(rot.launch_geometry(s, 8, 10_000, 32,
                                                   SMEM_PER_BLOCK))[::2]
         room = SMEM_PER_BLOCK - rot.TABLE_BYTES
@@ -282,8 +284,8 @@ def test_row_kernels_take_wide_rows_down_to_one_per_block(kernel):
 @pytest.mark.parametrize("n", [1, 16, 127, 128, 10_000])
 @pytest.mark.parametrize("o", [1, 3, 32, 200])
 def test_rotate_key_buffer_holds_every_origin_a_block_spans(n, o):
-    """The sub keys a block derives: T + 1 keys of each origin its rows
-    span.  ``key_origins`` is the most origins any block of the launch
+    """The keys a block derives: the round key and T + 1 sub keys of each
+    origin its rows span.  ``key_origins`` is the most origins any block of the launch
     spans (counted block by block), and equal to it where the rows reach
     that many."""
     t = 8
@@ -297,7 +299,7 @@ def test_rotate_key_buffer_holds_every_origin_a_block_spans(n, o):
     # the blocks' starting offsets within an origin
     worst = max((b * g.rows % n + g.rows - 1) // n + 1 for b in range(n))
     assert k == min(o, worst)
-    assert g.key_bytes == -(-k * (t + 1) * 8 // 16) * 16
+    assert g.key_bytes == -(-k * (t + 2) * 8 // 16) * 16
     assert g.smem == g.key_bytes + g.rows * 6 * 12
     want = {1: 128, 16: 8, 127: 2, 128: 1, 10_000: 2}[n]
     assert k == min(o, want)
@@ -309,9 +311,9 @@ def test_rotate_key_buffer_shrinks_the_block_before_it_refuses():
     that names the bytes."""
     room = SMEM_PER_BLOCK - rot.TABLE_BYTES
     g = rot.launch_geometry(12, 1000, 1, 512, SMEM_PER_BLOCK)
-    assert g.rows == room // (1001 * 8 + 72) < 128
-    assert g.smem <= room < g.smem + 1001 * 8 + 72
-    tries = room // 8 - 1 - 10
+    assert g.rows == room // (1002 * 8 + 72) < 128
+    assert g.smem <= room < g.smem + 1002 * 8 + 72
+    tries = room // 8 - 2 - 10
     assert rot.launch_geometry(12, tries, 1, 512, SMEM_PER_BLOCK).rows == 1
     with pytest.raises(ValueError, match=r"sub keys \d+ bytes, more than"):
         rot.launch_geometry(12, room // 8, 1, 512, SMEM_PER_BLOCK)
