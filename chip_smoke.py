@@ -55,7 +55,20 @@ Phases (any failure exits non-zero before the final line):
       with the plain draws;
   (e) run the CLI on cuda and on cpu at 2,000 nodes for 60 rounds and
       require equal ``parity_snapshot()``s;
-  (f) print the card's name and power limit, the ``kernels`` JSON line and
+  (f) run all-origins mode in process: origins 0-199 of the 10,000-node
+      cluster, --iterations 300 --warm-up-rounds 200 on cuda, at the auto
+      origin batch of 64 (three full batches and a tail of 8 valid origins
+      padded with origin 0) with its launch counts set to 0 just before and
+      read just after, and again at --origin-batch 256 (one batch of the
+      200, as the batch is clamped to the number of origins); per batch the
+      ``init_state``, rounds and harvest walls, origin-rounds/s, peak
+      device memory with two batches in flight, and equal aggregates at
+      both widths; a 5-round profile at O=64 in a process of its own
+      (``--profile-all-origins``); each kernel held against its plain
+      version on round 19's inputs of the padded tail batch; every origin of
+      a 500-node cluster on cuda and on cpu with equal aggregates and
+      summaries; and the full 10,000-origin run's time, extrapolated;
+  (g) print the card's name and power limit, the ``kernels`` JSON line and
       the final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the reference package.
@@ -64,6 +77,7 @@ Imports nothing of JAX and nothing of the reference package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -83,6 +97,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 SM_CLOCKS_PER_S = 132 * 1.98e9
 ALU_LANES, FMA_LANES, ISSUE_LANES = 64, 64, 128
 O_KERNEL, N_FULL = 32, 10_000
+# all-origins (f): the auto origin batch at N=10,000, min(64, 2^22 // N),
+# and a wider one; the first 200 node indices; a 500-node run on cuda and cpu
+O_BATCH, O_WIDE, AO_ORIGINS, N_SMALL = 64, 256, 200, 500
 SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
                          "round/bfs_propagate"),
            "rank_inbound": ("gossip_sim_tpu/engine/core.py:663",
@@ -238,11 +255,11 @@ def ptxas_summary(log: str) -> list:
 
 
 def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
-                   rounds: int = 5, tag: str = "") -> dict:
+                   rounds: int = 5, tag: str = "", phase: str = "(c)") -> dict:
     """Where a round's time goes: device time and launches per kernel group
     and for the plain PyTorch ops, over ``rounds`` rounds under
     torch.profiler, against the host wall clock (device idle share = 1 -
-    busy / wall)."""
+    busy / wall); printed under ``phase``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -271,7 +288,7 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
             n_other += ev.count
     busy_ms = (sum(groups.values()) + sum(other.values())) / 1e3
     if busy_ms <= 0:
-        say(f"(c){tag} profiler: no device time recorded; breakdown not "
+        say(f"{phase}{tag} profiler: no device time recorded; breakdown not "
             f"measured")
         return {"device": {name: None for name in groups}}
     top = sorted(other.items(), key=lambda kv: -kv[1])[:16]
@@ -288,7 +305,7 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
               for k, v in top]
     name = "profile_round" + tag.strip().replace(" ", "_") + ".txt"
     (out_dir / name).write_text("\n".join(lines) + "\n")
-    say(f"(c){tag} profile over {rounds} rounds: per round wall "
+    say(f"{phase}{tag} profile over {rounds} rounds: per round wall "
         f"{wall_ms / rounds:.3f} ms, device busy {busy_ms / rounds:.4f} ms "
         f"(idle share {1 - busy_ms / wall_ms:.3f}), {launches:.1f} device "
         f"launches; kernels "
@@ -297,7 +314,7 @@ def profile_rounds(run_rounds, params, tables, origins, state, out_dir,
         + f"; other PyTorch kernels {sum(other.values()) / 1e3 / rounds:.4f}"
         f" ms in {n_other / rounds:.0f} launches")
     for line in lines[len(groups) + 2:]:
-        say(f"(c){tag}   {line.strip()}")
+        say(f"{phase}{tag}   {line.strip()}")
     return {"device": {k: v / 1e3 / rounds for k, v in groups.items()},
             "busy_ms": busy_ms / rounds, "wall_ms": wall_ms / rounds,
             "launches": launches}
@@ -473,6 +490,121 @@ def rotate_work(args, outs, rot_mod) -> tuple[int, int, int]:
     return moved, blocks, int(rot.sum())
 
 
+def by_origin(sd: dict, sizes: list, measured: int) -> dict:
+    """An all-origins ``state_dict`` with each per-point chunk in (measured
+    round, origin) order: a batched run's chunk holds each batch's
+    [measured, n] block in turn (``sizes``: the valid origins of each)."""
+    import numpy as np
+    out = dict(sd)
+    for k, v in sd.items():
+        if k.startswith("chunk.") and v.size:
+            ends = np.cumsum([0] + [measured * n for n in sizes])
+            out[k] = np.concatenate(
+                [v[a:b].reshape(measured, n) for a, b, n
+                 in zip(ends[:-1], ends[1:], sizes)], axis=1).ravel()
+    return out
+
+
+def as_builtins(x):
+    """``x`` as nested builtins, objects as their attribute dicts and NaN
+    as "nan", so that two finalized aggregates compare with ``==``."""
+    import numpy as np
+    if hasattr(x, "to_string"):
+        return x.to_string()
+    if isinstance(x, dict):
+        return {as_builtins(k): as_builtins(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [as_builtins(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return as_builtins(x.tolist())
+    if isinstance(x, (float, np.floating)):
+        return "nan" if math.isnan(x) else float(x)
+    if isinstance(x, (np.integer, np.bool_)):
+        return x.item()
+    if hasattr(x, "__dict__"):
+        return {k: as_builtins(v) for k, v in vars(x).items()}
+    return x
+
+
+def kernel_work(calls: dict, outs: dict, tf_mod, rot_mod):
+    """What each kernel must do on a round's captured ``calls`` (the first
+    call of each; ``threefry``: all of its calls) with their ``outs``:
+    (bytes moved, threefry blocks hashed, keys ``threefry`` hashes, rows
+    that rotate).  Bytes: each input read once and each output written
+    once."""
+    tgt, org = calls["bfs_relax"][0][0]
+    r_tgt, r_del, r_hop1 = calls["rank_inbound"][0][0][:3]
+    tf_calls = calls["threefry"]
+    tf_keys = sum(int(math.prod(a[0].shape[:-1])) for a, _ in tf_calls)
+    tf_blocks = sum(int(math.prod(a[0].shape[:-1]))
+                    * tf_mod.pairs(a[1], int(a[2]) if a[1] != "fold_in"
+                                   else 1, a[3] if len(a) > 3 else True)
+                    for a, _ in tf_calls)
+    moved = {
+        "bfs_relax": nbytes(tgt, org, *outs["bfs_relax"][0]),
+        "rank_inbound": nbytes(r_tgt, r_del, r_hop1,
+                               *outs["rank_inbound"][0]),
+        "rc_merge_prune": nbytes(*calls["rc_merge_prune"][0][0],
+                                 *outs["rc_merge_prune"][0]),
+        "prune_apply": nbytes(*calls["prune_apply"][0][0],
+                              outs["prune_apply"][0]),
+        # the keys read once (two words each) and every output written
+        "threefry": 16 * tf_keys + nbytes(*outs["threefry"]),
+        "push_targets": push_targets_bytes(calls["push_targets"][0][0],
+                                           outs["push_targets"][0]),
+    }
+    moved["rotate"], rot_blocks, n_rot = rotate_work(
+        calls["rotate"][0][0], outs["rotate"][0], rot_mod)
+    blocks = {name: 0 for name in moved}
+    blocks.update(threefry=tf_blocks, rotate=rot_blocks)
+    return moved, blocks, tf_keys, n_rot
+
+
+def bound(moved: int, blocks: int, ops: dict):
+    """(bound ms, "bytes" or "operations", bytes ms, operations ms): the
+    larger of ``moved`` bytes at the card's memory rate and ``blocks``
+    threefry blocks of ``ops`` instructions (None for a kernel that hashes
+    nothing) at its integer issue rate."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = issue_s(ops, blocks) * 1e3 if blocks else 0.0
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms > bytes_ms else "bytes", bytes_ms, ops_ms)
+
+
+PROFILE_FLAG = "--profile-all-origins"
+
+
+def profile_all_origins() -> int:
+    """``chip_smoke.py --profile-all-origins``: the 5-round profile of one
+    all-origins batch (origins 0-63 of the 10,000-node cluster, after 20
+    rounds) in a process whose first profiler session it is; prints the
+    breakdown as a JSON line, last.  Started by phase (f)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    from gossip_sim_tpu_torch import cli, rng
+    from gossip_sim_tpu_torch.engine import (init_state, make_cluster_tables,
+                                             run_rounds)
+    from gossip_sim_tpu_torch.identity import NodeIndex
+    dev = torch.device("cuda")
+    cfg = cli.Config(num_synthetic_nodes=N_FULL, all_origins=True)
+    accounts, _ = cli.load_cluster_accounts(cfg)
+    index = NodeIndex.from_stakes(accounts)
+    tables = make_cluster_tables(index.stakes.astype(np.int64), device=dev)
+    params = cli.all_origins_params(cfg, N_FULL)
+    origins = torch.arange(O_BATCH, dtype=torch.int32, device=dev)
+    state = init_state(rng.prng_key(cfg.seed, dev), tables, origins, params)
+    state, _ = run_rounds(params, tables, origins, state, 20)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    prof = profile_rounds(run_rounds, params, tables, origins, state,
+                          out_dir, tag=" all-origins", phase="(f)")
+    print(json.dumps(prof), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -530,7 +662,10 @@ def main() -> int:
              f"({table and table.group(1)} B) is not kernels/rotate.py "
              f"TABLE_BYTES ({rot_mod.TABLE_BYTES} B)")
     for s_, t_, n_, o_ in ((12, 8, N_FULL, O_KERNEL), (12, 8, N_FULL, 1),
-                           (25, 32, 40, 5), (12, 8, 1, 200)):
+                           (25, 32, 40, 5), (12, 8, 1, 200),
+                           (12, 8, N_FULL, O_BATCH),
+                           (12, 8, N_FULL, AO_ORIGINS),
+                           (12, 8, N_SMALL, O_BATCH)):
         g = rot_mod.launch_geometry(s_, t_, n_, o_, smem_limit)
         total = int(table.group(1)) + g.smem
         if total > smem_limit:
@@ -543,7 +678,7 @@ def main() -> int:
             f"{g.smem - g.key_bytes} B of staged rows + "
             f"{table.group(1)} B of class tables (ptxas) = {total} B of "
             f"{smem_limit} B")
-    for o in (1, O_KERNEL):
+    for o in (1, O_KERNEL, O_BATCH, AO_ORIGINS):
         g = bfs_mod.launch_geometry(o, N_FULL, sms, smem_limit)
         say(f"(a) bfs_relax at O={o} N={N_FULL} on {sms} SMs: cluster size "
             f"{g.cs}, slice {g.slice_len} nodes, {g.smem} B shared memory "
@@ -552,7 +687,8 @@ def main() -> int:
         g = merge_mod.launch_geometry(c, k, smem_limit)
         say(f"(a) rc_merge_prune at C={c} K={k}: {g.rows_per_block} rows "
             f"(warps) per block, {g.smem} B shared memory per block")
-    for o, k in ((1, 16), (O_KERNEL, 16), (8, 128)):
+    for o, k in ((1, 16), (O_KERNEL, 16), (8, 128), (O_BATCH, 16),
+                 (AO_ORIGINS, 16)):
         g = rank_mod.launch_geometry(o, N_FULL, k, sms, smem_limit,
                                      rank_mod.max_clusters)
         say(f"(a) rank_inbound at O={o} N={N_FULL} K={k}: cluster size "
@@ -564,7 +700,7 @@ def main() -> int:
     for s_, f_ in ((12, 6), (25, 6)):
         pt_rows, pt_smem = pt_mod.launch_geometry(s_, f_, smem_limit)
         per_sm = pt_mod.blocks_per_sm(dev, pt_rows, pt_smem)
-        for o in (1, O_KERNEL):
+        for o in (1, O_KERNEL, O_BATCH):
             tiles, grid = pt_mod.persistent_grid(o * N_FULL, pt_rows, sms,
                                                  per_sm)
             say(f"(a) push_targets at S={s_} F={f_} O={o}: tiles of "
@@ -709,37 +845,16 @@ def main() -> int:
         "rotate": (None, "none: no one PyTorch call draws, dedups and "
                    "shifts in a stake-weighted peer"),
     }
-    pa_args = captured["prune_apply"][0][0]
-    tf_keys = sum(int(math.prod(a[0].shape[:-1]))
-                  for a, _ in captured["threefry"])
-    tf_blocks = sum(int(math.prod(a[0].shape[:-1]))
-                    * tf_mod.pairs(a[1], int(a[2]) if a[1] != "fold_in"
-                                   else 1, a[3] if len(a) > 3 else True)
-                    for a, _ in captured["threefry"])
-    moved = {
-        "bfs_relax": nbytes(tgt, org, reached, dist),
-        "rank_inbound": nbytes(r_tgt, r_del, r_hop1,
-                               *res["rank_inbound"]["out"]),
-        "rc_merge_prune": nbytes(*mp_args, *res["rc_merge_prune"]["out"]),
-        "prune_apply": nbytes(*pa_args, res["prune_apply"]["out"]),
-        # the keys read once (two words each) and every output written
-        "threefry": 16 * tf_keys + nbytes(*res["threefry"]["outs"]),
-        "push_targets": push_targets_bytes(pt_args,
-                                           res["push_targets"]["out"]),
-    }
-    moved["rotate"], rot_blocks, n_rot = rotate_work(
-        captured["rotate"][0][0], res["rotate"]["out"], rot_mod)
-    blocks = {name: 0 for name in names}
-    blocks.update(threefry=tf_blocks, rotate=rot_blocks)
+    moved, blocks, tf_keys, n_rot = kernel_work(
+        captured, {name: res[name]["outs"] for name in names}, tf_mod,
+        rot_mod)
+    tf_blocks, rot_blocks = blocks["threefry"], blocks["rotate"]
     int_ops = {name: blocks[name] * tf_ops[name]["total"] if blocks[name]
                else 0 for name in names}
     for name in names:
         r = res[name]
-        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = (issue_s(tf_ops[name], blocks[name]) * 1e3 if blocks[name]
-                  else 0.0)
-        r["bound_ms"] = max(bytes_ms, ops_ms)
-        r["bound_by"] = "operations" if ops_ms > bytes_ms else "bytes"
+        r["bound_ms"], r["bound_by"], bytes_ms, ops_ms = bound(
+            moved[name], blocks[name], tf_ops.get(name))
         r["library_ms"], what = library[name]
         lib_txt = ("null" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
@@ -1117,7 +1232,172 @@ def main() -> int:
         fail(f"(e) cuda and cpu parity snapshots differ in {diff}")
     say("(e) cuda == cpu parity_snapshot at N=2000")
 
-    # ---- (f) report -------------------------------------------------------
+    # ---- (f) all-origins at N=10,000 in origin batches -------------------
+    ao_argv = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
+               "--warm-up-rounds", "200", "--all-origins", "--device", "cuda"]
+    ao_cfg = cli.config_from_args(cli.build_parser().parse_args(ao_argv))
+    ao_idx = np.arange(AO_ORIGINS, dtype=np.int32)
+    reset_unique_pubkeys()
+    ao_accounts, _ = cli.load_cluster_accounts(ao_cfg)
+    ao_runs = {}
+    for width in (0, O_WIDE):
+        cfg = dataclasses.replace(ao_cfg, origin_batch=width)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = cli.run_all_origins(cfg, accounts=ao_accounts,
+                                      origin_indices=ao_idx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ao_runs[width] = (summary, wall, dict(kernels.LAUNCHES),
+                          torch.cuda.max_memory_allocated())
+    ao, ao_wall, ao_launches, ao_peak = ao_runs[0]
+    sizes = [b["n_valid"] for b in ao["batches"]]
+    tail = AO_ORIGINS % O_BATCH
+    if sizes != [O_BATCH] * (AO_ORIGINS // O_BATCH) + [tail]:
+        fail(f"(f) batches of {sizes} valid origins, not the auto batch "
+             f"{O_BATCH}")
+    if ao["padded_sims"] != O_BATCH - tail:
+        fail(f"(f) padded_sims {ao['padded_sims']}, not {O_BATCH - tail}")
+    n_batches = len(sizes)
+    want = {name: n_batches * 300 for name in names}
+    want["threefry"] = n_batches * (2 + 2 * params.init_draws)
+    if ao_launches != want:
+        fail(f"(f) all-origins launches {ao_launches}, expected {want} (every "
+             f"kernel each round of each batch, threefry in init_state only)")
+    if ao["measured_points"] != AO_ORIGINS * 100 or not (
+            0.0 < ao["coverage_mean"] <= 1.0
+            and math.isfinite(ao["rmr_mean"])):
+        fail(f"(f) implausible aggregate: {ao['measured_points']} measured "
+             f"points, coverage {ao['coverage_mean']}, rmr {ao['rmr_mean']}")
+    rounds_s = sum(b["rounds_s"] for b in ao["batches"])
+    for b in ao["batches"]:
+        say(f"(f) batch at origin {b['lo']} ({b['n_valid']} valid of "
+            f"{O_BATCH}): init_state {b['init_s']:.4f} s, rounds "
+            f"{b['rounds_s']:.4f} s (spans on the stream), host dispatch "
+            f"{b['dispatch_s']:.4f} s, harvest waited {b['copy_wait_s']:.6f}"
+            f" s for its copy and took {b['harvest_s']:.4f} s")
+    say(f"(f) all-origins {' '.join(ao_argv)}, origins 0-{AO_ORIGINS - 1} "
+        f"at the auto batch {O_BATCH}: wall {ao_wall:.3f} s, "
+        f"{AO_ORIGINS * 300 / rounds_s:.1f} origin-rounds/s (valid origins "
+        f"x iterations / rounds spans), padded_sims {ao['padded_sims']}, "
+        f"coverage mean {ao['coverage_mean']:.6f}, RMR mean "
+        f"{ao['rmr_mean']:.6f}, peak device memory with two batches in "
+        f"flight {ao_peak / 2**20:.1f} MiB, launches {ao_launches}")
+    wide, wide_wall, wide_launches, wide_peak = ao_runs[O_WIDE]
+    wb = wide["batches"]
+    # the batch is clamped to the number of origins (reference
+    # cli.py:1882-1883): one batch of all 200, none padded
+    if [b["n_valid"] for b in wb] != [AO_ORIGINS] or wide["padded_sims"]:
+        fail(f"(f) --origin-batch {O_WIDE}: batches {wb}, padded_sims "
+             f"{wide['padded_sims']}")
+    if any(wide_launches[n] <= 0 for n in names):
+        fail(f"(f) --origin-batch {O_WIDE}: a kernel never launched "
+             f"({wide_launches})")
+    measured = 100
+    sd_auto = by_origin(ao["stats"].state_dict(), sizes, measured)
+    sd_wide = wide["stats"].state_dict()
+    diff = [k for k in sd_wide
+            if not np.array_equal(sd_wide[k], sd_auto[k])]
+    if diff:
+        fail(f"(f) batch {O_BATCH} and batch {O_WIDE} aggregates differ in "
+             f"{diff}")
+    say(f"(f) the same origins at --origin-batch {O_WIDE} (one batch of "
+        f"{AO_ORIGINS}, clamped to the origins): wall {wide_wall:.3f} s, "
+        f"init_state {wb[0]['init_s']:.4f} s, rounds {wb[0]['rounds_s']:.4f}"
+        f" s = {AO_ORIGINS * 300 / wb[0]['rounds_s']:.1f} origin-rounds/s, "
+        f"harvest {wb[0]['harvest_s']:.4f} s, peak device memory "
+        f"{wide_peak / 2**20:.1f} MiB; aggregate state_dict equal to batch "
+        f"{O_BATCH}'s (per-point chunks in (round, origin) order)")
+    full = [b for b in ao["batches"] if b["n_valid"] == O_BATCH]
+    per_batch = (sum(b["init_s"] + b["rounds_s"] for b in full)
+                 / len(full))
+    n_full = math.ceil(N_FULL / O_BATCH)
+    say(f"(f) extrapolated, not measured: all {N_FULL} origins x 300 "
+        f"iterations at batch {O_BATCH} = {n_full} batches x {per_batch:.3f}"
+        f" s (mean init_state + rounds of the full batches above) = "
+        f"{n_full * per_batch:.1f} s")
+    del ao_runs, wide, sd_auto, sd_wide
+    torch.cuda.empty_cache()
+
+    # the 5-round profile at O=64, in a process of its own (its first
+    # profiler session: later sessions of a process record no device time)
+    prof_run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), PROFILE_FLAG],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    for line in prof_run.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if prof_run.returncode != 0:
+        fail(f"(f) the O={O_BATCH} profile process failed "
+             f"(exit {prof_run.returncode}): {prof_run.stderr[-2000:]}")
+    ao_prof = json.loads(prof_run.stdout.splitlines()[-1])
+
+    # each kernel on round 19's inputs of the padded tail batch (8 origins
+    # and 56 copies of origin 0), and threefry on its init_state's draws
+    ao_params = cli.all_origins_params(ao_cfg, N_FULL)
+    tail_o = torch.as_tensor(np.concatenate(
+        [ao_idx[AO_ORIGINS - tail:], np.zeros(O_BATCH - tail, np.int32)]),
+        device=dev)
+    rows_t, ao_calls = round19_calls(ao_params, tail_o, names)
+    ao_calls["threefry"] = []
+    recording(["threefry"], ao_calls, init_state, rng.prng_key(42, dev),
+              tables, tail_o, ao_params)
+    ao_outs, ao_ms = {}, {}
+    for name in names:
+        calls = ao_calls[name]
+        ao_outs[name] = [exact(name, args, kw, "(f) tail batch")
+                         for args, kw in calls]
+
+        def run_all(calls=calls, fn=real[name]):
+            for args, kw in calls:
+                fn(*args, **kw)
+
+        ao_ms[name] = cuda_ms(run_all)
+    ao_moved, ao_blocks, _, ao_rot = kernel_work(ao_calls, ao_outs, tf_mod,
+                                                 rot_mod)
+    ao_bound = {name: bound(ao_moved[name], ao_blocks[name],
+                            tf_ops.get(name))[0] for name in names}
+    say(f"(f) each kernel exact vs plain on round 19's inputs of the padded "
+        f"tail batch (O={O_BATCH}, {tail} origins and {O_BATCH - tail} "
+        f"copies of origin 0; threefry on its init_state's "
+        f"{len(ao_calls['threefry'])} draws; {ao_rot} rows rotate): "
+        + ", ".join(f"{n} {ao_ms[n]:.4f} ms (bound {ao_bound[n]:.4f})"
+                    for n in names)
+        + f"; prunes {int(rows_t['prunes_sent'].sum())}")
+    del ao_calls, ao_outs, rows_t
+    torch.cuda.empty_cache()
+
+    # cuda == cpu: every origin of a 500-node cluster at the auto batch
+    small = {}
+    for device in ("cuda", "cpu"):
+        reset_unique_pubkeys()
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            ["--num-synthetic-nodes", str(N_SMALL), "--iterations", "30",
+             "--warm-up-rounds", "10", "--all-origins", "--device", device]))
+        t0 = time.perf_counter()
+        small[device] = cli.run_all_origins(cfg)
+        say(f"(f) all-origins N={N_SMALL}, 30 rounds on {device}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    sizes = [b["n_valid"] for b in small["cuda"]["batches"]]
+    if sizes != [O_BATCH] * 7 + [52] or small["cuda"]["padded_sims"] != 12:
+        fail(f"(f) N={N_SMALL}: batches of {sizes} valid origins")
+    sd = {d: small[d]["stats"].state_dict() for d in small}
+    diff = [k for k in sd["cuda"] if not np.array_equal(sd["cuda"][k],
+                                                        sd["cpu"][k])]
+    skip = ("elapsed_s", "origin_iters_per_sec", "stats", "batches")
+    diff += [k for k in small["cuda"]
+             if k not in skip and small["cuda"][k] != small["cpu"][k]]
+    if (as_builtins(small["cuda"]["stats"])
+            != as_builtins(small["cpu"]["stats"])):
+        diff.append("finalized stats")
+    if diff:
+        fail(f"(f) all-origins cuda and cpu differ in {diff}")
+    say(f"(f) cuda == cpu all-origins at N={N_SMALL} (batches {sizes}): "
+        f"aggregate state_dict, finalized stats and summary equal")
+
+    # ---- (g) report -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1139,7 +1419,11 @@ def main() -> int:
          "calls_timed": res[name]["calls"],
          "library_ms": res[name]["library_ms"],
          "device_ms": engine_device[name],
-         "main_ms": main_t[name][0], "main_device_ms": main_t[name][1]}
+         "main_ms": main_t[name][0], "main_device_ms": main_t[name][1],
+         "launches_all_origins": ao_launches[name],
+         "all_origins_ms": ao_ms[name],
+         "all_origins_bound_ms": ao_bound[name],
+         "all_origins_device_ms": ao_prof["device"][name]}
         for name in names]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1149,4 +1433,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_all_origins() if sys.argv[1:] == [PROFILE_FLAG]
+             else main())

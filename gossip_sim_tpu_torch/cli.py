@@ -1,15 +1,16 @@
 """Experiment driver for the single-origin push simulation (reference:
-gossip_main.rs), on the PyTorch engine.
+gossip_main.rs) and all-origins mode, on the PyTorch engine.
 
 Flag names and defaults are the reference's (gossip_main.rs:53-241) for the
-flags this slice carries; ``--device`` (``cuda`` by default, or ``cpu``)
-selects where the engine runs.  A flag the slice lacks is rejected by
+flags this port carries; ``--device`` (``cuda`` by default, or ``cpu``)
+selects where the engine runs.  A flag the port lacks is rejected by
 argparse: sweeps, account files / RPC, Influx, checkpoints, traces and
 telemetry are later slices (ROADMAP A5-A16).
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
-the GPU.
+the GPU; ``--all-origins`` runs every node as an origin, in origin batches
+(:func:`run_all_origins`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import argparse
 import logging
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -35,6 +37,7 @@ from .identity import NodeIndex
 from .ingest import filter_accounts, log_cluster_summary, synthetic_accounts
 from .rng import prng_key
 from .rustrng import ChaChaRng
+from .stats.aggregate import AllOriginsStats
 from .stats.gossip_stats import GossipStats, GossipStatsCollection
 
 log = logging.getLogger("gossip_sim_tpu_torch")
@@ -47,10 +50,13 @@ HARVEST_BLOCK = 256
 
 def _warn_shape_truncation(rows, params) -> None:
     """Surface the engine's dense-shape truncations (inbound ranking width,
-    received-cache slots, hop-histogram bins) as loud warnings."""
+    received-cache slots, hop-histogram bins) as loud warnings.  The
+    delivered count (per-round rows, or the all-origins ingress total) is
+    the entries received, the base of the overflow's share."""
     dropped = int(np.asarray(rows["inb_dropped"]).sum())
     overflow = int(np.asarray(rows["rc_overflow"]).sum())
     clamped = int(np.asarray(rows["hop_clamped"]).sum())
+    received = int(np.asarray(rows.get("delivered", 0)).sum())
     if clamped:
         log.warning("WARNING: %s hop sample(s) reached the top histogram "
                     "bin (hist_bins=%s) and were clamped", clamped,
@@ -60,8 +66,11 @@ def _warn_shape_truncation(rows, params) -> None:
                     "width (inbound_cap=%s) and were dropped from peer "
                     "scoring", dropped, params.k_inbound)
     if overflow:
-        log.warning("WARNING: %s received-cache entries exceeded rc_slots=%s "
-                    "and were evicted early", overflow, params.rc_slots)
+        pct = (f" ({100.0 * overflow / received:.2f}% of the {received} "
+               f"entries received)" if received > 0 else "")
+        log.warning("WARNING: %s received-cache entries%s exceeded "
+                    "rc_slots=%s and were evicted early", overflow, pct,
+                    params.rc_slots)
 
 
 def _engine_params(config: Config, num_nodes: int) -> EngineParams:
@@ -140,6 +149,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-synthetic-nodes", type=int, default=0,
                    help="number of nodes of the synthetic seeded cluster "
                         "(required: account files and RPC are not ported)")
+    p.add_argument("--all-origins", action="store_true",
+                   help="batch-simulate every node as origin (origin "
+                        "batches on one device)")
+    p.add_argument("--origin-batch", type=int, default=0,
+                   help="origins per device batch in --all-origins mode "
+                        "(0 = auto)")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="devices to shard origin batches over in "
+                        "--all-origins mode (0 = all available; one GPU "
+                        "until more than one is ported, ROADMAP A6b)")
+    p.add_argument("--mesh-node-shards", type=int, default=1,
+                   help="--all-origins mode: additionally shard the "
+                        "per-origin node axis over this many devices per "
+                        "origin-shard (1 = origins axis only; more is not "
+                        "ported yet, ROADMAP A6b)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the engine runs (default cuda; a run without "
                         "a GPU must ask for cpu)")
@@ -183,6 +207,10 @@ def config_from_args(args) -> Config:
         heal_at=args.heal_at,
         seed=args.seed,
         num_synthetic_nodes=args.num_synthetic_nodes,
+        all_origins=args.all_origins,
+        origin_batch=args.origin_batch,
+        mesh_devices=args.mesh_devices,
+        mesh_node_shards=args.mesh_node_shards,
         device=args.device,
     )
 
@@ -389,6 +417,220 @@ def simulate(config: Config) -> GossipStatsCollection:
     return collection
 
 
+# --------------------------------------------------------------------------
+# all-origins mode
+# --------------------------------------------------------------------------
+
+#: SimState accumulators the all-origins harvest reads, summed over the
+#: batch's valid origins on the device (int64 sums of int32 counts: exact)
+HARVEST_STATE = ("hops_hist_acc", "stranded_acc", "egress_acc",
+                 "ingress_acc", "prune_acc")
+
+
+def all_origins_params(config: Config, num_nodes: int) -> EngineParams:
+    """All-origins' EngineParams (reference cli.py:1841-1853): the
+    single-origin run's without the one-shot fail event, which all-origins
+    never arms, even on a FAIL_NODES run."""
+    return _engine_params(config, num_nodes)._replace(fail_at=-1,
+                                                      fail_fraction=0.0)
+
+
+def _mark(dev: torch.device):
+    """A point on the device's stream (a recorded CUDA event), or on the
+    host clock for the CPU."""
+    if dev.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _span_s(a, b) -> float:
+    """Seconds between two :func:`_mark` points (both reached)."""
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) / 1e3
+
+
+def _start_copy(rows: dict, state, n_valid: int):
+    """Start moving what the harvest reads of one batch to the host: every
+    row of the valid origins, and the ``HARVEST_STATE`` accumulators summed
+    over them.  On the card the copies go into pinned buffers behind the
+    batch's rounds on the stream, and the returned event marks their end,
+    so the next batch's launches queue behind them and the harvest waits
+    for this batch only.  Returns (host tensors, event or None)."""
+    out = {"row." + k: v[:, :n_valid] for k, v in rows.items()}
+    for f in HARVEST_STATE:
+        out["sum." + f] = getattr(state, f)[:n_valid].sum(
+            0, dtype=torch.int64, keepdim=True)
+    if not next(iter(out.values())).is_cuda:
+        return out, None
+    host = {}
+    for k, v in out.items():
+        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host[k].copy_(v, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def run_all_origins(config: Config, accounts=None,
+                    origin_indices=None) -> dict:
+    """Origin-parallel mode (reference: gossip_sim_tpu/cli.py:1800-2209):
+    every node (or each of ``origin_indices``) is the origin of its own
+    simulation, run in origin batches on one device, and the full aggregate
+    stats suite is built from the on-device accumulators.  Returns a
+    summary dict (also logged); its ``stats`` key carries the finalized
+    ``AllOriginsStats``.
+
+    Batches are ``config.origin_batch`` wide (0 = auto:
+    ``min(64, 2^22 // N)``), at most the number of origins; every batch
+    starts from ``prng_key(seed)``, and the tail is padded with origin 0 to
+    the full width, its padded sims cut off before the harvest
+    (``padded_sims``).  Two batches are in flight: batch k + 1 is queued
+    before batch k is harvested.
+
+    Beyond the reference's keys the summary carries ``origin_iters`` and
+    ``messages_delivered``, counted as the reference's run report counts
+    them (a multi-batch run leaves out its first batch, the reference's
+    compile carrier), and ``batches``: per batch its ``init_state`` and
+    rounds spans on the device's stream, its host dispatch time, the wait
+    for its copy and its harvest time (seconds)."""
+    if config.mesh_devices > 1 or config.mesh_node_shards > 1:
+        raise NotImplementedError(
+            "splitting origin batches over more than one GPU "
+            "(--mesh-devices / --mesh-node-shards > 1) is not ported yet "
+            "(ROADMAP A6b)")
+    if accounts is None:
+        accounts, _ = load_cluster_accounts(config)
+    index = NodeIndex.from_stakes(accounts)
+    N = len(index)
+    params = all_origins_params(config, N)
+    tables = make_cluster_tables(index.stakes.astype(np.int64),
+                                 device=config.device)
+    dev = tables.stakes.device
+    all_origins = (np.arange(N, dtype=np.int32) if origin_indices is None
+                   else np.asarray(origin_indices, dtype=np.int32))
+    total_o = len(all_origins)
+    batch = config.origin_batch or max(1, min(64, (1 << 22) // max(N, 1)))
+    if total_o > 0:
+        batch = min(batch, total_o)
+    single_batch = total_o <= batch
+    iters = config.gossip_iterations
+    agg = AllOriginsStats(index, params.hist_bins)
+    key = prng_key(config.seed, dev)
+    counts = {"padded_sims": 0, "origin_iters": 0, "messages_delivered": 0}
+    batches = []
+    t0 = time.time()
+
+    def _dispatch(lo):
+        """Queue one origin batch (init + rounds) and the copy of what its
+        harvest reads, without waiting on the device."""
+        chunk = all_origins[lo:lo + batch]
+        n_valid = len(chunk)
+        if n_valid < batch:
+            chunk = np.concatenate(
+                [chunk, np.zeros(batch - n_valid, np.int32)])
+        origins = torch.as_tensor(chunk, dtype=torch.int32, device=dev)
+        t_host = time.perf_counter()
+        marks = [_mark(dev)]
+        state = init_state(key, tables, origins, params)
+        marks.append(_mark(dev))
+        state, rows = run_rounds(params, tables, origins, state, iters)
+        marks.append(_mark(dev))
+        host, ready = _start_copy(rows, state, n_valid)
+        dispatch_s = time.perf_counter() - t_host
+        return lo, n_valid, host, ready, marks, dispatch_s
+
+    def _harvest(job):
+        """Wait for one batch's copy and fold it into the aggregates."""
+        lo, n_valid, host, ready, marks, dispatch_s = job
+        t = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()
+        waited = time.perf_counter() - t
+        if n_valid < batch:
+            counts["padded_sims"] += batch - n_valid
+        rows = {k[4:]: v.numpy() for k, v in host.items()
+                if k.startswith("row.")}
+        if lo > 0 or single_batch:
+            counts["origin_iters"] += n_valid * iters
+            counts["messages_delivered"] += int(rows["delivered"].sum())
+        sums = SimpleNamespace(**{f: host["sum." + f].numpy()
+                                  for f in HARVEST_STATE})
+        agg.add_batch(rows, sums, config.warm_up_rounds,
+                      heal_at=config.heal_at,
+                      impaired=config.impairments_on, pull=False)
+        batches.append({"lo": lo, "n_valid": n_valid,
+                        "init_s": _span_s(marks[0], marks[1]),
+                        "rounds_s": _span_s(marks[1], marks[2]),
+                        "dispatch_s": dispatch_s, "copy_wait_s": waited,
+                        "harvest_s": time.perf_counter() - t})
+        log.info("all-origins: %s/%s origins done",
+                 min(lo + n_valid, total_o), total_o)
+
+    # double-buffered: batch k + 1 is queued before batch k is harvested,
+    # so two batches' state is on the device at peak
+    pending = None
+    for lo in range(0, total_o, batch):
+        job = _dispatch(lo)
+        if pending is not None:
+            _harvest(pending)
+        pending = job
+    if pending is not None:
+        _harvest(pending)
+    dt = time.time() - t0
+
+    extra = {"origin_iters": counts["origin_iters"],
+             "messages_delivered": counts["messages_delivered"],
+             "batches": batches}
+    if agg.measured_points == 0:
+        log.warning("WARNING: no measured rounds (iterations <= "
+                    "warm-up-rounds); skipping stats")
+        return {
+            "num_nodes": N, "num_origins": total_o,
+            "iterations": iters, "measured_points": 0,
+            "coverage_mean": 0.0, "rmr_mean": 0.0, "elapsed_s": dt,
+            "origin_iters_per_sec": total_o * iters / dt,
+            "mesh_devices": 1, "mesh_node_shards": 1,
+            "padded_sims": counts["padded_sims"], "hop_clamped": 0,
+            "stats": agg, **extra,
+        }
+    agg.finalize(config)
+    _warn_shape_truncation(
+        {"inb_dropped": agg.inb_dropped, "rc_overflow": agg.rc_overflow,
+         "hop_clamped": agg.hop_clamped,
+         # per-node ingress summed over nodes == total delivered entries
+         "delivered": int(agg.ingress.sum())},
+        params)
+    if config.print_stats:
+        agg.print_all()
+    summary = {
+        "num_nodes": N,
+        "num_origins": total_o,
+        "iterations": iters,
+        "measured_points": agg.measured_points,
+        "coverage_mean": agg.coverage_stats.mean,
+        "rmr_mean": agg.rmr_stats.mean,
+        "elapsed_s": dt,
+        "origin_iters_per_sec": total_o * iters / dt,
+        "mesh_devices": 1,
+        "mesh_node_shards": 1,
+        "padded_sims": counts["padded_sims"],
+        "hop_clamped": int(agg.hop_clamped),
+        "stats": agg,
+        # queue-cap drops (traffic runs, ROADMAP A11) ride in every summary
+        "queue_dropped": 0,
+        "queue_dropped_ingress": 0,
+        "queue_deferred_egress": 0,
+        **extra,
+    }
+    log.info("ALL-ORIGINS SUMMARY: %s",
+             {k: v for k, v in summary.items()
+              if k not in ("stats", "batches")})
+    return summary
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -400,11 +642,16 @@ def main(argv=None) -> int:
                     "No stats will be recorded....",
                     config.gossip_iterations, config.warm_up_rounds)
     t0 = time.perf_counter()
-    collection = simulate(config)
+    if config.all_origins:
+        run_all_origins(config)
+    else:
+        collection = simulate(config)
     log.info("simulation wall time: %.3f s on %s", time.perf_counter() - t0,
              config.device)
     if config.device != "cpu":
         log.info("kernel launches: %s", dict(kernels.LAUNCHES))
+    if config.all_origins:
+        return 0
     if config.print_stats:
         if not collection.is_empty():
             collection.print_all(config.gossip_iterations,

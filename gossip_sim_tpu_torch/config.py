@@ -3,10 +3,10 @@
 Mirrors the reference's ``Config`` (gossip.rs:111-133), ``Testing``
 (gossip.rs:33-76) and ``StepSize`` (gossip.rs:78-109).  Flag names and
 defaults are the compatibility contract (gossip_main.rs:53-241).  This
-package's ``Config`` carries the fields the single-origin push slice reads,
-plus ``device`` (where the engine runs: ``"cuda"`` unless the CPU is asked
-for).  The pull fields stay so the stats snapshot keeps its schema; a pull
-mode itself is rejected by the engine.
+package's ``Config`` carries the fields the single-origin push slice and
+all-origins mode read, plus ``device`` (where the engine runs: ``"cuda"``
+unless the CPU is asked for).  The pull fields stay so the stats snapshot
+keeps its schema; a pull mode itself is rejected by the engine.
 """
 
 from __future__ import annotations
@@ -124,6 +124,12 @@ class Config:
 
     seed: int = 42                  # deterministic by construction
     num_synthetic_nodes: int = 0    # >0: synthetic cluster
+    all_origins: bool = False       # every node an origin, in batches
+    origin_batch: int = 0           # origins per device batch (0 = auto)
+    mesh_devices: int = 0           # devices the origin batches split over
+                                    # (0 = all; one GPU until ROADMAP A6b)
+    mesh_node_shards: int = 1       # node-axis shards per origin shard
+                                    # (1 = origins axis only; ROADMAP A6b)
     device: str = "cuda"            # "cuda" (default) or "cpu"
 
     def stepped(self, **kw) -> "Config":

@@ -50,6 +50,7 @@ from .params import EngineParams
 from .sampler import SamplerTables, build_sampler_tables, sample_members
 
 INF = 1 << 20          # unreached sentinel (maps to u64::MAX, gossip.rs:490)
+MAX_NODES_I32 = 32767  # past it the inbound keys' bounds are checked
 MAX_NODES = 1 << 24    # inbound keys hop << pb | src stay in int32
 INIT_SALT = 0x696E6974  # domain separation of the init draw stream
 
@@ -207,17 +208,42 @@ def init_state(key: torch.Tensor, tables: ClusterTables,
 # the round
 # --------------------------------------------------------------------------
 
+def _check_key_bounds(N: int, H: int, Kin: int) -> None:
+    """The reference's bounds on the int32 inbound keys past
+    ``MAX_NODES_I32`` nodes (gossip_sim_tpu/engine/core.py:487-499), with
+    its wording: ``hop1 << pb | src`` and the compaction keys must fit."""
+    if N <= MAX_NODES_I32:
+        return
+    pack = _pack_base(N)
+    pb = pack.bit_length() - 1
+    if H * pack >= (1 << 31):
+        raise ValueError(
+            f"inbound sort keys (hop << {pb} | src) overflow i32: "
+            f"hist_bins * pack = {H * pack} >= 2^31; reduce hist_bins "
+            f"(< {(1 << 31) // pack}) for num_nodes={N}")
+    if 2 * N * Kin >= (1 << 31):
+        raise ValueError(
+            f"inbound compaction keys overflow i32: 2*N*K = "
+            f"{2 * N * Kin} >= 2^31; reduce inbound_cap for "
+            f"num_nodes={N}")
+
+
 def round_step(params: EngineParams, tables: ClusterTables,
                origins: torch.Tensor, state: SimState, it: int,
-               detail: bool = False, trace: bool = False):
+               detail: bool = False, edge_detail: bool = False,
+               trace: bool = False):
     """One full gossip round for all O origin-sims at iteration ``it`` (a
-    host int).  Returns (state, rows); ``detail`` adds the per-node rows."""
+    host int).  Returns (state, rows); ``detail`` adds the per-node rows,
+    ``edge_detail`` the per-edge targets and hops [O, N, F] (-1 where no
+    message was delivered).  Refuses unported features and inbound keys
+    past int32 before it reads the state."""
     if trace:
         raise NotImplementedError(
             "the flight recorder (trace=True) is not ported yet (ROADMAP A13)")
     p, kn = params.validate().split()
     N, S, F, C, Kin, H = (p.num_nodes, p.active_set_size, p.push_fanout,
                           p.rc_slots, p.k_inbound, p.hist_bins)
+    _check_key_bounds(N, H, Kin)
     F = min(F, S)
     pb = _pack_base(N).bit_length() - 1
     it = int(it)
@@ -381,6 +407,11 @@ def round_step(params: EngineParams, tables: ClusterTables,
         rows["stranded_mask"] = stranded
         rows["dist"] = torch.where(reached, dist, -1).to(i32)
         rows["failed_mask"] = failed
+    if edge_detail:
+        # the per-edge hop matrix (the reference's orders dump,
+        # gossip.rs:374-390): edge src -> tgt delivered at hop dist[src] + 1
+        rows["push_targets"] = torch.where(delivered, tgt, -1)
+        rows["edge_hops"] = torch.where(delivered, hop1[:, :, None], -1)
     return new_state, rows
 
 
@@ -390,14 +421,15 @@ def round_step(params: EngineParams, tables: ClusterTables,
 
 def run_rounds(params: EngineParams, tables: ClusterTables,
                origins: torch.Tensor, state: SimState, num_iters: int,
-               start_it: int = 0, detail: bool = False, trace: bool = False):
+               start_it: int = 0, detail: bool = False,
+               edge_detail: bool = False, trace: bool = False):
     """Run ``num_iters`` rounds from iteration ``start_it``.  Returns
     (state, rows) with every row stacked on a leading [num_iters] axis."""
     per_round = []
     for i in range(int(num_iters)):
         state, rows = round_step(params, tables, origins, state,
                                  int(start_it) + i, detail=detail,
-                                 trace=trace)
+                                 edge_detail=edge_detail, trace=trace)
         per_round.append(rows)
     if not per_round:
         return state, {}

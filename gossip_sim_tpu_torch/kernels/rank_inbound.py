@@ -143,7 +143,13 @@ def rank_inbound(tgt: torch.Tensor, delivered: torch.Tensor,
                  hop1: torch.Tensor, pb: int, k: int):
     """Inbound ranking: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors.  Returns (inb, ingress, dropped) as
-    :func:`rank_inbound_plain` does."""
+    :func:`rank_inbound_plain` does.
+
+    The kernel builds each key ``hop1 << pb | src`` in int32 (the plain
+    version in int64), so every key must fit in int32: with ``hop1`` at
+    most the engine's ``hist_bins - 1``, ``hist_bins << pb`` below 2^31
+    guarantees it.  The wrapper gets no bin count; ``round_step`` refuses
+    a shape past that bound before any launch, as the reference does."""
     if not tgt.is_cuda:
         return rank_inbound_plain(tgt, delivered, hop1, pb, k)
     O, N, F = tgt.shape

@@ -2,9 +2,11 @@
 
 The port's own copy of the single-origin statistics layer: histograms,
 series summaries, hop/stranded collections, message trackers and the
-per-simulation ``GossipStats`` hub.
+per-simulation ``GossipStats`` hub, and the all-origins aggregates
+(``AllOriginsStats``).
 """
 
+from .aggregate import AllOriginsStats
 from .collections import StatCollection
 from .gossip_stats import GossipStats, GossipStatsCollection, SimulationParameters
 from .histogram import Histogram
@@ -13,6 +15,7 @@ from .stranded import StrandedNodeCollection, StrandedNodeStats
 from .trackers import EgressIngressMessageTracker, branching_factor_outbound
 
 __all__ = [
+    "AllOriginsStats",
     "EgressIngressMessageTracker",
     "GossipStats",
     "GossipStatsCollection",

@@ -5,12 +5,15 @@ port's isolation and device rules.
   package (``--backend tpu``, JAX on the CPU) give equal
   ``parity_snapshot()``s at 300 nodes, unimpaired and impaired;
 * asking for the default device without a GPU raises;
+* ``--all-origins`` runs through ``main`` on the CPU and logs its summary,
+  and more than one mesh device or node shard raises naming ROADMAP A6b;
 * a fresh interpreter that imports every port module (and the chip smoke
   script) has no ``jax`` and no ``gossip_sim_tpu``/``gossip_sim_tpu.*``
   module loaded.
 
 Tolerance: 0 everywhere (exact equality of every snapshot series)."""
 
+import logging
 import os
 import subprocess
 import sys
@@ -88,15 +91,48 @@ def test_default_device_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.simulate(cli.config_from_args(cli.build_parser().parse_args(
             BASE)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.run_all_origins(cli.config_from_args(
+            cli.build_parser().parse_args(BASE + ["--all-origins"])))
     assert core.make_cluster_tables(stakes, device="cpu").stakes.device.type \
         == "cpu"
 
 
 def test_unported_flags_are_rejected():
     for argv in (["--backend", "oracle"], ["--num-simulations", "2"],
-                 ["--test-type", "push-fanout"], ["--all-origins"]):
+                 ["--test-type", "push-fanout"],
+                 ["--checkpoint-path", "x.npz"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(BASE + argv)
+
+
+def test_all_origins_main_logs_its_summary(caplog):
+    argv = ["--num-synthetic-nodes", "40", "--iterations", "12",
+            "--warm-up-rounds", "4", "--all-origins", "--origin-batch", "16",
+            "--device", "cpu", "--print-stats"]
+    with caplog.at_level(logging.INFO):
+        assert cli.main(argv) == 0
+    text = caplog.text
+    assert "ALL-ORIGINS SUMMARY" in text
+    assert "'num_origins': 40" in text and "'padded_sims': 8" in text
+    assert "ALL-ORIGINS AGGREGATE: 40 origins x 320 measured points" in text
+
+
+def test_all_origins_never_arms_the_fail_event():
+    """A FAIL_NODES run arms the one-shot fail event on the single-origin
+    path only (reference cli.py:1841-1853)."""
+    fail = cli.config_from_args(cli.build_parser().parse_args(
+        BASE + ["--test-type", "fail-nodes", "--when-to-fail", "20"]))
+    assert cli._engine_params(fail, 300).fail_at == 20
+    assert cli.all_origins_params(fail, 300) == cli._engine_params(
+        cli.config_from_args(cli.build_parser().parse_args(BASE)), 300)
+
+
+@pytest.mark.parametrize("flag", ["--mesh-devices", "--mesh-node-shards"])
+def test_all_origins_refuses_more_than_one_device(flag):
+    argv = BASE + ["--all-origins", "--device", "cpu", flag, "2"]
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        cli.main(argv)
 
 
 def test_imports_no_jax_and_nothing_of_the_reference_package():

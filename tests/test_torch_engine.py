@@ -2,7 +2,9 @@
 against the reference JAX engine: ``init_state`` field by field, and >= 25
 rounds of ``run_rounds`` with ``detail=True`` — every ``SimState`` field and
 every row — unimpaired, under loss + churn + partition, and under the
-one-shot node failure.
+one-shot node failure; with ``edge_detail=True`` the per-edge targets and
+hops too.  Past 32,767 nodes both engines refuse inbound keys that would
+overflow int32, with the same ``ValueError``, before any round's work.
 
 Tolerance: 0 everywhere (exact equality, NaN == NaN in float rows)."""
 
@@ -158,3 +160,58 @@ def test_round_step_refuses_unported_features():
             tc.round_step(PortParams(40, **kw), tt, o, ts, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         tc.round_step(PortParams(40), tt, o, ts, 0, trace=True)
+
+
+@pytest.mark.parametrize("scenario,layout", [
+    ("unimpaired", True), ("unimpaired", False),
+    ("loss_partition", True), ("loss_partition", False)],
+    indirect=["layout"])
+def test_run_rounds_edge_detail_equal(scenario, layout):
+    """``edge_detail`` exports ``push_targets`` and ``edge_hops`` [O, N, F]
+    per round (-1 where nothing was delivered), equal to the reference's."""
+    kw = dict(warm_up_rounds=5)
+    if scenario == "loss_partition":
+        kw.update(packet_loss_rate=0.1, partition_at=6, heal_at=15,
+                  impair_seed=11)
+    (jt, jp, jo, js), (tt, tp, to, ts) = _both(150, [0, 37, 101], **kw)
+    js, jrows = je.run_rounds(jp, jt, jo, js, 20, start_it=0, detail=True,
+                              edge_detail=True)
+    ts, trows = tc.run_rounds(tp, tt, to, ts, 20, start_it=0, detail=True,
+                              edge_detail=True)
+    _assert_state_equal(js, ts, scenario)
+    _assert_rows_equal(jrows, trows)
+    assert trows["push_targets"].shape == (20, 3, 150, 6)
+    sent = trows["push_targets"] >= 0
+    assert bool(sent.any()) and not bool(sent.all())
+    assert bool((trows["edge_hops"][sent] >= 1).all())
+    if scenario == "loss_partition":
+        assert int(np.asarray(jrows["dropped"]).sum()) > 0
+        assert int(np.asarray(jrows["suppressed"]).sum()) > 0
+
+
+@pytest.mark.parametrize("kw", [dict(hist_bins=32768),
+                                dict(inbound_cap=26844)],
+                         ids=["hist_bins", "inbound_cap"])
+def test_key_bounds_past_32767_nodes_raise(kw):
+    """N = 40,000 (pack 2^16): hist_bins * pack = 2^31, or 2 * N * K past
+    2^31.  Both engines raise the same ValueError before reading the state
+    (passed as None), so no round's work runs."""
+    n = 40_000
+    stakes = _stakes(n)
+    jt = je.make_cluster_tables(stakes)
+    tt = tc.make_cluster_tables(stakes, device="cpu")
+    o = np.zeros(1, dtype=np.int32)
+    with pytest.raises(ValueError, match="overflow i32") as want:
+        je.round_step(je.EngineParams(num_nodes=n, **kw), jt,
+                      jnp.asarray(o), None, 0)
+    with pytest.raises(ValueError, match="overflow i32") as got:
+        tc.round_step(PortParams(num_nodes=n, **kw), tt, torch.as_tensor(o),
+                      None, 0)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="overflow i32"):
+        tc.run_rounds(PortParams(num_nodes=n, **kw), tt, torch.as_tensor(o),
+                      None, 3)
+    # one bin less, or one inbound slot less, is within both bounds
+    ok = {k: v - 1 for k, v in kw.items()}
+    tc._check_key_bounds(n, ok.get("hist_bins", 64),
+                         PortParams(num_nodes=n, **ok).k_inbound)

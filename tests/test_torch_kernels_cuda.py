@@ -663,8 +663,10 @@ ROTATE_CASES = {"s12_t8_p1": (12, 8, 1.0), "s25_t1_p1": (25, 1, 1.0),
                 "s12_t8_p0": (12, 8, 0.0), "s25_t8_half": (25, 8, 0.5),
                 "s12_t32_p1": (12, 32, 1.0)}
 #: (O, N): the engine's shapes, an odd N (the original layout's zero pad),
-#: and N below the 128 rows of a block, whose blocks span many origins
-ROTATE_SHAPES = VERB_SHAPES + [(3, 10_001), (5, 40), (40, 1), (7, 127)]
+#: N below the 128 rows of a block, whose blocks span many origins, and an
+#: all-origins batch of 64 at N = 500, whose blocks span two
+ROTATE_SHAPES = VERB_SHAPES + [(3, 10_001), (5, 40), (40, 1), (7, 127),
+                               (64, 500)]
 
 
 def _rotate_inputs(r, o, n, s, cuda):
