@@ -569,8 +569,9 @@ def run_all_origins(config: Config, accounts=None,
         log.info("all-origins: %s/%s origins done",
                  min(lo + n_valid, total_o), total_o)
 
-    # double-buffered: batch k + 1 is queued before batch k is harvested,
-    # so two batches' state is on the device at peak
+    # double-buffered: batch k + 1 is queued before batch k is harvested;
+    # batch k's device state is freed once its copy is queued, so the two
+    # batches' states never coexist on the device
     pending = None
     for lo in range(0, total_o, batch):
         job = _dispatch(lo)
