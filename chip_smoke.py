@@ -68,8 +68,23 @@ Phases (any failure exits non-zero before the final line):
       version on round 19's inputs of the padded tail batch; every origin of
       a 500-node cluster on cuda and on cpu with equal aggregates and
       summaries; and the full 10,000-origin run's time, extrapolated;
-  (g) print the card's name and power limit, the ``kernels`` JSON line and
-      the final ``{"ok": true, ...}`` line.
+  (g) the experiment harness on the 10,000-node cluster (300 iterations,
+      200 warm-up, cuda), each run with the launch counts set to 0 just
+      before it and read just after: an active-set sweep (S = 12, 16, 20,
+      24) and a fanout sweep (F = 6, 9, 12, so K = 16, 18, 24) through
+      ``cli.main``, each point's wall and coverage and RMR means; every
+      kernel held against its plain version on round 19's inputs at
+      S=24/F=6 and S=12/F=12 (O=16) and timed beside its bound; the
+      batched origin-rank sweep of ranks 1-16 (engine and harvest walls),
+      whose columns 0 and 15 must equal ranks 1 and 16 run alone; the
+      cluster written as an account file and run from it (the card's
+      machine has no PyYAML: the port's own reader), equal to the
+      synthetic run; a prune-stake-threshold sweep at N=500 on cuda and on
+      cpu with equal deterministic Influx lines, one of them sent through
+      ``InfluxThread`` to a capture server on 127.0.0.1, dequeued ==
+      sent and none dropped;
+  (h) print the total wall, the card's name and power limit, the
+      ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -78,13 +93,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import http.server
 import importlib
+import importlib.util
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -100,6 +118,9 @@ O_KERNEL, N_FULL = 32, 10_000
 # all-origins (f): the auto origin batch at N=10,000, min(64, 2^22 // N),
 # and a wider one; the first 200 node indices; a 500-node run on cuda and cpu
 O_BATCH, O_WIDE, AO_ORIGINS, N_SMALL = 64, 256, 200, 500
+# the experiment harness (g): the batched origin-rank sweep's origins, and
+# the widest shapes its sweeps reach, (S, F): K = max(16, 2F)
+O_RANKS, WIDE_SHAPES = 16, ((24, 6), (12, 12))
 SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
                          "round/bfs_propagate"),
            "rank_inbound": ("gossip_sim_tpu/engine/core.py:663",
@@ -618,7 +639,11 @@ def main() -> int:
                                              make_cluster_tables, round_step,
                                              run_rounds)
     from gossip_sim_tpu_torch.identity import NodeIndex, reset_unique_pubkeys
+    from gossip_sim_tpu_torch.ingest import write_accounts_yaml
     from gossip_sim_tpu_torch.kernels import _build
+    from gossip_sim_tpu_torch.sinks import (DatapointQueue, InfluxDataPoint,
+                                            InfluxThread,
+                                            deterministic_wire_lines)
     core_mod = importlib.import_module("gossip_sim_tpu_torch.engine.core")
     bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
     merge_mod = importlib.import_module(
@@ -662,6 +687,7 @@ def main() -> int:
              f"({table and table.group(1)} B) is not kernels/rotate.py "
              f"TABLE_BYTES ({rot_mod.TABLE_BYTES} B)")
     for s_, t_, n_, o_ in ((12, 8, N_FULL, O_KERNEL), (12, 8, N_FULL, 1),
+                           (24, 8, N_FULL, 1), (24, 8, N_FULL, O_RANKS),
                            (25, 32, 40, 5), (12, 8, 1, 200),
                            (12, 8, N_FULL, O_BATCH),
                            (12, 8, N_FULL, AO_ORIGINS),
@@ -678,17 +704,17 @@ def main() -> int:
             f"{g.smem - g.key_bytes} B of staged rows + "
             f"{table.group(1)} B of class tables (ptxas) = {total} B of "
             f"{smem_limit} B")
-    for o in (1, O_KERNEL, O_BATCH, AO_ORIGINS):
+    for o in (1, O_RANKS, O_KERNEL, O_BATCH, AO_ORIGINS):
         g = bfs_mod.launch_geometry(o, N_FULL, sms, smem_limit)
         say(f"(a) bfs_relax at O={o} N={N_FULL} on {sms} SMs: cluster size "
             f"{g.cs}, slice {g.slice_len} nodes, {g.smem} B shared memory "
             f"per CTA (of {smem_limit} B)")
-    for c, k in ((64, 16), (128, 16)):
+    for c, k in ((64, 16), (64, 24), (128, 16)):
         g = merge_mod.launch_geometry(c, k, smem_limit)
         say(f"(a) rc_merge_prune at C={c} K={k}: {g.rows_per_block} rows "
             f"(warps) per block, {g.smem} B shared memory per block")
-    for o, k in ((1, 16), (O_KERNEL, 16), (8, 128), (O_BATCH, 16),
-                 (AO_ORIGINS, 16)):
+    for o, k in ((1, 16), (1, 24), (O_RANKS, 16), (O_RANKS, 24),
+                 (O_KERNEL, 16), (8, 128), (O_BATCH, 16), (AO_ORIGINS, 16)):
         g = rank_mod.launch_geometry(o, N_FULL, k, sms, smem_limit,
                                      rank_mod.max_clusters)
         say(f"(a) rank_inbound at O={o} N={N_FULL} K={k}: cluster size "
@@ -697,10 +723,10 @@ def main() -> int:
             f"threads, {g.smem} B shared memory per CTA ({g.csr_cap} CSR "
             f"keys), counts in "
             f"{'device memory' if g.scratch_words else 'shared memory'}")
-    for s_, f_ in ((12, 6), (25, 6)):
+    for s_, f_ in ((12, 6), (25, 6)) + WIDE_SHAPES:
         pt_rows, pt_smem = pt_mod.launch_geometry(s_, f_, smem_limit)
         per_sm = pt_mod.blocks_per_sm(dev, pt_rows, pt_smem)
-        for o in (1, O_KERNEL, O_BATCH):
+        for o in (1, O_RANKS, O_KERNEL, O_BATCH):
             tiles, grid = pt_mod.persistent_grid(o * N_FULL, pt_rows, sms,
                                                  per_sm)
             say(f"(a) push_targets at S={s_} F={f_} O={o}: tiles of "
@@ -1397,7 +1423,275 @@ def main() -> int:
     say(f"(f) cuda == cpu all-origins at N={N_SMALL} (batches {sizes}): "
         f"aggregate state_dict, finalized stats and summary equal")
 
-    # ---- (g) report -------------------------------------------------------
+    # ---- (g) the experiment harness at N=10,000 on cuda ----------------
+    t_g = time.perf_counter()
+    drv_argv = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
+                "--warm-up-rounds", "200", "--device", "cuda"]
+    points = []
+    real_run_simulation = cli.run_simulation
+
+    def timed_run_simulation(config, url, collection, *a, **kw):
+        """cli.run_simulation, its wall and its stats kept in ``points``."""
+        t0 = time.perf_counter()
+        real_run_simulation(config, url, collection, *a, **kw)
+        torch.cuda.synchronize()
+        points.append((config, time.perf_counter() - t0,
+                       collection.collection[-1]))
+
+    def counted(what, fn, *args, **kw):
+        """``fn(*args)`` with the launch counts set to 0 just before it and
+        read just after; every kernel must have launched."""
+        kernels.reset_launch_counts()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        if any(got[n] <= 0 for n in names):
+            fail(f"(g) {what}: a kernel never launched ({got})")
+        return out, got
+
+    sweeps = {}
+    cli.run_simulation = timed_run_simulation
+    try:
+        for tt, n_sims, step, field in (
+                ("active-set-size", 4, 4, "gossip_active_set_size"),
+                ("push-fanout", 3, 3, "gossip_push_fanout")):
+            points.clear()
+            reset_unique_pubkeys()
+            argv = drv_argv + ["--test-type", tt, "--num-simulations",
+                               str(n_sims), "--step-size", str(step),
+                               "--print-stats"]
+            t0 = time.perf_counter()
+            rc, got = counted(tt, cli.main, argv)
+            wall = time.perf_counter() - t0
+            if rc != 0 or len(points) != n_sims:
+                fail(f"(g) {tt} sweep: exit {rc}, {len(points)} points")
+            for cfg_, w, st in points:
+                cov, rmr = st.coverage_stats.mean, st.rmr_stats.mean
+                if (len(st.coverage_stats.collection) != 100
+                        or not 0.0 < cov <= 1.0 or not math.isfinite(rmr)):
+                    fail(f"(g) {tt} point {getattr(cfg_, field)}: "
+                         f"implausible coverage {cov}, rmr {rmr}")
+                say(f"(g) {tt} sweep point S={cfg_.gossip_active_set_size} "
+                    f"F={cfg_.gossip_push_fanout}: wall {w:.3f} s (cluster "
+                    f"build included), coverage mean {cov:.6f}, RMR mean "
+                    f"{rmr:.6f}")
+            say(f"(g) {' '.join(argv)}: exit 0, wall {wall:.3f} s, "
+                f"launches {got}")
+            sweeps[tt] = list(points)
+    finally:
+        cli.run_simulation = real_run_simulation
+    if [c.gossip_active_set_size for c, _, _ in sweeps["active-set-size"]] \
+            != [12, 16, 20, 24] or [
+                c.gossip_push_fanout for c, _, _ in sweeps["push-fanout"]] \
+            != [6, 9, 12]:
+        fail("(g) the sweeps did not step S to 12-24 and F to 6-12")
+
+    # every kernel against its plain version on round 19's inputs at the
+    # widest shapes of the sweeps, O=16 (threefry on init_state's draws)
+    top16 = origins[:O_RANKS]
+    for s_, f_ in WIDE_SHAPES:
+        prm = EngineParams(num_nodes=N_FULL, warm_up_rounds=0,
+                           active_set_size=s_, push_fanout=f_)
+        rows_w, w_calls = round19_calls(prm, top16, names)
+        w_calls["threefry"] = []
+        recording(["threefry"], w_calls, init_state, rng.prng_key(42, dev),
+                  tables, top16, prm)
+        w_outs, w_ms = {}, {}
+        for name in names:
+            calls = w_calls[name]
+            w_outs[name] = [exact(name, args, kw,
+                                  f"(g) S={s_} F={f_} O={O_RANKS}")
+                            for args, kw in calls]
+
+            def run_all(calls=calls, fn=real[name]):
+                for args, kw in calls:
+                    fn(*args, **kw)
+
+            w_ms[name] = cuda_ms(run_all)
+        if w_calls["rank_inbound"][0][0][4] != max(16, 2 * f_):
+            fail(f"(g) S={s_} F={f_}: rank_inbound's K is not "
+                 f"{max(16, 2 * f_)}")
+        w_moved, w_blocks, _, _ = kernel_work(w_calls, w_outs, tf_mod,
+                                              rot_mod)
+        say(f"(g) each kernel exact vs plain on round 19's inputs at S={s_} "
+            f"F={f_} (K={max(16, 2 * f_)}) O={O_RANKS} N={N_FULL} (threefry "
+            f"on init_state's {len(w_calls['threefry'])} draws), kernel ms "
+            f"(CUDA events) against bound ms: " + ", ".join(
+                f"{n} {w_ms[n]:.4f} (bound "
+                f"{bound(w_moved[n], w_blocks[n], tf_ops.get(n))[0]:.4f})"
+                for n in names)
+            + f"; prunes {int(rows_w['prunes_sent'].sum())}")
+        del w_calls, w_outs, rows_w
+    torch.cuda.empty_cache()
+
+    # the batched origin-rank sweep (O=16) through cli.main, then ranks 1
+    # and 16 alone
+    rank_runs = []
+    real_rank_sweep = cli.run_origin_rank_sweep
+
+    def kept_rank_sweep(config, url, ranks, collection, *a, **kw):
+        """cli.run_origin_rank_sweep, its walls and its stats kept."""
+        walls = real_rank_sweep(config, url, ranks, collection, *a, **kw)
+        rank_runs.append((walls, collection))
+        return walls
+
+    rank_argv = drv_argv + ["--test-type", "origin-rank", "--num-simulations",
+                            str(O_RANKS), "--print-stats", "--origin-rank",
+                            *map(str, range(1, O_RANKS + 1))]
+    reset_unique_pubkeys()
+    cli.run_origin_rank_sweep = kept_rank_sweep
+    try:
+        t0 = time.perf_counter()
+        rc, rank_launches = counted("origin-rank sweep", cli.main, rank_argv)
+        rank_wall = time.perf_counter() - t0
+    finally:
+        cli.run_origin_rank_sweep = real_rank_sweep
+    if rc != 0 or len(rank_runs) != 1:
+        fail(f"(g) origin-rank sweep: exit {rc}, {len(rank_runs)} batched "
+             f"runs")
+    walls, rank_coll = rank_runs[0]
+    if len(rank_coll.collection) != O_RANKS:
+        fail(f"(g) origin-rank sweep: {len(rank_coll.collection)} sims")
+    say(f"(g) {' '.join(rank_argv)}: exit 0, wall {rank_wall:.3f} s, batched "
+        f"(O={O_RANKS}): engine {walls['engine_s']:.3f} s (init_state + 300 "
+        f"rounds until their rows are on the host), harvest "
+        f"{walls['harvest_s']:.3f} s (stats and finalize of {O_RANKS} "
+        f"columns x 100 measured rounds), launches {rank_launches}")
+    for col, rank in ((0, 1), (O_RANKS - 1, O_RANKS)):
+        reset_unique_pubkeys()
+        t0 = time.perf_counter()
+        one = cli.simulate(cli.config_from_args(cli.build_parser().parse_args(
+            drv_argv + ["--origin-rank", str(rank)])))
+        alone = snapshot_strings(one.collection[0].parity_snapshot())
+        diff = [k for k, v in snapshot_strings(
+            rank_coll.collection[col].parity_snapshot()).items()
+            if alone[k] != v]
+        if diff:
+            fail(f"(g) batched column {col} differs from rank {rank} run "
+                 f"alone in {diff}")
+        say(f"(g) rank {rank} alone: wall {time.perf_counter() - t0:.3f} s; "
+            f"parity_snapshot equal to the batched column {col}")
+    del rank_runs, rank_coll
+
+    # the 10,000-node cluster as an account file, written and read with
+    # PyYAML hidden (the port's own writer and reader; where PyYAML is
+    # installed, its file must have the same bytes), and a run from it
+    # through cli.main
+    reset_unique_pubkeys()
+    accounts, _ = cli.load_cluster_accounts(
+        cli.Config(num_synthetic_nodes=N_FULL))
+    acct_path = out_dir / "accounts_10k.yaml"
+    has_yaml = importlib.util.find_spec("yaml") is not None
+    if has_yaml:
+        write_accounts_yaml(str(acct_path), accounts)
+        pyyaml_bytes = acct_path.read_bytes()
+    hidden = sys.modules.get("yaml", False)
+    sys.modules["yaml"] = None                  # `import yaml` now fails
+    try:
+        write_accounts_yaml(str(acct_path), accounts)
+        if has_yaml and acct_path.read_bytes() != pyyaml_bytes:
+            fail("(g) the port's account-file writer and PyYAML's differ")
+        points.clear()
+        cli.run_simulation = timed_run_simulation
+        t0 = time.perf_counter()
+        rc, acct_launches = counted(
+            "account-file run", cli.main,
+            drv_argv[2:] + ["--account-file", str(acct_path),
+                            "--accounts-from-yaml"])
+        acct_wall = time.perf_counter() - t0
+    finally:
+        cli.run_simulation = real_run_simulation
+        if hidden is False:
+            del sys.modules["yaml"]
+        else:
+            sys.modules["yaml"] = hidden
+    if rc != 0 or len(points) != 1:
+        fail(f"(g) account-file run: exit {rc}, {len(points)} simulations")
+    synth = sweeps["active-set-size"][0][2]       # S=12: the default run
+    got = snapshot_strings(points[0][2].parity_snapshot())
+    diff = [k for k, v in snapshot_strings(synth.parity_snapshot()).items()
+            if got[k] != v]
+    if diff:
+        fail(f"(g) the account-file run differs from the synthetic run in "
+             f"{diff}")
+    say(f"(g) account file {acct_path.name} ({acct_path.stat().st_size} "
+        f"bytes; PyYAML {'installed' if has_yaml else 'not installed'} and "
+        f"hidden: the port's own writer"
+        f"{', bytes equal to PyYAML' if has_yaml else ''} and reader): "
+        f"cli.main from it in {acct_wall:.3f} s, parity_snapshot equal to "
+        f"the synthetic run; launches {acct_launches}")
+
+    # Influx: a prune-stake-threshold sweep at N=500 on cuda and on cpu
+    inf_lines, inf_points = {}, {}
+    for device in ("cuda", "cpu"):
+        reset_unique_pubkeys()
+        a = cli.build_parser().parse_args(
+            ["--num-synthetic-nodes", str(N_SMALL), "--iterations", "30",
+             "--warm-up-rounds", "10", "--test-type",
+             "prune-stake-threshold", "--num-simulations", "3",
+             "--step-size", "0.05", "--device", device])
+        q = DatapointQueue()
+        t0 = time.perf_counter()
+        cli.dispatch_sweeps(cli.config_from_args(a), "", a.origin_rank,
+                            cli.GossipStatsCollection(), q, "1")
+        pts = []
+        while len(q):
+            pts.append(q.pop_front())
+        inf_points[device] = pts
+        inf_lines[device] = deterministic_wire_lines(
+            [ln for p in pts for ln in p.data().splitlines()])
+        say(f"(g) prune-stake-threshold sweep N={N_SMALL}, 3 points x 30 "
+            f"rounds on {device}: {time.perf_counter() - t0:.3f} s, "
+            f"{len(pts)} points, {len(inf_lines[device])} deterministic "
+            f"lines")
+    if inf_lines["cuda"] != inf_lines["cpu"] or not inf_lines["cuda"]:
+        fail("(g) cuda and cpu deterministic Influx lines differ")
+    received = []
+
+    class Capture(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            received.append(self.rfile.read(
+                int(self.headers.get("Content-Length", 0))).decode())
+            self.send_response(204)
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    server = http.server.HTTPServer(("127.0.0.1", 0), Capture)
+    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    srv.start()
+    try:
+        q = DatapointQueue()
+        for p in inf_points["cuda"]:
+            q.push_back(p)
+        end = InfluxDataPoint()
+        end.set_last_datapoint()
+        q.push_back(end)
+        sender = InfluxThread.spawn(
+            f"http://127.0.0.1:{server.server_address[1]}", "u", "p",
+            "gossip", q)
+        sender.join(timeout=120)
+        if sender.is_alive():
+            fail("(g) the Influx sender did not drain")
+    finally:
+        server.shutdown()
+        server.server_close()
+        srv.join(timeout=10)
+    sent = [p.data() for p in inf_points["cuda"] if not p.is_start()]
+    st = sender.sender_stats()
+    if (sender.tracker.dequeued != sender.tracker.sent
+            or st["dropped_points"] or received != sent):
+        fail(f"(g) Influx sender: dequeued {sender.tracker.dequeued}, sent "
+             f"{sender.tracker.sent}, {st}, {len(received)} of {len(sent)} "
+             f"points received in order")
+    say(f"(g) cuda == cpu deterministic Influx lines "
+        f"({len(inf_lines['cuda'])}); InfluxThread to 127.0.0.1: dequeued "
+        f"{sender.tracker.dequeued} == sent {sender.tracker.sent}, "
+        f"{st['points_sent']} acknowledged in order, 0 dropped")
+    say(f"(g) experiment harness phase: {time.perf_counter() - t_g:.1f} s")
+
+    # ---- (h) report -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -11,8 +11,12 @@ Layout:
   engine     make_cluster_tables / init_state / round_step / run_rounds
   kernels    hand-written CUDA kernels (csrc/) + their plain versions
   stats      GossipStats suite (gossip_stats.rs)
+  sinks      Influx line-protocol series and sender (influx_db.rs)
   convert    carry state between the two packages as numpy arrays
-  cli        single-origin experiment driver (python -m gossip_sim_tpu_torch)
+  cli        experiment harness: account sources, --test-type sweeps,
+             all-origins (python -m gossip_sim_tpu_torch)
+  write_accounts  the write-accounts binary
+             (python -m gossip_sim_tpu_torch.write_accounts)
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,24 @@
-"""Experiment driver for the single-origin push simulation (reference:
-gossip_main.rs) and all-origins mode, on the PyTorch engine.
+"""Experiment harness and sweeps (reference: gossip_main.rs), on the
+PyTorch engine: one push simulation or a ``--test-type`` sweep of them,
+and all-origins mode.
 
-Flag names and defaults are the reference's (gossip_main.rs:53-241) for the
-flags this port carries; ``--device`` (``cuda`` by default, or ``cpu``)
-selects where the engine runs.  A flag the port lacks is rejected by
-argparse: sweeps, account files / RPC, Influx, checkpoints, traces and
-telemetry are later slices (ROADMAP A5-A16).
+Flag names, defaults and sweep semantics are the reference's
+(gossip_main.rs:53-241, 774-951); ``--device`` (``cuda`` by default, or
+``cpu``) selects where the engine runs.  The cluster comes from the
+synthetic seeded recipe (``--num-synthetic-nodes``), a YAML account file
+(``--account-file ... --accounts-from-yaml``) or the JSON-RPC
+``getVoteAccounts`` pull (``--url``).  ``--influx l|i`` streams the
+reference's Influx series (sinks/influx.py).  A flag the port lacks is
+rejected by argparse: lanes, pull and adaptive modes, traffic, traces,
+checkpoints, telemetry and the run report are later slices (ROADMAP
+A9-A16).
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
-the GPU; ``--all-origins`` runs every node as an origin, in origin batches
+the GPU; ``--test-type active-set-size --num-simulations 4 --step-size 4``
+sweeps it (:func:`dispatch_sweeps`; an origin-rank sweep runs its ranks as
+the origins of one engine batch, :func:`run_origin_rank_sweep`);
+``--all-origins`` runs every node as an origin, in origin batches
 (:func:`run_all_origins`).
 """
 
@@ -17,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 from types import SimpleNamespace
@@ -28,15 +38,19 @@ from . import kernels
 from .config import Config, StepSize, Testing
 from .constants import (AGGREGATE_HOPS_FAIL_NODES_HISTOGRAM_UPPER_BOUND,
                         AGGREGATE_HOPS_MIN_INGRESS_NODES_HISTOGRAM_UPPER_BOUND,
-                        COVERAGE_RECOVERY_THRESHOLD,
+                        API_MAINNET_BETA, COVERAGE_RECOVERY_THRESHOLD,
                         STANDARD_HISTOGRAM_UPPER_BOUND, UNREACHED,
-                        VALIDATOR_STAKE_DISTRIBUTION_NUM_BUCKETS)
+                        VALIDATOR_STAKE_DISTRIBUTION_NUM_BUCKETS,
+                        get_influx_url, get_json_rpc_url)
 from .engine import (EngineParams, init_state, make_cluster_tables,
                      run_rounds)
 from .identity import NodeIndex
-from .ingest import filter_accounts, log_cluster_summary, synthetic_accounts
+from .ingest import (fetch_vote_accounts_rpc, filter_accounts,
+                     load_accounts_yaml, log_cluster_summary,
+                     synthetic_accounts)
 from .rng import prng_key
 from .rustrng import ChaChaRng
+from .sinks import DatapointQueue, InfluxDataPoint, InfluxThread, load_dotenv
 from .stats.aggregate import AllOriginsStats
 from .stats.gossip_stats import GossipStats, GossipStatsCollection
 
@@ -97,19 +111,31 @@ def _engine_params(config: Config, num_nodes: int) -> EngineParams:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference CLI surface for the single-origin push slice."""
+    """The reference CLI surface (gossip_main.rs:53-241) for what the port
+    carries, plus ``--device``."""
     p = argparse.ArgumentParser(
         prog="gossip-sim",
         description="Solana gossip push-protocol simulator (PyTorch/CUDA)")
+    p.add_argument("--url", dest="json_rpc_url", default=API_MAINNET_BETA,
+                   metavar="URL_OR_MONIKER", help="solana's json rpc url")
+    p.add_argument("--account-file", default="", metavar="PATH",
+                   help="yaml of solana accounts to either read from or "
+                        "write to")
+    p.add_argument("--accounts-from-yaml", action="store_true",
+                   help="set to read in key/stake pairs from yaml. "
+                        "use with --account-file <path>")
+    p.add_argument("--filter-zero-staked-nodes", "-f", action="store_true",
+                   help="Filter out all zero-staked nodes")
     p.add_argument("--push-fanout", type=int, default=6,
                    help="gossip push fanout")
     p.add_argument("--active-set-size", type=int, default=12,
                    help="gossip push active set entry size")
     p.add_argument("--iterations", type=int, default=1,
                    help="gossip iterations")
-    p.add_argument("--origin-rank", type=int, default=1,
+    p.add_argument("--origin-rank", type=int, nargs="+", default=[1],
                    help="Select an origin with origin rank for gossip "
-                        "(1 = largest stake)")
+                        "(1 = largest stake). Pass a list with "
+                        "--test-type origin-rank to sweep.")
     p.add_argument("--rotation-probability", "-p", type=float,
                    default=0.013333,
                    help="After each round of gossip, rotate a node's active "
@@ -119,9 +145,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prune-stake-threshold", type=float, default=0.15,
                    help="Ensure a node is connected to a minimum stake of "
                         "prune_stake_threshold*node.stake()")
+    p.add_argument("--num-buckets-stranded", type=int, default=10,
+                   help="Number of buckets for the stranded node histogram")
+    p.add_argument("--num-buckets-message", type=int, default=5,
+                   help="Number of buckets for the ingress/egress message "
+                        "histograms")
+    p.add_argument("--num-buckets-hops", type=int, default=15,
+                   help="Number of buckets for the hops_stats histogram")
     p.add_argument("--test-type", default="no-test",
-                   choices=[Testing.NO_TEST.value, Testing.FAIL_NODES.value],
-                   help="no-test, or fail-nodes (one-shot node failure)")
+                   choices=[t.value for t in Testing],
+                   help="Type of sweep to run (pull-fanout, traffic-rate, "
+                        "node-ingress-cap and adaptive-threshold step "
+                        "features not ported yet, ROADMAP A10/A11)")
+    p.add_argument("--num-simulations", type=int, default=1,
+                   help="Number of simulations to run")
+    p.add_argument("--step-size", default="1",
+                   help="Size of step for test_type (int or float)")
     p.add_argument("--fraction-to-fail", type=float, default=0.1,
                    help="Fail fraction-to-fail of total nodes in cluster")
     p.add_argument("--when-to-fail", type=int, default=0,
@@ -142,13 +181,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "(-1 = never)")
     p.add_argument("--heal-at", type=int, default=-1,
                    help="iteration at which the partition heals (-1 = never)")
+    p.add_argument("--influx", default="n",
+                   help="Influx for reporting metrics. i for "
+                        "internal-metrics, l for localhost, n for none")
+    p.add_argument("--influx-spool", default="", metavar="PATH",
+                   help="durable sink spool: Influx points dropped after "
+                        "retry exhaustion or queue overflow are appended "
+                        "to PATH as line protocol instead of discarded")
     p.add_argument("--print-stats", action="store_true",
                    help="Print Gossip Stats to console at end of simulation")
     p.add_argument("--seed", type=int, default=42,
                    help="Deterministic RNG seed")
     p.add_argument("--num-synthetic-nodes", type=int, default=0,
-                   help="number of nodes of the synthetic seeded cluster "
-                        "(required: account files and RPC are not ported)")
+                   help=">0: run on a synthetic seeded cluster instead of "
+                        "an account file / RPC")
     p.add_argument("--all-origins", action="store_true",
                    help="batch-simulate every node as origin (origin "
                         "batches on one device)")
@@ -184,20 +230,27 @@ def config_from_args(args) -> Config:
         raise SystemExit("heal-at requires partition-at")
     if args.partition_at >= 0 and 0 <= args.heal_at < args.partition_at:
         raise SystemExit("heal-at must not precede partition-at")
-    if args.origin_rank < 1:
-        raise SystemExit("origin-rank must be >= 1 (1 = highest stake)")
+    if args.mesh_node_shards < 1:
+        raise SystemExit("mesh-node-shards must be >= 1")
     return Config(
         gossip_push_fanout=args.push_fanout,
         gossip_active_set_size=args.active_set_size,
         gossip_iterations=args.iterations,
-        origin_rank=args.origin_rank,
+        accounts_from_file=args.accounts_from_yaml,
+        account_file=args.account_file,
+        origin_rank=args.origin_rank[0],
         probability_of_rotation=prob,
         prune_stake_threshold=args.prune_stake_threshold,
         min_ingress_nodes=args.min_ingress_nodes,
+        filter_zero_staked_nodes=args.filter_zero_staked_nodes,
+        num_buckets_for_stranded_node_hist=args.num_buckets_stranded,
+        num_buckets_for_message_hist=args.num_buckets_message,
+        num_buckets_for_hops_stats_hist=args.num_buckets_hops,
         fraction_to_fail=args.fraction_to_fail,
         when_to_fail=args.when_to_fail,
         test_type=Testing.parse(args.test_type),
-        step_size=StepSize.parse("1"),
+        num_simulations=args.num_simulations,
+        step_size=StepSize.parse(args.step_size),
         warm_up_rounds=args.warm_up_rounds,
         print_stats=args.print_stats,
         packet_loss_rate=args.packet_loss_rate,
@@ -205,6 +258,7 @@ def config_from_args(args) -> Config:
         churn_recover_rate=args.churn_recover_rate,
         partition_at=args.partition_at,
         heal_at=args.heal_at,
+        influx_spool=args.influx_spool,
         seed=args.seed,
         num_synthetic_nodes=args.num_synthetic_nodes,
         all_origins=args.all_origins,
@@ -239,25 +293,41 @@ def find_nth_largest_node(n, items):
     return None
 
 
-def load_cluster_accounts(config: Config):
-    """The synthetic seeded cluster -> ({pk: stake}, source label).  Account
-    files and JSON-RPC are not ported yet (ROADMAP A5)."""
-    if config.num_synthetic_nodes <= 0:
-        raise NotImplementedError(
-            "only --num-synthetic-nodes clusters are ported; account files "
-            "and JSON-RPC sources are not (ROADMAP A5)")
-    rng = ChaChaRng.from_seed_byte(config.seed % 256)
-    accounts = synthetic_accounts(config.num_synthetic_nodes, rng)
+def load_cluster_accounts(config: Config,
+                          json_rpc_url: str = API_MAINNET_BETA):
+    """Resolve the account source (gossip_main.rs:302-328): the synthetic
+    seeded cluster, a YAML account file or the JSON-RPC pull, then the
+    zero-stake filter -> ({pk: stake}, source label).  Each synthetic
+    cluster draws fresh counter pubkeys, so every point of a serial sweep
+    has its own pubkeys and node order, as in the reference."""
+    if config.num_synthetic_nodes > 0:
+        rng = ChaChaRng.from_seed_byte(config.seed % 256)
+        accounts = synthetic_accounts(config.num_synthetic_nodes, rng)
+        label = f"synthetic:{config.num_synthetic_nodes}"
+    elif config.accounts_from_file:
+        if not config.account_file:
+            log.error("need --account-file <path> with --accounts-from-yaml")
+            raise SystemExit(-1)
+        log.info("Reading %s", config.account_file)
+        accounts = load_accounts_yaml(config.account_file)
+        label = config.account_file
+    else:
+        url = get_json_rpc_url(json_rpc_url)
+        log.info("json_rpc_url: %s", url)
+        accounts = fetch_vote_accounts_rpc(url)
+        label = url
     accounts = filter_accounts(accounts, config.filter_zero_staked_nodes)
     log_cluster_summary(accounts)
-    return accounts, f"synthetic:{config.num_synthetic_nodes}"
+    return accounts, label
 
 
 def _run_torch_backend(config: Config, accounts, origin_pubkey,
-                       stats: GossipStats):
+                       stats: GossipStats, dp_queue=None, sim_iter: int = 0,
+                       start_ts: str = "0"):
     """The simulation on the PyTorch engine: the warm-up rounds in one
     call, then the measured rounds harvested per iteration into the stats
-    layer (the reference's per-iteration loop, gossip_main.rs:425-565)."""
+    layer and the Influx series (the reference's per-iteration loop,
+    gossip_main.rs:425-565)."""
     index = NodeIndex.from_stakes(accounts)
     stakes = dict(accounts)
     N = len(index)
@@ -278,8 +348,11 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
 
     warm = min(config.warm_up_rounds, config.gossip_iterations)
     if warm > 0:
+        # the reference loop's progress logs and config points every 10
+        # iterations (gossip_main.rs:426-447)
         for it in range(0, warm, 10):
             log.info("GOSSIP ITERATION: %s", it)
+            _push_config_point(config, dp_queue, sim_iter, start_ts)
         state, wrows = run_rounds(params, tables, origins, state, warm)
         if 0 <= config.heal_at < warm:
             # post-heal coverage inside the warm-up still feeds the
@@ -294,9 +367,11 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
     while done < measured:
         n_it = min(HARVEST_BLOCK, measured - done)
         start_it = warm + done
+        t_blk = time.perf_counter()
         state, trows = run_rounds(params, tables, origins, state, n_it,
                                   start_it=start_it, detail=True)
         rows = {k: v.cpu().numpy() for k, v in trows.items()}
+        blk_wall = time.perf_counter() - t_blk
         _warn_shape_truncation(rows, params)
         if (params.fail_at >= 0
                 and start_it <= params.fail_at < start_it + n_it):
@@ -305,9 +380,12 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
             it = start_it + t
             if it % 10 == 0:
                 log.info("GOSSIP ITERATION: %s", it)
+                _push_config_point(config, dp_queue, sim_iter, start_ts)
             _feed_measured_round(stats, rows, t, 0, it, config, index,
-                                 stakes, origin_pubkey)
+                                 stakes, origin_pubkey, dp_queue, sim_iter,
+                                 start_ts)
         done += n_it
+        _push_sim_perf_point(dp_queue, sim_iter, start_ts, blk_wall, n_it, 1)
     if measured > 0:
         _feed_message_counters(stats, state, 0, index)
         if params.has_churn:
@@ -316,9 +394,12 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
 
 
 def _feed_measured_round(stats, rows, t, col, it, config, index, stakes,
-                         origin_pubkey):
+                         origin_pubkey, dp_queue=None, sim_iter: int = 0,
+                         start_ts: str = "0"):
     """Insert one measured round (origin column ``col`` of harvested rows)
-    into the stats layer (gossip_main.rs:480-563)."""
+    into the stats layer and push its Influx points (gossip_main.rs:
+    480-563)."""
+    steady = it - config.warm_up_rounds
     coverage = float(rows["coverage"][t, col])
     if config.heal_at >= 0 and it >= config.heal_at:
         stats.note_post_heal_coverage(it, coverage)
@@ -333,12 +414,16 @@ def _feed_measured_round(stats, rows, t, col, it, config, index, stakes,
     stats.insert_hops_stat(hops.tolist())
     stats.insert_stranded_nodes(stranded, stakes)
     stats.insert_branching_factor(float(rows["branching"][t, col]))
-    stats.insert_rmr(float(rows["rmr"][t, col]))
+    rmr_result = (float(rows["rmr"][t, col]), int(rows["m"][t, col]),
+                  int(rows["n"][t, col]))
+    stats.insert_rmr(rmr_result[0])
     if config.wants_delivery_stats:
         stats.insert_delivery(int(rows["delivered"][t, col]),
                               int(rows["dropped"][t, col]),
                               int(rows["suppressed"][t, col]),
                               int(rows["failed_count"][t, col]))
+    _push_iteration_points(dp_queue, sim_iter, start_ts, stats, steady,
+                           coverage, rmr_result)
 
 
 def _feed_message_counters(stats, state, col, index):
@@ -355,12 +440,43 @@ def _feed_message_counters(stats, state, col, index):
         {index.pubkeys[i]: int(prunes[i]) for i in range(n)})
 
 
-def run_simulation(config: Config, stats_collection: GossipStatsCollection,
-                   sim_iter: int = 0) -> GossipStats:
+def _new_stats(config: Config, origin_pubkey, stakes) -> GossipStats:
+    """A simulation's stats, before its first round (gossip_main.rs:
+    337-352)."""
+    stats = GossipStats()
+    stats.set_simulation_parameters(config)
+    stats.set_origin(origin_pubkey)
+    stats.initialize_message_stats(stakes)
+    stats.build_validator_stake_distribution_histogram(
+        VALIDATOR_STAKE_DISTRIBUTION_NUM_BUCKETS, stakes)
+    return stats
+
+
+def _test_type_point(config: Config, sim_iter, start_ts, num_nodes,
+                     source_label, start, stats):
+    """The sweep's ``simulation_config`` point and the validator stake
+    distribution, in one datapoint (influx_db.rs)."""
+    dp = InfluxDataPoint(start_ts, sim_iter)
+    dp.create_test_type_point(
+        config.num_simulations, config.gossip_iterations,
+        config.warm_up_rounds, config.step_size, num_nodes,
+        config.probability_of_rotation, source_label, start,
+        config.test_type)
+    dp.create_validator_stake_distribution_histogram_point(
+        stats.get_validator_stake_distribution_histogram())
+    return dp
+
+
+def run_simulation(config: Config, json_rpc_url: str,
+                   stats_collection: GossipStatsCollection, dp_queue=None,
+                   sim_iter: int = 0, start_ts: str = "0",
+                   start_value: float = 0.0) -> None:
     """One simulation (gossip_main.rs:292-647): load the cluster, pick the
-    origin, run the engine, finalize the stats into ``stats_collection``."""
+    origin, run the engine, finalize the stats into ``stats_collection``.
+    Sim 0 of a run pushes the test-type point and the stake distribution;
+    every sim pushes the start sentinel before its rounds."""
     log.info("##### SIMULATION ITERATION: %s #####", sim_iter)
-    accounts, _ = load_cluster_accounts(config)
+    accounts, source_label = load_cluster_accounts(config, json_rpc_url)
     log.info("%s", config)
     if len(accounts) < config.origin_rank:
         raise SystemExit(
@@ -370,18 +486,34 @@ def run_simulation(config: Config, stats_collection: GossipStatsCollection,
                                           list(accounts.items()))[0]
     stakes = dict(accounts)
     log.info("ORIGIN: %s", origin_pubkey)
+    log.info("Calculating the MSTs for origin: %s, stake: %s",
+             origin_pubkey, stakes[origin_pubkey])
+    stats = _new_stats(config, origin_pubkey, stakes)
+    if sim_iter == 0 and dp_queue is not None:
+        start = ("N/A" if config.test_type == Testing.NO_TEST
+                 else str(start_value))
+        dp_queue.push_back(_test_type_point(
+            config, sim_iter, start_ts, len(accounts), source_label, start,
+            stats))
+    if dp_queue is not None:
+        dp = InfluxDataPoint(start_ts, sim_iter)
+        dp.set_start()
+        dp_queue.push_back(dp)
+    stakes = _run_torch_backend(config, accounts, origin_pubkey, stats,
+                                dp_queue, sim_iter, start_ts)
+    _finalize_sim_stats(config, stats, stakes, stats_collection, dp_queue,
+                        sim_iter, start_ts)
 
-    stats = GossipStats()
-    stats.set_simulation_parameters(config)
-    stats.set_origin(origin_pubkey)
-    stats.initialize_message_stats(stakes)
-    stats.build_validator_stake_distribution_histogram(
-        VALIDATOR_STAKE_DISTRIBUTION_NUM_BUCKETS, stakes)
-    stakes = _run_torch_backend(config, accounts, origin_pubkey, stats)
-    if not stats.is_empty():
-        _build_final_stats(config, stats, stakes)
-        stats_collection.push(stats)
-    return stats
+
+def _finalize_sim_stats(config, stats, stakes, stats_collection, dp_queue,
+                        sim_iter, start_ts):
+    """End-of-simulation histograms, calculations, collection push and
+    Influx points (gossip_main.rs:567-645)."""
+    if stats.is_empty():
+        return
+    _build_final_stats(config, stats, stakes)
+    stats_collection.push(stats)
+    _push_end_of_sim_points(dp_queue, sim_iter, start_ts, stats)
 
 
 def _build_final_stats(config, stats, stakes):
@@ -410,11 +542,204 @@ def _build_final_stats(config, stats, stakes):
 
 
 def simulate(config: Config) -> GossipStatsCollection:
-    """The main path: one simulation into a fresh stats collection."""
+    """One simulation of ``config`` into a fresh stats collection, without
+    Influx."""
     collection = GossipStatsCollection()
     collection.set_number_of_simulations(config.num_simulations)
-    run_simulation(config, collection, 0)
+    run_simulation(config, API_MAINNET_BETA, collection)
     return collection
+
+
+# --------------------------------------------------------------------------
+# sweeps (gossip_main.rs:774-951)
+# --------------------------------------------------------------------------
+
+#: test types whose stepped knob belongs to a feature the port lacks yet
+UNPORTED_TEST_TYPES = {
+    Testing.PULL_FANOUT: "pull modes (ROADMAP A10)",
+    Testing.ADAPTIVE_THRESHOLD: "adaptive mode (ROADMAP A10)",
+    Testing.TRAFFIC_RATE: "concurrent traffic (ROADMAP A11)",
+    Testing.NODE_INGRESS_CAP: "concurrent traffic (ROADMAP A11)",
+}
+
+
+def _stepped_sweep_config(config: Config, i: int, origin_ranks):
+    """Sweep point ``i``'s (stepped config, Influx start value): the
+    reference's per-sim stepping (gossip_main.rs:774-951), each value
+    computed as the reference package computes it (``v0 + i * step``; loss
+    and churn clamped at 1.0)."""
+    tt = config.test_type
+    if tt in UNPORTED_TEST_TYPES:
+        raise NotImplementedError(
+            f"--test-type {tt.value} steps a knob of "
+            f"{UNPORTED_TEST_TYPES[tt]}, which is not ported yet")
+    if tt == Testing.ACTIVE_SET_SIZE:
+        v = config.gossip_active_set_size + i * config.step_size.as_int()
+        return config.stepped(gossip_active_set_size=v), \
+            float(config.gossip_active_set_size)
+    if tt == Testing.PUSH_FANOUT:
+        v = config.gossip_push_fanout + i * config.step_size.as_int()
+        c = config.stepped(gossip_push_fanout=v)
+        # fanout beyond the active set would silently cap (gossip_main.rs:812)
+        if v > c.gossip_active_set_size:
+            c = c.stepped(gossip_active_set_size=v)
+        return c, float(config.gossip_push_fanout)
+    if tt == Testing.MIN_INGRESS_NODES:
+        v = config.min_ingress_nodes + i * config.step_size.as_int()
+        # the reference reports the stepped value here
+        return config.stepped(min_ingress_nodes=v), float(v)
+    if tt == Testing.PRUNE_STAKE_THRESHOLD:
+        v = config.prune_stake_threshold + i * config.step_size.as_float()
+        return config.stepped(prune_stake_threshold=v), \
+            float(config.prune_stake_threshold)
+    if tt == Testing.ORIGIN_RANK:
+        return config.stepped(origin_rank=origin_ranks[i]), \
+            float(origin_ranks[i])
+    if tt == Testing.FAIL_NODES:
+        v = config.fraction_to_fail + i * config.step_size.as_float()
+        return config.stepped(fraction_to_fail=v), \
+            float(config.fraction_to_fail)
+    if tt == Testing.ROTATE_PROBABILITY:
+        v = config.probability_of_rotation + i * config.step_size.as_float()
+        return config.stepped(probability_of_rotation=v), \
+            float(config.probability_of_rotation)
+    if tt == Testing.PACKET_LOSS:
+        v = min(config.packet_loss_rate
+                + i * config.step_size.as_float(), 1.0)
+        return config.stepped(packet_loss_rate=v), \
+            float(config.packet_loss_rate)
+    if tt == Testing.CHURN:
+        # sweep the fail rate; the recover rate rides along unstepped
+        v = min(config.churn_fail_rate
+                + i * config.step_size.as_float(), 1.0)
+        return config.stepped(churn_fail_rate=v), \
+            float(config.churn_fail_rate)
+    return config, 0.0  # NO_TEST
+
+
+def dispatch_sweeps(config: Config, json_rpc_url: str, origin_ranks,
+                    collection: GossipStatsCollection, dp_queue=None,
+                    start_ts: str = "0"):
+    """``config.num_simulations`` simulations, stepped by
+    ``config.test_type`` (gossip_main.rs:774-951): one after another, each
+    on a freshly loaded cluster, except an origin-rank sweep of more than
+    one rank, which runs its ranks as the origins of one engine batch
+    (:func:`run_origin_rank_sweep`, whose timings it returns)."""
+    if (config.test_type == Testing.ORIGIN_RANK
+            and config.num_simulations > 1):
+        return run_origin_rank_sweep(config, json_rpc_url, origin_ranks,
+                                     collection, dp_queue, start_ts)
+    for i in range(config.num_simulations):
+        c, start = _stepped_sweep_config(config, i, origin_ranks)
+        run_simulation(c, json_rpc_url, collection, dp_queue, i, start_ts,
+                       start)
+    return None
+
+
+def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
+                          stats_collection: GossipStatsCollection,
+                          dp_queue=None, start_ts: str = "0") -> dict:
+    """An ORIGIN_RANK sweep as one origin-batched engine run (reference
+    package cli.py:1266-1494): the R ranks ride the engine's origin axis
+    through one ``init_state``, the warm-up in one ``run_rounds`` call and
+    the measured blocks, and each origin column is harvested into its own
+    stats and Influx points.  Each origin's draws depend only on its own
+    index, so every column equals its rank's serial run.  Returns the
+    engine's wall (rounds until their rows are on the host) and the
+    harvest's, in seconds."""
+    accounts, source_label = load_cluster_accounts(config, json_rpc_url)
+    index = NodeIndex.from_stakes(accounts)
+    stakes = dict(accounts)
+    N = len(index)
+    R = config.num_simulations
+    configs, origin_pks = [], []
+    for i in range(R):
+        c = config.stepped(origin_rank=origin_ranks[i])
+        if len(accounts) < c.origin_rank:
+            raise SystemExit(
+                f"ERROR: origin_rank larger than number of simulation "
+                f"nodes. nodes: {len(accounts)}, origin_rank: {c.origin_rank}")
+        configs.append(c)
+        origin_pks.append(
+            find_nth_largest_node(c.origin_rank, list(accounts.items()))[0])
+    log.info("##### BATCHED ORIGIN-RANK SWEEP: %s origins in one engine "
+             "call #####", R)
+    params = _engine_params(config, N)
+    tables = make_cluster_tables(index.stakes.astype(np.int64),
+                                 device=config.device)
+    dev = tables.stakes.device
+    origins = torch.tensor([index.index_of(pk) for pk in origin_pks],
+                           dtype=torch.int32, device=dev)
+    t_harvest = time.perf_counter()
+    stats_list = []
+    for i, c in enumerate(configs):
+        log.info("##### SIMULATION ITERATION: %s #####", i)
+        log.info("ORIGIN: %s", origin_pks[i])
+        stats_list.append(_new_stats(c, origin_pks[i], stakes))
+    if dp_queue is not None:
+        # the reference's sweep puts the start sentinel into the same
+        # datapoint as the test-type point
+        dp = _test_type_point(config, 0, start_ts, len(accounts),
+                              source_label, str(float(origin_ranks[0])),
+                              stats_list[0])
+        dp.set_start()
+        dp_queue.push_back(dp)
+    harvest_s = time.perf_counter() - t_harvest
+
+    warm = min(config.warm_up_rounds, config.gossip_iterations)
+    measured = config.gossip_iterations - warm
+    t_engine = time.perf_counter()
+    log.info("Simulating Gossip and setting active sets. Please wait.....")
+    state = init_state(prng_key(config.seed, dev), tables, origins, params)
+    log.info("Simulation Complete!")
+    if warm > 0:
+        for it in range(0, warm, 10):
+            log.info("GOSSIP ITERATION: %s", it)
+        state, wrows = run_rounds(params, tables, origins, state, warm)
+        if 0 <= config.heal_at < warm:
+            # heal inside the warm-up: the recovery metric still needs
+            # every post-heal round
+            cov_w = wrows["coverage"].cpu().numpy()          # [warm, R]
+            for it in range(config.heal_at, warm):
+                for col in range(R):
+                    stats_list[col].note_post_heal_coverage(
+                        it, float(cov_w[it, col]))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    engine_s = time.perf_counter() - t_engine
+    done = 0
+    while done < measured:
+        n_it = min(HARVEST_BLOCK, measured - done)
+        start_it = warm + done
+        t_blk = time.perf_counter()
+        state, trows = run_rounds(params, tables, origins, state, n_it,
+                                  start_it=start_it, detail=True)
+        rows = {k: v.cpu().numpy() for k, v in trows.items()}
+        blk_wall = time.perf_counter() - t_blk
+        engine_s += blk_wall
+        t_harvest = time.perf_counter()
+        _warn_shape_truncation(rows, params)
+        for t in range(n_it):
+            it = start_it + t
+            if it % 10 == 0:
+                log.info("GOSSIP ITERATION: %s", it)
+            for col in range(R):
+                if it % 10 == 0:
+                    _push_config_point(configs[col], dp_queue, col, start_ts)
+                _feed_measured_round(stats_list[col], rows, t, col, it,
+                                     configs[col], index, stakes,
+                                     origin_pks[col], dp_queue, col,
+                                     start_ts)
+        done += n_it
+        _push_sim_perf_point(dp_queue, 0, start_ts, blk_wall, n_it, R)
+        harvest_s += time.perf_counter() - t_harvest
+    t_harvest = time.perf_counter()
+    for col in range(R):
+        _feed_message_counters(stats_list[col], state, col, index)
+        _finalize_sim_stats(configs[col], stats_list[col], stakes,
+                            stats_collection, dp_queue, col, start_ts)
+    harvest_s += time.perf_counter() - t_harvest
+    return {"engine_s": engine_s, "harvest_s": harvest_s}
 
 
 # --------------------------------------------------------------------------
@@ -474,14 +799,17 @@ def _start_copy(rows: dict, state, n_valid: int):
     return host, ready
 
 
-def run_all_origins(config: Config, accounts=None,
-                    origin_indices=None) -> dict:
+def run_all_origins(config: Config, accounts=None, dp_queue=None,
+                    start_ts: str = "0", origin_indices=None,
+                    json_rpc_url: str = API_MAINNET_BETA) -> dict:
     """Origin-parallel mode (reference: gossip_sim_tpu/cli.py:1800-2209):
     every node (or each of ``origin_indices``) is the origin of its own
     simulation, run in origin batches on one device, and the full aggregate
     stats suite is built from the on-device accumulators.  Returns a
     summary dict (also logged); its ``stats`` key carries the finalized
-    ``AllOriginsStats``.
+    ``AllOriginsStats``.  With ``dp_queue``, each batch pushes a
+    ``sim_perf`` point at its harvest and the run its aggregate Influx
+    point at the end (``AllOriginsStats.emit_influx``).
 
     Batches are ``config.origin_batch`` wide (0 = auto:
     ``min(64, 2^22 // N)``), at most the number of origins; every batch
@@ -502,7 +830,7 @@ def run_all_origins(config: Config, accounts=None,
             "(--mesh-devices / --mesh-node-shards > 1) is not ported yet "
             "(ROADMAP A6b)")
     if accounts is None:
-        accounts, _ = load_cluster_accounts(config)
+        accounts, _ = load_cluster_accounts(config, json_rpc_url)
     index = NodeIndex.from_stakes(accounts)
     N = len(index)
     params = all_origins_params(config, N)
@@ -561,11 +889,13 @@ def run_all_origins(config: Config, accounts=None,
         agg.add_batch(rows, sums, config.warm_up_rounds,
                       heal_at=config.heal_at,
                       impaired=config.impairments_on, pull=False)
+        rounds_s = _span_s(marks[1], marks[2])
         batches.append({"lo": lo, "n_valid": n_valid,
                         "init_s": _span_s(marks[0], marks[1]),
-                        "rounds_s": _span_s(marks[1], marks[2]),
+                        "rounds_s": rounds_s,
                         "dispatch_s": dispatch_s, "copy_wait_s": waited,
                         "harvest_s": time.perf_counter() - t})
+        _push_sim_perf_point(dp_queue, 0, start_ts, rounds_s, iters, n_valid)
         log.info("all-origins: %s/%s origins done",
                  min(lo + n_valid, total_o), total_o)
 
@@ -606,6 +936,7 @@ def run_all_origins(config: Config, accounts=None,
         params)
     if config.print_stats:
         agg.print_all()
+    agg.emit_influx(dp_queue, start_ts)
     summary = {
         "num_nodes": N,
         "num_origins": total_o,
@@ -632,25 +963,182 @@ def run_all_origins(config: Config, accounts=None,
     return summary
 
 
+# --------------------------------------------------------------------------
+# Influx series (influx_db.rs)
+# --------------------------------------------------------------------------
+
+def _push_sim_perf_point(dp_queue, sim_iter, start_ts, block_wall_s, n_iters,
+                         n_origins):
+    """One point per measured round block: its wall time, origin-rounds/s
+    and the sender's queue depth (wall-clock values, left out of the
+    deterministic lines)."""
+    if dp_queue is None:
+        return
+    thr = n_origins * n_iters / block_wall_s if block_wall_s > 0 else 0.0
+    dp = InfluxDataPoint(start_ts, sim_iter)
+    dp.create_sim_perf_point(round(block_wall_s, 6), round(thr, 2),
+                             len(dp_queue), n_iters)
+    dp_queue.push_back(dp)
+
+
+def _push_config_point(config, dp_queue, sim_iter, start_ts):
+    if dp_queue is None:
+        return
+    dp = InfluxDataPoint(start_ts, sim_iter)
+    dp.create_config_point(
+        config.gossip_push_fanout, config.gossip_active_set_size,
+        config.origin_rank, config.prune_stake_threshold,
+        config.min_ingress_nodes, config.fraction_to_fail,
+        config.probability_of_rotation)
+    dp_queue.push_back(dp)
+
+
+def _push_iteration_points(dp_queue, sim_iter, start_ts, stats, steady,
+                           coverage, rmr_result):
+    """One measured round's series (gossip_main.rs:480-563)."""
+    if dp_queue is None:
+        return
+    dp = InfluxDataPoint(start_ts, sim_iter)
+    dp.create_rmr_data_point(rmr_result)
+    dp.create_data_point(coverage, "coverage")
+    dp.create_hops_stat_point(stats.get_hops_stat_by_iteration(steady))
+    dp.create_stranded_node_stat_point(
+        stats.get_stranded_node_stats_by_iteration(steady))
+    dp.create_data_point(
+        stats.get_outbound_branching_factor_by_index(steady),
+        "branching_factor")
+    if stats.has_delivery_stats():
+        dp.create_delivery_point(
+            int(stats.delivered_stats.collection[-1]),
+            int(stats.dropped_stats.collection[-1]),
+            int(stats.suppressed_stats.collection[-1]),
+            stats.failed_count_series[-1])
+    dp.create_iteration_point(steady, sim_iter)
+    dp_queue.push_back(dp)
+
+
+def _push_end_of_sim_points(dp_queue, sim_iter, start_ts, stats):
+    """A finished simulation's series (gossip_main.rs:567-645)."""
+    if dp_queue is None:
+        return
+    dp = InfluxDataPoint(start_ts, sim_iter)
+    c = stats.stranded_node_collection
+    dp.create_stranded_iteration_point(
+        c.total_stranded_iterations,
+        c.stranded_iterations_per_node,
+        c.mean_stranded_per_iteration,
+        c.mean_stranded_iterations_per_stranded_node,
+        c.median_stranded_iterations_per_stranded_node,
+        c.weighted_stranded_node_mean_stake,
+        c.weighted_stranded_node_median_stake)
+    dp.create_histogram_point("stranded_node_histogram",
+                              stats.get_stranded_node_histogram())
+    dp.create_histogram_point("aggregate_hops_histogram",
+                              stats.get_aggregate_hop_stat_histogram())
+    dp.create_messages_point("egress_message_count",
+                             stats.get_egress_messages_histogram(), sim_iter)
+    dp.create_messages_point("ingress_message_count",
+                             stats.get_ingress_messages_histogram(), sim_iter)
+    dp.create_messages_point("prune_message_count",
+                             stats.get_prune_message_histogram(), sim_iter)
+    if stats.recovery_iterations is not None:
+        # single-origin run: one recovery sample (mean == max; 0 with
+        # unrecovered=1 when coverage never came back)
+        rec = stats.recovery_iterations
+        dp.create_recovery_point(1, float(max(rec, 0)), max(rec, 0),
+                                 int(rec < 0))
+    dp.create_iteration_point(0, sim_iter)
+    dp_queue.push_back(dp)
+
+
+def _drain_influx(dp_queue, influx_thread):
+    """Push the end sentinel, wait for the reporter thread to drain, and log
+    the sender's delivery accounting (points sent / dropped / retries)."""
+    if dp_queue is None:
+        return None
+    dp = InfluxDataPoint()
+    dp.set_last_datapoint()
+    dp_queue.push_back(dp)
+    if influx_thread is None:
+        return None
+    influx_thread.join()
+    sender = influx_thread.sender_stats()
+    log.info("influx sender: %s point(s) sent, %s dropped, %s spooled, "
+             "%s transient-failure retr%s", sender["points_sent"],
+             sender["dropped_points"], sender["spooled_points"],
+             sender["retries"], "y" if sender["retries"] == 1 else "ies")
+    return sender
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="[%(asctime)s %(levelname)s %(name)s] %(message)s")
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
+    origin_ranks = args.origin_rank
+    if any(r < 1 for r in origin_ranks):
+        log.error("ERROR: --origin-rank values must be >= 1 (1 = highest "
+                  "stake), got: %s", origin_ranks)
+        return 1
+    # origin-rank count validation (gossip_main.rs:706-716)
+    if len(origin_ranks) < config.num_simulations:
+        log.error("ERROR: not enough origin ranks provided for "
+                  "num_simulations! origin_ranks: %s, num_simulations: %s",
+                  len(origin_ranks), config.num_simulations)
+        if config.test_type == Testing.ORIGIN_RANK:
+            return 1
+    elif len(origin_ranks) > config.num_simulations:
+        log.warning("WARNING: more origin ranks than number of simulations. "
+                    "Not going to hit all origin ranks")
+    elif (len(origin_ranks) > 1
+          and config.test_type != Testing.ORIGIN_RANK):
+        log.error("ERROR: multiple origin_ranks passed in but test type is "
+                  "not OriginRank. This would end up running all simulations "
+                  "with origin_rank[0]: %s", origin_ranks[0])
+        return 1
     if config.gossip_iterations <= config.warm_up_rounds:
         log.warning("WARNING: Gossip Iterations (%s) <= Warm Up Rounds (%s). "
                     "No stats will be recorded....",
                     config.gossip_iterations, config.warm_up_rounds)
+
+    start_ts = str(time.time_ns())
+    log.info("############################################")
+    log.info("##### START_TIME: %s ######", start_ts)
+    log.info("############################################")
+    dp_queue = influx_thread = None
+    if args.influx in ("l", "i"):
+        dp_queue = DatapointQueue()
+        load_dotenv()
+        try:
+            username = os.environ["GOSSIP_SIM_INFLUX_USERNAME"]
+            password = os.environ["GOSSIP_SIM_INFLUX_PASSWORD"]
+            database = os.environ["GOSSIP_SIM_INFLUX_DATABASE"]
+        except KeyError as e:
+            log.error("%s is not set", e.args[0])
+            return 1
+        influx_thread = InfluxThread.spawn(
+            get_influx_url(args.influx), username, password, database,
+            dp_queue, spool_path=config.influx_spool)
+
     t0 = time.perf_counter()
     if config.all_origins:
-        run_all_origins(config)
+        if dp_queue is not None:
+            log.info("all-origins: emitting run-level aggregate Influx "
+                     "series (per-iteration series are a single-origin "
+                     "feature)")
+        run_all_origins(config, dp_queue=dp_queue, start_ts=start_ts,
+                        json_rpc_url=args.json_rpc_url)
     else:
-        collection = simulate(config)
+        collection = GossipStatsCollection()
+        collection.set_number_of_simulations(config.num_simulations)
+        dispatch_sweeps(config, args.json_rpc_url, origin_ranks, collection,
+                        dp_queue, start_ts)
     log.info("simulation wall time: %.3f s on %s", time.perf_counter() - t0,
              config.device)
     if config.device != "cpu":
         log.info("kernel launches: %s", dict(kernels.LAUNCHES))
+    _drain_influx(dp_queue, influx_thread)
     if config.all_origins:
         return 0
     if config.print_stats:
@@ -660,6 +1148,9 @@ def main(argv=None) -> int:
         else:
             log.warning("WARNING: Gossip Stats Collection is empty. "
                         "Is `Iterations` <= `warm-up-rounds`?")
+    log.info("############################################")
+    log.info("##### START_TIME: %s ######", start_ts)
+    log.info("############################################")
     return 0
 
 

@@ -3,10 +3,11 @@
 Mirrors the reference's ``Config`` (gossip.rs:111-133), ``Testing``
 (gossip.rs:33-76) and ``StepSize`` (gossip.rs:78-109).  Flag names and
 defaults are the compatibility contract (gossip_main.rs:53-241).  This
-package's ``Config`` carries the fields the single-origin push slice and
-all-origins mode read, plus ``device`` (where the engine runs: ``"cuda"``
-unless the CPU is asked for).  The pull fields stay so the stats snapshot
-keeps its schema; a pull mode itself is rejected by the engine.
+package's ``Config`` carries the fields the experiment harness (account
+sources, sweeps, Influx) and all-origins mode read, plus ``device`` (where
+the engine runs: ``"cuda"`` unless the CPU is asked for).  The pull fields
+stay so the stats snapshot keeps its schema; a pull mode itself is rejected
+by the engine.
 """
 
 from __future__ import annotations
@@ -90,6 +91,8 @@ class Config:
     gossip_push_fanout: int = 6
     gossip_active_set_size: int = 12
     gossip_iterations: int = 1
+    accounts_from_file: bool = False
+    account_file: str = ""
     origin_rank: int = 1
     probability_of_rotation: float = 0.013333
     prune_stake_threshold: float = 0.15
@@ -122,6 +125,10 @@ class Config:
     pull_bloom_fp_rate: float = 0.1
     pull_request_cap: int = 0
 
+    influx_spool: str = ""          # durable spool file: Influx points
+                                    # dropped after retry exhaustion or
+                                    # queue overflow are appended here as
+                                    # line protocol
     seed: int = 42                  # deterministic by construction
     num_synthetic_nodes: int = 0    # >0: synthetic cluster
     all_origins: bool = False       # every node an origin, in batches

@@ -17,8 +17,7 @@ histogram, whose top bin clamps hops >= hist_bins-1 (64 by default, far
 above the ~11-hop diameters seen in practice, README.md:232-241).
 
 The port's own copy of the reference package's ``stats/aggregate.py``
-(numpy only, same fields, same results).  The aggregate Influx point
-(``emit_influx``) comes with the Influx sink (ROADMAP A5).
+(numpy only, same fields, same results).
 """
 
 from __future__ import annotations
@@ -446,3 +445,44 @@ class AllOriginsStats:
         if self.hop_clamped:
             log.info("Hop histogram top-bin clamped samples: %s",
                      self.hop_clamped)
+
+    def emit_influx(self, dp_queue, start_ts: str):
+        """Aggregate versions of the reference series
+        (influx_db.rs:346-602), one point per run.  The pull series joins
+        with the pull modes (ROADMAP A10)."""
+        if dp_queue is None:
+            return
+        from ..sinks import InfluxDataPoint
+
+        dp = InfluxDataPoint(start_ts, 0)
+        dp.create_data_point(self.coverage_stats.mean, "coverage")
+        dp.create_rmr_data_point((self.rmr_stats.mean, 0, 0))
+        dp.create_hops_stat_point(self.aggregate_hops)
+        dp.create_data_point(self.branching_stats.mean, "branching_factor")
+        c = self.stranded
+        dp.create_stranded_iteration_point(
+            c.total_stranded_iterations,
+            c.stranded_iterations_per_node,
+            c.mean_stranded_per_iteration,
+            c.mean_stranded_iterations_per_stranded_node,
+            c.median_stranded_iterations_per_stranded_node,
+            c.weighted_stranded_node_mean_stake,
+            c.weighted_stranded_node_median_stake)
+        dp.create_histogram_point("stranded_node_histogram", c.histogram)
+        dp.create_histogram_point("aggregate_hops_histogram",
+                                  self.hops_histogram)
+        dp.create_messages_point("egress_message_count",
+                                 self.egress_tracker.histogram, 0)
+        dp.create_messages_point("ingress_message_count",
+                                 self.ingress_tracker.histogram, 0)
+        dp.create_messages_point("prune_message_count",
+                                 self.prune_tracker.histogram, 0)
+        if self.impaired:
+            dp.create_delivery_point(
+                self.delivered_stats.mean, self.dropped_stats.mean,
+                self.suppressed_stats.mean, self.failed_stats.mean)
+        rec = self.recovery_summary()
+        if rec is not None:
+            dp.create_recovery_point(rec["origins"], rec["mean"],
+                                     rec["max"], rec["unrecovered"])
+        dp_queue.push_back(dp)

@@ -7,8 +7,9 @@ port's isolation and device rules.
 * asking for the default device without a GPU raises;
 * ``--all-origins`` runs through ``main`` on the CPU and logs its summary,
   and more than one mesh device or node shard raises naming ROADMAP A6b;
-* a fresh interpreter that imports every port module (and the chip smoke
-  script) has no ``jax`` and no ``gossip_sim_tpu``/``gossip_sim_tpu.*``
+* a fresh interpreter that imports every port module (the sinks and the
+  ``write_accounts`` binary among them, and the chip smoke script) has no
+  ``jax``, no ``gossip_sim_tpu``/``gossip_sim_tpu.*`` and no ``yaml``
   module loaded.
 
 Tolerance: 0 everywhere (exact equality of every snapshot series)."""
@@ -99,9 +100,9 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_unported_flags_are_rejected():
-    for argv in (["--backend", "oracle"], ["--num-simulations", "2"],
-                 ["--test-type", "push-fanout"],
-                 ["--checkpoint-path", "x.npz"]):
+    for argv in (["--backend", "oracle"], ["--sweep-lanes", "2"],
+                 ["--checkpoint-path", "x.npz"], ["--gossip-mode", "pull"],
+                 ["--trace-dir", "traces"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(BASE + argv)
 
@@ -143,8 +144,12 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")
+for m in ("gossip_sim_tpu_torch.sinks", "gossip_sim_tpu_torch.sinks.influx",
+          "gossip_sim_tpu_torch.write_accounts"):
+    assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "gossip_sim_tpu" or m.startswith("gossip_sim_tpu."))
+             or m == "gossip_sim_tpu" or m.startswith("gossip_sim_tpu.")
+             or m == "yaml")
 print("LOADED", len([m for m in sys.modules
                      if m.startswith("gossip_sim_tpu_torch")]))
 print("BAD", bad)

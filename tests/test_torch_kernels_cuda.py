@@ -49,6 +49,12 @@ CONFIGS = {
     # the one-shot failure draws one more uniform in its round
     "fail_nodes": (800, 2, 12, dict(warm_up_rounds=0, fail_at=6,
                                     fail_fraction=0.2)),
+    # the widest shapes of the experiment harness's sweeps, at the batched
+    # origin-rank sweep's O=16: an active set of 24, and a fanout of 12
+    # (K = 24 inbound ranks, rc_merge_prune rows of C + K = 88)
+    "wide_active_set": (2000, 16, 21, dict(warm_up_rounds=0,
+                                           active_set_size=24)),
+    "wide_fanout": (2000, 16, 21, dict(warm_up_rounds=0, push_fanout=12)),
 }
 
 
@@ -117,6 +123,12 @@ def test_kernels_equal_plain_on_engine_rounds(cuda, config):
         assert int(rows["inb_dropped"].sum()) > 0
     if config == "wide_inbound":
         assert all(args[4] == 128 for args, _ in calls["rank_inbound"])
+    if config == "wide_active_set":
+        assert all(args[0].shape[-1] == 24 for args, _ in calls["rotate"])
+    if config == "wide_fanout":
+        assert all(args[4] == 24 for args, _ in calls["rank_inbound"])
+        assert all(args[0].shape[-1] + args[5].shape[-1] == 88
+                   for args, _ in calls["rc_merge_prune"])
     if config == "fail_nodes":
         assert int(rows["failed_count"][-1].sum()) > 0
 
