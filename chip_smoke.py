@@ -74,7 +74,9 @@ Phases (any failure exits non-zero before the final line):
       24) and a fanout sweep (F = 6, 9, 12, so K = 16, 18, 24) through
       ``cli.main``, each point's wall and coverage and RMR means; every
       kernel held against its plain version on round 19's inputs at
-      S=24/F=6 and S=12/F=12 (O=16) and timed beside its bound; the
+      S=24/F=6 and S=12/F=12 (O=16) and timed (CUDA events, and device
+      time from a profile in a process of its own,
+      ``--profile-wide-shapes``) beside its bound; the
       batched origin-rank sweep of ranks 1-16 (engine and harvest walls),
       whose columns 0 and 15 must equal ranks 1 and 16 run alone; the
       cluster written as an account file and run from it (the card's
@@ -593,36 +595,65 @@ def bound(moved: int, blocks: int, ops: dict):
 
 
 PROFILE_FLAG = "--profile-all-origins"
+WIDE_FLAG = "--profile-wide-shapes"
 
 
-def profile_all_origins() -> int:
+def profile_child(flag: str) -> int:
     """``chip_smoke.py --profile-all-origins``: the 5-round profile of one
     all-origins batch (origins 0-63 of the 10,000-node cluster, after 20
-    rounds) in a process whose first profiler session it is; prints the
-    breakdown as a JSON line, last.  Started by phase (f)."""
+    rounds), started by phase (f).  ``chip_smoke.py
+    --profile-wide-shapes``: at each of ``WIDE_SHAPES``, the 5-round
+    profile from round 19 of the 16 highest-stake origins, and
+    ``init_state``'s (``threefry``), started by phase (g).  Each runs in a
+    process whose first profiler sessions they are (later sessions of a
+    process record no device time) and prints a JSON line, last."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from gossip_sim_tpu_torch import cli, rng
-    from gossip_sim_tpu_torch.engine import (init_state, make_cluster_tables,
-                                             run_rounds)
+    from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
+                                             make_cluster_tables, run_rounds)
     from gossip_sim_tpu_torch.identity import NodeIndex
     dev = torch.device("cuda")
     cfg = cli.Config(num_synthetic_nodes=N_FULL, all_origins=True)
     accounts, _ = cli.load_cluster_accounts(cfg)
     index = NodeIndex.from_stakes(accounts)
-    tables = make_cluster_tables(index.stakes.astype(np.int64), device=dev)
-    params = cli.all_origins_params(cfg, N_FULL)
-    origins = torch.arange(O_BATCH, dtype=torch.int32, device=dev)
-    state = init_state(rng.prng_key(cfg.seed, dev), tables, origins, params)
-    state, _ = run_rounds(params, tables, origins, state, 20)
+    stakes_np = index.stakes.astype(np.int64)
+    tables = make_cluster_tables(stakes_np, device=dev)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    prof = profile_rounds(run_rounds, params, tables, origins, state,
-                          out_dir, tag=" all-origins", phase="(f)")
-    print(json.dumps(prof), flush=True)
+    if flag == PROFILE_FLAG:
+        params = cli.all_origins_params(cfg, N_FULL)
+        origins = torch.arange(O_BATCH, dtype=torch.int32, device=dev)
+        state = init_state(rng.prng_key(cfg.seed, dev), tables, origins,
+                           params)
+        state, _ = run_rounds(params, tables, origins, state, 20)
+        prof = profile_rounds(run_rounds, params, tables, origins, state,
+                              out_dir, tag=" all-origins", phase="(f)")
+        print(json.dumps(prof), flush=True)
+        return 0
+    top = np.argsort(-stakes_np, kind="stable")[:O_RANKS].astype(np.int32)
+    origins = torch.as_tensor(top, device=dev)
+    out = {}
+    for s_, f_ in WIDE_SHAPES:
+        prm = EngineParams(num_nodes=N_FULL, warm_up_rounds=0,
+                           active_set_size=s_, push_fanout=f_)
+        state = init_state(rng.prng_key(42, dev), tables, origins, prm)
+        state, _ = run_rounds(prm, tables, origins, state, 19)
+        tag = f" S={s_} F={f_}"
+        dev_ms = profile_rounds(
+            lambda p, t, o, st, r: run_rounds(p, t, o, st, r, start_it=19),
+            prm, tables, origins, state, out_dir, tag=tag,
+            phase="(g)")["device"]
+        dev_ms["threefry"] = profile_rounds(
+            lambda p, t, o, _st, _r: init_state(rng.prng_key(42, dev), t, o,
+                                                p),
+            prm, tables, origins, None, out_dir, rounds=1,
+            tag=tag + " init_state", phase="(g)")["device"]["threefry"]
+        out[f"S={s_} F={f_}"] = dev_ms
+    print(json.dumps(out), flush=True)
     return 0
 
 
@@ -1487,7 +1518,19 @@ def main() -> int:
         fail("(g) the sweeps did not step S to 12-24 and F to 6-12")
 
     # every kernel against its plain version on round 19's inputs at the
-    # widest shapes of the sweeps, O=16 (threefry on init_state's draws)
+    # widest shapes of the sweeps, O=16 (threefry on init_state's draws),
+    # timed with CUDA events, beside its device time from a profile in a
+    # process of its own and its bound
+    wide_run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), WIDE_FLAG],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    for line in wide_run.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if wide_run.returncode != 0:
+        fail(f"(g) the wide-shape profile process failed (exit "
+             f"{wide_run.returncode}): {wide_run.stderr[-2000:]}")
+    wide_dev = json.loads(wide_run.stdout.splitlines()[-1])
+    wide = {name: {} for name in names}
     top16 = origins[:O_RANKS]
     for s_, f_ in WIDE_SHAPES:
         prm = EngineParams(num_nodes=N_FULL, warm_up_rounds=0,
@@ -1513,13 +1556,21 @@ def main() -> int:
                  f"{max(16, 2 * f_)}")
         w_moved, w_blocks, _, _ = kernel_work(w_calls, w_outs, tf_mod,
                                               rot_mod)
+        key = f"S={s_} F={f_}"
+        for n in names:
+            wide[n][key] = {
+                "ms": w_ms[n], "device_ms": wide_dev[key][n],
+                "bound_ms": bound(w_moved[n], w_blocks[n], tf_ops.get(n))[0]}
         say(f"(g) each kernel exact vs plain on round 19's inputs at S={s_} "
             f"F={f_} (K={max(16, 2 * f_)}) O={O_RANKS} N={N_FULL} (threefry "
-            f"on init_state's {len(w_calls['threefry'])} draws), kernel ms "
-            f"(CUDA events) against bound ms: " + ", ".join(
-                f"{n} {w_ms[n]:.4f} (bound "
-                f"{bound(w_moved[n], w_blocks[n], tf_ops.get(n))[0]:.4f})"
-                for n in names)
+            f"on init_state's {len(w_calls['threefry'])} draws); kernel ms "
+            f"(CUDA events) / device ms (profile of rounds 19-23, per round; "
+            f"threefry per init_state) / bound ms: " + ", ".join(
+                f"{n} {w_ms[n]:.4f} / "
+                + ("not measured" if wide[n][key]["device_ms"] is None
+                   else f"{wide[n][key]['device_ms']:.4f}")
+                + " / "
+                f"{wide[n][key]['bound_ms']:.4f}" for n in names)
             + f"; prunes {int(rows_w['prunes_sent'].sum())}")
         del w_calls, w_outs, rows_w
     torch.cuda.empty_cache()
@@ -1717,7 +1768,8 @@ def main() -> int:
          "launches_all_origins": ao_launches[name],
          "all_origins_ms": ao_ms[name],
          "all_origins_bound_ms": ao_bound[name],
-         "all_origins_device_ms": ao_prof["device"][name]}
+         "all_origins_device_ms": ao_prof["device"][name],
+         "wide_shapes": wide[name]}
         for name in names]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1727,5 +1779,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profile_all_origins() if sys.argv[1:] == [PROFILE_FLAG]
-             else main())
+    sys.exit(profile_child(sys.argv[1])
+             if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG]) else main())
