@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero before the final line):
 
-  (a) build the seven CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
+  (a) build the eight CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
       nvcc for sm_90a (one nvcc per source, in parallel); print each
       kernel's registers, shared memory and spills (``-Xptxas -v``), check
       ``rotate``'s static shared memory (the class tables) against ptxas
@@ -85,7 +85,25 @@ Phases (any failure exits non-zero before the final line):
       cpu with equal deterministic Influx lines, one of them sent through
       ``InfluxThread`` to a capture server on 127.0.0.1, dequeued ==
       sent and none dropped;
-  (h) print the total wall, the card's name and power limit, the
+  (h) the pull, push-pull and adaptive modes at N=10,000 (300 iterations,
+      200 warm-up, cuda), each run with the launch counts set to 0 just
+      before it and read just after: ``pull_exchange`` held against its
+      plain version (tolerance 0) on round 19's inputs at O=64 in
+      push-pull under loss 0.1 + partition + churn at request caps 0 and 2,
+      in pull mode (with ``push_targets`` at ``push_on=False``), in
+      adaptive mode with the bit on, and at O=1; each case timed with CUDA
+      events, and under the profiler in a process of its own
+      (``--profile-pull``, which also profiles 5 push-pull rounds at O=32:
+      the launches a pull round adds), beside its bound; the single-origin
+      CLI in push-pull (loss 0.1), adaptive and push, in turns (wall,
+      coverage, RMR, pull counters, launches), and each mode's cuda run
+      equal to its cpu run at N=2,000 (``parity_snapshot()`` and
+      deterministic Influx lines); all-origins in push-pull (origins
+      0-199 at the auto batch of 64: origin-rounds/s, peak memory), and at
+      N=500 on cuda and cpu with equal aggregates; a pull-fanout sweep
+      (F_pull = 2, 5, 8) and an adaptive-threshold sweep (0.5, 0.7, 0.9)
+      through ``cli.main``, each point's wall;
+  (i) print the total wall, the card's name and power limit, the
       ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the reference package.
@@ -138,7 +156,11 @@ SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
                             "round/verb1_push_targets + the loss hash of "
                             "faults.py:76-121"),
            "rotate": ("gossip_sim_tpu/engine/core.py:950",
-                      "round/verb5_rotate + _sample_fast at core.py:274")}
+                      "round/verb5_rotate + _sample_fast at core.py:274"),
+           "pull_exchange": ("gossip_sim_tpu/engine/core.py:1012",
+                             "round/pull")}
+# the pull modes (h): round 19's pull_exchange calls at O=64 and O=1
+O_PULL = 64
 
 
 def fail(msg: str) -> None:
@@ -208,7 +230,8 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                   "prune_apply": ("prune_apply_kernel",),
                   "threefry": ("threefry_kernel",),
                   "push_targets": ("push_targets_kernel",),
-                  "rotate": ("rotate_kernel",)}
+                  "rotate": ("rotate_kernel",),
+                  "pull_exchange": ("pull_exchange_kernel",)}
 
 
 def device_ms(fn, symbols, reps: int = 10):
@@ -594,8 +617,44 @@ def bound(moved: int, blocks: int, ops: dict):
             "operations" if ops_ms > bytes_ms else "bytes", bytes_ms, ops_ms)
 
 
+def pull_cases(EngineParams) -> dict:
+    """Phase (h)'s ``pull_exchange`` cases: name -> (origins, params).
+    The impaired push-pull case runs at request caps 0 and 2 (2 binds on
+    the high-stake peers), the adaptive case has its bit on by round 19."""
+    imp = dict(packet_loss_rate=0.1, churn_fail_rate=0.01,
+               churn_recover_rate=0.2, partition_at=10, heal_at=30,
+               impair_seed=7)
+    base = dict(num_nodes=N_FULL, warm_up_rounds=0)
+    return {
+        "push-pull impaired cap 0": (O_PULL, EngineParams(
+            **base, gossip_mode="push-pull", **imp)),
+        "push-pull impaired cap 2": (O_PULL, EngineParams(
+            **base, gossip_mode="push-pull", pull_request_cap=2, **imp)),
+        "pull": (O_PULL, EngineParams(**base, gossip_mode="pull")),
+        "adaptive": (O_PULL, EngineParams(
+            **base, gossip_mode="adaptive", packet_loss_rate=0.1,
+            impair_seed=7)),
+        "push-pull O=1": (1, EngineParams(
+            **base, gossip_mode="push-pull", packet_loss_rate=0.1,
+            impair_seed=7)),
+    }
+
+
+def pull_bytes(args, kw, out) -> int:
+    """Bytes ``pull_exchange`` must move on these inputs: reached, failed
+    and dist, the sampler's perm and class tables and the CDF, the
+    adaptive bits and, while the partition window is on, the sides; its
+    three [O, N] planes and the counts out."""
+    (reached, dist, failed, side, perm, start, count, cdf,
+     adaptive_on) = args
+    return (nbytes(reached, dist, failed, perm, start, count, cdf,
+                   adaptive_on, *out)
+            + (nbytes(side) if kw["partition"] else 0))
+
+
 PROFILE_FLAG = "--profile-all-origins"
 WIDE_FLAG = "--profile-wide-shapes"
+PULL_FLAG = "--profile-pull"
 
 
 def profile_child(flag: str) -> int:
@@ -604,7 +663,10 @@ def profile_child(flag: str) -> int:
     rounds), started by phase (f).  ``chip_smoke.py
     --profile-wide-shapes``: at each of ``WIDE_SHAPES``, the 5-round
     profile from round 19 of the 16 highest-stake origins, and
-    ``init_state``'s (``threefry``), started by phase (g).  Each runs in a
+    ``init_state``'s (``threefry``), started by phase (g).  ``chip_smoke.py
+    --profile-pull``: ``pull_exchange``'s device time on round 19's
+    inputs of each of phase (h)'s cases, and the 5-round profile of
+    push-pull at O=32 from round 19, started by phase (h).  Each runs in a
     process whose first profiler sessions they are (later sessions of a
     process record no device time) and prints a JSON line, last."""
     import torch
@@ -633,6 +695,39 @@ def profile_child(flag: str) -> int:
         prof = profile_rounds(run_rounds, params, tables, origins, state,
                               out_dir, tag=" all-origins", phase="(f)")
         print(json.dumps(prof), flush=True)
+        return 0
+    if flag == PULL_FLAG:
+        from gossip_sim_tpu_torch import kernels
+        real = kernels.pull_exchange
+        top = np.argsort(-stakes_np, kind="stable").astype(np.int32)
+        out = {}
+        for case, (o, prm) in pull_cases(EngineParams).items():
+            orgs = torch.as_tensor(top[:o], device=dev)
+            state = init_state(rng.prng_key(42, dev), tables, orgs, prm)
+            state, _ = run_rounds(prm, tables, orgs, state, 19)
+            calls = []
+
+            def rec(*a, **kw):
+                calls.append((a, kw))
+                return real(*a, **kw)
+
+            kernels.pull_exchange = rec
+            try:
+                run_rounds(prm, tables, orgs, state, 1, start_it=19)
+            finally:
+                kernels.pull_exchange = real
+            a, kw = calls[0]
+            out[case] = device_ms(lambda: real(*a, **kw),
+                                  KERNEL_SYMBOLS["pull_exchange"], reps=20)
+        prm = EngineParams(num_nodes=N_FULL, warm_up_rounds=0,
+                           gossip_mode="push-pull")
+        orgs = torch.as_tensor(top[:O_KERNEL], device=dev)
+        state = init_state(rng.prng_key(7, dev), tables, orgs, prm)
+        state, _ = run_rounds(prm, tables, orgs, state, 19)
+        out["profile"] = profile_rounds(
+            lambda p, t, o_, st, r: run_rounds(p, t, o_, st, r, start_it=19),
+            prm, tables, orgs, state, out_dir, tag=" push-pull", phase="(h)")
+        print(json.dumps(out), flush=True)
         return 0
     top = np.argsort(-stakes_np, kind="stable")[:O_RANKS].astype(np.int32)
     origins = torch.as_tensor(top, device=dev)
@@ -685,12 +780,15 @@ def main() -> int:
     rot_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.rotate")
     pt_mod = importlib.import_module(
         "gossip_sim_tpu_torch.kernels.push_targets")
+    px_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.pull_exchange")
 
     for mod in list(sys.modules):
         if mod == "jax" or mod == "gossip_sim_tpu" or mod.startswith(
                 ("jax.", "gossip_sim_tpu.")):
             fail(f"{mod} was imported")
-    names = _build.KERNEL_NAMES
+    # the push path's kernels; pull_exchange runs in the pull modes, (h)
+    names = tuple(n for n in _build.KERNEL_NAMES if n != "pull_exchange")
     dev = torch.device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -698,13 +796,13 @@ def main() -> int:
 
     # ---- (a) build -------------------------------------------------------
     build_s = kernels.build_all(force=True)
-    say(f"(a) built {len(names)} kernels with nvcc (sm_90a) in "
-        f"{build_s:.2f} s")
+    say(f"(a) built {len(_build.KERNEL_NAMES)} kernels with nvcc (sm_90a) "
+        f"in {build_s:.2f} s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ptxas.txt").write_text(
         "\n".join(f"--- {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
-    for name in names:
+    for name in _build.KERNEL_NAMES:
         for line in ptxas_summary(_build.BUILD_LOG[name]):
             say(f"(a) ptxas {line}")
     sms, smem_limit = _build.sm_count(dev), _build.smem_optin(dev)
@@ -780,8 +878,9 @@ def main() -> int:
     top = np.argsort(-stakes_np, kind="stable")[:O_KERNEL].astype(np.int32)
     origins = torch.as_tensor(top, device=dev)
     params = EngineParams(num_nodes=N_FULL, warm_up_rounds=0)
-    real = {name: getattr(kernels, name) for name in names}
-    plain = {name: getattr(kernels, f"{name}_plain") for name in names}
+    real = {name: getattr(kernels, name) for name in _build.KERNEL_NAMES}
+    plain = {name: getattr(kernels, f"{name}_plain")
+             for name in _build.KERNEL_NAMES}
 
     def recording(which, calls, fn, *args):
         """``fn(*args)`` with the calls of the kernels ``which`` appended
@@ -1036,6 +1135,8 @@ def main() -> int:
     missing = [n for n in names if engine_launches[n] <= 0]
     if missing:
         fail(f"(c) kernels never launched by the engine: {missing}")
+    if engine_launches["pull_exchange"]:
+        fail("(c) the push round launched pull_exchange")
     say(f"(c) engine O={O_KERNEL} N={N_FULL}: 50 rounds in {eng_s:.3f} s = "
         f"{50 / eng_s:.2f} rounds/s ({50 * O_KERNEL / eng_s:.1f} "
         f"origin-rounds/s), peak device memory "
@@ -1321,6 +1422,7 @@ def main() -> int:
     n_batches = len(sizes)
     want = {name: n_batches * 300 for name in names}
     want["threefry"] = n_batches * (2 + 2 * params.init_draws)
+    want["pull_exchange"] = 0
     if ao_launches != want:
         fail(f"(f) all-origins launches {ao_launches}, expected {want} (every "
              f"kernel each round of each batch, threefry in init_state only)")
@@ -1742,7 +1844,266 @@ def main() -> int:
         f"{st['points_sent']} acknowledged in order, 0 dropped")
     say(f"(g) experiment harness phase: {time.perf_counter() - t_g:.1f} s")
 
-    # ---- (h) report -------------------------------------------------------
+    # ---- (h) pull, push-pull and adaptive at N=10,000 on cuda -----------
+    t_h = time.perf_counter()
+    PX = "pull_exchange"
+    top_all = np.argsort(-stakes_np, kind="stable").astype(np.int32)
+    pull_res, pull_case_calls = {}, {}
+    for case, (o, prm) in pull_cases(EngineParams).items():
+        orgs = torch.as_tensor(top_all[:o], device=dev)
+        rows_p, calls = round19_calls(prm, orgs, [PX, "push_targets"])
+        if len(calls[PX]) != 1 or len(calls["push_targets"]) != 1:
+            fail(f"(h) {case}: round 19 called pull_exchange "
+                 f"{len(calls[PX])} times")
+        args, kw = calls[PX][0]
+        got = exact(PX, args, kw, f"(h) {case}")
+        if case == "pull":
+            pt_args, pt_kw = calls["push_targets"][0]
+            if pt_kw.get("push_on", True):
+                fail("(h) pull mode: push_targets was called with push_on")
+            tgt_p = exact("push_targets", pt_args, pt_kw, "(h) pull mode")[0]
+            if bool((tgt_p < N_FULL).any()):
+                fail("(h) pull mode: push_targets sent a push")
+        if case == "adaptive" and not bool(args[8].any()):
+            fail("(h) adaptive: no origin's bit is on at round 19")
+        counts = got.counts.sum(0).tolist()
+        pull_res[case] = dict(
+            o=o, counts=counts,
+            ms=cuda_ms(lambda: real[PX](*args, **kw), reps=20),
+            plain_ms=cuda_ms(lambda: plain[PX](*args, **kw), reps=3, warm=1),
+            bytes=pull_bytes(args, kw, got))
+        pull_res[case]["bound_ms"] = bound(pull_res[case]["bytes"], 0,
+                                           None)[0]
+        pull_case_calls[case] = (args, kw)
+        say(f"(h) {case} (O={o}, N={N_FULL}), round 19: pull_exchange exact "
+            f"vs plain; kernel {pull_res[case]['ms']:.4f} ms, plain "
+            f"{pull_res[case]['plain_ms']:.4f} ms, bound "
+            f"{pull_res[case]['bound_ms']:.4f} ms ({pull_res[case]['bytes']}"
+            f" bytes); requests, responses, misses, dropped, suppressed, "
+            f"rescued {counts}; coverage mean "
+            f"{float(rows_p['coverage'].double().mean()):.6f}")
+    cap0 = pull_res["push-pull impaired cap 0"]["counts"]
+    cap2 = pull_res["push-pull impaired cap 2"]["counts"]
+    if not cap2[1] < cap0[1]:
+        fail(f"(h) the request cap 2 served as many responses as no cap "
+             f"({cap2[1]} and {cap0[1]})")
+    # the PyTorch yardstick: the sort that ranks the requests per peer
+    # (the plain version's), of the packed (peer, flat) keys of the main
+    # case's [O, N * PS] requests
+    args, kw = pull_case_calls["push-pull impaired cap 0"]
+    peers = px_mod.pull_peers_plain(N_FULL, kw["slots"], kw["bases"][0],
+                                    kw["bases"][1], *args[4:8])
+    packed_req = ((peers.reshape(1, -1).long() << 32)
+                  | torch.arange(peers.numel(), device=dev)).expand(
+                      O_PULL, -1).contiguous()
+    pull_library_ms = cuda_ms(lambda: torch.sort(packed_req, dim=1))
+    del peers, packed_req, pull_case_calls, calls, args, got
+    torch.cuda.empty_cache()
+    pull_prof_run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), PULL_FLAG],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    for line in pull_prof_run.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if pull_prof_run.returncode != 0:
+        fail(f"(h) the pull profile process failed (exit "
+             f"{pull_prof_run.returncode}): {pull_prof_run.stderr[-2000:]}")
+    pull_dev = json.loads(pull_prof_run.stdout.splitlines()[-1])
+    say("(h) pull_exchange device ms (profile, per call) / CUDA-event ms / "
+        "bound ms: " + "; ".join(
+            f"{c} {fmt(pull_dev[c])} / {r['ms']:.4f} / {r['bound_ms']:.4f}"
+            for c, r in pull_res.items())
+        + f"; library (torch.sort of the packed (peer, flat) request keys, "
+        f"[{O_PULL}, {N_FULL * 8}] int64) {pull_library_ms:.4f} ms")
+    pp_prof = pull_dev["profile"]
+    if "launches" in pp_prof and "launches" in engine_prof:
+        say(f"(h) push-pull round at O={O_KERNEL}: "
+            f"{pp_prof['launches']:.1f} device launches a round against "
+            f"push's {engine_prof['launches']:.1f} ((c)); busy "
+            f"{pp_prof['busy_ms']:.4f} ms against {engine_prof['busy_ms']:.4f}"
+            f" ms; wall {pp_prof['wall_ms']:.3f} against "
+            f"{engine_prof['wall_ms']:.3f} ms")
+
+    # the single-origin CLI in each mode, in turns, with the launch counts
+    # of each run; the push-pull run is this slice's main path
+    mode_argv = {
+        "push-pull": ["--gossip-mode", "push-pull", "--packet-loss-rate",
+                      "0.1"],
+        "adaptive": ["--gossip-mode", "adaptive"],
+        "push": [],
+    }
+    cli_runs = {}
+    for mode in ("push-pull", "adaptive", "push", "push-pull"):
+        argv_m = drv_argv + mode_argv[mode]
+        reset_unique_pubkeys()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        coll_m = cli.simulate(cli.config_from_args(
+            cli.build_parser().parse_args(argv_m)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+        want_px = 0 if mode == "push" else 300
+        if any(got[n] <= 0 for n in names) or got[PX] != want_px:
+            fail(f"(h) CLI {mode}: launches {got} (pull_exchange should be "
+                 f"{want_px})")
+        st = coll_m.collection[0]
+        cov, rmr = st.coverage_stats.mean, st.rmr_stats.mean
+        if (len(st.coverage_stats.collection) != 100
+                or not 0.0 < cov <= 1.0 or not math.isfinite(rmr)):
+            fail(f"(h) CLI {mode}: implausible coverage {cov}, rmr {rmr}")
+        pulls = ""
+        if mode != "push":
+            pulls = ", pull means: " + ", ".join(
+                f"{k} {getattr(st, f'pull_{k}_stats').mean:.3f}"
+                for k in ("requests", "responses", "misses", "dropped",
+                          "suppressed", "rescued"))
+            if st.pull_requests_stats.mean <= 0:
+                fail(f"(h) CLI {mode}: no pull request arrived")
+        if mode == "adaptive":
+            pulls += (f", rounds with the pull phase on "
+                      f"{sum(st.adaptive_active_series)}, switches "
+                      f"{sum(st.adaptive_switched_series)}")
+        prev = cli_runs.get(mode)
+        if prev is not None and (prev["coverage"], prev["rmr"]) != (cov, rmr):
+            fail(f"(h) CLI {mode}: a second run gave other means")
+        cli_runs.setdefault(mode, {"coverage": cov, "rmr": rmr, "walls": [],
+                                   "launches": got})
+        cli_runs[mode]["walls"].append(wall)
+        say(f"(h) CLI {' '.join(argv_m)}: wall {wall:.3f} s, coverage mean "
+            f"{cov:.6f}, RMR mean {rmr:.6f}{pulls}; launches {got}")
+    say("(h) CLI wall in turns (push-pull, adaptive, push, push-pull): "
+        + "; ".join(f"{m} " + ", ".join(f"{w:.3f}" for w in r["walls"])
+                    + " s" for m, r in cli_runs.items()))
+    # cuda == cpu at N=2,000 in each pull mode: snapshots and Influx lines
+    for mode in ("push-pull", "adaptive"):
+        snaps, lines = {}, {}
+        for device in ("cuda", "cpu"):
+            reset_unique_pubkeys()
+            a = cli.build_parser().parse_args(
+                ["--num-synthetic-nodes", "2000", "--iterations", "60",
+                 "--warm-up-rounds", "20", "--device", device]
+                + mode_argv[mode])
+            q = DatapointQueue()
+            c = cli.GossipStatsCollection()
+            t0 = time.perf_counter()
+            cli.dispatch_sweeps(cli.config_from_args(a), "", a.origin_rank,
+                                c, q, "1")
+            snaps[device] = snapshot_strings(c.collection[0].parity_snapshot())
+            lines[device] = q.drain_deterministic_lines()
+            say(f"(h) {mode} N=2000 60 rounds on {device}: "
+                f"{time.perf_counter() - t0:.3f} s")
+        diff = [k for k in snaps["cuda"] if snaps["cuda"][k] != snaps["cpu"][k]]
+        series = "sim_adaptive," if mode == "adaptive" else "sim_pull,"
+        if diff or lines["cuda"] != lines["cpu"] or not any(
+                ln.startswith(series) for ln in lines["cuda"]):
+            fail(f"(h) {mode}: cuda and cpu differ (snapshot {diff}, lines "
+                 f"equal {lines['cuda'] == lines['cpu']})")
+        say(f"(h) {mode}: cuda == cpu parity_snapshot and "
+            f"{len(lines['cuda'])} deterministic Influx lines at N=2000")
+
+    # all-origins in push-pull: origins 0-199 at the auto batch of 64
+    pp_cfg = dataclasses.replace(ao_cfg, gossip_mode="push-pull")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pp_ao = cli.run_all_origins(pp_cfg, accounts=ao_accounts,
+                                origin_indices=ao_idx)
+    torch.cuda.synchronize()
+    pp_wall = time.perf_counter() - t0
+    pp_launches = dict(kernels.LAUNCHES)
+    pp_peak = torch.cuda.max_memory_allocated()
+    n_b = len(pp_ao["batches"])
+    if (pp_launches[PX] != n_b * 300 or any(pp_launches[n] <= 0
+                                             for n in names)
+            or pp_ao["pull_requests"] <= 0):
+        fail(f"(h) all-origins push-pull: launches {pp_launches}, "
+             f"pull requests {pp_ao.get('pull_requests')}")
+    pp_rounds_s = sum(b["rounds_s"] for b in pp_ao["batches"])
+    say(f"(h) all-origins push-pull, origins 0-{AO_ORIGINS - 1} at the auto "
+        f"batch {O_BATCH}: wall {pp_wall:.3f} s, "
+        f"{AO_ORIGINS * 300 / pp_rounds_s:.1f} origin-rounds/s (push, (f): "
+        f"{AO_ORIGINS * 300 / rounds_s:.1f}), peak device memory "
+        f"{pp_peak / 2**20:.1f} MiB, coverage mean "
+        f"{pp_ao['coverage_mean']:.6f}, pull requests "
+        f"{pp_ao['pull_requests']}, rescued {pp_ao['pull_rescued']}; "
+        f"launches {pp_launches}")
+    small_pp = {}
+    for device in ("cuda", "cpu"):
+        reset_unique_pubkeys()
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            ["--num-synthetic-nodes", str(N_SMALL), "--iterations", "30",
+             "--warm-up-rounds", "10", "--all-origins", "--device", device,
+             "--gossip-mode", "push-pull", "--packet-loss-rate", "0.1"]))
+        q = DatapointQueue()
+        t0 = time.perf_counter()
+        small_pp[device] = (cli.run_all_origins(
+            cfg, dp_queue=q, start_ts="1",
+            origin_indices=np.arange(0, N_SMALL, 4, dtype=np.int32)),
+            q.drain_deterministic_lines())
+        say(f"(h) all-origins push-pull N={N_SMALL}, origins 0, 4, ..., "
+            f"{N_SMALL - 4}, 30 rounds on {device}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    (s_cuda, l_cuda), (s_cpu, l_cpu) = small_pp["cuda"], small_pp["cpu"]
+    sd_c, sd_p = s_cuda["stats"].state_dict(), s_cpu["stats"].state_dict()
+    diff = [k for k in sd_c if not np.array_equal(sd_c[k], sd_p[k])]
+    diff += [k for k in s_cuda if k not in skip and s_cuda[k] != s_cpu[k]]
+    if as_builtins(s_cuda["stats"]) != as_builtins(s_cpu["stats"]):
+        diff.append("finalized stats")
+    if l_cuda != l_cpu:
+        diff.append("Influx lines")
+    if diff:
+        fail(f"(h) all-origins push-pull cuda and cpu differ in {diff}")
+    say(f"(h) cuda == cpu all-origins push-pull at N={N_SMALL}: aggregate "
+        f"state_dict, finalized stats, summary (pull_* keys: "
+        f"{ {k: v for k, v in s_cuda.items() if k.startswith('pull_')} }) "
+        f"and {len(l_cuda)} Influx lines equal")
+
+    # the two pull sweeps through cli.main, each point's wall
+    pull_sweeps = {}
+    cli.run_simulation = timed_run_simulation
+    try:
+        for tt, extra, field, want_vals in (
+                ("pull-fanout", ["--gossip-mode", "push-pull",
+                                 "--packet-loss-rate", "0.1",
+                                 "--pull-fanout", "2", "--step-size", "3"],
+                 "pull_fanout", [2, 5, 8]),
+                ("adaptive-threshold", ["--gossip-mode", "adaptive",
+                                        "--adaptive-switch-threshold", "0.5",
+                                        "--step-size", "0.2"],
+                 "adaptive_switch_threshold", [0.5, 0.7, 0.9])):
+            points.clear()
+            reset_unique_pubkeys()
+            argv_s = drv_argv + extra + ["--test-type", tt,
+                                         "--num-simulations", "3"]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv_s)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(kernels.LAUNCHES)
+            vals = [getattr(c, field) for c, _, _ in points]
+            if (rc != 0 or len(points) != 3 or got[PX] != 3 * 300
+                    or any(got[n] <= 0 for n in names)
+                    or [round(v, 9) for v in vals] != want_vals):
+                fail(f"(h) {tt} sweep: exit {rc}, points {vals}, launches "
+                     f"{got}")
+            for cfg_, w, st in points:
+                say(f"(h) {tt} point {getattr(cfg_, field):g}: wall {w:.3f} s"
+                    f" (cluster build included), coverage mean "
+                    f"{st.coverage_stats.mean:.6f}, RMR mean "
+                    f"{st.rmr_stats.mean:.6f}, pull requests mean "
+                    f"{st.pull_requests_stats.mean:.3f}, rescued mean "
+                    f"{st.pull_rescued_stats.mean:.3f}")
+            say(f"(h) {' '.join(argv_s)}: exit 0, wall {wall:.3f} s, "
+                f"launches {got}")
+            pull_sweeps[tt] = wall
+    finally:
+        cli.run_simulation = real_run_simulation
+    say(f"(h) pull modes phase: {time.perf_counter() - t_h:.1f} s")
+
+    # ---- (i) report -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1771,6 +2132,23 @@ def main() -> int:
          "all_origins_device_ms": ao_prof["device"][name],
          "wide_shapes": wide[name]}
         for name in names]}
+    main_pp = pull_res["push-pull impaired cap 0"]
+    line["kernels"].append(
+        {"name": PX, "route": "cuda",
+         "source": f"gossip_sim_tpu_torch/csrc/{PX}.cu",
+         "replaces": f"{SOURCES[PX][0]} ({SOURCES[PX][1]})",
+         "launches": cli_runs["push-pull"]["launches"][PX],
+         "max_abs_err": 0,
+         "ms": main_pp["ms"], "plain_ms": main_pp["plain_ms"],
+         "bound_ms": main_pp["bound_ms"], "bound_by": "bytes",
+         "library_ms": pull_library_ms,
+         "device_ms": pull_dev["push-pull impaired cap 0"],
+         "cases": {c: {"o": r["o"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bound_ms"],
+                       "device_ms": pull_dev[c]}
+                   for c, r in pull_res.items()},
+         "launches_all_origins": pp_launches[PX],
+         "launches_per_round_push_pull": pp_prof.get("launches")})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1780,4 +2158,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(profile_child(sys.argv[1])
-             if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG]) else main())
+             if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG], [PULL_FLAG])
+             else main())

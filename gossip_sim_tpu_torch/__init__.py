@@ -1,5 +1,5 @@
-"""gossip_sim_tpu_torch — the Solana gossip push-protocol simulator on
-PyTorch and CUDA (NVIDIA H100).
+"""gossip_sim_tpu_torch — the Solana gossip protocol simulator (push,
+pull, push-pull and adaptive modes) on PyTorch and CUDA (NVIDIA H100).
 
 A port of the ``gossip_sim_tpu`` package that imports nothing of it and no
 JAX.  It keeps its own copies of the modules it needs and is held bit for
@@ -7,6 +7,7 @@ bit against the reference package's engine and CLI.
 
 Layout:
   constants, identity, config, faults, ingest, rustrng   own copies
+  pull, adaptive  the pull phase's hashes and tables, the direction switch
   rng        threefry keys and uniforms, bit-equal to jax.random
   engine     make_cluster_tables / init_state / round_step / run_rounds
   kernels    hand-written CUDA kernels (csrc/) + their plain versions

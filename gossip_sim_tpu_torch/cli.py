@@ -1,6 +1,7 @@
 """Experiment harness and sweeps (reference: gossip_main.rs), on the
-PyTorch engine: one push simulation or a ``--test-type`` sweep of them,
-and all-origins mode.
+PyTorch engine: one simulation or a ``--test-type`` sweep of them, and
+all-origins mode.  ``--gossip-mode`` picks the protocol phases: push (the
+reference's protocol), pull, push-pull or adaptive (pull.py, adaptive.py).
 
 Flag names, defaults and sweep semantics are the reference's
 (gossip_main.rs:53-241, 774-951); ``--device`` (``cuda`` by default, or
@@ -9,9 +10,8 @@ synthetic seeded recipe (``--num-synthetic-nodes``), a YAML account file
 (``--account-file ... --accounts-from-yaml``) or the JSON-RPC
 ``getVoteAccounts`` pull (``--url``).  ``--influx l|i`` streams the
 reference's Influx series (sinks/influx.py).  A flag the port lacks is
-rejected by argparse: lanes, pull and adaptive modes, traffic, traces,
-checkpoints, telemetry and the run report are later slices (ROADMAP
-A9-A16).
+rejected by argparse: lanes, traffic, traces, checkpoints, telemetry and
+the run report are later slices (ROADMAP A9, A11-A16).
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
@@ -107,7 +107,13 @@ def _engine_params(config: Config, num_nodes: int) -> EngineParams:
         partition_at=config.partition_at,
         heal_at=config.heal_at,
         impair_seed=config.seed,
-        gossip_mode=config.gossip_mode)
+        gossip_mode=config.gossip_mode,
+        pull_fanout=config.pull_fanout,
+        pull_interval=config.pull_interval,
+        pull_bloom_fp_rate=config.pull_bloom_fp_rate,
+        pull_request_cap=config.pull_request_cap,
+        adaptive_switch_threshold=config.adaptive_switch_threshold,
+        adaptive_switch_hysteresis=config.adaptive_switch_hysteresis)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     carries, plus ``--device``."""
     p = argparse.ArgumentParser(
         prog="gossip-sim",
-        description="Solana gossip push-protocol simulator (PyTorch/CUDA)")
+        description="Solana gossip protocol simulator (PyTorch/CUDA)")
     p.add_argument("--url", dest="json_rpc_url", default=API_MAINNET_BETA,
                    metavar="URL_OR_MONIKER", help="solana's json rpc url")
     p.add_argument("--account-file", default="", metavar="PATH",
@@ -154,9 +160,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of buckets for the hops_stats histogram")
     p.add_argument("--test-type", default="no-test",
                    choices=[t.value for t in Testing],
-                   help="Type of sweep to run (pull-fanout, traffic-rate, "
-                        "node-ingress-cap and adaptive-threshold step "
-                        "features not ported yet, ROADMAP A10/A11)")
+                   help="Type of sweep to run (traffic-rate and "
+                        "node-ingress-cap step a feature not ported yet, "
+                        "ROADMAP A11)")
     p.add_argument("--num-simulations", type=int, default=1,
                    help="Number of simulations to run")
     p.add_argument("--step-size", default="1",
@@ -181,6 +187,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "(-1 = never)")
     p.add_argument("--heal-at", type=int, default=-1,
                    help="iteration at which the partition heals (-1 = never)")
+    p.add_argument("--gossip-mode", default="push",
+                   choices=["push", "pull", "push-pull", "adaptive"],
+                   help="protocol phases to simulate: push (the reference "
+                        "protocol; default), pull (anti-entropy only), "
+                        "push-pull (both; pull rescues push-stranded "
+                        "nodes), or adaptive (push while coverage is low; "
+                        "a sim's pull phase runs once its coverage crosses "
+                        "--adaptive-switch-threshold)")
+    p.add_argument("--adaptive-switch-threshold", type=float, default=0.9,
+                   help="adaptive mode: coverage fraction at which a sim "
+                        "turns its pull phase on")
+    p.add_argument("--adaptive-switch-hysteresis", type=float, default=0.05,
+                   help="adaptive mode: the pull phase turns off again only "
+                        "when coverage falls below threshold - hysteresis")
+    p.add_argument("--pull-fanout", type=int, default=2,
+                   help="pull requests each live node sends per pull round "
+                        "(stake-weighted peer sampling)")
+    p.add_argument("--pull-interval", type=int, default=1,
+                   help="rounds between pull exchanges (pull runs when "
+                        "iteration %% interval == 0)")
+    p.add_argument("--pull-bloom-fp-rate", type=float, default=0.1,
+                   help="bloom-filter false-positive probability of the "
+                        "pull request digest (a holder wrongly filters "
+                        "the value out; Solana's bloom targets 0.1)")
+    p.add_argument("--pull-request-cap", type=int, default=0,
+                   help="max pull requests a peer serves per round "
+                        "(<= 0 = unlimited); excess requests are counted "
+                        "as misses")
     p.add_argument("--influx", default="n",
                    help="Influx for reporting metrics. i for "
                         "internal-metrics, l for localhost, n for none")
@@ -230,6 +264,20 @@ def config_from_args(args) -> Config:
         raise SystemExit("heal-at requires partition-at")
     if args.partition_at >= 0 and 0 <= args.heal_at < args.partition_at:
         raise SystemExit("heal-at must not precede partition-at")
+    if not 0.0 <= args.pull_bloom_fp_rate <= 1.0:
+        raise SystemExit("pull-bloom-fp-rate must be between 0 and 1")
+    if args.gossip_mode != "push":
+        if args.pull_fanout < 1:
+            raise SystemExit("pull-fanout must be >= 1")
+        if args.pull_interval < 1:
+            raise SystemExit("pull-interval must be >= 1")
+    if args.gossip_mode == "adaptive":
+        if not 0.0 < args.adaptive_switch_threshold <= 1.0:
+            raise SystemExit("adaptive-switch-threshold must be in (0, 1]")
+        if not (0.0 <= args.adaptive_switch_hysteresis
+                < args.adaptive_switch_threshold):
+            raise SystemExit("adaptive-switch-hysteresis must be in "
+                             "[0, adaptive-switch-threshold)")
     if args.mesh_node_shards < 1:
         raise SystemExit("mesh-node-shards must be >= 1")
     return Config(
@@ -258,6 +306,13 @@ def config_from_args(args) -> Config:
         churn_recover_rate=args.churn_recover_rate,
         partition_at=args.partition_at,
         heal_at=args.heal_at,
+        gossip_mode=args.gossip_mode,
+        pull_fanout=args.pull_fanout,
+        pull_interval=args.pull_interval,
+        pull_bloom_fp_rate=args.pull_bloom_fp_rate,
+        pull_request_cap=args.pull_request_cap,
+        adaptive_switch_threshold=args.adaptive_switch_threshold,
+        adaptive_switch_hysteresis=args.adaptive_switch_hysteresis,
         influx_spool=args.influx_spool,
         seed=args.seed,
         num_synthetic_nodes=args.num_synthetic_nodes,
@@ -406,7 +461,10 @@ def _feed_measured_round(stats, rows, t, col, it, config, index, stakes,
     if coverage < POOR_COVERAGE_THRESHOLD:
         log.warning("WARNING: poor coverage for origin: %s, %s",
                     origin_pubkey, coverage)
-    dist = rows["dist"][t, col]            # [N], -1 = unreached
+    dist = rows["dist"][t, col]            # [N], -1 = unreached (push)
+    if "pull_hop" in rows:
+        # pull rescues join the per-node hop view (pull.py)
+        dist = np.where(dist >= 0, dist, rows["pull_hop"][t, col])
     hops = np.where(dist < 0, UNREACHED, dist.astype(np.uint64))
     stranded_mask = rows["stranded_mask"][t, col]
     stranded = [index.pubkeys[i] for i in np.nonzero(stranded_mask)[0]]
@@ -422,6 +480,16 @@ def _feed_measured_round(stats, rows, t, col, it, config, index, stakes,
                               int(rows["dropped"][t, col]),
                               int(rows["suppressed"][t, col]),
                               int(rows["failed_count"][t, col]))
+    if "pull_requests" in rows:
+        stats.insert_pull(int(rows["pull_requests"][t, col]),
+                          int(rows["pull_responses"][t, col]),
+                          int(rows["pull_misses"][t, col]),
+                          int(rows["pull_dropped"][t, col]),
+                          int(rows["pull_suppressed"][t, col]),
+                          int(rows["pull_rescued"][t, col]))
+    if "adaptive_pull_active" in rows:
+        stats.insert_adaptive(int(rows["adaptive_pull_active"][t, col]),
+                              int(rows["adaptive_switched"][t, col]))
     _push_iteration_points(dp_queue, sim_iter, start_ts, stats, steady,
                            coverage, rmr_result)
 
@@ -556,8 +624,6 @@ def simulate(config: Config) -> GossipStatsCollection:
 
 #: test types whose stepped knob belongs to a feature the port lacks yet
 UNPORTED_TEST_TYPES = {
-    Testing.PULL_FANOUT: "pull modes (ROADMAP A10)",
-    Testing.ADAPTIVE_THRESHOLD: "adaptive mode (ROADMAP A10)",
     Testing.TRAFFIC_RATE: "concurrent traffic (ROADMAP A11)",
     Testing.NODE_INGRESS_CAP: "concurrent traffic (ROADMAP A11)",
 }
@@ -566,8 +632,8 @@ UNPORTED_TEST_TYPES = {
 def _stepped_sweep_config(config: Config, i: int, origin_ranks):
     """Sweep point ``i``'s (stepped config, Influx start value): the
     reference's per-sim stepping (gossip_main.rs:774-951), each value
-    computed as the reference package computes it (``v0 + i * step``; loss
-    and churn clamped at 1.0)."""
+    computed as the reference package computes it (``v0 + i * step``; loss,
+    churn and the adaptive threshold clamped at 1.0)."""
     tt = config.test_type
     if tt in UNPORTED_TEST_TYPES:
         raise NotImplementedError(
@@ -614,6 +680,14 @@ def _stepped_sweep_config(config: Config, i: int, origin_ranks):
                 + i * config.step_size.as_float(), 1.0)
         return config.stepped(churn_fail_rate=v), \
             float(config.churn_fail_rate)
+    if tt == Testing.PULL_FANOUT:
+        v = config.pull_fanout + i * config.step_size.as_int()
+        return config.stepped(pull_fanout=v), float(config.pull_fanout)
+    if tt == Testing.ADAPTIVE_THRESHOLD:
+        v = min(config.adaptive_switch_threshold
+                + i * config.step_size.as_float(), 1.0)
+        return config.stepped(adaptive_switch_threshold=v), \
+            float(config.adaptive_switch_threshold)
     return config, 0.0  # NO_TEST
 
 
@@ -750,6 +824,8 @@ def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
 #: batch's valid origins on the device (int64 sums of int32 counts: exact)
 HARVEST_STATE = ("hops_hist_acc", "stranded_acc", "egress_acc",
                  "ingress_acc", "prune_acc")
+#: and in the pull modes the pull-tagged ones
+HARVEST_PULL_STATE = ("pull_hops_hist_acc", "pull_rescued_acc")
 
 
 def all_origins_params(config: Config, num_nodes: int) -> EngineParams:
@@ -777,15 +853,15 @@ def _span_s(a, b) -> float:
     return a.elapsed_time(b) / 1e3
 
 
-def _start_copy(rows: dict, state, n_valid: int):
+def _start_copy(rows: dict, state, n_valid: int, fields=HARVEST_STATE):
     """Start moving what the harvest reads of one batch to the host: every
-    row of the valid origins, and the ``HARVEST_STATE`` accumulators summed
-    over them.  On the card the copies go into pinned buffers behind the
+    row of the valid origins, and the accumulators ``fields`` summed over
+    them.  On the card the copies go into pinned buffers behind the
     batch's rounds on the stream, and the returned event marks their end,
     so the next batch's launches queue behind them and the harvest waits
     for this batch only.  Returns (host tensors, event or None)."""
     out = {"row." + k: v[:, :n_valid] for k, v in rows.items()}
-    for f in HARVEST_STATE:
+    for f in fields:
         out["sum." + f] = getattr(state, f)[:n_valid].sum(
             0, dtype=torch.int64, keepdim=True)
     if not next(iter(out.values())).is_cuda:
@@ -848,6 +924,8 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
     agg = AllOriginsStats(index, params.hist_bins)
     key = prng_key(config.seed, dev)
     counts = {"padded_sims": 0, "origin_iters": 0, "messages_delivered": 0}
+    harvested = HARVEST_STATE + (HARVEST_PULL_STATE if params.has_pull
+                                 else ())
     batches = []
     t0 = time.time()
 
@@ -866,7 +944,7 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
         marks.append(_mark(dev))
         state, rows = run_rounds(params, tables, origins, state, iters)
         marks.append(_mark(dev))
-        host, ready = _start_copy(rows, state, n_valid)
+        host, ready = _start_copy(rows, state, n_valid, harvested)
         dispatch_s = time.perf_counter() - t_host
         return lo, n_valid, host, ready, marks, dispatch_s
 
@@ -885,10 +963,10 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
             counts["origin_iters"] += n_valid * iters
             counts["messages_delivered"] += int(rows["delivered"].sum())
         sums = SimpleNamespace(**{f: host["sum." + f].numpy()
-                                  for f in HARVEST_STATE})
+                                  for f in harvested})
         agg.add_batch(rows, sums, config.warm_up_rounds,
                       heal_at=config.heal_at,
-                      impaired=config.impairments_on, pull=False)
+                      impaired=config.impairments_on, pull=config.has_pull)
         rounds_s = _span_s(marks[1], marks[2])
         batches.append({"lo": lo, "n_valid": n_valid,
                         "init_s": _span_s(marks[0], marks[1]),
@@ -951,12 +1029,24 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
         "padded_sims": counts["padded_sims"],
         "hop_clamped": int(agg.hop_clamped),
         "stats": agg,
+    }
+    if config.has_pull:
+        summary.update({
+            "pull_requests": int(agg.total_pull_requests),
+            "pull_responses": int(agg.total_pull_responses),
+            "pull_misses": int(agg.total_pull_requests
+                               - agg.total_pull_responses),
+            "pull_dropped": int(agg.total_pull_dropped),
+            "pull_suppressed": int(agg.total_pull_suppressed),
+            "pull_rescued": int(agg.total_pull_rescued),
+        })
+    summary.update({
         # queue-cap drops (traffic runs, ROADMAP A11) ride in every summary
         "queue_dropped": 0,
         "queue_dropped_ingress": 0,
         "queue_deferred_egress": 0,
         **extra,
-    }
+    })
     log.info("ALL-ORIGINS SUMMARY: %s",
              {k: v for k, v in summary.items()
               if k not in ("stats", "batches")})
@@ -1013,6 +1103,18 @@ def _push_iteration_points(dp_queue, sim_iter, start_ts, stats, steady,
             int(stats.dropped_stats.collection[-1]),
             int(stats.suppressed_stats.collection[-1]),
             stats.failed_count_series[-1])
+    if stats.has_pull_stats():
+        dp.create_sim_pull_point(
+            int(stats.pull_requests_stats.collection[-1]),
+            int(stats.pull_responses_stats.collection[-1]),
+            int(stats.pull_misses_stats.collection[-1]),
+            int(stats.pull_dropped_stats.collection[-1]),
+            int(stats.pull_suppressed_stats.collection[-1]),
+            int(stats.pull_rescued_stats.collection[-1]))
+    if stats.has_adaptive_stats():
+        dp.create_sim_adaptive_point(steady, {
+            "active": stats.adaptive_active_series[-1],
+            "switched": stats.adaptive_switched_series[-1]})
     dp.create_iteration_point(steady, sim_iter)
     dp_queue.push_back(dp)
 
@@ -1097,6 +1199,35 @@ def main(argv=None) -> int:
                   "not OriginRank. This would end up running all simulations "
                   "with origin_rank[0]: %s", origin_ranks[0])
         return 1
+    if config.test_type == Testing.PULL_FANOUT and not config.has_pull:
+        log.error("ERROR: --test-type pull-fanout requires a pull-capable "
+                  "--gossip-mode (pull or push-pull); mode is push, so "
+                  "every sweep point would be identical")
+        return 1
+    if (config.test_type == Testing.ADAPTIVE_THRESHOLD
+            and config.gossip_mode != "adaptive"):
+        log.error("ERROR: --test-type adaptive-threshold requires "
+                  "--gossip-mode adaptive; the switch knobs are inert in "
+                  "mode %s, so every sweep point would be identical",
+                  config.gossip_mode)
+        return 1
+    if (config.test_type == Testing.ADAPTIVE_THRESHOLD
+            and config.num_simulations > 1):
+        # the stepper clamps thresholds at 1.0: warn when the grid
+        # collapses into duplicate points
+        last = (config.adaptive_switch_threshold
+                + (config.num_simulations - 1)
+                * config.step_size.as_float())
+        if last > 1.0:
+            n_dup = sum(
+                1 for i in range(config.num_simulations)
+                if config.adaptive_switch_threshold
+                + i * config.step_size.as_float() > 1.0)
+            log.warning("WARNING: adaptive-threshold sweep clamps at 1.0 "
+                        "— the last %d of %d points run the identical "
+                        "threshold 1.0; shrink --step-size or "
+                        "--num-simulations for distinct points",
+                        n_dup, config.num_simulations)
     if config.gossip_iterations <= config.warm_up_rounds:
         log.warning("WARNING: Gossip Iterations (%s) <= Warm Up Rounds (%s). "
                     "No stats will be recorded....",

@@ -5,9 +5,7 @@ Mirrors the reference's ``Config`` (gossip.rs:111-133), ``Testing``
 defaults are the compatibility contract (gossip_main.rs:53-241).  This
 package's ``Config`` carries the fields the experiment harness (account
 sources, sweeps, Influx) and all-origins mode read, plus ``device`` (where
-the engine runs: ``"cuda"`` unless the CPU is asked for).  The pull fields
-stay so the stats snapshot keeps its schema; a pull mode itself is rejected
-by the engine.
+the engine runs: ``"cuda"`` unless the CPU is asked for).
 """
 
 from __future__ import annotations
@@ -117,13 +115,19 @@ class Config:
     partition_at: int = -1
     heal_at: int = -1
 
-    # Pull-gossip fields: read by the stats snapshot only; any mode other
-    # than "push" is rejected by the engine (ROADMAP A10).
-    gossip_mode: str = "push"
-    pull_fanout: int = 2
-    pull_interval: int = 1
-    pull_bloom_fp_rate: float = 0.1
-    pull_request_cap: int = 0
+    # Pull gossip / anti-entropy (pull.py).  gossip_mode "push" keeps every
+    # output bit-identical to the push-only simulator.
+    gossip_mode: str = "push"       # "push" | "pull" | "push-pull" |
+                                    # "adaptive" (adaptive.py)
+    pull_fanout: int = 2            # pull requests per live node per round
+    pull_interval: int = 1          # rounds between pull exchanges
+    pull_bloom_fp_rate: float = 0.1  # bloom false-positive probability
+    pull_request_cap: int = 0       # requests served per peer (<=0 = no cap)
+    # Adaptive push-pull (adaptive.py), read under gossip_mode "adaptive"
+    adaptive_switch_threshold: float = 0.9   # coverage fraction that turns
+                                             # a sim's pull phase on
+    adaptive_switch_hysteresis: float = 0.05  # window below the threshold
+                                              # before it turns off
 
     influx_spool: str = ""          # durable spool file: Influx points
                                     # dropped after retry exhaustion or
@@ -158,4 +162,6 @@ class Config:
 
     @property
     def has_pull(self) -> bool:
+        """The gossip mode has the pull (anti-entropy) phase, and with it
+        the pull counters and series."""
         return self.gossip_mode != "push"

@@ -16,7 +16,9 @@
 // A slot is valid when its peer is < N, not pruned and not the origin.  A
 // valid slot's peer receives unless it is failed, else unless the
 // partition separates the two sides, else unless the edge hash falls under
-// the loss threshold: the reference's order of precedence.  One forward
+// the loss threshold: the reference's order of precedence.  With push_on 0
+// (the pull-only mode) no slot is valid and every target is N, as the
+// reference's zeroed `valid` gives (core.py:566-571).  One forward
 // scan of the row takes the first F valid slots, so no sort is needed.
 //
 // One thread per (origin, node) row of a tile of rows_per_block rows; the
@@ -40,6 +42,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "faults.cuh"
 #include "row_stage.cuh"
 
 namespace {
@@ -49,21 +52,6 @@ constexpr int kDefaultSmem = 48 * 1024;
 // (kernels/push_targets.py STAGES).
 constexpr int kStages = 2;
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// faults.py edge_u32: fmix32(basis ^ src * C1 ^ dst * C2), all mod 2^32
-__device__ __forceinline__ uint32_t edge_u32(uint32_t basis, uint32_t src,
-                                             uint32_t dst) {
-  return fmix32(basis ^ (src * 0x85EBCA6Bu) ^ (dst * 0xC2B2AE35u));
-}
-
 // kPart: the partition gate is present (sup is set); kLoss: the loss gate
 // is (drop is set).  A gate that is absent costs the scan nothing.
 template <bool kPart, bool kLoss>
@@ -72,7 +60,7 @@ __global__ void push_targets_kernel(
     const uint8_t* __restrict__ tfail, const int32_t* __restrict__ origins,
     const int32_t* __restrict__ side, int32_t* __restrict__ tgt,
     uint8_t* __restrict__ sup, uint8_t* __restrict__ drop, long long rows,
-    int n, int s, int f, int part_on, uint32_t basis,
+    int n, int s, int f, int push_on, int part_on, uint32_t basis,
     unsigned long long threshold) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int rpb = blockDim.x;
@@ -137,7 +125,7 @@ __global__ void push_targets_kernel(
       uint8_t* sup_out = s_sup + i * f;
       uint8_t* drop_out = s_drop + i * f;
       int kk = 0;
-      for (int j = 0; j < s && kk < f; ++j) {
+      for (int j = 0; push_on && j < s && kk < f; ++j) {
         const int p = a[j];
         if (p >= n || pr[j] || p == org) continue;
         bool ok = !tf[j];
@@ -172,8 +160,8 @@ __global__ void push_targets_kernel(
 
 using Kernel = void (*)(const int32_t*, const uint8_t*, const uint8_t*,
                         const int32_t*, const int32_t*, int32_t*, uint8_t*,
-                        uint8_t*, long long, int, int, int, int, uint32_t,
-                        unsigned long long);
+                        uint8_t*, long long, int, int, int, int, int,
+                        uint32_t, unsigned long long);
 
 // The instantiation for the gates that are present (part: sup is set,
 // loss: drop is), with its dynamic shared memory limit raised to smem
@@ -194,12 +182,12 @@ cudaError_t kernel_for(bool part, bool loss, int smem, Kernel* kernel) {
 // launch geometry (kernels/push_targets.py launch_geometry and
 // persistent_grid, the latter from push_targets_blocks_per_sm).  sup and
 // drop may be null; sup set means the partition gate is present, drop set
-// the loss gate.
+// the loss gate.  push_on 0 sends no push (the pull-only mode).
 extern "C" int push_targets_launch(
     const int32_t* active, const uint8_t* pruned, const uint8_t* tfail,
     const int32_t* origins, const int32_t* side, int32_t* tgt, uint8_t* sup,
     uint8_t* drop, long long rows, int n, int s, int f, int rows_per_block,
-    int grid, int smem, int part_on, uint32_t basis,
+    int grid, int smem, int push_on, int part_on, uint32_t basis,
     unsigned long long threshold, cudaStream_t stream) {
   Kernel kernel;
   const cudaError_t err =
@@ -207,7 +195,7 @@ extern "C" int push_targets_launch(
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, rows_per_block, smem, stream>>>(
       active, pruned, tfail, origins, side, tgt, sup, drop, rows, n, s, f,
-      part_on, basis, threshold);
+      push_on, part_on, basis, threshold);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,9 @@ and knobs.  The round's blocks run through the hand-written kernels of
 * rotation with its stake-weighted sampler, verb 5
   (gossip.rs:739-754; push_active_set.rs:153-186), and its draws: the
   round key, its sub keys and the uniforms        -> ``rotate``
+* the pull (anti-entropy) phase of the pull, push-pull and adaptive
+  modes (pull.py): peer draw, request gates and
+  cap, responses, rescue hop                      -> ``pull_exchange``
 
 An unimpaired, churn, loss or partition round makes no other draw.  The
 other threefry draws go to the ``threefry`` kernel (``rng``):
@@ -43,9 +46,13 @@ import torch
 
 from .. import kernels as K
 from .. import rng
+from ..adaptive import switch_update_arr
 from ..faults import (SALT_CHURN, SALT_EDGE, node_u32_t, partition_active,
                       rate_threshold, round_basis, stake_bipartition)
 from ..identity import stake_buckets_array
+from ..kernels.pull_exchange import COUNT_NAMES as PULL_COUNT_NAMES
+from ..pull import (SALT_PULL_BLOOM, SALT_PULL_CLASS, SALT_PULL_LOSS,
+                    SALT_PULL_MEMBER)
 from .params import EngineParams
 from .sampler import SamplerTables, build_sampler_tables, sample_members
 
@@ -104,11 +111,13 @@ class SimState(NamedTuple):
     prune_acc: torch.Tensor    # [O, N] i32 measured-round prunes sent
     stranded_acc: torch.Tensor  # [O, N] i32 measured rounds stranded
     hops_hist_acc: torch.Tensor  # [O, H] i32 aggregate hop histogram
-    pull_hops_hist_acc: torch.Tensor  # [O, H] i32 (pull modes; zeros here)
-    pull_rescued_acc: torch.Tensor    # [O, N] i32 (pull modes; zeros here)
+    pull_hops_hist_acc: torch.Tensor  # [O, H] i32 pull-sourced hop histogram
+    pull_rescued_acc: torch.Tensor    # [O, N] i32 measured rounds each node
+                                      # was rescued by a pull response
     health_prune_recv: torch.Tensor   # [O, N] i32 (health gate; zeros here)
     health_first_round: torch.Tensor  # [O, N] i32 (health gate; zeros here)
-    adaptive_pull_on: torch.Tensor    # [O] bool (adaptive mode; False here)
+    adaptive_pull_on: torch.Tensor    # [O] bool: the pull phase runs this
+                                      # round (adaptive mode; else False)
 
 
 def make_cluster_tables(stakes_lamports: np.ndarray,
@@ -284,8 +293,11 @@ def round_step(params: EngineParams, tables: ClusterTables,
     loss = ((round_basis(int(kn.impair_seed), it, SALT_EDGE),
              rate_threshold(float(kn.packet_loss_rate)))
             if p.has_loss else None)
+    # pull-only mode sends no push; the push machinery still runs on the
+    # empty edge set (BFS, verbs 2-4 and rotation, which moves the state)
     tgt, sup_mask, drop_mask = K.push_targets(
-        peer, state.pruned, tfail, origins, tables.side, F, partition, loss)
+        peer, state.pruned, tfail, origins, tables.side, F, partition, loss,
+        push_on=p.has_push)
 
     # ---- BFS frontier relaxation (kernel) --------------------------------
     reached, dist = K.bfs_relax(tgt, origins)
@@ -329,9 +341,38 @@ def round_step(params: EngineParams, tables: ClusterTables,
         sm.class_cdf, float(np.float32(kn.probability_of_rotation)),
         p.rot_tries, rng.partitionable())
 
+    # ---- pull phase (kernel; pull.py): one request/response exchange
+    # against this round's push outcome, every decision a counter hash ----
+    if p.has_pull:
+        seed = int(kn.impair_seed)
+        basis = lambda salt: round_basis(seed, it, salt)
+        pull = K.pull_exchange(
+            reached, dist, failed, tables.side, sm.perm, sm.class_start,
+            sm.class_count, sm.class_cdf[-1],
+            state.adaptive_pull_on if p.has_adaptive else None,
+            fanout=int(kn.pull_fanout), slots=p.pull_slots,
+            pull_on=it % int(kn.pull_interval) == 0,
+            bases=(basis(SALT_PULL_CLASS), basis(SALT_PULL_MEMBER),
+                   basis(SALT_PULL_BLOOM)),
+            bloom_threshold=rate_threshold(float(kn.pull_bloom_fp_rate)),
+            cap=int(kn.pull_request_cap), partition=partition,
+            loss=((basis(SALT_PULL_LOSS),
+                   rate_threshold(float(kn.packet_loss_rate)))
+                  if p.has_loss else None))
+        # the delivery view of the stats: push BFS plus the pull rescues
+        pull_got = pull.pull_hop < INF
+        reached_all = reached | pull_got
+        dist_all = torch.where(reached, dist,
+                               torch.where(pull_got, pull.pull_hop, INF))
+    else:
+        reached_all, dist_all = reached, dist
+
     # ---- statistics (gossip_stats.rs) -------------------------------------
+    # coverage, hops and stranded count pull rescues; m, n, rmr and
+    # branching keep their push semantics
     f64 = torch.float64
-    hbin = torch.where(reached, torch.clamp(dist, max=H - 1), H).long()
+    hbin = torch.where(reached_all, torch.clamp(dist_all, max=H - 1),
+                       H).long()
     hr = torch.zeros((O, H + 1), dtype=i32, device=dev)
     hr.scatter_add_(1, hbin, torch.ones_like(hbin, dtype=i32))
     hr = hr[:, :H].contiguous()                                   # [O, H]
@@ -347,12 +388,15 @@ def round_step(params: EngineParams, tables: ClusterTables,
     val_of = lambda i: 1 + (csum <= i[:, None]).sum(-1)
     hop_median = torch.where(cnt > 0, (val_of(lo_i) + val_of(hi_i)).to(f64)
                              / 2.0, 0.0)
-    pos = reached & (dist > 0)
-    hop_max = torch.where(pos, dist, 0).amax(-1)
-    hop_min = torch.where(cnt > 0, torch.where(pos, dist, INF).amin(-1), 0)
+    pos = reached_all & (dist_all > 0)
+    hop_max = torch.where(pos, dist_all, 0).amax(-1)
+    hop_min = torch.where(cnt > 0, torch.where(pos, dist_all, INF).amin(-1),
+                          0)
 
-    stranded = ~reached & ~failed
+    stranded = ~reached_all & ~failed
     stranded_cnt = stranded.sum(-1, dtype=i32)
+    n_reached_all = (reached_all.sum(-1, dtype=i32) if p.has_pull
+                     else n_reached)
     m_total = m_push + m_prunes
     nn = n_reached
     # int32 / int32 divides in float32 in the reference (its float64 rows
@@ -363,26 +407,47 @@ def round_step(params: EngineParams, tables: ClusterTables,
     branching = m_push.to(f32) / nn.clamp(min=1).to(f32)
 
     g = 1 if it >= int(kn.warm_up_rounds) else 0
+    egress_round, ingress_all = deg_out, ingress_round
+    new_pull_hist = state.pull_hops_hist_acc
+    new_pull_rescued = state.pull_rescued_acc
+    if p.has_pull:
+        # pull messages join the push deliveries' ingress and egress; the
+        # pull-tagged accumulators keep the pull-sourced slice apart
+        egress_round = deg_out + pull.egress
+        ingress_all = ingress_round + pull.ingress
+        pbin = torch.where(pull_got, torch.clamp(pull.pull_hop, max=H - 1),
+                           H).long()
+        hr_pull = torch.zeros((O, H + 1), dtype=i32, device=dev)
+        hr_pull.scatter_add_(1, pbin, torch.ones_like(pbin, dtype=i32))
+        new_pull_hist = state.pull_hops_hist_acc + g * hr_pull[:, :H]
+        new_pull_rescued = state.pull_rescued_acc + g * pull_got.to(i32)
+    new_adapt = state.adaptive_pull_on
+    if p.has_adaptive:
+        # re-decided from THIS round's push coverage (adaptive.py)
+        new_adapt = switch_update_arr(
+            n_reached, N, state.adaptive_pull_on,
+            kn.adaptive_switch_threshold, kn.adaptive_switch_hysteresis)
     new_state = SimState(
         key=state.key, active=new_active, pruned=new_pruned,
         tfail=new_tfail,
         rc_src=mp.rc_src, rc_score=mp.rc_score, rc_shi=mp.rc_shi,
         rc_slo=mp.rc_slo, rc_upserts=mp.rc_upserts, failed=failed,
-        egress_acc=state.egress_acc + g * deg_out,
-        ingress_acc=state.ingress_acc + g * ingress_round,
+        egress_acc=state.egress_acc + g * egress_round,
+        ingress_acc=state.ingress_acc + g * ingress_all,
         prune_acc=state.prune_acc + g * n_pruned,
         stranded_acc=state.stranded_acc + g * stranded.to(i32),
         hops_hist_acc=state.hops_hist_acc + g * hr,
-        pull_hops_hist_acc=state.pull_hops_hist_acc,
-        pull_rescued_acc=state.pull_rescued_acc,
+        pull_hops_hist_acc=new_pull_hist,
+        pull_rescued_acc=new_pull_rescued,
         health_prune_recv=state.health_prune_recv,
         health_first_round=state.health_first_round,
-        adaptive_pull_on=state.adaptive_pull_on)
+        adaptive_pull_on=new_adapt)
     rows = {
         # the reference's compiled round divides by the constant N as a
         # multiply by its float32 reciprocal
-        "coverage": n_reached.to(f32) * float(np.float32(1) / np.float32(N)),
-        "unvisited": (N - n_reached).to(i32),
+        "coverage": (n_reached_all.to(f32)
+                     * float(np.float32(1) / np.float32(N))),
+        "unvisited": (N - n_reached_all).to(i32),
         "m": m_total,
         "n": nn,
         "rmr": rmr,
@@ -401,12 +466,21 @@ def round_step(params: EngineParams, tables: ClusterTables,
         "suppressed": suppressed_cnt,
         "failed_count": failed.sum(-1, dtype=i32),
         # nodes whose hop distance exceeds the last histogram bin
-        "hop_clamped": (reached & (dist >= H)).sum(-1, dtype=i32),
+        "hop_clamped": (reached_all & (dist_all >= H)).sum(-1, dtype=i32),
     }
+    if p.has_pull:
+        rows.update(zip(PULL_COUNT_NAMES, pull.counts.unbind(1)))
+    if p.has_adaptive:
+        # the bit in effect this round, and whether this round flipped it
+        rows["adaptive_pull_active"] = state.adaptive_pull_on
+        rows["adaptive_switched"] = new_adapt != state.adaptive_pull_on
     if detail:
         rows["stranded_mask"] = stranded
+        # the push distance; pull_hop is the pull-sourced one (-1 = none)
         rows["dist"] = torch.where(reached, dist, -1).to(i32)
         rows["failed_mask"] = failed
+        if p.has_pull:
+            rows["pull_hop"] = torch.where(pull_got, pull.pull_hop, -1)
     if edge_detail:
         # the per-edge hop matrix (the reference's orders dump,
         # gossip.rs:374-390): edge src -> tgt delivered at hop dist[src] + 1

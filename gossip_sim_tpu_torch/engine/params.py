@@ -18,14 +18,19 @@ The knob dtypes are part of the bit-exactness contract:
   host double products (``int(rate * 2**32)``, received_cache.rs:112-115);
 * iteration boundaries are i32 and ``impair_seed`` is u32 (faults.py).
 
+``gossip_mode`` selects the protocol phases: ``"push"`` (the reference
+round), ``"pull"`` (the push phase sends nothing), ``"push-pull"`` and
+``"adaptive"`` (push, and the pull phase once a sim's coverage crosses the
+switch threshold); the pull and adaptive knobs shape the pull phase.
+
 Of the reference's features this port lacks yet, only the selectors are
-kept: ``gossip_mode``, ``traffic_values`` and the queue caps, ``health`` and
+kept: ``traffic_values`` and the queue caps, ``health`` and
 ``representation``.  :meth:`EngineParams.validate` refuses a non-default
 value of each with ``NotImplementedError`` naming its ROADMAP item.  The
-knobs that only shape those features (pull fanout and interval, adaptive
-thresholds, traffic rate), the reference's prune-apply budget ``pa_slots``
-(the ``prune_apply`` kernel needs none) and the flight recorder's capture
-width come back with the slice that reads them.
+knobs that only shape those features (traffic rate), the reference's
+prune-apply budget ``pa_slots`` (the ``prune_apply`` kernel needs none)
+and the flight recorder's capture width come back with the slice that
+reads them.
 """
 
 from __future__ import annotations
@@ -44,6 +49,15 @@ def _resolve_k_inbound(inbound_cap: int, push_fanout: int) -> int:
     return max(16, 2 * push_fanout)
 
 
+def _resolve_pull_slots(pull_slots: int, pull_fanout: int) -> int:
+    """Pull-request slots per node (0 = auto: max(8, fanout)).  Slots past
+    ``pull_fanout`` send nothing, and each slot's draws depend on (node,
+    slot) only, so the width never changes a result."""
+    if pull_slots > 0:
+        return pull_slots
+    return max(8, pull_fanout)
+
+
 class EngineKnobs(NamedTuple):
     """Numeric knobs at the reference's dtypes.  Construct via
     :meth:`EngineParams.split`."""
@@ -60,12 +74,22 @@ class EngineKnobs(NamedTuple):
     partition_at: np.int32                # bipartition window start
     heal_at: np.int32                     # bipartition window end (-1 never)
     impair_seed: np.uint32                # counter-hash seed (faults.py)
+    pull_fanout: np.int32                 # pull requests per node per round
+    pull_interval: np.int32               # rounds between pull exchanges
+    pull_bloom_fp_rate: np.float64        # bloom false-positive probability
+    pull_request_cap: np.int32            # served requests per peer (<=0 off)
+    adaptive_switch_threshold: np.float64   # coverage fraction that turns
+                                            # a sim's pull phase on
+    adaptive_switch_hysteresis: np.float64  # window below the threshold
+                                            # before it turns off again
 
 
 class EngineStatic(NamedTuple):
-    """Array shapes, ranking widths, and the booleans selecting which
-    impairment blocks run.  With all four gates False the round is the
-    exact unimpaired reference round."""
+    """Array shapes, ranking widths, the booleans selecting which
+    impairment blocks run, and the gossip mode.  With all four gates False
+    in push mode the round is the exact unimpaired reference round.
+    ``pull_slots`` is the resolved pull-request width (0 without a pull
+    phase)."""
 
     num_nodes: int
     push_fanout: int
@@ -81,10 +105,24 @@ class EngineStatic(NamedTuple):
     has_loss: bool = False
     has_churn: bool = False
     has_partition: bool = False
+    gossip_mode: str = "push"
+    pull_slots: int = 0
 
     @property
     def k_inbound(self) -> int:
         return _resolve_k_inbound(self.inbound_cap, self.push_fanout)
+
+    @property
+    def has_pull(self) -> bool:
+        return self.gossip_mode != "push"
+
+    @property
+    def has_push(self) -> bool:
+        return self.gossip_mode != "pull"
+
+    @property
+    def has_adaptive(self) -> bool:
+        return self.gossip_mode == "adaptive"
 
 
 class EngineParams(NamedTuple):
@@ -116,9 +154,25 @@ class EngineParams(NamedTuple):
     heal_at: int = -1                # iteration it heals (-1 = never)
     impair_seed: int = 0             # hash seed for all impairment streams
 
+    # Pull gossip (pull.py): "push" is the reference round, "pull" runs
+    # the pull phase alone, "push-pull" both, "adaptive" both with the
+    # direction switch (adaptive.py).  Every pull decision is a stateless
+    # counter hash of (impair_seed, iteration, node ids).
+    gossip_mode: str = "push"
+    pull_fanout: int = 2             # pull requests per live node per round
+    pull_interval: int = 1           # rounds between pull exchanges
+    pull_bloom_fp_rate: float = 0.1  # bloom FP probability (Solana's 0.1)
+    pull_request_cap: int = 0        # requests served per peer per round
+                                     # (<= 0 = unlimited)
+    pull_slots: int = 0              # pull-request slots per node
+                                     # (0 = auto: max(8, pull_fanout))
+    adaptive_switch_threshold: float = 0.9   # coverage fraction that turns
+                                             # a sim's pull phase on
+    adaptive_switch_hysteresis: float = 0.05  # it turns off below
+                                              # threshold - hysteresis
+
     # Selectors of reference features not ported yet; only the defaults
     # are accepted (validate raises NotImplementedError otherwise).
-    gossip_mode: str = "push"        # "pull"/"push-pull"/"adaptive": A10
     traffic_values: int = 1          # > 1 or a queue cap: A11
     node_ingress_cap: int = 0
     node_egress_cap: int = 0
@@ -137,6 +191,25 @@ class EngineParams(NamedTuple):
     @property
     def has_churn(self) -> bool:
         return self.churn_fail_rate > 0.0 or self.churn_recover_rate > 0.0
+
+    @property
+    def has_pull(self) -> bool:
+        """True when the gossip mode has the pull phase."""
+        return self.gossip_mode != "push"
+
+    @property
+    def has_push(self) -> bool:
+        return self.gossip_mode != "pull"
+
+    @property
+    def has_adaptive(self) -> bool:
+        return self.gossip_mode == "adaptive"
+
+    @property
+    def pull_slots_resolved(self) -> int:
+        """Resolved pull-request width (``pull_slots``; 0 = auto:
+        max(8, pull_fanout))."""
+        return _resolve_pull_slots(self.pull_slots, self.pull_fanout)
 
     @property
     def has_traffic(self) -> bool:
@@ -169,6 +242,8 @@ class EngineParams(NamedTuple):
             has_loss=self.packet_loss_rate > 0.0,
             has_churn=self.has_churn,
             has_partition=self.partition_at >= 0,
+            gossip_mode=self.gossip_mode,
+            pull_slots=self.pull_slots_resolved if self.has_pull else 0,
         )
         knobs = EngineKnobs(
             probability_of_rotation=np.float32(self.probability_of_rotation),
@@ -183,16 +258,26 @@ class EngineParams(NamedTuple):
             partition_at=np.int32(self.partition_at),
             heal_at=np.int32(self.heal_at),
             impair_seed=np.uint32(self.impair_seed & 0xFFFFFFFF),
+            pull_fanout=np.int32(self.pull_fanout),
+            pull_interval=np.int32(max(1, self.pull_interval)),
+            pull_bloom_fp_rate=np.float64(self.pull_bloom_fp_rate),
+            pull_request_cap=np.int32(self.pull_request_cap),
+            adaptive_switch_threshold=np.float64(
+                self.adaptive_switch_threshold),
+            adaptive_switch_hysteresis=np.float64(
+                self.adaptive_switch_hysteresis),
         )
         return static, knobs
 
     def validate(self) -> "EngineParams":
         """Refuse the unported features (NotImplementedError naming the
         ROADMAP item), then check the slice's own fields."""
-        if self.gossip_mode != "push":
-            raise NotImplementedError(
-                f"gossip_mode={self.gossip_mode!r}: pull and adaptive modes "
-                f"are not ported yet (ROADMAP A10)")
+        if self.gossip_mode not in ("push", "pull", "push-pull", "adaptive"):
+            raise ValueError(f"unknown gossip_mode: {self.gossip_mode!r}")
+        if self.representation == "sparse" and self.has_pull:
+            raise ValueError(
+                "the sparse frontier round implements the push phase only; "
+                "pull/adaptive modes need the dense representation")
         if self.has_traffic:
             raise NotImplementedError(
                 "concurrent traffic is not ported yet (ROADMAP A11)")
@@ -219,4 +304,21 @@ class EngineParams(NamedTuple):
         if self.partition_at >= 0 and self.heal_at >= 0:
             assert self.heal_at >= self.partition_at, (
                 "heal_at must not precede partition_at")
+        if self.has_adaptive:
+            if not 0.0 < self.adaptive_switch_threshold <= 1.0:
+                raise ValueError("adaptive_switch_threshold must be in (0, 1]")
+            if not (0.0 <= self.adaptive_switch_hysteresis
+                    < self.adaptive_switch_threshold):
+                raise ValueError("adaptive_switch_hysteresis must be in "
+                                 "[0, adaptive_switch_threshold)")
+        if self.has_pull:
+            if self.pull_fanout < 1:
+                raise ValueError("pull_fanout must be >= 1")
+            if self.pull_interval < 1:
+                raise ValueError("pull_interval must be >= 1")
+            if not 0.0 <= self.pull_bloom_fp_rate <= 1.0:
+                raise ValueError("pull_bloom_fp_rate must be in [0, 1]")
+            if self.pull_fanout > self.pull_slots_resolved:
+                raise ValueError("pull_fanout exceeds the static pull_slots "
+                                 "width — raise EngineParams.pull_slots")
         return self

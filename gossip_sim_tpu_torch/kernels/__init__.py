@@ -10,6 +10,7 @@ from ._build import (KERNEL_NAMES, LAUNCHES, build_all,
                      reset_launch_counts)
 from .bfs_relax import bfs_relax, bfs_relax_plain
 from .prune_apply import prune_apply, prune_apply_plain
+from .pull_exchange import PullOut, pull_exchange, pull_exchange_plain
 from .push_targets import push_targets, push_targets_plain
 from .rank_inbound import rank_inbound, rank_inbound_plain
 from .rc_merge_prune import MergePruneOut, rc_merge_prune, rc_merge_prune_plain
@@ -20,11 +21,14 @@ __all__ = [
     "KERNEL_NAMES",
     "LAUNCHES",
     "MergePruneOut",
+    "PullOut",
     "bfs_relax",
     "bfs_relax_plain",
     "build_all",
     "prune_apply",
     "prune_apply_plain",
+    "pull_exchange",
+    "pull_exchange_plain",
     "push_targets",
     "push_targets_plain",
     "rank_inbound",

@@ -84,7 +84,7 @@ def blocks_per_sm(device: torch.device, rows_per_block: int, smem: int,
 def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
                        tfail: torch.Tensor, origins: torch.Tensor,
                        side: torch.Tensor, fanout: int, partition=None,
-                       loss=None):
+                       loss=None, push_on: bool = True):
     """The first ``F = min(fanout, S)`` valid slots of each row and their
     delivery gates.
 
@@ -93,8 +93,10 @@ def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
     ``partition`` is None without a partition gate, else whether its window
     is on this round; ``loss`` is None without packet loss, else the round's
     ``(basis, threshold)`` (faults.py ``round_basis``, ``rate_threshold``).
-    Returns ``tgt`` [O, N, F] i32 (the peer, or N) and the ``sup_mask`` and
-    ``drop_mask`` [O, N, F] bool of the gates that are present (else None).
+    ``push_on`` False (the pull-only mode) makes no slot valid, as the
+    reference zeroes ``valid`` (core.py:566-571).  Returns ``tgt``
+    [O, N, F] i32 (the peer, or N) and the ``sup_mask`` and ``drop_mask``
+    [O, N, F] bool of the gates that are present (else None).
     """
     O, N, S = active.shape
     F = min(fanout, S)
@@ -102,6 +104,8 @@ def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
     i32 = torch.int32
     # bloom-contains(origin) == pruned bit OR peer == origin
     valid = (active < N) & ~pruned & (active != origins[:, None, None])
+    if not push_on:
+        valid = torch.zeros_like(valid)
     # first F valid slots; failed targets consume a slot but receive nothing
     skey = torch.where(valid, torch.arange(S, device=dev, dtype=i32), S)
     order = torch.sort(skey, dim=-1, stable=True).indices[..., :F]
@@ -127,7 +131,7 @@ def _lib():
     fn = _build.library(NAME).push_targets_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 8 + [ctypes.c_longlong] + [ci] * 7
+        fn.argtypes = ([vp] * 8 + [ctypes.c_longlong] + [ci] * 8
                        + [ctypes.c_uint32, ctypes.c_ulonglong, vp])
         fn.restype = ci
     return fn
@@ -135,12 +139,13 @@ def _lib():
 
 def push_targets(active: torch.Tensor, pruned: torch.Tensor,
                  tfail: torch.Tensor, origins: torch.Tensor,
-                 side: torch.Tensor, fanout: int, partition=None, loss=None):
+                 side: torch.Tensor, fanout: int, partition=None, loss=None,
+                 push_on: bool = True):
     """Verb 1: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors.  Returns what :func:`push_targets_plain` does."""
     if not active.is_cuda:
         return push_targets_plain(active, pruned, tfail, origins, side,
-                                  fanout, partition, loss)
+                                  fanout, partition, loss, push_on)
     O, N, S = active.shape
     F = min(fanout, S)
     dev = active.device
@@ -167,7 +172,8 @@ def push_targets(active: torch.Tensor, pruned: torch.Tensor,
     opt = lambda t: None if t is None else p(t)
     rc = _lib()(p(active), p(pruned), p(tfail), p(origins), p(side), p(tgt),
                 opt(sup), opt(drop), O * N, N, S, F, rows, grid, smem,
-                int(bool(partition)), basis & 0xFFFFFFFF, threshold,
+                int(bool(push_on)), int(bool(partition)),
+                basis & 0xFFFFFFFF, threshold,
                 _build.stream_of(active))
     _build.launched(NAME, rc)
     return tgt, sup, drop

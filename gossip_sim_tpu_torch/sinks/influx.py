@@ -18,10 +18,11 @@ Series and field names are the compatibility contract
 ``aggregate_hops_histogram``, ``{egress,ingress,prune}_message_count``, and
 the reference package's ``delivery`` / ``coverage_recovery`` (impairments)
 and ``sim_perf`` (wall time and throughput of a measured round block, and
-the sender's queue depth).  The series of features the port lacks yet come
-with them: ``sim_pull`` and ``sim_adaptive`` (ROADMAP A10), the traffic
-series (A11), ``sim_node_health`` (A12), ``sim_trace`` (A13) and
-``sim_capacity`` (A15).
+the sender's queue depth), ``sim_pull`` (pull-phase counters) and
+``sim_adaptive`` (the adaptive direction bit).  The series of features the
+port lacks yet come with them: the traffic series (A11),
+``sim_node_health`` (A12), ``sim_trace`` (A13) and ``sim_capacity``
+(A15).
 """
 
 from __future__ import annotations
@@ -313,6 +314,31 @@ class InfluxDataPoint:
             f"round_wall_s={round_wall_s},"
             f"origin_iters_per_sec={origin_iters_per_sec},"
             f"queue_depth={queue_depth},iters={iters} ")
+        self.append_timestamp()
+
+    def create_sim_pull_point(self, requests, responses, misses, dropped,
+                              suppressed, rescued):
+        """Pull-phase series (pull.py): request/response/miss message
+        counts, loss and partition casualties, and the nodes a pull
+        response rescued; per iteration on the single-origin path, run-level
+        means on the all-origins aggregate path."""
+        self.datapoint += (
+            f"sim_pull,simulation_iter={self.simulation_iteration},"
+            f"start_time={self.start_timestamp} "
+            f"requests={requests},responses={responses},"
+            f"misses={misses},dropped={dropped},"
+            f"suppressed={suppressed},rescued={rescued} ")
+        self.append_timestamp()
+
+    def create_sim_adaptive_point(self, it, values: dict):
+        """Adaptive push-pull series (adaptive.py): one point per measured
+        round, on the single-origin path the 0/1 direction bit and the
+        switch flag."""
+        fields = ",".join(f"{k}={int(v)}" for k, v in sorted(values.items()))
+        self.datapoint += (
+            f"sim_adaptive,simulation_iter={self.simulation_iteration},"
+            f"start_time={self.start_timestamp} "
+            f"iteration={int(it)},{fields} ")
         self.append_timestamp()
 
     def create_messages_point(self, messages_direction: str, messages,

@@ -448,8 +448,8 @@ class AllOriginsStats:
 
     def emit_influx(self, dp_queue, start_ts: str):
         """Aggregate versions of the reference series
-        (influx_db.rs:346-602), one point per run.  The pull series joins
-        with the pull modes (ROADMAP A10)."""
+        (influx_db.rs:346-602), one point per run, with the pull series
+        in the pull modes."""
         if dp_queue is None:
             return
         from ..sinks import InfluxDataPoint
@@ -481,6 +481,15 @@ class AllOriginsStats:
             dp.create_delivery_point(
                 self.delivered_stats.mean, self.dropped_stats.mean,
                 self.suppressed_stats.mean, self.failed_stats.mean)
+        if self.pull:
+            dp.create_sim_pull_point(
+                self.pull_requests_stats.mean, self.pull_responses_stats.mean,
+                self.pull_misses_stats.mean,
+                round(self.total_pull_dropped
+                      / max(self.measured_points, 1), 4),
+                round(self.total_pull_suppressed
+                      / max(self.measured_points, 1), 4),
+                self.pull_rescued_stats.mean)
         rec = self.recovery_summary()
         if rec is not None:
             dp.create_recovery_point(rec["origins"], rec["mean"],

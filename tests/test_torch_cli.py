@@ -101,7 +101,7 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 def test_unported_flags_are_rejected():
     for argv in (["--backend", "oracle"], ["--sweep-lanes", "2"],
-                 ["--checkpoint-path", "x.npz"], ["--gossip-mode", "pull"],
+                 ["--checkpoint-path", "x.npz"], ["--traffic-values", "2"],
                  ["--trace-dir", "traces"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(BASE + argv)

@@ -143,10 +143,8 @@ def test_unported_features_raise():
             tc.init_state(rng.prng_key(1), tt, o, PortParams(40, **kw))
 
 
-UNPORTED = (dict(gossip_mode="push-pull"), dict(gossip_mode="pull"),
-            dict(gossip_mode="adaptive"), dict(traffic_values=2),
-            dict(node_egress_cap=4), dict(health=True),
-            dict(representation="sparse"))
+UNPORTED = (dict(traffic_values=2), dict(node_egress_cap=4),
+            dict(health=True), dict(representation="sparse"))
 
 
 def test_round_step_refuses_unported_features():

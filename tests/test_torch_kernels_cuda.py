@@ -33,7 +33,7 @@ rot_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.rotate")
 pytestmark = pytest.mark.cuda
 
 NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
-         "threefry", "push_targets", "rotate")
+         "threefry", "push_targets", "rotate", "pull_exchange")
 CONFIGS = {
     # full rotation + tiny insert cap: caches overflow and rows prune
     # more than 8 peers at round 19
@@ -55,6 +55,16 @@ CONFIGS = {
     "wide_active_set": (2000, 16, 21, dict(warm_up_rounds=0,
                                            active_set_size=24)),
     "wide_fanout": (2000, 16, 21, dict(warm_up_rounds=0, push_fanout=12)),
+    # the pull modes: push-pull with the request cap binding under loss +
+    # partition + churn, pull alone, and adaptive (its bit turns on)
+    "push_pull_capped": (2000, 4, 21, dict(
+        warm_up_rounds=0, gossip_mode="push-pull", pull_fanout=4,
+        pull_request_cap=2, packet_loss_rate=0.1, churn_fail_rate=0.01,
+        churn_recover_rate=0.2, partition_at=3, heal_at=12, impair_seed=5)),
+    "pull": (2000, 2, 21, dict(warm_up_rounds=0, gossip_mode="pull",
+                               pull_interval=2)),
+    "adaptive": (2000, 3, 21, dict(warm_up_rounds=0, gossip_mode="adaptive",
+                                   adaptive_switch_threshold=0.5)),
 }
 
 
@@ -62,8 +72,9 @@ def _launches_per_run(params, rounds):
     """Kernel launches of ``rounds`` rounds: one per kernel and round, and
     ``threefry`` only in the fail round (the round key, its sub keys and
     sub key 0's uniforms: three draws); ``rotate`` draws verb 5's
-    uniforms itself."""
+    uniforms itself; ``pull_exchange`` runs in the pull modes only."""
     want = {name: rounds for name in NAMES}
+    want["pull_exchange"] = rounds if params.has_pull else 0
     n_fail = int(np.floor(np.float64(params.fail_fraction)
                           * params.num_nodes))
     fail_round = 0 <= params.fail_at < rounds and n_fail > 0
@@ -648,6 +659,69 @@ def test_push_targets_equals_plain(cuda, o, n, gates):
         assert bool(sup.any()) and bool(drop.any()) and bool((tgt < n).any())
     if gates == "loss_only":
         assert bool(drop.any()) and bool((tgt < n).any())
+
+
+def test_push_targets_push_off_equals_plain(cuda):
+    """The pull-only mode: no slot is valid, every target is N."""
+    r = np.random.default_rng(9)
+    active, pruned, tfail, origins = _active_rows(r, 32, 10_000, 12, cuda)
+    side = torch.as_tensor(r.integers(0, 2, size=10_001).astype(np.int32),
+                           device=cuda)
+    args = (active, pruned, tfail, origins, side, 6, True,
+            (123, rate_threshold(0.3)))
+    got = kernels.push_targets(*args, push_on=False)
+    _assert_equal(got, kernels.push_targets_plain(*args, push_on=False),
+                  "push off")
+    assert not bool((got[0] < 10_000).any())
+    assert not bool(got[1].any()) and not bool(got[2].any())
+
+
+#: (O, N, knobs) of the pull exchange: the request cap off, binding (1, 2)
+#: and loose (64), partition window on and off, loss, the adaptive bit,
+#: an off-interval round, O = 1 and 64, and N past shared memory (the
+#: per-peer state in device memory)
+PULL_CASES = {
+    "o1": (1, 10_000, dict(cap=0)),
+    "o64_cap2_impaired": (64, 10_000, dict(cap=2, partition=True,
+                                           loss=0.1)),
+    "o8_cap1_window_off": (8, 10_000, dict(cap=1, partition=False,
+                                           loss=0.3, fanout=8)),
+    "o4_cap64_adaptive": (4, 3000, dict(cap=64, adaptive=True)),
+    "o3_off_interval": (3, 3000, dict(pull_on=False)),
+    "o2_state_in_device_memory": (2, 40_000, dict(cap=2, loss=0.1)),
+    "o5_tiny": (5, 3, dict(cap=1, fanout=8)),
+}
+
+
+@pytest.mark.parametrize("case", list(PULL_CASES))
+def test_pull_exchange_equals_plain(cuda, case):
+    o, n, kw = PULL_CASES[case]
+    r = np.random.default_rng(o * 31 + n)
+    stakes = r.integers(1, 1 << 45, size=n).astype(np.int64)
+    tables = make_cluster_tables(stakes, device=cuda)
+    sm = tables.sampler
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    reached = t(r.random((o, n)) < 0.6)
+    dist = t(r.integers(0, 12, (o, n)).astype(np.int32))
+    failed = t(r.random((o, n)) < 0.05)
+    adaptive = t(r.random(o) < 0.5) if kw.get("adaptive") else None
+    loss = kw.get("loss")
+    args = (reached, dist, failed, tables.side, sm.perm, sm.class_start,
+            sm.class_count, sm.class_cdf[-1].contiguous(), adaptive)
+    knobs = dict(fanout=kw.get("fanout", 2), slots=8,
+                 pull_on=kw.get("pull_on", True), bases=(7 + n, 9 + o, 11),
+                 bloom_threshold=rate_threshold(0.1), cap=kw.get("cap", 0),
+                 partition=kw.get("partition"),
+                 loss=None if loss is None else (77, rate_threshold(loss)))
+    kernels.reset_launch_counts()
+    got = kernels.pull_exchange(*args, **knobs)
+    assert kernels.LAUNCHES["pull_exchange"] == 1
+    want = kernels.pull_exchange_plain(*args, **knobs)
+    _assert_equal(tuple(got), tuple(want), case)
+    if knobs["pull_on"]:
+        assert int(got.counts[:, 0].sum()) > 0
+    else:
+        assert int(got.counts.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("o,n,s", [(20, 700, 1000), (3, 1001, 7)])
