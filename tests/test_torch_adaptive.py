@@ -5,10 +5,10 @@
   over ``threshold * N`` and ``(threshold - hysteresis) * N``, from either
   bit;
 * ``round_step`` states and rows in ``adaptive`` under loss + partition +
-  churn, the bit turning on for some origins, in both threefry layouts;
-  and the port continuing the reference's own mid-run state (the bit set,
-  the pull accumulators filled; ``convert.state_from_numpy``) equals the
-  reference's next rounds;
+  churn, the bit turning on and off for some origins, in both threefry
+  layouts, from each engine's own ``init_state`` and then with the port
+  continuing the reference's own mid-run state (the bit set, the pull
+  accumulators filled; ``convert``);
 * the ``adaptive-threshold`` sweep (single-origin CLI runs):
   ``parity_snapshot()`` and deterministic Influx lines (``sim_adaptive``
   and ``sim_pull`` among them), its start-up error and clamp warning;
@@ -30,8 +30,7 @@ from gossip_sim_tpu_torch.convert import (state_from_numpy, state_to_numpy,
 from gossip_sim_tpu_torch.engine import core as tc
 from gossip_sim_tpu_torch.engine.params import EngineParams as PortParams
 from test_torch_pull import (CLI_BASE, IMPAIRED, assert_rows_equal,
-                             assert_state_equal, run_both, stakes_of,
-                             sweeps_equal)
+                             assert_state_equal, stakes_of, sweeps_equal)
 
 ADAPTIVE = dict(gossip_mode="adaptive", adaptive_switch_threshold=0.5,
                 adaptive_switch_hysteresis=0.1)
@@ -79,47 +78,48 @@ def test_switch_update_at_the_band_edges(n, thr, hyst):
 
 
 def test_round_step_equal(layout):
-    """States and rows of 24 rounds under loss + partition + churn; the
-    bit turns on (and the pull phase runs) for some origins only."""
-    kw = dict(warm_up_rounds=5, **IMPAIRED, **ADAPTIVE)
-    js, jrows, ts, trows = run_both(120, [0, 37, 101, 60], 24, **kw)
-    assert_state_equal(js, ts, "adaptive")
-    assert_rows_equal(jrows, trows)
-    active = trows["adaptive_pull_active"]
-    assert bool(active.any()) and not bool(active.all())
-    assert int(trows["adaptive_switched"].sum()) > 0
-    # requests go out only from sims whose bit is on in that round
-    assert int(trows["pull_requests"][~active].sum()) == 0
-    assert int(trows["pull_requests"][active].sum()) > 0
-
-
-def test_port_continues_the_reference_state(layout):
-    """The reference's state after 10 adaptive rounds (some bits on, the
-    pull accumulators filled), moved into the port, and 8 more rounds in
-    each engine (bits turning off): equal states and rows."""
+    """States and rows of 12 rounds from each engine's own ``init_state``
+    under loss + partition + churn; then the reference's mid-run state
+    (some bits on, the pull accumulators filled) moved into the port with
+    ``convert`` (tables and state, and the state back and forth) and 12
+    more rounds in each engine: equal again.  The bit turns on, and off
+    again, for some origins only, and requests go out only from sims whose
+    bit is on."""
     n = 120
-    stakes = stakes_of(n)
     o = np.asarray([0, 37, 101, 60], np.int32)
-    kw = dict(warm_up_rounds=2, **IMPAIRED, **ADAPTIVE)
+    kw = dict(warm_up_rounds=5, **IMPAIRED, **ADAPTIVE)
+    stakes = stakes_of(n)
     jt = je.make_cluster_tables(stakes)
+    tt = tc.make_cluster_tables(stakes, device="cpu")
     jp, tp = je.EngineParams(num_nodes=n, **kw), PortParams(num_nodes=n, **kw)
-    js = je.init_state(jax.random.PRNGKey(3), jt, jnp.asarray(o), jp)
-    js, _ = je.run_rounds(jp, jt, jnp.asarray(o), js, 10, start_it=0)
-    assert bool(np.asarray(js.adaptive_pull_on).any())
-    assert int(np.asarray(js.pull_rescued_acc).sum()) > 0
-    ts = state_from_numpy(js, device="cpu")
-    assert_state_equal(js, ts, "moved")
-    back = state_from_numpy(state_to_numpy(ts), device="cpu")
-    for f in ts._fields:
-        assert torch.equal(getattr(back, f), getattr(ts, f)), f
-    tt = tables_from_numpy(jt, device="cpu")
-    js, jrows = je.run_rounds(jp, jt, jnp.asarray(o), js, 8, start_it=10,
-                              detail=True)
-    ts, trows = tc.run_rounds(tp, tt, torch.as_tensor(o), ts, 8,
-                              start_it=10, detail=True)
-    assert_state_equal(js, ts, "continued")
-    assert_rows_equal(jrows, trows)
-    assert int(trows["adaptive_switched"].sum()) > 0
+    js = je.init_state(jax.random.PRNGKey(7), jt, jnp.asarray(o), jp)
+    ts = tc.init_state(rng.prng_key(7), tt, torch.as_tensor(o), tp)
+    rows = []
+    for start in (0, 12):
+        if start:
+            on = np.asarray(js.adaptive_pull_on)
+            assert on.any() and not on.all()
+            assert int(np.asarray(js.pull_rescued_acc).sum()) > 0
+            ts = state_from_numpy(js, device="cpu")
+            assert_state_equal(js, ts, "moved")
+            back = state_from_numpy(state_to_numpy(ts), device="cpu")
+            for f in ts._fields:
+                assert torch.equal(getattr(back, f), getattr(ts, f)), f
+            tt = tables_from_numpy(jt, device="cpu")
+        js, jrows = je.run_rounds(jp, jt, jnp.asarray(o), js, 12,
+                                  start_it=start, detail=True)
+        ts, trows = tc.run_rounds(tp, tt, torch.as_tensor(o), ts, 12,
+                                  start_it=start, detail=True)
+        assert_state_equal(js, ts, f"rounds {start}-{start + 11}")
+        assert_rows_equal(jrows, trows)
+        rows.append(trows)
+    active = torch.cat([r["adaptive_pull_active"] for r in rows])
+    requests = torch.cat([r["pull_requests"] for r in rows])
+    assert bool(active.any()) and not bool(active.all())
+    assert int(torch.cat([r["adaptive_switched"]
+                          for r in rows]).sum()) >= 4
+    assert int(requests[~active].sum()) == 0
+    assert int(requests[active].sum()) > 0
 
 
 def test_adaptive_threshold_sweep(layout, caplog):
