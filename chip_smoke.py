@@ -91,16 +91,20 @@ Phases (any failure exits non-zero before the final line):
       plain version (tolerance 0) on round 19's inputs at O=64 in
       push-pull under loss 0.1 + partition + churn at request caps 0 and 2,
       in pull mode (with ``push_targets`` at ``push_on=False``), in
-      adaptive mode with the bit on, and at O=1; each case timed with CUDA
-      events, and under the profiler in a process of its own
-      (``--profile-pull``, which also profiles 5 push-pull rounds at O=32:
-      the launches a pull round adds), beside its bound; the single-origin
+      adaptive mode with the bit on, and at O=32 and O=1; each case's
+      launch geometry (cluster size, slice, threads, shared memory) printed,
+      timed with CUDA events, and under the profiler in a process of its
+      own (``--profile-pull``, which also profiles 5 push-pull rounds at
+      O=32: the launches a pull round adds), beside its bound; the
+      single-origin
       CLI in push-pull (loss 0.1), adaptive and push, in turns (wall,
       coverage, RMR, pull counters, launches), and each mode's cuda run
       equal to its cpu run at N=2,000 (``parity_snapshot()`` and
       deterministic Influx lines); all-origins in push-pull (origins
-      0-199 at the auto batch of 64: origin-rounds/s, peak memory), and at
-      N=500 on cuda and cpu with equal aggregates; a pull-fanout sweep
+      0-199 at the auto batch of 64 and at ``--origin-batch 256``, one
+      batch of the 200, with equal aggregates: origin-rounds/s, peak
+      memory), and at N=500 on cuda and cpu with equal aggregates; a
+      pull-fanout sweep
       (F_pull = 2, 5, 8) and an adaptive-threshold sweep (0.5, 0.7, 0.9)
       through ``cli.main``, each point's wall;
   (i) print the total wall, the card's name and power limit, the
@@ -159,7 +163,7 @@ SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
                       "round/verb5_rotate + _sample_fast at core.py:274"),
            "pull_exchange": ("gossip_sim_tpu/engine/core.py:1012",
                              "round/pull")}
-# the pull modes (h): round 19's pull_exchange calls at O=64 and O=1
+# the pull modes (h): round 19's pull_exchange calls at O=64, O=32 and O=1
 O_PULL = 64
 
 
@@ -634,6 +638,8 @@ def pull_cases(EngineParams) -> dict:
         "adaptive": (O_PULL, EngineParams(
             **base, gossip_mode="adaptive", packet_loss_rate=0.1,
             impair_seed=7)),
+        "push-pull impaired O=32": (O_KERNEL, EngineParams(
+            **base, gossip_mode="push-pull", **imp)),
         "push-pull O=1": (1, EngineParams(
             **base, gossip_mode="push-pull", packet_loss_rate=0.1,
             impair_seed=7)),
@@ -644,12 +650,25 @@ def pull_bytes(args, kw, out) -> int:
     """Bytes ``pull_exchange`` must move on these inputs: reached, failed
     and dist, the sampler's perm and class tables and the CDF, the
     adaptive bits and, while the partition window is on, the sides; its
-    three [O, N] planes and the counts out."""
+    five [O, N] planes (pull hop, egress, ingress, and the stats' delivery
+    view reached_all and dist_all) and the counts out."""
     (reached, dist, failed, side, perm, start, count, cdf,
      adaptive_on) = args
     return (nbytes(reached, dist, failed, perm, start, count, cdf,
                    adaptive_on, *out)
             + (nbytes(side) if kw["partition"] else 0))
+
+
+def pull_geometry(g, px_mod) -> str:
+    """``pull_exchange``'s launch geometry ``g`` in words."""
+    return (f"cluster size {g.cs} ({px_mod.max_clusters(g)} such clusters "
+            f"fit the card at once), slice {g.slice_len} nodes, {g.threads} "
+            f"threads, {g.smem} B shared memory per CTA ("
+            + (f"{4 * g.bitmap_words} B bitmaps, {4 * g.state_words} B node "
+               f"words, {4 * g.draw_words} B kept draws"
+               if not g.scratch_words else
+               f"per-peer words in device memory, {g.scratch_words} words")
+            + ")")
 
 
 PROFILE_FLAG = "--profile-all-origins"
@@ -852,6 +871,11 @@ def main() -> int:
             f"threads, {g.smem} B shared memory per CTA ({g.csr_cap} CSR "
             f"keys), counts in "
             f"{'device memory' if g.scratch_words else 'shared memory'}")
+    for o in (1, O_KERNEL, O_PULL, AO_ORIGINS):
+        for cap in (0, 2):
+            g = px_mod.geometry_for(o, N_FULL, 2, cap, dev)
+            say(f"(a) pull_exchange at O={o} N={N_FULL} pull fanout 2 cap "
+                f"{cap}: {pull_geometry(g, px_mod)}")
     for s_, f_ in ((12, 6), (25, 6)) + WIDE_SHAPES:
         pt_rows, pt_smem = pt_mod.launch_geometry(s_, f_, smem_limit)
         per_sm = pt_mod.blocks_per_sm(dev, pt_rows, pt_smem)
@@ -1874,7 +1898,10 @@ def main() -> int:
             bytes=pull_bytes(args, kw, got))
         pull_res[case]["bound_ms"] = bound(pull_res[case]["bytes"], 0,
                                            None)[0]
+        g = px_mod.geometry_for(o, N_FULL, kw["fanout"], kw["cap"], dev)
+        pull_res[case]["geometry"] = g._asdict()
         pull_case_calls[case] = (args, kw)
+        say(f"(h) {case}: pull_exchange geometry {pull_geometry(g, px_mod)}")
         say(f"(h) {case} (O={o}, N={N_FULL}), round 19: pull_exchange exact "
             f"vs plain; kernel {pull_res[case]['ms']:.4f} ms, plain "
             f"{pull_res[case]['plain_ms']:.4f} ms, bound "
@@ -2029,6 +2056,41 @@ def main() -> int:
         f"{pp_ao['coverage_mean']:.6f}, pull requests "
         f"{pp_ao['pull_requests']}, rescued {pp_ao['pull_rescued']}; "
         f"launches {pp_launches}")
+    # the same origins in one batch (the batch is clamped to the 200)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pp_wide = cli.run_all_origins(
+        dataclasses.replace(pp_cfg, origin_batch=O_WIDE),
+        accounts=ao_accounts, origin_indices=ao_idx)
+    torch.cuda.synchronize()
+    pp_wide_wall = time.perf_counter() - t0
+    pp_wide_launches = dict(kernels.LAUNCHES)
+    pp_wide_peak = torch.cuda.max_memory_allocated()
+    pwb = pp_wide["batches"]
+    if ([b["n_valid"] for b in pwb] != [AO_ORIGINS]
+            or pp_wide_launches[PX] != 300
+            or any(pp_wide_launches[n] <= 0 for n in names)):
+        fail(f"(h) all-origins push-pull at --origin-batch {O_WIDE}: "
+             f"batches {[b['n_valid'] for b in pwb]}, launches "
+             f"{pp_wide_launches}")
+    sd_auto = by_origin(pp_ao["stats"].state_dict(),
+                        [b["n_valid"] for b in pp_ao["batches"]], 100)
+    sd_wide = pp_wide["stats"].state_dict()
+    diff = [k for k in sd_wide if not np.array_equal(sd_wide[k], sd_auto[k])]
+    if diff:
+        fail(f"(h) all-origins push-pull: batch {O_BATCH} and batch "
+             f"{O_WIDE} aggregates differ in {diff}")
+    pp_wide_rounds_s = AO_ORIGINS * 300 / pwb[0]["rounds_s"]
+    say(f"(h) all-origins push-pull, the same origins at --origin-batch "
+        f"{O_WIDE} (one batch of {AO_ORIGINS}): wall {pp_wide_wall:.3f} s, "
+        f"init_state {pwb[0]['init_s']:.4f} s, rounds "
+        f"{pwb[0]['rounds_s']:.4f} s = {pp_wide_rounds_s:.1f} "
+        f"origin-rounds/s, peak device memory {pp_wide_peak / 2**20:.1f} "
+        f"MiB; aggregate state_dict equal to batch {O_BATCH}'s; launches "
+        f"{pp_wide_launches}")
     small_pp = {}
     for device in ("cuda", "cpu"):
         reset_unique_pubkeys()
@@ -2145,9 +2207,12 @@ def main() -> int:
          "device_ms": pull_dev["push-pull impaired cap 0"],
          "cases": {c: {"o": r["o"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                        "bound_ms": r["bound_ms"],
-                       "device_ms": pull_dev[c]}
+                       "device_ms": pull_dev[c], "geometry": r["geometry"]}
                    for c, r in pull_res.items()},
          "launches_all_origins": pp_launches[PX],
+         "all_origins_origin_rounds_s": AO_ORIGINS * 300 / pp_rounds_s,
+         "one_batch_origin_rounds_s": pp_wide_rounds_s,
+         "one_batch_peak_mib": pp_wide_peak / 2**20,
          "launches_per_round_push_pull": pp_prof.get("launches")})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

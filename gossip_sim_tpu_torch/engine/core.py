@@ -359,11 +359,10 @@ def round_step(params: EngineParams, tables: ClusterTables,
             loss=((basis(SALT_PULL_LOSS),
                    rate_threshold(float(kn.packet_loss_rate)))
                   if p.has_loss else None))
-        # the delivery view of the stats: push BFS plus the pull rescues
+        # the delivery view of the stats (push BFS plus the pull rescues)
+        # comes from the kernel
+        reached_all, dist_all = pull.reached_all, pull.dist_all
         pull_got = pull.pull_hop < INF
-        reached_all = reached | pull_got
-        dist_all = torch.where(reached, dist,
-                               torch.where(pull_got, pull.pull_hop, INF))
     else:
         reached_all, dist_all = reached, dist
 

@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Time the port's engine round on one GPU for several checkouts, in turns.
 
-    python3 round_turns.py TREE [TREE ...]
+    python3 round_turns.py [--push-pull] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repository (``.`` for this
 one); give two trees in turns, e.g. ``build/parent . . build/parent``, to
 compare a change with its parent on one card.  Each tree runs in a process
 of its own, which imports ``gossip_sim_tpu_torch`` from that tree (its
-kernels build into the tree's ``build/kernels``) and measures, at O=32
-origins and N=10,000 nodes of the synthetic cluster (chip_smoke.py's
-shape): ``init_state``, 10 rounds of warm-up, 50 rounds timed on the host
+kernels build into the tree's ``build/kernels``) and measures, on the
+synthetic cluster of N=10,000 nodes (chip_smoke.py's shape), for each
+shape: ``init_state``, 10 rounds of warm-up, 50 rounds timed on the host
 clock (wall per round, ending in a synchronize), the peak device memory of
 those rounds above the state, and a 5-round profile (device busy per
 round, launches per round, device time per kernel), read by
 chip_smoke.py's ``profile_rounds`` (its text goes to
-``chiprun_out/profile_roundturns_<tree>.txt``).  One JSON line per tree,
-then the card's name and power limit.  Needs a CUDA device.
+``chiprun_out/profile_roundturns_<tree>.txt``).  The shape is push mode
+at O=32 origins; with ``--push-pull`` it is each push-pull case of
+chip_smoke.py's phase (h) (``pull_cases``: loss 0.1 + partition + churn at
+O=64 with the request cap off and at 2, at O=32, and O=1), whose
+``pull_exchange`` device time per round is its time per call, and then
+all-origins push-pull on origins 0-199 in one batch of 200 (300
+iterations, 200 warm-up; origin-rounds/s over the batch's rounds span,
+and peak device memory).  One JSON line per tree, then the card's name and
+power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 O, N, WARM, TIMED, PROFILED = 32, 10_000, 10, 50, 5
+AO = 200               # --push-pull: all-origins on origins 0-199
 
 
-def one(tree: str) -> dict:
+def one(tree: str, push_pull: bool) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
     import torch
@@ -56,44 +64,78 @@ def one(tree: str) -> dict:
         cli.Config(num_synthetic_nodes=N))
     stakes = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
     tables = make_cluster_tables(stakes, device=dev)
-    origins = torch.as_tensor(
-        np.argsort(-stakes, kind="stable")[:O].astype(np.int32), device=dev)
-    params = EngineParams(num_nodes=N, warm_up_rounds=0)
-    state = init_state(rng.prng_key(7, dev), tables, origins, params)
-    state, _ = run_rounds(params, tables, origins, state, WARM)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    state, _ = run_rounds(params, tables, origins, state, TIMED,
-                          start_it=WARM)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / TIMED
-    peak = torch.cuda.max_memory_allocated() - base
-    wrapper_launches = {k: v / TIMED for k, v in kernels.LAUNCHES.items()}
+    top = np.argsort(-stakes, kind="stable").astype(np.int32)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    prof = smoke.profile_rounds(run_rounds, params, tables, origins, state,
-                                out_dir, rounds=PROFILED,
-                                tag=" turns " + re.sub(r"\W", "_", tree))
-    return {"tree": tree, "device": torch.cuda.get_device_name(0),
-            "wall_ms_per_round": wall * 1e3,
-            "busy_ms_per_round": prof.get("busy_ms"),
-            "launches_per_round": prof.get("launches"),
-            "peak_bytes_over_state": peak,
-            "kernel_launches_per_round": wrapper_launches,
-            "kernel_device_ms_per_round": prof["device"]}
+
+    def measure(o: int, params, tag: str) -> dict:
+        origins = torch.as_tensor(top[:o], device=dev)
+        state = init_state(rng.prng_key(7, dev), tables, origins, params)
+        state, _ = run_rounds(params, tables, origins, state, WARM)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, _ = run_rounds(params, tables, origins, state, TIMED,
+                              start_it=WARM)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TIMED
+        peak = torch.cuda.max_memory_allocated() - base
+        wrapper_launches = {k: v / TIMED for k, v in kernels.LAUNCHES.items()}
+        prof = smoke.profile_rounds(
+            lambda p, t, o_, st, r: run_rounds(p, t, o_, st, r,
+                                               start_it=WARM + TIMED),
+            params, tables, origins, state, out_dir, rounds=PROFILED,
+            tag=" turns " + re.sub(r"\W", "_", tree) + tag)
+        return {"o": o, "wall_ms_per_round": wall * 1e3,
+                "busy_ms_per_round": prof.get("busy_ms"),
+                "launches_per_round": prof.get("launches"),
+                "peak_bytes_over_state": peak,
+                "kernel_launches_per_round": wrapper_launches,
+                "kernel_device_ms_per_round": prof["device"]}
+
+    res = {"tree": tree, "device": torch.cuda.get_device_name(0)}
+    if not push_pull:
+        res.update(measure(O, EngineParams(num_nodes=N, warm_up_rounds=0),
+                           ""))
+        return res
+    res["shapes"] = {
+        case: measure(o, prm, " " + re.sub(r"\W", "_", case))
+        for case, (o, prm) in smoke.pull_cases(EngineParams).items()
+        if case.startswith("push-pull")}
+    # all-origins push-pull: origins 0-199 in one batch of 200
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["--num-synthetic-nodes", str(N), "--iterations", "300",
+         "--warm-up-rounds", "200", "--all-origins", "--device", "cuda",
+         "--gossip-mode", "push-pull", "--origin-batch", str(AO)]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_unique_pubkeys()
+    summary = cli.run_all_origins(cfg, accounts=accounts,
+                                  origin_indices=np.arange(AO,
+                                                           dtype=np.int32))
+    torch.cuda.synchronize()
+    (batch,) = summary["batches"]
+    res["all_origins_one_batch"] = {
+        "origins": AO, "rounds_s": batch["rounds_s"],
+        "origin_rounds_per_s": AO * 300 / batch["rounds_s"],
+        "peak_bytes": torch.cuda.max_memory_allocated()}
+    return res
 
 
 def main(argv: list) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(one(argv[1])), flush=True)
+    if len(argv) == 3 and argv[0] == "--one":
+        print(json.dumps(one(argv[2], argv[1] == "push-pull")), flush=True)
         return 0
+    mode = "push"
+    if argv[:1] == ["--push-pull"]:
+        mode, argv = "push-pull", argv[1:]
     if not argv:
         raise SystemExit(__doc__)
     for tree in argv:
-        out = subprocess.run([sys.executable, __file__, "--one", tree],
+        out = subprocess.run([sys.executable, __file__, "--one", mode, tree],
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)

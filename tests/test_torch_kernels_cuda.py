@@ -21,7 +21,7 @@ from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
                                          make_cluster_tables, round_step,
                                          run_rounds)
 from gossip_sim_tpu_torch.engine.sampler import build_sampler_tables
-from gossip_sim_tpu_torch.faults import rate_threshold
+from gossip_sim_tpu_torch.faults import edge_u32, rate_threshold
 
 bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
 rank_mod = importlib.import_module(
@@ -29,6 +29,8 @@ rank_mod = importlib.import_module(
 tf_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.threefry")
 pt_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.push_targets")
 rot_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.rotate")
+px_mod = importlib.import_module(
+    "gossip_sim_tpu_torch.kernels.pull_exchange")
 
 pytestmark = pytest.mark.cuda
 
@@ -678,8 +680,11 @@ def test_push_targets_push_off_equals_plain(cuda):
 
 #: (O, N, knobs) of the pull exchange: the request cap off, binding (1, 2)
 #: and loose (64), partition window on and off, loss, the adaptive bit,
-#: an off-interval round, O = 1 and 64, and N past shared memory (the
-#: per-peer state in device memory)
+#: an off-interval round, O = 1, 16, 32, 64 and 200 at N = 10,000 (one
+#: case for each cluster size the launch geometry picks: 16, 8, 4, 2, 1;
+#: at O = 200 with the cap on the kept draws take clusters of 2), an N
+#: that no cluster size divides, and the per-peer words in device memory
+#: (the launch of a card whose shared memory holds the class tables only)
 PULL_CASES = {
     "o1": (1, 10_000, dict(cap=0)),
     "o64_cap2_impaired": (64, 10_000, dict(cap=2, partition=True,
@@ -690,12 +695,24 @@ PULL_CASES = {
     "o3_off_interval": (3, 3000, dict(pull_on=False)),
     "o2_state_in_device_memory": (2, 40_000, dict(cap=2, loss=0.1)),
     "o5_tiny": (5, 3, dict(cap=1, fanout=8)),
+    "o1_cap2_impaired": (1, 10_000, dict(cap=2, partition=True, loss=0.1)),
+    "o16_impaired": (16, 10_000, dict(partition=True, loss=0.1)),
+    "o32_impaired": (32, 10_000, dict(partition=True, loss=0.1)),
+    "o64_impaired": (64, 10_000, dict(partition=True, loss=0.1)),
+    "o200": (200, 10_000, dict(loss=0.1)),
+    "o200_cap2": (200, 10_000, dict(cap=2, partition=True)),
+    "o3_n10007_cap2": (3, 10_007, dict(cap=2, loss=0.1, adaptive=True)),
+    "o3_n10007_state_in_device_memory": (3, 10_007, dict(cap=1)),
 }
+#: the cluster size each case's launch geometry takes on an H100 (1,024
+#: threads a CTA, one CTA an SM: it holds 7 clusters of 16, 15 of 8, 30
+#: of 4 and 66 of 2)
+PULL_CLUSTER = {"o1": 16, "o1_cap2_impaired": 16, "o16_impaired": 4,
+                "o32_impaired": 2, "o64_impaired": 2, "o64_cap2_impaired": 2,
+                "o200": 1, "o200_cap2": 2}
 
 
-@pytest.mark.parametrize("case", list(PULL_CASES))
-def test_pull_exchange_equals_plain(cuda, case):
-    o, n, kw = PULL_CASES[case]
+def _pull_inputs(cuda, o, n, kw):
     r = np.random.default_rng(o * 31 + n)
     stakes = r.integers(1, 1 << 45, size=n).astype(np.int64)
     tables = make_cluster_tables(stakes, device=cuda)
@@ -713,8 +730,24 @@ def test_pull_exchange_equals_plain(cuda, case):
                  bloom_threshold=rate_threshold(0.1), cap=kw.get("cap", 0),
                  partition=kw.get("partition"),
                  loss=None if loss is None else (77, rate_threshold(loss)))
+    return args, knobs
+
+
+@pytest.mark.parametrize("case", list(PULL_CASES))
+def test_pull_exchange_equals_plain(cuda, case):
+    o, n, kw = PULL_CASES[case]
+    args, knobs = _pull_inputs(cuda, o, n, kw)
     kernels.reset_launch_counts()
-    got = kernels.pull_exchange(*args, **knobs)
+    if case.endswith("_state_in_device_memory"):
+        g = px_mod.launch_geometry(o, n, knobs["fanout"], knobs["cap"], 132,
+                                   4 * px_mod.MISC_WORDS)
+        assert g.scratch_words > 0
+        got = px_mod._launch(*args, g, **knobs)
+    else:
+        got = kernels.pull_exchange(*args, **knobs)
+        g = px_mod.geometry_for(o, n, knobs["fanout"], knobs["cap"], cuda)
+        assert g.cs == PULL_CLUSTER.get(case, g.cs)
+        assert g.scratch_words == 0
     assert kernels.LAUNCHES["pull_exchange"] == 1
     want = kernels.pull_exchange_plain(*args, **knobs)
     _assert_equal(tuple(got), tuple(want), case)
@@ -722,6 +755,46 @@ def test_pull_exchange_equals_plain(cuda, case):
         assert int(got.counts[:, 0].sum()) > 0
     else:
         assert int(got.counts.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("rising", [True, False])
+def test_pull_exchange_class_draw_at_the_cdf_edges(cuda, rising):
+    """The class draw's compare u >= cdf[c] (the kernel's integer
+    thresholds): a CDF whose entries are the class uniforms of 24 of the
+    round's draws (equality), then as many one ulp above, and the same
+    CDF shuffled so that it does not rise (the kernel's linear count)."""
+    o, n = 3, 5003
+    args, knobs = _pull_inputs(cuda, o, n, dict(cap=2, loss=0.1, fanout=4))
+    b_cls = knobs["bases"][0]
+    ks = sorted({edge_u32(b_cls, node, slot) >> 8
+                 for node in range(0, n, 97) for slot in range(4)})
+    pick = np.array(ks[::max(1, len(ks) // 24)][:24], dtype=np.float64)
+    assert len(pick) == 24
+    at = (pick * 2.0 ** -24).astype(np.float32)
+    for cdf24 in (at, np.nextafter(at, np.float32(2.0))):
+        cdf = np.concatenate([np.sort(cdf24), [1.0]]).astype(np.float32)
+        if not rising:
+            cdf[:24] = np.random.default_rng(5).permutation(cdf[:24])
+        a = args[:7] + (torch.as_tensor(cdf, device=cuda),) + args[8:]
+        _assert_equal(tuple(kernels.pull_exchange(*a, **knobs)),
+                      tuple(kernels.pull_exchange_plain(*a, **knobs)),
+                      rising)
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("keep", [True, False])
+def test_pull_exchange_every_cluster_size_equals_plain(cuda, cs, keep):
+    """Every cluster size with the draws kept and drawn again, at an N
+    that no size above 1 divides, the cap binding under partition and
+    loss."""
+    o, n = 3, 5003
+    args, knobs = _pull_inputs(cuda, o, n, dict(cap=2, partition=True,
+                                                loss=0.1, fanout=4))
+    g = px_mod.shape(o, n, 4, 2, cs, keep=keep)
+    assert (g.draw_words > 0) == keep
+    _assert_equal(tuple(px_mod._launch(*args, g, **knobs)),
+                  tuple(kernels.pull_exchange_plain(*args, **knobs)),
+                  (cs, keep))
 
 
 @pytest.mark.parametrize("o,n,s", [(20, 700, 1000), (3, 1001, 7)])

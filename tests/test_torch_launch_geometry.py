@@ -18,7 +18,12 @@
   staged in shared memory): 128 rows per block, fewer for wide rows, down
   to one, and a raise, in bytes, past one block's shared memory;
   ``rotate``'s keys, T + 2 of each origin a block spans, and
-  ``push_targets``' one-wave grid of tiles.
+  ``push_targets``' one-wave grid of tiles;
+* ``pull_exchange``: the cluster of an origin (one wave at O = 1, 3, 64
+  and 200), each CTA's node slice, and the bytes of its shared memory
+  (bitmaps, per-peer words, kept draws): the draws kept, a larger cluster
+  where they do not fit, drawn again as the last resort, and past every
+  cluster's shared memory the per-peer words in device memory.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_cuda.py).
 """
@@ -38,6 +43,7 @@ mp = importlib.import_module("gossip_sim_tpu_torch.kernels.rc_merge_prune")
 ri = importlib.import_module("gossip_sim_tpu_torch.kernels.rank_inbound")
 pt = importlib.import_module("gossip_sim_tpu_torch.kernels.push_targets")
 rot = importlib.import_module("gossip_sim_tpu_torch.kernels.rotate")
+px = importlib.import_module("gossip_sim_tpu_torch.kernels.pull_exchange")
 
 # an H100 SXM: streaming multiprocessors, opt-in shared memory per block
 SMS, SMEM_PER_BLOCK = 132, 232_448
@@ -335,3 +341,123 @@ def test_push_targets_runs_one_wave_of_tiles(o, n, per_sm, want):
     # the blocks walk the tiles with a grid stride: each tile once
     walked = sorted(t for b in range(grid) for t in range(b, tiles, grid))
     assert walked == list(range(tiles))
+
+
+def _largest_smem_n(fanout, cap):
+    """The largest N whose pull_exchange launch keeps its state in shared
+    memory at the largest cluster (the draws drawn again where used)."""
+    lo, hi = 1, 1 << 30
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if px.shape(1, mid, fanout, cap, px.MAX_CLUSTER,
+                    keep=False).smem <= SMEM_PER_BLOCK:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _check_pull_geometry(o, n, fanout, cap, g):
+    assert 1 <= g.cs <= px.MAX_CLUSTER and g.cs & (g.cs - 1) == 0
+    assert g.slice_len == -(-n // g.cs) and g.slice_len * g.cs >= n
+    assert g.threads % 32 == 0 and 32 <= g.threads <= px.MAX_THREADS
+    assert g.threads >= min(g.slice_len, px.MAX_THREADS)
+    per_peer = 4 if cap > 0 else 2
+    if g.scratch_words:
+        assert g.bitmap_words == g.state_words == g.draw_words == 0
+        assert g.scratch_words == o * per_peer * n
+    else:
+        assert g.bitmap_words == 3 * -(-n // 32)
+        assert g.state_words == (per_peer + 1) * g.slice_len
+        assert g.draw_words in (0, fanout * g.slice_len)
+        assert g.draw_words == 0 or cap > 0
+    assert g.smem == 4 * (px.MISC_WORDS + g.bitmap_words + g.state_words
+                          + g.draw_words) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("cap", [0, 2])
+def test_pull_geometry_fills_the_card_in_one_wave(cap):
+    """The largest power-of-two cluster (up to the non-portable 16) whose
+    O clusters fill the 132 SMs in one wave: 16 CTAs at O = 1 and 3, 2 at
+    O = 64, 1 at O = 200 with the cap off; a card that holds 7 clusters
+    of 16 takes O = 8 in clusters of 8.  With the cap on at O = 200 the
+    kept draws do not fit one CTA (284,268 bytes), so the cluster grows
+    to 2."""
+    want = {1: 16, 3: 16, 8: 16, 64: 2, 200: 1 if cap == 0 else 2}
+    for o, cs in want.items():
+        g = px.launch_geometry(o, 10_000, 2, cap, SMS, SMEM_PER_BLOCK)
+        _check_pull_geometry(o, 10_000, 2, cap, g)
+        assert g.cs == cs == px.cluster_size(o, SMS) or (o, cap) == (200, 2)
+        assert o * g.cs <= SMS or g.cs <= 2
+        assert g.cs == px.MAX_CLUSTER or o * g.cs * 2 > SMS or o == 200
+        assert g.draw_words == (2 * g.slice_len if cap else 0)
+    assert px.shape(200, 10_000, 2, 2, 1).smem == 284_268 > SMEM_PER_BLOCK
+    held = {16: 7, 8: 16, 4: 33, 2: 66, 1: 132}
+    pick = lambda o: px.launch_geometry(o, 10_000, 2, cap, SMS,
+                                        SMEM_PER_BLOCK,
+                                        lambda g: held[g.cs]).cs
+    one = 1 if cap == 0 else 2          # the kept draws need two CTAs
+    assert [pick(o) for o in (1, 3, 7, 8, 16, 33, 34, 64, 67, 200)] == [
+        16, 16, 16, 8, 8, 4, 2, 2, one, one]
+    # a card without clusters of 16 takes 8 at O = 1
+    no16 = lambda g: 0 if g.cs == 16 else 99
+    assert px.launch_geometry(1, 10_000, 2, cap, SMS, SMEM_PER_BLOCK,
+                              no16).cs == 8
+
+
+@pytest.mark.parametrize("o,cap,want", [
+    # cs, slice, threads, bitmap, node and draw words, smem, scratch
+    (1, 0, (16, 625, 640, 939, 1875, 0, 11_768, 0)),
+    (1, 2, (16, 625, 640, 939, 3125, 1250, 21_768, 0)),
+    (32, 0, (4, 2500, 1024, 939, 7500, 0, 34_268, 0)),
+    (64, 0, (2, 5000, 1024, 939, 15_000, 0, 64_268, 0)),
+    (64, 2, (2, 5000, 1024, 939, 25_000, 10_000, 144_268, 0)),
+    (200, 0, (1, 10_000, 1024, 939, 30_000, 0, 124_268, 0)),
+    (200, 2, (2, 5000, 1024, 939, 25_000, 10_000, 144_268, 0)),
+])
+def test_pull_geometry_shared_memory_at_n_10000(o, cap, want):
+    """Per CTA at N = 10,000, pull fanout 2: 512 bytes of class tables and
+    sums, three bitmaps of 313 words, 12 bytes a node of the slice (20
+    with the cap on: requests in, responses out, the node's own counts,
+    the cap's two keys) and, with the cap on, the kept draws (4 bytes a
+    live slot)."""
+    g = px.launch_geometry(o, 10_000, 2, cap, SMS, SMEM_PER_BLOCK)
+    _check_pull_geometry(o, 10_000, 2, cap, g)
+    assert tuple(g) == want
+
+
+@pytest.mark.parametrize("fanout,cap,largest", [(2, 0, 206_160),
+                                                (2, 2, 142_720),
+                                                (8, 5, 142_720)])
+def test_pull_geometry_takes_every_node_count(fanout, cap, largest):
+    """The largest N whose state a cluster of 16 keeps in shared memory
+    (the draws drawn again where used; with the cap on the draws are kept
+    up to a smaller N), and past it the per-peer words in device memory;
+    every N runs."""
+    assert _largest_smem_n(fanout, cap) == largest
+    kept = max(n for n in range(1000, largest + 1, 1000)
+               if px.shape(1, n, fanout, cap, 16).smem <= SMEM_PER_BLOCK)
+    for n in sorted({1, 7, 121, 10_000, 10_007, kept, kept + 1000,
+                     largest - 1, largest, largest + 1, 1_000_003,
+                     (1 << 24) - 1}):
+        g = px.launch_geometry(1, n, fanout, cap, SMS, SMEM_PER_BLOCK)
+        _check_pull_geometry(1, n, fanout, cap, g)
+        assert (g.scratch_words == 0) == (n <= largest), n
+        if cap > 0 and not g.scratch_words:
+            assert (g.draw_words > 0) == (n <= kept), n
+    g = px.launch_geometry(1, largest, fanout, cap, SMS, SMEM_PER_BLOCK)
+    assert g.cs == 16 and g.smem <= SMEM_PER_BLOCK < px.shape(
+        1, largest + 1, fanout, cap, 16, keep=False).smem
+    g = px.launch_geometry(64, largest + 1, fanout, cap, SMS,
+                           SMEM_PER_BLOCK)
+    assert g.cs == 2 and g.smem == 512
+    assert g.scratch_words == 64 * (4 if cap > 0 else 2) * (largest + 1)
+
+
+def test_pull_geometry_raises_past_the_class_tables():
+    """A block without room for the class tables and sums (512 bytes)
+    takes no launch; the error names the bytes."""
+    g = px.launch_geometry(3, 10_000, 2, 2, SMS, 512)
+    assert g.scratch_words > 0 and g.smem == 512
+    with pytest.raises(ValueError, match=r"needs 512 bytes of shared memory"):
+        px.launch_geometry(3, 10_000, 2, 2, SMS, 511)

@@ -3,9 +3,12 @@
 * ``pull_class_tables`` equals the reference's and the sampler's top-entry
   CDF; the peer table of ``pull_peers_plain`` equals the reference's scalar
   ``sample_pull_peer`` entry by entry;
-* a transcription of ``csrc/pull_exchange.cu``'s phases (the request cap
-  by passes of the least key) equals ``pull_exchange_plain`` (the
-  reference's stable-sort ranks), with the cap binding;
+* a transcription of ``csrc/pull_exchange.cu``'s schedule (a cluster of
+  CTAs per origin owning node slices, counters updated from the other
+  CTAs, the draws kept once, the request cap by passes of the least key
+  over remote counters, the counts gathered by rank 0) equals
+  ``pull_exchange_plain`` (the reference's stable-sort ranks), with the
+  cap binding;
 * ``round_step`` states and rows (``detail=True``) in ``push-pull`` at cap
   0 and 2 and in ``pull`` at interval 2, under loss + partition + churn,
   in both threefry layouts; push mode with the pull knobs set is push mode;
@@ -19,6 +22,8 @@ both packages' threefry layout.  Tolerance: 0 everywhere (exact equality,
 NaN == NaN in float rows)."""
 
 import gossip_sim_tpu.engine as je  # noqa: I001  (64-bit types first)
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +50,8 @@ from gossip_sim_tpu_torch.kernels.pull_exchange import (INF,
 from gossip_sim_tpu_torch.sinks import DatapointQueue
 from gossip_sim_tpu_torch.stats.gossip_stats import GossipStatsCollection
 from test_torch_aggregate import assert_state_dicts_equal, finalized
+
+px = importlib.import_module("gossip_sim_tpu_torch.kernels.pull_exchange")
 
 IMPAIRED = dict(packet_loss_rate=0.1, churn_fail_rate=0.02,
                 churn_recover_rate=0.25, partition_at=8, heal_at=17,
@@ -191,120 +198,277 @@ def test_peer_draws_equal_sample_pull_peer(seed, it):
 # the kernel's schedule on the CPU
 # --------------------------------------------------------------------------
 
+OK, SELF, SUP, DROP = range(4)   # a kept draw's gate (csrc/pull_exchange.cu)
+NO_KEY = 0x7FFFFFFF
+
+
 def kernel_schedule(reached, dist, failed, side, perm, cstart, ccount, cdf,
                     adaptive_on, fanout, pull_on, bases, fp_threshold, cap,
-                    part_on, loss):
-    """``csrc/pull_exchange.cu`` phase by phase on numpy arrays (one
-    origin at a time, as a block does): arrivals per peer, the cap's
-    cap-th smallest key per crowded peer by passes of the least key above
-    the last, the transfers, then the peers' side of the messages.
-    Returns what ``pull_exchange_plain`` does and the requests the cap
-    refused."""
+                    part_on, loss, cs, keep=True, seed=0):
+    """``csrc/pull_exchange.cu``'s schedule on numpy arrays.  Per origin a
+    cluster of ``cs`` CTAs; CTA r owns the nodes [r*S, (r+1)*S) (S from
+    ``pull_exchange.shape``) as requesters and as peers, and its per-peer
+    counters are arrays of its own that the other CTAs update through
+    (rank, offset).  Each phase runs the CTAs, and each CTA its nodes, in a
+    shuffled order (the atomics' order).  With the cap off one pass draws,
+    gates, counts and transfers; with it on, phase 1 keeps each draw and
+    its origin-independent gate (self, partition side, loss) where the
+    geometry keeps words, the cluster's largest count is gathered by rank
+    0, cap passes of the least key above the last run over the remote
+    counters, and phase 3 reads the kept words (else draws again).  The
+    per-CTA sums are gathered by rank 0.  Returns what
+    ``pull_exchange_plain`` does, the requests the cap refused, and the
+    draws made per origin."""
     O, n = reached.shape
     b_cls, b_mem, b_fp = bases
+    g = px.shape(O, n, fanout, cap, cs, keep=keep)
+    S = g.slice_len
+    kept = g.draw_words > 0
+    assert kept == (keep and cap > 0 and fanout > 0)
+    gen = np.random.default_rng(seed)
     u01 = lambda h: np.float32(h >> 8) * np.float32(2.0 ** -24)
+    bits = lambda a: [bool(x) for x in a]          # a staged bitmap
 
-    def draw(node, slot):
+    def draw(node, slot, part):
         cls = int(np.count_nonzero(u01(edge_u32(b_cls, node, slot))
                                    >= cdf[:-1]))
         st, cnt = int(cstart[cls]), int(ccount[cls])
         pos = st + int(np.floor(u01(edge_u32(b_mem, node, slot))
                                 * np.float32(cnt)))
-        return int(perm[min(pos, st + max(cnt - 1, 0), n - 1)])
-
-    def gate(o, node, peer):
-        if peer == node or failed[o, peer]:
-            return 0
-        if part_on and side[node] != side[peer]:
-            return 2
+        peer = int(perm[min(pos, st + max(cnt - 1, 0), n - 1)])
+        if peer == node:
+            return peer, SELF
+        if part and sbit[node] != sbit[peer]:
+            return peer, SUP
         if loss is not None and edge_u32(loss[0], node, peer) < loss[1]:
-            return 3
-        return 1
+            return peer, DROP
+        return peer, OK
+
+    def owned(r):
+        nodes = list(range(min(n, r * S), min(n, (r + 1) * S)))
+        return [nodes[k] for k in gen.permutation(len(nodes))]
+
+    def ctas():
+        return gen.permutation(cs).tolist()
 
     hop = np.full((O, n), INF)
     egress, ingress = np.zeros((O, n), int), np.zeros((O, n), int)
     counts = np.zeros((O, 6), int)
-    capped = 0
+    reached_all = np.zeros((O, n), bool)
+    dist_all = np.zeros((O, n), int)
+    capped, draws = 0, np.zeros(O, int)
+    sbit = bits(side[:n])
     for o in range(O):
-        on = pull_on and fanout > 0 and (adaptive_on is None
-                                         or adaptive_on[o])
-        req_in, resp_out = np.zeros(n, int), np.zeros(n, int)
-        n_resp = 0
-        reqs = []                     # (node, slot, peer) of arrivals
-        for node in range(n):
-            if not on or failed[o, node]:
-                continue
-            for slot in range(fanout):
-                peer = draw(node, slot)
-                g = gate(o, node, peer)
-                counts[o, 4] += g == 2
-                counts[o, 3] += g == 3
-                if g == 1:
-                    reqs.append((node, slot, peer))
-                    req_in[peer] += 1
-                    egress[o, node] += 1
-        kth = np.full(n, -1)
-        ranked = on and cap > 0 and req_in.max() > cap
-        for _ in range(cap if ranked else 0):
-            nxt = np.full(n, 0x7FFFFFFF)
-            for node, slot, peer in reqs:
-                key = node * fanout + slot
-                if req_in[peer] > cap and key > kth[peer]:
-                    nxt[peer] = min(nxt[peer], key)
-            kth = nxt
-        for node, slot, peer in reqs:
-            if (ranked and req_in[peer] > cap
-                    and node * fanout + slot > kth[peer]):
-                capped += 1
-                continue
-            if (reached[o, node] or not reached[o, peer]
-                    or node_u32(b_fp, node) < fp_threshold):
-                continue
-            resp_out[peer] += 1
-            ingress[o, node] += 1
-            n_resp += 1
-            hop[o, node] = min(hop[o, node], dist[o, peer] + 1)
-        egress[o] += resp_out
-        ingress[o] += req_in
-        counts[o, :3] = [len(reqs), n_resp, len(reqs) - n_resp]
-        counts[o, 5] = (hop[o] < INF).sum()
-    return hop, egress, ingress, counts, capped
+        gate = pull_on and fanout > 0 and (adaptive_on is None
+                                           or adaptive_on[o])
+        part = gate and part_on
+        fbit, rbit = bits(failed[o]), bits(reached[o])
+        req_in = [np.zeros(S, int) for _ in range(cs)]
+        resp_out = [np.zeros(S, int) for _ in range(cs)]
+        kth = [np.full(S, -1) for _ in range(cs)]
+        nxt = [np.full(S, NO_KEY) for _ in range(cs)]
+        words = [{} for _ in range(cs)]
+        sums = np.zeros((cs, 5), int)   # arrived, responses, dropped,
+        # suppressed, rescued
+        at = lambda a, peer: (a[peer // S], peer % S)
+
+        def add(a, peer, v=1):
+            arr, k = at(a, peer)
+            arr[k] += v
+
+        def get(a, peer):
+            arr, k = at(a, peer)
+            return arr[k]
+
+        def fresh(node, slot):
+            draws[o] += 1
+            return draw(node, slot, part)
+
+        def word(r, node, slot):
+            return words[r][node, slot] if kept else fresh(node, slot)
+
+        def finish(i, t, best):
+            ingress[o, i] = t
+            hop[o, i] = best
+            reached_all[o, i] = rbit[i] or best < INF
+            dist_all[o, i] = dist[o, i] if rbit[i] else best
+
+        def transfer(i, t, best, peer, slot, ranked):
+            if not rbit[peer] or (ranked and get(req_in, peer) > cap
+                                  and i * fanout + slot > get(kth, peer)):
+                return t, best
+            add(resp_out, peer)
+            return t + 1, min(best, dist[o, peer] + 1)
+
+        if cap <= 0:
+            for r in ctas():                       # 1. one fused pass
+                for i in owned(r):
+                    a = t = 0
+                    best = INF
+                    if gate and not fbit[i]:
+                        want = (not rbit[i]
+                                and node_u32(b_fp, i) >= fp_threshold)
+                        for slot in range(fanout):
+                            peer, code = fresh(i, slot)
+                            if code == SELF or fbit[peer]:
+                                continue
+                            sums[r, 3] += code == SUP
+                            sums[r, 2] += code == DROP
+                            if code != OK:
+                                continue
+                            add(req_in, peer)
+                            a += 1
+                            if want:
+                                t, best = transfer(i, t, best, peer, slot,
+                                                   False)
+                    egress[o, i] = a
+                    finish(i, t, best)
+                    sums[r] += [a, t, 0, 0, best < INF]
+        else:
+            for r in ctas():                       # 1. requests
+                for i in owned(r):
+                    a = 0
+                    if gate and not fbit[i]:
+                        for slot in range(fanout):
+                            peer, code = fresh(i, slot)
+                            if kept:
+                                words[r][i, slot] = (peer, code)
+                            if code == SELF or fbit[peer]:
+                                continue
+                            sums[r, 3] += code == SUP
+                            sums[r, 2] += code == DROP
+                            if code == OK:
+                                add(req_in, peer)
+                                a += 1
+                    egress[o, i] = a
+                    sums[r, 0] += a
+            # 2. the cluster's largest count (each CTA's, gathered by rank
+            # 0), then the passes over the remote counters
+            most = max(int(req_in[r].max()) if gate else 0
+                       for r in range(cs))
+            ranked = gate and most > cap
+            for _ in range(cap if ranked else 0):
+                for r in ctas():
+                    for i in owned(r):
+                        if fbit[i]:
+                            continue
+                        for slot in range(fanout):
+                            peer, code = word(r, i, slot)
+                            if (code != OK or fbit[peer]
+                                    or get(req_in, peer) <= cap):
+                                continue
+                            key = i * fanout + slot
+                            if key > get(kth, peer):
+                                arr, k = at(nxt, peer)
+                                arr[k] = min(arr[k], key)
+                for r in range(cs):
+                    kth[r], nxt[r] = nxt[r].copy(), np.full(S, NO_KEY)
+            for r in ctas():                       # 3. transfers
+                for i in owned(r):
+                    t, best = 0, INF
+                    if (gate and not fbit[i] and not rbit[i]
+                            and node_u32(b_fp, i) >= fp_threshold):
+                        for slot in range(fanout):
+                            peer, code = word(r, i, slot)
+                            if code != OK or fbit[peer]:
+                                continue
+                            t, best = transfer(i, t, best, peer, slot,
+                                               ranked)
+                    finish(i, t, best)
+                    sums[r] += [0, t, 0, 0, best < INF]
+            # (bookkeeping, no draw counted) the arrived requests the cap
+            # refused
+            for i in range(n):
+                for slot in range(fanout if ranked and not fbit[i] else 0):
+                    peer, code = draw(i, slot, part)
+                    capped += (code == OK and not fbit[peer]
+                               and get(req_in, peer) > cap
+                               and i * fanout + slot > get(kth, peer))
+        for r in ctas():                           # 4. the peers' side
+            for i in owned(r):
+                egress[o, i] += resp_out[r][i - r * S]
+                ingress[o, i] += req_in[r][i - r * S]
+        tot = sums.sum(0)                          # gathered by rank 0
+        counts[o] = [tot[0], tot[1], tot[0] - tot[1], tot[2], tot[3],
+                     tot[4]]
+    return ((hop, egress, ingress, counts, reached_all, dist_all), capped,
+            draws)
 
 
-@pytest.mark.parametrize("case", range(6))
+#: (N, pull fanout, pull round, cap, partition, loss, adaptive, cs, keep,
+#: an origin whose nodes have all failed).  N = 121 no cs > 1 divides;
+#: N = 7 leaves most CTAs of a cluster of 16 without a node.
+SCHEDULE_CASES = [
+    (120, 2, True, 0, None, False, False, 1, True, False),
+    (120, 4, True, 1, True, True, True, 2, True, False),
+    (120, 8, True, 2, False, True, False, 8, True, False),
+    (120, 3, True, 3, True, False, True, 16, True, False),
+    (120, 1, False, 0, None, True, False, 2, True, False),
+    (120, 6, True, 2, True, True, True, 8, False, False),
+    (121, 8, True, 5, True, True, False, 16, True, False),
+    (121, 4, True, 2, None, False, False, 2, True, True),
+    (121, 5, True, 0, True, True, True, 8, True, False),
+    (121, 2, True, 1, None, True, False, 1, False, False),
+    (121, 8, True, 5, True, False, False, 16, False, False),
+    (121, 3, True, 0, True, False, False, 16, True, True),
+    (7, 8, True, 1, True, True, False, 16, True, False),
+    (121, 4, False, 2, None, False, True, 2, True, False),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SCHEDULE_CASES)))
 def test_kernel_schedule_equals_plain(case):
     """The kernel's schedule (csrc/pull_exchange.cu) gives what the plain
-    version does: caps 0-3 (the cap binds), fanouts 1-8, partition on, off
-    and absent, loss on and off, the adaptive bit, and a round off the
-    pull interval."""
+    version does: clusters of 1, 2, 8 and 16 CTAs, an N that no cluster
+    size divides and one smaller than the cluster, caps 0, 1, 2, 3 and 5
+    (binding), the draws kept and drawn again, partition on, off and
+    absent, loss on and off, the adaptive bit, an origin whose nodes have
+    all failed, and rounds off the pull interval; each request is drawn
+    once per origin where the draws are kept or the cap is off."""
+    (n, fanout, pull_on, cap, partition, lossy, adaptive_bits, cs, keep,
+     all_failed) = SCHEDULE_CASES[case]
     gen = np.random.default_rng(case)
-    n, O = 120, 3
+    O = 3
     tables = tc.make_cluster_tables(stakes_of(n, seed=case), device="cpu")
     sm = tables.sampler
     reached = torch.as_tensor(gen.random((O, n)) < 0.5)
     dist = torch.as_tensor(gen.integers(0, 9, (O, n)).astype(np.int32))
     failed = torch.as_tensor(gen.random((O, n)) < 0.1)
+    if all_failed:
+        failed[1] = True
     adaptive = (torch.as_tensor(np.array([True, False, True]))
-                if case % 2 else None)
-    kw = dict(fanout=(2, 4, 8, 3, 1, 6)[case], slots=8, pull_on=case != 4,
+                if adaptive_bits else None)
+    kw = dict(fanout=fanout, slots=8, pull_on=pull_on,
               bases=(11 + case, 22 + case, 33), bloom_threshold=1 << 30,
-              cap=(0, 1, 2, 3, 0, 2)[case],
-              partition=(None, True, False, True, None, True)[case],
-              loss=None if case % 3 == 0 else (12345 + case, 1 << 31))
+              cap=cap, partition=partition,
+              loss=(12345 + case, 1 << 31) if lossy else None)
     got = pull_exchange_plain(reached, dist, failed, tables.side, sm.perm,
                               sm.class_start, sm.class_count,
                               sm.class_cdf[-1], adaptive, **kw)
-    want = kernel_schedule(
+    want, capped, draws = kernel_schedule(
         reached.numpy(), dist.numpy(), failed.numpy(), tables.side.numpy(),
         sm.perm.numpy(), sm.class_start.numpy(), sm.class_count.numpy(),
         sm.class_cdf[-1].numpy(), None if adaptive is None
-        else adaptive.numpy(), kw["fanout"], kw["pull_on"], kw["bases"],
-        kw["bloom_threshold"], kw["cap"], bool(kw["partition"]), kw["loss"])
+        else adaptive.numpy(), fanout, pull_on, kw["bases"],
+        kw["bloom_threshold"], cap, bool(partition), kw["loss"], cs,
+        keep=keep, seed=case)
+    assert got._fields[:len(want)] == got._fields
     for name, g, w in zip(got._fields, got, want):
         assert np.array_equal(g.numpy(), w), name
-    assert (want[4] > 0) == (kw["cap"] > 0)
-    if case == 4:
+    on = [pull_on and (adaptive is None or bool(adaptive[o]))
+          for o in range(O)]
+    live = [int((~failed[o]).sum()) * fanout if on[o] else 0
+            for o in range(O)]
+    if cap <= 0 or keep:
+        assert draws.tolist() == live            # each request drawn once
+    else:
+        assert (draws >= live).all() and (draws > live).any()
+    assert (capped > 0) == (cap > 0 and any(on))     # the cap binds
+    if not pull_on:
         assert int(got.counts.abs().sum()) == 0
+    if all_failed:
+        assert int(got.counts[1].abs().sum()) == 0
+        assert bool((got.pull_hop[1] == INF).all())
 
 
 # --------------------------------------------------------------------------
