@@ -107,7 +107,24 @@ Phases (any failure exits non-zero before the final line):
       pull-fanout sweep
       (F_pull = 2, 5, 8) and an adaptive-threshold sweep (0.5, 0.7, 0.9)
       through ``cli.main``, each point's wall;
-  (i) print the total wall, the card's name and power limit, the
+  (i) the concurrent-traffic engine in push mode at N=10,000 with M=256
+      value slots at rate 16: ``traffic_send``, ``traffic_admit``,
+      ``rank_inbound``, ``rc_merge_prune`` (with the live mask) and
+      ``prune_apply`` (on the shared active set) held against their plain
+      versions (tolerance 0) on round 19's inputs, uncapped and with both
+      queue caps binding under loss 0.1 + churn + a partition; each timed
+      with CUDA events beside its plain version, its bound and a PyTorch
+      yardstick, and under the profiler in a process of its own
+      (``--profile-traffic``: device ms per call, and 5-round profiles at
+      M=256 and M=32); the full-width CLI run (``--traffic-values 256
+      --traffic-rate 16``, 300 iterations, 200 warm-up) uncapped and
+      capped, with the launch counts set to 0 just before each and read
+      just after (wall, traffic rounds/s, value-rounds/s, peak memory, the
+      TRAFFIC SUMMARY counts); cuda == cpu at N=2,000, M=32 (60
+      iterations, capped and impaired: ``parity_snapshot()``,
+      ``summary()`` and the deterministic Influx lines) and for a 3-point
+      ``traffic-rate`` sweep;
+  (j) print the total wall, the card's name and power limit, the
       ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the reference package.
@@ -162,9 +179,25 @@ SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
            "rotate": ("gossip_sim_tpu/engine/core.py:950",
                       "round/verb5_rotate + _sample_fast at core.py:274"),
            "pull_exchange": ("gossip_sim_tpu/engine/core.py:1012",
-                             "round/pull")}
+                             "round/pull"),
+           "traffic_send": ("gossip_sim_tpu/engine/traffic.py:255",
+                            "traffic/candidates + traffic/egress_cap + "
+                            "traffic/network"),
+           "traffic_admit": ("gossip_sim_tpu/engine/traffic.py:316",
+                             "traffic/ingress_cap")}
 # the pull modes (h): round 19's pull_exchange calls at O=64, O=32 and O=1
 O_PULL = 64
+# the traffic engine (i): value slots, injection rate, the kernels of its
+# round, and the capped case's queue caps (ingress, egress) per node and
+# round, under which the full-width CLI run defers and drops messages and
+# still converges a value (a value converges only when all 10,000 nodes
+# hold it); M=32 and N=2,000 for the profile's narrow shape and cuda == cpu
+M_TRAFFIC, TRAFFIC_RATE, M_NARROW, N_PARITY = 256, 16, 32, 2000
+TRAFFIC_KERNELS = ("traffic_send", "traffic_admit", "rank_inbound",
+                   "rc_merge_prune", "prune_apply")
+TRAFFIC_CAPS = (192, 256)
+TRAFFIC_IMPAIRED = dict(packet_loss_rate=0.1, churn_fail_rate=0.01,
+                        churn_recover_rate=0.2, partition_at=10, heal_at=30)
 
 
 def fail(msg: str) -> None:
@@ -235,7 +268,9 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                   "threefry": ("threefry_kernel",),
                   "push_targets": ("push_targets_kernel",),
                   "rotate": ("rotate_kernel",),
-                  "pull_exchange": ("pull_exchange_kernel",)}
+                  "pull_exchange": ("pull_exchange_kernel",),
+                  "traffic_send": ("traffic_send_kernel",),
+                  "traffic_admit": ("traffic_admit_kernel",)}
 
 
 def device_ms(fn, symbols, reps: int = 10):
@@ -671,9 +706,59 @@ def pull_geometry(g, px_mod) -> str:
             + ")")
 
 
+def traffic_params(EngineParams, case: str, m: int = M_TRAFFIC,
+                   n: int = N_FULL):
+    """Phase (i)'s engine parameters: ``uncapped`` (no cap, no
+    impairment) or ``capped`` (both caps, loss, churn, a partition)."""
+    extra = {} if case == "uncapped" else dict(
+        node_ingress_cap=TRAFFIC_CAPS[0], node_egress_cap=TRAFFIC_CAPS[1],
+        **TRAFFIC_IMPAIRED)
+    return EngineParams(num_nodes=n, traffic_values=m,
+                        traffic_rate=TRAFFIC_RATE, warm_up_rounds=0, **extra)
+
+
+def traffic_round19(kernels, prm, tables, ttables, stakes_np, dev):
+    """Rounds 0-18 of a traffic run; round 19's rows and the calls of the
+    five traffic kernels in it (the wrappers themselves run)."""
+    from gossip_sim_tpu_torch.engine.traffic import (init_traffic_state,
+                                                     run_traffic_rounds,
+                                                     traffic_round_step)
+    st = init_traffic_state(stakes_np, prm, 42, dev)
+    st, _ = run_traffic_rounds(prm, tables, ttables, st, 19)
+    calls = {name: [] for name in TRAFFIC_KERNELS}
+    real = {name: getattr(kernels, name) for name in TRAFFIC_KERNELS}
+
+    def recorder(name):
+        def rec(*a, **kw):
+            calls[name].append((a, kw))
+            return real[name](*a, **kw)
+        return rec
+
+    for name in TRAFFIC_KERNELS:
+        setattr(kernels, name, recorder(name))
+    try:
+        st, rows = traffic_round_step(prm, tables, ttables, st, 19)
+    finally:
+        for name in TRAFFIC_KERNELS:
+            setattr(kernels, name, real[name])
+    return st, rows, calls
+
+
+def traffic_bytes(name, args, out) -> int:
+    """Bytes a traffic-round kernel call must move: its tensor inputs once
+    and its outputs once (``traffic_admit`` reads the slot bitmasks and the
+    active set, not the peers and codes beside them)."""
+    ins = [a for a in args if hasattr(a, "element_size")]
+    if name == "traffic_admit":
+        ins = list(args[2:5])
+    outs = tuple(out) if isinstance(out, tuple) else (out,)
+    return nbytes(*ins) + nbytes(*outs)
+
+
 PROFILE_FLAG = "--profile-all-origins"
 WIDE_FLAG = "--profile-wide-shapes"
 PULL_FLAG = "--profile-pull"
+TRAFFIC_FLAG = "--profile-traffic"
 
 
 def profile_child(flag: str) -> int:
@@ -685,7 +770,11 @@ def profile_child(flag: str) -> int:
     ``init_state``'s (``threefry``), started by phase (g).  ``chip_smoke.py
     --profile-pull``: ``pull_exchange``'s device time on round 19's
     inputs of each of phase (h)'s cases, and the 5-round profile of
-    push-pull at O=32 from round 19, started by phase (h).  Each runs in a
+    push-pull at O=32 from round 19, started by phase (h).  ``chip_smoke.py
+    --profile-traffic``: each traffic kernel's device time on round 19's
+    inputs at M=256 (both cases) and M=32 (uncapped), and the 5-round
+    traffic profiles from round 19 at M=256 and M=32, started by phase
+    (i).  Each runs in a
     process whose first profiler sessions they are (later sessions of a
     process record no device time) and prints a JSON line, last."""
     import torch
@@ -714,6 +803,35 @@ def profile_child(flag: str) -> int:
         prof = profile_rounds(run_rounds, params, tables, origins, state,
                               out_dir, tag=" all-origins", phase="(f)")
         print(json.dumps(prof), flush=True)
+        return 0
+    if flag == TRAFFIC_FLAG:
+        from gossip_sim_tpu_torch import kernels
+        from gossip_sim_tpu_torch.engine.traffic import (device_traffic_tables,
+                                                         run_traffic_rounds)
+        ttables = device_traffic_tables(stakes_np, dev)
+        out = {}
+        for case, m in (("uncapped", M_TRAFFIC), ("capped", M_TRAFFIC),
+                        ("uncapped", M_NARROW)):
+            prm = traffic_params(EngineParams, case, m)
+            st, _, calls = traffic_round19(kernels, prm, tables, ttables,
+                                           stakes_np, dev)
+            key = f"{case} M={m}"
+            out[key] = {}
+            for name in TRAFFIC_KERNELS:
+                a, kw = calls[name][0]
+                fn = getattr(kernels, name)
+                out[key][name] = device_ms(lambda: fn(*a, **kw),
+                                           KERNEL_SYMBOLS[name], reps=10)
+            del calls
+            if case == "uncapped":
+                out[f"profile M={m}"] = profile_rounds(
+                    lambda p, t, _o, s_, r: run_traffic_rounds(
+                        p, t, ttables, s_, r, start_it=20),
+                    prm, tables, torch.zeros(m), st, out_dir,
+                    tag=f" traffic M={m}", phase="(i)")
+            del st
+            torch.cuda.empty_cache()
+        print(json.dumps(out), flush=True)
         return 0
     if flag == PULL_FLAG:
         from gossip_sim_tpu_torch import kernels
@@ -806,8 +924,10 @@ def main() -> int:
         if mod == "jax" or mod == "gossip_sim_tpu" or mod.startswith(
                 ("jax.", "gossip_sim_tpu.")):
             fail(f"{mod} was imported")
-    # the push path's kernels; pull_exchange runs in the pull modes, (h)
-    names = tuple(n for n in _build.KERNEL_NAMES if n != "pull_exchange")
+    # the push path's kernels; pull_exchange runs in the pull modes, (h),
+    # and the two traffic kernels in the traffic round, (i)
+    names = tuple(n for n in _build.KERNEL_NAMES
+                  if n not in ("pull_exchange",) + TRAFFIC_KERNELS[:2])
     dev = torch.device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1446,7 +1566,7 @@ def main() -> int:
     n_batches = len(sizes)
     want = {name: n_batches * 300 for name in names}
     want["threefry"] = n_batches * (2 + 2 * params.init_draws)
-    want["pull_exchange"] = 0
+    want.update({n: 0 for n in ("pull_exchange",) + TRAFFIC_KERNELS[:2]})
     if ao_launches != want:
         fail(f"(f) all-origins launches {ao_launches}, expected {want} (every "
              f"kernel each round of each batch, threefry in init_state only)")
@@ -2165,7 +2285,218 @@ def main() -> int:
         cli.run_simulation = real_run_simulation
     say(f"(h) pull modes phase: {time.perf_counter() - t_h:.1f} s")
 
-    # ---- (i) report -------------------------------------------------------
+    # ---- (i) the traffic engine at N=10,000, M=256 on cuda --------------
+    t_i = time.perf_counter()
+    from gossip_sim_tpu_torch.engine.traffic import device_traffic_tables
+    from gossip_sim_tpu_torch.stats.traffic import TrafficStatsCollection
+    ttables = device_traffic_tables(stakes_np, dev)
+    traffic_res = {}
+    for case in ("uncapped", "capped"):
+        prm = traffic_params(EngineParams, case)
+        _, rows_t, calls = traffic_round19(kernels, prm, tables, ttables,
+                                           stakes_np, dev)
+        torch.cuda.synchronize()
+        if any(len(calls[n]) != 1 for n in TRAFFIC_KERNELS):
+            fail(f"(i) {case}: round 19 called the traffic kernels "
+                 f"{ {n: len(c) for n, c in calls.items()} } times")
+        send_args = calls["traffic_send"][0][0]
+        res_c = {}
+        for name in TRAFFIC_KERNELS:
+            args, kw = calls[name][0]
+            got = exact(name, args, kw, f"(i) {case}")
+            moved = traffic_bytes(name, args, got)
+            res_c[name] = dict(
+                ms=cuda_ms(lambda: real[name](*args, **kw), reps=10),
+                plain_ms=cuda_ms(lambda: plain[name](*args, **kw), reps=2,
+                                 warm=1),
+                bytes=moved, bound_ms=bound(moved, 0, None)[0],
+                shapes=[tuple(a.shape) for a in args if torch.is_tensor(a)])
+            del got
+        # the PyTorch yardsticks (timed here, used nowhere in the port)
+        peer, code = calls["traffic_admit"][0][0][:2]
+        V_, N_, F_ = peer.shape
+        L = V_ * N_ * F_
+        adm_keys = (torch.where(code == 1, peer, N_).reshape(-1).long() * L
+                    + torch.arange(L, device=dev))
+        res_c["traffic_admit"]["library_ms"] = cuda_ms(
+            lambda: torch.sort(adm_keys, stable=True))
+        S_ = send_args[0].shape[-1]
+        slot_key = torch.where(send_args[1], S_, torch.arange(
+            S_, device=dev, dtype=torch.int32))
+        slot_ms = cuda_ms(lambda: torch.sort(slot_key, dim=-1, stable=True))
+        res_c["traffic_send"]["library_ms"] = None
+        res_c["traffic_send"]["slot_sort_ms"] = slot_ms
+        r_tgt, r_del, r_hop1 = calls["rank_inbound"][0][0][:3]
+        packed = ((torch.where(r_del, r_tgt, N_).reshape(V_, -1).long() << 32)
+                  | r_hop1.long().repeat_interleave(F_, dim=1))
+        res_c["rank_inbound"]["library_ms"] = cuda_ms(
+            lambda: torch.sort(packed, dim=1))
+        m_args = calls["rc_merge_prune"][0][0]
+        row_keys = torch.cat([m_args[0], m_args[5]], -1)
+        res_c["rc_merge_prune"]["library_ms"] = cuda_ms(
+            lambda: torch.sort(row_keys, dim=-1))
+        res_c["prune_apply"]["library_ms"] = None
+        del adm_keys, slot_key, packed, row_keys
+        rt = {k: int(rows_t[k]) for k in ("live", "sends", "deferred",
+                                          "arrived", "queue_dropped",
+                                          "accepted", "delivered",
+                                          "prunes_sent", "dropped",
+                                          "suppressed", "failed_target")}
+        if case == "capped" and not (rt["deferred"] > 0
+                                     and rt["queue_dropped"] > 0):
+            fail(f"(i) capped round 19 defers or drops nothing: {rt}")
+        traffic_res[case] = res_c
+        say(f"(i) {case} (M={M_TRAFFIC}, N={N_FULL}, rate {TRAFFIC_RATE}"
+            + ("" if case == "uncapped" else
+               f", caps ingress {TRAFFIC_CAPS[0]} egress {TRAFFIC_CAPS[1]}, "
+               f"{TRAFFIC_IMPAIRED}") + f"), round 19: {rt}")
+        for name, r in res_c.items():
+            lib = r["library_ms"]
+            say(f"(i) {case}: {name} exact vs plain; kernel {r['ms']:.4f} ms,"
+                f" plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bytes']} bytes), library "
+                + ("null" if lib is None else f"{lib:.4f} ms")
+                + (f" (the stable slot sort alone: {slot_ms:.4f} ms)"
+                   if name == "traffic_send" else "")
+                + f"; shapes {r['shapes']}")
+        del calls, rows_t, send_args, m_args, peer, code
+        del r_tgt, r_del, r_hop1
+        torch.cuda.empty_cache()
+    tr_prof_run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), TRAFFIC_FLAG],
+        capture_output=True, text=True, timeout=400, cwd=ROOT)
+    for line in tr_prof_run.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if tr_prof_run.returncode != 0:
+        fail(f"(i) the traffic profile process failed (exit "
+             f"{tr_prof_run.returncode}): {tr_prof_run.stderr[-2000:]}")
+    tr_dev = json.loads(tr_prof_run.stdout.splitlines()[-1])
+    say("(i) traffic kernels' device ms per call (profile) / CUDA-event ms "
+        "/ bound ms at M=256 uncapped: " + "; ".join(
+            f"{n} {fmt(tr_dev['uncapped M=256'][n])} / "
+            f"{traffic_res['uncapped'][n]['ms']:.4f} / "
+            f"{traffic_res['uncapped'][n]['bound_ms']:.4f}"
+            for n in TRAFFIC_KERNELS)
+        + "; capped: " + ", ".join(f"{n} {fmt(tr_dev['capped M=256'][n])}"
+                                   for n in TRAFFIC_KERNELS)
+        + f"; M={M_NARROW}: " + ", ".join(
+            f"{n} {fmt(tr_dev[f'uncapped M={M_NARROW}'][n])}"
+            for n in TRAFFIC_KERNELS))
+
+    # the full-width CLI run, uncapped then capped, through cli.main, with
+    # the launch counts set to 0 just before each and read just after; the
+    # rounds timed per engine call (a synchronize at each call's end)
+    tr_argv = ["--num-synthetic-nodes", str(N_FULL), "--traffic-values",
+               str(M_TRAFFIC), "--traffic-rate", str(TRAFFIC_RATE),
+               "--iterations", "300", "--warm-up-rounds", "200",
+               "--device", "cuda"]
+    real_rt, real_rounds = cli.run_traffic, cli.run_traffic_rounds
+    traffic_cli = {}
+    for case, extra in (("uncapped", []),
+                        ("capped", ["--node-ingress-cap",
+                                    str(TRAFFIC_CAPS[0]), "--node-egress-cap",
+                                    str(TRAFFIC_CAPS[1])])):
+        reports, spans = [], []
+
+        def rt_capture(*a, **kw):
+            reports.append(real_rt(*a, **kw))
+            return reports[-1]
+
+        def timed_rounds(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_rounds(*a, **kw)
+            torch.cuda.synchronize()
+            spans.append((time.perf_counter() - t0,
+                          int(out[1]["live"].sum())))
+            return out
+
+        cli.run_traffic, cli.run_traffic_rounds = rt_capture, timed_rounds
+        try:
+            reset_unique_pubkeys()
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = cli.main(tr_argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(kernels.LAUNCHES)
+        finally:
+            cli.run_traffic, cli.run_traffic_rounds = real_rt, real_rounds
+        if rc != 0 or len(reports) != 1:
+            fail(f"(i) CLI {case}: exit {rc}")
+        if (any(got[n] != 300 for n in TRAFFIC_KERNELS)
+                or any(got[n] for n in got if n not in TRAFFIC_KERNELS)):
+            fail(f"(i) CLI {case}: launches {got}")
+        summ = reports[0]["traffic"]
+        span = sum(w for w, _ in spans)
+        value_rounds = sum(v for _, v in spans)
+        if not (summ["values_injected"] > 0 and summ["delivered"] > 0
+                and 0.0 < summ["value_coverage_mean"] <= 1.0):
+            fail(f"(i) CLI {case}: implausible summary {summ}")
+        traffic_cli[case] = dict(
+            wall=wall, rounds_s=300 / span, value_rounds_s=value_rounds / span,
+            peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+            launches=got, summary=summ)
+        say(f"(i) CLI {' '.join(tr_argv + extra)}: exit 0, wall {wall:.3f} s;"
+            f" {len(spans)} engine calls of 300 rounds in {span:.3f} s = "
+            f"{300 / span:.2f} traffic rounds/s, {value_rounds} live "
+            f"value-rounds = {value_rounds / span:.1f} value-rounds/s; peak "
+            f"device memory {traffic_cli[case]['peak_mib']:.1f} MiB; "
+            f"launches {got}")
+        say(f"(i) CLI {case} TRAFFIC SUMMARY: {summ}")
+    capped_s = traffic_cli["capped"]["summary"]
+    if not (capped_s["queue_deferred"] > 0 and capped_s["queue_dropped"] > 0
+            and capped_s["values_converged"] > 0):
+        fail(f"(i) the capped CLI run deferred or dropped nothing, or no "
+             f"value converged: {capped_s}")
+    say(f"(i) values converged: uncapped "
+        f"{traffic_cli['uncapped']['summary']['values_converged']}, capped "
+        f"{capped_s['values_converged']} (a value converges when all "
+        f"{N_FULL} nodes hold it)")
+
+    # cuda == cpu at N=2,000: a capped, impaired run of M=32, and a 3-point
+    # traffic-rate sweep
+    par_argv = ["--num-synthetic-nodes", str(N_PARITY), "--traffic-values",
+                str(M_NARROW), "--traffic-rate", "4"]
+    for what, extra in (
+            ("capped + impaired, 60 iterations",
+             ["--iterations", "60", "--warm-up-rounds", "20",
+              "--node-ingress-cap", "40", "--node-egress-cap", "60",
+              "--packet-loss-rate", "0.1", "--churn-fail-rate", "0.01",
+              "--churn-recover-rate", "0.2", "--partition-at", "25",
+              "--heal-at", "45"]),
+            ("traffic-rate sweep (4, 8, 12), 30 iterations",
+             ["--iterations", "30", "--warm-up-rounds", "10",
+              "--node-ingress-cap", "40", "--test-type", "traffic-rate",
+              "--num-simulations", "3", "--step-size", "4"])):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            reset_unique_pubkeys()
+            cfg = cli.config_from_args(cli.build_parser().parse_args(
+                par_argv + extra + ["--device", device]))
+            coll_t, q = TrafficStatsCollection(), DatapointQueue()
+            t0 = time.perf_counter()
+            report = cli.run_traffic(cfg, "", q, "0", collection=coll_t)
+            outs[device] = (report, [st.parity_snapshot()
+                                     for st in coll_t.collection],
+                            [st.summary() for st in coll_t.collection],
+                            q.drain_deterministic_lines())
+            say(f"(i) N={N_PARITY} {what} on {device}: "
+                f"{time.perf_counter() - t0:.3f} s")
+        for i, part in enumerate(("report", "parity_snapshot()", "summary()",
+                                  "Influx lines")):
+            if outs["cuda"][i] != outs["cpu"][i]:
+                fail(f"(i) N={N_PARITY} {what}: cuda and cpu {part} differ")
+        summ = outs["cuda"][0]["traffic"]
+        say(f"(i) N={N_PARITY} {what}: cuda == cpu report, "
+            f"parity_snapshot(), summary() and {len(outs['cuda'][3])} "
+            f"deterministic Influx lines; {summ['values_injected']} values "
+            f"injected, {summ['values_converged']} converged, queue deferred "
+            f"{summ['queue_deferred']} dropped {summ['queue_dropped']}")
+    say(f"(i) traffic phase: {time.perf_counter() - t_i:.1f} s")
+
+    # ---- (j) report -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2214,6 +2545,33 @@ def main() -> int:
          "one_batch_origin_rounds_s": pp_wide_rounds_s,
          "one_batch_peak_mib": pp_wide_peak / 2**20,
          "launches_per_round_push_pull": pp_prof.get("launches")})
+    tr_u, tr_c = traffic_res["uncapped"], traffic_res["capped"]
+    for entry in line["kernels"]:
+        if entry["name"] in TRAFFIC_KERNELS:
+            entry.update(
+                launches_traffic=traffic_cli["uncapped"]["launches"][
+                    entry["name"]],
+                traffic_ms=tr_u[entry["name"]]["ms"],
+                traffic_device_ms=tr_dev["uncapped M=256"][entry["name"]],
+                traffic_bound_ms=tr_u[entry["name"]]["bound_ms"])
+    for name in TRAFFIC_KERNELS[:2]:
+        line["kernels"].append(
+            {"name": name, "route": "cuda",
+             "source": f"gossip_sim_tpu_torch/csrc/{name}.cu",
+             "replaces": f"{SOURCES[name][0]} ({SOURCES[name][1]})",
+             "launches": traffic_cli["uncapped"]["launches"][name],
+             "max_abs_err": 0,
+             "ms": tr_u[name]["ms"], "plain_ms": tr_u[name]["plain_ms"],
+             "bound_ms": tr_u[name]["bound_ms"], "bound_by": "bytes",
+             "library_ms": tr_u[name]["library_ms"],
+             "device_ms": tr_dev["uncapped M=256"][name],
+             "capped": {k: tr_c[name][k] for k in ("ms", "plain_ms",
+                                                    "bound_ms",
+                                                    "library_ms")},
+             "capped_device_ms": tr_dev["capped M=256"][name],
+             "device_ms_m32": tr_dev[f"uncapped M={M_NARROW}"][name],
+             "launches_capped": traffic_cli["capped"]["launches"][name],
+             "slot_sort_ms": tr_u[name].get("slot_sort_ms")})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2223,5 +2581,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(profile_child(sys.argv[1])
-             if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG], [PULL_FLAG])
+             if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG], [PULL_FLAG],
+                                 [TRAFFIC_FLAG])
              else main())

@@ -9,9 +9,13 @@ Flag names, defaults and sweep semantics are the reference's
 synthetic seeded recipe (``--num-synthetic-nodes``), a YAML account file
 (``--account-file ... --accounts-from-yaml``) or the JSON-RPC
 ``getVoteAccounts`` pull (``--url``).  ``--influx l|i`` streams the
-reference's Influx series (sinks/influx.py).  A flag the port lacks is
-rejected by argparse: lanes, traffic, traces, checkpoints, telemetry and
-the run report are later slices (ROADMAP A9, A11-A16).
+reference's Influx series (sinks/influx.py).  ``--traffic-values`` > 1 or a
+queue cap (``--node-ingress-cap``, ``--node-egress-cap``) runs the
+concurrent-traffic engine in push mode instead (:func:`run_traffic`: one
+run, or a serial ``traffic-rate``, ``node-ingress-cap``, ``packet-loss`` or
+``churn`` sweep).  A flag the port lacks is rejected by argparse: lanes,
+traces, checkpoints, telemetry and the run report are later slices
+(ROADMAP A9, A12-A16).
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
@@ -44,6 +48,8 @@ from .constants import (AGGREGATE_HOPS_FAIL_NODES_HISTOGRAM_UPPER_BOUND,
                         get_influx_url, get_json_rpc_url)
 from .engine import (EngineParams, init_state, make_cluster_tables,
                      run_rounds)
+from .engine.traffic import (device_traffic_tables, init_traffic_state,
+                             run_traffic_rounds)
 from .identity import NodeIndex
 from .ingest import (fetch_vote_accounts_rpc, filter_accounts,
                      load_accounts_yaml, log_cluster_summary,
@@ -53,6 +59,9 @@ from .rustrng import ChaChaRng
 from .sinks import DatapointQueue, InfluxDataPoint, InfluxThread, load_dotenv
 from .stats.aggregate import AllOriginsStats
 from .stats.gossip_stats import GossipStats, GossipStatsCollection
+from .stats.traffic import (ROUND_FIELDS, TrafficStats,
+                            TrafficStatsCollection)
+from .traffic import retire_record
 
 log = logging.getLogger("gossip_sim_tpu_torch")
 
@@ -113,7 +122,12 @@ def _engine_params(config: Config, num_nodes: int) -> EngineParams:
         pull_bloom_fp_rate=config.pull_bloom_fp_rate,
         pull_request_cap=config.pull_request_cap,
         adaptive_switch_threshold=config.adaptive_switch_threshold,
-        adaptive_switch_hysteresis=config.adaptive_switch_hysteresis)
+        adaptive_switch_hysteresis=config.adaptive_switch_hysteresis,
+        traffic_values=config.traffic_values,
+        traffic_rate=config.traffic_rate,
+        node_ingress_cap=config.node_ingress_cap,
+        node_egress_cap=config.node_egress_cap,
+        traffic_stall_rounds=config.traffic_stall_rounds)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -160,9 +174,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of buckets for the hops_stats histogram")
     p.add_argument("--test-type", default="no-test",
                    choices=[t.value for t in Testing],
-                   help="Type of sweep to run (traffic-rate and "
-                        "node-ingress-cap step a feature not ported yet, "
-                        "ROADMAP A11)")
+                   help="Type of sweep to run")
     p.add_argument("--num-simulations", type=int, default=1,
                    help="Number of simulations to run")
     p.add_argument("--step-size", default="1",
@@ -215,6 +227,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max pull requests a peer serves per round "
                         "(<= 0 = unlimited); excess requests are counted "
                         "as misses")
+    p.add_argument("--traffic-values", type=int, default=1,
+                   help="concurrent CRDS value slots (traffic.py): > 1 "
+                        "switches to the M-value traffic engine — a "
+                        "deterministic stake-weighted injection schedule "
+                        "where all in-flight values share ONE active-set/"
+                        "prune/rotation state and contend for per-node "
+                        "queue budgets.  1 with both caps off (default) is "
+                        "bit-identical to the single-value simulator")
+    p.add_argument("--traffic-rate", type=int, default=1,
+                   help="new values injected per round at counter-hashed "
+                        "stake-weighted origins (traffic mode; injections "
+                        "beyond free slots are counted as dropped)")
+    p.add_argument("--node-ingress-cap", type=int, default=0,
+                   help="messages a node ACCEPTS per round across all "
+                        "in-flight values (<= 0 = unlimited); excess "
+                        "arrivals are dropped with a queue_dropped outcome")
+    p.add_argument("--node-egress-cap", type=int, default=0,
+                   help="messages a node SENDS per round across all "
+                        "in-flight values (<= 0 = unlimited); excess "
+                        "candidates defer to the next round (a send queue)")
+    p.add_argument("--traffic-stall-rounds", type=int, default=3,
+                   help="consecutive no-progress rounds before an "
+                        "unconverged value retires and frees its slot")
     p.add_argument("--influx", default="n",
                    help="Influx for reporting metrics. i for "
                         "internal-metrics, l for localhost, n for none")
@@ -313,6 +348,11 @@ def config_from_args(args) -> Config:
         pull_request_cap=args.pull_request_cap,
         adaptive_switch_threshold=args.adaptive_switch_threshold,
         adaptive_switch_hysteresis=args.adaptive_switch_hysteresis,
+        traffic_values=args.traffic_values,
+        traffic_rate=args.traffic_rate,
+        node_ingress_cap=args.node_ingress_cap,
+        node_egress_cap=args.node_egress_cap,
+        traffic_stall_rounds=args.traffic_stall_rounds,
         influx_spool=args.influx_spool,
         seed=args.seed,
         num_synthetic_nodes=args.num_synthetic_nodes,
@@ -622,23 +662,12 @@ def simulate(config: Config) -> GossipStatsCollection:
 # sweeps (gossip_main.rs:774-951)
 # --------------------------------------------------------------------------
 
-#: test types whose stepped knob belongs to a feature the port lacks yet
-UNPORTED_TEST_TYPES = {
-    Testing.TRAFFIC_RATE: "concurrent traffic (ROADMAP A11)",
-    Testing.NODE_INGRESS_CAP: "concurrent traffic (ROADMAP A11)",
-}
-
-
 def _stepped_sweep_config(config: Config, i: int, origin_ranks):
     """Sweep point ``i``'s (stepped config, Influx start value): the
     reference's per-sim stepping (gossip_main.rs:774-951), each value
     computed as the reference package computes it (``v0 + i * step``; loss,
     churn and the adaptive threshold clamped at 1.0)."""
     tt = config.test_type
-    if tt in UNPORTED_TEST_TYPES:
-        raise NotImplementedError(
-            f"--test-type {tt.value} steps a knob of "
-            f"{UNPORTED_TEST_TYPES[tt]}, which is not ported yet")
     if tt == Testing.ACTIVE_SET_SIZE:
         v = config.gossip_active_set_size + i * config.step_size.as_int()
         return config.stepped(gossip_active_set_size=v), \
@@ -683,6 +712,13 @@ def _stepped_sweep_config(config: Config, i: int, origin_ranks):
     if tt == Testing.PULL_FANOUT:
         v = config.pull_fanout + i * config.step_size.as_int()
         return config.stepped(pull_fanout=v), float(config.pull_fanout)
+    if tt == Testing.TRAFFIC_RATE:
+        v = config.traffic_rate + i * config.step_size.as_int()
+        return config.stepped(traffic_rate=v), float(config.traffic_rate)
+    if tt == Testing.NODE_INGRESS_CAP:
+        v = config.node_ingress_cap + i * config.step_size.as_int()
+        return config.stepped(node_ingress_cap=v), \
+            float(config.node_ingress_cap)
     if tt == Testing.ADAPTIVE_THRESHOLD:
         v = min(config.adaptive_switch_threshold
                 + i * config.step_size.as_float(), 1.0)
@@ -1054,6 +1090,191 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
 
 
 # --------------------------------------------------------------------------
+# concurrent-traffic runs (traffic.py, engine/traffic.py)
+# --------------------------------------------------------------------------
+
+#: test types a traffic run can sweep (reference cli.py:2817); the
+#: adaptive-threshold sweep needs adaptive traffic (ROADMAP A11b)
+TRAFFIC_SWEEP_TYPES = (Testing.TRAFFIC_RATE, Testing.NODE_INGRESS_CAP,
+                       Testing.PACKET_LOSS, Testing.CHURN,
+                       Testing.ADAPTIVE_THRESHOLD)
+
+
+def _push_sim_traffic_point(dp_queue, sim_iter, start_ts, it, vals):
+    if dp_queue is None:
+        return
+    dp = InfluxDataPoint(start_ts, sim_iter)
+    dp.create_sim_traffic_point(it, {k: vals[k] for k in ROUND_FIELDS})
+    dp_queue.push_back(dp)
+
+
+def _push_sim_traffic_summary_point(dp_queue, sim_iter, start_ts, summary):
+    if dp_queue is None:
+        return
+    dp = InfluxDataPoint(start_ts, sim_iter)
+    dp.create_sim_traffic_summary_point(summary)
+    dp_queue.push_back(dp)
+
+
+def _feed_traffic_rows(stats, dp_queue, sim_iter, start_ts, rows, start_it,
+                       n_it, num_nodes):
+    """Harvested traffic rows (numpy) -> TrafficStats and the sim_traffic
+    Influx points (measured rounds only)."""
+    for t in range(n_it):
+        it = start_it + t
+        vals = {k: int(rows[k][t]) for k in ROUND_FIELDS}
+        stats.feed_round(it, vals)
+        recs = []
+        for m in np.nonzero(rows["ret_mask"][t])[0]:
+            g = lambda name: rows[name][t][m]
+            recs.append(retire_record(
+                int(g("ret_vid")), int(g("ret_origin")), int(g("ret_birth")),
+                it, int(g("ret_holders")), num_nodes, int(g("ret_m")),
+                bool(g("ret_full")), int(g("ret_hops_sum")),
+                rescued=int(g("ret_rescued")), qdrops=int(g("ret_qdrop"))))
+        if recs:
+            stats.feed_records(recs)
+        if it % 10 == 0:
+            log.info("TRAFFIC ITERATION: %s (live=%s retired=%s)", it,
+                     vals["live"], vals["retired"])
+        _push_sim_traffic_point(dp_queue, sim_iter, start_ts, it, vals)
+
+
+def _traffic_final_from_state(state) -> dict:
+    """End-of-run accumulator summary off a TrafficState."""
+    total = lambda t: int(t.sum())
+    return {
+        "live_at_end": total(state.v_live),
+        "injected": int(state.inj_acc),
+        "inject_dropped": int(state.injdrop_acc),
+        "retired": int(state.ret_acc),
+        "converged": int(state.conv_acc),
+        "deferred": total(state.defer_acc),
+        "queue_dropped": total(state.qdrop_acc),
+        "sent": total(state.sent_acc),
+        "recv": total(state.recv_acc),
+        "prunes": total(state.prune_acc),
+    }
+
+
+def _run_traffic_point(config: Config, params: EngineParams, stakes_np,
+                       stats: TrafficStats, dp_queue, sim_iter: int,
+                       start_ts: str) -> None:
+    """One traffic simulation (reference cli.py:3026-3171 without its
+    checkpoint, trace, health and supervisor arms): the warm-up rounds in
+    one call, then the measured rounds harvested in blocks."""
+    N = len(stakes_np)
+    tables = make_cluster_tables(stakes_np, device=config.device)
+    dev = tables.stakes.device
+    ttables = device_traffic_tables(stakes_np, dev)
+    log.info("Building the shared traffic active set....")
+    state = init_traffic_state(stakes_np, params, config.seed, dev)
+    warm = min(config.warm_up_rounds, config.gossip_iterations)
+    if warm > 0:
+        state, _ = run_traffic_rounds(params, tables, ttables, state, warm)
+    measured = config.gossip_iterations - warm
+    done = 0
+    while done < measured:
+        n_it = min(HARVEST_BLOCK, measured - done)
+        start_it = warm + done
+        t_blk = time.perf_counter()
+        state, trows = run_traffic_rounds(params, tables, ttables, state,
+                                          n_it, start_it=start_it)
+        rows = {k: v.cpu().numpy() for k, v in trows.items()}
+        blk_wall = time.perf_counter() - t_blk
+        _feed_traffic_rows(stats, dp_queue, sim_iter, start_ts, rows,
+                           start_it, n_it, N)
+        done += n_it
+        _push_sim_perf_point(dp_queue, sim_iter, start_ts, blk_wall, n_it, 1)
+    stats.feed_final(_traffic_final_from_state(state))
+
+
+def _log_traffic_summary(label, s):
+    """The traffic run summary line: per-value outcomes and the queue caps'
+    drops, egress side (sender deferrals) and ingress side (receiver
+    drops) apart."""
+    qd_in = s.get("queue_dropped_ingress", s["queue_dropped"])
+    qd_eg = s.get("queue_deferred_egress", s["queue_deferred"])
+    log.info(
+        "TRAFFIC SUMMARY%s: %s values injected (%s dropped at injection), "
+        "%s retired (%s converged [%s by pull rescue], %s stranded "
+        "[%s starved by queue drops], %s unfinished) | "
+        "coverage mean %.4f | latency mean %.2f p90 %.2f rounds | "
+        "value RMR mean %.3f | queue: %s deferred egress-side (max depth "
+        "%s), %s dropped ingress-side (push %s + pull %s) | loss %s, "
+        "hop_clamped %s",
+        label, s["values_injected"], s["inject_dropped"],
+        s["values_retired"], s["values_converged"], s["values_rescued"],
+        s["values_stranded"], s["values_starved_queue_drop"],
+        s["values_unfinished"], s["value_coverage_mean"],
+        s["value_latency_mean"], s["value_latency_p90"],
+        s["value_rmr_mean"], qd_eg, s["qdepth_max"],
+        qd_in, s["queue_dropped"], qd_in - s["queue_dropped"],
+        s["loss_dropped"], s["hop_clamped"])
+
+
+def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
+                dp_queue=None, start_ts: str = "0", collection=None) -> dict:
+    """The concurrent-traffic run path (reference cli.py:3313-3429): one
+    run, or a serial sweep over ``TRAFFIC_SWEEP_TYPES``, on one cluster
+    load.  Returns the report dict (``traffic``: the whole run's summary,
+    ``traffic_points``: each point's, ``num_points``, ``sweep_lanes``);
+    ``collection`` (a TrafficStatsCollection) receives each point's
+    TrafficStats."""
+    is_sweep = (config.test_type in TRAFFIC_SWEEP_TYPES
+                and config.num_simulations > 1)
+    n_points = config.num_simulations if is_sweep else 1
+    if collection is None:
+        collection = TrafficStatsCollection()
+    point_cfgs, point_starts = [], []
+    for i in range(n_points):
+        c, start = (_stepped_sweep_config(config, i, [config.origin_rank])
+                    if is_sweep else (config, 0.0))
+        point_cfgs.append(c)
+        point_starts.append(start)
+    accounts, _ = load_cluster_accounts(config, json_rpc_url)
+    index = NodeIndex.from_stakes(accounts)
+    stakes_np = index.stakes.astype(np.int64)
+    for i, c in enumerate(point_cfgs):
+        log.info("##### TRAFFIC SIMULATION: %s (%s) #####", i, c.test_type)
+        params = _engine_params(c, len(index)).validate()
+        stats = TrafficStats()
+        _run_traffic_point(c, params, stakes_np, stats, dp_queue, i,
+                           start_ts)
+        _push_sim_traffic_summary_point(dp_queue, i, start_ts,
+                                        stats.summary())
+        collection.push(point_starts[i], stats)
+
+    summaries = collection.summaries()
+    for i, s in enumerate(summaries):
+        _log_traffic_summary(f" (point {i})" if n_points > 1 else "", s)
+    if n_points > 1:
+        # the whole run's summary: every point's rounds and records in one
+        # TrafficStats (per-point summaries stay in traffic_points)
+        agg = TrafficStats()
+        for st in collection.collection:
+            agg.iterations.extend(st.iterations)
+            for k in agg.rounds:
+                agg.rounds[k].extend(st.rounds[k])
+            for k in agg.adaptive_rounds:
+                agg.adaptive_rounds[k].extend(st.adaptive_rounds[k])
+            agg.records.extend(st.records)
+        agg.final = {"live_at_end": sum(
+            int(st.final.get("live_at_end", 0))
+            for st in collection.collection)}
+        out = agg.summary()
+    else:
+        out = dict(summaries[-1]) if summaries else {}
+        out.pop("point", None)
+    return {
+        "traffic": out,
+        "traffic_points": summaries if n_points > 1 else [],
+        "num_points": n_points,
+        "sweep_lanes": 0,
+    }
+
+
+# --------------------------------------------------------------------------
 # Influx series (influx_db.rs)
 # --------------------------------------------------------------------------
 
@@ -1172,6 +1393,64 @@ def _drain_influx(dp_queue, influx_thread):
     return sender
 
 
+def _traffic_startup_checks(config: Config) -> int:
+    """The reference's traffic start-up checks (cli.py:3723-3794), with its
+    messages and exit codes; 0 when the run may start.  Adaptive traffic
+    raises NotImplementedError (ROADMAP A11b)."""
+    if config.traffic_values < 1:
+        log.error("ERROR: --traffic-values must be >= 1 (the default 1 "
+                  "with both caps off IS the plain single-value "
+                  "simulator — there is no separate off value)")
+        return 1
+    if config.traffic_on and config.traffic_rate < 0:
+        log.error("ERROR: --traffic-rate must be >= 0")
+        return 1
+    if config.traffic_on and config.traffic_stall_rounds < 1:
+        log.error("ERROR: --traffic-stall-rounds must be >= 1 (a value "
+                  "needs at least one no-progress round to retire)")
+        return 1
+    if (config.test_type in (Testing.TRAFFIC_RATE, Testing.NODE_INGRESS_CAP)
+            and not config.traffic_on):
+        log.error("ERROR: --test-type %s requires the traffic subsystem "
+                  "(--traffic-values > 1 or a queue cap); every sweep "
+                  "point would be identical otherwise",
+                  config.test_type.value)
+        return 1
+    if not config.traffic_on:
+        return 0
+    if config.all_origins:
+        log.error("ERROR: --all-origins and concurrent traffic are "
+                  "separate workload modes; traffic injects its own "
+                  "stake-weighted origins")
+        return 1
+    if config.has_pull and config.gossip_mode != "adaptive":
+        log.error("ERROR: the traffic subsystem models concurrent "
+                  "PUSH streams; fixed --gossip-mode %s is not "
+                  "supported with it — per-value pull RESCUES are: "
+                  "use --gossip-mode adaptive", config.gossip_mode)
+        return 1
+    if config.gossip_mode == "adaptive":
+        raise NotImplementedError(
+            "adaptive traffic (--gossip-mode adaptive with --traffic-values "
+            "> 1 or a queue cap: the per-value pull rescue) is not ported "
+            "yet (ROADMAP A11b)")
+    allowed = TRAFFIC_SWEEP_TYPES + (Testing.NO_TEST,)
+    if config.test_type not in allowed:
+        log.error("ERROR: --test-type %s is not runnable in traffic "
+                  "mode; traffic sweeps: %s", config.test_type.value,
+                  ", ".join(t.value for t in TRAFFIC_SWEEP_TYPES))
+        return 1
+    is_traffic_sweep = (config.test_type in TRAFFIC_SWEEP_TYPES
+                        and config.num_simulations > 1)
+    if config.num_simulations > 1 and not is_traffic_sweep:
+        log.warning("WARNING: --num-simulations %s ignored in traffic "
+                    "mode: --test-type %s does not step a "
+                    "traffic-sweepable knob (traffic sweeps: %s)",
+                    config.num_simulations, config.test_type.value,
+                    ", ".join(t.value for t in TRAFFIC_SWEEP_TYPES))
+    return 0
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -1183,8 +1462,11 @@ def main(argv=None) -> int:
         log.error("ERROR: --origin-rank values must be >= 1 (1 = highest "
                   "stake), got: %s", origin_ranks)
         return 1
-    # origin-rank count validation (gossip_main.rs:706-716)
-    if len(origin_ranks) < config.num_simulations:
+    # origin-rank count validation (gossip_main.rs:706-716); traffic runs
+    # inject their own stake-weighted origins, so the rank list is moot
+    if config.traffic_on:
+        pass
+    elif len(origin_ranks) < config.num_simulations:
         log.error("ERROR: not enough origin ranks provided for "
                   "num_simulations! origin_ranks: %s, num_simulations: %s",
                   len(origin_ranks), config.num_simulations)
@@ -1228,6 +1510,9 @@ def main(argv=None) -> int:
                         "threshold 1.0; shrink --step-size or "
                         "--num-simulations for distinct points",
                         n_dup, config.num_simulations)
+    rc = _traffic_startup_checks(config)
+    if rc:
+        return rc
     if config.gossip_iterations <= config.warm_up_rounds:
         log.warning("WARNING: Gossip Iterations (%s) <= Warm Up Rounds (%s). "
                     "No stats will be recorded....",
@@ -1253,7 +1538,9 @@ def main(argv=None) -> int:
             dp_queue, spool_path=config.influx_spool)
 
     t0 = time.perf_counter()
-    if config.all_origins:
+    if config.traffic_on:
+        run_traffic(config, args.json_rpc_url, dp_queue, start_ts)
+    elif config.all_origins:
         if dp_queue is not None:
             log.info("all-origins: emitting run-level aggregate Influx "
                      "series (per-iteration series are a single-origin "
@@ -1270,7 +1557,7 @@ def main(argv=None) -> int:
     if config.device != "cpu":
         log.info("kernel launches: %s", dict(kernels.LAUNCHES))
     _drain_influx(dp_queue, influx_thread)
-    if config.all_origins:
+    if config.all_origins or config.traffic_on:
         return 0
     if config.print_stats:
         if not collection.is_empty():

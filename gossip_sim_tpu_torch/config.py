@@ -128,6 +128,14 @@ class Config:
                                              # a sim's pull phase on
     adaptive_switch_hysteresis: float = 0.05  # window below the threshold
                                               # before it turns off
+    # Concurrent traffic (traffic.py).  traffic_values == 1 with both caps
+    # off keeps every output bit-identical to the single-value simulator.
+    traffic_values: int = 1         # concurrent value slots (static M)
+    traffic_rate: int = 1           # new values injected per round
+    node_ingress_cap: int = 0       # msgs accepted/node/round (<=0 = no cap)
+    node_egress_cap: int = 0        # msgs sent/node/round (<=0 = no cap)
+    traffic_stall_rounds: int = 3   # no-progress rounds before a value
+                                    # retires unconverged
 
     influx_spool: str = ""          # durable spool file: Influx points
                                     # dropped after retry exhaustion or
@@ -165,3 +173,10 @@ class Config:
         """The gossip mode has the pull (anti-entropy) phase, and with it
         the pull counters and series."""
         return self.gossip_mode != "push"
+
+    @property
+    def traffic_on(self) -> bool:
+        """The concurrent-traffic engine is engaged: more than one value
+        slot, or a queue cap (EngineParams.has_traffic)."""
+        return (self.traffic_values > 1 or self.node_ingress_cap > 0
+                or self.node_egress_cap > 0)

@@ -4,8 +4,10 @@
 reference package's ``ClusterTables``/``SimState`` fields (its arrays, or
 numpy copies of them) and return this package's tensors on a device;
 ``state_to_numpy`` goes the other way, giving the reference's dtypes (the
-threefry key back as uint32).  The parity tests use them to start both
-engines from one state.
+threefry key back as uint32).  ``traffic_state_from_numpy`` and
+``traffic_state_to_numpy`` do the same for the traffic engine's
+``TrafficState`` (same dtypes in both packages).  The parity tests use them
+to start both engines from one state.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from .engine.core import ClusterTables, SimState, resolve_device
 from .engine.sampler import SamplerTables
+from .engine.traffic import TrafficState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -51,3 +54,16 @@ def state_to_numpy(state: SimState) -> SimState:
            for f in SimState._fields}
     out["key"] = out["key"].astype(np.uint32)
     return SimState(**out)
+
+
+def traffic_state_from_numpy(state, device="cuda") -> TrafficState:
+    """The port's ``TrafficState`` from the reference's fields."""
+    dev = resolve_device(device)
+    return TrafficState(**{f: _tensor(getattr(state, f), dev)
+                           for f in TrafficState._fields})
+
+
+def traffic_state_to_numpy(state: TrafficState) -> TrafficState:
+    """A ``TrafficState`` of numpy arrays."""
+    return TrafficState(**{f: getattr(state, f).detach().cpu().numpy()
+                           for f in TrafficState._fields})

@@ -4,7 +4,10 @@
 // `round/verb3_prune_decide` blocks (gossip_sim_tpu/engine/core.py:743-862:
 // row-local sorts over the C + K merged entries, a K-step capacity scan, a
 // 4-key prune-order sort and an i64 cumsum), and the received-cache reset
-// of `round/verb4_prune_apply` (core.py:943-948).
+// of `round/verb4_prune_apply` (core.py:943-948); with the value axis in
+// place of the origin axis, the traffic round's `traffic/rc_merge` and
+// `traffic/prune_decide` (gossip_sim_tpu/engine/traffic.py:621-709), where
+// an optional per-value live mask gates which rows fire.
 //
 // Per (origin, node) row:
 //   1. member lookup: an inbound source found among the cache members gets
@@ -18,7 +21,8 @@
 //      desc, src asc), an exclusive i64 stake cumsum, and a slot is pruned
 //      iff position >= min_ingress_nodes, cumsum >= int64(f64(min(stake_dst,
 //      stake_org)) * threshold), src != origin and the row fired
-//      (upserts >= min_num_upserts);
+//      (upserts >= min_num_upserts) and its origin is live (when the live
+//      mask is given);
 //   5. a fired row's cache resets to empty.
 //
 // Precondition (the cache invariant, which this function's own output
@@ -131,6 +135,7 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
                       const int32_t* __restrict__ slo,
                       const int64_t* __restrict__ stakes,
                       const int32_t* __restrict__ origins,
+                      const uint8_t* __restrict__ live,
                       int32_t* __restrict__ o_src,
                       int32_t* __restrict__ o_score,
                       int32_t* __restrict__ o_shi, int32_t* __restrict__ o_slo,
@@ -234,7 +239,8 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
   __syncwarp();
 
   const int ups = __ldg(rc_ups + row) + (v0 < n ? 1 : 0);
-  const bool fired = ups >= min_num_upserts;
+  const bool fired =
+      ups >= min_num_upserts && (live == nullptr || __ldg(live + o) != 0);
   if (lane == 0) o_ups[row] = fired ? 0 : ups;
   for (int j = lane; j < c; j += 32) {
     int32_t s = n, sc = 0, hi = 0, lo = 0;
@@ -309,8 +315,8 @@ extern "C" int rc_merge_prune_launch(
     const int32_t* rc_src, const int32_t* rc_score, const int32_t* rc_shi,
     const int32_t* rc_slo, const int32_t* rc_ups, const int32_t* inb,
     const int32_t* shi, const int32_t* slo, const int64_t* stakes,
-    const int32_t* origins, int32_t* o_src, int32_t* o_score, int32_t* o_shi,
-    int32_t* o_slo, int32_t* o_ups, int32_t* src_sorted, uint8_t* pruned,
+    const int32_t* origins, const uint8_t* live, int32_t* o_src,
+    int32_t* o_score, int32_t* o_shi, int32_t* o_slo, int32_t* o_ups, int32_t* src_sorted, uint8_t* pruned,
     int32_t* n_pruned, int32_t* overflow, int o, int n, int c, int k,
     int rows_per_block, int key_slots, int row_bytes, int received_cap,
     int min_num_upserts, int min_ingress_nodes, double threshold,
@@ -335,8 +341,8 @@ extern "C" int rc_merge_prune_launch(
                                        rows_per_block),
                             32 * rows_per_block, smem, stream>>>(
         rc_src, rc_score, rc_shi, rc_slo, rc_ups, inb, shi, slo, stakes,
-        origins, o_src, o_score, o_shi, o_slo, o_ups, src_sorted, pruned,
-        n_pruned, overflow, rows, n, c, k, key_slots, row_bytes,
+        origins, live, o_src, o_score, o_shi, o_slo, o_ups, src_sorted,
+        pruned, n_pruned, overflow, rows, n, c, k, key_slots, row_bytes,
         received_cap, min_num_upserts, min_ingress_nodes, threshold);
   }
   return (int)cudaGetLastError();

@@ -23,14 +23,17 @@ round), ``"pull"`` (the push phase sends nothing), ``"push-pull"`` and
 ``"adaptive"`` (push, and the pull phase once a sim's coverage crosses the
 switch threshold); the pull and adaptive knobs shape the pull phase.
 
-Of the reference's features this port lacks yet, only the selectors are
-kept: ``traffic_values`` and the queue caps, ``health`` and
+``traffic_values``, the queue caps, ``traffic_rate`` and
+``traffic_stall_rounds`` shape the concurrent-traffic engine
+(engine/traffic.py), in push mode; ``traffic_slots`` is its value axis (0
+with traffic off: one value slot and both caps off run the single-value
+engine untouched).  Of the reference's features this port lacks yet, only
+the selectors are kept: adaptive traffic, ``health`` and
 ``representation``.  :meth:`EngineParams.validate` refuses a non-default
 value of each with ``NotImplementedError`` naming its ROADMAP item.  The
-knobs that only shape those features (traffic rate), the reference's
-prune-apply budget ``pa_slots`` (the ``prune_apply`` kernel needs none)
-and the flight recorder's capture width come back with the slice that
-reads them.
+reference's prune-apply budget ``pa_slots`` (the ``prune_apply`` kernel
+needs none) and the flight recorder's capture width come back with the
+slice that reads them.
 """
 
 from __future__ import annotations
@@ -82,6 +85,10 @@ class EngineKnobs(NamedTuple):
                                             # a sim's pull phase on
     adaptive_switch_hysteresis: np.float64  # window below the threshold
                                             # before it turns off again
+    traffic_rate: np.int32                # values injected per round
+    node_ingress_cap: np.int32            # msgs accepted/node/round (<=0 off)
+    node_egress_cap: np.int32             # msgs sent/node/round (<=0 off)
+    traffic_stall_rounds: np.int32        # no-progress rounds before retire
 
 
 class EngineStatic(NamedTuple):
@@ -107,10 +114,15 @@ class EngineStatic(NamedTuple):
     has_partition: bool = False
     gossip_mode: str = "push"
     pull_slots: int = 0
+    traffic_slots: int = 0
 
     @property
     def k_inbound(self) -> int:
         return _resolve_k_inbound(self.inbound_cap, self.push_fanout)
+
+    @property
+    def has_traffic(self) -> bool:
+        return self.traffic_slots > 0
 
     @property
     def has_pull(self) -> bool:
@@ -171,11 +183,21 @@ class EngineParams(NamedTuple):
     adaptive_switch_hysteresis: float = 0.05  # it turns off below
                                               # threshold - hysteresis
 
+    # Concurrent traffic (traffic.py): with one value slot and both queue
+    # caps off the traffic engine is gated out and the single-value engine
+    # runs untouched.  Every traffic decision is a stateless counter hash.
+    traffic_values: int = 1          # concurrent value slots (static M)
+    traffic_rate: int = 1            # new values injected per round
+    node_ingress_cap: int = 0        # msgs accepted per node per round
+                                     # across all values (<= 0 = no cap)
+    node_egress_cap: int = 0         # msgs sent per node per round across
+                                     # all values (<= 0 = no cap; excess
+                                     # candidates defer to the next round)
+    traffic_stall_rounds: int = 3    # consecutive no-progress rounds
+                                     # before a value retires unconverged
+
     # Selectors of reference features not ported yet; only the defaults
     # are accepted (validate raises NotImplementedError otherwise).
-    traffic_values: int = 1          # > 1 or a queue cap: A11
-    node_ingress_cap: int = 0
-    node_egress_cap: int = 0
     health: bool = False             # node-health planes: A12
     representation: str = "dense"    # "sparse": A7
 
@@ -213,8 +235,8 @@ class EngineParams(NamedTuple):
 
     @property
     def has_traffic(self) -> bool:
-        """True when the reference would engage its concurrent-traffic
-        subsystem: more than one value slot, or a queue cap."""
+        """True when the concurrent-traffic engine is engaged: more than one
+        value slot, or a queue cap."""
         return (self.traffic_values > 1 or self.node_ingress_cap > 0
                 or self.node_egress_cap > 0)
 
@@ -244,6 +266,7 @@ class EngineParams(NamedTuple):
             has_partition=self.partition_at >= 0,
             gossip_mode=self.gossip_mode,
             pull_slots=self.pull_slots_resolved if self.has_pull else 0,
+            traffic_slots=self.traffic_values if self.has_traffic else 0,
         )
         knobs = EngineKnobs(
             probability_of_rotation=np.float32(self.probability_of_rotation),
@@ -266,6 +289,10 @@ class EngineParams(NamedTuple):
                 self.adaptive_switch_threshold),
             adaptive_switch_hysteresis=np.float64(
                 self.adaptive_switch_hysteresis),
+            traffic_rate=np.int32(self.traffic_rate),
+            node_ingress_cap=np.int32(self.node_ingress_cap),
+            node_egress_cap=np.int32(self.node_egress_cap),
+            traffic_stall_rounds=np.int32(max(1, self.traffic_stall_rounds)),
         )
         return static, knobs
 
@@ -278,9 +305,10 @@ class EngineParams(NamedTuple):
             raise ValueError(
                 "the sparse frontier round implements the push phase only; "
                 "pull/adaptive modes need the dense representation")
-        if self.has_traffic:
+        if self.has_traffic and self.gossip_mode == "adaptive":
             raise NotImplementedError(
-                "concurrent traffic is not ported yet (ROADMAP A11)")
+                "adaptive traffic (the per-value pull rescue) is not ported "
+                "yet (ROADMAP A11b)")
         if self.health:
             raise NotImplementedError(
                 "node-health planes are not ported yet (ROADMAP A12)")
@@ -321,4 +349,22 @@ class EngineParams(NamedTuple):
             if self.pull_fanout > self.pull_slots_resolved:
                 raise ValueError("pull_fanout exceeds the static pull_slots "
                                  "width — raise EngineParams.pull_slots")
+        # the reference's traffic checks (gossip_sim_tpu/engine/params.py
+        # 529-550)
+        if self.traffic_values < 1:
+            raise ValueError("traffic_values must be >= 1")
+        if self.has_traffic:
+            if self.traffic_rate < 0:
+                raise ValueError("traffic_rate must be >= 0")
+            if self.traffic_stall_rounds < 1:
+                raise ValueError("traffic_stall_rounds must be >= 1")
+            if self.gossip_mode not in ("push", "adaptive"):
+                raise ValueError(
+                    "the traffic subsystem models concurrent PUSH streams; "
+                    "fixed pull modes are not supported with traffic_values "
+                    "> 1 or queue caps")
+            if self.fail_at >= 0 and self.fail_fraction > 0.0:
+                raise ValueError(
+                    "one-shot fail_at draws from the PRNG, which the traffic "
+                    "round does not; use churn_fail_rate with traffic")
         return self

@@ -16,12 +16,16 @@ from .rank_inbound import rank_inbound, rank_inbound_plain
 from .rc_merge_prune import MergePruneOut, rc_merge_prune, rc_merge_prune_plain
 from .rotate import rotate, rotate_plain
 from .threefry import threefry, threefry_plain
+from .traffic_admit import AdmitOut, traffic_admit, traffic_admit_plain
+from .traffic_send import SendOut, traffic_send, traffic_send_plain
 
 __all__ = [
+    "AdmitOut",
     "KERNEL_NAMES",
     "LAUNCHES",
     "MergePruneOut",
     "PullOut",
+    "SendOut",
     "bfs_relax",
     "bfs_relax_plain",
     "build_all",
@@ -40,4 +44,8 @@ __all__ = [
     "rotate_plain",
     "threefry",
     "threefry_plain",
+    "traffic_admit",
+    "traffic_admit_plain",
+    "traffic_send",
+    "traffic_send_plain",
 ]

@@ -30,7 +30,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
-                "threefry", "push_targets", "rotate", "pull_exchange")
+                "threefry", "push_targets", "rotate", "pull_exchange",
+                "traffic_send", "traffic_admit")
 #: Rows (threads) per block of the kernels that give a thread to each row.
 ROWS_PER_BLOCK = 128
 

@@ -2,7 +2,10 @@
 
 Replaces the reference engine's ``round/rc_merge`` and
 ``round/verb3_prune_decide`` blocks plus the fired-row cache reset
-(gossip_sim_tpu/engine/core.py:743-862, 943-948).  The CUDA kernel is
+(gossip_sim_tpu/engine/core.py:743-862, 943-948), and the traffic round's
+``traffic/rc_merge`` and ``traffic/prune_decide`` with the value axis in
+place of the origin axis (gossip_sim_tpu/engine/traffic.py:621-709; a
+row fires only while its value slot is live).  The CUDA kernel is
 ``csrc/rc_merge_prune.cu``; :func:`rc_merge_prune_plain` is the same
 function in plain PyTorch, used for CPU tensors and as the spec.
 """
@@ -87,13 +90,16 @@ def _lexsort(keys):
 def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
                          shi, slo, stakes, origins, *, received_cap: int,
                          min_num_upserts: int, min_ingress_nodes: int,
-                         prune_stake_threshold: float) -> MergePruneOut:
+                         prune_stake_threshold: float,
+                         live=None) -> MergePruneOut:
     """Plain PyTorch merge + prune decide over every (origin, node) row.
 
     ``rc_*`` [O, N, C] the carried cache (src sorted ascending, N = empty),
     ``rc_upserts`` [O, N], ``inb`` [O, N, K] ranked inbound sources,
     ``shi``/``slo`` [N + 1] and ``stakes`` [N + 1] the cluster tables,
-    ``origins`` [O]."""
+    ``origins`` [O] (at most N: N reads the tables' zero pad).  ``live``
+    (None, or [O] bool) gates which origins' rows may fire: the traffic
+    round's value slots."""
     O, N, C = rc_src.shape
     K = inb.shape[-1]
     dev = rc_src.device
@@ -125,15 +131,17 @@ def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
     s_src = m_src.gather(-1, order)
     n_valid = (m_src != BIG).sum(-1, dtype=torch.int32)
     rc_overflow = torch.clamp(n_valid - C, min=0).sum(-1, dtype=torch.int32)
-    live = s_src != BIG
-    new_src = torch.where(live, s_src, N)
-    new_sc = torch.where(live, m_sc.gather(-1, order), 0)
-    new_hi = torch.where(live, m_hi.gather(-1, order), 0)
-    new_lo = torch.where(live, m_lo.gather(-1, order), 0)
+    kept = s_src != BIG
+    new_src = torch.where(kept, s_src, N)
+    new_sc = torch.where(kept, m_sc.gather(-1, order), 0)
+    new_hi = torch.where(kept, m_hi.gather(-1, order), 0)
+    new_lo = torch.where(kept, m_lo.gather(-1, order), 0)
     ups = rc_upserts + valid_inb[..., 0].to(torch.int32)
 
     # prune decide (received_cache.rs:38-63,100-131)
     fired = ups >= min_num_upserts
+    if live is not None:
+        fired = fired & live[:, None]
     org = origins.long()
     min_stake = torch.minimum(stakes[:N][None, :], stakes[org][:, None])
     min_ingress_stake = (min_stake.to(torch.float64)
@@ -170,7 +178,7 @@ def _lib():
     fn = lib.rc_merge_prune_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 19 + [ci] * 10
+        fn.argtypes = ([vp] * 20 + [ci] * 10
                        + [ctypes.c_double, vp])
         fn.restype = ci
     return fn
@@ -179,16 +187,18 @@ def _lib():
 def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
                    slo, stakes, origins, *, received_cap: int,
                    min_num_upserts: int, min_ingress_nodes: int,
-                   prune_stake_threshold: float) -> MergePruneOut:
+                   prune_stake_threshold: float,
+                   live=None) -> MergePruneOut:
     """Merge + prune decide: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.
+    version for CPU tensors.  Without ``live`` (the push round) the kernel
+    reads no mask and launches as before.
 
     The kernel takes each ``rc_src`` row as the engine keeps it (and as this
     function returns it): members sorted ascending and unique, then N; and
     the inbound sources of a row unique."""
     kw = dict(received_cap=received_cap, min_num_upserts=min_num_upserts,
               min_ingress_nodes=min_ingress_nodes,
-              prune_stake_threshold=prune_stake_threshold)
+              prune_stake_threshold=prune_stake_threshold, live=live)
     if not rc_src.is_cuda:
         return rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo,
                                     rc_upserts, inb, shi, slo, stakes,
@@ -207,6 +217,8 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
     _build.check(slo, "slo", i32, (N + 1,), dev)
     _build.check(stakes, "stakes", torch.int64, (N + 1,), dev)
     _build.check(origins, "origins", i32, (O,), dev)
+    if live is not None:
+        _build.check(live, "live", torch.bool, (O,), dev)
     out = MergePruneOut(
         rc_src=torch.empty((O, N, C), dtype=i32, device=dev),
         rc_score=torch.empty((O, N, C), dtype=i32, device=dev),
@@ -220,7 +232,7 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
     p = _build.ptr
     rc = _lib()(p(rc_src), p(rc_score), p(rc_shi), p(rc_slo), p(rc_upserts),
                 p(inb), p(shi), p(slo), p(stakes), p(origins),
-                *(p(t) for t in out), O, N, C, K, g.rows_per_block,
+                None if live is None else p(live), *(p(t) for t in out), O, N, C, K, g.rows_per_block,
                 g.key_slots, g.row_bytes, int(received_cap),
                 int(min_num_upserts), int(min_ingress_nodes),
                 float(prune_stake_threshold), _build.stream_of(rc_src))

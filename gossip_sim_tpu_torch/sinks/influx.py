@@ -19,10 +19,11 @@ Series and field names are the compatibility contract
 the reference package's ``delivery`` / ``coverage_recovery`` (impairments)
 and ``sim_perf`` (wall time and throughput of a measured round block, and
 the sender's queue depth), ``sim_pull`` (pull-phase counters) and
-``sim_adaptive`` (the adaptive direction bit).  The series of features the
-port lacks yet come with them: the traffic series (A11),
-``sim_node_health`` (A12), ``sim_trace`` (A13) and ``sim_capacity``
-(A15).
+``sim_adaptive`` (the adaptive direction bit), ``sim_traffic`` and
+``sim_traffic_summary`` (concurrent traffic: per-round contention counts
+and the end-of-run aggregate).  The series of features the port lacks yet
+come with them: ``sim_node_health`` (A12), ``sim_trace`` (A13) and
+``sim_capacity`` (A15).
 """
 
 from __future__ import annotations
@@ -339,6 +340,30 @@ class InfluxDataPoint:
             f"sim_adaptive,simulation_iter={self.simulation_iteration},"
             f"start_time={self.start_timestamp} "
             f"iteration={int(it)},{fields} ")
+        self.append_timestamp()
+
+    def create_sim_traffic_point(self, it, values: dict):
+        """Concurrent-traffic series (traffic.py): one point per measured
+        round with the round's ``stats.traffic.ROUND_FIELDS`` counts
+        (deterministic: the line joins the parity surface)."""
+        fields = ",".join(f"{k}={int(v)}" for k, v in sorted(values.items()))
+        self.datapoint += (
+            f"sim_traffic,simulation_iter={self.simulation_iteration},"
+            f"start_time={self.start_timestamp} "
+            f"iteration={int(it)},{fields} ")
+        self.append_timestamp()
+
+    def create_sim_traffic_summary_point(self, summary: dict):
+        """End-of-run traffic aggregate (``TrafficStats.summary()``):
+        per-value latency, coverage and RMR aggregates and queue totals."""
+        parts = []
+        for k, v in sorted(summary.items()):
+            parts.append(f"{k}={float(v)}" if isinstance(v, float)
+                         else f"{k}={int(v)}")
+        self.datapoint += (
+            f"sim_traffic_summary,simulation_iter="
+            f"{self.simulation_iteration},"
+            f"start_time={self.start_timestamp} " + ",".join(parts) + " ")
         self.append_timestamp()
 
     def create_messages_point(self, messages_direction: str, messages,

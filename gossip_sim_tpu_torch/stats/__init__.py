@@ -2,8 +2,9 @@
 
 The port's own copy of the single-origin statistics layer: histograms,
 series summaries, hop/stranded collections, message trackers and the
-per-simulation ``GossipStats`` hub, and the all-origins aggregates
-(``AllOriginsStats``).
+per-simulation ``GossipStats`` hub, the all-origins aggregates
+(``AllOriginsStats``) and the concurrent-traffic series and records
+(``TrafficStats``).
 """
 
 from .aggregate import AllOriginsStats
@@ -13,6 +14,7 @@ from .histogram import Histogram
 from .hops import HopsStat, HopsStatCollection
 from .stranded import StrandedNodeCollection, StrandedNodeStats
 from .trackers import EgressIngressMessageTracker, branching_factor_outbound
+from .traffic import TrafficStats, TrafficStatsCollection
 
 __all__ = [
     "AllOriginsStats",
@@ -26,5 +28,7 @@ __all__ = [
     "StatCollection",
     "StrandedNodeCollection",
     "StrandedNodeStats",
+    "TrafficStats",
+    "TrafficStatsCollection",
     "branching_factor_outbound",
 ]

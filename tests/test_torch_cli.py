@@ -101,7 +101,7 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 def test_unported_flags_are_rejected():
     for argv in (["--backend", "oracle"], ["--sweep-lanes", "2"],
-                 ["--checkpoint-path", "x.npz"], ["--traffic-values", "2"],
+                 ["--checkpoint-path", "x.npz"], ["--resume", "x.npz"],
                  ["--trace-dir", "traces"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(BASE + argv)
@@ -144,6 +144,18 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")
+# a traffic round, on the CPU
+import numpy as np
+from gossip_sim_tpu_torch.engine import EngineParams, make_cluster_tables
+from gossip_sim_tpu_torch.engine.traffic import (
+    device_traffic_tables, init_traffic_state, run_traffic_rounds)
+st = np.arange(1, 41, dtype=np.int64) * 10**9
+p = EngineParams(num_nodes=40, traffic_values=4, node_ingress_cap=3)
+_, rows = run_traffic_rounds(
+    p, make_cluster_tables(st, device="cpu"),
+    device_traffic_tables(st, device="cpu"),
+    init_traffic_state(st, p, 1, device="cpu"), 3)
+assert int(rows["delivered"].sum()) > 0
 for m in ("gossip_sim_tpu_torch.sinks", "gossip_sim_tpu_torch.sinks.influx",
           "gossip_sim_tpu_torch.write_accounts"):
     assert m in sys.modules, m

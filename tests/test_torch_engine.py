@@ -143,7 +143,9 @@ def test_unported_features_raise():
             tc.init_state(rng.prng_key(1), tt, o, PortParams(40, **kw))
 
 
-UNPORTED = (dict(traffic_values=2), dict(node_egress_cap=4),
+# traffic is ported in push mode; adaptive traffic is A11b
+UNPORTED = (dict(traffic_values=2, gossip_mode="adaptive"),
+            dict(node_egress_cap=4, gossip_mode="adaptive"),
             dict(health=True), dict(representation="sparse"))
 
 

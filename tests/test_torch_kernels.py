@@ -5,7 +5,9 @@
 * ``rc_merge_prune_plain`` and ``prune_apply_plain`` equal one reference
   ``round_step`` on a state carried across from the reference engine, built
   so that rows fire, the received cache overflows, and a row prunes more
-  than ``pa_slots`` = 8 peers (the reference's budget-fallback arm).
+  than ``pa_slots`` = 8 peers (the reference's budget-fallback arm); the
+  push round passes neither the traffic round's live mask nor its shared
+  active set, and a mask of all live would change nothing.
 
 The kernels themselves are held against these plain versions on the card
 by tests/test_torch_kernels_cuda.py and chip_smoke.py.
@@ -122,20 +124,31 @@ def test_merge_prune_and_apply_match_one_reference_round(partitionable):
                                           1, start_it=CARRY_AT, detail=True)
 
     seen = {}
-    real = kernels.rc_merge_prune
+    real, real_apply = kernels.rc_merge_prune, kernels.prune_apply
 
     def recorder(*args, **kw):
+        seen["mp_call"] = (args, kw)
         seen["mp"] = real(*args, **kw)
         return seen["mp"]
 
-    kernels.rc_merge_prune = recorder
+    def apply_recorder(*args):
+        seen["active"] = args[1]
+        return real_apply(*args)
+
+    kernels.rc_merge_prune, kernels.prune_apply = recorder, apply_recorder
     try:
         got_state, got_rows = tc.round_step(
             PortParams(num_nodes=n, **CARRY), tt, torch.as_tensor(origins),
             ts, CARRY_AT, detail=True)
     finally:
-        kernels.rc_merge_prune = real
+        kernels.rc_merge_prune, kernels.prune_apply = real, real_apply
     mp = seen["mp"]
+    # the push round's calls: no live mask, per-origin active sets
+    args, kw = seen["mp_call"]
+    assert "live" not in kw and seen["active"].shape == (2, n, 12)
+    masked = real(*args, **kw, live=torch.ones(2, dtype=torch.bool))
+    for a, b in zip(mp, masked):
+        assert torch.equal(a, b)
     assert int(mp.rc_overflow.sum()) > 0                  # cache overflowed
     assert bool((mp.rc_upserts == 0).any())               # rows fired
     assert int(mp.n_pruned.max()) > jp.pa_slots           # > pa_slots prunes

@@ -1,5 +1,5 @@
 """On a CUDA device, each hand-written kernel equals its plain PyTorch
-version on the inputs real engine rounds give it.
+version on the inputs real engine rounds (and traffic rounds) give it.
 
 Marked ``cuda``: without a device every test here skips (the CUDA kernels
 have no CPU mode; their plain versions are held against the reference
@@ -935,3 +935,124 @@ def test_rotate_counts_rows_with_no_new_peer(cuda):
         got = kernels.rotate(*edge, 1.0, 8, part)
         _assert_equal(got, kernels.rotate_plain(*edge, 1.0, 8, part), "n16")
         assert int(got[3].sum()) > 0
+
+
+# --------------------------------------------------------------------------
+# the traffic round's kernels (engine/traffic.py)
+# --------------------------------------------------------------------------
+
+TRAFFIC_NAMES = ("traffic_send", "traffic_admit", "rank_inbound",
+                 "rc_merge_prune", "prune_apply")
+TRAFFIC_CASES = {
+    # caps off, no impairments
+    "caps_off": (2000, 16, 12, dict()),
+    # both caps binding under loss + churn + a partition window
+    "capped_impaired": (2000, 32, 14, dict(
+        node_ingress_cap=6, node_egress_cap=9, packet_loss_rate=0.1,
+        churn_fail_rate=0.02, churn_recover_rate=0.3, partition_at=3,
+        heal_at=10)),
+    # the widest set the sweeps reach, with a wide fanout
+    "wide_set": (1500, 8, 10, dict(active_set_size=24, push_fanout=12,
+                                   node_ingress_cap=12)),
+    # N not a multiple of a block's 32 senders, V not of its 8 warps;
+    # every message lost
+    "ragged_all_lost": (333, 9, 8, dict(node_egress_cap=5,
+                                        packet_loss_rate=1.0)),
+}
+
+
+def _traffic_run(cuda, case):
+    """The case's traffic rounds on the card with each traffic kernel's
+    calls recorded; returns (params, calls, rows)."""
+    from gossip_sim_tpu_torch.engine.traffic import (device_traffic_tables,
+                                                     init_traffic_state,
+                                                     run_traffic_rounds)
+    n, v, rounds, kw = TRAFFIC_CASES[case]
+    stakes = np.random.default_rng(1).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    params = EngineParams(num_nodes=n, traffic_values=v, traffic_rate=3,
+                          warm_up_rounds=0, min_num_upserts=4,
+                          probability_of_rotation=0.1, impair_seed=5, **kw)
+    tables = make_cluster_tables(stakes, device=cuda)
+    ttables = device_traffic_tables(stakes, device=cuda)
+    state = init_traffic_state(stakes, params, 3, device=cuda)
+    calls = {name: [] for name in TRAFFIC_NAMES}
+    real = {name: getattr(kernels, name) for name in TRAFFIC_NAMES}
+
+    def recorder(name):
+        def rec(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return rec
+
+    kernels.reset_launch_counts()
+    for name in TRAFFIC_NAMES:
+        setattr(kernels, name, recorder(name))
+    try:
+        _, rows = run_traffic_rounds(params, tables, ttables, state, rounds)
+    finally:
+        for name in TRAFFIC_NAMES:
+            setattr(kernels, name, real[name])
+    torch.cuda.synchronize()
+    return params, rounds, calls, rows
+
+
+@pytest.mark.parametrize("case", list(TRAFFIC_CASES))
+def test_traffic_kernels_equal_plain_on_traffic_rounds(cuda, case):
+    """One launch of each of the five kernels a traffic round, none of the
+    push round's others; every call equal to its plain version."""
+    params, rounds, calls, rows = _traffic_run(cuda, case)
+    want = {name: 0 for name in NAMES}
+    want.update({name: rounds for name in TRAFFIC_NAMES})
+    assert dict(kernels.LAUNCHES) == want
+    for name in TRAFFIC_NAMES:
+        plain = getattr(kernels, f"{name}_plain")
+        for args, kw in calls[name]:
+            _assert_equal(getattr(kernels, name)(*args, **kw),
+                          plain(*args, **kw), name)
+    total = lambda k: int(rows[k].sum())
+    if case == "ragged_all_lost":
+        assert total("arrived") == total("delivered") == 0
+        assert total("dropped") > 0
+        return
+    assert total("delivered") > 0
+    if case == "capped_impaired":
+        for k in ("deferred", "queue_dropped", "failed_target", "suppressed",
+                  "dropped", "prunes_sent"):
+            assert total(k) > 0, k
+
+
+def test_traffic_send_gates_at_the_edges_equal_plain(cuda):
+    """An egress cap of 1, a partition gate whose window is off, and a
+    loss rate of 1.0, each against the plain version on round inputs."""
+    _, _, calls, _ = _traffic_run(cuda, "capped_impaired")
+    args, kw = calls["traffic_send"][6]
+    args = args[:9] + (1,)                           # egress cap 1
+    basis = kw["loss"][0]
+    for variant in (dict(loss=None, partition=False),
+                    dict(loss=(basis, 1 << 32), partition=True),
+                    dict(loss=None, partition=None)):
+        _assert_equal(kernels.traffic_send(*args, **variant),
+                      kernels.traffic_send_plain(*args, **variant),
+                      "traffic_send")
+
+
+def test_rc_merge_prune_live_mask_and_shared_prune_apply(cuda):
+    """``rc_merge_prune`` with a mask of every other value live, and
+    ``prune_apply`` on the shared [N, S] set against the same set expanded
+    to every value, on round inputs."""
+    _, _, calls, _ = _traffic_run(cuda, "capped_impaired")
+    for args, kw in calls["rc_merge_prune"][4:8]:
+        live = torch.arange(kw["live"].numel(), device=cuda) % 2 == 0
+        kw = dict(kw, live=live)
+        got = kernels.rc_merge_prune(*args, **kw)
+        _assert_equal(got, kernels.rc_merge_prune_plain(*args, **kw),
+                      "rc_merge_prune")
+        assert int(got.n_pruned[~live].sum()) == 0
+    for pruned, active, src, slot in (c[0] for c in
+                                      calls["prune_apply"][4:8]):
+        v = pruned.shape[0]
+        each = active[None].expand(v, -1, -1).contiguous()
+        _assert_equal(kernels.prune_apply(pruned, active, src, slot),
+                      kernels.prune_apply(pruned, each, src, slot),
+                      "prune_apply")

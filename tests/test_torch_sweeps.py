@@ -8,10 +8,10 @@
   clamp a loss rate at 1.0, and run an origin-rank sweep batched;
 * the port's batched origin-rank sweep equals its own serial runs, one
   per rank (the reference's tests/test_cli.py:174-211);
-* the two test types whose knobs belong to unported features raise,
-  naming their ROADMAP item (the pull and adaptive sweeps are held
-  against the reference in tests/test_torch_pull.py and
-  tests/test_torch_adaptive.py).
+* the two traffic sweeps raise in adaptive mode, naming its ROADMAP item
+  (adaptive traffic, A11b; the push-mode traffic sweeps are held against
+  the reference in tests/test_torch_traffic_cli.py, the pull and adaptive
+  sweeps in tests/test_torch_pull.py and tests/test_torch_adaptive.py).
 
 Every serial point loads its cluster anew, so the synthetic pubkey counter
 runs on between points in both packages (both counters are reset first).
@@ -156,6 +156,7 @@ def test_batched_origin_rank_sweep_equals_serial_runs(partitionable):
     ("traffic-rate", "ROADMAP A11"), ("node-ingress-cap", "ROADMAP A11")])
 def test_unported_test_types_raise(test_type, item):
     argv = BASE + ["--test-type", test_type, "--num-simulations", "2",
+                   "--traffic-values", "4", "--gossip-mode", "adaptive",
                    "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
