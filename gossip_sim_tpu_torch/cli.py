@@ -1464,23 +1464,22 @@ def main(argv=None) -> int:
         return 1
     # origin-rank count validation (gossip_main.rs:706-716); traffic runs
     # inject their own stake-weighted origins, so the rank list is moot
-    if config.traffic_on:
-        pass
-    elif len(origin_ranks) < config.num_simulations:
-        log.error("ERROR: not enough origin ranks provided for "
-                  "num_simulations! origin_ranks: %s, num_simulations: %s",
-                  len(origin_ranks), config.num_simulations)
-        if config.test_type == Testing.ORIGIN_RANK:
+    if not config.traffic_on:
+        if len(origin_ranks) < config.num_simulations:
+            log.error("ERROR: not enough origin ranks provided for "
+                      "num_simulations! origin_ranks: %s, num_simulations: "
+                      "%s", len(origin_ranks), config.num_simulations)
+            if config.test_type == Testing.ORIGIN_RANK:
+                return 1
+        elif len(origin_ranks) > config.num_simulations:
+            log.warning("WARNING: more origin ranks than number of "
+                        "simulations. Not going to hit all origin ranks")
+        elif (len(origin_ranks) > 1
+              and config.test_type != Testing.ORIGIN_RANK):
+            log.error("ERROR: multiple origin_ranks passed in but test type "
+                      "is not OriginRank. This would end up running all "
+                      "simulations with origin_rank[0]: %s", origin_ranks[0])
             return 1
-    elif len(origin_ranks) > config.num_simulations:
-        log.warning("WARNING: more origin ranks than number of simulations. "
-                    "Not going to hit all origin ranks")
-    elif (len(origin_ranks) > 1
-          and config.test_type != Testing.ORIGIN_RANK):
-        log.error("ERROR: multiple origin_ranks passed in but test type is "
-                  "not OriginRank. This would end up running all simulations "
-                  "with origin_rank[0]: %s", origin_ranks[0])
-        return 1
     if config.test_type == Testing.PULL_FANOUT and not config.has_pull:
         log.error("ERROR: --test-type pull-fanout requires a pull-capable "
                   "--gossip-mode (pull or push-pull); mode is push, so "

@@ -95,7 +95,7 @@ def device_traffic_tables(stakes, device="cuda") -> TrafficTables:
 
 def init_traffic_state(stakes, params: EngineParams, seed: int,
                        device="cuda") -> TrafficState:
-    """A fresh traffic state: the shared active set (built on the host by
+    """A fresh traffic state: the shared active set (built on the CPU by
     ``traffic.build_shared_active_set``) and V empty value slots."""
     p = params.validate()
     if not p.has_traffic:
@@ -111,7 +111,7 @@ def init_traffic_state(stakes, params: EngineParams, seed: int,
     full = lambda shape, v: torch.full(shape, v, dtype=torch.int32,
                                        device=dev)
     return TrafficState(
-        active=torch.as_tensor(active, device=dev), failed=zb(N),
+        active=active.to(dev), failed=zb(N),
         next_vid=zi(), v_live=zb(V), v_vid=full((V,), -1),
         v_origin=full((V,), N), v_birth=zi(V), v_stall=zi(V),
         v_holder=zb(V, N), v_hop=full((V, N), -1), v_m=zi(V),
@@ -209,8 +209,7 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
 
     # ---- admit (kernel): the ingress budget across the value axis ------
     icap = int(kn.node_ingress_cap)
-    adm = K.traffic_admit(snd.peer, code, snd.cand_bits, snd.arr_bits,
-                          active, icap)
+    adm = K.traffic_admit(snd.cand_bits, snd.arr_bits, active, F, icap)
     accepted = adm.accepted
     arrived = code == TRAFFIC_ACCEPTED
     qdropped = arrived & ~accepted

@@ -15,7 +15,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..traffic import TRAFFIC_ACCEPTED
 from . import _build
 
 NAME = "traffic_admit"
@@ -27,32 +26,36 @@ class AdmitOut(NamedTuple):
     accepted_node: torch.Tensor  # [N] i32 accepted arrivals per target
 
 
-def traffic_admit_plain(peer: torch.Tensor, code: torch.Tensor,
-                        cand_bits: torch.Tensor, arr_bits: torch.Tensor,
-                        active: torch.Tensor, ingress_cap: int) -> AdmitOut:
-    """Rank every arrival (``code == TRAFFIC_ACCEPTED``, at target
-    ``peer``) among the arrivals at its target in flat (value, sender,
-    fanout slot) order; with ``ingress_cap`` > 0 the ranks below it are
-    accepted, else all.  ``peer``/``code`` [V, N, F], ``cand_bits``/
-    ``arr_bits`` [N, V] and ``active`` [N, S] are :func:`traffic_send`'s
-    outputs and input (the kernel reads the bitmasks and the active set;
-    this version the flat arrays)."""
-    V, N, F = peer.shape
-    dev = peer.device
-    L = V * N * F
-    arrived = code == TRAFFIC_ACCEPTED
-    tgt = torch.where(arrived, peer, N).reshape(-1).long()
-    order = torch.arange(L, device=dev)
-    sk = torch.sort(tgt * L + order).values
-    st, pos = sk // L, sk % L
-    rank = order - torch.searchsorted(st, st)
-    ok = (st < N) & ((ingress_cap <= 0) | (rank < ingress_cap))
-    accepted = torch.zeros(L, dtype=torch.bool, device=dev)
-    accepted[pos] = ok
-    arrived_node = torch.bincount(tgt, minlength=N + 1)[:N].to(torch.int32)
+def traffic_admit_plain(cand_bits: torch.Tensor, arr_bits: torch.Tensor,
+                        active: torch.Tensor, fanout: int,
+                        ingress_cap: int) -> AdmitOut:
+    """Rank every arrival among the arrivals at its target in flat (value,
+    sender, fanout slot) order; with ``ingress_cap`` > 0 the ranks below it
+    are accepted, else all.  ``cand_bits``/``arr_bits`` [N, V] and
+    ``active`` [N, S] are :func:`traffic_send`'s outputs and input: bit s of
+    a (sender, value) word marks slot s a candidate / an arrival at peer
+    ``active[sender, s]``, whose fanout slot is the candidates below s.
+    ``fanout`` is the F of the [V, N, F] acceptance plane."""
+    N, V = arr_bits.shape
+    S = active.shape[-1]
+    dev = arr_bits.device
+    bit = torch.arange(S, device=dev)
+    arr = ((arr_bits.T.long()[..., None] >> bit) & 1).bool()    # [V, N, S]
+    cand = (cand_bits.T.long()[..., None] >> bit) & 1
+    fo = torch.cumsum(cand, -1) - cand
+    v_i, n_i, s_i = arr.nonzero(as_tuple=True)   # flat (v, n, f) order
+    f_i = fo[v_i, n_i, s_i]
+    tgt = active[n_i, s_i].long()
+    order = torch.sort(tgt, stable=True).indices
+    st = tgt[order]
+    rank = torch.arange(st.numel(), device=dev) - torch.searchsorted(st, st)
+    ok = (ingress_cap <= 0) | (rank < ingress_cap)
+    accepted = torch.zeros((V, N, fanout), dtype=torch.bool, device=dev)
+    accepted[v_i[order], n_i[order], f_i[order]] = ok
+    arrived_node = torch.bincount(tgt, minlength=N).to(torch.int32)
     accepted_node = (arrived_node.clamp(max=ingress_cap) if ingress_cap > 0
                      else arrived_node)
-    return AdmitOut(accepted.reshape(V, N, F), arrived_node, accepted_node)
+    return AdmitOut(accepted, arrived_node, accepted_node)
 
 
 def in_neighbours(active: torch.Tensor):
@@ -78,9 +81,9 @@ def _lib():
     return fn
 
 
-def traffic_admit(peer: torch.Tensor, code: torch.Tensor,
-                  cand_bits: torch.Tensor, arr_bits: torch.Tensor,
-                  active: torch.Tensor, ingress_cap: int) -> AdmitOut:
+def traffic_admit(cand_bits: torch.Tensor, arr_bits: torch.Tensor,
+                  active: torch.Tensor, fanout: int,
+                  ingress_cap: int) -> AdmitOut:
     """The ingress budget: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns :class:`AdmitOut`.
 
@@ -92,15 +95,14 @@ def traffic_admit(peer: torch.Tensor, code: torch.Tensor,
     ``cand_bits``: each source's peers are distinct, so a source sends a
     target at most one message per value, and the (value, source) order is
     the flat order."""
-    if not peer.is_cuda:
-        return traffic_admit_plain(peer, code, cand_bits, arr_bits, active,
+    if not arr_bits.is_cuda:
+        return traffic_admit_plain(cand_bits, arr_bits, active, fanout,
                                    ingress_cap)
-    V, N, F = peer.shape
+    N, V = arr_bits.shape
     S = active.shape[-1]
-    dev = peer.device
+    F = int(fanout)
+    dev = arr_bits.device
     i32 = torch.int32
-    _build.check(peer, "peer", i32, (V, N, F), dev)
-    _build.check(code, "code", torch.uint8, (V, N, F), dev)
     _build.check(cand_bits, "cand_bits", i32, (N, V), dev)
     _build.check(arr_bits, "arr_bits", i32, (N, V), dev)
     _build.check(active, "active", i32, (N, S), dev)
@@ -111,6 +113,6 @@ def traffic_admit(peer: torch.Tensor, code: torch.Tensor,
     p = _build.ptr
     rc = _lib()(p(row_ptr), p(col), p(cand_bits), p(arr_bits),
                 *(p(t) for t in out), V, N, S, F, int(ingress_cap),
-                _build.stream_of(peer))
+                _build.stream_of(arr_bits))
     _build.launched(NAME, rc)
     return out

@@ -23,8 +23,8 @@ Every stochastic choice is a stateless counter hash (faults.py): injection
 origins, per-value packet loss (``value_basis``), the shared active set's
 initialization and the shared rotation.  The ``*_t`` functions are the
 vectorized draws on int64 tensors of u32 values, bit-equal to the
-reference's numpy/JAX lanes; :func:`build_shared_active_set` is numpy, run
-on the host by ``engine.traffic.init_traffic_state``.
+reference's numpy/JAX lanes; :func:`build_shared_active_set` runs them on
+CPU tensors for ``engine.traffic.init_traffic_state``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .faults import _GOLD, fmix32, fmix32_t, mul32_t, round_basis
+from .faults import (_GOLD, edge_u32_t, fmix32, fmix32_t, mul32_t,
+                     round_basis)
 from .pull import pull_class_tables
 
 # domain-separation salts of the traffic hash streams (faults.py convention)
@@ -87,29 +88,6 @@ def u01_t(h: torch.Tensor) -> torch.Tensor:
     return (h >> 8).to(torch.float32) * (2.0 ** -24)
 
 
-def u01_arr(h: np.ndarray) -> np.ndarray:
-    """``u01_t`` on numpy uint32 arrays."""
-    return (h >> np.uint32(8)).astype(np.float32) * np.float32(2.0 ** -24)
-
-
-def edge_u32_arr(basis, src, dst) -> np.ndarray:
-    """faults.py ``edge_u32`` on numpy uint32 lanes."""
-    return fmix32_arr(np.uint32(basis)
-                      ^ (src.astype(np.uint32) * np.uint32(0x85EBCA6B))
-                      ^ (dst.astype(np.uint32) * np.uint32(0xC2B2AE35)))
-
-
-def fmix32_arr(x: np.ndarray) -> np.ndarray:
-    """Murmur3's 32-bit finalizer on numpy uint32 lanes."""
-    x = x.astype(np.uint32)
-    x ^= x >> np.uint32(16)
-    x = x * np.uint32(0x7FEB352D)
-    x ^= x >> np.uint32(15)
-    x = x * np.uint32(0x846CA68B)
-    x ^= x >> np.uint32(16)
-    return x
-
-
 class TrafficTables(NamedTuple):
     """Stake-class sampling tables of every traffic draw: the pull
     subsystem's top-entry class CDF (weights ``(bucket + 1)^2``)."""
@@ -127,26 +105,20 @@ def traffic_tables(stakes) -> TrafficTables:
                          class_count=pt.class_count, cdf=pt.cdf)
 
 
-def class_draw_arr(tables: TrafficTables, u_cls, u_mem):
-    """Stake-weighted node draws (numpy or torch, same shapes in and out;
+def class_draw_arr(tables: TrafficTables, u_cls: torch.Tensor,
+                   u_mem: torch.Tensor) -> torch.Tensor:
+    """Stake-weighted node draws (tensor tables; same shapes in and out;
     may return the drawer itself, which callers discard): the class is the
     number of CDF entries (all but the last) at or below ``u_cls``, then
     ``floor(u_mem * count)`` in f32 within it, then a permutation
     gather."""
-    if isinstance(u_cls, torch.Tensor):
-        cls = (u_cls[..., None] >= tables.cdf[:-1]).sum(-1)
-        start = tables.class_start[cls]
-        count = tables.class_count[cls]
-        pos = start + torch.floor(u_mem * count.to(torch.float32)).to(
-            torch.int32)
-        pos = torch.minimum(pos, start + (count - 1).clamp(min=0))
-        return tables.perm[pos.long()]
-    cls = np.sum(u_cls[..., None] >= tables.cdf[:-1], axis=-1)
+    cls = (u_cls[..., None] >= tables.cdf[:-1]).sum(-1)
     start = tables.class_start[cls]
     count = tables.class_count[cls]
-    pos = start + np.floor(u_mem * count.astype(np.float32)).astype(np.int32)
-    pos = np.minimum(pos, start + np.maximum(count - 1, 0))
-    return tables.perm[pos]
+    pos = start + torch.floor(u_mem * count.to(torch.float32)).to(
+        torch.int32)
+    pos = torch.minimum(pos, start + (count - 1).clamp(min=0))
+    return tables.perm[pos.long()]
 
 
 def class_draw_t(tables: TrafficTables, basis_cls: int, basis_mem: int,
@@ -158,33 +130,30 @@ def class_draw_t(tables: TrafficTables, basis_cls: int, basis_mem: int,
 
 
 def build_shared_active_set(stakes, seed: int, active_set_size: int,
-                            init_draws: int) -> np.ndarray:
-    """The ONE [N, S] active set every value pushes through: per node,
-    ``init_draws`` stake-weighted draws (counter hashes of (seed, node,
-    draw) under the init salts), keeping the first S distinct non-self
-    candidates; unfilled slots hold N."""
+                            init_draws: int) -> torch.Tensor:
+    """The ONE [N, S] active set every value pushes through, as a CPU int32
+    tensor: per node, ``init_draws`` stake-weighted draws (counter hashes
+    of (seed, node, draw) under the init salts), keeping the first S
+    distinct non-self candidates; unfilled slots hold N."""
     stakes = np.asarray(stakes, dtype=np.int64)
     n = int(stakes.shape[0])
     s = int(active_set_size)
-    e = int(init_draws)
-    tables = traffic_tables(stakes)
-    b_ic = round_basis(seed, 0, SALT_TRAFFIC_ICLASS)
-    b_im = round_basis(seed, 0, SALT_TRAFFIC_IMEMBER)
-    nodes_u = np.arange(n, dtype=np.uint32)[:, None]
-    draws_u = np.arange(e, dtype=np.uint32)[None, :]
-    u_cls = u01_arr(edge_u32_arr(b_ic, nodes_u, draws_u))
-    u_mem = u01_arr(edge_u32_arr(b_im, nodes_u, draws_u))
-    cands = class_draw_arr(tables, u_cls, u_mem)          # [N, E]
-    active = np.full((n, s), n, np.int32)
-    cnt = np.zeros(n, np.int32)
-    self_idx = np.arange(n, dtype=np.int32)
-    for d in range(e):
-        c = cands[:, d].astype(np.int32)
-        dup = np.any(active == c[:, None], axis=-1) | (c == self_idx)
-        ins = (~dup) & (cnt < s)
-        slot = np.minimum(cnt, s - 1)
-        active[np.nonzero(ins)[0], slot[ins]] = c[ins]
-        cnt += ins.astype(np.int32)
+    tables = TrafficTables(*(torch.as_tensor(a)
+                             for a in traffic_tables(stakes)))
+    nodes = torch.arange(n)[:, None]
+    draws = torch.arange(int(init_draws))[None, :]
+    cands = class_draw_t(tables, round_basis(seed, 0, SALT_TRAFFIC_ICLASS),
+                         round_basis(seed, 0, SALT_TRAFFIC_IMEMBER),
+                         lambda b: edge_u32_t(b, nodes, draws))   # [N, E]
+    active = torch.full((n, s), n, dtype=torch.int32)
+    cnt = torch.zeros(n, dtype=torch.int64)
+    self_idx = torch.arange(n, dtype=torch.int32)
+    for d in range(int(init_draws)):
+        c = cands[:, d]
+        dup = (active == c[:, None]).any(-1) | (c == self_idx)
+        rows = (~dup & (cnt < s)).nonzero().squeeze(1)
+        active[rows, cnt[rows]] = c[rows]
+        cnt[rows] += 1
     return active
 
 

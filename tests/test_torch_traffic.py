@@ -16,7 +16,8 @@
   ``node_queue_dropped`` rows;
 * ``traffic_admit``'s kernel schedule (the reverse CSR of the shared set,
   a walk per target over values and in-neighbours reading the slot
-  bitmasks) transcribed in numpy, against the plain twin.
+  bitmasks) transcribed in numpy, against the plain twin and against a
+  flat sort of ``traffic_send``'s peers and outcome codes.
 
 The push round's calls of the two kernels that gained an argument
 (``rc_merge_prune``'s live mask, ``prune_apply``'s shared active set) are
@@ -240,20 +241,41 @@ def _admit_schedule(cand_bits, arr_bits, active, f, cap):
     return accepted, arrived
 
 
+def _flat_sort_admit(peer, code, cap):
+    """The reference block's flat sort on the send outputs: every arrival
+    ranked at its target in flat (value, sender, fanout slot) order."""
+    V, n, f = peer.shape
+    L = V * n * f
+    tgt = np.where(code == 1, peer, n).reshape(-1).astype(np.int64)
+    order = np.argsort(tgt, kind="stable")
+    st = tgt[order]
+    rank = np.arange(L) - np.searchsorted(st, st)
+    accepted = np.zeros(L, bool)
+    accepted[order] = (st < n) & ((cap <= 0) | (rank < cap))
+    return accepted.reshape(V, n, f), np.bincount(tgt, minlength=n + 1)[:n]
+
+
 @pytest.mark.parametrize("cap", [0, 3])
 def test_traffic_admit_kernel_schedule_equals_plain(cap):
-    """The kernel's algorithm (its numpy transcription) against the plain
-    twin on the send outputs of two rounds of the impaired run."""
+    """The kernel's algorithm (its numpy transcription), the plain twin and
+    a flat sort of the send outputs agree on two rounds of the impaired
+    run."""
     _, _, calls = _run_case(TRACED)
     for r in (6, 15):
         args, _, _ = calls["traffic_admit"][r]
-        peer, code, cand_bits, arr_bits, active, _cap = args
-        want = kernels.traffic_admit_plain(peer, code, cand_bits, arr_bits,
-                                           active, cap)
+        cand_bits, arr_bits, active, f, _cap = args
+        want = kernels.traffic_admit_plain(cand_bits, arr_bits, active, f,
+                                           cap)
         got, arrived = _admit_schedule(cand_bits.numpy(), arr_bits.numpy(),
-                                       active.numpy(), peer.shape[-1], cap)
+                                       active.numpy(), f, cap)
         np.testing.assert_array_equal(got, want.accepted.numpy())
         np.testing.assert_array_equal(arrived, want.arrived_node.numpy())
+        snd = calls["traffic_send"][r][2]
+        flat, flat_arrived = _flat_sort_admit(snd.peer.numpy(),
+                                              snd.code.numpy(), cap)
+        np.testing.assert_array_equal(flat, want.accepted.numpy())
+        np.testing.assert_array_equal(flat_arrived,
+                                      want.arrived_node.numpy())
         assert int(want.arrived_node.max()) > max(cap, 1)
 
 
