@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero before the final line):
 
-  (a) build the eight CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
+  (a) build the ten CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
       nvcc for sm_90a (one nvcc per source, in parallel); print each
       kernel's registers, shared memory and spills (``-Xptxas -v``), check
       ``rotate``'s static shared memory (the class tables) against ptxas
@@ -16,7 +16,13 @@ Phases (any failure exits non-zero before the final line):
       size, rows or warps per block, shared memory, ``push_targets``' tiles
       and one-wave grid), and the instructions of one threefry block in the
       SASS (``cuobjdump -sass``) of ``threefry`` and of ``rotate``, by pipe;
-  (b) capture each kernel's inputs from a real round (round 19, when the
+  (b) first, in a process of its own (``--profile-calls``), the whole
+      calls of ``prune_apply`` and ``traffic_admit`` (every device
+      activity the wrapper launches) beside their kernels alone, on round
+      19's inputs of each shape the phases time them at ((b) O=32, (d)
+      O=1, (f) O=64, (h) push-pull O=64, (i) M=256 uncapped and capped,
+      M=32); then
+      capture each kernel's inputs from a real round (round 19, when the
       upsert counters fire) at O=32 origins, N=10,000 nodes (every call of
       the round; it launches no ``threefry``, whose calls are taken from
       ``init_state`` at O=32), and hold the kernel against its plain PyTorch
@@ -27,8 +33,9 @@ Phases (any failure exits non-zero before the final line):
       inbound_cap=128, and in both threefry layouts unimpaired, under loss
       + partition + churn and in a fail round, and hold ``rc_merge_prune``,
       ``rank_inbound``, ``push_targets`` (with its suppression and loss
-      masks), ``rotate`` and the fail round's three ``threefry`` draws
-      against their plain versions on their round-19 inputs;
+      masks), ``rotate``, ``prune_apply`` and the fail round's three
+      ``threefry`` draws against their plain versions on their round-19
+      inputs;
   (c) run the engine for 50 rounds at O=32, N=10,000: rounds/s, peak
       device memory, every kernel launched, ``threefry`` launched in
       ``init_state`` only; then a 5-round profile: device busy and idle
@@ -91,7 +98,8 @@ Phases (any failure exits non-zero before the final line):
       plain version (tolerance 0) on round 19's inputs at O=64 in
       push-pull under loss 0.1 + partition + churn at request caps 0 and 2,
       in pull mode (with ``push_targets`` at ``push_on=False``), in
-      adaptive mode with the bit on, and at O=32 and O=1; each case's
+      adaptive mode with the bit on, and at O=32 and O=1 (and each case's
+      ``prune_apply`` call); each case's
       launch geometry (cluster size, slice, threads, shared memory) printed,
       timed with CUDA events, and under the profiler in a process of its
       own (``--profile-pull``, which also profiles 5 push-pull rounds at
@@ -112,7 +120,9 @@ Phases (any failure exits non-zero before the final line):
       ``rank_inbound``, ``rc_merge_prune`` (with the live mask) and
       ``prune_apply`` (on the shared active set) held against their plain
       versions (tolerance 0) on round 19's inputs, uncapped and with both
-      queue caps binding under loss 0.1 + churn + a partition; each timed
+      queue caps binding under loss 0.1 + churn + a partition (and
+      ``traffic_admit`` at ingress caps 1 and one above every target's
+      arrivals), and at M=32; each timed
       with CUDA events beside its plain version, its bound and a PyTorch
       yardstick, and under the profiler in a process of its own
       (``--profile-traffic``: device ms per call, and 5-round profiles at
@@ -302,13 +312,20 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                   "rotate": ("rotate_kernel",),
                   "pull_exchange": ("pull_exchange_kernel",),
                   "traffic_send": ("traffic_send_kernel",),
-                  "traffic_admit": ("traffic_admit_kernel",)}
+                  # the three kernels of its cut design, and the one of
+                  # the per-target walk before it (an older tree's, read
+                  # by round_turns.py)
+                  "traffic_admit": ("traffic_admit_tally_kernel",
+                                    "traffic_admit_cut_kernel",
+                                    "traffic_admit_write_kernel",
+                                    "traffic_admit_kernel")}
 
 
 def device_ms(fn, symbols, reps: int = 10):
     """Mean device milliseconds per call of ``fn`` spent in the kernels whose
-    names contain one of ``symbols``, under torch.profiler (None if the
-    profiler recorded no device time)."""
+    names contain one of ``symbols`` (``None``: in every device activity it
+    records, kernels, memsets and copies: the whole call of a wrapper),
+    under torch.profiler (None if the profiler recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -321,7 +338,9 @@ def device_ms(fn, symbols, reps: int = 10):
     us = sum(float(getattr(ev, "self_device_time_total",
                            getattr(ev, "self_cuda_time_total", 0.0)))
              for ev in prof.key_averages()
-             if any(sym in ev.key for sym in symbols))
+             if (ev.device_type == torch.autograd.DeviceType.CUDA
+                 if symbols is None else any(sym in ev.key
+                                             for sym in symbols)))
     return us / 1e3 / reps if us > 0 else None
 
 
@@ -804,6 +823,106 @@ def traffic_bytes(name, args, kw, out) -> int:
     return nbytes(*ins, *(tuple(out) if isinstance(out, tuple) else (out,)))
 
 
+CALLS_FLAG = "--profile-calls"
+#: the kernels timed as whole calls against an older tree (calls_child)
+REDESIGNED = ("prune_apply", "traffic_admit")
+
+
+def calls_child(tree: Path) -> int:
+    """``chip_smoke.py --profile-calls [TREE]``: the device ms per call of
+    ``prune_apply`` and ``traffic_admit``, kernel only (their kernels'
+    events) and whole (every device activity of the wrapper: a copy, a
+    memset or an index build included), and the CUDA-event ms, on round
+    19's inputs of each shape the phases time them at: (b) O=32, (d) O=1,
+    (f) O=64 (origins 0-63, all-origins parameters), (h) push-pull O=64
+    (impaired, request cap 0), (i) M=256 uncapped and capped, and M=32.
+    The package comes from TREE (default: this checkout), so that
+    ``round_turns.py --calls`` can compare a parent and a change in turns.
+    The inputs are captured first and the profiler sessions run back to
+    back (later sessions of a process record no device time).  Prints a
+    JSON line, last."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    sys.path.insert(0, str(tree.resolve()))
+    import numpy as np
+    from gossip_sim_tpu_torch import cli, kernels, rng
+    from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
+                                             make_cluster_tables, run_rounds)
+    from gossip_sim_tpu_torch.engine.traffic import device_traffic_tables
+    from gossip_sim_tpu_torch.identity import NodeIndex
+    dev = torch.device("cuda")
+    kernels.build_all()
+    cfg = cli.Config(num_synthetic_nodes=N_FULL, all_origins=True)
+    accounts, _ = cli.load_cluster_accounts(cfg)
+    stakes_np = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
+    tables = make_cluster_tables(stakes_np, device=dev)
+    top = np.argsort(-stakes_np, kind="stable").astype(np.int32)
+
+    def push_round19(prm, orgs):
+        state = init_state(rng.prng_key(42, dev), tables, orgs, prm)
+        state, _ = run_rounds(prm, tables, orgs, state, 19)
+        calls, real = [], kernels.prune_apply
+
+        def rec(*a, **kw):
+            calls.append((a, kw))
+            return real(*a, **kw)
+
+        kernels.prune_apply = rec
+        try:
+            run_rounds(prm, tables, orgs, state, 1, start_it=19)
+        finally:
+            kernels.prune_apply = real
+        return {"prune_apply": calls[0]}
+
+    at = lambda o: torch.as_tensor(top[:o], device=dev)
+    base = EngineParams(num_nodes=N_FULL, warm_up_rounds=0)
+    o_pp, prm_pp = pull_cases(EngineParams)["push-pull impaired cap 0"]
+    shapes = {
+        "(b) O=32": push_round19(base, at(O_KERNEL)),
+        "(d) O=1": push_round19(base, at(1)),
+        "(f) O=64": push_round19(cli.all_origins_params(cfg, N_FULL),
+                                 torch.arange(O_BATCH, dtype=torch.int32,
+                                              device=dev)),
+        "(h) push-pull O=64": push_round19(prm_pp, at(o_pp)),
+    }
+    ttables = device_traffic_tables(stakes_np, dev)
+    for case, m in (("uncapped", M_TRAFFIC), ("capped", M_TRAFFIC),
+                    ("uncapped", M_NARROW)):
+        _, _, calls = traffic_round19(kernels, traffic_params(
+            EngineParams, case, m), tables, ttables, stakes_np, dev)
+        shapes[f"(i) {case} M={m}"] = {n: calls[n][0] for n in REDESIGNED}
+        del calls
+    torch.cuda.synchronize()
+    out = {}
+    for shape, calls in shapes.items():
+        out[shape] = {}
+        for name, (a, kw) in calls.items():
+            fn = getattr(kernels, name)
+            call = lambda: fn(*a, **kw)
+            out[shape][name] = {
+                "kernel_ms": device_ms(call, KERNEL_SYMBOLS[name], reps=20),
+                "whole_ms": device_ms(call, None, reps=20),
+                "ms": cuda_ms(call, reps=20)}
+    print(json.dumps({"tree": str(tree), "device": torch.cuda.get_device_name(
+        0), "shapes": out}), flush=True)
+    return 0
+
+
+def whole_calls(tree: Path = ROOT) -> dict:
+    """Run :func:`calls_child` for ``tree`` in a process of its own; its
+    JSON line (its other output is printed)."""
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), CALLS_FLAG, str(tree)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    for line in run.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if run.returncode != 0:
+        fail(f"the whole-call profile process of {tree} failed (exit "
+             f"{run.returncode}): {run.stderr[-2000:]}")
+    return json.loads(run.stdout.splitlines()[-1])
+
+
 PROFILE_FLAG = "--profile-all-origins"
 WIDE_FLAG = "--profile-wide-shapes"
 PULL_FLAG = "--profile-pull"
@@ -1062,6 +1181,17 @@ def main() -> int:
             f"{ops['fma']} on the FMA pipe (chiprun_out/sass_{name}.txt)")
 
     # ---- (b) kernels vs plain on a real round's inputs -------------------
+    # the whole calls of prune_apply and traffic_admit at every shape the
+    # phases time them at, in a process of its own (its first profiler
+    # sessions); printed under each shape's phase
+    calls_prof = whole_calls()["shapes"]
+    show = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    for shape, per in calls_prof.items():
+        for name, t in per.items():
+            say(f"{shape.split()[0]} whole call of {name} at "
+                f"{shape.split(' ', 1)[1]}, round 19: device "
+                f"{show(t['whole_ms'])} (its kernels alone "
+                f"{show(t['kernel_ms'])}; CUDA events {t['ms']:.4f} ms)")
     reset_unique_pubkeys()
     accounts, _ = cli.load_cluster_accounts(
         cli.Config(num_synthetic_nodes=N_FULL))
@@ -1234,28 +1364,32 @@ def main() -> int:
     # rc_slots = 128 with the default k_inbound: a row of C + K = 144
     wide = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, rc_slots=128)
     wide_o = origins[:8]
-    rows_w, calls = round19_calls(wide, wide_o, ["rc_merge_prune"])
+    rows_w, calls = round19_calls(wide, wide_o,
+                                  ["rc_merge_prune", "prune_apply"])
     args, kw = calls["rc_merge_prune"][0]
     exact("rc_merge_prune", args, kw, "(b) rc_slots=128")
+    exact("prune_apply", *calls["prune_apply"][0], "(b) rc_slots=128")
     if args[0].shape[-1] + args[5].shape[-1] != 144:
         fail("(b) rc_slots=128: the row is not 144 wide")
     say(f"(b) rc_slots=128 K=16 (row 144) at O={wide_o.numel()} N={N_FULL}, "
-        f"round 19: rc_merge_prune exact vs plain; kernel "
+        f"round 19: rc_merge_prune and prune_apply (C=128) exact vs plain; "
+        f"rc_merge_prune kernel "
         f"{cuda_ms(lambda: real['rc_merge_prune'](*args, **kw)):.4f} ms; "
         f"prunes {int(rows_w['prunes_sent'].sum())}")
     del calls, args, rows_w
 
     # inbound_cap = 128: past the former 64-entry limit of rank_inbound
     wide = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, inbound_cap=128)
-    _, calls = round19_calls(wide, wide_o, ["rank_inbound"])
+    _, calls = round19_calls(wide, wide_o, ["rank_inbound", "prune_apply"])
     args, kw = calls["rank_inbound"][0]
     got = exact("rank_inbound", args, kw, "(b) inbound_cap=128")
+    exact("prune_apply", *calls["prune_apply"][0], "(b) inbound_cap=128")
     if args[4] != 128:
         fail("(b) inbound_cap=128: K is not 128")
     g = rank_mod.launch_geometry(wide_o.numel(), N_FULL, 128, sms,
                                  smem_limit, rank_mod.max_clusters)
     say(f"(b) inbound_cap=128 at O={wide_o.numel()} N={N_FULL}, round 19: "
-        f"rank_inbound exact vs plain; kernel "
+        f"rank_inbound and prune_apply exact vs plain; rank_inbound kernel "
         f"{cuda_ms(lambda: real['rank_inbound'](*args, **kw)):.4f} ms "
         f"({g.threads} threads, {g.smem} B shared memory per CTA); largest "
         f"ingress {int(got[1].max())}, dropped {int(got[2].sum())}")
@@ -1274,24 +1408,27 @@ def main() -> int:
         lay = "partitionable" if part else "original"
         if not part:
             _, calls = round19_calls(params, origins,
-                                     ["push_targets", "rotate"], part)
-            exact("push_targets", *calls["push_targets"][0],
-                  f"(b) {lay} layout")
-            exact("rotate", *calls["rotate"][0], f"(b) {lay} layout")
+                                     ["push_targets", "rotate",
+                                      "prune_apply"], part)
+            for name in ("push_targets", "rotate", "prune_apply"):
+                exact(name, *calls[name][0], f"(b) {lay} layout")
         rows_i, calls = round19_calls(impaired, origins,
-                                      ["push_targets", "rotate", "threefry"],
-                                      part)
+                                      ["push_targets", "rotate", "threefry",
+                                       "prune_apply"], part)
         args, kw = calls["push_targets"][0]
         _, sup, drop = exact("push_targets", args, kw,
                              f"(b) impaired, {lay} layout")
         exact("rotate", *calls["rotate"][0], f"(b) impaired, {lay} layout")
+        exact("prune_apply", *calls["prune_apply"][0],
+              f"(b) impaired, {lay} layout")
         if calls["threefry"]:
             fail("(b) the impaired round launched the threefry kernel")
         if not (bool(sup.any()) and bool(drop.any())):
             fail("(b) impaired round: no edge was suppressed or dropped")
         say(f"(b) loss 0.1 + partition + churn at O={O_KERNEL} "
-            f"N={N_FULL}, round 19, {lay} layout: push_targets (masks on) "
-            f"and rotate exact vs plain, no threefry launch; push_targets "
+            f"N={N_FULL}, round 19, {lay} layout: push_targets (masks on), "
+            f"rotate and prune_apply exact vs plain, no threefry launch; "
+            f"push_targets "
             f"kernel {cuda_ms(lambda: real['push_targets'](*args, **kw)):.4f}"
             f" ms; suppressed {int(sup.sum())}, dropped {int(drop.sum())}, "
             f"failed nodes {int(rows_i['failed_count'].sum())}")
@@ -2044,10 +2181,12 @@ def main() -> int:
     pull_res, pull_case_calls = {}, {}
     for case, (o, prm) in pull_cases(EngineParams).items():
         orgs = torch.as_tensor(top_all[:o], device=dev)
-        rows_p, calls = round19_calls(prm, orgs, [PX, "push_targets"])
+        rows_p, calls = round19_calls(prm, orgs,
+                                      [PX, "push_targets", "prune_apply"])
         if len(calls[PX]) != 1 or len(calls["push_targets"]) != 1:
             fail(f"(h) {case}: round 19 called pull_exchange "
                  f"{len(calls[PX])} times")
+        exact("prune_apply", *calls["prune_apply"][0], f"(h) {case}")
         args, kw = calls[PX][0]
         got = exact(PX, args, kw, f"(h) {case}")
         if case == "pull":
@@ -2071,8 +2210,9 @@ def main() -> int:
         pull_res[case]["geometry"] = g._asdict()
         pull_case_calls[case] = (args, kw)
         say(f"(h) {case}: pull_exchange geometry {pull_geometry(g, px_mod)}")
-        say(f"(h) {case} (O={o}, N={N_FULL}), round 19: pull_exchange exact "
-            f"vs plain; kernel {pull_res[case]['ms']:.4f} ms, plain "
+        say(f"(h) {case} (O={o}, N={N_FULL}), round 19: pull_exchange (and "
+            f"prune_apply) exact vs plain; kernel "
+            f"{pull_res[case]['ms']:.4f} ms, plain "
             f"{pull_res[case]['plain_ms']:.4f} ms, bound "
             f"{pull_res[case]['bound_ms']:.4f} ms ({pull_res[case]['bytes']}"
             f" bytes); requests, responses, misses, dropped, suppressed, "
@@ -2363,6 +2503,15 @@ def main() -> int:
             if name == "traffic_send":
                 send_out = got
             del got
+        # the cut at its two ends: an ingress cap of 1, and one above
+        # every target's arrivals
+        a_args, a_kw = calls["traffic_admit"][0]
+        top = int(plain["traffic_admit"](*a_args, **a_kw).arrived_node.max())
+        for cap in (1, top + 1):
+            exact("traffic_admit", a_args[:4] + (cap,), a_kw,
+                  f"(i) {case}, ingress cap {cap}")
+        say(f"(i) {case}: traffic_admit exact vs plain at ingress caps 1 and "
+            f"{top + 1} (one above the largest arrivals at a target)")
         # the PyTorch yardsticks (timed here, used nowhere in the port)
         peer, code = send_out.peer, send_out.code
         V_, N_, F_ = peer.shape
@@ -2413,6 +2562,14 @@ def main() -> int:
         del calls, rows_t, send_args, send_out, m_args, peer, code
         del r_tgt, r_del, r_hop1
         torch.cuda.empty_cache()
+    prm = traffic_params(EngineParams, "uncapped", M_NARROW)
+    _, _, calls = traffic_round19(kernels, prm, tables, ttables, stakes_np,
+                                  dev)
+    for name in TRAFFIC_KERNELS:
+        exact(name, *calls[name][0], f"(i) uncapped M={M_NARROW}")
+    say(f"(i) uncapped M={M_NARROW}, round 19: "
+        + ", ".join(TRAFFIC_KERNELS) + " exact vs plain")
+    del calls
     tr_prof_run = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), TRAFFIC_FLAG],
         capture_output=True, text=True, timeout=400, cwd=ROOT)
@@ -2576,6 +2733,11 @@ def main() -> int:
          "all_origins_device_ms": ao_prof["device"][name],
          "wide_shapes": wide[name]}
         for name in names]}
+    for entry in line["kernels"]:
+        if entry["name"] in REDESIGNED:
+            entry["whole_call"] = {shape: per[entry["name"]]
+                                   for shape, per in calls_prof.items()
+                                   if entry["name"] in per}
     main_pp = pull_res["push-pull impaired cap 0"]
     line["kernels"].append(
         {"name": PX, "route": "cuda",
@@ -2623,6 +2785,10 @@ def main() -> int:
              "device_ms_m32": tr_dev[f"uncapped M={M_NARROW}"][name],
              "launches_capped": traffic_cli["capped"]["launches"][name],
              "slot_sort_ms": tr_u[name].get("slot_sort_ms")})
+        if name in REDESIGNED:
+            line["kernels"][-1]["whole_call"] = {
+                shape: per[name] for shape, per in calls_prof.items()
+                if name in per}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2631,6 +2797,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [CALLS_FLAG] and len(sys.argv) <= 3:
+        sys.exit(calls_child(Path(sys.argv[2]) if len(sys.argv) == 3
+                             else ROOT))
     sys.exit(profile_child(sys.argv[1])
              if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG], [PULL_FLAG],
                                  [TRAFFIC_FLAG])

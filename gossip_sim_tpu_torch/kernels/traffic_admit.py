@@ -18,6 +18,9 @@ import torch
 from . import _build
 
 NAME = "traffic_admit"
+#: i32 words of scratch per node: the cut (i64), the in-degree, the
+#: arrivals and a bucket of 32 in-neighbours
+SCRATCH_WORDS = 2 + 1 + 1 + 32
 
 
 class AdmitOut(NamedTuple):
@@ -58,20 +61,6 @@ def traffic_admit_plain(cand_bits: torch.Tensor, arr_bits: torch.Tensor,
     return AdmitOut(accepted, arrived_node, accepted_node)
 
 
-def in_neighbours(active: torch.Tensor):
-    """The reverse CSR of the shared [N, S] active set: ``row_ptr`` [N + 1]
-    and ``col`` [N * S] i32 (``src * S + slot``; the first ``row_ptr[N]``
-    entries), each target's in-neighbours in ascending source order."""
-    N, S = active.shape
-    dev = active.device
-    tg = active.reshape(-1).long().clamp(max=N)
-    key = tg * (N * S) + torch.arange(N * S, device=dev)
-    col = (torch.sort(key).values % (N * S)).to(torch.int32)
-    row_ptr = torch.zeros(N + 1, dtype=torch.int32, device=dev)
-    row_ptr[1:] = torch.cumsum(torch.bincount(tg, minlength=N + 1)[:N], 0)
-    return row_ptr, col
-
-
 def _lib():
     fn = _build.library(NAME).traffic_admit_launch
     if fn.argtypes is None:
@@ -87,14 +76,14 @@ def traffic_admit(cand_bits: torch.Tensor, arr_bits: torch.Tensor,
     """The ingress budget: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns :class:`AdmitOut`.
 
-    The kernel gives each target a warp that walks the values in order and,
-    within a value, the target's in-neighbours in source order (the
-    reverse CSR, built here), reading whether the (value, source) message
-    through that slot arrived from ``arr_bits``.  An arrival's rank is the
-    running count, and its fanout slot is the candidates below its slot in
-    ``cand_bits``: each source's peers are distinct, so a source sends a
-    target at most one message per value, and the (value, source) order is
-    the flat order."""
+    The accepted arrivals at a target are a prefix of its arrivals in flat
+    (value, source, slot) order, so the cap is one cut per target.  On the
+    card a tally (a warp per sender) counts each target's arrivals and
+    lists its in-neighbours, a cut kernel (cap on only; a warp per target
+    past the cap) finds the first rejected arrival, and a write kernel (a
+    tile of 32 senders x 32 values per block) writes every byte of the
+    acceptance plane once from the sender side (``csrc/traffic_admit.cu``).
+    """
     if not arr_bits.is_cuda:
         return traffic_admit_plain(cand_bits, arr_bits, active, fanout,
                                    ingress_cap)
@@ -106,12 +95,12 @@ def traffic_admit(cand_bits: torch.Tensor, arr_bits: torch.Tensor,
     _build.check(cand_bits, "cand_bits", i32, (N, V), dev)
     _build.check(arr_bits, "arr_bits", i32, (N, V), dev)
     _build.check(active, "active", i32, (N, S), dev)
-    row_ptr, col = in_neighbours(active)
+    scratch = torch.empty((SCRATCH_WORDS * N,), dtype=i32, device=dev)
     out = AdmitOut(torch.empty((V, N, F), dtype=torch.bool, device=dev),
                    torch.empty((N,), dtype=i32, device=dev),
                    torch.empty((N,), dtype=i32, device=dev))
     p = _build.ptr
-    rc = _lib()(p(row_ptr), p(col), p(cand_bits), p(arr_bits),
+    rc = _lib()(p(active), p(cand_bits), p(arr_bits), p(scratch),
                 *(p(t) for t in out), V, N, S, F, int(ingress_cap),
                 _build.stream_of(arr_bits))
     _build.launched(NAME, rc)

@@ -1056,3 +1056,138 @@ def test_rc_merge_prune_live_mask_and_shared_prune_apply(cuda):
         _assert_equal(kernels.prune_apply(pruned, active, src, slot),
                       kernels.prune_apply(pruned, each, src, slot),
                       "prune_apply")
+
+
+# --------------------------------------------------------------------------
+# traffic_admit and prune_apply at their edges: shapes that do not fill a
+# block, a tile or a vector, targets past the in-neighbour bucket, rows
+# dense with pairs on any grid, and flat indices past 2^31
+# --------------------------------------------------------------------------
+
+def _admit_inputs(seed, n, v, s, f, hubs):
+    """A shared set whose first ``hubs`` nodes are in every row (in-degree
+    n - 1), the other slots random peers or empty, and slot words of at
+    most ``f`` candidates per (sender, value), the arrivals a subset."""
+    r = np.random.default_rng(seed)
+    active = np.full((n, s), n, np.int32)
+    for i in range(n):
+        peers = [h for h in range(hubs) if h != i]
+        rest = r.permutation(np.setdiff1d(np.arange(n), peers + [i]))
+        row = np.concatenate([peers, rest[:s - len(peers)]]).astype(np.int32)
+        row[r.random(row.size) < 0.15] = n
+        active[i] = r.permutation(row)
+    cand = (active < n)[:, None, :] & (r.random((n, v, s)) < 0.7)
+    cand &= np.cumsum(cand, -1) <= f
+    arr = cand & (r.random((n, v, s)) < 0.8)
+    word = lambda b: ((b.astype(np.int64) << np.arange(s)).sum(-1)
+                      .astype(np.uint32).view(np.int32))
+    return word(cand), word(arr), active
+
+
+@pytest.mark.parametrize("cap", [0, 1, 7, 60, 1 << 20])
+@pytest.mark.parametrize("n,v,s,f,hubs", [(90, 40, 6, 4, 2),
+                                          (1000, 70, 12, 6, 0),
+                                          (333, 33, 12, 6, 3),
+                                          (77, 5, 25, 12, 1)])
+def test_traffic_admit_at_its_edges_equals_plain(cuda, n, v, s, f, hubs,
+                                                 cap):
+    """N not a multiple of a tile's 32 senders nor of a block's 8 warps, V
+    not a multiple of 32, S = 6, 12 and 25, hubs with more in-neighbours
+    than a bucket holds (the cut kernel's scan of the whole set), and caps
+    off, 1, binding and above every target's arrivals."""
+    cand, arr, active = (torch.as_tensor(x, device=cuda)
+                         for x in _admit_inputs(n * v + s, n, v, s, f, hubs))
+    got = kernels.traffic_admit(cand, arr, active, f, cap)
+    _assert_equal(got, kernels.traffic_admit_plain(cand, arr, active, f, cap),
+                  "traffic_admit")
+    if hubs:
+        assert int(got.arrived_node[:hubs].min()) > 0
+
+
+def _prune_inputs(cuda, seed, o, n, s, c, shared, p_live=0.5):
+    r = np.random.default_rng(seed)
+    t = lambda x: torch.as_tensor(x, device=cuda)
+    return (t(r.random((o, n, s)) < 0.1),
+            t(r.integers(0, n + 1, size=(n, s) if shared else (o, n, s))
+              .astype(np.int32)),
+            t(r.integers(0, n, size=(o, n, c)).astype(np.int32)),
+            t(r.random((o, n, c)) < p_live))
+
+
+def _misaligned(x):
+    """A copy of ``x`` one byte past a 16-byte boundary (contiguous)."""
+    buf = torch.empty(x.numel() * x.element_size() + 16, dtype=torch.uint8,
+                      device=x.device)
+    view = buf[1:1 + x.numel() * x.element_size()].view(x.dtype)
+    view.copy_(x.reshape(-1))
+    return view.view(x.shape)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("o,n,s,c", [(3, 1001, 12, 10), (2, 777, 7, 64),
+                                     (5, 33, 25, 17), (40, 2000, 12, 64)])
+def test_prune_apply_at_its_edges_equals_plain(cuda, o, n, s, c, shared):
+    """Half the slots live, O * N * C and O * N * S not multiples of 16
+    (the bytes past the last vector), C not a multiple of 16, and the
+    pruned and pruned-slot planes one byte off a 16-byte boundary (the
+    byte-wise copy and scan)."""
+    pruned, active, src, slot = _prune_inputs(cuda, o * n + c, o, n, s, c,
+                                              shared)
+    want = kernels.prune_apply_plain(pruned, active, src, slot)
+    _assert_equal(kernels.prune_apply(pruned, active, src, slot), want,
+                  "prune_apply")
+    _assert_equal(kernels.prune_apply(_misaligned(pruned), active, src,
+                                      _misaligned(slot)), want,
+                  "prune_apply (misaligned)")
+
+
+def test_prune_apply_dense_rows_on_any_grid_equals_plain(cuda, monkeypatch):
+    """Rows whose every slot is live (512 pairs in a warp's step, taken 32
+    at a time), on the one-wave grid and on grids of 1 and 3 blocks (many
+    steps a warp)."""
+    pa_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.prune_apply")
+    pruned, active, src, slot = _prune_inputs(cuda, 5, 8, 3000, 12, 64,
+                                              False, p_live=0.05)
+    slot[:, 1000:1400] = True
+    want = kernels.prune_apply_plain(pruned, active, src, slot)
+    real = pa_mod._grid
+    for grid in (None, 1, 3):
+        if grid is not None:
+            monkeypatch.setattr(pa_mod, "_grid", lambda *a, g=grid: g)
+        _assert_equal(kernels.prune_apply(pruned, active, src, slot), want,
+                      f"prune_apply (grid {grid or 'one wave'})")
+        monkeypatch.setattr(pa_mod, "_grid", real)
+
+
+def test_prune_apply_past_2_31_slots_equals_plain(cuda):
+    """O * N * C just past 2^31 (the 64-bit index math): live pairs at the
+    first rows, at the rows around flat index 2^31 and at the last row,
+    against the pairs applied one by one on the host."""
+    o, n, s, c = 1, (1 << 25) + 8, 4, 64
+    r = np.random.default_rng(3)
+    pruned = torch.zeros((o, n, s), dtype=torch.bool, device=cuda)
+    pruned[0, :1000] = True
+    active = torch.randint(0, n + 1, (n, s), dtype=torch.int32, device=cuda)
+    src = torch.empty((o, n, c), dtype=torch.int32, device=cuda)
+    slot = torch.zeros((o, n, c), dtype=torch.bool, device=cuda)
+    flat = np.concatenate([np.arange(0, 40), r.integers(0, 1 << 31, 40),
+                           np.arange((1 << 31) - 40, (1 << 31) + 40),
+                           np.arange(o * n * c - 40, o * n * c)])
+    flat = np.unique(flat)
+    rows = flat // c
+    u = r.integers(0, n, flat.size)
+    # each pair's prunee holds its pruner in a known slot
+    for i, (row, uu) in enumerate(zip(rows, u)):
+        active[uu, i % s] = int(row % n)
+    src.view(-1)[torch.as_tensor(flat, device=cuda)] = torch.as_tensor(
+        u.astype(np.int32), device=cuda)
+    slot.view(-1)[torch.as_tensor(flat, device=cuda)] = True
+    want = pruned.clone()
+    act = active.cpu()
+    for row, uu in zip(rows, u):
+        hit = torch.nonzero(act[uu] == int(row % n)).reshape(-1)
+        want[0, int(uu), hit.to(cuda)] = True
+    got = kernels.prune_apply(pruned, active, src, slot)
+    _assert_equal(got, want, "prune_apply (64-bit index)")
+    assert o * n * c > 1 << 31

@@ -14,10 +14,13 @@
   masks), ``traffic_admit_plain``'s acceptances and node counts against
   ``trace_code``'s accepted entries and the ``node_recv`` /
   ``node_queue_dropped`` rows;
-* ``traffic_admit``'s kernel schedule (the reverse CSR of the shared set,
-  a walk per target over values and in-neighbours reading the slot
-  bitmasks) transcribed in numpy, against the plain twin and against a
-  flat sort of ``traffic_send``'s peers and outcome codes.
+* ``traffic_admit``'s kernel schedule (a tally per sender into each
+  target's total and bucket of in-neighbours, one cut per target past the
+  cap, the acceptance plane written from the sender side in tiles)
+  transcribed in numpy, against the plain twin and against a flat sort of
+  ``traffic_send``'s peers and outcome codes, at caps off, 1, binding and
+  above every target's arrivals, and on a set whose hubs have more
+  in-neighbours than a bucket holds.
 
 The push round's calls of the two kernels that gained an argument
 (``rc_merge_prune``'s live mask, ``prune_apply``'s shared active set) are
@@ -41,7 +44,6 @@ from gossip_sim_tpu_torch.convert import traffic_state_to_numpy
 from gossip_sim_tpu_torch.engine import core as tc
 from gossip_sim_tpu_torch.engine import traffic as tt
 from gossip_sim_tpu_torch.engine.params import EngineParams as PortParams
-from gossip_sim_tpu_torch.kernels.traffic_admit import in_neighbours
 
 N, M = 200, 8
 BASE = dict(num_nodes=N, traffic_values=M, traffic_rate=2,
@@ -215,30 +217,83 @@ def test_traffic_admit_plain_equals_the_reference_block():
     assert qdrops > 0
 
 
-def _admit_schedule(cand_bits, arr_bits, active, f, cap):
-    """csrc/traffic_admit.cu's walk in numpy: per target, values in order,
-    in-neighbours in source order; rank = running count of arrivals."""
+BUCKET = 32                    # in-neighbours a target keeps (kBucket)
+ACCEPT_ALL = (1 << 63) - 1     # the cut of a target within the cap
+
+
+def _admit_schedule(cand_bits, arr_bits, active, f, cap, seed=0):
+    """csrc/traffic_admit.cu's three kernels in numpy.  Tally: each
+    (sender, slot)'s arrivals over the values, added to its target's
+    total, and its entry ``src * S + slot`` appended to the target's bucket
+    of 32 (in an arbitrary order: the atomics', shuffled here by
+    ``seed``).  Cut (cap on, targets past it): values in chunks of 32, the
+    warp scan placing each value's ranks, the straddling value's arrival of
+    rank ``cap - base`` among its arrivals in entry order; a target past
+    its bucket scans the whole set.  Write: tiles of 32 senders x 32
+    values, each arrival's byte set iff its key ``v * N * S + entry`` is
+    below its target's cut, every byte of the plane written once."""
     n, V = arr_bits.shape
     s = active.shape[1]
-    row_ptr, col = (x.numpy() for x in in_neighbours(torch.as_tensor(
-        active)))
-    cb, ab = cand_bits.astype(np.uint32), arr_bits.astype(np.uint32)
-    accepted = np.zeros((V, n, f), bool)
-    arrived = np.zeros(n, np.int32)
-    for t in range(n):
-        running = 0
-        edges = col[row_ptr[t]:row_ptr[t + 1]]
-        for v in range(V):
-            for e in edges:
-                src, slot = divmod(int(e), s)
-                if (ab[src, v] >> slot) & 1:
-                    if cap <= 0 or running < cap:
-                        fo = bin(int(cb[src, v]) & ((1 << slot) - 1)).count(
-                            "1")
-                        accepted[v, src, fo] = True
-                    running += 1
-        arrived[t] = running
-    return accepted, arrived
+    ns = n * s
+    ab, cb = arr_bits.astype(np.uint32), cand_bits.astype(np.uint32)
+    act = active.reshape(-1).astype(np.int64)
+    bit = lambda e, v: int(ab[e // s, v] >> (e % s)) & 1
+    # tally
+    count = ((ab[:, :, None] >> np.arange(s)) & 1).sum(1).reshape(-1)
+    deg, total = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    bucket = [[] for _ in range(n)]
+    for e in np.random.default_rng(seed).permutation(ns):
+        t = act[e]
+        if 0 <= t < n:
+            if deg[t] < BUCKET:
+                bucket[t].append(int(e))
+            deg[t] += 1
+            total[t] += count[e]
+    # cut
+    cut = np.full(n, ACCEPT_ALL, np.int64)
+    for t in (np.nonzero(total > cap)[0] if cap > 0 else []):
+        ents = (bucket[t] if deg[t] <= BUCKET
+                else [e for e in range(ns) if act[e] == t])
+        running, vcut, need = 0, -1, 0
+        for v0 in range(0, V, 32):
+            c = np.array([sum(bit(e, v) for e in ents)
+                          for v in range(v0, min(v0 + 32, V))])
+            incl = np.cumsum(c)
+            base = running + incl - c
+            hit = np.nonzero((c > 0) & (base <= cap) & (cap < base + c))[0]
+            if hit.size:
+                vcut, need = v0 + int(hit[0]), cap - int(base[hit[0]])
+                break
+            running += int(incl[-1])
+        assert vcut >= 0
+        arriving = [e for e in ents if bit(e, vcut)]
+        ranks = [sum(x < e for x in arriving) for e in arriving]
+        cut[t] = vcut * ns + arriving[ranks.index(need)]
+    # write
+    accepted = np.full((V, n, f), 2, np.uint8)    # 2: never written
+    for src0 in range(0, n, 32):
+        for v0 in range(0, V, 32):
+            tile = np.zeros((32, 32 * f), np.uint8)
+            for vl in range(min(32, V - v0)):
+                for tx in range(min(32, n - src0)):
+                    src, v = src0 + tx, v0 + vl
+                    a, cw = int(ab[src, v]), int(cb[src, v])
+                    while a:
+                        sl = (a & -a).bit_length() - 1
+                        a &= a - 1
+                        fo = bin(cw & ((1 << sl) - 1)).count("1")
+                        t = act[src * s + sl]
+                        if fo < f and (cap <= 0 or (
+                                0 <= t < n
+                                and v * ns + src * s + sl < cut[t])):
+                            tile[vl, tx * f + fo] = 1
+                rows = min(32, n - src0) * f
+                accepted[v, src0:src0 + rows // f] = tile[vl, :rows].reshape(
+                    -1, f)
+    assert (accepted != 2).all()
+    arrived = total.astype(np.int32)
+    accepted_node = (np.minimum(arrived, cap) if cap > 0 else arrived)
+    return accepted.astype(bool), arrived, accepted_node
 
 
 def _flat_sort_admit(peer, code, cap):
@@ -255,28 +310,76 @@ def _flat_sort_admit(peer, code, cap):
     return accepted.reshape(V, n, f), np.bincount(tgt, minlength=n + 1)[:n]
 
 
-@pytest.mark.parametrize("cap", [0, 3])
+@pytest.mark.parametrize("cap", [0, 3, 1, 1 << 20])
 def test_traffic_admit_kernel_schedule_equals_plain(cap):
     """The kernel's algorithm (its numpy transcription), the plain twin and
     a flat sort of the send outputs agree on two rounds of the impaired
-    run."""
+    run: cap off, binding, 1 (every target's cut at its first arrival) and
+    above every target's arrivals (no cut)."""
     _, _, calls = _run_case(TRACED)
     for r in (6, 15):
         args, _, _ = calls["traffic_admit"][r]
         cand_bits, arr_bits, active, f, _cap = args
         want = kernels.traffic_admit_plain(cand_bits, arr_bits, active, f,
                                            cap)
-        got, arrived = _admit_schedule(cand_bits.numpy(), arr_bits.numpy(),
-                                       active.numpy(), f, cap)
+        got, arrived, acc_node = _admit_schedule(
+            cand_bits.numpy(), arr_bits.numpy(), active.numpy(), f, cap,
+            seed=r)
         np.testing.assert_array_equal(got, want.accepted.numpy())
         np.testing.assert_array_equal(arrived, want.arrived_node.numpy())
+        np.testing.assert_array_equal(acc_node, want.accepted_node.numpy())
         snd = calls["traffic_send"][r][2]
         flat, flat_arrived = _flat_sort_admit(snd.peer.numpy(),
                                               snd.code.numpy(), cap)
         np.testing.assert_array_equal(flat, want.accepted.numpy())
         np.testing.assert_array_equal(flat_arrived,
                                       want.arrived_node.numpy())
-        assert int(want.arrived_node.max()) > max(cap, 1)
+        top = int(want.arrived_node.max())
+        assert top > max(cap, 1) if cap < 1 << 20 else top < cap
+
+
+def _hub_inputs(seed, n=90, v=40, s=6, f=4, hubs=2):
+    """A shared set whose first ``hubs`` nodes are in every row (in-degree
+    n - 1 > 32, past the bucket), other slots random or empty, and slot
+    words with at most ``f`` candidates per (sender, value), the arrivals
+    a subset of them."""
+    r = np.random.default_rng(seed)
+    active = np.full((n, s), n, np.int32)
+    for i in range(n):
+        peers = [h for h in range(hubs) if h != i]
+        rest = r.permutation([x for x in range(n) if x != i
+                              and x not in peers])[:s - len(peers)]
+        row = np.array(peers + list(rest), np.int32)
+        row[r.random(row.size) < 0.2] = n
+        active[i] = r.permutation(row)
+    valid = active < n
+    cand = np.zeros((n, v), np.int64)
+    arr = np.zeros((n, v), np.int64)
+    for i in range(n):
+        for j in range(v):
+            slots = np.nonzero(valid[i] & (r.random(s) < 0.7))[0][:f]
+            for sl in slots:
+                cand[i, j] |= 1 << int(sl)
+                if r.random() < 0.8:
+                    arr[i, j] |= 1 << int(sl)
+    return (cand.astype(np.int32), arr.astype(np.int32), active, f)
+
+
+@pytest.mark.parametrize("cap", [0, 1, 7, 60])
+def test_traffic_admit_schedule_past_the_bucket(cap):
+    """Targets with more in-neighbours than a bucket holds (the cut
+    kernel's scan of the whole set): the transcription against the plain
+    twin, V not a multiple of 32, N not a multiple of 32, S = 6."""
+    cand, arr, active, f = _hub_inputs(11)
+    want = kernels.traffic_admit_plain(torch.as_tensor(cand),
+                                       torch.as_tensor(arr),
+                                       torch.as_tensor(active), f, cap)
+    got, arrived, acc_node = _admit_schedule(cand, arr, active, f, cap)
+    np.testing.assert_array_equal(got, want.accepted.numpy())
+    np.testing.assert_array_equal(arrived, want.arrived_node.numpy())
+    np.testing.assert_array_equal(acc_node, want.accepted_node.numpy())
+    deg = np.bincount(active.reshape(-1), minlength=active.shape[0] + 1)
+    assert deg[:2].min() > BUCKET and int(want.arrived_node[:2].min()) > cap
 
 
 @pytest.mark.parametrize("kw,error", [
