@@ -17,11 +17,12 @@ Phases (any failure exits non-zero before the final line):
       and one-wave grid), and the instructions of one threefry block in the
       SASS (``cuobjdump -sass``) of ``threefry`` and of ``rotate``, by pipe;
   (b) first, in a process of its own (``--profile-calls``), the whole
-      calls of ``prune_apply`` and ``traffic_admit`` (every device
-      activity the wrapper launches) beside their kernels alone, on round
-      19's inputs of each shape the phases time them at ((b) O=32, (d)
-      O=1, (f) O=64, (h) push-pull O=64, (i) M=256 uncapped and capped,
-      M=32); then
+      calls of ``prune_apply``, ``traffic_admit`` and ``traffic_send``
+      (every device activity the wrapper launches) beside their kernels
+      alone, on round 19's inputs of each shape the phases time them at
+      ((b) O=32, (d) O=1, (f) O=64, (h) push-pull O=64, (i) M=256
+      uncapped and capped, M=32; ``traffic_send`` and ``traffic_admit``
+      at (i)'s only); then
       capture each kernel's inputs from a real round (round 19, when the
       upsert counters fire) at O=32 origins, N=10,000 nodes (every call of
       the round; it launches no ``threefry``, whose calls are taken from
@@ -122,7 +123,8 @@ Phases (any failure exits non-zero before the final line):
       versions (tolerance 0) on round 19's inputs, uncapped and with both
       queue caps binding under loss 0.1 + churn + a partition (and
       ``traffic_admit`` at ingress caps 1 and one above every target's
-      arrivals), and at M=32; each timed
+      arrivals, ``traffic_send`` at egress caps 1 and one crossed inside
+      the first value of a later 32-value chunk), and at M=32; each timed
       with CUDA events beside its plain version, its bound and a PyTorch
       yardstick, and under the profiler in a process of its own
       (``--profile-traffic``: device ms per call, and 5-round profiles at
@@ -825,17 +827,18 @@ def traffic_bytes(name, args, kw, out) -> int:
 
 CALLS_FLAG = "--profile-calls"
 #: the kernels timed as whole calls against an older tree (calls_child)
-REDESIGNED = ("prune_apply", "traffic_admit")
+REDESIGNED = ("prune_apply", "traffic_admit", "traffic_send")
 
 
 def calls_child(tree: Path) -> int:
     """``chip_smoke.py --profile-calls [TREE]``: the device ms per call of
-    ``prune_apply`` and ``traffic_admit``, kernel only (their kernels'
-    events) and whole (every device activity of the wrapper: a copy, a
-    memset or an index build included), and the CUDA-event ms, on round
-    19's inputs of each shape the phases time them at: (b) O=32, (d) O=1,
-    (f) O=64 (origins 0-63, all-origins parameters), (h) push-pull O=64
-    (impaired, request cap 0), (i) M=256 uncapped and capped, and M=32.
+    the kernels in ``REDESIGNED``, kernel only (their kernels' events) and
+    whole (every device activity of the wrapper: a copy, a memset or an
+    index build included), and the CUDA-event ms, on round 19's inputs of
+    each shape the phases time them at: ``prune_apply`` at (b) O=32, (d)
+    O=1, (f) O=64 (origins 0-63, all-origins parameters), (h) push-pull
+    O=64 (impaired, request cap 0), and all three at (i) M=256 uncapped
+    and capped, and M=32.
     The package comes from TREE (default: this checkout), so that
     ``round_turns.py --calls`` can compare a parent and a change in turns.
     The inputs are captured first and the profiler sessions run back to
@@ -1181,9 +1184,9 @@ def main() -> int:
             f"{ops['fma']} on the FMA pipe (chiprun_out/sass_{name}.txt)")
 
     # ---- (b) kernels vs plain on a real round's inputs -------------------
-    # the whole calls of prune_apply and traffic_admit at every shape the
-    # phases time them at, in a process of its own (its first profiler
-    # sessions); printed under each shape's phase
+    # the whole calls of prune_apply, traffic_admit and traffic_send at
+    # every shape the phases time them at, in a process of its own (its
+    # first profiler sessions); printed under each shape's phase
     calls_prof = whole_calls()["shapes"]
     show = lambda v: "not measured" if v is None else f"{v:.4f} ms"
     for shape, per in calls_prof.items():
@@ -2512,6 +2515,23 @@ def main() -> int:
                   f"(i) {case}, ingress cap {cap}")
         say(f"(i) {case}: traffic_admit exact vs plain at ingress caps 1 and "
             f"{top + 1} (one above the largest arrivals at a target)")
+        # traffic_send's egress count across its value chunks: a cap of 1,
+        # and one that a sender's running count crosses inside the first
+        # row of a later 32-value chunk
+        s_kw = calls["traffic_send"][0][1]
+        cw = send_out.cand_bits.T.long() & 0xFFFFFFFF
+        counts = ((cw[..., None] >> torch.arange(32, device=dev)) & 1).sum(-1)
+        row = next(v for v in range(32, counts.shape[0], 32)
+                   if bool((counts[v] > 1).any()))
+        before = counts[:row].sum(0)
+        sender = int(torch.argmax(torch.where(counts[row] > 1, before, -1)))
+        for cap in (1, int(before[sender]) + 1):
+            exact("traffic_send", send_args[:9] + (cap,), s_kw,
+                  f"(i) {case}, egress cap {cap}")
+        say(f"(i) {case}: traffic_send exact vs plain at egress caps 1 and "
+            f"{int(before[sender]) + 1} (sender {sender}'s count crosses it "
+            f"in value {row}, the first of a chunk)")
+        del cw, counts, before
         # the PyTorch yardsticks (timed here, used nowhere in the port)
         peer, code = send_out.peer, send_out.code
         V_, N_, F_ = peer.shape
@@ -2565,10 +2585,16 @@ def main() -> int:
     prm = traffic_params(EngineParams, "uncapped", M_NARROW)
     _, _, calls = traffic_round19(kernels, prm, tables, ttables, stakes_np,
                                   dev)
+    narrow_bound = {}
     for name in TRAFFIC_KERNELS:
-        exact(name, *calls[name][0], f"(i) uncapped M={M_NARROW}")
+        args, kw = calls[name][0]
+        got = exact(name, args, kw, f"(i) uncapped M={M_NARROW}")
+        narrow_bound[name] = bound(traffic_bytes(name, args, kw, got), 0,
+                                   None)[0]
+        del got
     say(f"(i) uncapped M={M_NARROW}, round 19: "
-        + ", ".join(TRAFFIC_KERNELS) + " exact vs plain")
+        + ", ".join(TRAFFIC_KERNELS) + " exact vs plain; bound ms "
+        + ", ".join(f"{n} {narrow_bound[n]:.4f}" for n in TRAFFIC_KERNELS))
     del calls
     tr_prof_run = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), TRAFFIC_FLAG],
@@ -2783,6 +2809,7 @@ def main() -> int:
                                                     "library_ms")},
              "capped_device_ms": tr_dev["capped M=256"][name],
              "device_ms_m32": tr_dev[f"uncapped M={M_NARROW}"][name],
+             "bound_ms_m32": narrow_bound[name],
              "launches_capped": traffic_cli["capped"]["launches"][name],
              "slot_sort_ms": tr_u[name].get("slot_sort_ms")})
         if name in REDESIGNED:

@@ -6,6 +6,15 @@ Replaces the reference engine's ``traffic/candidates``,
 (gossip_sim_tpu/engine/traffic.py:255-314).  The CUDA kernel is
 ``csrc/traffic_send.cu``; :func:`traffic_send_plain` is the same function
 in plain PyTorch, used for CPU tensors and as the spec.
+
+The kernel takes a block per tile of 32 senders x 32 values
+(``TILE``), chunk-major: it stages the tile's prune bytes as 16-byte
+vectors (only those that cover a live holder), writes each value row's
+peers and codes as contiguous vectors from shared memory, and each
+sender's 32 slot words as one line of the [N, V] planes.  With the egress
+cap on, the running count per sender crosses the value chunks by a
+decoupled look-back over a scratch of ``1 + ceil(V / 32) * N`` words that
+the launcher zeroes: a memset and one launch; with it off, one launch.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from . import _build
 
 NAME = "traffic_send"
 MAX_SLOTS = 32           # slot bitmasks are one 32-bit word
+TILE = 32                # senders and values of a kernel block
 
 
 class SendOut(NamedTuple):
@@ -105,11 +115,17 @@ def traffic_send_plain(active: torch.Tensor, pruned: torch.Tensor,
                    _as_i32(arr_bits).T.contiguous())
 
 
+def scan_words(v: int, n: int) -> int:
+    """The look-back scratch (u64 words) of a call with the egress cap on:
+    the block ticket, then a word per (value chunk, sender)."""
+    return 1 + -(-v // TILE) * n
+
+
 def _lib():
     fn = _build.library(NAME).traffic_send_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 12 + [ci] * 7
+        fn.argtypes = ([vp] * 13 + [ci] * 7
                        + [ctypes.c_uint, ctypes.c_ulonglong, vp])
         fn.restype = ci
     return fn
@@ -121,7 +137,9 @@ def traffic_send(active: torch.Tensor, pruned: torch.Tensor,
                  v_vid: torch.Tensor, side: torch.Tensor, fanout: int,
                  egress_cap: int, partition=None, loss=None) -> SendOut:
     """The send block: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  Returns :class:`SendOut`."""
+    for CPU tensors.  Returns :class:`SendOut`.  On the card: one launch,
+    and with ``egress_cap`` > 0 a memset of its look-back scratch before
+    it."""
     if not pruned.is_cuda:
         return traffic_send_plain(active, pruned, failed, v_live, v_holder,
                                   v_origin, v_vid, side, fanout, egress_cap,
@@ -145,11 +163,14 @@ def traffic_send(active: torch.Tensor, pruned: torch.Tensor,
                   torch.empty((V, N, F), dtype=torch.uint8, device=dev),
                   torch.empty((N, V), dtype=i32, device=dev),
                   torch.empty((N, V), dtype=i32, device=dev))
+    scan = (torch.empty(scan_words(V, N), dtype=torch.int64, device=dev)
+            if egress_cap > 0 else None)
     basis, threshold = loss if loss is not None else (0, 0)
     p = _build.ptr
     rc = _lib()(p(active), p(pruned), p(failed), p(v_live), p(v_holder),
                 p(v_origin), p(v_vid), p(side), *(p(t) for t in out),
-                V, N, S, F, int(egress_cap),
+                None if scan is None else p(scan), V, N, S, F,
+                int(egress_cap),
                 -1 if partition is None else int(bool(partition)),
                 int(loss is not None), basis & 0xFFFFFFFF, int(threshold),
                 _build.stream_of(pruned))

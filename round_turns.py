@@ -30,9 +30,9 @@ under loss + churn + a partition) and at M=32 uncapped, after 20 rounds
 traffic CLI run (300 iterations, 200 warm-up) uncapped and capped:
 traffic rounds/s and value-rounds/s over the engine calls' span.  With
 ``--calls`` each tree runs chip_smoke.py ``--profile-calls TREE``: the
-kernel-only and whole-call device ms of ``prune_apply`` and
-``traffic_admit`` on round 19's inputs of each shape chip_smoke times
-them at.  One JSON line per tree, then the card's name and power limit.
+kernel-only and whole-call device ms of ``prune_apply``,
+``traffic_admit`` and ``traffic_send`` on round 19's inputs of each shape
+chip_smoke times them at.  One JSON line per tree, then the card's name and power limit.
 Needs a CUDA device.
 """
 

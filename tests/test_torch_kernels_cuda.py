@@ -602,6 +602,21 @@ def test_verb_kernels_are_one_launch_and_a_memset(cuda):
     assert any("rotate_kernel" in name for name in names), names
 
 
+def test_traffic_send_is_one_launch_and_a_memset_when_capped(cuda):
+    """Egress cap off: the kernel alone; on: a memset of the look-back
+    scratch and the kernel (one count on the wrapper either way)."""
+    args = _send_inputs(cuda, 3, 70, 1000, 12) + (6,)
+    for cap, want in ((0, 1), (9, 2)):
+        kernels.reset_launch_counts()
+        names = _device_kernels(lambda: kernels.traffic_send(
+            *args, cap, partition=True, loss=(5, 1 << 30)))
+        assert kernels.LAUNCHES["traffic_send"] == 2       # warm-up + one
+        assert len(names) == want, names
+        assert any("traffic_send_kernel" in name for name in names), names
+        if want == 2:
+            assert any("memset" in name.lower() for name in names), names
+
+
 def _active_rows(r, o, n, s, cuda):
     """Seeded active-set rows of any content the kernels take: peers
     (repeats and the node itself included), a tenth of the slots empty
@@ -954,8 +969,8 @@ TRAFFIC_CASES = {
     # the widest set the sweeps reach, with a wide fanout
     "wide_set": (1500, 8, 10, dict(active_set_size=24, push_fanout=12,
                                    node_ingress_cap=12)),
-    # N not a multiple of a block's 32 senders, V not of its 8 warps;
-    # every message lost
+    # N not a multiple of traffic_send's 32 senders, V not of its 32-value
+    # chunks; every message lost
     "ragged_all_lost": (333, 9, 8, dict(node_egress_cap=5,
                                         packet_loss_rate=1.0)),
 }
@@ -1035,6 +1050,72 @@ def test_traffic_send_gates_at_the_edges_equal_plain(cuda):
         _assert_equal(kernels.traffic_send(*args, **variant),
                       kernels.traffic_send_plain(*args, **variant),
                       "traffic_send")
+
+
+def _send_inputs(cuda, seed, v, n, s):
+    """Seeded send inputs of any content the kernel takes: peers (the
+    sender itself and the values' origins included), a tenth of the slots
+    empty, a third pruned, a tenth of the nodes failed, most values live,
+    holders at random, two sides."""
+    r = np.random.default_rng(seed)
+    origin = r.integers(0, n, size=v).astype(np.int32)
+    active = r.integers(0, n, size=(n, s)).astype(np.int32)
+    active[r.random((n, s)) < 0.05] = origin[r.integers(0, v)]
+    active[r.random((n, s)) < 0.1] = n
+    t = lambda x: torch.as_tensor(x, device=cuda)
+    return (t(active), t(r.random((v, n, s)) < 0.3), t(r.random(n) < 0.1),
+            t(r.random(v) < 0.85), t(r.random((v, n)) < 0.6), t(origin),
+            t(r.integers(0, 1 << 31, size=v).astype(np.int32)),
+            t(r.integers(0, 2, size=n + 1).astype(np.int32)))
+
+
+def _send_counts(out):
+    """[V, N] candidates of each (value, sender), from the slot words."""
+    w = out.cand_bits.T.long() & 0xFFFFFFFF
+    return ((w[..., None] >> torch.arange(32, device=w.device)) & 1).sum(-1)
+
+
+#: (V, N, S, fanout): V = 1, 33 and 257 (not multiples of the 32-value
+#: chunk), N not a multiple of 32 (70 and 45 take the prune tile's byte
+#: path, 76 and 37 its 16-byte vectors), S = 32 with F = S (slot 31, the
+#: sign bit), and M = 256 at N = 10,000 (chip_smoke's shape)
+SEND_SHAPES = [(1, 70, 12, 6), (33, 45, 12, 6), (257, 76, 12, 6),
+               (40, 37, 32, 32), (256, 10_000, 12, 6)]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("v,n,s,fanout", SEND_SHAPES)
+def test_traffic_send_at_its_edges_equals_plain(cuda, v, n, s, fanout,
+                                                misaligned):
+    """Kernel against plain (tolerance 0) at egress caps off, 1, binding,
+    above every sender's candidates and, where there is a second chunk,
+    one that a sender's count crosses inside value 32's candidates (the
+    first row of chunk 1); with loss and a partition.  ``misaligned``: the
+    prune plane one byte past a 16-byte boundary (the byte path).  One
+    launch counted per call."""
+    args = list(_send_inputs(cuda, v * n + s, v, n, s))
+    if misaligned:
+        args[1] = _misaligned(args[1])
+    kw = dict(partition=True, loss=(0x1234567, 1 << 30))
+    plain = kernels.traffic_send_plain(*args, fanout, 0, **kw)
+    counts = _send_counts(plain)
+    totals = counts.sum(0)
+    top = int(totals.max())
+    caps = [0, 1, min(int(totals[totals > 1].median()), top - 1), top + 1]
+    if v > 32:
+        before = counts[:32].sum(0)
+        sender = int(torch.argmax(torch.where(counts[32] > 1, before,
+                                              -1)))
+        assert int(counts[32, sender]) > 1
+        caps.append(int(before[sender]) + 1)
+    for cap in caps:
+        kernels.reset_launch_counts()
+        got = kernels.traffic_send(*args, fanout, cap, **kw)
+        assert kernels.LAUNCHES["traffic_send"] == 1
+        _assert_equal(got, kernels.traffic_send_plain(*args, fanout, cap,
+                                                      **kw),
+                      f"traffic_send cap {cap}")
+        assert bool((got.code == 5).any()) == (0 < cap <= top - 1)
 
 
 def test_rc_merge_prune_live_mask_and_shared_prune_apply(cuda):

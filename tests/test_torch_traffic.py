@@ -14,6 +14,12 @@
   masks), ``traffic_admit_plain``'s acceptances and node counts against
   ``trace_code``'s accepted entries and the ``node_recv`` /
   ``node_queue_dropped`` rows;
+* ``traffic_send``'s kernel schedule (tiles of 32 senders x 32 values,
+  the prune tile staged only where it covers a live holder, the egress
+  count across value chunks by a decoupled look-back with its waves and
+  orders seeded, the transposed slot words) transcribed in numpy against
+  the plain twin, on round inputs and at ragged shapes, at egress caps
+  off, 1, binding and above every sender's candidates;
 * ``traffic_admit``'s kernel schedule (a tally per sender into each
   target's total and bucket of in-neighbours, one cut per target past the
   cap, the acceptance plane written from the sender side in tiles)
@@ -197,6 +203,284 @@ def test_traffic_send_plain_equals_the_reference_blocks():
                                       (code == 1).sum(-1))
         seen |= set(np.unique(code).tolist())
     assert seen == {0, 1, 2, 3, 4, 5}
+
+
+TILE = 32                      # senders and values of a send block
+M32 = 0xFFFFFFFF
+
+
+def _fmix32(x):
+    """faults.fmix32 on a uint64 array of 32-bit words."""
+    x = x & M32
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & M32
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & M32
+    return x ^ (x >> 16)
+
+
+def _send_schedule(active, pruned, failed, v_live, v_holder, v_origin, v_vid,
+                   side, fanout, cap, partition=None, loss=None, seed=0):
+    """csrc/traffic_send.cu in numpy.  Blocks of 32 senders x 32 values
+    (a chunk), in (chunk, tile) order.  A block stages its live holders
+    per value row and, of each row's prune span, only the 16-byte vectors
+    (bytes, where ``N * S`` is not a multiple of 16) that cover a live
+    holder (bytes never loaded hold 2, and no holder may read one), turns
+    each sender's prune bytes into a bit mask (a multiply per aligned
+    word), then takes each (value, sender)'s first f valid slots.  With
+    the cap on, the blocks run in waves of a seeded random size: every
+    block of a wave publishes its senders' chunk totals (chunk 0: its
+    inclusive prefix), then, in a seeded random order, each looks back
+    over the earlier chunks' words, adding totals (flag A) until an
+    inclusive prefix (flag P), publishes its own prefix and scans its
+    rows; counts saturate at the cap.  Then the gates, each row's peers
+    and codes out of the warp's stage, and the slot words through the
+    32 x 32 transpose.  Every output element is written exactly once.
+    Returns the four outputs and the number of look-back steps that added
+    a total (flag A)."""
+    r = np.random.default_rng(seed)
+    V, n, s = pruned.shape
+    f = min(fanout, s)
+    tiles, chunks = -(-n // TILE), -(-V // TILE)
+    flat = pruned.reshape(-1).astype(np.uint8)
+    vec = (n * s) % 16 == 0
+    peer = np.zeros((V, n, f), np.int64)
+    code = np.zeros((V, n, f), np.int64)
+    cand = np.zeros((n, V), np.int64)
+    arr = np.zeros((n, V), np.int64)
+    writes, bit_writes = np.zeros((V, n), int), np.zeros((n, V), int)
+    word = np.zeros((chunks, n, 2), np.int64)     # (flag, count): 1 A, 2 P
+    a_steps = 0
+
+    def stage(block):
+        chunk, tile = divmod(block, tiles)
+        n0, v0 = tile * TILE, chunk * TILE
+        nl, nv = min(TILE, n - n0), min(TILE, V - v0)
+        lanes = np.arange(TILE)
+        node = n0 + lanes
+        inn = lanes < nl
+        act = np.full((TILE, s), n, np.int64)
+        act[:nl] = active[n0:n0 + nl]
+        peer_ok = (act >= 0) & (act < n)
+        pv = np.clip(act, 0, n - 1)
+        pfail = peer_ok & failed[pv]
+        cross = peer_ok & (side[np.minimum(node, n)][:, None] != side[pv])
+        sends = inn & ~failed[np.minimum(node, n - 1)]
+        rows = v0 + np.arange(TILE)
+        rin = rows < V
+        rv = np.minimum(rows, V - 1)
+        hold = (rin[:, None] & sends[None] & v_live[rv][:, None]
+                & v_holder[rv][:, np.minimum(node, n - 1)])
+        origin = np.where(rin, v_origin[rv], n)
+        # the prune tile: row r's span starts at ((v0 + r) * n + n0) * s
+        prn = np.full((TILE, TILE * s), 2, np.int64)
+        starts = ((v0 + np.arange(nv)) * n + n0) * s
+        if vec:
+            for j in range(nl * s // 16):
+                lo, hi = 16 * j // s, min((16 * j + 15) // s, TILE - 1)
+                cover = hold[:nv, lo:hi + 1].any(1)
+                for rr in np.nonzero(cover)[0]:
+                    prn[rr, 16 * j:16 * j + 16] = flat[
+                        starts[rr] + 16 * j:starts[rr] + 16 * j + 16]
+        else:
+            need = np.repeat(hold[:nv, :nl], s, axis=1)
+            idx = starts[:, None] + np.arange(nl * s)[None]
+            prn[:nv, :nl * s] = np.where(need, flat[idx], 2)
+        mine = prn.reshape(TILE, TILE, s)             # [row, sender, slot]
+        assert (mine[hold] != 2).all(), "a holder read a byte never loaded"
+        # the sender's prune bytes as a bit mask: the aligned words that
+        # hold them, each word's four low bits gathered by one multiply
+        words = np.zeros((TILE, TILE * s + 4), np.uint64)
+        words[:, :TILE * s] = prn & 1
+        b0 = np.arange(TILE) * s
+        pbit = np.zeros((TILE, TILE), np.uint64)
+        for lane in range(TILE):
+            a0 = b0[lane] & ~3
+            for q in range((b0[lane] - a0 + s + 3) // 4):
+                w = sum(words[:, a0 + 4 * q + i] << np.uint64(8 * i)
+                        for i in range(4))
+                pbit[:, lane] |= ((w * np.uint64(0x10204080)) & np.uint64(
+                    M32)) >> np.uint64(28) << np.uint64(4 * q)
+            pbit[:, lane] >>= np.uint64(b0[lane] - a0)
+        pruned_slot = (pbit[:, :, None] >> np.arange(s, dtype=np.uint64)) & 1
+        valid = (hold[:, :, None] & peer_ok[None] & (pruned_slot == 0)
+                 & (act[None] != origin[:, None, None]))
+        first = valid & (np.cumsum(valid, -1) <= f)   # the early exit at f
+        cbits = (first.astype(np.int64) << np.arange(s)).sum(-1)
+        return dict(chunk=chunk, n0=n0, v0=v0, nl=nl, nv=nv, node=node,
+                    act=act, pfail=pfail, cross=cross, first=first,
+                    cbits=cbits, cnt=first.sum(-1))
+
+    def look_back(b):
+        """Warp 0 of a block: the chunk's exclusive prefix per sender."""
+        nonlocal a_steps
+        excl = np.zeros(TILE, np.int64)
+        agg = b["cnt"].sum(0)
+        for lane in range(b["nl"]):
+            node = b["node"][lane]
+            for c in range(b["chunk"] - 1, -1, -1):
+                fl, val = word[c, node]
+                assert fl in (1, 2), "looked back at an unpublished word"
+                excl[lane] += val
+                if fl == 2:
+                    break
+                a_steps += 1
+            excl[lane] = min(excl[lane], cap)
+            word[b["chunk"], node] = (2, min(excl[lane] + agg[lane], cap))
+        before = excl[None] + np.cumsum(b["cnt"], 0) - b["cnt"]
+        b["before"] = np.minimum(before, cap)
+
+    def emit(b):
+        n0, v0, nl, nv, node = (b[k] for k in ("n0", "v0", "nl", "nv",
+                                               "node"))
+        k = np.arange(f)
+        for row in range(nv):
+            v = v0 + row
+            first = b["first"][row]                   # [sender, slot]
+            order = np.argsort(np.where(first, np.arange(s), s), -1,
+                               kind="stable")[:, :f]
+            ok = k[None] < b["cnt"][row][:, None]
+            pv = np.where(ok, np.take_along_axis(b["act"], order, 1), n)
+            gate = lambda a: ok & np.take_along_axis(a, order, 1)
+            c = np.where(ok, 1, 0)
+            drop = np.zeros_like(ok)
+            if loss is not None:
+                vb = int(_fmix32(np.uint64((loss[0] ^ (int(v_vid[v])
+                                                       * 0x9E3779B1))
+                                           & M32)))
+                h = _fmix32(np.uint64(vb)
+                            ^ ((node[:, None].astype(np.uint64)
+                                * 0x85EBCA6B) & M32)
+                            ^ ((pv.astype(np.uint64) * 0xC2B2AE35) & M32))
+                drop = ok & (h < loss[1])
+            c = np.where(drop, 4, c)
+            if partition:
+                c = np.where(gate(b["cross"]), 3, c)
+            c = np.where(gate(b["pfail"]), 2, c)
+            if cap > 0:
+                c = np.where(ok & (k[None] >= cap - b["before"][row][:, None]),
+                             5, c)
+            arrived = (c == 1)
+            abits = np.zeros(TILE, np.int64)
+            for kk in range(f):
+                abits |= np.where(arrived[:, kk],
+                                  np.int64(1) << order[:, kk], 0)
+            peer[v, n0:n0 + nl] = pv[:nl]
+            code[v, n0:n0 + nl] = c[:nl]
+            writes[v, n0:n0 + nl] += 1
+            b.setdefault("abt", np.zeros((TILE, TILE), np.int64))[:, row] = (
+                abits)
+        cbt = b["cbits"].T                            # [sender, row]
+        cand[n0:n0 + nl, v0:v0 + nv] = cbt[:nl, :nv]
+        arr[n0:n0 + nl, v0:v0 + nv] = b["abt"][:nl, :nv]
+        bit_writes[n0:n0 + nl, v0:v0 + nv] += 1
+
+    total = tiles * chunks
+    t = 0
+    while t < total:
+        wave = [stage(x) for x in range(t, min(total, t + int(
+            r.integers(1, 3 * tiles + 1))))]
+        t += len(wave)
+        if cap > 0:
+            for b in wave:
+                agg = np.minimum(b["cnt"].sum(0), cap)
+                for lane in range(b["nl"]):
+                    word[b["chunk"], b["node"][lane]] = (
+                        2 if b["chunk"] == 0 else 1, agg[lane])
+            for i in r.permutation(len(wave)):
+                look_back(wave[i])
+        for b in wave:
+            emit(b)
+    assert (writes == 1).all() and (bit_writes == 1).all()
+    as_i32 = lambda x: x.astype(np.uint32).view(np.int32)
+    return (peer.astype(np.int32), code.astype(np.uint8), as_i32(cand),
+            as_i32(arr)), a_steps
+
+
+def _send_inputs(seed, v, n, s):
+    """Seeded inputs of any content the kernel takes: peers (the sender
+    itself and the values' origins included), a tenth of the slots empty,
+    a third pruned, a tenth of the nodes failed, most values live, holders
+    at random, two sides."""
+    r = np.random.default_rng(seed)
+    origin = r.integers(0, n, size=v).astype(np.int32)
+    active = r.integers(0, n, size=(n, s)).astype(np.int32)
+    active[r.random((n, s)) < 0.05] = origin[r.integers(0, v)]
+    active[r.random((n, s)) < 0.1] = n
+    t = torch.as_tensor
+    return (t(active), t(r.random((v, n, s)) < 0.3), t(r.random(n) < 0.1),
+            t(r.random(v) < 0.85), t(r.random((v, n)) < 0.6), t(origin),
+            t(r.integers(0, 1 << 31, size=v).astype(np.int32)),
+            t(r.integers(0, 2, size=n + 1).astype(np.int32)))
+
+
+def _sender_totals(out):
+    """Each sender's candidates over every value (from the slot words)."""
+    w = out.cand_bits.numpy().view(np.uint32).astype(np.int64)
+    return ((w[..., None] >> np.arange(32)) & 1).sum((1, 2))
+
+
+def _caps(totals):
+    """Egress caps off, 1, binding (the median of the totals above 1, below
+    the largest) and above every sender's total."""
+    top = int(totals.max())
+    mid = min(int(np.median(totals[totals > 1])), top - 1)
+    return {"off": 0, "one": 1, "binding": mid, "above": top + 1}
+
+
+def _check_schedule(args, kw, cap, seed):
+    args = args[:9] + (cap,)
+    want = kernels.traffic_send_plain(*args, **kw)
+    got, a_steps = _send_schedule(*(a.numpy() if torch.is_tensor(a) else a
+                                    for a in args),
+                                  partition=kw.get("partition"),
+                                  loss=kw.get("loss"), seed=seed)
+    for name, x, y in zip(want._fields, got, want):
+        np.testing.assert_array_equal(x, y.numpy(), err_msg=name)
+    return want, a_steps
+
+
+@pytest.mark.parametrize("cap", ["off", "one", "binding", "above"])
+def test_traffic_send_kernel_schedule_equals_plain(cap):
+    """The kernel's algorithm (its numpy transcription) against the plain
+    twin on two rounds of the impaired capped run (loss and failed nodes;
+    round 6 inside the partition window, round 15 after it), at egress
+    caps off, 1, binding and above every sender's candidates."""
+    _, _, calls = _run_case(TRACED)
+    for r in (6, 15):
+        args, kw, out = calls["traffic_send"][r]
+        c = _caps(_sender_totals(out))[cap]
+        want, _ = _check_schedule(args, kw, c, seed=r)
+        codes = set(np.unique(want.code.numpy()).tolist())
+        assert (5 in codes) == (cap in ("one", "binding")), codes
+        assert {1, 2, 4} | ({3} if kw["partition"] else set()) <= codes
+
+
+#: (V, N, S, fanout): V = 1, 33 and 257 (not multiples of the 32-value
+#: chunk; 257 spans nine chunks), N not a multiple of 32 (70 and 45: the
+#: byte path of the prune tile; 76 and 37: its 16-byte vectors), S = 32
+#: (slot 31, the int32 sign bit) with F = S
+SEND_SHAPES = [(1, 70, 12, 6), (33, 45, 12, 6), (257, 76, 12, 6),
+               (40, 37, 32, 32)]
+
+
+@pytest.mark.parametrize("cap", ["off", "one", "binding", "above"])
+@pytest.mark.parametrize("v,n,s,fanout", SEND_SHAPES)
+def test_traffic_send_schedule_at_its_edges(v, n, s, fanout, cap):
+    """The transcription against the plain twin on seeded inputs at the
+    ragged shapes, with loss and a partition, at each egress cap; the
+    look-back adds chunk totals (not only prefixes) where it has chunks
+    to cross."""
+    args = _send_inputs(v * n + s, v, n, s) + (fanout, 0)
+    kw = dict(partition=True, loss=(0x1234567, 1 << 30))
+    c = _caps(_sender_totals(kernels.traffic_send_plain(*args, **kw)))[cap]
+    want, a_steps = _check_schedule(args, kw, c, seed=v + n)
+    if v == 257 and cap != "off":
+        assert a_steps > 0
+    if s == 32:
+        assert (want.cand_bits.numpy() < 0).any()     # slot 31 set
+    assert ((want.code.numpy() == 5).any()
+            == (cap in ("one", "binding")))
 
 
 def test_traffic_admit_plain_equals_the_reference_block():
