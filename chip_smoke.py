@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero before the final line):
 
-  (a) build the ten CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
+  (a) build the eleven CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
       nvcc for sm_90a (one nvcc per source, in parallel); print each
       kernel's registers, shared memory and spills (``-Xptxas -v``), check
       ``rotate``'s static shared memory (the class tables) against ptxas
@@ -135,7 +135,18 @@ Phases (any failure exits non-zero before the final line):
       TRAFFIC SUMMARY counts); cuda == cpu at N=2,000, M=32 (60
       iterations, capped and impaired: ``parity_snapshot()``,
       ``summary()`` and the deterministic Influx lines) and for a 3-point
-      ``traffic-rate`` sweep;
+      ``traffic-rate`` sweep; then adaptive traffic (``--gossip-mode
+      adaptive``, threshold 0.9): the first round from 39 on with values in
+      their pull phase (capped: and pull requests deferred or
+      queue-dropped), uncapped and capped + impaired, its six kernels held
+      against their plain versions and ``traffic_rescue`` also at ingress
+      cap 1, ``traffic_rescue`` timed beside its plain version, its bound
+      and a stable ``torch.sort`` of the arrived requests' packed (peer,
+      flat index) keys, and under the profiler in the ``--profile-traffic``
+      process (with a 5-round adaptive profile beside the push one); the
+      full-width adaptive CLI uncapped and capped (rounds/s, value-rounds/s,
+      peak memory, launches, the TRAFFIC and ADAPTIVE SUMMARY counts); cuda
+      == cpu at N=2,000, M=32 adaptive, capped and impaired;
   (j) print the total wall, the card's name and power limit, the
       ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
 
@@ -196,7 +207,9 @@ SOURCES = {"bfs_relax": ("gossip_sim_tpu/engine/core.py:620",
                             "traffic/candidates + traffic/egress_cap + "
                             "traffic/network"),
            "traffic_admit": ("gossip_sim_tpu/engine/traffic.py:316",
-                             "traffic/ingress_cap")}
+                             "traffic/ingress_cap"),
+           "traffic_rescue": ("gossip_sim_tpu/engine/traffic.py:424",
+                              "traffic/pull_rescue")}
 # the pull modes (h): round 19's pull_exchange calls at O=64, O=32 and O=1
 O_PULL = 64
 # the traffic engine (i): value slots, injection rate, the kernels of its
@@ -210,6 +223,16 @@ TRAFFIC_KERNELS = ("traffic_send", "traffic_admit", "rank_inbound",
 TRAFFIC_CAPS = (192, 256)
 TRAFFIC_IMPAIRED = dict(packet_loss_rate=0.1, churn_fail_rate=0.01,
                         churn_recover_rate=0.2, partition_at=10, heal_at=30)
+# adaptive traffic (i): the six kernels of its round, the reference's
+# default switch threshold; the kernels only traffic runs launch
+ADAPTIVE_KERNELS = TRAFFIC_KERNELS + ("traffic_rescue",)
+ADAPTIVE_THRESHOLD = 0.9
+TRAFFIC_ONLY = ("traffic_send", "traffic_admit", "traffic_rescue")
+# the integer operations of one counter hash (faults.py): fmix32's three
+# shifts, three xors and two multiplies, and the lane products (two
+# multiplies and two xors for an edge hash, one of each for a node hash)
+EDGE_HASH_OPS = dict(alu=8, fma=4, total=12)
+NODE_HASH_OPS = dict(alu=7, fma=3, total=10)
 
 
 def fail(msg: str) -> None:
@@ -320,7 +343,9 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                   "traffic_admit": ("traffic_admit_tally_kernel",
                                     "traffic_admit_cut_kernel",
                                     "traffic_admit_write_kernel",
-                                    "traffic_admit_kernel")}
+                                    "traffic_admit_kernel"),
+                  "traffic_rescue": ("traffic_rescue_walk_kernel",
+                                     "traffic_rescue_select_kernel")}
 
 
 def device_ms(fn, symbols, reps: int = 10):
@@ -797,6 +822,90 @@ def traffic_round19(kernels, prm, tables, ttables, stakes_np, dev):
     return st, rows, calls
 
 
+def adaptive_params(EngineParams, case: str, m: int = M_TRAFFIC,
+                    n: int = N_FULL):
+    """Phase (i)'s adaptive traffic parameters: :func:`traffic_params` in
+    ``gossip_mode="adaptive"`` at the reference's default threshold."""
+    return traffic_params(EngineParams, case, m, n)._replace(
+        gossip_mode="adaptive", adaptive_switch_threshold=ADAPTIVE_THRESHOLD)
+
+
+def adaptive_round(kernels, prm, tables, ttables, stakes_np, dev,
+                   capped: bool, first: int = 39, last: int = 139):
+    """An adaptive traffic run up to the first round from ``first`` on (past
+    the first values' lifetimes: a steady mix of push and pull phases) in
+    which values are in their pull phase (and, ``capped``, the rescue
+    defers or queue-drops requests).  Returns (that round, the state before
+    it, its rows, the calls of the six kernels in it)."""
+    from gossip_sim_tpu_torch.engine.traffic import (init_traffic_state,
+                                                     run_traffic_rounds,
+                                                     traffic_round_step)
+    st = init_traffic_state(stakes_np, prm, 42, dev)
+    st, _ = run_traffic_rounds(prm, tables, ttables, st, first)
+    real = {name: getattr(kernels, name) for name in ADAPTIVE_KERNELS}
+    for it in range(first, last + 1):
+        calls = {name: [] for name in ADAPTIVE_KERNELS}
+
+        def recorder(name):
+            def rec(*a, **kw):
+                calls[name].append((a, kw))
+                return real[name](*a, **kw)
+            return rec
+
+        for name in ADAPTIVE_KERNELS:
+            setattr(kernels, name, recorder(name))
+        try:
+            nxt, rows = traffic_round_step(prm, tables, ttables, st, it)
+        finally:
+            for name in ADAPTIVE_KERNELS:
+                setattr(kernels, name, real[name])
+        if int(rows["pull_active_values"]) > 0 and (
+                not capped or int(rows["pull_deferred"])
+                + int(rows["pull_queue_dropped"]) > 0):
+            return it, st, rows, calls
+        st = nxt
+    fail(f"(i) adaptive traffic: no value in its pull phase (capped "
+         f"{capped}: and no pull request deferred or queue-dropped) by "
+         f"round {last}")
+
+
+def rescue_work(args, kw, out, tr_mod):
+    """What ``traffic_rescue`` must do on these inputs: (bytes moved, edge
+    hashes, node hashes).  Bytes: the pull-phase values' rows of
+    holder_pre, hop_pre and the holders, the node tables it gathers (failed,
+    perm, push sends and acceptances, the sides while the partition is on),
+    every output once.  Hashes: the class and member draws of each wanted
+    (value, requester, slot) of a live requester missing a pull-phase
+    value, the loss hash of each request that reaches the loss gate, and a
+    bloom hash per (pull-phase value, live requester missing it)."""
+    (pull_on, vid, holder_pre, hop_pre, holder, failed, side, perm, cs, cc,
+     cdf, push_out, acc) = args[:13]
+    fanout = args[13]
+    N = holder_pre.shape[1]
+    rows = int(pull_on.sum())
+    req = tr_mod.rescue_requests(*args, **kw)
+    pairs = int((pull_on[:, None] & ~holder_pre & ~failed[None, :]).sum())
+    at_loss = (int((req.sent & ~req.failed_target & ~req.suppressed).sum())
+               if kw.get("loss") is not None else 0)
+    moved = (rows * N * (holder_pre.element_size() + hop_pre.element_size()
+                         + holder.element_size())
+             + nbytes(pull_on, vid, failed, perm, cs, cc, cdf, push_out, acc,
+                      *out)
+             + (nbytes(side) if kw.get("partition") else 0))
+    return moved, 2 * pairs * fanout + at_loss, pairs
+
+
+def rescue_bound(moved: int, edge_hashes: int, node_hashes: int):
+    """(bound ms, "bytes" or "operations") of ``traffic_rescue``: the
+    larger of the bytes at the memory rate and the hashes at the integer
+    issue rate."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = (issue_s(EDGE_HASH_OPS, edge_hashes)
+              + issue_s(NODE_HASH_OPS, node_hashes)) * 1e3
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms > bytes_ms
+                                   else "bytes")
+
+
 def traffic_bytes(name, args, kw, out) -> int:
     """Bytes a traffic-round kernel call must move on these inputs: its
     outputs once and what it must read once.  ``traffic_send`` reads the
@@ -945,7 +1054,9 @@ def profile_child(flag: str) -> int:
     --profile-traffic``: each traffic kernel's device time on round 19's
     inputs at M=256 (both cases) and M=32 (uncapped), and the 5-round
     traffic profiles from round 19 at M=256 and M=32, started by phase
-    (i).  Each runs in a
+    (i), and the same for adaptive traffic at M=256 (uncapped and capped,
+    on the first round from 39 on with values in their pull phase; the
+    5-round adaptive profile from round 20, as push mode's).  Each runs in a
     process whose first profiler sessions they are (later sessions of a
     process record no device time) and prints a JSON line, last."""
     import torch
@@ -980,28 +1091,48 @@ def profile_child(flag: str) -> int:
         from gossip_sim_tpu_torch.engine.traffic import (device_traffic_tables,
                                                          run_traffic_rounds)
         ttables = device_traffic_tables(stakes_np, dev)
+        # every case's inputs first, then the profiler sessions back to back
+        captured = []
+        for case, m, adaptive in (("uncapped", M_TRAFFIC, False),
+                                  ("capped", M_TRAFFIC, False),
+                                  ("uncapped", M_NARROW, False),
+                                  ("uncapped", M_TRAFFIC, True),
+                                  ("capped", M_TRAFFIC, True)):
+            if adaptive:
+                # the kernels on a round with values in their pull phase;
+                # the profile from round 20, as push mode's
+                prm = adaptive_params(EngineParams, case, m)
+                _, _, _, calls = adaptive_round(
+                    kernels, prm, tables, ttables, stakes_np, dev,
+                    case == "capped")
+                st = (traffic_round19(kernels, prm, tables, ttables,
+                                      stakes_np, dev)[0]
+                      if case == "uncapped" else None)
+                it0, key = 20, f"adaptive {case} M={m}"
+                tag = f" traffic adaptive M={m}"
+            else:
+                prm = traffic_params(EngineParams, case, m)
+                st, _, calls = traffic_round19(kernels, prm, tables, ttables,
+                                               stakes_np, dev)
+                it0, key, tag = 20, f"{case} M={m}", f" traffic M={m}"
+            captured.append((key, tag, prm, it0, calls,
+                             st if case == "uncapped" else None))
+            del st
+        torch.cuda.synchronize()
         out = {}
-        for case, m in (("uncapped", M_TRAFFIC), ("capped", M_TRAFFIC),
-                        ("uncapped", M_NARROW)):
-            prm = traffic_params(EngineParams, case, m)
-            st, _, calls = traffic_round19(kernels, prm, tables, ttables,
-                                           stakes_np, dev)
-            key = f"{case} M={m}"
+        for key, tag, prm, it0, calls, st in captured:
             out[key] = {}
-            for name in TRAFFIC_KERNELS:
-                a, kw = calls[name][0]
+            for name, recorded in calls.items():
+                a, kw = recorded[0]
                 fn = getattr(kernels, name)
                 out[key][name] = device_ms(lambda: fn(*a, **kw),
                                            KERNEL_SYMBOLS[name], reps=10)
-            del calls
-            if case == "uncapped":
-                out[f"profile M={m}"] = profile_rounds(
-                    lambda p, t, _o, s_, r: run_traffic_rounds(
-                        p, t, ttables, s_, r, start_it=20),
-                    prm, tables, torch.zeros(m), st, out_dir,
-                    tag=f" traffic M={m}", phase="(i)")
-            del st
-            torch.cuda.empty_cache()
+            if st is not None:
+                out["profile" + tag.replace(" traffic", "")] = profile_rounds(
+                    lambda p, t, _o, s_, r, it0=it0: run_traffic_rounds(
+                        p, t, ttables, s_, r, start_it=it0),
+                    prm, tables, torch.zeros(prm.traffic_values), st,
+                    out_dir, tag=tag, phase="(i)")
         print(json.dumps(out), flush=True)
         return 0
     if flag == PULL_FLAG:
@@ -1098,7 +1229,7 @@ def main() -> int:
     # the push path's kernels; pull_exchange runs in the pull modes, (h),
     # and the two traffic kernels in the traffic round, (i)
     names = tuple(n for n in _build.KERNEL_NAMES
-                  if n not in ("pull_exchange",) + TRAFFIC_KERNELS[:2])
+                  if n not in ("pull_exchange",) + TRAFFIC_ONLY)
     dev = torch.device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1755,7 +1886,7 @@ def main() -> int:
     n_batches = len(sizes)
     want = {name: n_batches * 300 for name in names}
     want["threefry"] = n_batches * (2 + 2 * params.init_draws)
-    want.update({n: 0 for n in ("pull_exchange",) + TRAFFIC_KERNELS[:2]})
+    want.update({n: 0 for n in ("pull_exchange",) + TRAFFIC_ONLY})
     if ao_launches != want:
         fail(f"(f) all-origins launches {ao_launches}, expected {want} (every "
              f"kernel each round of each batch, threefry in init_state only)")
@@ -2728,6 +2859,172 @@ def main() -> int:
             f"deterministic Influx lines; {summ['values_injected']} values "
             f"injected, {summ['values_converged']} converged, queue deferred "
             f"{summ['queue_deferred']} dropped {summ['queue_dropped']}")
+
+    # adaptive traffic (the per-value pull rescue) at N=10,000, M=256: the
+    # six kernels against their plain versions on the first round with
+    # values in their pull phase, uncapped and capped + impaired, and
+    # traffic_rescue also at ingress cap 1
+    tr_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.traffic_rescue")
+    t_ad = time.perf_counter()
+    rescue_res = {}
+    for case in ("uncapped", "capped"):
+        prm = adaptive_params(EngineParams, case)
+        it_a, _, rows_a, calls = adaptive_round(
+            kernels, prm, tables, ttables, stakes_np, dev, case == "capped")
+        torch.cuda.synchronize()
+        if any(len(calls[n]) != 1 for n in ADAPTIVE_KERNELS):
+            fail(f"(i) adaptive {case}: round {it_a} called the kernels "
+                 f"{ {n: len(c) for n, c in calls.items()} } times")
+        for name in TRAFFIC_KERNELS:
+            exact(name, *calls[name][0], f"(i) adaptive {case}")
+        args, kw = calls["traffic_rescue"][0]
+        got = exact("traffic_rescue", args, kw, f"(i) adaptive {case}")
+        exact("traffic_rescue", args[:17] + (1,) + args[18:], kw,
+              f"(i) adaptive {case}, ingress cap 1")
+        moved, edge_h, node_h = rescue_work(args, kw, got, tr_mod)
+        b_ms, b_by = rescue_bound(moved, edge_h, node_h)
+        req = tr_mod.rescue_requests(*args, **kw)
+        flat = req.arrived.reshape(-1).nonzero().squeeze(1)
+        keys = req.peer.reshape(-1)[flat].long() * req.arrived.numel() + flat
+        del req
+        pa = {k: int(rows_a[k]) for k in tr_mod.COUNT_NAMES[:-1]}
+        pa["switched_to_pull"] = int(rows_a["switched_to_pull"])
+        rescue_res[case] = dict(
+            round=it_a, rows=pa,
+            ms=cuda_ms(lambda: real["traffic_rescue"](*args, **kw), reps=10),
+            plain_ms=cuda_ms(lambda: plain["traffic_rescue"](*args, **kw),
+                             reps=2, warm=1),
+            bound_ms=b_ms, bound_by=b_by, bytes=moved, edge_hashes=edge_h,
+            node_hashes=node_h,
+            library_ms=cuda_ms(lambda: torch.sort(keys, stable=True)),
+            library_keys=int(keys.numel()))
+        r = rescue_res[case]
+        say(f"(i) adaptive {case} (threshold {ADAPTIVE_THRESHOLD}), round "
+            f"{it_a}: pull_active_values {pa['pull_active_values']}; {pa}")
+        say(f"(i) adaptive {case}: the six kernels exact vs plain, "
+            f"traffic_rescue also at ingress cap 1; traffic_rescue kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({moved} bytes, {edge_h} edge and "
+            f"{node_h} node hashes), library (stable sort of "
+            f"{r['library_keys']} packed (peer, flat index) keys) "
+            f"{r['library_ms']:.4f} ms")
+        del calls, rows_a, args, kw, got, keys, flat
+        torch.cuda.empty_cache()
+    if rescue_res["capped"]["rows"]["pull_deferred"] + rescue_res["capped"][
+            "rows"]["pull_queue_dropped"] == 0:
+        fail("(i) adaptive capped: no pull request deferred or dropped")
+
+    # the full-width adaptive CLI run, uncapped then capped, with the
+    # launch counts set to 0 just before each and read just after
+    ad_argv = tr_argv + ["--gossip-mode", "adaptive"]
+    adaptive_cli = {}
+    for case, extra in (("uncapped", []),
+                        ("capped", ["--node-ingress-cap",
+                                    str(TRAFFIC_CAPS[0]), "--node-egress-cap",
+                                    str(TRAFFIC_CAPS[1])])):
+        reports, spans = [], []
+
+        def rt_capture(*a, **kw):
+            reports.append(real_rt(*a, **kw))
+            return reports[-1]
+
+        def timed_rounds(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_rounds(*a, **kw)
+            torch.cuda.synchronize()
+            spans.append((time.perf_counter() - t0,
+                          int(out[1]["live"].sum())))
+            return out
+
+        cli.run_traffic, cli.run_traffic_rounds = rt_capture, timed_rounds
+        try:
+            reset_unique_pubkeys()
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = cli.main(ad_argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(kernels.LAUNCHES)
+        finally:
+            cli.run_traffic, cli.run_traffic_rounds = real_rt, real_rounds
+        if rc != 0 or len(reports) != 1:
+            fail(f"(i) adaptive CLI {case}: exit {rc}")
+        if (any(got[n] != 300 for n in ADAPTIVE_KERNELS)
+                or any(got[n] for n in got if n not in ADAPTIVE_KERNELS)):
+            fail(f"(i) adaptive CLI {case}: launches {got}")
+        summ, ad = reports[0]["traffic"], reports[0]["adaptive"]
+        span = sum(w for w, _ in spans)
+        value_rounds = sum(v for _, v in spans)
+        if not (summ["values_injected"] > 0 and ad["switched_to_pull"] > 0
+                and ad["pull_rescued"] > 0
+                and 0.0 < summ["value_coverage_mean"] <= 1.0):
+            fail(f"(i) adaptive CLI {case}: implausible summary {summ} {ad}")
+        adaptive_cli[case] = dict(
+            wall=wall, rounds_s=300 / span, value_rounds_s=value_rounds / span,
+            peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+            launches=got, summary=summ, adaptive=ad)
+        say(f"(i) adaptive CLI {' '.join(ad_argv + extra)}: exit 0, wall "
+            f"{wall:.3f} s; {len(spans)} engine calls of 300 rounds in "
+            f"{span:.3f} s = {300 / span:.2f} traffic rounds/s, "
+            f"{value_rounds} live value-rounds = {value_rounds / span:.1f} "
+            f"value-rounds/s; peak device memory "
+            f"{adaptive_cli[case]['peak_mib']:.1f} MiB; launches {got}")
+        say(f"(i) adaptive CLI {case} TRAFFIC SUMMARY: {summ}")
+        say(f"(i) adaptive CLI {case} ADAPTIVE SUMMARY: {ad}")
+    if not (adaptive_cli["capped"]["adaptive"]["pull_deferred"]
+            + adaptive_cli["capped"]["adaptive"]["pull_queue_dropped"]) > 0:
+        fail("(i) the capped adaptive CLI run deferred or dropped no pull "
+             "request")
+
+    # cuda == cpu at N=2,000, M=32: adaptive, capped and impaired
+    ad_par = par_argv + ["--gossip-mode", "adaptive", "--iterations", "60",
+                         "--warm-up-rounds", "20", "--node-ingress-cap", "40",
+                         "--node-egress-cap", "60", "--packet-loss-rate",
+                         "0.1", "--churn-fail-rate", "0.01",
+                         "--churn-recover-rate", "0.2", "--partition-at",
+                         "25", "--heal-at", "45"]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        reset_unique_pubkeys()
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            ad_par + ["--device", device]))
+        coll_t, q = TrafficStatsCollection(), DatapointQueue()
+        t0 = time.perf_counter()
+        report = cli.run_traffic(cfg, "", q, "0", collection=coll_t)
+        outs[device] = (report, [st.parity_snapshot()
+                                 for st in coll_t.collection],
+                        [st.summary() for st in coll_t.collection],
+                        q.drain_deterministic_lines())
+        say(f"(i) N={N_PARITY} adaptive, capped + impaired on {device}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    for i, part in enumerate(("report", "parity_snapshot()", "summary()",
+                              "Influx lines")):
+        if outs["cuda"][i] != outs["cpu"][i]:
+            fail(f"(i) N={N_PARITY} adaptive: cuda and cpu {part} differ")
+    lines_ad = outs["cuda"][3]
+    if not ("adaptive_rounds" in outs["cuda"][1][0]
+            and any(ln.startswith("sim_adaptive,") for ln in lines_ad)):
+        fail(f"(i) N={N_PARITY} adaptive: no adaptive series")
+    say(f"(i) N={N_PARITY} adaptive: cuda == cpu report (adaptive section "
+        f"{outs['cuda'][0]['adaptive']}), parity_snapshot() with "
+        f"adaptive_rounds, summary() and {len(lines_ad)} deterministic Influx "
+        f"lines ({sum(ln.startswith('sim_adaptive,') for ln in lines_ad)} "
+        f"sim_adaptive)")
+    del outs
+    prof_push = tr_dev.get(f"profile M={M_TRAFFIC}", {})
+    prof_ad = tr_dev.get(f"profile adaptive M={M_TRAFFIC}", {})
+    say("(i) traffic_rescue device ms per call (profile): uncapped "
+        + fmt(tr_dev[f"adaptive uncapped M={M_TRAFFIC}"]["traffic_rescue"])
+        + ", capped "
+        + fmt(tr_dev[f"adaptive capped M={M_TRAFFIC}"]["traffic_rescue"])
+        + f"; the round at M={M_TRAFFIC} uncapped, adaptive vs push (same "
+        f"process): device busy {prof_ad.get('busy_ms')} vs "
+        f"{prof_push.get('busy_ms')} ms, launches "
+        f"{prof_ad.get('launches')} vs {prof_push.get('launches')}")
+    say(f"(i) adaptive traffic: {time.perf_counter() - t_ad:.1f} s")
     say(f"(i) traffic phase: {time.perf_counter() - t_i:.1f} s")
 
     # ---- (j) report -------------------------------------------------------
@@ -2816,6 +3113,35 @@ def main() -> int:
             line["kernels"][-1]["whole_call"] = {
                 shape: per[name] for shape, per in calls_prof.items()
                 if name in per}
+    rs_u, rs_c = rescue_res["uncapped"], rescue_res["capped"]
+    line["kernels"].append(
+        {"name": "traffic_rescue", "route": "cuda",
+         "source": "gossip_sim_tpu_torch/csrc/traffic_rescue.cu",
+         "replaces": (f"{SOURCES['traffic_rescue'][0]} "
+                      f"({SOURCES['traffic_rescue'][1]})"),
+         "launches": adaptive_cli["uncapped"]["launches"]["traffic_rescue"],
+         "max_abs_err": worst["traffic_rescue"],
+         "ms": rs_u["ms"], "plain_ms": rs_u["plain_ms"],
+         "bound_ms": rs_u["bound_ms"], "bound_by": rs_u["bound_by"],
+         "library_ms": rs_u["library_ms"],
+         "device_ms": tr_dev[f"adaptive uncapped M={M_TRAFFIC}"][
+             "traffic_rescue"],
+         "round": rs_u["round"],
+         "capped": {k: rs_c[k] for k in ("round", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")},
+         "capped_device_ms": tr_dev[f"adaptive capped M={M_TRAFFIC}"][
+             "traffic_rescue"],
+         "launches_capped": adaptive_cli["capped"]["launches"][
+             "traffic_rescue"],
+         "adaptive_round_busy_ms": prof_ad.get("busy_ms"),
+         "adaptive_round_launches": prof_ad.get("launches"),
+         "push_round_busy_ms": prof_push.get("busy_ms"),
+         "push_round_launches": prof_push.get("launches"),
+         "adaptive_cli_rounds_s": {c: r["rounds_s"]
+                                   for c, r in adaptive_cli.items()},
+         "adaptive_cli_value_rounds_s": {c: r["value_rounds_s"]
+                                         for c, r in adaptive_cli.items()}})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

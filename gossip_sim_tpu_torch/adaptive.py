@@ -1,11 +1,17 @@
-"""Adaptive push-pull: the direction switch (the port's copy of the
-reference package's ``adaptive.switch_update_arr``).
+"""Adaptive push-pull: the direction switch and the traffic rescue's hash
+salts (the port's copy of the reference package's ``adaptive.py``).
 
 ``gossip_mode="adaptive"`` gates the pull phase of each origin-sim on a
 carried bit (``SimState.adaptive_pull_on``).  Each round re-decides it
 from the round's push coverage: the pull phase runs in the NEXT round once
 ``n_reached >= threshold * N``, and stops once coverage falls below
 ``(threshold - hysteresis) * N``.  The push phase always runs.
+
+With concurrent traffic the bit is per value (``TrafficState.v_pull``):
+a value in its pull phase sends no push candidates, and every live node
+still missing it sends ``pull_fanout`` stake-weighted rescue requests
+(engine/traffic.py, kernels/traffic_rescue.py), drawn and gated by counter
+hashes under the salts below.
 
 The decision widens the integer count to f64 and compares it with the
 thresholds multiplied by f64(N), in this one order of operations, so that
@@ -16,6 +22,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+# domain-separation salts of the traffic pull-rescue hash streams
+# (faults.py convention)
+SALT_ADAPT_PCLASS = 0x59F111F1   # rescue peer draw: stake-class uniform
+SALT_ADAPT_PMEMBER = 0x923F82A4  # rescue peer draw: within-class uniform
+SALT_ADAPT_PLOSS = 0xAB1C5ED5    # per-(value, requester, peer) request loss
+SALT_ADAPT_PBLOOM = 0xD807AA98   # per-(value, requester) bloom-FP event
 
 
 def switch_update_arr(n_covered, num_nodes, prev_on, threshold, hysteresis):

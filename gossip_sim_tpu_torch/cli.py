@@ -59,8 +59,8 @@ from .rustrng import ChaChaRng
 from .sinks import DatapointQueue, InfluxDataPoint, InfluxThread, load_dotenv
 from .stats.aggregate import AllOriginsStats
 from .stats.gossip_stats import GossipStats, GossipStatsCollection
-from .stats.traffic import (ROUND_FIELDS, TrafficStats,
-                            TrafficStatsCollection)
+from .stats.traffic import (ADAPTIVE_ROUND_FIELDS, ROUND_FIELDS,
+                            TrafficStats, TrafficStatsCollection)
 from .traffic import retire_record
 
 log = logging.getLogger("gossip_sim_tpu_torch")
@@ -1094,7 +1094,7 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
 # --------------------------------------------------------------------------
 
 #: test types a traffic run can sweep (reference cli.py:2817); the
-#: adaptive-threshold sweep needs adaptive traffic (ROADMAP A11b)
+#: adaptive-threshold sweep steps adaptive traffic's switch threshold
 TRAFFIC_SWEEP_TYPES = (Testing.TRAFFIC_RATE, Testing.NODE_INGRESS_CAP,
                        Testing.PACKET_LOSS, Testing.CHURN,
                        Testing.ADAPTIVE_THRESHOLD)
@@ -1116,13 +1116,27 @@ def _push_sim_traffic_summary_point(dp_queue, sim_iter, start_ts, summary):
     dp_queue.push_back(dp)
 
 
+def _push_sim_adaptive_point(dp_queue, sim_iter, start_ts, it, vals):
+    """One sim_adaptive point per measured round of adaptive traffic: the
+    ADAPTIVE_ROUND_FIELDS pull-rescue counters."""
+    if dp_queue is None:
+        return
+    dp = InfluxDataPoint(start_ts, sim_iter)
+    dp.create_sim_adaptive_point(it, vals)
+    dp_queue.push_back(dp)
+
+
 def _feed_traffic_rows(stats, dp_queue, sim_iter, start_ts, rows, start_it,
                        n_it, num_nodes):
     """Harvested traffic rows (numpy) -> TrafficStats and the sim_traffic
-    Influx points (measured rounds only)."""
+    (and, for adaptive traffic, sim_adaptive) Influx points (measured
+    rounds only)."""
+    adaptive = "pull_sent" in rows
     for t in range(n_it):
         it = start_it + t
         vals = {k: int(rows[k][t]) for k in ROUND_FIELDS}
+        if adaptive:
+            vals.update({k: int(rows[k][t]) for k in ADAPTIVE_ROUND_FIELDS})
         stats.feed_round(it, vals)
         recs = []
         for m in np.nonzero(rows["ret_mask"][t])[0]:
@@ -1138,6 +1152,10 @@ def _feed_traffic_rows(stats, dp_queue, sim_iter, start_ts, rows, start_it,
             log.info("TRAFFIC ITERATION: %s (live=%s retired=%s)", it,
                      vals["live"], vals["retired"])
         _push_sim_traffic_point(dp_queue, sim_iter, start_ts, it, vals)
+        if adaptive:
+            _push_sim_adaptive_point(
+                dp_queue, sim_iter, start_ts, it,
+                {k: vals[k] for k in ADAPTIVE_ROUND_FIELDS})
 
 
 def _traffic_final_from_state(state) -> dict:
@@ -1211,6 +1229,14 @@ def _log_traffic_summary(label, s):
         s["value_rmr_mean"], qd_eg, s["qdepth_max"],
         qd_in, s["queue_dropped"], qd_in - s["queue_dropped"],
         s["loss_dropped"], s["hop_clamped"])
+    if "adaptive_pull_sent" in s:
+        log.info(
+            "ADAPTIVE SUMMARY%s: %s values switched to pull | rescue "
+            "requests %s sent (%s deferred, %s queue-dropped), %s "
+            "responses, %s nodes rescued",
+            label, s["adaptive_switched_to_pull"], s["adaptive_pull_sent"],
+            s["adaptive_pull_deferred"], s["adaptive_pull_queue_dropped"],
+            s["adaptive_pull_responses"], s["adaptive_pull_rescued"])
 
 
 def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
@@ -1218,7 +1244,8 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
     """The concurrent-traffic run path (reference cli.py:3313-3429): one
     run, or a serial sweep over ``TRAFFIC_SWEEP_TYPES``, on one cluster
     load.  Returns the report dict (``traffic``: the whole run's summary,
-    ``traffic_points``: each point's, ``num_points``, ``sweep_lanes``);
+    ``traffic_points``: each point's, ``num_points``, ``sweep_lanes``, and
+    in adaptive mode ``adaptive``);
     ``collection`` (a TrafficStatsCollection) receives each point's
     TrafficStats."""
     is_sweep = (config.test_type in TRAFFIC_SWEEP_TYPES
@@ -1266,12 +1293,31 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
     else:
         out = dict(summaries[-1]) if summaries else {}
         out.pop("point", None)
-    return {
+    report = {
         "traffic": out,
         "traffic_points": summaries if n_points > 1 else [],
         "num_points": n_points,
         "sweep_lanes": 0,
     }
+    if config.gossip_mode == "adaptive":
+        # the switch configuration, the pull-rescue totals and the
+        # per-cause outcome counts
+        report["adaptive"] = {
+            "switch_threshold": config.adaptive_switch_threshold,
+            "switch_hysteresis": config.adaptive_switch_hysteresis,
+            "values_rescued": out.get("values_rescued", 0),
+            "values_starved_queue_drop":
+                out.get("values_starved_queue_drop", 0),
+            "nodes_rescued": out.get("nodes_rescued", 0),
+            "switched_to_pull": out.get("adaptive_switched_to_pull", 0),
+            "pull_sent": out.get("adaptive_pull_sent", 0),
+            "pull_responses": out.get("adaptive_pull_responses", 0),
+            "pull_rescued": out.get("adaptive_pull_rescued", 0),
+            "pull_deferred": out.get("adaptive_pull_deferred", 0),
+            "pull_queue_dropped":
+                out.get("adaptive_pull_queue_dropped", 0),
+        }
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -1395,8 +1441,7 @@ def _drain_influx(dp_queue, influx_thread):
 
 def _traffic_startup_checks(config: Config) -> int:
     """The reference's traffic start-up checks (cli.py:3723-3794), with its
-    messages and exit codes; 0 when the run may start.  Adaptive traffic
-    raises NotImplementedError (ROADMAP A11b)."""
+    messages and exit codes; 0 when the run may start."""
     if config.traffic_values < 1:
         log.error("ERROR: --traffic-values must be >= 1 (the default 1 "
                   "with both caps off IS the plain single-value "
@@ -1430,10 +1475,20 @@ def _traffic_startup_checks(config: Config) -> int:
                   "use --gossip-mode adaptive", config.gossip_mode)
         return 1
     if config.gossip_mode == "adaptive":
-        raise NotImplementedError(
-            "adaptive traffic (--gossip-mode adaptive with --traffic-values "
-            "> 1 or a queue cap: the per-value pull rescue) is not ported "
-            "yet (ROADMAP A11b)")
+        # a node-ingress-cap sweep steps the cap past the base value: its
+        # last point must stay under the bound too
+        cap_max = config.node_ingress_cap
+        if (config.test_type == Testing.NODE_INGRESS_CAP
+                and config.num_simulations > 1):
+            cap_max += ((config.num_simulations - 1)
+                        * config.step_size.as_int())
+        if cap_max >= 16384:
+            log.error("ERROR: adaptive traffic requires "
+                      "--node-ingress-cap < 16384 (engine sort-key "
+                      "packing bound; a node-ingress-cap sweep must "
+                      "keep every stepped point under it); caps that "
+                      "large are equivalent to no cap — use 0")
+            return 1
     allowed = TRAFFIC_SWEEP_TYPES + (Testing.NO_TEST,)
     if config.test_type not in allowed:
         log.error("ERROR: --test-type %s is not runnable in traffic "

@@ -28,7 +28,7 @@
 //
 // Every decision but one is a stateless hash of (node, slot) or (node,
 // peer), so the order of the threads does not matter:
-//   peer      cls = #{c < 24 : u_cls >= cdf[c]},
+//   peer      (class_draw.cuh) cls = #{c < 24 : u_cls >= cdf[c]},
 //             pos = start[cls] + floor(u_mem * f32(count[cls])), clamped to
 //             the class, peer = perm[pos]; u = (edge_u32(b, node, slot)
 //             >> 8) * 2^-24, exact in f32, and the product rounds once
@@ -101,6 +101,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "class_draw.cuh"
 #include "faults.cuh"
 
 namespace cg = cooperative_groups;
@@ -110,7 +111,6 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxCluster = 16;    // the H100's non-portable cluster size
 constexpr int kMiscWords = 128;    // kernels/pull_exchange.py MISC_WORDS
-constexpr int kClasses = 25;       // stake buckets (constants.py)
 constexpr int32_t kInf = 1 << 20;  // engine/core.py INF
 constexpr int32_t kNoKey = 0x7FFFFFFF;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -136,19 +136,6 @@ struct Geo {
   int cs, slen, keep;  // CTAs per origin, nodes per CTA, words kept
   float inv_slen;      // 1 / slen, for the owner of a peer
 };
-
-__device__ __forceinline__ float u01(uint32_t h) {
-  return __fmul_rn((float)(h >> 8), 0x1p-24f);
-}
-
-// The class draw compares u = k * 2^-24 (k = h >> 8 < 2^24, exact) with
-// the CDF: u >= cdf[c] exactly when k >= this threshold (the scaling by
-// 2^24 is exact, so the compare is too).
-__device__ __forceinline__ int class_threshold(float c) {
-  const float y = __fmul_rn(c, 0x1p24f);
-  if (!(y > 0.f)) return y == y ? 0 : 0x7FFFFFFF;  // always; NaN: never
-  return y > 0x1p24f ? 0x7FFFFFFF : (int)ceilf(y);
-}
 
 __device__ __forceinline__ bool bit(const uint32_t* b, int i) {
   return (b[i >> 5] >> (i & 31)) & 1u;
@@ -339,17 +326,8 @@ __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
   };
 
   // 0. class tables, sums, the slice's words, the bitmaps
-  for (int i = tid; i < kClasses; i += nthreads) {
-    sm[kStart + i] = cstart[i];
-    sm[kCount + i] = ccount[i];
-  }
-  if (tid < 32) {
-    const int thr = tid < kClasses - 1 ? class_threshold(cdf[tid]) : kNoKey;
-    const int next = __shfl_down_sync(kFull, thr, 1);
-    const bool rising = __all_sync(kFull, tid == 31 || thr <= next);
-    sm[kThr + tid] = thr;
-    if (tid == 0) sm[kRising] = rising;
-  }
+  stage_class_tables(tid, nthreads, cstart, ccount, cdf, sm + kThr,
+                     sm + kStart, sm + kCount, sm + kRising);
   if (tid < 8) {
     sm[kLocal + tid] = 0;
     sm[kTotal + tid] = 0;
@@ -383,21 +361,9 @@ __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
   // (the class: #{c < 24 : k >= thr[c]}, by five halvings where the
   // thresholds rise, as the sampler's CDF does)
   auto draw = [&](int node, int slot) -> uint32_t {
-    const int k = (int)(edge_u32(r.b_cls, node, slot) >> 8);
-    int cls = 0;
-    if (rising) {
-#pragma unroll
-      for (int step = 16; step > 0; step >>= 1)
-        cls += s_thr[cls + step - 1] <= k ? step : 0;
-    } else {
-#pragma unroll
-      for (int c = 0; c < kClasses - 1; ++c) cls += k >= s_thr[c];
-    }
-    const int st = s_start[cls], cnt = s_count[cls];
-    const float u_mem = u01(edge_u32(r.b_mem, node, slot));
-    int pos = st + (int)floorf(__fmul_rn(u_mem, (float)cnt));
-    pos = min(min(pos, st + max(cnt - 1, 0)), n - 1);
-    const int peer = __ldg(perm + pos);
+    const int peer = class_draw(edge_u32(r.b_cls, node, slot),
+                                edge_u32(r.b_mem, node, slot), s_thr, s_start,
+                                s_count, rising, perm, n);
     uint32_t code = kOk;
     if (peer == node)
       code = kSelf;

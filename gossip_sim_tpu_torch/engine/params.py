@@ -25,10 +25,10 @@ switch threshold); the pull and adaptive knobs shape the pull phase.
 
 ``traffic_values``, the queue caps, ``traffic_rate`` and
 ``traffic_stall_rounds`` shape the concurrent-traffic engine
-(engine/traffic.py), in push mode; ``traffic_slots`` is its value axis (0
-with traffic off: one value slot and both caps off run the single-value
-engine untouched).  Of the reference's features this port lacks yet, only
-the selectors are kept: adaptive traffic, ``health`` and
+(engine/traffic.py), in push mode or adaptive (the per-value pull rescue);
+``traffic_slots`` is its value axis (0 with traffic off: one value slot and
+both caps off run the single-value engine untouched).  Of the reference's
+features this port lacks yet, only the selectors are kept: ``health`` and
 ``representation``.  :meth:`EngineParams.validate` refuses a non-default
 value of each with ``NotImplementedError`` naming its ROADMAP item.  The
 reference's prune-apply budget ``pa_slots`` (the ``prune_apply`` kernel
@@ -305,10 +305,6 @@ class EngineParams(NamedTuple):
             raise ValueError(
                 "the sparse frontier round implements the push phase only; "
                 "pull/adaptive modes need the dense representation")
-        if self.has_traffic and self.gossip_mode == "adaptive":
-            raise NotImplementedError(
-                "adaptive traffic (the per-value pull rescue) is not ported "
-                "yet (ROADMAP A11b)")
         if self.health:
             raise NotImplementedError(
                 "node-health planes are not ported yet (ROADMAP A12)")
@@ -367,4 +363,10 @@ class EngineParams(NamedTuple):
                 raise ValueError(
                     "one-shot fail_at draws from the PRNG, which the traffic "
                     "round does not; use churn_fail_rate with traffic")
+            if (self.gossip_mode == "adaptive"
+                    and self.node_ingress_cap >= 16384):
+                raise ValueError(
+                    "adaptive traffic requires node_ingress_cap < 16384 "
+                    "(sort-key packing bound); caps that large are "
+                    "equivalent to no cap — use 0")
         return self

@@ -1,11 +1,14 @@
-"""The concurrent-traffic round on PyTorch tensors (push mode).
+"""The concurrent-traffic round on PyTorch tensors (push and adaptive).
 
 The port of the reference engine's ``engine/traffic.py``: an M-slot value
 axis whose in-flight values all push through ONE shared [N, S] active set
 (one rotation schedule, one churn mask), with per-value prune bits and
 received-cache scoring and per-node queue caps, one hop per round.  Same
 state layout, same per-round semantics and bit-exact results under the
-same stakes, seed and knobs.  The round's blocks, in order:
+same stakes, seed and knobs.  In ``gossip_mode="adaptive"`` each value
+carries a direction bit (``v_pull``): a value in its pull phase sends no
+push candidates, and the nodes still missing it send rescue requests that
+continue the round's queue budgets.  The round's blocks, in order:
 
 * churn (faults.py hashes)                           plain PyTorch
 * inject: stake-weighted origins into free slots     plain PyTorch
@@ -14,15 +17,17 @@ same stakes, seed and knobs.  The round's blocks, in order:
 * ingress budget (traffic.py:316-342)                -> ``traffic_admit``
 * consume: inbound ranking per (value, target)
   (traffic.py:344-417)                               -> ``rank_inbound``
+* adaptive only: the pull rescue of the pull-phase
+  values (traffic.py:424-619)                        -> ``traffic_rescue``
 * received-cache merge + prune decide, rows firing
   only while their value is live (traffic.py:621-709) -> ``rc_merge_prune``
 * prune apply on the shared edges (traffic.py:711-755) -> ``prune_apply``
-* the shared hash-driven rotation, retire and the
-  round stats (traffic.py:757-1000)                  plain PyTorch
+* the shared hash-driven rotation, retire, the direction
+  switch and the round stats (traffic.py:757-1000)   plain PyTorch
 
-``trace=True`` (the flight recorder, ROADMAP A13), the adaptive pull rescue
-(A11b) and the health planes (A12) are not ported: the health planes stay
-zero.  Entry points run on ``cuda`` unless the CPU is asked for.
+``trace=True`` (the flight recorder, ROADMAP A13) and the health planes
+(A12) are not ported: the health planes stay zero.  Entry points run on
+``cuda`` unless the CPU is asked for.
 """
 
 from __future__ import annotations
@@ -33,8 +38,12 @@ import numpy as np
 import torch
 
 from .. import kernels as K
+from ..adaptive import (SALT_ADAPT_PBLOOM, SALT_ADAPT_PCLASS,
+                        SALT_ADAPT_PLOSS, SALT_ADAPT_PMEMBER,
+                        switch_update_arr)
 from ..faults import (SALT_CHURN, edge_u32_t, node_u32_t, partition_active,
                       rate_threshold, round_basis)
+from ..kernels.traffic_rescue import COUNT_NAMES as RESCUE_COUNTS
 from ..traffic import (SALT_TRAFFIC_LOSS, SALT_TRAFFIC_OCLASS,
                        SALT_TRAFFIC_OMEMBER, SALT_TRAFFIC_RCLASS,
                        SALT_TRAFFIC_RMEMBER, SALT_TRAFFIC_ROT, TRAFFIC_ACCEPTED,
@@ -77,9 +86,12 @@ class TrafficState(NamedTuple):
     sent_acc: torch.Tensor     # [N] i32 wire messages per sender
     recv_acc: torch.Tensor     # [N] i32 accepted messages per receiver
     prune_acc: torch.Tensor    # [N] i32 prune messages per pruner
-    v_pull: torch.Tensor       # [V] bool (adaptive: A11b; False here)
-    v_rescued: torch.Tensor    # [V] i32 (adaptive: A11b; 0 here)
-    v_qdrop: torch.Tensor      # [V] i32 ingress queue drops that hit it
+    # adaptive push-pull (all-zero outside mode "adaptive", except v_qdrop,
+    # which root-causes starvation in every traffic mode)
+    v_pull: torch.Tensor       # [V] bool value is in its pull-rescue phase
+    v_rescued: torch.Tensor    # [V] i32 nodes delivered via pull rescue
+    v_qdrop: torch.Tensor      # [V] i32 ingress queue drops (push and pull
+                               #   requests) that hit the value
     health_prune_recv: torch.Tensor   # [N] i32 (health gate A12; zeros)
     health_lat_acc: torch.Tensor      # [N] i32 (zeros)
     health_del_acc: torch.Tensor      # [N] i32 (zeros)
@@ -192,19 +204,23 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
     v_pull = _reset(do_inj, False, state.v_pull)
     v_rescued = _reset(do_inj, 0, state.v_rescued)
     v_qdrop = _reset(do_inj, 0, state.v_qdrop)
+    # pre-delivery holder/hop state: the pull-rescue responders and
+    # requesters consult this snapshot
+    holder_pre, hop_pre = v_holder, v_hop
 
     # ---- send (kernel): candidates on the shared set, egress budget,
-    # failed target > partition > per-value loss ---------------------------
+    # failed target > partition > per-value loss; a pull-phase value sends
+    # no push candidates (traffic_send gates senders on its live mask) ----
     active = state.active
+    part = (partition_active(it, int(kn.partition_at), int(kn.heal_at))
+            if p.has_partition else None)
+    loss = ((basis(SALT_TRAFFIC_LOSS),
+             rate_threshold(float(kn.packet_loss_rate)))
+            if p.has_loss else None)
+    senders = v_live & ~v_pull if p.has_adaptive else v_live
     snd = K.traffic_send(
-        active, pruned, failed, v_live, v_holder, v_origin, v_vid,
-        tables.side, F, int(kn.node_egress_cap),
-        partition=(partition_active(it, int(kn.partition_at),
-                                    int(kn.heal_at))
-                   if p.has_partition else None),
-        loss=((basis(SALT_TRAFFIC_LOSS),
-               rate_threshold(float(kn.packet_loss_rate)))
-              if p.has_loss else None))
+        active, pruned, failed, senders, v_holder, v_origin, v_vid,
+        tables.side, F, int(kn.node_egress_cap), partition=part, loss=loss)
     code = snd.code
 
     # ---- admit (kernel): the ingress budget across the value axis ------
@@ -232,6 +248,35 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
     delivered = new_del.sum(dtype=i32)
     accepted_total = accepted.sum(dtype=i32)
     v_qdrop = v_qdrop + qdropped.sum((1, 2), dtype=i32)
+    sent = (code != 0) & (code != TRAFFIC_DEFERRED)
+    deferred = code == TRAFFIC_DEFERRED
+    sent_node = sent.sum((0, 2), dtype=i32)
+    node_deferred = deferred.sum((0, 2), dtype=i32)               # [N] src
+
+    # ---- adaptive (kernel): every live node missing a pull-phase value
+    # requests it; requests continue the push budgets, the least
+    # (clamped hop, clamp bit, peer) response delivers ----------------------
+    resc = None
+    if p.has_adaptive:
+        resc = K.traffic_rescue(
+            v_pull & v_live, v_vid, holder_pre, hop_pre, v_holder, failed,
+            tables.side, ttables.perm, ttables.class_start,
+            ttables.class_count, ttables.cdf, sent_node, accepted_node,
+            int(kn.pull_fanout), H, pb, int(kn.node_egress_cap), icap,
+            draw=(basis(SALT_ADAPT_PCLASS), basis(SALT_ADAPT_PMEMBER)),
+            bloom=(basis(SALT_ADAPT_PBLOOM),
+                   rate_threshold(float(kn.pull_bloom_fp_rate))),
+            partition=part,
+            loss=((basis(SALT_ADAPT_PLOSS),
+                   rate_threshold(float(kn.packet_loss_rate)))
+                  if p.has_loss else None))
+        served_v, resp_v, rescued_v, qdrop_v = resc.per_value
+        v_holder = v_holder | resc.pull_del
+        v_hop = torch.where(resc.pull_del, resc.pull_hop, v_hop)
+        hop_clamped = hop_clamped + resc.counts[-1]
+        v_m = v_m + served_v + resp_v
+        v_rescued = v_rescued + rescued_v
+        v_qdrop = v_qdrop + qdrop_v
 
     # ---- received-cache merge + prune decide (kernel; rows of live
     # values fire, with the value's origin in place of the origin) -------
@@ -277,8 +322,11 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
     pruned = torch.where((do_rot & full_row)[None, :, None], shift_prn,
                          pruned)
 
-    # ---- retire: stall tracking, retirement, slot recycle ---------------
+    # ---- retire: stall tracking, retirement, slot recycle (rescues count
+    # as progress) ---------------------------------------------------------
     progress = new_del.any(-1)
+    if resc is not None:
+        progress = progress | resc.pull_del.any(-1)
     v_stall = torch.where(~v_live, 0, torch.where(
         do_inj | progress, 0, state.v_stall + 1)).to(i32)
     holders = v_holder.sum(-1, dtype=i32)                         # [V]
@@ -286,15 +334,29 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
     retire = v_live & (full_v | (v_stall >= int(kn.traffic_stall_rounds)))
     v_live_post = v_live & ~retire
     hops_sum = torch.where(v_holder, v_hop, 0).sum(-1, dtype=i32)
+    # the direction switch (end of round, survivors only)
+    new_v_pull, switched = v_pull, None
+    if p.has_adaptive:
+        new_v_pull = v_live_post & switch_update_arr(
+            holders, N, v_pull, float(kn.adaptive_switch_threshold),
+            float(kn.adaptive_switch_hysteresis))
+        switched = (new_v_pull & ~v_pull).sum(dtype=i32)
 
-    # ---- round stats -----------------------------------------------------
+    # ---- round stats: the rescue's requests are requester egress and peer
+    # ingress, its responses peer egress and requester ingress -------------
     g = 1 if it >= int(kn.warm_up_rounds) else 0
-    sent = (code != 0) & (code != TRAFFIC_DEFERRED)
-    deferred = code == TRAFFIC_DEFERRED
-    node_deferred = deferred.sum((0, 2), dtype=i32)               # [N] src
-    sent_node = sent.sum((0, 2), dtype=i32)
     n_retired = retire.sum(dtype=i32)
     n_conv = (retire & full_v).sum(dtype=i32)
+    sent_all, recv_all = sent_node, accepted_node
+    qdrop_all, inflow = qdrop_node, accepted_node
+    if resc is not None:
+        (req_sent, req_def, resp_in, req_arrived, req_served,
+         resp_out) = resc.per_node
+        node_deferred = node_deferred + req_def
+        sent_all = sent_node + req_sent + resp_out
+        recv_all = accepted_node + req_served + resp_in
+        qdrop_all = qdrop_node + (req_arrived - req_served)
+        inflow = accepted_node + req_served
     new_state = TrafficState(
         active=new_active, failed=failed, next_vid=next_vid,
         v_live=v_live_post, v_vid=v_vid, v_origin=v_origin,
@@ -306,11 +368,11 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
         ret_acc=state.ret_acc + g * n_retired,
         conv_acc=state.conv_acc + g * n_conv,
         defer_acc=state.defer_acc + g * node_deferred,
-        qdrop_acc=state.qdrop_acc + g * qdrop_node,
-        sent_acc=state.sent_acc + g * sent_node,
-        recv_acc=state.recv_acc + g * accepted_node,
+        qdrop_acc=state.qdrop_acc + g * qdrop_all,
+        sent_acc=state.sent_acc + g * sent_all,
+        recv_acc=state.recv_acc + g * recv_all,
         prune_acc=state.prune_acc + g * mp.n_pruned.sum(0, dtype=i32),
-        v_pull=v_pull, v_rescued=v_rescued, v_qdrop=v_qdrop,
+        v_pull=new_v_pull, v_rescued=v_rescued, v_qdrop=v_qdrop,
         health_prune_recv=state.health_prune_recv,
         health_lat_acc=state.health_lat_acc,
         health_del_acc=state.health_del_acc,
@@ -321,7 +383,7 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
         "inject_dropped": injd,
         "live": v_live_post.sum(dtype=i32),
         "sends": sent.sum(dtype=i32),
-        "deferred": node_deferred.sum(dtype=i32),
+        "deferred": count(TRAFFIC_DEFERRED),
         "failed_target": count(TRAFFIC_FAILED_TARGET),
         "suppressed": count(TRAFFIC_SUPPRESSED),
         "dropped": count(TRAFFIC_DROPPED),
@@ -335,7 +397,7 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
         "converged": n_conv,
         "hop_clamped": hop_clamped,
         "qdepth_max": node_deferred.max(),
-        "inflow_max": accepted_node.max(),
+        "inflow_max": inflow.max(),
         "inb_dropped": inb_dropped.sum(dtype=i32),
         "rc_overflow": mp.rc_overflow.sum(dtype=i32),
         # per-value retirement records (valid where ret_mask)
@@ -350,14 +412,19 @@ def traffic_round_step(params: EngineParams, tables: ClusterTables,
         "ret_rescued": v_rescued,
         "ret_qdrop": v_qdrop,
     }
+    if resc is not None:
+        # the pull-rescue counters (the sim_adaptive series) and the
+        # end-of-round direction flips
+        rows.update(zip(RESCUE_COUNTS[:-1], resc.counts[:-1]))
+        rows["switched_to_pull"] = switched
     if detail:
         rows["live_mask"] = v_live_post
         rows["t_holder"] = v_holder
         rows["t_hop"] = torch.where(v_holder, v_hop, -1).to(i32)
         rows["node_deferred"] = node_deferred
-        rows["node_queue_dropped"] = qdrop_node
-        rows["node_sent"] = sent_node
-        rows["node_recv"] = accepted_node
+        rows["node_queue_dropped"] = qdrop_all
+        rows["node_sent"] = sent_all
+        rows["node_recv"] = recv_all
     return new_state, rows
 
 

@@ -17,6 +17,7 @@ from .rc_merge_prune import MergePruneOut, rc_merge_prune, rc_merge_prune_plain
 from .rotate import rotate, rotate_plain
 from .threefry import threefry, threefry_plain
 from .traffic_admit import AdmitOut, traffic_admit, traffic_admit_plain
+from .traffic_rescue import RescueOut, traffic_rescue, traffic_rescue_plain
 from .traffic_send import SendOut, traffic_send, traffic_send_plain
 
 __all__ = [
@@ -25,6 +26,7 @@ __all__ = [
     "LAUNCHES",
     "MergePruneOut",
     "PullOut",
+    "RescueOut",
     "SendOut",
     "bfs_relax",
     "bfs_relax_plain",
@@ -46,6 +48,8 @@ __all__ = [
     "threefry_plain",
     "traffic_admit",
     "traffic_admit_plain",
+    "traffic_rescue",
+    "traffic_rescue_plain",
     "traffic_send",
     "traffic_send_plain",
 ]

@@ -29,7 +29,7 @@ RECORD_FIELDS = ["vid", "origin", "birth", "retired_at", "latency_rounds",
                  "rescued_by_pull", "qdrops", "cause"]
 
 #: the per-round adaptive pull-rescue series (fed only under gossip_mode
-#: "adaptive", which the traffic engine does not run yet: ROADMAP A11b)
+#: "adaptive", and emitted as the ``sim_adaptive`` Influx series)
 ADAPTIVE_ROUND_FIELDS = [
     "pull_sent", "pull_deferred", "pull_failed_target", "pull_suppressed",
     "pull_dropped", "pull_arrived", "pull_queue_dropped", "pull_served",

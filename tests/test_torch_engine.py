@@ -141,12 +141,14 @@ def test_unported_features_raise():
     for kw in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tc.init_state(rng.prng_key(1), tt, o, PortParams(40, **kw))
+    for kw in PORTED:
+        PortParams(40, **kw).validate()
 
 
-# traffic is ported in push mode; adaptive traffic is A11b
-UNPORTED = (dict(traffic_values=2, gossip_mode="adaptive"),
-            dict(node_egress_cap=4, gossip_mode="adaptive"),
-            dict(health=True), dict(representation="sparse"))
+UNPORTED = (dict(health=True), dict(representation="sparse"))
+#: once refused, now ported: adaptive traffic (ROADMAP A11b)
+PORTED = (dict(traffic_values=2, gossip_mode="adaptive"),
+          dict(node_egress_cap=4, gossip_mode="adaptive"))
 
 
 def test_round_step_refuses_unported_features():

@@ -1017,7 +1017,7 @@ def test_traffic_kernels_equal_plain_on_traffic_rounds(cuda, case):
     """One launch of each of the five kernels a traffic round, none of the
     push round's others; every call equal to its plain version."""
     params, rounds, calls, rows = _traffic_run(cuda, case)
-    want = {name: 0 for name in NAMES}
+    want = {name: 0 for name in NAMES + ("traffic_rescue",)}
     want.update({name: rounds for name in TRAFFIC_NAMES})
     assert dict(kernels.LAUNCHES) == want
     for name in TRAFFIC_NAMES:
@@ -1272,3 +1272,111 @@ def test_prune_apply_past_2_31_slots_equals_plain(cuda):
     got = kernels.prune_apply(pruned, active, src, slot)
     _assert_equal(got, want, "prune_apply (64-bit index)")
     assert o * n * c > 1 << 31
+
+
+# --------------------------------------------------------------------------
+# traffic_rescue: the adaptive traffic round's pull rescue
+# --------------------------------------------------------------------------
+
+def _rescue_inputs(cuda, seed, v, n, hub=False, pull="some"):
+    """Seeded rescue inputs (tests/test_torch_traffic_adaptive.py's kind):
+    values in their pull phase at random, or every one; holders at random
+    (a fifth of the values mostly missing), hops past the histogram's last
+    bin, a tenth of the nodes failed, push sends and acceptances up to and
+    past the caps; ``hub``: one node alone in the top stake class, so that
+    it draws a large share of the requests."""
+    from gossip_sim_tpu_torch.traffic import traffic_tables
+    r = np.random.default_rng(seed)
+    stakes = r.integers(1, 10**6, size=n).astype(np.int64) * 1000
+    if hub:
+        stakes[n // 3] = stakes.sum() * 50
+    pull_on = r.random(v) < 0.6 if pull == "some" else np.ones(v, bool)
+    holder_pre = r.random((v, n)) < np.where(r.random(v) < 0.2, 0.2,
+                                             0.7)[:, None]
+    holder = holder_pre | (r.random((v, n)) < 0.2)
+    hop_pre = np.where(holder_pre, r.integers(0, 70, size=(v, n)), -1)
+    t = lambda x: torch.as_tensor(x, device=cuda)
+    return (t(pull_on), t(r.integers(0, 1 << 20, size=v).astype(np.int32)),
+            t(holder_pre), t(hop_pre.astype(np.int32)), t(holder),
+            t(r.random(n) < 0.1),
+            t(r.integers(0, 2, size=n + 1).astype(np.int32)),
+            *(t(x) for x in traffic_tables(stakes)),
+            t(r.integers(0, 200, size=n).astype(np.int32)),
+            t(r.integers(0, 180, size=n).astype(np.int32)))
+
+
+#: (seed, V, N, fanout, hub, pull-phase values): a short last tile and
+#: value chunks of unequal length; the full width of the round (M=256,
+#: N=10,000) with every value in its pull phase; a hub peer
+RESCUE_SHAPES = [(1, 33, 1001, 3, False, "some"),
+                 (2, 256, 10_000, 2, False, "all"),
+                 (3, 64, 3000, 4, True, "some")]
+
+
+@pytest.mark.parametrize("caps", ["off", "one", "binding"])
+@pytest.mark.parametrize("seed,v,n,fanout,hub,pull", RESCUE_SHAPES)
+def test_traffic_rescue_equals_plain(cuda, seed, v, n, fanout, hub, pull,
+                                     caps):
+    """The kernel against its plain twin at egress and ingress caps off,
+    1 and binding (with loss and the partition on), each call one launch
+    of the wrapper."""
+    args = _rescue_inputs(cuda, seed, v, n, hub=hub, pull=pull)
+    ecap, icap = {"off": (0, 0), "one": (1, 1), "binding": (190, 175)}[caps]
+    kw = dict(fanout=fanout, hist_bins=64, pb=14, egress_cap=ecap,
+              ingress_cap=icap, draw=(0x1234567, 0x89ABCDEF),
+              bloom=(0x2468ACE, rate_threshold(0.1)))
+    if caps == "binding":
+        kw.update(partition=True, loss=(0x13579BD, rate_threshold(0.15)))
+    kernels.reset_launch_counts()
+    got = kernels.traffic_rescue(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["traffic_rescue"] == 1
+    want = kernels.traffic_rescue_plain(*args, **kw)
+    _assert_equal(got, want, "traffic_rescue")
+    counts = want.counts.tolist()
+    if caps != "one":
+        assert counts[9] > 0                    # rescues
+    if caps != "off":
+        assert counts[1] > 0 and counts[6] > 0  # deferred, queue dropped
+
+
+@pytest.mark.parametrize("case", ["caps_off", "capped_impaired"])
+def test_traffic_rescue_equals_plain_on_adaptive_rounds(cuda, case):
+    """Adaptive traffic rounds on the card: one launch of the rescue
+    wrapper a round beside the five push kernels, every call equal to its
+    plain version, and values switch and get rescued."""
+    from gossip_sim_tpu_torch.engine.traffic import (device_traffic_tables,
+                                                     init_traffic_state,
+                                                     run_traffic_rounds)
+    n, v, rounds, kw = TRAFFIC_CASES[case]
+    stakes = np.random.default_rng(1).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    params = EngineParams(num_nodes=n, traffic_values=v, traffic_rate=3,
+                          warm_up_rounds=0, min_num_upserts=4,
+                          probability_of_rotation=0.1, impair_seed=5,
+                          gossip_mode="adaptive",
+                          adaptive_switch_threshold=0.5, **kw)
+    tables = make_cluster_tables(stakes, device=cuda)
+    ttables = device_traffic_tables(stakes, device=cuda)
+    state = init_traffic_state(stakes, params, 3, device=cuda)
+    calls, real = [], kernels.traffic_rescue
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    kernels.reset_launch_counts()
+    kernels.traffic_rescue = rec
+    try:
+        _, rows = run_traffic_rounds(params, tables, ttables, state,
+                                     rounds + 6)
+    finally:
+        kernels.traffic_rescue = real
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["traffic_rescue"] == rounds + 6
+    assert all(kernels.LAUNCHES[name] == rounds + 6 for name in TRAFFIC_NAMES)
+    for a, k in calls:
+        _assert_equal(real(*a, **k), kernels.traffic_rescue_plain(*a, **k),
+                      "traffic_rescue")
+    assert int(rows["switched_to_pull"].sum()) > 0
+    assert int(rows["pull_rescued"].sum()) > 0

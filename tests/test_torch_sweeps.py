@@ -8,10 +8,12 @@
   clamp a loss rate at 1.0, and run an origin-rank sweep batched;
 * the port's batched origin-rank sweep equals its own serial runs, one
   per rank (the reference's tests/test_cli.py:174-211);
-* the two traffic sweeps raise in adaptive mode, naming its ROADMAP item
-  (adaptive traffic, A11b; the push-mode traffic sweeps are held against
-  the reference in tests/test_torch_traffic_cli.py, the pull and adaptive
-  sweeps in tests/test_torch_pull.py and tests/test_torch_adaptive.py).
+* the two traffic sweeps, which raised in adaptive mode until adaptive
+  traffic was ported (ROADMAP A11b), equal the reference's there: report,
+  snapshots and deterministic Influx lines (the push-mode traffic sweeps
+  and the adaptive-threshold sweep are held against the reference in
+  tests/test_torch_traffic_cli.py, the pull and adaptive sweeps in
+  tests/test_torch_pull.py and tests/test_torch_adaptive.py).
 
 Every serial point loads its cluster anew, so the synthetic pubkey counter
 runs on between points in both packages (both counters are reset first).
@@ -155,8 +157,25 @@ def test_batched_origin_rank_sweep_equals_serial_runs(partitionable):
 @pytest.mark.parametrize("test_type,item", [
     ("traffic-rate", "ROADMAP A11"), ("node-ingress-cap", "ROADMAP A11")])
 def test_unported_test_types_raise(test_type, item):
+    """The two traffic sweeps of adaptive traffic (``item``b, once refused
+    with NotImplementedError) run, equal to the reference's."""
+    from gossip_sim_tpu.stats.traffic import TrafficStatsCollection as RefT
+    from gossip_sim_tpu_torch.stats.traffic import TrafficStatsCollection
     argv = BASE + ["--test-type", test_type, "--num-simulations", "2",
                    "--traffic-values", "4", "--gossip-mode", "adaptive",
-                   "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
+                   "--adaptive-switch-threshold", "0.3"]
+    out = {}
+    for name, mod, coll, queue, reset, dev in (
+            ("ref", ref_cli, RefT(), RefQueue(), ref_reset,
+             ["--backend", "tpu"]),
+            ("port", cli, TrafficStatsCollection(), DatapointQueue(),
+             reset_unique_pubkeys, ["--device", "cpu"])):
+        reset()
+        cfg = mod.config_from_args(mod.build_parser().parse_args(argv + dev))
+        report = mod.run_traffic(cfg, "u", queue, "77", collection=coll)
+        out[name] = (report, [st.parity_snapshot() for st in coll.collection],
+                     queue.drain_deterministic_lines())
+    assert out["port"] == out["ref"], f"{test_type} ({item}b)"
+    report, snaps, _ = out["port"]
+    assert report["num_points"] == 2 and len(snaps) == 2
+    assert all("adaptive_rounds" in snap for snap in snaps)

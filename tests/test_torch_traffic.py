@@ -672,18 +672,21 @@ def test_traffic_admit_schedule_past_the_bucket(cap):
     (dict(traffic_values=4, traffic_stall_rounds=0), ValueError),
     (dict(node_ingress_cap=3, gossip_mode="push-pull"), ValueError),
     (dict(traffic_values=4, fail_at=2, fail_fraction=0.1), ValueError),
-    (dict(node_egress_cap=3, gossip_mode="adaptive"), NotImplementedError),
+    (dict(node_ingress_cap=16384, gossip_mode="adaptive"), ValueError),
 ], ids=["values-0", "rate", "stall", "pull-mode", "fail-at", "adaptive"])
 def test_traffic_params_refusals(kw, error):
-    """The reference's traffic checks, each a ValueError (adaptive traffic:
-    NotImplementedError naming ROADMAP A11b), from ``init_traffic_state``
-    and from the round before it reads the state."""
+    """The reference's traffic checks, each a ValueError (adaptive traffic
+    with an ingress cap of 16384 or more: the reference's sort-key bound),
+    from ``init_traffic_state`` and from the round before it reads the
+    state."""
     stakes = _stakes(40)
     params = PortParams(num_nodes=40, **kw)
     with pytest.raises(error) as got:
         tt.init_traffic_state(stakes, params, 1, device="cpu")
     with pytest.raises(error):
         tt.traffic_round_step(params, None, None, None, 0)
-    if error is NotImplementedError:
-        assert "ROADMAP A11b" in str(got.value)
+    if kw.get("gossip_mode") == "adaptive":
+        assert "node_ingress_cap < 16384" in str(got.value)
+        PortParams(num_nodes=40, node_ingress_cap=16383,
+                   gossip_mode="adaptive").validate()
     assert not PortParams(num_nodes=40).has_traffic

@@ -8,11 +8,16 @@
 * ``cli.main`` dispatches a traffic run and logs its TRAFFIC SUMMARY;
 * the gate: ``--traffic-values 1`` with both caps off is the single-value
   run, line for line and series for series;
+* adaptive traffic (``--gossip-mode adaptive``, the per-value pull
+  rescue) through ``run_traffic``, one run and a 3-point
+  ``adaptive-threshold`` sweep, equal to the reference's: reports (their
+  ``adaptive`` section included), snapshots, summaries and the
+  deterministic Influx lines (``sim_adaptive`` included);
 * the refusals give the reference's exit codes and messages (all-origins
   with traffic, a pull mode with traffic, a traffic sweep without traffic,
   a negative rate, a stall window below 1, a test type traffic cannot
-  sweep); adaptive traffic raises ``NotImplementedError`` naming ROADMAP
-  A11b, as does its adaptive-threshold sweep.
+  sweep, an ingress cap of 16384 or more with adaptive traffic, also at
+  the last point of a node-ingress-cap sweep).
 
 The points share one cluster size and iteration count, so the reference
 compiles its rounds once.  Tolerance: 0 (exact equality)."""
@@ -154,9 +159,13 @@ def _refusal(main, argv):
     ["--traffic-values", "4", "--traffic-stall-rounds", "0"],
     ["--traffic-values", "0"],
     ["--traffic-values", "4", "--test-type", "push-fanout"],
+    ["--node-ingress-cap", "16384", "--gossip-mode", "adaptive"],
+    ["--node-ingress-cap", "16000", "--gossip-mode", "adaptive",
+     "--test-type", "node-ingress-cap", "--num-simulations", "3",
+     "--step-size", "200"],
 ], ids=["all-origins", "pull", "push-pull", "rate-sweep-off",
         "cap-sweep-off", "negative-rate", "stall-0", "values-0",
-        "fanout-sweep"])
+        "fanout-sweep", "adaptive-cap-16384", "adaptive-cap-sweep-past"])
 def test_traffic_refusals_match_reference(extra):
     argv = ["--num-synthetic-nodes", "50", "--iterations", "4",
             "--warm-up-rounds", "2"] + extra
@@ -166,11 +175,44 @@ def test_traffic_refusals_match_reference(extra):
     assert got == want and got
 
 
-@pytest.mark.parametrize("extra", [
-    ["--traffic-values", "4"],
-    ["--node-ingress-cap", "4", "--test-type", "adaptive-threshold",
-     "--num-simulations", "2", "--step-size", "0.05"]])
-def test_adaptive_traffic_is_not_ported(extra):
-    argv = BASE + extra + ["--gossip-mode", "adaptive", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        cli.main(argv)
+#: adaptive traffic: one run under loss, and a 3-point sweep of the switch
+#: threshold (0.3, 0.5, 0.7)
+ADAPTIVE_RUNS = {
+    "single": ["--adaptive-switch-threshold", "0.3", "--packet-loss-rate",
+               "0.1"],
+    "adaptive-threshold": ["--adaptive-switch-threshold", "0.3",
+                           "--test-type", "adaptive-threshold",
+                           "--num-simulations", "3", "--step-size", "0.2"],
+}
+
+
+@pytest.mark.parametrize("run", list(ADAPTIVE_RUNS))
+def test_adaptive_run_traffic_equals_reference(run):
+    argv = BASE + TRAFFIC + ["--gossip-mode", "adaptive"] + ADAPTIVE_RUNS[
+        run]
+    want_report, want_coll, want_lines = _ref_run(argv)
+    got_report, got_coll, got_lines = _port_run(argv)
+    assert got_report == want_report
+    assert got_coll.points == want_coll.points
+    assert len(got_coll.collection) == (1 if run == "single" else 3)
+    for got, want in zip(got_coll.collection, want_coll.collection):
+        assert got.parity_snapshot() == want.parity_snapshot()
+        assert "adaptive_rounds" in got.parity_snapshot()
+        assert got.summary() == want.summary()
+    assert got_lines == want_lines
+    assert any(ln.startswith("sim_adaptive,") for ln in got_lines)
+    ad = got_report["adaptive"]
+    assert ad["switched_to_pull"] > 0 and ad["pull_rescued"] > 0
+    assert ad["pull_deferred"] > 0 and ad["pull_queue_dropped"] > 0
+    if run != "single":
+        assert len({p["adaptive_switched_to_pull"]
+                    for p in got_report["traffic_points"]}) > 1
+
+
+def test_main_logs_the_adaptive_summary(caplog):
+    with caplog.at_level(logging.INFO):
+        assert cli.main(BASE + TRAFFIC + ["--gossip-mode", "adaptive",
+                                          "--adaptive-switch-threshold",
+                                          "0.3", "--device", "cpu"]) == 0
+    assert "TRAFFIC SUMMARY: " in caplog.text
+    assert "ADAPTIVE SUMMARY: " in caplog.text
