@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero before the final line):
 
-  (a) build the eleven CUDA kernels from ``gossip_sim_tpu_torch/csrc`` with
-      nvcc for sm_90a (one nvcc per source, in parallel); print each
+  (a) build the eleven CUDA kernel sources from ``gossip_sim_tpu_torch/csrc``
+      (twelve kernels: ``rc_merge_prune``'s source holds its sparse variant)
+      with nvcc for sm_90a (one nvcc per source, in parallel); print each
       kernel's registers, shared memory and spills (``-Xptxas -v``), check
       ``rotate``'s static shared memory (the class tables) against ptxas
       and its keys and rows beside them against the block's limit,
@@ -147,7 +148,29 @@ Phases (any failure exits non-zero before the final line):
       full-width adaptive CLI uncapped and capped (rounds/s, value-rounds/s,
       peak memory, launches, the TRAFFIC and ADAPTIVE SUMMARY counts); cuda
       == cpu at N=2,000, M=32 adaptive, capped and impaired;
-  (j) print the total wall, the card's name and power limit, the
+  (j) the sparse layout (``--engine-representation sparse``): device times
+      and 5-round profiles of both layouts in a process of its own
+      (``--profile-sparse``: O=32 and O=64 of N=10,000, O=41 of
+      N=100,000); ``rc_merge_prune``'s sparse variant on round 19's inputs
+      at O=32 held against its plain version and against the dense kernel
+      given the planes ``shi/slo[rc_src]`` (tolerance 0), timed in turns
+      with the dense kernel beside its plain version, its bound and the
+      sort of the row keys; the engine at O=32, 50 rounds of each layout in
+      turns (rows and states equal, wall, peak memory, launches);
+      all-origins on origins 0-199 at the auto batch and in one batch of
+      200, each in both layouts in turns (``AllOriginsStats`` equal,
+      origin-rounds/s, peak memory; every peak of (j) is read above the
+      memory allocated just before its run, which earlier phases hold);
+      at N=100,000 the engine at O=41, 20 rounds of each
+      layout (rows and states equal) and the sparse variant exact vs plain
+      on its round 19, then the single-origin CLI, 300 iterations, sparse
+      (launch counts set to 0 just before, read just after: the ``kernels``
+      line's launches of the variant) and dense, equal
+      ``parity_snapshot()``s; cuda == cpu sparse at N=2,000 under loss +
+      churn + partition (snapshot and Influx lines), an active-set sweep
+      (S = 12, 16) sparse == dense, and sparse with push-pull and with
+      traffic refused on the card;
+  (k) print the total wall, the card's name and power limit, the
       ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the reference package.
@@ -233,6 +256,10 @@ TRAFFIC_ONLY = ("traffic_send", "traffic_admit", "traffic_rescue")
 # multiplies and two xors for an edge hash, one of each for a node hash)
 EDGE_HASH_OPS = dict(alu=8, fma=4, total=12)
 NODE_HASH_OPS = dict(alu=7, fma=3, total=10)
+# the sparse layout (j): rc_merge_prune's variant (its launch count), and
+# N=100,000 at the reference's auto origin batch there, min(64, 2^22 // N)
+SPARSE = "rc_merge_prune_sparse"
+N_HUGE, O_HUGE = 100_000, 41
 
 
 def fail(msg: str) -> None:
@@ -345,7 +372,9 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                                     "traffic_admit_write_kernel",
                                     "traffic_admit_kernel"),
                   "traffic_rescue": ("traffic_rescue_walk_kernel",
-                                     "traffic_rescue_select_kernel")}
+                                     "traffic_rescue_select_kernel"),
+                  # the sparse layout's variant of rc_merge_prune
+                  SPARSE: ("rc_merge_prune_sparse_kernel",)}
 
 
 def device_ms(fn, symbols, reps: int = 10):
@@ -1039,6 +1068,7 @@ PROFILE_FLAG = "--profile-all-origins"
 WIDE_FLAG = "--profile-wide-shapes"
 PULL_FLAG = "--profile-pull"
 TRAFFIC_FLAG = "--profile-traffic"
+SPARSE_FLAG = "--profile-sparse"
 
 
 def profile_child(flag: str) -> int:
@@ -1056,7 +1086,12 @@ def profile_child(flag: str) -> int:
     traffic profiles from round 19 at M=256 and M=32, started by phase
     (i), and the same for adaptive traffic at M=256 (uncapped and capped,
     on the first round from 39 on with values in their pull phase; the
-    5-round adaptive profile from round 20, as push mode's).  Each runs in a
+    5-round adaptive profile from round 20, as push mode's).
+    ``chip_smoke.py --profile-sparse``: ``rc_merge_prune``'s device time
+    on round 19's inputs in the dense and the sparse layout at O=32 and
+    O=64 (the highest stakes) of N=10,000 and at O=41 of N=100,000, and
+    the 5-round profiles of both layouts from round 19 at each shape,
+    started by phase (j).  Each runs in a
     process whose first profiler sessions they are (later sessions of a
     process record no device time) and prints a JSON line, last."""
     import torch
@@ -1069,6 +1104,8 @@ def profile_child(flag: str) -> int:
                                              make_cluster_tables, run_rounds)
     from gossip_sim_tpu_torch.identity import NodeIndex
     dev = torch.device("cuda")
+    if flag == SPARSE_FLAG:
+        return sparse_child(dev)
     cfg = cli.Config(num_synthetic_nodes=N_FULL, all_origins=True)
     accounts, _ = cli.load_cluster_accounts(cfg)
     index = NodeIndex.from_stakes(accounts)
@@ -1187,6 +1224,64 @@ def profile_child(flag: str) -> int:
             prm, tables, origins, None, out_dir, rounds=1,
             tag=tag + " init_state", phase="(g)")["device"]["threefry"]
         out[f"S={s_} F={f_}"] = dev_ms
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def sparse_child(dev) -> int:
+    """``chip_smoke.py --profile-sparse`` (see :func:`profile_child`)."""
+    import numpy as np
+    import torch
+    from gossip_sim_tpu_torch import cli, kernels, rng
+    from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
+                                             make_cluster_tables, run_rounds)
+    from gossip_sim_tpu_torch.identity import NodeIndex
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    real = kernels.rc_merge_prune
+    # every shape's round-19 state and call first, then the profiler
+    # sessions back to back
+    captured = []
+    for n, widths in ((N_FULL, (O_KERNEL, O_PULL)), (N_HUGE, (O_HUGE,))):
+        accounts, _ = cli.load_cluster_accounts(
+            cli.Config(num_synthetic_nodes=n))
+        stakes_np = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
+        tables = make_cluster_tables(stakes_np, device=dev)
+        top = np.argsort(-stakes_np, kind="stable").astype(np.int32)
+        for o in widths:
+            orgs = torch.as_tensor(top[:o], device=dev)
+            for rep in ("dense", "sparse"):
+                prm = EngineParams(num_nodes=n, warm_up_rounds=0,
+                                   representation=rep)
+                st = init_state(rng.prng_key(42, dev), tables, orgs, prm)
+                st, _ = run_rounds(prm, tables, orgs, st, 19)
+                calls = []
+
+                def rec(*a, **kw):
+                    calls.append((a, kw))
+                    return real(*a, **kw)
+
+                kernels.rc_merge_prune = rec
+                try:
+                    run_rounds(prm, tables, orgs, st, 1, start_it=19)
+                finally:
+                    kernels.rc_merge_prune = real
+                captured.append((f"N={n} O={o} {rep}", prm, tables, orgs,
+                                 st, calls[0]))
+    torch.cuda.synchronize()
+    out = {}
+    for key, prm, tables, orgs, st, (a, kw) in captured:
+        sym = KERNEL_SYMBOLS[SPARSE if "sparse" in key else "rc_merge_prune"]
+        out[key] = {"device_ms": device_ms(lambda: real(*a, **kw), sym,
+                                           reps=10)}
+        prof = profile_rounds(
+            lambda p, t, o_, s_, r: run_rounds(p, t, o_, s_, r, start_it=19),
+            prm, tables, orgs, st, out_dir, tag=" " + key.replace("=", ""),
+            phase="(j)")
+        out[key].update({k: prof.get(k) for k in ("busy_ms", "wall_ms",
+                                                  "launches")})
+        out[key]["kernel_ms_per_round"] = prof["device"].get(
+            SPARSE if "sparse" in key else "rc_merge_prune")
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1375,14 +1470,15 @@ def main() -> int:
 
     worst = {name: 0 for name in _build.KERNEL_NAMES}
 
-    def exact(name, args, kw, where):
+    def exact(name, args, kw, where, key=None):
         """The kernel's output on ``args``, after holding it against the
-        plain version's (exit on any difference); ``worst[name]`` keeps the
-        largest error measured."""
+        plain version's (exit on any difference); ``worst[key or name]``
+        keeps the largest error measured."""
         got = real[name](*args, **kw)
         err = max_abs_err(got, plain[name](*args, **kw))
         torch.cuda.synchronize()
-        worst[name] = max(worst[name], err)
+        key = key or name
+        worst[key] = max(worst.get(key, 0), err)
         if err != 0:
             scalars = [a for a in args if not torch.is_tensor(a)]
             fail(f"{where}: {name} differs from its plain version "
@@ -1884,9 +1980,9 @@ def main() -> int:
     if ao["padded_sims"] != O_BATCH - tail:
         fail(f"(f) padded_sims {ao['padded_sims']}, not {O_BATCH - tail}")
     n_batches = len(sizes)
-    want = {name: n_batches * 300 for name in names}
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({name: n_batches * 300 for name in names})
     want["threefry"] = n_batches * (2 + 2 * params.init_draws)
-    want.update({n: 0 for n in ("pull_exchange",) + TRAFFIC_ONLY})
     if ao_launches != want:
         fail(f"(f) all-origins launches {ao_launches}, expected {want} (every "
              f"kernel each round of each batch, threefry in init_state only)")
@@ -3027,7 +3123,359 @@ def main() -> int:
     say(f"(i) adaptive traffic: {time.perf_counter() - t_ad:.1f} s")
     say(f"(i) traffic phase: {time.perf_counter() - t_i:.1f} s")
 
-    # ---- (j) report -------------------------------------------------------
+    # ---- (j) the sparse layout at N=10,000 and N=100,000 on cuda ---------
+    t_j = time.perf_counter()
+    PLANES = ("rc_shi", "rc_slo")
+
+    def bits(t):
+        """A tensor's bit pattern, so that equal NaNs compare equal."""
+        return (t.view(torch.int32) if t.dtype == torch.float32 else
+                t.view(torch.int64) if t.dtype == torch.float64 else t)
+
+    def rows_differ(a: dict, b: dict) -> list:
+        return [k for k in a if k not in b
+                or not torch.equal(bits(a[k]), bits(b[k]))]
+
+    def states_differ(a, b) -> list:
+        return [f for f in a._fields if f not in PLANES
+                and not torch.equal(getattr(a, f), getattr(b, f))]
+
+    def fresh() -> int:
+        """Zero the launch counts and the peak; the bytes allocated now,
+        above which the next run's peak is read (earlier phases hold
+        tensors)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        return torch.cuda.memory_allocated()
+
+    peak_above = lambda base: (torch.cuda.max_memory_allocated()
+                               - base) / 2**20
+
+    # device times and both layouts' round profiles, in a process of its own
+    sp_run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), SPARSE_FLAG],
+        capture_output=True, text=True, timeout=400, cwd=ROOT)
+    for line in sp_run.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if sp_run.returncode != 0:
+        fail(f"(j) the --profile-sparse process failed (exit "
+             f"{sp_run.returncode}): {sp_run.stderr[-2000:]}")
+    sp_dev = json.loads(sp_run.stdout.splitlines()[-1])
+
+    def dev_line(n, o):
+        d, s_ = sp_dev[f"N={n} O={o} dense"], sp_dev[f"N={n} O={o} sparse"]
+        return (f"N={n} O={o}: rc_merge_prune device ms dense "
+                f"{fmt(d['device_ms'])}, sparse {fmt(s_['device_ms'])}; a "
+                f"round (5 from round 19) dense / sparse: busy "
+                f"{d['busy_ms']} / {s_['busy_ms']} ms, wall {d['wall_ms']} / "
+                f"{s_['wall_ms']} ms, launches {d['launches']} / "
+                f"{s_['launches']}")
+
+    for n, o in ((N_FULL, O_KERNEL), (N_FULL, O_PULL), (N_HUGE, O_HUGE)):
+        say("(j) " + dev_line(n, o))
+
+    # the kernel on round 19's inputs at O=32: against its plain version,
+    # and against the dense kernel given the planes shi/slo[rc_src]
+    sparse_prm = params._replace(representation="sparse")
+    rows_sp, calls = round19_calls(sparse_prm, origins, ["rc_merge_prune"])
+    args, kw = calls["rc_merge_prune"][0]
+    if args[2] is not None or args[3] is not None or kw.get("live") is not None:
+        fail("(j) the sparse round passed stake planes or a live mask to "
+             "rc_merge_prune")
+    got = exact("rc_merge_prune", args, kw, "(j) sparse O=32", key=SPARSE)
+    src = args[0].long()
+    d_args = (args[0], args[1], args[6][src], args[7][src]) + tuple(args[4:])
+    del src
+    dense_out = real["rc_merge_prune"](*d_args, **kw)
+    diff = [f for f in got._fields if f not in PLANES
+            and not torch.equal(getattr(got, f), getattr(dense_out, f))]
+    new_src = dense_out.rc_src.long()
+    if (diff or not torch.equal(dense_out.rc_shi, args[6][new_src])
+            or not torch.equal(dense_out.rc_slo, args[7][new_src])
+            or got.rc_shi.shape != (O_KERNEL, N_FULL, 0)
+            or got.rc_slo.shape != (O_KERNEL, N_FULL, 0)):
+        fail(f"(j) sparse rc_merge_prune differs from the dense kernel in "
+             f"{diff} (or the dense planes are not shi/slo[rc_src], or the "
+             f"sparse planes are not zero-width)")
+    del new_src
+    sp_moved = nbytes(*args, *got)
+    sp_res = dict(bytes=sp_moved, bound_ms=bound(sp_moved, 0, None)[0],
+                  dense_bytes=nbytes(*d_args, *dense_out))
+    del got, dense_out
+    # in turns: dense, sparse, sparse, dense (CUDA events, warm L2)
+    turns = {"dense": [], "sparse": []}
+    for which in ("dense", "sparse", "sparse", "dense"):
+        a_ = d_args if which == "dense" else args
+        turns[which].append(cuda_ms(lambda: real["rc_merge_prune"](*a_,
+                                                                   **kw)))
+    sp_res["ms"] = min(turns["sparse"])
+    sp_res["dense_ms"] = min(turns["dense"])
+    sp_res["plain_ms"] = cuda_ms(lambda: plain["rc_merge_prune"](*args, **kw),
+                                 reps=3, warm=1)
+    row_keys = torch.cat([args[0], args[5]], -1)
+    sp_res["library_ms"] = cuda_ms(lambda: torch.sort(row_keys, dim=-1))
+    del row_keys, d_args, args, kw, calls
+    say(f"(j) rc_merge_prune sparse at O={O_KERNEL} N={N_FULL}, round 19 "
+        f"(prunes {int(rows_sp['prunes_sent'].sum())}): exact vs plain and "
+        f"equal to the dense kernel on shi/slo[rc_src] (rc_src, rc_score, "
+        f"src_sorted, pruned_slot, n_pruned, rc_upserts, rc_overflow); "
+        f"CUDA events in turns (dense, sparse, sparse, dense): sparse "
+        + " / ".join(f"{v:.4f}" for v in turns["sparse"]) + " ms, dense "
+        + " / ".join(f"{v:.4f}" for v in turns["dense"])
+        + f" ms; plain {sp_res['plain_ms']:.4f} ms; library "
+        f"{sp_res['library_ms']:.4f} ms (torch.sort of the [O, N, C+K] row "
+        f"keys); bound {sp_res['bound_ms']:.4f} ms by bytes ({sp_moved} "
+        f"bytes; dense {sp_res['dense_bytes']} bytes)")
+    del rows_sp
+
+    # the engine at O=32: 50 rounds of each layout, in turns
+    eng_sp, kept = {"dense": [], "sparse": []}, {}
+    for which in ("dense", "sparse", "sparse", "dense"):
+        prm = params._replace(representation=which)
+        base = fresh()
+        st = init_state(rng.prng_key(7, dev), tables, origins, prm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, rows_e = run_rounds(prm, tables, origins, st, 50)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng_sp[which].append(dict(
+            wall_ms=wall / 50 * 1e3,
+            peak_mib=peak_above(base), launches=dict(kernels.LAUNCHES)))
+        kept.setdefault(which, (st, rows_e))
+    (st_d, rows_d), (st_s, rows_s) = kept["dense"], kept["sparse"]
+    diff = rows_differ(rows_d, rows_s) + states_differ(st_d, st_s)
+    if diff or st_s.rc_shi.shape[-1] or st_s.rc_slo.shape[-1]:
+        fail(f"(j) engine O={O_KERNEL}: dense and sparse differ in {diff} "
+             f"(sparse planes {tuple(st_s.rc_shi.shape)})")
+    la_d, la_s = (eng_sp["dense"][0]["launches"],
+                  eng_sp["sparse"][0]["launches"])
+    if (la_s["rc_merge_prune"] or la_s[SPARSE] != 50
+            or la_d[SPARSE] or la_d["rc_merge_prune"] != 50
+            or any(la_s[n] != la_d[n] for n in names
+                   if n != "rc_merge_prune")):
+        fail(f"(j) engine launches: dense {la_d}, sparse {la_s}")
+    del kept, st_d, st_s, rows_d, rows_s, st, rows_e
+    say(f"(j) engine O={O_KERNEL} N={N_FULL}, 50 rounds each, in turns "
+        f"(dense, sparse, sparse, dense): rows and final states equal (but "
+        f"the stake planes: [{O_KERNEL}, {N_FULL}, 0] sparse); per-round "
+        f"wall dense "
+        + " / ".join(f"{r['wall_ms']:.3f}" for r in eng_sp["dense"])
+        + " ms, sparse "
+        + " / ".join(f"{r['wall_ms']:.3f}" for r in eng_sp["sparse"])
+        + " ms; peak memory dense "
+        + " / ".join(f"{r['peak_mib']:.1f}" for r in eng_sp["dense"])
+        + ", sparse "
+        + " / ".join(f"{r['peak_mib']:.1f}" for r in eng_sp["sparse"])
+        + f" MiB above what was held before each; rc_merge_prune {la_d['rc_merge_prune']} launches dense, "
+        f"its sparse variant {la_s[SPARSE]} sparse")
+
+    # all-origins: origins 0-199 at the auto batch and in one batch, each
+    # width in both layouts in turns
+    ao_sp = {}
+    for width, order in ((0, ("dense", "sparse", "sparse", "dense")),
+                         (O_WIDE, ("sparse", "dense", "dense", "sparse"))):
+        for which in order:
+            cfg = dataclasses.replace(ao_cfg, origin_batch=width,
+                                      engine_representation=which)
+            base = fresh()
+            t0 = time.perf_counter()
+            summ = cli.run_all_origins(cfg, accounts=ao_accounts,
+                                       origin_indices=ao_idx)
+            torch.cuda.synchronize()
+            ao_sp.setdefault((width, which), []).append(dict(
+                summary=summ, wall=time.perf_counter() - t0,
+                launches=dict(kernels.LAUNCHES), peak_mib=peak_above(base),
+                origin_rounds_s=AO_ORIGINS * 300 / sum(
+                    b["rounds_s"] for b in summ["batches"])))
+        d_, s_ = ao_sp[(width, "dense")][0], ao_sp[(width, "sparse")][0]
+        sd_d, sd_s = (d_["summary"]["stats"].state_dict(),
+                      s_["summary"]["stats"].state_dict())
+        diff = [k for k in sd_d if not np.array_equal(sd_d[k], sd_s[k])]
+        keys = set(d_["summary"]) - {"stats", "batches", "elapsed_s",
+                                     "origin_iters_per_sec"}
+        diff += [k for k in keys if d_["summary"][k] != s_["summary"][k]]
+        n_b = len(s_["summary"]["batches"])
+        if (diff or s_["launches"][SPARSE] != n_b * 300
+                or s_["launches"]["rc_merge_prune"]):
+            fail(f"(j) all-origins batch {width or O_BATCH}: dense and "
+                 f"sparse differ in {diff}, or launches {s_['launches']}")
+        runs_w = lambda which, k, f: " / ".join(
+            format(r[k], f) for r in ao_sp[(width, which)])
+        say(f"(j) all-origins origins 0-{AO_ORIGINS - 1} at "
+            + (f"the auto batch {O_BATCH}" if not width
+               else f"one batch of {AO_ORIGINS}")
+            + f", in turns ({', '.join(order)}): AllOriginsStats and "
+            f"summary equal; origin-rounds/s dense "
+            f"{runs_w('dense', 'origin_rounds_s', '.1f')}, sparse "
+            f"{runs_w('sparse', 'origin_rounds_s', '.1f')}; wall dense "
+            f"{runs_w('dense', 'wall', '.3f')} s, sparse "
+            f"{runs_w('sparse', 'wall', '.3f')} s; peak device memory "
+            f"above what was held before each run: dense "
+            f"{runs_w('dense', 'peak_mib', '.1f')} MiB, sparse "
+            f"{runs_w('sparse', 'peak_mib', '.1f')} MiB")
+    for runs_ in ao_sp.values():
+        for r in runs_:
+            del r["summary"]
+    torch.cuda.empty_cache()
+
+    # N=100,000: the engine at O=41 (the auto batch there), 20 rounds of
+    # each layout, and the sparse kernel on its round 19 against its plain
+    # version
+    t0 = time.perf_counter()
+    reset_unique_pubkeys()
+    acc_h, _ = cli.load_cluster_accounts(cli.Config(
+        num_synthetic_nodes=N_HUGE))
+    stakes_h = NodeIndex.from_stakes(acc_h).stakes.astype(np.int64)
+    tables_h = make_cluster_tables(stakes_h, device=dev)
+    build_h = time.perf_counter() - t0
+    orgs_h = torch.as_tensor(np.argsort(-stakes_h, kind="stable")[:O_HUGE]
+                             .astype(np.int32), device=dev)
+    huge, h_call = {}, None
+    for which in ("dense", "sparse"):
+        prm = EngineParams(num_nodes=N_HUGE, warm_up_rounds=0,
+                           representation=which)
+        base = fresh()
+        st = init_state(rng.prng_key(42, dev), tables_h, orgs_h, prm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, rows_a = run_rounds(prm, tables_h, orgs_h, st, 19)
+        cap = {"rc_merge_prune": []}
+        st, rows_b = recording(["rc_merge_prune"], cap, run_rounds, prm,
+                               tables_h, orgs_h, st, 1, 19)
+        torch.cuda.synchronize()
+        huge[which] = dict(
+            wall_ms=(time.perf_counter() - t0) / 20 * 1e3,
+            peak_mib=peak_above(base), launches=dict(kernels.LAUNCHES),
+            state=st,
+            rows={k: torch.cat([rows_a[k], rows_b[k]]) for k in rows_a})
+        if which == "sparse":
+            h_call = cap["rc_merge_prune"][0]
+        del st, rows_a, rows_b, cap
+    hd, hs = huge["dense"], huge["sparse"]
+    diff = (rows_differ(hd["rows"], hs["rows"])
+            + states_differ(hd["state"], hs["state"]))
+    if diff or hs["launches"][SPARSE] != 20:
+        fail(f"(j) engine N={N_HUGE} O={O_HUGE}: dense and sparse differ in "
+             f"{diff}, or launches {hs['launches']}")
+    cov_h = float(hs["rows"]["coverage"][-1].double().mean())
+    prunes_h = int(hs["rows"]["prunes_sent"][-1].sum())
+    for v in huge.values():
+        del v["state"], v["rows"]
+    torch.cuda.empty_cache()
+    exact("rc_merge_prune", *h_call, f"(j) sparse N={N_HUGE} O={O_HUGE}",
+          key=SPARSE)
+    h_ms = cuda_ms(lambda: real["rc_merge_prune"](*h_call[0], **h_call[1]))
+    h_bound = bound(nbytes(*h_call[0], *real["rc_merge_prune"](
+        *h_call[0], **h_call[1])), 0, None)[0]
+    del h_call
+    torch.cuda.empty_cache()
+    say(f"(j) N={N_HUGE} (cluster built in {build_h:.2f} s), engine at "
+        f"O={O_HUGE}, 20 rounds each: rows and states equal; per-round wall"
+        f" dense {hd['wall_ms']:.3f} ms, sparse {hs['wall_ms']:.3f} ms; "
+        f"peak device memory above what was held before dense "
+        f"{hd['peak_mib']:.1f} MiB, sparse {hs['peak_mib']:.1f} MiB; round "
+        f"19 coverage mean {cov_h:.6f}, "
+        f"prunes {prunes_h}; rc_merge_prune sparse exact vs plain on round "
+        f"19, {h_ms:.4f} ms (CUDA events), bound {h_bound:.4f} ms")
+
+    # N=100,000 through the CLI, one origin, 300 iterations: sparse then
+    # dense; the sparse run's launches are this slice's main path's
+    cli_h = {}
+    for which in ("sparse", "dense"):
+        reset_unique_pubkeys()
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            ["--num-synthetic-nodes", str(N_HUGE), "--iterations", "300",
+             "--warm-up-rounds", "200", "--engine-representation", which,
+             "--device", "cuda"]))
+        base = fresh()
+        t0 = time.perf_counter()
+        coll = cli.simulate(cfg)
+        torch.cuda.synchronize()
+        cli_h[which] = dict(
+            wall=time.perf_counter() - t0,
+            launches=dict(kernels.LAUNCHES), peak_mib=peak_above(base),
+            snap=snapshot_strings(coll.collection[0].parity_snapshot()),
+            cov=coll.collection[0].coverage_stats.mean,
+            rmr=coll.collection[0].rmr_stats.mean)
+    ls = cli_h["sparse"]["launches"]
+    if (ls[SPARSE] != 300 or ls["rc_merge_prune"]
+            or any(ls[n] <= 0 for n in names if n != "rc_merge_prune")):
+        fail(f"(j) the sparse CLI at N={N_HUGE}: launches {ls}")
+    diff = [k for k in cli_h["dense"]["snap"]
+            if cli_h["dense"]["snap"][k] != cli_h["sparse"]["snap"][k]]
+    if diff:
+        fail(f"(j) the CLI at N={N_HUGE}: dense and sparse parity snapshots "
+             f"differ in {diff}")
+    say(f"(j) CLI --num-synthetic-nodes {N_HUGE} --iterations 300 "
+        f"--warm-up-rounds 200: sparse wall {cli_h['sparse']['wall']:.3f} s"
+        f" (cluster build included), dense {cli_h['dense']['wall']:.3f} s; "
+        f"parity_snapshot() equal; coverage mean "
+        f"{cli_h['sparse']['cov']:.6f}, RMR mean {cli_h['sparse']['rmr']:.6f}"
+        f"; peak device memory above what was held before: sparse "
+        f"{cli_h['sparse']['peak_mib']:.1f} MiB, dense "
+        f"{cli_h['dense']['peak_mib']:.1f} MiB; sparse launches {ls}")
+    for v in cli_h.values():
+        del v["snap"]
+
+    # cuda == cpu at N=2,000 sparse under loss + churn + partition, and a
+    # two-point active-set sweep sparse == dense; the refusals on the card
+    par_argv = ["--num-synthetic-nodes", str(N_PARITY), "--iterations", "60",
+                "--warm-up-rounds", "20", "--engine-representation",
+                "sparse", "--packet-loss-rate", "0.1", "--churn-fail-rate",
+                "0.01", "--churn-recover-rate", "0.2", "--partition-at", "25",
+                "--heal-at", "40"]
+    sw_argv = ["--num-synthetic-nodes", str(N_PARITY), "--iterations", "60",
+               "--warm-up-rounds", "20", "--test-type", "active-set-size",
+               "--num-simulations", "2", "--step-size", "4"]
+
+    def sweep(argv):
+        reset_unique_pubkeys()
+        args_ = cli.build_parser().parse_args(argv)
+        cfg = cli.config_from_args(args_)
+        coll, q = cli.GossipStatsCollection(), DatapointQueue()
+        coll.set_number_of_simulations(cfg.num_simulations)
+        t0 = time.perf_counter()
+        cli.dispatch_sweeps(cfg, "", args_.origin_rank, coll, q, "0")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0,
+                [snapshot_strings(st.parity_snapshot())
+                 for st in coll.collection], q.drain_deterministic_lines())
+
+    runs = {(dv, "sparse"): sweep(par_argv + ["--device", dv])
+            for dv in ("cuda", "cpu")}
+    if runs[("cuda", "sparse")][1:] != runs[("cpu", "sparse")][1:]:
+        fail(f"(j) N={N_PARITY} sparse: cuda and cpu parity_snapshot() or "
+             f"Influx lines differ")
+    sw = {rep_: sweep(sw_argv + ["--engine-representation", rep_,
+                                 "--device", "cuda"])
+          for rep_ in ("sparse", "dense")}
+    if sw["sparse"][1:] != sw["dense"][1:] or len(sw["sparse"][1]) != 2:
+        fail("(j) the active-set sweep: sparse and dense snapshots or "
+             "Influx lines differ")
+    refused = []
+    for extra in (["--gossip-mode", "push-pull"], ["--traffic-values", "4"]):
+        try:
+            cli.main(["--num-synthetic-nodes", "200", "--iterations", "4",
+                      "--warm-up-rounds", "2", "--engine-representation",
+                      "sparse", "--device", "cuda"] + extra)
+        except ValueError as e:
+            refused.append(str(e))
+            continue
+        fail(f"(j) sparse with {extra} ran on the card")
+    say(f"(j) N={N_PARITY} sparse, loss 0.1 + churn + partition, 60 "
+        f"iterations: cuda == cpu parity_snapshot() and "
+        f"{len(runs[('cuda', 'sparse')][2])} deterministic Influx lines "
+        f"(cuda {runs[('cuda', 'sparse')][0]:.3f} s, cpu "
+        f"{runs[('cpu', 'sparse')][0]:.3f} s); active-set sweep S = 12, 16 "
+        f"at N={N_PARITY}: sparse == dense snapshots and "
+        f"{len(sw['sparse'][2])} lines; refused on the card: {refused}")
+    del runs, sw
+    say(f"(j) sparse phase: {time.perf_counter() - t_j:.1f} s")
+
+    # ---- (k) report -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3142,6 +3590,40 @@ def main() -> int:
                                    for c, r in adaptive_cli.items()},
          "adaptive_cli_value_rounds_s": {c: r["value_rounds_s"]
                                          for c, r in adaptive_cli.items()}})
+    dev_of = lambda n, o, which: sp_dev[f"N={n} O={o} {which}"]
+    line["kernels"].append(
+        {"name": "rc_merge_prune", "variant": "sparse", "route": "cuda",
+         "source": "gossip_sim_tpu_torch/csrc/rc_merge_prune.cu",
+         "replaces": (f"{SOURCES['rc_merge_prune'][0]} "
+                      f"({SOURCES['rc_merge_prune'][1]}; the sparse arms at "
+                      f"core.py:783-816, 835-842)"),
+         "launches": cli_h["sparse"]["launches"][SPARSE],
+         "max_abs_err": worst[SPARSE],
+         "ms": sp_res["ms"], "plain_ms": sp_res["plain_ms"],
+         "bound_ms": sp_res["bound_ms"], "bound_by": "bytes",
+         "library_ms": sp_res["library_ms"],
+         "device_ms": dev_of(N_FULL, O_KERNEL, "sparse")["device_ms"],
+         "dense_ms": sp_res["dense_ms"],
+         "dense_device_ms": dev_of(N_FULL, O_KERNEL, "dense")["device_ms"],
+         "device_ms_o64": dev_of(N_FULL, O_PULL, "sparse")["device_ms"],
+         "dense_device_ms_o64": dev_of(N_FULL, O_PULL, "dense")["device_ms"],
+         "n100k_o41": {"ms": h_ms, "bound_ms": h_bound,
+                       "device_ms": dev_of(N_HUGE, O_HUGE,
+                                           "sparse")["device_ms"],
+                       "dense_device_ms": dev_of(N_HUGE, O_HUGE,
+                                                 "dense")["device_ms"]},
+         "rounds": {k: {f: v.get(f) for f in ("busy_ms", "wall_ms",
+                                               "launches")}
+                    for k, v in sp_dev.items()},
+         "engine_o32": {w: [{k: r[k] for k in ("wall_ms", "peak_mib")}
+                            for r in runs_] for w, runs_ in eng_sp.items()},
+         "all_origins": {f"{'auto' if w == 0 else 'one batch'} {which}": [
+             {k: r[k] for k in ("origin_rounds_s", "peak_mib", "wall")}
+             for r in runs_] for (w, which), runs_ in ao_sp.items()},
+         "engine_n100k_o41": {w: {k: v[k] for k in ("wall_ms", "peak_mib")}
+                              for w, v in huge.items()},
+         "cli_n100k": {w: {k: v[k] for k in ("wall", "peak_mib")}
+                       for w, v in cli_h.items()}})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3155,5 +3637,5 @@ if __name__ == "__main__":
                              else ROOT))
     sys.exit(profile_child(sys.argv[1])
              if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG], [PULL_FLAG],
-                                 [TRAFFIC_FLAG])
+                                 [TRAFFIC_FLAG], [SPARSE_FLAG])
              else main())

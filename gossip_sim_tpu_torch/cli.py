@@ -127,7 +127,8 @@ def _engine_params(config: Config, num_nodes: int) -> EngineParams:
         traffic_rate=config.traffic_rate,
         node_ingress_cap=config.node_ingress_cap,
         node_egress_cap=config.node_egress_cap,
-        traffic_stall_rounds=config.traffic_stall_rounds)
+        traffic_stall_rounds=config.traffic_stall_rounds,
+        representation=config.engine_representation)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -250,6 +251,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--traffic-stall-rounds", type=int, default=3,
                    help="consecutive no-progress rounds before an "
                         "unconverged value retires and frees its slot")
+    p.add_argument("--engine-representation", default="dense",
+                   choices=["dense", "sparse"],
+                   help="gossip-round execution layout: dense keeps the "
+                        "full-width round; sparse derives the "
+                        "received-cache stake planes from the cluster "
+                        "tables instead of carrying two [O,N,C] arrays — "
+                        "bit-identical rows and state, roughly half the "
+                        "received-cache bytes. Push mode only; traffic "
+                        "needs dense")
     p.add_argument("--influx", default="n",
                    help="Influx for reporting metrics. i for "
                         "internal-metrics, l for localhost, n for none")
@@ -353,6 +363,7 @@ def config_from_args(args) -> Config:
         node_ingress_cap=args.node_ingress_cap,
         node_egress_cap=args.node_egress_cap,
         traffic_stall_rounds=args.traffic_stall_rounds,
+        engine_representation=args.engine_representation,
         influx_spool=args.influx_spool,
         seed=args.seed,
         num_synthetic_nodes=args.num_synthetic_nodes,

@@ -4,7 +4,8 @@ Mirrors the reference's ``Config`` (gossip.rs:111-133), ``Testing``
 (gossip.rs:33-76) and ``StepSize`` (gossip.rs:78-109).  Flag names and
 defaults are the compatibility contract (gossip_main.rs:53-241).  This
 package's ``Config`` carries the fields the experiment harness (account
-sources, sweeps, Influx) and all-origins mode read, plus ``device`` (where
+sources, sweeps, Influx), all-origins mode and the round layout
+(``engine_representation``) read, plus ``device`` (where
 the engine runs: ``"cuda"`` unless the CPU is asked for).
 """
 
@@ -136,6 +137,12 @@ class Config:
     node_egress_cap: int = 0        # msgs sent/node/round (<=0 = no cap)
     traffic_stall_rounds: int = 3   # no-progress rounds before a value
                                     # retires unconverged
+    engine_representation: str = "dense"  # the round's layout: "dense"
+                                    # carries the received cache's stake
+                                    # planes; "sparse" derives them from
+                                    # the cluster tables.  Bit-identical
+                                    # rows and state either way; sparse is
+                                    # push mode only, without traffic
 
     influx_spool: str = ""          # durable spool file: Influx points
                                     # dropped after retry exhaustion or

@@ -4,10 +4,11 @@
 reference package's ``ClusterTables``/``SimState`` fields (its arrays, or
 numpy copies of them) and return this package's tensors on a device;
 ``state_to_numpy`` goes the other way, giving the reference's dtypes (the
-threefry key back as uint32).  ``traffic_state_from_numpy`` and
-``traffic_state_to_numpy`` do the same for the traffic engine's
-``TrafficState`` (same dtypes in both packages).  The parity tests use them
-to start both engines from one state.
+threefry key back as uint32; the sparse layout's zero-width
+``rc_shi``/``rc_slo`` cross unchanged, as ``[O, N, 0]``).
+``traffic_state_from_numpy`` and ``traffic_state_to_numpy`` do the same
+for the traffic engine's ``TrafficState`` (same dtypes in both packages).
+The parity tests use them to start both engines from one state.
 """
 
 from __future__ import annotations

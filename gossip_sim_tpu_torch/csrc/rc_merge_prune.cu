@@ -25,6 +25,14 @@
 //      mask is given);
 //   5. a fired row's cache resets to empty.
 //
+// The sparse variant (rc_merge_prune_sparse_kernel, the same body with
+// kSparse set) serves the sparse layout, which carries no stake planes: a
+// member's stake is read from the cluster tables, shi[src] and slo[src],
+// which is what the dense planes hold (every insert copies the table
+// stake; index N, the pad, is 0 like an empty slot).  It stages and stores
+// two planes fewer and takes no live mask (the sparse layout has no
+// traffic round).
+//
 // Precondition (the cache invariant, which this function's own output
 // keeps): each rc_src row holds its members sorted ascending and unique,
 // followed by N (empty).  Inbound sources are unique within a row (a source
@@ -32,12 +40,13 @@
 // is exact.
 //
 // Bound on the H100: memory.  Each call reads four [O, N, C] i32 planes and
-// the [O, N, K] inbound rows and writes five [O, N, C] planes; the row-local
+// the [O, N, K] inbound rows and writes five [O, N, C] planes (sparse: two
+// and three, and the [N + 1] stake tables, which stay in L2); the row-local
 // work is a few hundred warp instructions per row.  Design: one warp per
 // row, several rows per block, each row staged in dynamic shared memory
-// (sized from C and K by the wrapper; no per-thread row arrays; ptxas keeps
-// a 16-byte register spill at 48 registers, which ran faster than the
-// 64-register build without it):
+// (sized from C and K by the wrapper; no per-thread row arrays; ptxas gives
+// each variant 48 registers and no spill under the 256-thread launch
+// bound):
 //   - lane j loads slots j, j+32, ... (16-byte vectors where C % 4 == 0),
 //     so every plane load and store of a warp is contiguous;
 //   - member lookup: each lane binary-searches one inbound source in the
@@ -124,8 +133,9 @@ __device__ __forceinline__ int lower_bound(const int32_t* a, int len,
   return lo;
 }
 
-__global__ void __launch_bounds__(32 * kMaxRowsPerBlock)
-rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
+template <bool kSparse>
+__device__ __forceinline__ void merge_prune_row(
+                      const int32_t* __restrict__ rc_src,
                       const int32_t* __restrict__ rc_score,
                       const int32_t* __restrict__ rc_shi,
                       const int32_t* __restrict__ rc_slo,
@@ -155,14 +165,15 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= rows) return;  // whole warp; no block-wide barrier follows
   // row layout (kernels/rc_merge_prune.py row_smem_bytes): key_slots prune
-  // keys, the four member planes, three words per inserted inbound source
+  // keys, the member planes (four; sparse: src and score), three words per
+  // inserted inbound source
   ulonglong2* key =
       reinterpret_cast<ulonglong2*>(smem + (size_t)warp * row_bytes);
   int32_t* ms = reinterpret_cast<int32_t*>(key + key_slots);
   int32_t* msc = ms + c;
   int32_t* mhi = msc + c;
   int32_t* mlo = mhi + c;
-  int32_t* ins_v = mlo + c;
+  int32_t* ins_v = kSparse ? msc + c : mlo + c;
   int32_t* ins_lt = ins_v + k;
   int32_t* ins_sc = ins_lt + k;
   const int o = (int)((unsigned)row / (unsigned)n);  // rows < 2^31
@@ -172,8 +183,10 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
 
   stage(ms, rc_src + base_c, c, lane);
   stage(msc, rc_score + base_c, c, lane);
-  stage(mhi, rc_shi + base_c, c, lane);
-  stage(mlo, rc_slo + base_c, c, lane);
+  if (!kSparse) {
+    stage(mhi, rc_shi + base_c, c, lane);
+    stage(mlo, rc_slo + base_c, c, lane);
+  }
   __syncwarp();
   int members = 0;
   for (int j0 = 0; j0 < c; j0 += 32) {
@@ -221,7 +234,9 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
     const int32_t s = ms[j];
     int pos = j;
     for (int t = 0; t < n_ins; ++t) pos += ins_v[t] < s;
-    if (pos < c) key[pos] = make_key(s, msc[j], mhi[j], mlo[j]);
+    if (pos < c)
+      key[pos] = kSparse ? make_key(s, msc[j], __ldg(shi + s), __ldg(slo + s))
+                         : make_key(s, msc[j], mhi[j], mlo[j]);
   }
   for (int t = lane; t < n_ins; t += 32) {
     const int32_t v = ins_v[t];
@@ -247,8 +262,10 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
     if (!fired && j < kept) split_key(key[j], s, sc, hi, lo);
     o_src[base_c + j] = s;
     o_score[base_c + j] = sc;
-    o_shi[base_c + j] = hi;
-    o_slo[base_c + j] = lo;
+    if (!kSparse) {
+      o_shi[base_c + j] = hi;
+      o_slo[base_c + j] = lo;
+    }
   }
   __syncwarp();  // every lane has read key[] before the sort moves it
 
@@ -306,11 +323,42 @@ rc_merge_prune_kernel(const int32_t* __restrict__ rc_src,
   if (lane == 0) n_pruned[row] = count;
 }
 
+#define RC_MERGE_PRUNE_PARAMS                                                  \
+  const int32_t *__restrict__ rc_src, const int32_t *__restrict__ rc_score,   \
+      const int32_t *__restrict__ rc_shi, const int32_t *__restrict__ rc_slo, \
+      const int32_t *__restrict__ rc_ups, const int32_t *__restrict__ inb,    \
+      const int32_t *__restrict__ shi, const int32_t *__restrict__ slo,       \
+      const int64_t *__restrict__ stakes,                                     \
+      const int32_t *__restrict__ origins, const uint8_t *__restrict__ live,  \
+      int32_t *__restrict__ o_src, int32_t *__restrict__ o_score,             \
+      int32_t *__restrict__ o_shi, int32_t *__restrict__ o_slo,               \
+      int32_t *__restrict__ o_ups, int32_t *__restrict__ src_sorted,          \
+      uint8_t *__restrict__ pruned, int32_t *__restrict__ n_pruned,           \
+      int32_t *__restrict__ overflow, long long rows, int n, int c, int k,    \
+      int key_slots, int row_bytes, int received_cap, int min_num_upserts,    \
+      int min_ingress_nodes, double threshold
+#define RC_MERGE_PRUNE_ARGS                                                    \
+  rc_src, rc_score, rc_shi, rc_slo, rc_ups, inb, shi, slo, stakes, origins,   \
+      live, o_src, o_score, o_shi, o_slo, o_ups, src_sorted, pruned,          \
+      n_pruned, overflow, rows, n, c, k, key_slots, row_bytes, received_cap,  \
+      min_num_upserts, min_ingress_nodes, threshold
+
+__global__ void __launch_bounds__(32 * kMaxRowsPerBlock)
+rc_merge_prune_kernel(RC_MERGE_PRUNE_PARAMS) {
+  merge_prune_row<false>(RC_MERGE_PRUNE_ARGS);
+}
+
+__global__ void __launch_bounds__(32 * kMaxRowsPerBlock)
+rc_merge_prune_sparse_kernel(RC_MERGE_PRUNE_PARAMS) {
+  merge_prune_row<true>(RC_MERGE_PRUNE_ARGS);
+}
+
 }  // namespace
 
 // The geometry (rows_per_block, key_slots, row_bytes) comes from the
 // wrapper (kernels/rc_merge_prune.py launch_geometry); only its bounds are
-// checked here.
+// checked here.  sparse != 0 launches the sparse variant, which takes no
+// stake planes (rc_shi, rc_slo, o_shi, o_slo unused) and no live mask.
 extern "C" int rc_merge_prune_launch(
     const int32_t* rc_src, const int32_t* rc_score, const int32_t* rc_shi,
     const int32_t* rc_slo, const int32_t* rc_ups, const int32_t* inb,
@@ -320,12 +368,13 @@ extern "C" int rc_merge_prune_launch(
     int32_t* n_pruned, int32_t* overflow, int o, int n, int c, int k,
     int rows_per_block, int key_slots, int row_bytes, int received_cap,
     int min_num_upserts, int min_ingress_nodes, double threshold,
-    cudaStream_t stream) {
+    int sparse, cudaStream_t stream) {
   if (c < 1 || k < 1 || (long long)o * n > 0x7FFFFFFF ||
       rows_per_block < 1 || rows_per_block > kMaxRowsPerBlock ||
       key_slots < c || (key_slots & (key_slots - 1)) != 0 ||
       row_bytes % 16 != 0 ||
-      row_bytes < 16 * key_slots + 16 * c + 12 * k)
+      row_bytes < 16 * key_slots + (sparse ? 8 : 16) * c + 12 * k ||
+      (sparse && live != nullptr))
     return (int)cudaErrorInvalidValue;
   const int smem = rows_per_block * row_bytes;
   cudaError_t err =
@@ -333,13 +382,14 @@ extern "C" int rc_merge_prune_launch(
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)o * n;
   if (rows > 0) {
-    err = cudaFuncSetAttribute(rc_merge_prune_kernel,
+    auto kernel =
+        sparse ? rc_merge_prune_sparse_kernel : rc_merge_prune_kernel;
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
-    rc_merge_prune_kernel<<<(unsigned)((rows + rows_per_block - 1) /
-                                       rows_per_block),
-                            32 * rows_per_block, smem, stream>>>(
+    kernel<<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+             32 * rows_per_block, smem, stream>>>(
         rc_src, rc_score, rc_shi, rc_slo, rc_ups, inb, shi, slo, stakes,
         origins, live, o_src, o_score, o_shi, o_slo, o_ups, src_sorted,
         pruned, n_pruned, overflow, rows, n, c, k, key_slots, row_bytes,

@@ -1,4 +1,4 @@
-"""The five-verb gossip round on PyTorch tensors (dense representation).
+"""The five-verb gossip round on PyTorch tensors (dense and sparse layouts).
 
 The port of the reference engine's ``engine/core.py``: same state layout,
 same per-round semantics, and bit-exact results under the same stakes, seed
@@ -35,6 +35,20 @@ Float rows follow the reference's type promotion with 64-bit types on:
 float32, while ``coverage``/``rmr``/``branching`` divide int32 counts in
 float32.  Entry points run on ``cuda``
 unless the CPU is asked for; with no GPU and no CPU request they raise.
+
+``EngineParams.representation`` picks the round's layout.  ``"dense"``
+carries the received cache's four ``[O, N, C]`` planes.  ``"sparse"`` (push
+mode without traffic) carries ``rc_shi``/``rc_slo`` at zero width,
+``[O, N, 0]``, and ``rc_merge_prune`` reads each member's stake from
+``tables.shi``/``tables.slo`` at its ``rc_src`` (index N, the pad, is 0 as
+on an empty dense slot).  Every other step is the same in both layouts,
+so rows and the other state fields are bit for bit the dense round's.
+The reference's ``gossip_sim_tpu/engine/sparse.py`` has no module here:
+its ``bfs_reach`` computes what the ``bfs_relax`` kernel does, its
+``rank_inbound`` what the ``rank_inbound`` kernel does, and its direct
+table gathers (the tfail rebuild, the rotation's candidate translation
+and failed-peer lookup) are what this module's ``_lookup_rows`` and the
+``rotate`` kernel already do in both layouts.
 """
 
 from __future__ import annotations
@@ -103,7 +117,9 @@ class SimState(NamedTuple):
     rc_src: torch.Tensor       # [O, N, C] i32 received-cache peers, N = empty
     rc_score: torch.Tensor     # [O, N, C] i32 per-peer scores
     rc_shi: torch.Tensor       # [O, N, C] i32 member stake >> 31
+                               # ([O, N, 0] in the sparse layout)
     rc_slo: torch.Tensor       # [O, N, C] i32 member stake & 0x7fffffff
+                               # ([O, N, 0] in the sparse layout)
     rc_upserts: torch.Tensor   # [O, N] i32 upsert counter
     failed: torch.Tensor       # [O, N] bool fault-injection mask
     egress_acc: torch.Tensor   # [O, N] i32 measured-round egress counts
@@ -199,13 +215,16 @@ def init_state(key: torch.Tensor, tables: ClusterTables,
     active = torch.where((cnt > S)[..., None], buf[..., 1:], buf[..., :S])
 
     C, H = p.rc_slots, p.hist_bins
+    # the sparse layout derives the member stakes from the cluster tables,
+    # so its stake planes are zero-width (same fields in both layouts)
+    Cs = 0 if p.representation == "sparse" else C
     zi = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
     zb = lambda *shape: torch.zeros(shape, dtype=torch.bool, device=dev)
     return SimState(
         key=okeys, active=active.contiguous(), pruned=zb(O, N, S),
         tfail=zb(O, N, S),
         rc_src=torch.full((O, N, C), N, dtype=torch.int32, device=dev),
-        rc_score=zi(O, N, C), rc_shi=zi(O, N, C), rc_slo=zi(O, N, C),
+        rc_score=zi(O, N, C), rc_shi=zi(O, N, Cs), rc_slo=zi(O, N, Cs),
         rc_upserts=zi(O, N), failed=zb(O, N), egress_acc=zi(O, N),
         ingress_acc=zi(O, N), prune_acc=zi(O, N), stranded_acc=zi(O, N),
         hops_hist_acc=zi(O, H), pull_hops_hist_acc=zi(O, H),
@@ -244,8 +263,11 @@ def round_step(params: EngineParams, tables: ClusterTables,
     """One full gossip round for all O origin-sims at iteration ``it`` (a
     host int).  Returns (state, rows); ``detail`` adds the per-node rows,
     ``edge_detail`` the per-edge targets and hops [O, N, F] (-1 where no
-    message was delivered).  Refuses unported features and inbound keys
-    past int32 before it reads the state."""
+    message was delivered).  Before it reads the state it refuses the
+    flight recorder and node-health planes (``NotImplementedError`` naming
+    their ROADMAP items), sparse with a pull mode or traffic
+    (``ValueError``) and inbound keys past int32; then a state whose stake
+    planes are not the representation's width (``ValueError``)."""
     if trace:
         raise NotImplementedError(
             "the flight recorder (trace=True) is not ported yet (ROADMAP A13)")
@@ -253,6 +275,14 @@ def round_step(params: EngineParams, tables: ClusterTables,
     N, S, F, C, Kin, H = (p.num_nodes, p.active_set_size, p.push_fanout,
                           p.rc_slots, p.k_inbound, p.hist_bins)
     _check_key_bounds(N, H, Kin)
+    for name in ("rc_shi", "rc_slo"):
+        width = getattr(state, name).shape[-1]
+        if width != p.stake_slots:
+            raise ValueError(
+                f"representation={p.representation!r} carries {name} "
+                f"{p.stake_slots} wide, but the state's {name} is {width} "
+                f"wide: build the state with init_state under the same "
+                f"representation")
     F = min(F, S)
     pb = _pack_base(N).bit_length() - 1
     it = int(it)
@@ -316,9 +346,12 @@ def round_step(params: EngineParams, tables: ClusterTables,
     inb, ingress_round, inb_dropped = K.rank_inbound(
         tgt, delivered.contiguous(), hop1, pb, Kin)
 
-    # ---- received-cache merge + verb 3 prune decide (kernel) -------------
+    # ---- received-cache merge + verb 3 prune decide (kernel); the sparse
+    # layout passes no stake planes and the kernel reads tables.shi/slo ----
+    planes = ((None, None) if p.representation == "sparse"
+              else (state.rc_shi, state.rc_slo))
     mp = K.rc_merge_prune(
-        state.rc_src, state.rc_score, state.rc_shi, state.rc_slo,
+        state.rc_src, state.rc_score, *planes,
         state.rc_upserts, inb, tables.shi, tables.slo, tables.stakes,
         origins, received_cap=p.received_cap,
         min_num_upserts=p.min_num_upserts,

@@ -27,10 +27,14 @@ switch threshold); the pull and adaptive knobs shape the pull phase.
 ``traffic_stall_rounds`` shape the concurrent-traffic engine
 (engine/traffic.py), in push mode or adaptive (the per-value pull rescue);
 ``traffic_slots`` is its value axis (0 with traffic off: one value slot and
-both caps off run the single-value engine untouched).  Of the reference's
-features this port lacks yet, only the selectors are kept: ``health`` and
-``representation``.  :meth:`EngineParams.validate` refuses a non-default
-value of each with ``NotImplementedError`` naming its ROADMAP item.  The
+both caps off run the single-value engine untouched).  ``representation``
+selects the round's layout: ``"dense"`` carries the received cache's four
+planes, ``"sparse"`` carries ``rc_shi``/``rc_slo`` at zero width and
+derives the member stakes from the cluster tables (push mode without
+traffic only; results are bit for bit the dense round's).  Of the
+reference's features this port lacks yet, only the ``health`` selector is
+kept: :meth:`EngineParams.validate` refuses it with
+``NotImplementedError`` naming its ROADMAP item.  The
 reference's prune-apply budget ``pa_slots`` (the ``prune_apply`` kernel
 needs none) and the flight recorder's capture width come back with the
 slice that reads them.
@@ -93,10 +97,10 @@ class EngineKnobs(NamedTuple):
 
 class EngineStatic(NamedTuple):
     """Array shapes, ranking widths, the booleans selecting which
-    impairment blocks run, and the gossip mode.  With all four gates False
-    in push mode the round is the exact unimpaired reference round.
-    ``pull_slots`` is the resolved pull-request width (0 without a pull
-    phase)."""
+    impairment blocks run, the gossip mode and the round layout.  With all
+    four gates False in push mode the round is the exact unimpaired
+    reference round.  ``pull_slots`` is the resolved pull-request width (0
+    without a pull phase)."""
 
     num_nodes: int
     push_fanout: int
@@ -115,10 +119,17 @@ class EngineStatic(NamedTuple):
     gossip_mode: str = "push"
     pull_slots: int = 0
     traffic_slots: int = 0
+    representation: str = "dense"
 
     @property
     def k_inbound(self) -> int:
         return _resolve_k_inbound(self.inbound_cap, self.push_fanout)
+
+    @property
+    def stake_slots(self) -> int:
+        """Width of the carried ``rc_shi``/``rc_slo`` planes: ``rc_slots``
+        in the dense layout, 0 in the sparse one."""
+        return 0 if self.representation == "sparse" else self.rc_slots
 
     @property
     def has_traffic(self) -> bool:
@@ -196,10 +207,14 @@ class EngineParams(NamedTuple):
     traffic_stall_rounds: int = 3    # consecutive no-progress rounds
                                      # before a value retires unconverged
 
-    # Selectors of reference features not ported yet; only the defaults
-    # are accepted (validate raises NotImplementedError otherwise).
+    # Selector of a reference feature not ported yet; only the default is
+    # accepted (validate raises NotImplementedError otherwise).
     health: bool = False             # node-health planes: A12
-    representation: str = "dense"    # "sparse": A7
+    # Round layout: "dense" carries the received cache's stake planes,
+    # "sparse" carries them at zero width ([O, N, 0]) and derives the
+    # member stakes from the cluster tables.  Rows and state are bit for
+    # bit the same; push mode without traffic only.
+    representation: str = "dense"
 
     # Dense-shape knobs (see engine/core.py):
     rc_slots: int = 64      # physical received-cache slots per (origin, node)
@@ -267,6 +282,7 @@ class EngineParams(NamedTuple):
             gossip_mode=self.gossip_mode,
             pull_slots=self.pull_slots_resolved if self.has_pull else 0,
             traffic_slots=self.traffic_values if self.has_traffic else 0,
+            representation=self.representation,
         )
         knobs = EngineKnobs(
             probability_of_rotation=np.float32(self.probability_of_rotation),
@@ -297,21 +313,26 @@ class EngineParams(NamedTuple):
         return static, knobs
 
     def validate(self) -> "EngineParams":
-        """Refuse the unported features (NotImplementedError naming the
-        ROADMAP item), then check the slice's own fields."""
+        """Refuse the unported feature (NotImplementedError naming the
+        ROADMAP item) and the representations' unsupported modes
+        (ValueError), then check the slice's own fields."""
         if self.gossip_mode not in ("push", "pull", "push-pull", "adaptive"):
             raise ValueError(f"unknown gossip_mode: {self.gossip_mode!r}")
-        if self.representation == "sparse" and self.has_pull:
+        if self.representation not in ("dense", "sparse"):
             raise ValueError(
-                "the sparse frontier round implements the push phase only; "
-                "pull/adaptive modes need the dense representation")
+                f"unknown representation: {self.representation!r}")
+        if self.representation == "sparse":
+            if self.has_pull:
+                raise ValueError(
+                    "the sparse frontier round implements the push phase "
+                    "only; pull/adaptive modes need the dense representation")
+            if self.has_traffic:
+                raise ValueError(
+                    "the sparse frontier round does not carry the traffic "
+                    "subsystem yet; use representation='dense' with traffic")
         if self.health:
             raise NotImplementedError(
                 "node-health planes are not ported yet (ROADMAP A12)")
-        if self.representation != "dense":
-            raise NotImplementedError(
-                f"representation={self.representation!r} is not ported yet "
-                f"(ROADMAP A7)")
         assert self.num_nodes >= 2
         # The node-id cap (engine/core.py MAX_NODES) is enforced with a
         # ValueError in make_cluster_tables.

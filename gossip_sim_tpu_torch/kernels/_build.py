@@ -32,12 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
                 "threefry", "push_targets", "rotate", "pull_exchange",
                 "traffic_send", "traffic_admit", "traffic_rescue")
+#: Kernels built from another's source, counted apart: the sparse layout's
+#: variant of rc_merge_prune (csrc/rc_merge_prune.cu).
+VARIANT_NAMES = ("rc_merge_prune_sparse",)
 #: Rows (threads) per block of the kernels that give a thread to each row.
 ROWS_PER_BLOCK = 128
 
-#: Kernel launches per wrapper since the last reset.  A wrapper adds one
-#: where it launches its kernel on the card, and nowhere else.
-LAUNCHES = {name: 0 for name in KERNEL_NAMES}
+#: Kernel launches per wrapper (and variant) since the last reset.  A
+#: wrapper adds one where it launches its kernel on the card, and nowhere
+#: else.
+LAUNCHES = {name: 0 for name in KERNEL_NAMES + VARIANT_NAMES}
 
 _LIBS: dict = {}
 BUILD_LOG: dict = {}

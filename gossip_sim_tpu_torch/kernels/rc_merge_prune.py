@@ -8,6 +8,13 @@ place of the origin axis (gossip_sim_tpu/engine/traffic.py:621-709; a
 row fires only while its value slot is live).  The CUDA kernel is
 ``csrc/rc_merge_prune.cu``; :func:`rc_merge_prune_plain` is the same
 function in plain PyTorch, used for CPU tensors and as the spec.
+
+Called with ``rc_shi=None, rc_slo=None`` it is the sparse layout's variant
+(the reference's sparse arms, gossip_sim_tpu/engine/core.py:783-816,
+835-842): the member stakes are ``shi[rc_src]`` and ``slo[rc_src]``, the
+stake planes come back zero-width ([O, N, 0]), and no ``live`` mask is
+taken.  On the card it is the kernel source's sparse instantiation
+(``rc_merge_prune_sparse_kernel``), counted as ``rc_merge_prune_sparse``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 from . import _build
 
 NAME = "rc_merge_prune"
+SPARSE_NAME = "rc_merge_prune_sparse"  # launch count of the sparse variant
 BIG = 0x7FFFFFFF
 I32_MAX = 0x7FFFFFFF
 ROWS_PER_BLOCK = 8         # one warp per row
@@ -38,22 +46,25 @@ def key_slots(c: int) -> int:
     return 1 << max(c - 1, 0).bit_length()
 
 
-def row_smem_bytes(c: int, k: int) -> int:
+def row_smem_bytes(c: int, k: int, sparse: bool = False) -> int:
     """Shared memory the kernel stages for one row of ``c`` cache slots and
     ``k`` inbound ranks: the 16-byte prune keys padded to a power of two,
-    the four member planes, and three words per inserted inbound source,
-    rounded up to 16 bytes."""
-    return -(-(16 * key_slots(c) + 16 * c + 12 * k) // 16) * 16
+    the member planes (four; the sparse variant's two), and three words
+    per inserted inbound source, rounded up to 16 bytes."""
+    planes = 2 if sparse else 4
+    return -(-(16 * key_slots(c) + 4 * planes * c + 12 * k) // 16) * 16
 
 
-def launch_geometry(c: int, k: int, smem_limit: int) -> Geometry:
+def launch_geometry(c: int, k: int, smem_limit: int,
+                    sparse: bool = False) -> Geometry:
     """The launch for rows of ``c`` cache slots and ``k`` inbound ranks on
-    a card of ``smem_limit`` bytes of opt-in shared memory per block;
-    raises where one row does not fit."""
+    a card of ``smem_limit`` bytes of opt-in shared memory per block (of
+    the sparse variant with ``sparse``); raises where one row does not
+    fit."""
     if c < 1 or k < 1:
         raise ValueError(f"{NAME}: needs rc_slots >= 1 and k_inbound >= 1, "
                          f"got {c} and {k}")
-    row = row_smem_bytes(c, k)
+    row = row_smem_bytes(c, k, sparse)
     if row > smem_limit:
         raise ValueError(
             f"{NAME}: a row of rc_slots={c} and k_inbound={k} needs {row} "
@@ -66,8 +77,8 @@ def launch_geometry(c: int, k: int, smem_limit: int) -> Geometry:
 class MergePruneOut(NamedTuple):
     rc_src: torch.Tensor       # [O, N, C] i32 merged cache (empty if fired)
     rc_score: torch.Tensor     # [O, N, C] i32
-    rc_shi: torch.Tensor       # [O, N, C] i32
-    rc_slo: torch.Tensor       # [O, N, C] i32
+    rc_shi: torch.Tensor       # [O, N, C] i32 ([O, N, 0] sparse)
+    rc_slo: torch.Tensor       # [O, N, C] i32 ([O, N, 0] sparse)
     rc_upserts: torch.Tensor   # [O, N] i32 (0 if fired)
     src_sorted: torch.Tensor   # [O, N, C] i32 members in prune order, N pad
     pruned_slot: torch.Tensor  # [O, N, C] bool prune decision per slot
@@ -87,6 +98,18 @@ def _lexsort(keys):
     return perm
 
 
+def is_sparse(rc_shi, rc_slo, live) -> bool:
+    """Whether a call is the sparse variant's (no stake planes); raises on
+    one plane without the other, and on a ``live`` mask with neither."""
+    if (rc_shi is None) != (rc_slo is None):
+        raise ValueError(f"{NAME}: pass both stake planes (dense layout) or "
+                         f"neither (sparse layout)")
+    if rc_shi is None and live is not None:
+        raise ValueError(f"{NAME}: the sparse variant takes no live mask "
+                         f"(the sparse layout has no traffic round)")
+    return rc_shi is None
+
+
 def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
                          shi, slo, stakes, origins, *, received_cap: int,
                          min_num_upserts: int, min_ingress_nodes: int,
@@ -99,7 +122,13 @@ def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
     ``shi``/``slo`` [N + 1] and ``stakes`` [N + 1] the cluster tables,
     ``origins`` [O] (at most N: N reads the tables' zero pad).  ``live``
     (None, or [O] bool) gates which origins' rows may fire: the traffic
-    round's value slots."""
+    round's value slots.  With ``rc_shi`` and ``rc_slo`` None (the sparse
+    layout) the stake planes are ``shi[rc_src]``/``slo[rc_src]`` and come
+    back zero-width."""
+    sparse = is_sparse(rc_shi, rc_slo, live)
+    if sparse:
+        src = rc_src.long()
+        rc_shi, rc_slo = shi[src], slo[src]
     O, N, C = rc_src.shape
     K = inb.shape[-1]
     dev = rc_src.device
@@ -163,6 +192,9 @@ def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
 
     # mem::take on fire: the whole entry resets (received_cache.rs:48-55)
     f3 = fired[..., None]
+    if sparse:
+        new_hi = new_lo = torch.zeros((O, N, 0), dtype=torch.int32,
+                                      device=dev)
     return MergePruneOut(
         rc_src=torch.where(f3, N, new_src).to(torch.int32),
         rc_score=torch.where(f3, 0, new_sc).to(torch.int32),
@@ -179,7 +211,7 @@ def _lib():
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([vp] * 20 + [ci] * 10
-                       + [ctypes.c_double, vp])
+                       + [ctypes.c_double, ci, vp])
         fn.restype = ci
     return fn
 
@@ -191,7 +223,8 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
                    live=None) -> MergePruneOut:
     """Merge + prune decide: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Without ``live`` (the push round) the kernel
-    reads no mask and launches as before.
+    reads no mask and launches as before; with ``rc_shi`` and ``rc_slo``
+    None it launches the sparse variant.
 
     The kernel takes each ``rc_src`` row as the engine keeps it (and as this
     function returns it): members sorted ascending and unique, then N; and
@@ -199,6 +232,7 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
     kw = dict(received_cap=received_cap, min_num_upserts=min_num_upserts,
               min_ingress_nodes=min_ingress_nodes,
               prune_stake_threshold=prune_stake_threshold, live=live)
+    sparse = is_sparse(rc_shi, rc_slo, live)
     if not rc_src.is_cuda:
         return rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo,
                                     rc_upserts, inb, shi, slo, stakes,
@@ -206,10 +240,12 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
     O, N, C = rc_src.shape
     K = inb.shape[-1]
     dev = rc_src.device
-    g = launch_geometry(C, K, _build.smem_optin(dev))
+    g = launch_geometry(C, K, _build.smem_optin(dev), sparse)
     i32 = torch.int32
-    for name, t in (("rc_src", rc_src), ("rc_score", rc_score),
-                    ("rc_shi", rc_shi), ("rc_slo", rc_slo)):
+    planes = (("rc_src", rc_src), ("rc_score", rc_score))
+    if not sparse:
+        planes += (("rc_shi", rc_shi), ("rc_slo", rc_slo))
+    for name, t in planes:
         _build.check(t, name, i32, (O, N, C), dev)
     _build.check(rc_upserts, "rc_upserts", i32, (O, N), dev)
     _build.check(inb, "inb", i32, (O, N, K), dev)
@@ -219,22 +255,25 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
     _build.check(origins, "origins", i32, (O,), dev)
     if live is not None:
         _build.check(live, "live", torch.bool, (O,), dev)
+    Cs = 0 if sparse else C
     out = MergePruneOut(
         rc_src=torch.empty((O, N, C), dtype=i32, device=dev),
         rc_score=torch.empty((O, N, C), dtype=i32, device=dev),
-        rc_shi=torch.empty((O, N, C), dtype=i32, device=dev),
-        rc_slo=torch.empty((O, N, C), dtype=i32, device=dev),
+        rc_shi=torch.empty((O, N, Cs), dtype=i32, device=dev),
+        rc_slo=torch.empty((O, N, Cs), dtype=i32, device=dev),
         rc_upserts=torch.empty((O, N), dtype=i32, device=dev),
         src_sorted=torch.empty((O, N, C), dtype=i32, device=dev),
         pruned_slot=torch.empty((O, N, C), dtype=torch.bool, device=dev),
         n_pruned=torch.empty((O, N), dtype=i32, device=dev),
         rc_overflow=torch.empty((O,), dtype=i32, device=dev))
-    p = _build.ptr
+    # the sparse variant's stake planes (in and out) are null pointers
+    p = lambda t: None if t is None or t.numel() == 0 else _build.ptr(t)
     rc = _lib()(p(rc_src), p(rc_score), p(rc_shi), p(rc_slo), p(rc_upserts),
-                p(inb), p(shi), p(slo), p(stakes), p(origins),
-                None if live is None else p(live), *(p(t) for t in out), O, N, C, K, g.rows_per_block,
+                p(inb), p(shi), p(slo), p(stakes), p(origins), p(live),
+                *(p(t) for t in out), O, N, C, K, g.rows_per_block,
                 g.key_slots, g.row_bytes, int(received_cap),
                 int(min_num_upserts), int(min_ingress_nodes),
-                float(prune_stake_threshold), _build.stream_of(rc_src))
-    _build.launched(NAME, rc)
+                float(prune_stake_threshold), int(sparse),
+                _build.stream_of(rc_src))
+    _build.launched(SPARSE_NAME if sparse else NAME, rc)
     return out

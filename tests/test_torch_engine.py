@@ -145,10 +145,12 @@ def test_unported_features_raise():
         PortParams(40, **kw).validate()
 
 
-UNPORTED = (dict(health=True), dict(representation="sparse"))
-#: once refused, now ported: adaptive traffic (ROADMAP A11b)
+UNPORTED = (dict(health=True),)
+#: once refused, now ported: adaptive traffic (ROADMAP A11b) and the sparse
+#: representation (ROADMAP A7)
 PORTED = (dict(traffic_values=2, gossip_mode="adaptive"),
-          dict(node_egress_cap=4, gossip_mode="adaptive"))
+          dict(node_egress_cap=4, gossip_mode="adaptive"),
+          dict(representation="sparse"))
 
 
 def test_round_step_refuses_unported_features():

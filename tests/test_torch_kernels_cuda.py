@@ -67,6 +67,12 @@ CONFIGS = {
                                pull_interval=2)),
     "adaptive": (2000, 3, 21, dict(warm_up_rounds=0, gossip_mode="adaptive",
                                    adaptive_switch_threshold=0.5)),
+    # the sparse layout (rc_merge_prune's sparse variant) under loss +
+    # partition + churn
+    "sparse_impaired": (2000, 4, 22, dict(
+        warm_up_rounds=0, representation="sparse", packet_loss_rate=0.1,
+        churn_fail_rate=0.01, churn_recover_rate=0.2, partition_at=3,
+        heal_at=12, impair_seed=5)),
 }
 
 
@@ -74,9 +80,14 @@ def _launches_per_run(params, rounds):
     """Kernel launches of ``rounds`` rounds: one per kernel and round, and
     ``threefry`` only in the fail round (the round key, its sub keys and
     sub key 0's uniforms: three draws); ``rotate`` draws verb 5's
-    uniforms itself; ``pull_exchange`` runs in the pull modes only."""
+    uniforms itself; ``pull_exchange`` runs in the pull modes only, and
+    the sparse layout launches ``rc_merge_prune``'s sparse variant (its own
+    count) in place of the dense kernel."""
     want = {name: rounds for name in NAMES}
     want["pull_exchange"] = rounds if params.has_pull else 0
+    sparse = params.representation == "sparse"
+    want["rc_merge_prune"] = 0 if sparse else rounds
+    want["rc_merge_prune_sparse"] = rounds if sparse else 0
     n_fail = int(np.floor(np.float64(params.fail_fraction)
                           * params.num_nodes))
     fail_round = 0 <= params.fail_at < rounds and n_fail > 0
@@ -125,7 +136,8 @@ def test_kernels_equal_plain_on_engine_rounds(cuda, config):
         for name in NAMES:
             setattr(kernels, name, real[name])
     assert {name: kernels.LAUNCHES[name]
-            for name in NAMES} == _launches_per_run(params, rounds)
+            for name in NAMES + ("rc_merge_prune_sparse",)} == \
+        _launches_per_run(params, rounds)
     for name in NAMES:
         plain = getattr(kernels, f"{name}_plain")
         for args, kw in calls[name]:
@@ -144,6 +156,10 @@ def test_kernels_equal_plain_on_engine_rounds(cuda, config):
                    for args, _ in calls["rc_merge_prune"])
     if config == "fail_nodes":
         assert int(rows["failed_count"][-1].sum()) > 0
+    if config == "sparse_impaired":
+        assert all(args[2] is None and args[3] is None
+                   for args, _ in calls["rc_merge_prune"])
+        assert int(rows["prunes_sent"].sum()) > 0
 
 
 def test_only_the_fail_round_launches_threefry(cuda):
@@ -387,6 +403,131 @@ def test_rc_merge_prune_refuses_rows_beyond_shared_memory(cuda):
                                torch.zeros(1, dtype=torch.int32, device=cuda),
                                received_cap=50, min_num_upserts=20,
                                min_ingress_nodes=2, prune_stake_threshold=0.15)
+
+
+# ---- rc_merge_prune, the sparse layout's variant --------------------------
+
+def _sparse_merge_inputs(cuda, seed, o, n, c, k):
+    """Seeded rc_merge_prune rows of the sparse layout (no stake planes),
+    made on the card: each row keeps the cache invariant with 0 to C
+    members (even node ids, sorted, unique) and takes no inbound source,
+    members only (score bumps at ranks 0 and 1), new sources only (odd
+    ids) or both in turn, 1 to K of them; upsert counters fire about half
+    the rows; stakes take three ``shi`` values and repeat one ``slo``."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    i32 = torch.int32
+    rnd = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=g,
+                                              device=cuda, dtype=i32)
+    hi = rnd(0, 3, (n,)).long()
+    lo = rnd(0, 2**31 - 1, (n,)).long()
+    lo = torch.where(rnd(0, 4, (n,)) == 0, 12345, lo)
+    stakes = torch.cat([(hi << 31) | lo, lo.new_zeros(1)])
+    shi = (stakes >> 31).to(i32)
+    slo = (stakes & 0x7FFFFFFF).to(i32)
+    rows = o * n
+    m = rnd(0, c + 1, (rows,))
+    m = torch.where(rnd(0, 3, (rows,)) == 0, c, m)        # full rows
+    slot = torch.arange(c, device=cuda, dtype=i32)
+    gaps = rnd(1, max(2, n // (2 * c) + 1), (rows, c))
+    members = 2 * (torch.cumsum(gaps, -1, dtype=i32) - 1)
+    rc_src = torch.where(slot < m[:, None], members, n).to(i32)
+    del gaps, members
+    rc_score = torch.where(rc_src < n, rnd(0, 6, (rows, c)), 0).to(i32)
+    ranks = torch.arange(k, device=cuda, dtype=i32)
+    start, step = rnd(0, n // 2, (rows, 1)), rnd(1, max(2, n // (2 * k)),
+                                                (rows, 1))
+    new = 2 * ((start + ranks * step) % (n // 2)) + 1     # odd, unique
+
+    def member(j):  # the j-th member of each row (N past the row)
+        got = rc_src.gather(1, j.clamp(max=c - 1)[None, :].expand(
+            rows, -1).long())
+        return torch.where((j < c)[None, :], got, n)
+
+    mode = torch.arange(rows, device=cuda) % 4
+    inb = torch.where((mode == 2)[:, None], new,
+                      torch.where((ranks % 2 == 0)[None, :],
+                                  member(ranks // 2), new))
+    inb = torch.where((mode == 1)[:, None], member(ranks), inb)
+    inb = torch.where((mode == 0)[:, None], n, inb)
+    nin = rnd(1, k + 1, (rows, 1))
+    inb = torch.where(ranks[None, :] < nin, inb, n)
+    # the ranked sources first, then N (a rank past a row's members reads
+    # its N)
+    inb = inb.gather(1, torch.sort((inb >= n).to(torch.int8), dim=1,
+                                   stable=True).indices)
+    ups = torch.tensor([0, 18, 19, 20], device=cuda,
+                       dtype=i32)[rnd(0, 4, (rows,)).long()]
+    origins = torch.randperm(n, generator=g, device=cuda)[:o].to(i32)
+    return (rc_src.reshape(o, n, c), rc_score.reshape(o, n, c),
+            ups.reshape(o, n), inb.to(i32).reshape(o, n, k).contiguous(),
+            shi, slo, stakes, origins)
+
+
+SPARSE_MERGE_SHAPES = [(o, n) for n in (10_000, 100_000) for o in (1, 32, 41)]
+
+
+@pytest.mark.parametrize("c,k", [(64, 16), (128, 16), (64, 128), (128, 128)])
+@pytest.mark.parametrize("o,n", SPARSE_MERGE_SHAPES)
+def test_rc_merge_prune_sparse_equals_plain_and_dense(cuda, o, n, c, k):
+    """The sparse variant on rows that fire, at N = 10,000 and 100,000 and
+    O = 1, 32 and 41 (up to 5.2e8 slots in a plane): equal to its plain
+    version on the first, a middle and the last origin (the plain version
+    holds an [N, K, C] comparison per origin), and on every origin to the
+    dense kernel given the planes shi[rc_src] and slo[rc_src]."""
+    rc_src, rc_score, ups, inb, shi, slo, stakes, origins = \
+        _sparse_merge_inputs(cuda, o * 7 + c + k, o, n, c, k)
+    kw = dict(received_cap=50, min_num_upserts=20, min_ingress_nodes=2,
+              prune_stake_threshold=0.15)
+    kernels.reset_launch_counts()
+    got = kernels.rc_merge_prune(rc_src, rc_score, None, None, ups, inb, shi,
+                                 slo, stakes, origins, **kw)
+    assert kernels.LAUNCHES["rc_merge_prune_sparse"] == 1
+    assert kernels.LAUNCHES["rc_merge_prune"] == 0
+    assert got.rc_shi.shape == got.rc_slo.shape == (o, n, 0)
+    src = rc_src.long()
+    dense = kernels.rc_merge_prune(rc_src, rc_score, shi[src], slo[src], ups,
+                                   inb, shi, slo, stakes, origins, **kw)
+    del src
+    for f in got._fields:
+        if f not in ("rc_shi", "rc_slo"):
+            assert torch.equal(getattr(got, f), getattr(dense, f)), f
+    new_src = dense.rc_src.long()
+    assert torch.equal(dense.rc_shi, shi[new_src])
+    assert torch.equal(dense.rc_slo, slo[new_src])
+    del dense, new_src
+    assert int(got.n_pruned.sum()) > 0
+    assert bool((got.rc_upserts == 0).any())
+    for i in sorted({0, o // 2, o - 1}):
+        one = lambda t: t[i:i + 1]
+        want = kernels.rc_merge_prune_plain(
+            one(rc_src), one(rc_score), None, None, one(ups), one(inb), shi,
+            slo, stakes, one(origins), **kw)
+        for f in got._fields:
+            if f == "rc_overflow":
+                assert torch.equal(got.rc_overflow[i:i + 1], want.rc_overflow)
+            else:
+                assert torch.equal(one(getattr(got, f)), getattr(want, f)), \
+                    (i, f)
+        del want
+
+
+def test_rc_merge_prune_sparse_refuses_live_and_half_planes(cuda):
+    """The sparse variant takes no live mask (the sparse layout has no
+    traffic round), and a call passes both stake planes or neither."""
+    rc_src, rc_score, ups, inb, shi, slo, stakes, origins = \
+        _sparse_merge_inputs(cuda, 1, 2, 500, 16, 4)
+    kw = dict(received_cap=50, min_num_upserts=20, min_ingress_nodes=2,
+              prune_stake_threshold=0.15)
+    live = torch.ones(2, dtype=torch.bool, device=cuda)
+    kernels.reset_launch_counts()
+    for fn in (kernels.rc_merge_prune, kernels.rc_merge_prune_plain):
+        with pytest.raises(ValueError, match="no live mask"):
+            fn(rc_src, rc_score, None, None, ups, inb, shi, slo, stakes,
+               origins, live=live, **kw)
+        with pytest.raises(ValueError, match="neither"):
+            fn(rc_src, rc_score, rc_score, None, ups, inb, shi, slo, stakes,
+               origins, **kw)
+    assert kernels.LAUNCHES["rc_merge_prune_sparse"] == 0
 
 
 # ---- threefry ------------------------------------------------------------
@@ -1017,7 +1158,7 @@ def test_traffic_kernels_equal_plain_on_traffic_rounds(cuda, case):
     """One launch of each of the five kernels a traffic round, none of the
     push round's others; every call equal to its plain version."""
     params, rounds, calls, rows = _traffic_run(cuda, case)
-    want = {name: 0 for name in NAMES + ("traffic_rescue",)}
+    want = {name: 0 for name in kernels.LAUNCHES}
     want.update({name: rounds for name in TRAFFIC_NAMES})
     assert dict(kernels.LAUNCHES) == want
     for name in TRAFFIC_NAMES:

@@ -113,15 +113,21 @@ def _check_node_counts(o):
     assert bfs.launch_geometry(o, 10_000, SMS, 1024).scratch_words > 0
 
 
-@pytest.mark.parametrize("c,k,row", [(1, 1, 48), (3, 1, 128), (16, 4, 560),
-                                     (64, 16, 2240), (128, 16, 4288),
-                                     (256, 64, 8960)])
-def test_merge_row_shared_memory(c, k, row):
+@pytest.mark.parametrize("c,k,row,sparse_row", [
+    (1, 1, 48, 48), (3, 1, 128, 112), (16, 4, 560, 432),
+    (64, 16, 2240, 1728), (128, 16, 4288, 3264), (256, 64, 8960, 6912)])
+def test_merge_row_shared_memory(c, k, row, sparse_row):
+    """The sparse variant stages two member planes (src, score), not four."""
     p = 1 << (c - 1).bit_length()
     assert mp.row_smem_bytes(c, k) == row == -(-(16 * p + 16 * c + 12 * k)
                                               // 16) * 16
+    assert mp.row_smem_bytes(c, k, True) == sparse_row == -(
+        -(16 * p + 8 * c + 12 * k) // 16) * 16
     g = mp.launch_geometry(c, k, SMEM_PER_BLOCK)
     assert g == (mp.ROWS_PER_BLOCK, p, row, mp.ROWS_PER_BLOCK * row)
+    g = mp.launch_geometry(c, k, SMEM_PER_BLOCK, sparse=True)
+    assert g == (mp.ROWS_PER_BLOCK, p, sparse_row,
+                 mp.ROWS_PER_BLOCK * sparse_row)
 
 
 def test_merge_row_width_limit_is_shared_memory():
@@ -149,7 +155,8 @@ def test_merge_row_width_limit_is_shared_memory():
     dict(warm_up_rounds=0, received_cap=2, rc_slots=16,
          probability_of_rotation=1.0),
     dict(warm_up_rounds=0, rc_slots=128),
-], ids=["overflowing", "rc_slots_128"])
+    dict(warm_up_rounds=0, representation="sparse"),
+], ids=["overflowing", "rc_slots_128", "sparse"])
 def test_engine_keeps_the_merge_kernels_precondition(kw):
     n = 120
     stakes = np.random.default_rng(2).integers(1, 1 << 45,
