@@ -170,8 +170,34 @@ Phases (any failure exits non-zero before the final line):
       churn + partition (snapshot and Influx lines), an active-set sweep
       (S = 12, 16) sparse == dense, and sparse with push-pull and with
       traffic refused on the card;
-  (k) print the total wall, the card's name and power limit, the
-      ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
+  (k) sweep lanes (``--sweep-lanes``, ``engine/lanes.py``): round 19 of
+      8 lanes x 4 origins (32 rows), each lane with knobs of its own (loss
+      0-0.35, prune threshold 0.05-0.4, ``min_ingress_nodes`` 1-4,
+      rotation 1/75-1/5, a partition in half the lanes; in push-pull pull
+      fanouts 2-8 and bloom rates): ``push_targets``, ``rc_merge_prune``
+      (dense and sparse), ``rotate`` and ``pull_exchange`` held against
+      their plain versions and each lane against its one-lane call
+      (tolerance 0), timed in turns beside the one-lane call on the same
+      rows, device times and 5-round profiles (8 lanes of one origin, the
+      serial round at O=1 and at O=8) in a process of its own
+      (``--profile-lanes``); the engine, 8 lanes of one origin, 50 rounds
+      beside the serial O=1 and O=8 rounds in turns (wall, peak memory,
+      launches per round equal to the serial round's; every lane equal to
+      its serial run); the CLI: an 8-point packet-loss sweep (300
+      iterations, 200 warm-up) with ``--sweep-lanes 8`` and serially in
+      turns (snapshots and deterministic Influx lines equal; the wall split
+      into cluster build, engine and harvest), a 5-point fail-nodes sweep
+      at 4 lanes (its tail padded), pull-fanout and adaptive-threshold lane
+      sweeps (60 iterations) each equal to its serial sweep, a sparse
+      prune-stake-threshold lane sweep equal to the dense one;
+      ``run_rounds_lanes_dyn`` with 4 lanes at their own origins and start
+      iterations against each lane's solo run, and a splice that leaves
+      the other lanes' bits unchanged; a churn lane sweep at N=2,000 on
+      cuda and cpu; the traffic lanes refusal (ROADMAP A9b);
+  (l) print the total wall, the card's name and power limit, the
+      ``kernels`` JSON line (the four knob kernels with a ``lanes`` object:
+      K, O, max_abs_err, the lane call's ms beside the one-lane call's)
+      and the final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -642,10 +668,12 @@ def issue_s(ops: dict, blocks: int) -> float:
 def push_targets_bytes(args, outs) -> int:
     """Bytes ``push_targets`` must move on these inputs: the three slot
     planes and the origins in, the targets (and each mask that is on) out,
-    and the sides while the partition window is on."""
+    and the sides while the partition window is on (in any lane)."""
+    import numpy as np
     active, pruned, tfail, origins, side, _, partition = args[:7]
     return (nbytes(active, pruned, tfail, origins, *outs)
-            + (nbytes(side) if partition else 0))
+            + (nbytes(side) if partition is not None and np.any(partition)
+               else 0))
 
 
 def rotate_work(args, outs, rot_mod) -> tuple[int, int, int]:
@@ -658,11 +686,16 @@ def rotate_work(args, outs, rot_mod) -> tuple[int, int, int]:
     new peer) and the new peer's ``failed`` byte.  Blocks: each origin's
     round key and its T + 1 sub keys (one block a key in the partitionable
     layout, two in the original one), each row's rotation uniform, and two
-    words for each try a rotating row takes."""
+    words for each try a rotating row takes.  ``it`` and ``prob`` may be
+    per lane (each lane's for its rows)."""
+    import numpy as np
     import torch
     (active, pruned, tfail, failed, key, it, origins, buckets, perm,
      start, count, cdf, prob, tries, part) = args
     O, N, _ = active.shape
+    rows_of = lambda v, dt: torch.as_tensor(np.repeat(
+        np.ravel(v), O // np.size(v)).astype(dt), device=active.device)
+    it, prob = rows_of(it, np.int64), rows_of(prob, np.float32)[:, None]
     rot_u, u_all = rot_mod.draws_plain(key, it, N, tries, part)
     u = u_all.permute(0, 2, 1, 3)
     members = rot_mod.sample_members_plain(buckets, origins, cdf, start,
@@ -796,9 +829,11 @@ def pull_bytes(args, kw, out) -> int:
     view reached_all and dist_all) and the counts out."""
     (reached, dist, failed, side, perm, start, count, cdf,
      adaptive_on) = args
+    import numpy as np
     return (nbytes(reached, dist, failed, perm, start, count, cdf,
                    adaptive_on, *out)
-            + (nbytes(side) if kw["partition"] else 0))
+            + (nbytes(side) if kw["partition"] is not None
+               and np.any(kw["partition"]) else 0))
 
 
 def pull_geometry(g, px_mod) -> str:
@@ -1071,6 +1106,189 @@ TRAFFIC_FLAG = "--profile-traffic"
 SPARSE_FLAG = "--profile-sparse"
 
 
+# sweep lanes (k): K lanes of O origins each on round 19 (32 rows), the
+# engine's K lanes of one origin, and the kernels that read a sweep knob
+LANE_K, LANE_O = 8, 4
+LANE_KERNELS = ("push_targets", "rc_merge_prune", "rotate", "pull_exchange")
+LANES_FLAG = "--profile-lanes"
+
+
+def lane_params(EngineParams, mode: str = "push", n: int = N_FULL) -> list:
+    """Phase (k)'s ``LANE_K`` lanes, each with knobs of its own: packet loss
+    0 to 0.35, prune stake threshold 0.05 to 0.4, ``min_ingress_nodes`` 1
+    to 4, rotation probability 1/75 to 1/5, and a partition (rounds 10-29)
+    in the even lanes; ``push-pull`` adds pull fanouts 2 to 8 and bloom
+    rates 0.05 to 0.4, ``sparse`` runs the push lanes in the sparse
+    layout."""
+    out = []
+    for j in range(LANE_K):
+        kw = dict(num_nodes=n, warm_up_rounds=0, impair_seed=7,
+                  packet_loss_rate=0.05 * j,
+                  prune_stake_threshold=0.05 + 0.05 * j,
+                  min_ingress_nodes=1 + j % 4,
+                  probability_of_rotation=(1 / 75 + j * (1 / 5 - 1 / 75)
+                                           / (LANE_K - 1)),
+                  partition_at=10 if j % 2 == 0 else -1,
+                  heal_at=30 if j % 2 == 0 else -1)
+        if mode == "push-pull":
+            kw.update(gossip_mode="push-pull",
+                      pull_fanout=2 + 6 * j // (LANE_K - 1),
+                      pull_bloom_fp_rate=0.05 * (j + 1))
+        if mode == "sparse":
+            kw.update(representation="sparse")
+        out.append(EngineParams(**kw))
+    return out
+
+
+def lane_round19(kernels, engine, plist, tables, orgs, which, dev):
+    """Rounds 0-18 of the lanes ``plist`` at origins ``orgs`` (each lane's),
+    then round 19 with the calls of the kernels ``which`` recorded:
+    {name: [(args, kw), ...]}."""
+    from gossip_sim_tpu_torch import rng
+    static = engine.merge_lane_statics([p.static_part() for p in plist])
+    kstack = engine.stack_knobs([p.knob_values() for p in plist])
+    st = engine.broadcast_state(engine.init_state(
+        rng.prng_key(42, dev), tables, orgs, plist[0]), len(plist))
+    st, _ = engine.run_rounds_lanes(static, tables, orgs, st, kstack, 19)
+    return record_calls(kernels, which, engine.run_rounds_lanes, static,
+                        tables, orgs, st, kstack, 1, 19)[1]
+
+
+def record_calls(kernels, which, fn, *args):
+    """``fn(*args)`` with the calls of the kernels ``which`` recorded:
+    (its result, {name: [(args, kw), ...]})."""
+    real = {name: getattr(kernels, name) for name in which}
+    calls = {name: [] for name in which}
+
+    def recorder(name):
+        def rec(*a, **kw):
+            calls[name].append((a, kw))
+            return real[name](*a, **kw)
+        return rec
+
+    for name in which:
+        setattr(kernels, name, recorder(name))
+    try:
+        out = fn(*args)
+    finally:
+        for name, f in real.items():
+            setattr(kernels, name, f)
+    return out, calls
+
+
+def lane_call(args, kw, lane, k):
+    """A lane kernel call's arguments for lane ``lane`` of ``k`` alone:
+    each per-lane knob (a numpy array) as that lane's scalar and each
+    origin-row tensor cut to the lane's rows; ``lane=None`` keeps every row
+    and takes lane 0's knobs (the one-lane call on the same rows)."""
+    import numpy as np
+    import torch
+    rows = args[0].shape[0]
+    per = rows // k
+    cut = (slice(None) if lane is None
+           else slice(lane * per, (lane + 1) * per))
+    j = 0 if lane is None else lane
+
+    def pick(v):
+        if isinstance(v, np.ndarray):
+            a = v.reshape(-1)
+            return (a[0] if a.size == 1 else a[j]).item()
+        if isinstance(v, tuple):
+            return tuple(pick(x) for x in v)
+        if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == rows:
+            return v[cut]
+        return v
+
+    return tuple(pick(a) for a in args), {n: pick(v) for n, v in kw.items()}
+
+
+def same_knobs(args, kw, k):
+    """A lane kernel call with every per-lane knob set to lane 0's in all
+    ``k`` lanes: the lane call's work of the one-lane call (lane 0's
+    knobs on every row), through the per-lane struct."""
+    import numpy as np
+
+    def same(v):
+        if isinstance(v, np.ndarray):
+            return np.repeat(v.reshape(-1)[:1], k)
+        if isinstance(v, tuple):
+            return tuple(same(x) for x in v)
+        return v
+
+    return tuple(same(a) for a in args), {n: same(v) for n, v in kw.items()}
+
+
+def lanes_child(dev) -> int:
+    """``chip_smoke.py --profile-lanes`` (see :func:`profile_child`)."""
+    import numpy as np
+    import torch
+    from gossip_sim_tpu_torch import cli, engine, kernels
+    from gossip_sim_tpu_torch.engine import EngineParams
+    from gossip_sim_tpu_torch.identity import NodeIndex
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    accounts, _ = cli.load_cluster_accounts(
+        cli.Config(num_synthetic_nodes=N_FULL))
+    stakes_np = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
+    tables = engine.make_cluster_tables(stakes_np, device=dev)
+    top = np.argsort(-stakes_np, kind="stable").astype(np.int32)
+    orgs = torch.as_tensor(top[:LANE_O], device=dev)
+    real = {name: getattr(kernels, name) for name in LANE_KERNELS}
+    captured = {}
+    for mode, name in (("push", "push_targets"), ("push", "rc_merge_prune"),
+                       ("push", "rotate"), ("sparse", "rc_merge_prune"),
+                       ("push-pull", "pull_exchange")):
+        calls = lane_round19(kernels, engine, lane_params(EngineParams, mode),
+                             tables, orgs, [name], dev)
+        captured[f"{name} {mode}"] = (name, calls[name][0])
+    # the engine's rounds: K lanes of one origin, the serial round at O=1
+    # and at O=K (all-origins), each from round 20 of its own run
+    plist = lane_params(EngineParams)
+    static = engine.merge_lane_statics([p.static_part() for p in plist])
+    kstack = engine.stack_knobs([p.knob_values() for p in plist])
+    one = torch.as_tensor(top[:1], device=dev)
+    wide = torch.as_tensor(top[:LANE_K], device=dev)
+    runs = {}
+    st = engine.broadcast_state(engine.init_state(
+        engine_key(dev), tables, one, plist[0]), LANE_K)
+    st, _ = engine.run_rounds_lanes(static, tables, one, st, kstack, 20)
+    runs[f"lanes K={LANE_K} O=1"] = (
+        lambda p, t, o_, s_, r: engine.run_rounds_lanes(
+            static, t, o_, s_, kstack, r, start_it=20), one, st)
+    for tag, orgs_ in (("serial O=1", one), (f"serial O={LANE_K}", wide)):
+        s1 = engine.init_state(engine_key(dev), tables, orgs_, plist[1])
+        s1, _ = engine.run_rounds(static, tables, orgs_, s1, 20,
+                                  knobs=plist[1].knob_values())
+        runs[tag] = (lambda p, t, o_, s_, r: engine.run_rounds(
+            static, t, o_, s_, r, start_it=20,
+            knobs=plist[1].knob_values()), orgs_, s1)
+    torch.cuda.synchronize()
+    out = {"kernels": {}, "rounds": {}}
+    for key, (name, (a, kw)) in captured.items():
+        sym = KERNEL_SYMBOLS[SPARSE if "sparse" in key else name]
+        a1, kw1 = lane_call(a, kw, None, LANE_K)
+        au, kwu = same_knobs(a, kw, LANE_K)
+        out["kernels"][key] = {
+            "device_ms": device_ms(lambda: real[name](*a, **kw), sym),
+            "one_lane_device_ms": device_ms(lambda: real[name](*a1, **kw1),
+                                            sym),
+            "same_knobs_device_ms": device_ms(
+                lambda: real[name](*au, **kwu), sym)}
+    for tag, (run, orgs_, st_) in runs.items():
+        prof = profile_rounds(run, None, tables, orgs_, st_, out_dir,
+                              tag=" " + tag.replace("=", ""), phase="(k)")
+        out["rounds"][tag] = {k: prof.get(k) for k in ("busy_ms", "wall_ms",
+                                                       "launches")}
+        out["rounds"][tag]["device"] = prof["device"]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def engine_key(dev):
+    from gossip_sim_tpu_torch import rng
+    return rng.prng_key(42, dev)
+
+
 def profile_child(flag: str) -> int:
     """``chip_smoke.py --profile-all-origins``: the 5-round profile of one
     all-origins batch (origins 0-63 of the 10,000-node cluster, after 20
@@ -1091,7 +1309,12 @@ def profile_child(flag: str) -> int:
     on round 19's inputs in the dense and the sparse layout at O=32 and
     O=64 (the highest stakes) of N=10,000 and at O=41 of N=100,000, and
     the 5-round profiles of both layouts from round 19 at each shape,
-    started by phase (j).  Each runs in a
+    started by phase (j).  ``chip_smoke.py --profile-lanes``: the device
+    time of each kernel that reads a sweep knob on phase (k)'s round 19 of
+    ``LANE_K`` lanes of ``LANE_O`` origins (push, sparse, push-pull), and of
+    its one-lane call on the same rows, and the 5-round profiles from round
+    20 of ``LANE_K`` lanes of one origin, of the serial round at O=1 and of
+    the serial round at O=``LANE_K``, started by phase (k).  Each runs in a
     process whose first profiler sessions they are (later sessions of a
     process record no device time) and prints a JSON line, last."""
     import torch
@@ -1106,6 +1329,8 @@ def profile_child(flag: str) -> int:
     dev = torch.device("cuda")
     if flag == SPARSE_FLAG:
         return sparse_child(dev)
+    if flag == LANES_FLAG:
+        return lanes_child(dev)
     cfg = cli.Config(num_synthetic_nodes=N_FULL, all_origins=True)
     accounts, _ = cli.load_cluster_accounts(cfg)
     index = NodeIndex.from_stakes(accounts)
@@ -1787,13 +2012,15 @@ def main() -> int:
     main_args = {(name, k): [] for name in names for k in check_at}
     main_args[("threefry", "init")] = []
     in_round = [None]
-    real_round_step = core_mod.round_step
+    real_lane_round = core_mod.lane_round
 
-    def tagged_round_step(params_, tables_, origins_, state_, it, *a, **kw):
-        in_round[0] = int(it)
+    def tagged_lane_round(static_, lanes_, tables_, origins_, state_, r,
+                          *a, **kw):
+        # the round body every runner calls, here one lane: its iteration
+        in_round[0] = int(lanes_.its(r)[0])
         try:
-            return real_round_step(params_, tables_, origins_, state_, it,
-                                   *a, **kw)
+            return real_lane_round(static_, lanes_, tables_, origins_,
+                                   state_, r, *a, **kw)
         finally:
             in_round[0] = None
 
@@ -1807,7 +2034,7 @@ def main() -> int:
         return rec
 
     reset_unique_pubkeys()
-    core_mod.round_step = tagged_round_step
+    core_mod.lane_round = tagged_lane_round
     for name in names:
         setattr(kernels, name, main_recorder(name))
     try:
@@ -1819,7 +2046,7 @@ def main() -> int:
         cli_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
     finally:
-        core_mod.round_step = real_round_step
+        core_mod.lane_round = real_lane_round
         for name in names:
             setattr(kernels, name, real[name])
     missing = [n for n in names if launches[n] <= 0]
@@ -2436,7 +2663,8 @@ def main() -> int:
             bytes=pull_bytes(args, kw, got))
         pull_res[case]["bound_ms"] = bound(pull_res[case]["bytes"], 0,
                                            None)[0]
-        g = px_mod.geometry_for(o, N_FULL, kw["fanout"], kw["cap"], dev)
+        g = px_mod.geometry_for(o, N_FULL, int(np.max(kw["fanout"])),
+                                int(np.max(kw["cap"])), dev)
         pull_res[case]["geometry"] = g._asdict()
         pull_case_calls[case] = (args, kw)
         say(f"(h) {case}: pull_exchange geometry {pull_geometry(g, px_mod)}")
@@ -2457,8 +2685,9 @@ def main() -> int:
     # (the plain version's), of the packed (peer, flat) keys of the main
     # case's [O, N * PS] requests
     args, kw = pull_case_calls["push-pull impaired cap 0"]
-    peers = px_mod.pull_peers_plain(N_FULL, kw["slots"], kw["bases"][0],
-                                    kw["bases"][1], *args[4:8])
+    peers = px_mod.pull_peers_plain(
+        N_FULL, kw["slots"], *(int(np.ravel(b)[0]) for b in kw["bases"][:2]),
+        *args[4:8])
     packed_req = ((peers.reshape(1, -1).long() << 32)
                   | torch.arange(peers.numel(), device=dev)).expand(
                       O_PULL, -1).contiguous()
@@ -3475,7 +3704,316 @@ def main() -> int:
     del runs, sw
     say(f"(j) sparse phase: {time.perf_counter() - t_j:.1f} s")
 
-    # ---- (k) report -------------------------------------------------------
+    # ---- (k) sweep lanes at N=10,000 on cuda ------------------------------
+    t_k = time.perf_counter()
+    from gossip_sim_tpu_torch import engine as eng
+    reset_unique_pubkeys()
+    accounts_k, _ = cli.load_cluster_accounts(
+        cli.Config(num_synthetic_nodes=N_FULL))
+    stakes_k = NodeIndex.from_stakes(accounts_k).stakes.astype(np.int64)
+    tables_k = make_cluster_tables(stakes_k, device=dev)
+    top_k = np.argsort(-stakes_k, kind="stable").astype(np.int32)
+
+    def all_equal(a, b) -> list:
+        """The fields (or row names) of two states (or row dicts) that
+        differ, NaN equal to NaN."""
+        if isinstance(a, dict):
+            return rows_differ(a, b) + [k for k in b if k not in a]
+        return [f for f in a._fields
+                if not torch.equal(getattr(a, f), getattr(b, f))]
+
+    # the kernels on round 19 of K lanes of O origins (32 rows), each lane
+    # with knobs of its own: against the plain version, against each lane's
+    # one-lane call, and timed beside the one-lane call on the same rows
+    orgs_k = torch.as_tensor(top_k[:LANE_O], device=dev)
+    lane_k = {}
+    for mode, name in (("push", "push_targets"), ("push", "rc_merge_prune"),
+                       ("push", "rotate"), ("sparse", "rc_merge_prune"),
+                       ("push-pull", "pull_exchange")):
+        key = SPARSE if mode == "sparse" else name
+        calls = lane_round19(kernels, eng, lane_params(EngineParams, mode),
+                             tables_k, orgs_k, [name], dev)[name]
+        if len(calls) != 1:
+            fail(f"(k) {mode}: {len(calls)} {name} calls in a lane round")
+        a, kw = calls[0]
+        got = exact(name, a, kw, f"(k) {key} lanes", key=key)
+        outs = [t for t in (got if isinstance(got, tuple) else (got,))
+                if t is not None]
+        for j in range(LANE_K):
+            aj, kwj = lane_call(a, kw, j, LANE_K)
+            one = real[name](*aj, **kwj)
+            one = [t for t in (one if isinstance(one, tuple) else (one,))
+                   if t is not None]
+            per = LANE_O
+            if any(not torch.equal(x[j * per:(j + 1) * per], y)
+                   for x, y in zip(outs, one)):
+                fail(f"(k) {key}: lane {j}'s rows differ from its one-lane "
+                     f"call")
+        a1, kw1 = lane_call(a, kw, None, LANE_K)
+        au, kwu = same_knobs(a, kw, LANE_K)
+        if max_abs_err(real[name](*au, **kwu),
+                       real[name](*a1, **kw1)) != 0:
+            fail(f"(k) {key}: {LANE_K} lanes of lane 0's knobs differ from "
+                 f"the one-lane call")
+        if name == "push_targets":
+            moved, blocks = push_targets_bytes(a, outs), 0
+        elif name == "rc_merge_prune":
+            moved, blocks = nbytes(*a, *outs), 0
+        elif name == "rotate":
+            moved, blocks, _ = rotate_work(a, outs, rot_mod)
+        else:
+            moved, blocks = pull_bytes(a, kw, outs), 0
+        ms = {"lanes": [], "one_lane": [], "same_knobs": []}
+        for _ in range(2):
+            for what, (x, y) in (("lanes", (a, kw)), ("one_lane", (a1, kw1)),
+                                 ("same_knobs", (au, kwu))):
+                ms[what].append(cuda_ms(lambda: real[name](*x, **y),
+                                        reps=20))
+        lane_k[key] = dict(
+            k=LANE_K, o=LANE_O, max_abs_err=worst[key], ms=ms["lanes"],
+            one_lane_ms=ms["one_lane"], same_knobs_ms=ms["same_knobs"],
+            bound_ms=bound(moved, blocks, tf_ops.get(name))[0])
+        say(f"(k) {key} on round 19 of {LANE_K} lanes x {LANE_O} origins "
+            f"({mode}): exact vs plain and vs each lane's one-lane call; "
+            f"CUDA-event ms, in turns: lane call "
+            + " / ".join(f"{v:.4f}" for v in ms["lanes"])
+            + ", one-lane call (lane 0's knobs) on the same rows "
+            + " / ".join(f"{v:.4f}" for v in ms["one_lane"])
+            + f", {LANE_K} lanes of lane 0's knobs "
+            + " / ".join(f"{v:.4f}" for v in ms["same_knobs"])
+            + f"; bound {lane_k[key]['bound_ms']:.4f} ms")
+        del calls, a, kw, got, outs, one, a1, kw1, au, kwu
+    torch.cuda.empty_cache()
+
+    # device times and round profiles in a process of its own
+    ln_run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), LANES_FLAG],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    for line in ln_run.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if ln_run.returncode != 0:
+        fail(f"(k) the --profile-lanes process failed (exit "
+             f"{ln_run.returncode}): {ln_run.stderr[-2000:]}")
+    ln_dev = json.loads(ln_run.stdout.splitlines()[-1])
+    for ck, v in ln_dev["kernels"].items():
+        key = SPARSE if ck.endswith("sparse") else ck.split()[0]
+        lane_k[key].update(v)
+        say(f"(k) {ck}: device ms lane call {fmt(v['device_ms'])}, one-lane "
+            f"call on the same rows {fmt(v['one_lane_device_ms'])}, "
+            f"{LANE_K} lanes of lane 0's knobs "
+            f"{fmt(v['same_knobs_device_ms'])}")
+    for tag, v in ln_dev["rounds"].items():
+        say(f"(k) a round of {tag} (5 from round 20): busy {v['busy_ms']} "
+            f"ms, wall {v['wall_ms']} ms, launches {v['launches']}")
+    # the profiler's device launches are reported, not held: they have
+    # varied by a few in 5 rounds between runs of the same round (and a
+    # run_rounds_lanes call adds one launch of its own, the lanes' origin
+    # rows); the kernels' launches are held exactly below
+    say(f"(k) device launches a round under the profiler: lanes "
+        f"{ln_dev['rounds'][f'lanes K={LANE_K} O=1']['launches']}, serial "
+        f"O=1 {ln_dev['rounds']['serial O=1']['launches']}")
+
+    # the engine: K lanes of one origin, 50 rounds, beside the serial round
+    # at O=1 and at O=K, in turns; launches per round; every lane against
+    # its serial run
+    plist = lane_params(EngineParams)
+    static = eng.merge_lane_statics([p.static_part() for p in plist])
+    kstack = eng.stack_knobs([p.knob_values() for p in plist])
+    one_k = torch.as_tensor(top_k[:1], device=dev)
+    wide_k = torch.as_tensor(top_k[:LANE_K], device=dev)
+    st1 = init_state(rng.prng_key(42, dev), tables_k, one_k, plist[0])
+    ENG_ROUNDS = 50
+    eng_runs = {}
+
+    def timed(tag, fn):
+        base = fresh()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng_runs.setdefault(tag, []).append(dict(
+            wall_ms=wall / ENG_ROUNDS * 1e3, peak_mib=peak_above(base),
+            launches={n: v / ENG_ROUNDS for n, v in kernels.LAUNCHES.items()
+                      if v}))
+        return out
+
+    for turn in range(2):
+        timed(f"lanes K={LANE_K} O=1", lambda: eng.run_rounds_lanes(
+            static, tables_k, one_k, eng.broadcast_state(st1, LANE_K),
+            kstack, ENG_ROUNDS))
+        timed("serial O=1", lambda: run_rounds(
+            static, tables_k, one_k, st1, ENG_ROUNDS,
+            knobs=plist[1].knob_values()))
+        st_w = init_state(rng.prng_key(42, dev), tables_k, wide_k, plist[1])
+        timed(f"serial O={LANE_K}", lambda: run_rounds(
+            static, tables_k, wide_k, st_w, ENG_ROUNDS,
+            knobs=plist[1].knob_values()))
+    lane_wrapper = eng_runs[f"lanes K={LANE_K} O=1"][0]["launches"]
+    serial_wrapper = eng_runs["serial O=1"][0]["launches"]
+    if lane_wrapper != serial_wrapper:
+        fail(f"(k) kernel launches per lane round {lane_wrapper} differ from "
+             f"the serial round's {serial_wrapper}")
+    states_l, rows_l = eng.run_rounds_lanes(
+        static, tables_k, one_k, eng.broadcast_state(st1, LANE_K), kstack,
+        ENG_ROUNDS, detail=True)
+    for j, p in enumerate(plist):
+        s_j, r_j = run_rounds(static, tables_k, one_k, st1, ENG_ROUNDS,
+                              detail=True, knobs=p.knob_values())
+        bad = (all_equal({k: v[:, j] for k, v in rows_l.items()}, r_j)
+               + all_equal(eng.lane_state(states_l, j), s_j))
+        if bad:
+            fail(f"(k) lane {j} differs from its serial run on the card in "
+                 f"{bad}")
+    del states_l, rows_l, st_w
+    for tag, runs_ in eng_runs.items():
+        say(f"(k) engine {tag}, {ENG_ROUNDS} rounds (in turns): per round "
+            + " / ".join(f"{r['wall_ms']:.3f}" for r in runs_)
+            + " ms wall, peak "
+            + " / ".join(f"{r['peak_mib']:.1f}" for r in runs_)
+            + " MiB above what was held; kernel launches per round "
+            f"{sum(runs_[0]['launches'].values()):.0f}")
+    say(f"(k) every lane's {ENG_ROUNDS} rounds equal its serial run (rows "
+        f"and state); launches per lane round equal the serial round's")
+
+    # the CLI: lane sweeps against the serial sweep run point by point on
+    # one cluster (the pubkey counter reset per point)
+    def sweep(argv, lanes, device="cuda"):
+        reset_unique_pubkeys()
+        args_ = cli.build_parser().parse_args(
+            argv + ["--device", device]
+            + (["--sweep-lanes", str(lanes)] if lanes else []))
+        cfg = cli.config_from_args(args_)
+        coll, q = cli.GossipStatsCollection(), DatapointQueue()
+        coll.set_number_of_simulations(cfg.num_simulations)
+        t0 = time.perf_counter()
+        if lanes:
+            times = cli.dispatch_sweeps(cfg, "u", args_.origin_rank, coll, q,
+                                        "77")
+            if not times or times.get("lanes") != min(lanes,
+                                                      cfg.num_simulations):
+                fail(f"(k) {argv}: --sweep-lanes {lanes} did not run lanes")
+        else:
+            times = None
+            for i in range(cfg.num_simulations):
+                reset_unique_pubkeys()
+                c, start = cli._stepped_sweep_config(cfg, i,
+                                                     args_.origin_rank)
+                cli.run_simulation(c, "u", coll, q, i, "77", start)
+        wall = time.perf_counter() - t0
+        return ([snapshot_strings(x.parity_snapshot())
+                 for x in coll.collection],
+                q.drain_deterministic_lines(), wall, times)
+
+    def same(a, b, what):
+        if a[0] != b[0] or a[1] != b[1]:
+            fail(f"(k) {what}: parity snapshots or deterministic lines "
+                 f"differ")
+
+    base_cli = ["--num-synthetic-nodes", str(N_FULL)]
+    loss_sweep = base_cli + ["--iterations", "300", "--warm-up-rounds",
+                             "200", "--origin-rank", "1", "--test-type",
+                             "packet-loss", "--num-simulations", str(LANE_K),
+                             "--step-size", "0.05"]
+    cli_k = {"lanes": [], "serial": []}
+    ref_k = None
+    for what in ("lanes", "serial", "lanes"):
+        out = sweep(loss_sweep, LANE_K if what == "lanes" else 0)
+        ref_k = ref_k or out
+        same(out, ref_k, f"packet-loss sweep ({what})")
+        cli_k[what].append(dict(wall=out[2], times=out[3]))
+        say(f"(k) packet-loss sweep, {LANE_K} points x 300 iterations (200 "
+            f"warm-up), {what}: {out[2]:.3f} s"
+            + ("" if out[3] is None else
+               f" (cluster build {out[3]['cluster_s']:.3f} s, engine "
+               f"{out[3]['engine_s']:.3f} s, harvest "
+               f"{out[3]['harvest_s']:.3f} s)"))
+    short = base_cli + ["--iterations", "60", "--warm-up-rounds", "20"]
+    for argv, lanes, what in (
+            (["--test-type", "fail-nodes", "--when-to-fail", "30",
+              "--num-simulations", "5", "--step-size", "0.1"], 4,
+             "fail-nodes, 5 points at 4 lanes (the tail padded)"),
+            (["--gossip-mode", "push-pull", "--test-type", "pull-fanout",
+              "--num-simulations", "3", "--step-size", "3"], 3,
+             "pull-fanout (push-pull)"),
+            (["--gossip-mode", "adaptive", "--test-type",
+              "adaptive-threshold", "--adaptive-switch-threshold", "0.5",
+              "--num-simulations", "3", "--step-size", "0.2"], 3,
+             "adaptive-threshold")):
+        got_l = sweep(short + argv, lanes)
+        same(got_l, sweep(short + argv, 0), what)
+        say(f"(k) {what}: the lane sweep equals the serial sweep "
+            f"({got_l[2]:.3f} s)")
+    pst = short + ["--test-type", "prune-stake-threshold",
+                   "--num-simulations", "4", "--step-size", "0.1"]
+    same(sweep(pst + ["--engine-representation", "sparse"], 4),
+         sweep(pst, 4), "sparse prune-stake-threshold lanes against dense")
+    say("(k) prune-stake-threshold lane sweep: sparse equals dense")
+
+    # dyn: lanes at their own origins and start iterations against each
+    # lane's solo run; a spliced lane leaves the others' bits unchanged
+    dyn_orgs = [top_k[[0, 5]], top_k[[7, 1]], top_k[[3, 3]], top_k[[90, 2]]]
+    dyn_starts = [0, 30, 11, 57]
+    dyn_p = [plist[j] for j in (0, 3, 4, 7)]
+    d_static = eng.merge_lane_statics([p.static_part() for p in dyn_p])
+    d_knobs = eng.stack_knobs([p.knob_values() for p in dyn_p])
+    solo = []
+    for p, o_, s0 in zip(dyn_p, dyn_orgs, dyn_starts):
+        o_t = torch.as_tensor(o_, device=dev)
+        st = init_state(rng.prng_key(42, dev), tables_k, o_t, p)
+        st, _ = run_rounds(d_static, tables_k, o_t, st, s0,
+                           knobs=p.knob_values())
+        solo.append((o_t, st))
+    d_states = eng.SimState(*(torch.stack(x) for x in zip(
+        *(st for _, st in solo))))
+    d_out, d_rows = eng.run_rounds_lanes_dyn(
+        d_static, tables_k, eng.stack_origins(dyn_orgs), d_states, d_knobs,
+        20, dyn_starts, detail=True)
+    for j, ((o_t, st), p, s0) in enumerate(zip(solo, dyn_p, dyn_starts)):
+        s_j, r_j = run_rounds(d_static, tables_k, o_t, st, 20, start_it=s0,
+                              detail=True, knobs=p.knob_values())
+        bad = (all_equal({k: v[:, j] for k, v in d_rows.items()}, r_j)
+               + all_equal(eng.lane_state(d_out, j), s_j))
+        if bad:
+            fail(f"(k) dyn lane {j} differs from its solo run in {bad}")
+    spliced = eng.splice_lane_state(d_out, 2, eng.lane_state(d_states, 2))
+    for j in (0, 1, 3):
+        if all_equal(eng.lane_state(spliced, j), eng.lane_state(d_out, j)):
+            fail(f"(k) splicing lane 2 changed lane {j}")
+    say("(k) run_rounds_lanes_dyn: 4 lanes at their own origins and start "
+        "iterations (0, 30, 11, 57), 20 rounds, each equal to its solo run; "
+        "splicing lane 2 leaves the others' bits unchanged")
+    del d_out, d_rows, d_states, spliced, solo
+
+    # cuda == cpu: a churn lane sweep at N=2,000
+    churn = ["--num-synthetic-nodes", "2000", "--iterations", "60",
+             "--warm-up-rounds", "20", "--test-type", "churn",
+             "--churn-fail-rate", "0.01", "--churn-recover-rate", "0.2",
+             "--num-simulations", "3", "--step-size", "0.02"]
+    same(sweep(churn, 3), sweep(churn, 3, "cpu"),
+         "churn lane sweep cuda against cpu")
+    say("(k) churn lane sweep at N=2,000: cuda equals cpu")
+
+    # the refusal: traffic lanes are a later slice
+    tr_cfg = cli.config_from_args(cli.build_parser().parse_args(
+        base_cli + ["--iterations", "300", "--warm-up-rounds", "200",
+                    "--traffic-values", "8", "--test-type", "traffic-rate",
+                    "--num-simulations", "2", "--step-size", "1",
+                    "--sweep-lanes", "2"]))
+    try:
+        cli.run_traffic(tr_cfg)
+        fail("(k) --sweep-lanes with a traffic sweep ran")
+    except NotImplementedError as e:
+        if "A9b" not in str(e):
+            fail(f"(k) the traffic lanes refusal does not name A9b: {e}")
+    say("(k) --sweep-lanes with a traffic sweep raises NotImplementedError "
+        "(ROADMAP A9b)")
+    say(f"(k) lanes phase: {time.perf_counter() - t_k:.1f} s")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "lanes_k.json").write_text(json.dumps(
+        as_builtins({"kernels": lane_k, "device": ln_dev,
+                     "engine": eng_runs, "cli": cli_k}), indent=1))
+
+    # ---- (l) report -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3509,6 +4047,14 @@ def main() -> int:
             entry["whole_call"] = {shape: per[entry["name"]]
                                    for shape, per in calls_prof.items()
                                    if entry["name"] in per}
+    lanes_of = lambda key: {
+        f: lane_k[key].get(f) for f in ("k", "o", "max_abs_err", "ms",
+                                        "one_lane_ms", "same_knobs_ms",
+                                        "device_ms", "one_lane_device_ms",
+                                        "same_knobs_device_ms", "bound_ms")}
+    for entry in line["kernels"]:
+        if entry["name"] in LANE_KERNELS:
+            entry["lanes"] = lanes_of(entry["name"])
     main_pp = pull_res["push-pull impaired cap 0"]
     line["kernels"].append(
         {"name": PX, "route": "cuda",
@@ -3528,7 +4074,8 @@ def main() -> int:
          "all_origins_origin_rounds_s": AO_ORIGINS * 300 / pp_rounds_s,
          "one_batch_origin_rounds_s": pp_wide_rounds_s,
          "one_batch_peak_mib": pp_wide_peak / 2**20,
-         "launches_per_round_push_pull": pp_prof.get("launches")})
+         "launches_per_round_push_pull": pp_prof.get("launches"),
+         "lanes": lanes_of(PX)})
     tr_u, tr_c = traffic_res["uncapped"], traffic_res["capped"]
     for entry in line["kernels"]:
         if entry["name"] in TRAFFIC_KERNELS:
@@ -3623,7 +4170,8 @@ def main() -> int:
          "engine_n100k_o41": {w: {k: v[k] for k in ("wall_ms", "peak_mib")}
                               for w, v in huge.items()},
          "cli_n100k": {w: {k: v[k] for k in ("wall", "peak_mib")}
-                       for w, v in cli_h.items()}})
+                       for w, v in cli_h.items()},
+         "lanes": lanes_of(SPARSE)})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3637,5 +4185,6 @@ if __name__ == "__main__":
                              else ROOT))
     sys.exit(profile_child(sys.argv[1])
              if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG], [PULL_FLAG],
-                                 [TRAFFIC_FLAG], [SPARSE_FLAG])
+                                 [TRAFFIC_FLAG], [SPARSE_FLAG],
+                                 [LANES_FLAG])
              else main())

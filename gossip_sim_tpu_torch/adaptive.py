@@ -34,16 +34,22 @@ SALT_ADAPT_PBLOOM = 0xD807AA98   # per-(value, requester) bloom-FP event
 def switch_update_arr(n_covered, num_nodes, prev_on, threshold, hysteresis):
     """The direction switch on numpy arrays or torch tensors: ``n_covered``
     integer coverage count(s), ``prev_on`` matching bool(s), ``threshold``
-    and ``hysteresis`` f64 scalars.  Returns the new bit(s), of the input's
-    kind.
+    and ``hysteresis`` f64 scalars, or (with tensor counts) f64 tensors of
+    one value per count: a sweep lane's per row.  Returns the new bit(s),
+    of the input's kind.
 
         up   = f64(n_covered) >= threshold * f64(N)
         down = f64(n_covered) <  (threshold - hysteresis) * f64(N)
         on'  = up ? True : (down ? False : on)
     """
     n = np.float64(num_nodes)
-    thr, hyst = np.float64(threshold), np.float64(hysteresis)
-    up_at, down_at = float(thr * n), float((thr - hyst) * n)
+    if torch.is_tensor(threshold):
+        # the same f64 products, elementwise on the device
+        up_at = threshold * float(n)
+        down_at = (threshold - hysteresis) * float(n)
+    else:
+        thr, hyst = np.float64(threshold), np.float64(hysteresis)
+        up_at, down_at = float(thr * n), float((thr - hyst) * n)
     if torch.is_tensor(n_covered):
         cov = n_covered.to(torch.float64)
         prev = prev_on.to(device=cov.device, dtype=torch.bool)

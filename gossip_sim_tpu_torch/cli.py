@@ -13,9 +13,10 @@ reference's Influx series (sinks/influx.py).  ``--traffic-values`` > 1 or a
 queue cap (``--node-ingress-cap``, ``--node-egress-cap``) runs the
 concurrent-traffic engine in push mode instead (:func:`run_traffic`: one
 run, or a serial ``traffic-rate``, ``node-ingress-cap``, ``packet-loss`` or
-``churn`` sweep).  A flag the port lacks is rejected by argparse: lanes,
-traces, checkpoints, telemetry and the run report are later slices
-(ROADMAP A9, A12-A16).
+``churn`` sweep; ``--sweep-lanes`` with a traffic sweep raises
+``NotImplementedError``, ROADMAP A9b).  A flag the port lacks is rejected
+by argparse: traces, checkpoints, telemetry and the run report are later
+slices (ROADMAP A12-A16).
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
@@ -23,7 +24,9 @@ the GPU; ``--test-type active-set-size --num-simulations 4 --step-size 4``
 sweeps it (:func:`dispatch_sweeps`; an origin-rank sweep runs its ranks as
 the origins of one engine batch, :func:`run_origin_rank_sweep`);
 ``--all-origins`` runs every node as an origin, in origin batches
-(:func:`run_all_origins`).
+(:func:`run_all_origins`).  With ``--sweep-lanes K`` a knob sweep
+(``LANE_SWEEP_TYPES``) runs its points as the lanes of one batch, K at a
+time (:func:`run_lane_sweep`), with the serial sweep's results.
 """
 
 from __future__ import annotations
@@ -46,8 +49,10 @@ from .constants import (AGGREGATE_HOPS_FAIL_NODES_HISTOGRAM_UPPER_BOUND,
                         STANDARD_HISTOGRAM_UPPER_BOUND, UNREACHED,
                         VALIDATOR_STAKE_DISTRIBUTION_NUM_BUCKETS,
                         get_influx_url, get_json_rpc_url)
-from .engine import (EngineParams, init_state, make_cluster_tables,
-                     run_rounds)
+from .engine import (EngineParams, broadcast_state, check_lane_knobs,
+                     init_state, lane_state, make_cluster_tables,
+                     merge_lane_statics, run_rounds, run_rounds_lanes,
+                     stack_knobs)
 from .engine.traffic import (device_traffic_tables, init_traffic_state,
                              run_traffic_rounds)
 from .identity import NodeIndex
@@ -57,7 +62,8 @@ from .ingest import (fetch_vote_accounts_rpc, filter_accounts,
 from .rng import prng_key
 from .rustrng import ChaChaRng
 from .sinks import DatapointQueue, InfluxDataPoint, InfluxThread, load_dotenv
-from .stats.aggregate import AllOriginsStats
+from .kernels._lanes import MAX_LANES
+from .stats.aggregate import AllOriginsStats, lane_rows
 from .stats.gossip_stats import GossipStats, GossipStatsCollection
 from .stats.traffic import (ADAPTIVE_ROUND_FIELDS, ROUND_FIELDS,
                             TrafficStats, TrafficStatsCollection)
@@ -289,6 +295,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-origin node axis over this many devices per "
                         "origin-shard (1 = origins axis only; more is not "
                         "ported yet, ROADMAP A6b)")
+    p.add_argument("--sweep-lanes", type=int, default=0,
+                   help="run a knob sweep (packet-loss, churn, pull-fanout, "
+                        "rotate-probability, prune-stake-threshold, min-"
+                        "ingress-nodes, fail-nodes, adaptive-threshold) "
+                        "lane-batched: K sweep points run as the lanes of "
+                        "ceil(K/lanes) engine batches with a single harvest "
+                        "each, bit-identical to the serial sweep "
+                        "(engine/lanes.py). 0 = serial. Shape-stepping "
+                        "sweeps (active-set-size, push-fanout) and origin-"
+                        "rank fall back to their existing paths")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the engine runs (default cuda; a run without "
                         "a GPU must ask for cpu)")
@@ -325,6 +341,8 @@ def config_from_args(args) -> Config:
                              "[0, adaptive-switch-threshold)")
     if args.mesh_node_shards < 1:
         raise SystemExit("mesh-node-shards must be >= 1")
+    if args.sweep_lanes < 0:
+        raise SystemExit("sweep-lanes must be >= 0")
     return Config(
         gossip_push_fanout=args.push_fanout,
         gossip_active_set_size=args.active_set_size,
@@ -371,6 +389,7 @@ def config_from_args(args) -> Config:
         origin_batch=args.origin_batch,
         mesh_devices=args.mesh_devices,
         mesh_node_shards=args.mesh_node_shards,
+        sweep_lanes=args.sweep_lanes,
         device=args.device,
     )
 
@@ -738,6 +757,33 @@ def _stepped_sweep_config(config: Config, i: int, origin_ranks):
     return config, 0.0  # NO_TEST
 
 
+#: test types whose stepped Config field is a numeric engine knob: the
+#: sweeps whose points can run as lanes of one batch (reference cli.py:
+#: 3516-3519).  ACTIVE_SET_SIZE and PUSH_FANOUT step shapes and
+#: ORIGIN_RANK has its own batched path, so they stay serial.
+LANE_SWEEP_TYPES = (Testing.MIN_INGRESS_NODES, Testing.PRUNE_STAKE_THRESHOLD,
+                    Testing.FAIL_NODES, Testing.ROTATE_PROBABILITY,
+                    Testing.PACKET_LOSS, Testing.CHURN, Testing.PULL_FANOUT,
+                    Testing.ADAPTIVE_THRESHOLD)
+
+
+def _lane_sweep_blocker(config: Config):
+    """None when --sweep-lanes can serve this sweep, else the reason the
+    dispatcher logs before it runs the serial sweep (reference cli.py:
+    3522-3538)."""
+    if config.num_simulations < 2:
+        return "nothing to batch (num_simulations < 2)"
+    if config.test_type not in LANE_SWEEP_TYPES:
+        return (f"--test-type {config.test_type.value} does not step a "
+                f"traced engine knob; lane-eligible sweeps: "
+                + ", ".join(t.value for t in LANE_SWEEP_TYPES))
+    if config.gossip_iterations <= config.warm_up_rounds:
+        # nothing measurable to batch; the serial loop keeps its exact
+        # degenerate-case behavior
+        return "no measured rounds (iterations <= warm-up-rounds)"
+    return None
+
+
 def dispatch_sweeps(config: Config, json_rpc_url: str, origin_ranks,
                     collection: GossipStatsCollection, dp_queue=None,
                     start_ts: str = "0"):
@@ -745,16 +791,194 @@ def dispatch_sweeps(config: Config, json_rpc_url: str, origin_ranks,
     ``config.test_type`` (gossip_main.rs:774-951): one after another, each
     on a freshly loaded cluster, except an origin-rank sweep of more than
     one rank, which runs its ranks as the origins of one engine batch
-    (:func:`run_origin_rank_sweep`, whose timings it returns)."""
+    (:func:`run_origin_rank_sweep`), and with ``--sweep-lanes`` a knob
+    sweep, whose points run as lanes (:func:`run_lane_sweep`); those two
+    return their timings."""
     if (config.test_type == Testing.ORIGIN_RANK
             and config.num_simulations > 1):
         return run_origin_rank_sweep(config, json_rpc_url, origin_ranks,
                                      collection, dp_queue, start_ts)
+    if config.sweep_lanes > 0:
+        blocker = _lane_sweep_blocker(config)
+        if blocker is None:
+            return run_lane_sweep(config, json_rpc_url, origin_ranks,
+                                  collection, dp_queue, start_ts)
+        log.warning("WARNING: --sweep-lanes %s ignored (%s); running the "
+                    "serial sweep", config.sweep_lanes, blocker)
     for i in range(config.num_simulations):
         c, start = _stepped_sweep_config(config, i, origin_ranks)
         run_simulation(c, json_rpc_url, collection, dp_queue, i, start_ts,
                        start)
     return None
+
+
+def run_lane_sweep(config: Config, json_rpc_url: str, origin_ranks,
+                   stats_collection: GossipStatsCollection, dp_queue=None,
+                   start_ts: str = "0") -> dict:
+    """A knob sweep as lane batches (reference cli.py:1495-1691).
+
+    The K sweep points' :class:`EngineKnobs` stack into lanes
+    (engine/lanes.py) and the sweep runs as ``ceil(K / lanes)`` batches,
+    each the whole run of its lanes (the warm-up, then the measured rounds
+    with their per-node rows) and one copy of its rows to the host.  Each
+    lane then feeds the serial sweep's per-simulation stats and Influx
+    paths, in sweep order, so the results are the serial sweep's.  A batch
+    the sweep does not fill is padded with the last point's knobs; padded
+    lanes are dropped before any stats or Influx feeding.  The cluster is
+    loaded once (a synthetic cluster draws fresh pubkeys per load, so a
+    serial arm compared with this one resets the pubkey counter per
+    point).  Returns the walls of the cluster build, the engine (rounds
+    until their rows are on the host) and the harvest, in seconds."""
+    K = config.num_simulations
+    L = max(1, min(config.sweep_lanes, K))
+    if L > MAX_LANES:
+        log.warning("WARNING: --sweep-lanes %s: a batch runs at most %s "
+                    "lanes", L, MAX_LANES)
+        L = MAX_LANES
+    n_batches = -(-K // L)
+    sweep = [_stepped_sweep_config(config, i, origin_ranks)
+             for i in range(K)]
+
+    t0 = time.perf_counter()
+    accounts, source_label = load_cluster_accounts(config, json_rpc_url)
+    if len(accounts) < config.origin_rank:
+        raise SystemExit(
+            f"ERROR: origin_rank larger than number of simulation nodes. "
+            f"nodes: {len(accounts)}, origin_rank: {config.origin_rank}")
+    origin_pubkey = find_nth_largest_node(config.origin_rank,
+                                          list(accounts.items()))[0]
+    stakes = dict(accounts)
+    index = NodeIndex.from_stakes(accounts)
+    N = len(index)
+    params_list = [_engine_params(c, N).validate() for c, _ in sweep]
+    static = merge_lane_statics([p.static_part() for p in params_list])
+    knob_list = [p.knob_values() for p in params_list]
+    check_lane_knobs(static, knob_list)
+    tables = make_cluster_tables(index.stakes.astype(np.int64),
+                                 device=config.device)
+    dev = tables.stakes.device
+    origins = torch.tensor([index.index_of(origin_pubkey)],
+                           dtype=torch.int32, device=dev)
+    times = {"cluster_s": time.perf_counter() - t0, "engine_s": 0.0,
+             "harvest_s": 0.0, "lanes": L, "batches": n_batches}
+    log.info("##### LANE-BATCHED SWEEP: %s sims x %s lanes = %s batched "
+             "engine call(s) #####", K, L, n_batches)
+    log.info("ORIGIN: %s", origin_pubkey)
+    stats_list = [_new_stats(c, origin_pubkey, stakes) for c, _ in sweep]
+
+    total = config.gossip_iterations
+    warm = min(config.warm_up_rounds, total)
+    measured = total - warm
+    if measured <= 0:
+        # dispatch_sweeps routes this case to the serial loop; a guard
+        # for direct callers
+        log.warning("WARNING: no measured rounds (iterations <= warm-up-"
+                    "rounds); lane sweep has nothing to harvest")
+        return times
+
+    t_engine = time.perf_counter()
+    log.info("Simulating Gossip and setting active sets. Please wait.....")
+    base_state = init_state(prng_key(config.seed, dev), tables, origins,
+                            params_list[0])
+    log.info("Simulation Complete!")
+    times["engine_s"] += time.perf_counter() - t_engine
+    for b in range(n_batches):
+        ids = list(range(b * L, min((b + 1) * L, K)))
+        padded = ids + [ids[-1]] * (L - len(ids))
+        kstack = stack_knobs([knob_list[i] for i in padded])
+        t_blk = time.perf_counter()
+        states = broadcast_state(base_state, L)
+        wrows = {}
+        if warm > 0:
+            states, wrows = run_rounds_lanes(static, tables, origins, states,
+                                             kstack, warm)
+        states, mrows = run_rounds_lanes(static, tables, origins, states,
+                                         kstack, measured, start_it=warm,
+                                         detail=True)
+        # the one copy of the batch's rows and final counters to the host
+        wrows = {"coverage": wrows["coverage"].cpu().numpy()} if wrows \
+            else {}
+        mrows = {k: v.cpu().numpy() for k, v in mrows.items()}
+        final = {f: getattr(states, f).cpu().numpy()
+                 for f in ("failed", "egress_acc", "ingress_acc",
+                           "prune_acc")}
+        blk_wall = time.perf_counter() - t_blk
+        times["engine_s"] += blk_wall
+        t_harvest = time.perf_counter()
+        for pos, i in enumerate(ids):
+            lane_final = SimpleNamespace(
+                **{f: torch.from_numpy(a[pos]) for f, a in final.items()})
+            _harvest_lane(config, sweep[i], stats_list[i],
+                          lane_rows(wrows, pos), lane_rows(mrows, pos),
+                          lane_final, params_list[i], index, stakes,
+                          origin_pubkey, dp_queue, i, start_ts, warm, total,
+                          len(accounts), source_label)
+            _finalize_sim_stats(sweep[i][0], stats_list[i], stakes,
+                                stats_collection, dp_queue, i, start_ts)
+        _push_sim_perf_point(dp_queue, ids[0], start_ts, blk_wall, measured,
+                             len(ids))
+        times["harvest_s"] += time.perf_counter() - t_harvest
+    return times
+
+
+def _harvest_lane(config, sweep_point, stats, wrows, mrows, lane_final,
+                  params, index, stakes, origin_pubkey, dp_queue, sim_iter,
+                  start_ts, warm, total, num_accounts, source_label):
+    """Feed one harvested lane through the serial per-simulation paths
+    (reference cli.py:1694-1743): the Influx preamble
+    :func:`run_simulation` emits, the warm-up cadence, every measured round
+    via :func:`_feed_measured_round`, and the end-of-run counters.
+    ``wrows`` holds the warm-up rounds' ``coverage`` [warm, O], ``mrows``
+    the measured rounds' rows [total - warm, O, ...] (the serial path's
+    ``detail`` rows), ``lane_final`` the lane's final ``failed`` and
+    message counters."""
+    c, start_value = sweep_point
+    log.info("##### SIMULATION ITERATION: %s #####", sim_iter)
+    if sim_iter == 0 and dp_queue is not None:
+        start = ("N/A" if c.test_type == Testing.NO_TEST
+                 else str(start_value))
+        dp = InfluxDataPoint(start_ts, 0)
+        dp.create_test_type_point(
+            config.num_simulations, config.gossip_iterations,
+            config.warm_up_rounds, config.step_size, num_accounts,
+            config.probability_of_rotation, source_label, start,
+            config.test_type)
+        dp.create_validator_stake_distribution_histogram_point(
+            stats.get_validator_stake_distribution_histogram())
+        dp_queue.push_back(dp)
+    if dp_queue is not None:
+        dp = InfluxDataPoint(start_ts, sim_iter)
+        dp.set_start()
+        dp_queue.push_back(dp)
+
+    # the warm-up cadence (progress log and config point every 10 rounds),
+    # as the serial path emits it before its warm-up rounds
+    for it in range(0, warm, 10):
+        log.info("GOSSIP ITERATION: %s", it)
+        _push_config_point(c, dp_queue, sim_iter, start_ts)
+    if 0 <= c.heal_at < warm:
+        # heal inside the warm-up: the recovery metric still sees every
+        # post-heal round (iteration-exact, as the serial paths)
+        cov_w = wrows["coverage"][:, 0]
+        for it in range(c.heal_at, warm):
+            stats.note_post_heal_coverage(it, float(cov_w[it]))
+
+    _warn_shape_truncation(mrows, params)
+    for it in range(warm, total):
+        if it % 10 == 0:
+            log.info("GOSSIP ITERATION: %s", it)
+            _push_config_point(c, dp_queue, sim_iter, start_ts)
+        _feed_measured_round(stats, mrows, it - warm, 0, it, c, index,
+                             stakes, origin_pubkey, dp_queue, sim_iter,
+                             start_ts)
+
+    if 0 <= params.fail_at < total or params.has_churn:
+        # a fail mask never changes after fail_at and churn is reported at
+        # the end of the run, so the final lane state carries what the
+        # serial path records
+        failed_idx = np.nonzero(lane_final.failed[0].numpy())[0]
+        stats.set_failed_nodes({index.pubkeys[j] for j in failed_idx})
+    _feed_message_counters(stats, lane_final, 0, index)
 
 
 def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
@@ -1262,6 +1486,17 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
     is_sweep = (config.test_type in TRAFFIC_SWEEP_TYPES
                 and config.num_simulations > 1)
     n_points = config.num_simulations if is_sweep else 1
+    if config.sweep_lanes > 0:
+        if is_sweep and config.gossip_iterations > config.warm_up_rounds:
+            # the reference lanes this sweep; a serial run here would
+            # report a different run path
+            raise NotImplementedError(
+                "--sweep-lanes with a traffic sweep: traffic lanes are not "
+                "ported yet (ROADMAP A9b)")
+        log.warning("WARNING: --sweep-lanes %s ignored (%s); running the "
+                    "serial traffic sweep", config.sweep_lanes,
+                    "nothing to batch (num_simulations < 2)" if not is_sweep
+                    else "no measured rounds (iterations <= warm-up-rounds)")
     if collection is None:
         collection = TrafficStatsCollection()
     point_cfgs, point_starts = [], []

@@ -156,6 +156,8 @@ class Config:
                                     # (0 = all; one GPU until ROADMAP A6b)
     mesh_node_shards: int = 1       # node-axis shards per origin shard
                                     # (1 = origins axis only; ROADMAP A6b)
+    sweep_lanes: int = 0            # >0: a knob sweep's points as lanes
+                                    # of one batch (engine/lanes.py)
     device: str = "cuda"            # "cuda" (default) or "cpu"
 
     def stepped(self, **kw) -> "Config":

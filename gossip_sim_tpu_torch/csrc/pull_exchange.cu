@@ -12,8 +12,10 @@
 //         failed [O, N] u8, side [N + 1] i32 of 0 and 1 (read only while
 //         the partition is on), the sampler's perm [N], class_start and
 //         class_count [25] i32 and top-entry CDF [25] f32, adaptive_on [O]
-//         u8 (null outside the adaptive mode), the round's hash bases and
-//         thresholds.
+//         u8 (null outside the adaptive mode), and per lane (lanes.cuh:
+//         origin row o is lane o / opl) the fanout, whether this is a pull
+//         round, the round's hash bases, the bloom and loss thresholds, the
+//         cap and the partition flag.
 // Output: pull_hop [O, N] i32, the least dist[peer] + 1 over the requests
 //         that transferred the value to the node (kInf for none);
 //         egress [O, N] i32 = requests arrived from the node + responses
@@ -103,6 +105,7 @@
 
 #include "class_draw.cuh"
 #include "faults.cuh"
+#include "lanes.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -126,6 +129,15 @@ constexpr int kSums = 5, kMost = 5;
 constexpr uint32_t kPeerMask = (1u << 30) - 1;
 constexpr uint32_t kOk = 0, kSelf = 1, kSup = 2, kDrop = 3;
 
+// one lane's knobs (kernels/pull_exchange.py LANE_DTYPE)
+struct PullLane {
+  unsigned long long fp_threshold, loss_threshold;
+  uint32_t b_cls, b_mem, b_fp, b_loss;
+  int32_t fanout, pull_on, cap, part_on;
+};
+using PullLanes = LaneArray<PullLane>;
+
+// an origin row's round: its lane's knobs
 struct Round {
   int n, fanout, pull_on, cap, part_on, has_loss;
   uint32_t b_cls, b_mem, b_fp, b_loss;
@@ -134,6 +146,7 @@ struct Round {
 
 struct Geo {
   int cs, slen, keep;  // CTAs per origin, nodes per CTA, words kept
+  int per_node;        // per-peer words: 4 where any lane's cap is on, 2
   float inv_slen;      // 1 / slen, for the owner of a peer
 };
 
@@ -221,17 +234,24 @@ __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
     const uint8_t* __restrict__ adaptive_on, int32_t* __restrict__ pull_hop,
     int32_t* __restrict__ egress, int32_t* __restrict__ ingress,
     uint8_t* __restrict__ reached_all, int32_t* __restrict__ dist_all,
-    int32_t* __restrict__ counts, int32_t* __restrict__ scratch, Round r,
-    Geo g) {
+    int32_t* __restrict__ counts, int32_t* __restrict__ scratch, int n_,
+    int has_loss, const __grid_constant__ PullLanes lanes, int opl, Geo g) {
   extern __shared__ __align__(16) int32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int o = blockIdx.x / g.cs;
+  const PullLane& lane = lanes.l[o / opl];
+  const Round r{n_,         lane.fanout, lane.pull_on, lane.cap,
+                lane.part_on, has_loss,  lane.b_cls,   lane.b_mem,
+                lane.b_fp,    lane.b_loss, lane.fp_threshold,
+                lane.loss_threshold};
   const int n = r.n, slen = g.slen, tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lo = min(n, rank * slen), hi = min(n, lo + slen);
   const bool capped = r.cap > 0;
-  const int per_node = capped ? 4 : 2;
+  // the words' layout is the launch's (the cap's two keys where any
+  // lane's cap is on); a lane with its cap off leaves them unused
+  const int per_node = g.per_node;
   const size_t row = (size_t)o * n;
   const uint8_t* reached_o = reached + row;
   const int32_t* dist_o = dist + row;
@@ -608,8 +628,9 @@ cudaError_t launch(const uint8_t* reached, const int32_t* dist,
                    const uint8_t* adaptive_on, int32_t* pull_hop,
                    int32_t* egress, int32_t* ingress, uint8_t* reached_all,
                    int32_t* dist_all, int32_t* counts, int32_t* scratch,
-                   int o, int threads, int smem, const Round& r,
-                   const Geo& g, cudaStream_t stream) {
+                   int o, int threads, int smem, int n, int has_loss,
+                   const PullLanes& lanes, int opl, const Geo& g,
+                   cudaStream_t stream) {
   cudaError_t err = configure<kSmem>(g.cs, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -618,7 +639,8 @@ cudaError_t launch(const uint8_t* reached, const int32_t* dist,
   err = cudaLaunchKernelEx(&cfg, pull_exchange_kernel<kSmem>, reached, dist,
                            failed, side, perm, cstart, ccount, cdf,
                            adaptive_on, pull_hop, egress, ingress,
-                           reached_all, dist_all, counts, scratch, r, g);
+                           reached_all, dist_all, counts, scratch, n,
+                           has_loss, lanes, opl, g);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -645,45 +667,53 @@ extern "C" int pull_exchange_max_clusters(int cs, int threads, int smem,
 
 // A cluster of cs CTAs of `threads` threads per origin, each owning `slen`
 // nodes.  scratch null: the per-peer words of each slice (2 a node, 4 with
-// the cap on), the bitmaps (3 ceil(n / 32) words) and, with `keep`, the
-// kept draws (fanout a node) in smem bytes of dynamic shared memory; else
-// the per-peer words in scratch (2 or 4 n words per origin), nothing kept.
-// The keys node * fanout + slot must fit int32, n < 2^30, and the
-// thresholds lie in [0, 2^32] (kernels/pull_exchange.py checks them).
+// `capped`: some lane's cap on), the bitmaps (3 ceil(n / 32) words) and,
+// with `keep`, the kept draws (`fanout`, the widest lane's, a node) in smem
+// bytes of dynamic shared memory; else the per-peer words in scratch (2 or
+// 4 n words per origin), nothing kept.  `lanes` points at k PullLane
+// records in host memory, one per lane of opl origin rows (k * opl = o),
+// each lane's fanout in [0, fanout].  The keys node * fanout + slot must
+// fit int32, n < 2^30, and the thresholds lie in [0, 2^32]
+// (kernels/pull_exchange.py checks them).
 extern "C" int pull_exchange_launch(
     const uint8_t* reached, const int32_t* dist, const uint8_t* failed,
     const int32_t* side, const int32_t* perm, const int32_t* cstart,
     const int32_t* ccount, const float* cdf, const uint8_t* adaptive_on,
     int32_t* pull_hop, int32_t* egress, int32_t* ingress,
     uint8_t* reached_all, int32_t* dist_all, int32_t* counts,
-    int32_t* scratch, int o, int n, int fanout, int pull_on, int cap,
-    int part_on, int has_loss, uint32_t b_cls, uint32_t b_mem,
-    uint32_t b_fp, uint32_t b_loss, unsigned long long fp_threshold,
-    unsigned long long loss_threshold, int cs, int slen, int threads,
+    int32_t* scratch, int o, int n, int fanout, int capped, int has_loss,
+    const void* lanes, int k, int opl, int cs, int slen, int threads,
     int keep, int smem, cudaStream_t stream) {
+  PullLanes lane_args;
+  if (!lanes_from_host(&lane_args, static_cast<const PullLane*>(lanes), k, o, opl))
+    return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < k; ++j)
+    if (lane_args.l[j].fanout < 0 || lane_args.l[j].fanout > fanout ||
+        (lane_args.l[j].cap > 0 && !capped))
+      return (int)cudaErrorInvalidValue;
   const bool in_smem = scratch == nullptr;
   const long long nw = (n + 31LL) / 32;
   const long long need =
       4LL * (kMiscWords +
-             (in_smem ? 3 * nw + (cap > 0 ? 5LL : 3LL) * slen +
+             (in_smem ? 3 * nw + (capped ? 5LL : 3LL) * slen +
                             (keep ? (long long)fanout * slen : 0)
                       : 0));
   if (o < 1 || n < 1 || n >= (1 << 30) || fanout < 0 || fanout > 0xFFFF ||
       (long long)n * fanout >= 0x7FFFFFFFLL || cs < 1 || cs > kMaxCluster ||
       slen < 1 || (long long)slen * cs < n || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || smem < need ||
-      (keep && (!in_smem || cap <= 0)))
+      (keep && (!in_smem || !capped)))
     return (int)cudaErrorInvalidValue;
-  const Round r{n,    fanout, pull_on, cap,          part_on,       has_loss,
-                b_cls, b_mem, b_fp,   b_loss,       fp_threshold, loss_threshold};
-  const Geo g{cs, slen, keep, 1.0f / (float)slen};
+  const Geo g{cs, slen, keep, capped ? 4 : 2, 1.0f / (float)slen};
   return (int)(in_smem
                    ? launch<true>(reached, dist, failed, side, perm, cstart,
                                   ccount, cdf, adaptive_on, pull_hop, egress,
                                   ingress, reached_all, dist_all, counts,
-                                  scratch, o, threads, smem, r, g, stream)
+                                  scratch, o, threads, smem, n, has_loss,
+                                  lane_args, opl, g, stream)
                    : launch<false>(reached, dist, failed, side, perm, cstart,
                                    ccount, cdf, adaptive_on, pull_hop, egress,
                                    ingress, reached_all, dist_all, counts,
-                                   scratch, o, threads, smem, r, g, stream));
+                                   scratch, o, threads, smem, n, has_loss,
+                                  lane_args, opl, g, stream));
 }

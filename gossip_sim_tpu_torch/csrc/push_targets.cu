@@ -8,7 +8,9 @@
 //
 // Input:  active [O, N, S] i32 (N = empty slot), pruned and tfail
 //         [O, N, S] u8, origins [O] i32, side [N + 1] i32 (read only while
-//         the partition is on), the round's loss-hash basis and threshold.
+//         the partition is on), and per lane (lanes.cuh: origin row o is
+//         lane o / opl) the partition flag and the round's loss-hash basis
+//         and threshold.
 // Output: tgt [O, N, F] i32, the peer of each of the first F valid slots
 //         in slot order, or N where the slot is missing or gated; sup and
 //         drop [O, N, F] u8 (each written only when its pointer is set).
@@ -43,6 +45,7 @@
 #include <stdint.h>
 
 #include "faults.cuh"
+#include "lanes.cuh"
 #include "row_stage.cuh"
 
 namespace {
@@ -52,6 +55,14 @@ constexpr int kDefaultSmem = 48 * 1024;
 // (kernels/push_targets.py STAGES).
 constexpr int kStages = 2;
 
+// one lane's knobs (kernels/push_targets.py LANE_DTYPE)
+struct PushLane {
+  unsigned long long threshold;  // loss: drop where the hash is below
+  uint32_t basis;                // loss: the round's edge-hash basis
+  int32_t part_on;               // the partition window is on
+};
+using PushLanes = LaneArray<PushLane>;
+
 // kPart: the partition gate is present (sup is set); kLoss: the loss gate
 // is (drop is set).  A gate that is absent costs the scan nothing.
 template <bool kPart, bool kLoss>
@@ -60,8 +71,8 @@ __global__ void push_targets_kernel(
     const uint8_t* __restrict__ tfail, const int32_t* __restrict__ origins,
     const int32_t* __restrict__ side, int32_t* __restrict__ tgt,
     uint8_t* __restrict__ sup, uint8_t* __restrict__ drop, long long rows,
-    int n, int s, int f, int push_on, int part_on, uint32_t basis,
-    unsigned long long threshold) {
+    int n, int s, int f, int push_on, const __grid_constant__ PushLanes lanes,
+    int opl) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int rpb = blockDim.x;
   const long long tiles = (rows + rpb - 1) / rpb;
@@ -117,7 +128,11 @@ __global__ void push_targets_kernel(
         node -= q * n;
       }
       const int org = __ldg(origins + o);
-      const int side_n = kPart && part_on ? __ldg(side + node) : 0;
+      const PushLane& lane = lanes.l[o / opl];
+      const bool part_on = kPart && lane.part_on;
+      const uint32_t basis = lane.basis;
+      const unsigned long long threshold = lane.threshold;
+      const int side_n = part_on ? __ldg(side + node) : 0;
       const int32_t* a = reinterpret_cast<const int32_t*>(b) + i * s;
       const uint8_t* pr = b + rpb * s * 4 + i * s;
       const uint8_t* tf = b + rpb * s * 5 + i * s;
@@ -160,8 +175,8 @@ __global__ void push_targets_kernel(
 
 using Kernel = void (*)(const int32_t*, const uint8_t*, const uint8_t*,
                         const int32_t*, const int32_t*, int32_t*, uint8_t*,
-                        uint8_t*, long long, int, int, int, int, int,
-                        uint32_t, unsigned long long);
+                        uint8_t*, long long, int, int, int, int,
+                        const PushLanes, int);
 
 // The instantiation for the gates that are present (part: sup is set,
 // loss: drop is), with its dynamic shared memory limit raised to smem
@@ -182,20 +197,26 @@ cudaError_t kernel_for(bool part, bool loss, int smem, Kernel* kernel) {
 // launch geometry (kernels/push_targets.py launch_geometry and
 // persistent_grid, the latter from push_targets_blocks_per_sm).  sup and
 // drop may be null; sup set means the partition gate is present, drop set
-// the loss gate.  push_on 0 sends no push (the pull-only mode).
+// the loss gate.  push_on 0 sends no push (the pull-only mode).  `lanes`
+// points at k PushLane records in host memory, one per lane of opl origin
+// rows (k * opl = rows / n).
 extern "C" int push_targets_launch(
     const int32_t* active, const uint8_t* pruned, const uint8_t* tfail,
     const int32_t* origins, const int32_t* side, int32_t* tgt, uint8_t* sup,
     uint8_t* drop, long long rows, int n, int s, int f, int rows_per_block,
-    int grid, int smem, int push_on, int part_on, uint32_t basis,
-    unsigned long long threshold, cudaStream_t stream) {
+    int grid, int smem, int push_on, const void* lanes, int k, int opl,
+    cudaStream_t stream) {
+  PushLanes lane_args;
+  if (n < 1 || rows % n != 0 ||
+      !lanes_from_host(&lane_args, static_cast<const PushLane*>(lanes), k, rows / n, opl))
+    return (int)cudaErrorInvalidValue;
   Kernel kernel;
   const cudaError_t err =
       kernel_for(sup != nullptr, drop != nullptr, smem, &kernel);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, rows_per_block, smem, stream>>>(
       active, pruned, tfail, origins, side, tgt, sup, drop, rows, n, s, f,
-      push_on, part_on, basis, threshold);
+      push_on, lane_args, opl);
   return (int)cudaGetLastError();
 }
 

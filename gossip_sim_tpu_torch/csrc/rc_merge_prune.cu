@@ -33,6 +33,10 @@
 // two planes fewer and takes no live mask (the sparse layout has no
 // traffic round).
 //
+// min_ingress_nodes and threshold are per lane (lanes.cuh: origin row o is
+// lane o / opl), so a batch of sweep lanes runs as more origin rows; the
+// traffic form (the live mask) is one lane.
+//
 // Precondition (the cache invariant, which this function's own output
 // keeps): each rc_src row holds its members sorted ascending and unique,
 // followed by N (empty).  Inbound sources are unique within a row (a source
@@ -65,7 +69,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
+
 namespace {
+
+// one lane's knobs (kernels/rc_merge_prune.py LANE_DTYPE)
+struct MergeLane {
+  double threshold;     // prune_stake_threshold
+  int32_t min_ingress;  // min_ingress_nodes
+  int32_t pad;
+};
+using MergeLanes = LaneArray<MergeLane>;
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kSign = 0x80000000u;
@@ -155,9 +169,8 @@ __device__ __forceinline__ void merge_prune_row(
                       int32_t* __restrict__ n_pruned,
                       int32_t* __restrict__ overflow, long long rows, int n,
                       int c, int k, int key_slots, int row_bytes,
-                      int received_cap,
-                      int min_num_upserts, int min_ingress_nodes,
-                      double threshold) {
+                      int received_cap, int min_num_upserts,
+                      const MergeLanes& lanes, int opl) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -284,6 +297,9 @@ __device__ __forceinline__ void merge_prune_row(
     }
   }
   const int org = __ldg(origins + o);
+  const MergeLane& lane_k = lanes.l[o / opl];
+  const double threshold = lane_k.threshold;
+  const int min_ingress_nodes = lane_k.min_ingress;
   const long long sd = __ldg(stakes + node), so = __ldg(stakes + org);
   const long long min_stake =
       (long long)((double)(sd < so ? sd : so) * threshold);
@@ -336,12 +352,12 @@ __device__ __forceinline__ void merge_prune_row(
       uint8_t *__restrict__ pruned, int32_t *__restrict__ n_pruned,           \
       int32_t *__restrict__ overflow, long long rows, int n, int c, int k,    \
       int key_slots, int row_bytes, int received_cap, int min_num_upserts,    \
-      int min_ingress_nodes, double threshold
+      const __grid_constant__ MergeLanes lanes, int opl
 #define RC_MERGE_PRUNE_ARGS                                                    \
   rc_src, rc_score, rc_shi, rc_slo, rc_ups, inb, shi, slo, stakes, origins,   \
       live, o_src, o_score, o_shi, o_slo, o_ups, src_sorted, pruned,          \
       n_pruned, overflow, rows, n, c, k, key_slots, row_bytes, received_cap,  \
-      min_num_upserts, min_ingress_nodes, threshold
+      min_num_upserts, lanes, opl
 
 __global__ void __launch_bounds__(32 * kMaxRowsPerBlock)
 rc_merge_prune_kernel(RC_MERGE_PRUNE_PARAMS) {
@@ -359,6 +375,8 @@ rc_merge_prune_sparse_kernel(RC_MERGE_PRUNE_PARAMS) {
 // wrapper (kernels/rc_merge_prune.py launch_geometry); only its bounds are
 // checked here.  sparse != 0 launches the sparse variant, which takes no
 // stake planes (rc_shi, rc_slo, o_shi, o_slo unused) and no live mask.
+// `lanes` points at nl MergeLane records in host memory, one per lane of
+// opl origin rows (nl * opl = o; one lane with the live mask).
 extern "C" int rc_merge_prune_launch(
     const int32_t* rc_src, const int32_t* rc_score, const int32_t* rc_shi,
     const int32_t* rc_slo, const int32_t* rc_ups, const int32_t* inb,
@@ -367,8 +385,12 @@ extern "C" int rc_merge_prune_launch(
     int32_t* o_score, int32_t* o_shi, int32_t* o_slo, int32_t* o_ups, int32_t* src_sorted, uint8_t* pruned,
     int32_t* n_pruned, int32_t* overflow, int o, int n, int c, int k,
     int rows_per_block, int key_slots, int row_bytes, int received_cap,
-    int min_num_upserts, int min_ingress_nodes, double threshold,
+    int min_num_upserts, const void* lanes, int nl, int opl,
     int sparse, cudaStream_t stream) {
+  MergeLanes lane_args;
+  if (!lanes_from_host(&lane_args, static_cast<const MergeLane*>(lanes), nl, o, opl) ||
+      (live != nullptr && nl != 1))
+    return (int)cudaErrorInvalidValue;
   if (c < 1 || k < 1 || (long long)o * n > 0x7FFFFFFF ||
       rows_per_block < 1 || rows_per_block > kMaxRowsPerBlock ||
       key_slots < c || (key_slots & (key_slots - 1)) != 0 ||
@@ -393,7 +415,7 @@ extern "C" int rc_merge_prune_launch(
         rc_src, rc_score, rc_shi, rc_slo, rc_ups, inb, shi, slo, stakes,
         origins, live, o_src, o_score, o_shi, o_slo, o_ups, src_sorted,
         pruned, n_pruned, overflow, rows, n, c, k, key_slots, row_bytes,
-        received_cap, min_num_upserts, min_ingress_nodes, threshold);
+        received_cap, min_num_upserts, lane_args, opl);
   }
   return (int)cudaGetLastError();
 }

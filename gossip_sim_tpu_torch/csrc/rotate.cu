@@ -10,8 +10,10 @@
 //
 // Input:  active [O, N, S] i32, pruned (this round's bits after verb 4) and
 //         tfail [O, N, S] u8, failed [O, N] u8, key [O, 2] i64 (each
-//         origin's threefry key, u32 words), the iteration `it` (mod 2^32),
-//         the layout flag, origins [O], buckets [N], perm [N] i32,
+//         origin's threefry key, u32 words), per lane (lanes.cuh: origin
+//         row o is lane o / opl) the iteration `it` (mod 2^32) and the
+//         rotation probability, the layout flag, origins [O], buckets [N],
+//         perm [N] i32,
 //         class_start and class_count [25] i32, class_cdf [25, 25] f32.
 // Output: new_active, new_pruned, new_tfail [O, N, S]; rot_failed [O] i32,
 //         the rows that wanted to rotate and found no new peer in T tries.
@@ -51,6 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
 #include "row_stage.cuh"
 #include "threefry.cuh"
 
@@ -58,6 +61,13 @@ namespace {
 
 constexpr int kNB = 25;   // stake buckets: NUM_PUSH_ACTIVE_SET_ENTRIES
 constexpr int kDefaultSmem = 48 * 1024;
+
+// one lane's knobs (kernels/rotate.py LANE_DTYPE)
+struct RotateLane {
+  float prob;   // rotation probability (f32)
+  uint32_t it;  // the iteration the round key folds in
+};
+using RotateLanes = LaneArray<RotateLane>;
 
 __global__ void rotate_kernel(
     const int32_t* __restrict__ active, const uint8_t* __restrict__ pruned,
@@ -69,7 +79,8 @@ __global__ void rotate_kernel(
     const float* __restrict__ class_cdf, int32_t* __restrict__ new_active,
     uint8_t* __restrict__ new_pruned, uint8_t* __restrict__ new_tfail,
     int32_t* __restrict__ rot_failed, long long rows, int n, int s,
-    int tries, float prob, uint32_t it, int part, int key_bytes) {
+    int tries, const __grid_constant__ RotateLanes lanes, int opl, int part,
+    int key_bytes) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float s_cdf[kNB * kNB];
   __shared__ int s_start[kNB], s_count[kNB];
@@ -96,7 +107,8 @@ __global__ void rotate_kernel(
     const long long* kp =
         reinterpret_cast<const long long*>(key) + 2LL * (o_first + j);
     uint32_t kr0, kr1;
-    tf_fold_in((uint32_t)__ldg(kp), (uint32_t)__ldg(kp + 1), it, kr0, kr1);
+    tf_fold_in((uint32_t)__ldg(kp), (uint32_t)__ldg(kp + 1),
+               lanes.l[(o_first + j) / opl].it, kr0, kr1);
     s_key[j * nk] = make_uint2(kr0, kr1);
   }
   stage_in(reinterpret_cast<uint8_t*>(s_act),
@@ -126,7 +138,7 @@ __global__ void rotate_kernel(
     }
     const uint2* ko = s_key + (o - o_first) * nk;   // ko[q]: sub key q
     if (to_uniform(tf_word(ko[1].x, ko[1].y, (uint32_t)node, (uint32_t)n,
-                           pt)) < prob) {
+                           pt)) < lanes.l[o / opl].prob) {
       int32_t* a = s_act + i * s;
       uint8_t* pr = s_prn + i * s;
       uint8_t* tf = s_tf + i * s;
@@ -188,17 +200,22 @@ __global__ void rotate_kernel(
 }  // namespace
 
 // rows = O * N, o = O; rows_per_block, key_bytes (the round keys and sub
-// keys, 16-byte padded, ahead of the staged rows) and smem (both; the class tables are
-// static shared memory) come from kernels/rotate.py launch_geometry.
+// keys, 16-byte padded, ahead of the staged rows) and smem (both; the class
+// tables are static shared memory) come from kernels/rotate.py
+// launch_geometry.  `lanes` points at k RotateLane records in host memory,
+// one per lane of opl origin rows (k * opl = o).
 extern "C" int rotate_launch(
     const int32_t* active, const uint8_t* pruned, const uint8_t* tfail,
     const uint8_t* failed, const int64_t* key, const int32_t* origins,
     const int32_t* buckets, const int32_t* perm, const int32_t* class_start,
     const int32_t* class_count, const float* class_cdf, int32_t* new_active,
     uint8_t* new_pruned, uint8_t* new_tfail, int32_t* rot_failed, int o,
-    long long rows, int n, int s, int tries, float prob, uint32_t it,
-    int part, int rows_per_block, int key_bytes, int smem,
+    long long rows, int n, int s, int tries, const void* lanes, int k,
+    int opl, int part, int rows_per_block, int key_bytes, int smem,
     cudaStream_t stream) {
+  RotateLanes lane_args;
+  if (!lanes_from_host(&lane_args, static_cast<const RotateLane*>(lanes), k, o, opl))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(rot_failed, 0, sizeof(int32_t) * o,
                                     stream);
   if (err != cudaSuccess) return (int)err;
@@ -212,6 +229,6 @@ extern "C" int rotate_launch(
   rotate_kernel<<<(unsigned)blocks, rows_per_block, smem, stream>>>(
       active, pruned, tfail, failed, key, origins, buckets, perm,
       class_start, class_count, class_cdf, new_active, new_pruned, new_tfail,
-      rot_failed, rows, n, s, tries, prob, it, part, key_bytes);
+      rot_failed, rows, n, s, tries, lane_args, opl, part, key_bytes);
   return (int)cudaGetLastError();
 }

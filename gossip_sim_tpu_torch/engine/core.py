@@ -36,6 +36,12 @@ float32, while ``coverage``/``rmr``/``branching`` divide int32 counts in
 float32.  Entry points run on ``cuda``
 unless the CPU is asked for; with no GPU and no CPU request they raise.
 
+The round body is :func:`lane_round`: R = K * O rows, K sweep lanes of O
+origins each (engine/lanes.py), every lane with its own knobs and
+iteration (:class:`Lanes`); :func:`round_step` and :func:`run_rounds` are
+its one-lane case, so the serial round and a lane round make the same
+launches.
+
 ``EngineParams.representation`` picks the round's layout.  ``"dense"``
 carries the received cache's four ``[O, N, C]`` planes.  ``"sparse"`` (push
 mode without traffic) carries ``rc_shi``/``rc_slo`` at zero width,
@@ -61,13 +67,15 @@ import torch
 from .. import kernels as K
 from .. import rng
 from ..adaptive import switch_update_arr
-from ..faults import (SALT_CHURN, SALT_EDGE, node_u32_t, partition_active,
-                      rate_threshold, round_basis, stake_bipartition)
+from ..faults import (SALT_CHURN, SALT_EDGE, node_u32_t,
+                      partition_active_lanes, rate_threshold,
+                      round_basis_lanes, round_basis_t, stake_bipartition)
 from ..identity import stake_buckets_array
 from ..kernels.pull_exchange import COUNT_NAMES as PULL_COUNT_NAMES
 from ..pull import (SALT_PULL_BLOOM, SALT_PULL_CLASS, SALT_PULL_LOSS,
                     SALT_PULL_MEMBER)
-from .params import EngineParams
+from .params import (EngineKnobs, EngineParams, EngineStatic,
+                     _check_knob_gates)
 from .sampler import SamplerTables, build_sampler_tables, sample_members
 
 INF = 1 << 20          # unreached sentinel (maps to u64::MAX, gossip.rs:490)
@@ -256,22 +264,141 @@ def _check_key_bounds(N: int, H: int, Kin: int) -> None:
             f"num_nodes={N}")
 
 
-def round_step(params: EngineParams, tables: ClusterTables,
-               origins: torch.Tensor, state: SimState, it: int,
-               detail: bool = False, edge_detail: bool = False,
-               trace: bool = False):
-    """One full gossip round for all O origin-sims at iteration ``it`` (a
-    host int).  Returns (state, rows); ``detail`` adds the per-node rows,
-    ``edge_detail`` the per-edge targets and hops [O, N, F] (-1 where no
-    message was delivered).  Before it reads the state it refuses the
-    flight recorder and node-health planes (``NotImplementedError`` naming
-    their ROADMAP items), sparse with a pull mode or traffic
-    (``ValueError``) and inbound keys past int32; then a state whose stake
-    planes are not the representation's width (``ValueError``)."""
+class Lanes:
+    """The per-lane knobs of a run of K lanes over O origins each, as
+    R = K * O rows of the origin axis (engine/lanes.py): lane ``k`` owns
+    rows ``[k O, (k + 1) O)``.  The serial run is K = 1.
+
+    ``knobs`` is an :class:`EngineKnobs` of ``[K]`` numpy leaves
+    (``lanes.stack_knobs``), ``its0`` each lane's iteration at round 0 of
+    the run.  A value every lane shares stays a host scalar, so the serial
+    round makes the same launches as before; a value the lanes differ in
+    goes to the device once per run (:meth:`rows`), and a value of a
+    round is computed on the device from those (:meth:`it_rows`) or passed
+    to the kernels by value."""
+
+    def __init__(self, knobs: EngineKnobs, origins_per_lane: int, its0,
+                 device):
+        self.kn = knobs
+        self.k = int(np.shape(knobs.impair_seed)[0])
+        self.o = int(origins_per_lane)
+        self.its0 = np.broadcast_to(np.asarray(its0, np.int64).reshape(-1),
+                                    (self.k,))
+        self.device = device
+        self._rows: dict = {}
+        self._thr: dict = {}
+
+    def its(self, r: int) -> np.ndarray:
+        """Each lane's iteration at round ``r`` of the run."""
+        return self.its0 + int(r)
+
+    def rows(self, name: str, values) -> torch.Tensor:
+        """``values`` ([K], fixed for the run) repeated over each lane's
+        rows: an [R] tensor on the device, made once per run."""
+        return self._dev(name, values, self.o)
+
+    def lane(self, name: str, values) -> torch.Tensor:
+        """``values`` ([K], fixed for the run) as a [K] tensor on the
+        device, made once per run."""
+        return self._dev(name, values, 1)
+
+    def _dev(self, name: str, values, repeat: int) -> torch.Tensor:
+        t = self._rows.get((name, repeat))
+        if t is None:
+            t = self._rows[name, repeat] = torch.as_tensor(
+                np.repeat(np.asarray(values), repeat), device=self.device)
+        return t
+
+    def it_rows(self, r: int) -> torch.Tensor:
+        """Each row's iteration at round ``r``, [R] int64, on the device."""
+        return self.rows("its0", self.its0) + int(r)
+
+    def threshold(self, name: str) -> np.ndarray:
+        """``rate_threshold`` of knob ``name`` per lane (int64)."""
+        t = self._thr.get(name)
+        if t is None:
+            t = self._thr[name] = np.array(
+                [rate_threshold(float(v)) for v in getattr(self.kn, name)],
+                np.int64)
+        return t
+
+    def per_lane_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A [K, ...] (or [1, ...]) per-lane tensor repeated over each
+        lane's rows: [R, ...] (or [1, ...])."""
+        return x if x.shape[0] == 1 else x.repeat_interleave(self.o, dim=0)
+
+
+def _validate_static(p: EngineStatic) -> None:
+    """The static's own refusals (``EngineParams.validate`` makes them for
+    a parameter set)."""
+    if p.representation == "sparse" and (p.has_pull or p.has_traffic):
+        raise ValueError(
+            "the sparse frontier round implements the push phase only "
+            "without traffic; use representation='dense'")
+    if p.has_traffic:
+        raise ValueError("traffic runs through engine/traffic.py "
+                         "(traffic_round_step), not round_step")
+
+
+def _split_params(params, knobs):
+    """(EngineStatic, EngineKnobs) from either call form: an
+    :class:`EngineParams`, or an :class:`EngineStatic` with ``knobs``
+    (checked against its gates, as the reference's ``_split_params``)."""
+    if isinstance(params, EngineParams):
+        p, kn = params.validate().split()
+        if knobs is not None:
+            _check_knob_gates(p, knobs)
+            kn = knobs
+        return p, kn
+    if knobs is None:
+        raise TypeError("round_step/run_rounds with an EngineStatic need "
+                        "knobs=EngineKnobs(...)")
+    _validate_static(params)
+    _check_knob_gates(params, knobs)
+    return params, knobs
+
+
+def _one_lane(params, knobs, origins, state, it0, trace):
+    """The serial entry points' refusals (before the state is read) and
+    their run as one lane from iteration ``it0``: (static, lanes)."""
     if trace:
         raise NotImplementedError(
             "the flight recorder (trace=True) is not ported yet (ROADMAP A13)")
-    p, kn = params.validate().split()
+    p, kn = _split_params(params, knobs)
+    _check_key_bounds(p.num_nodes, p.hist_bins, p.k_inbound)
+    one = EngineKnobs(*(np.asarray(v).reshape(1) for v in kn))
+    return p, Lanes(one, int(origins.shape[0]), [int(it0)],
+                    state.active.device)
+
+
+def round_step(params, tables: ClusterTables, origins: torch.Tensor,
+               state: SimState, it: int, detail: bool = False,
+               edge_detail: bool = False, trace: bool = False,
+               knobs: EngineKnobs | None = None):
+    """One full gossip round for all O origin-sims at iteration ``it`` (a
+    host int).  ``params`` is an :class:`EngineParams`, or an
+    :class:`EngineStatic` with ``knobs`` (which must not need a block the
+    static gates out).  Returns (state, rows); ``detail`` adds the per-node
+    rows, ``edge_detail`` the per-edge targets and hops [O, N, F] (-1 where
+    no message was delivered).  Before it reads the state it refuses the
+    flight recorder and node-health planes (``NotImplementedError`` naming
+    their ROADMAP items), sparse with a pull mode or traffic
+    (``ValueError``) and inbound keys past int32; then a state whose stake
+    planes are not the representation's width (``ValueError``).  This is
+    the one-lane case of the lane round (engine/lanes.py)."""
+    p, lanes = _one_lane(params, knobs, origins, state, it, trace)
+    return lane_round(p, lanes, tables, origins, state, 0, detail,
+                      edge_detail)
+
+
+def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
+               origins: torch.Tensor, state: SimState, r: int,
+               detail: bool = False, edge_detail: bool = False):
+    """Round ``r`` of a run of K lanes: ``origins`` and every state field
+    have R = K * O rows (lane k's rows ``[k O, (k + 1) O)``), and each
+    lane's knobs and iteration come from ``lanes``.  Returns (state, rows)
+    with R rows.  The kernels take the knobs per lane; the plain parts take
+    a value every lane shares as a host scalar and the others as rows."""
     N, S, F, C, Kin, H = (p.num_nodes, p.active_set_size, p.push_fanout,
                           p.rc_slots, p.k_inbound, p.hist_bins)
     _check_key_bounds(N, H, Kin)
@@ -285,43 +412,79 @@ def round_step(params: EngineParams, tables: ClusterTables,
                 f"representation")
     F = min(F, S)
     pb = _pack_base(N).bit_length() - 1
-    it = int(it)
+    kn = lanes.kn
+    its = lanes.its(r)                                            # [K]
+    same_it = bool((its == its[0]).all())
     dev = state.active.device
     origins = origins.to(device=dev, dtype=torch.int32)
     O = int(origins.shape[0])
     i32 = torch.int32
+    seeds = kn.impair_seed.astype(np.int64)
+    basis = lambda salt: round_basis_lanes(seeds, its, salt)
 
-    # ---- fault injection (gossip.rs:756-771; fires at it == when_to_fail)
+    # ---- fault injection (gossip.rs:756-771; fires at it == when_to_fail,
+    # per lane)
     failed, tfail = state.failed, state.tfail
     if p.has_fail:
         # truncating, like the reference's `as usize` (gossip.rs:758); the
         # f64 product matches the host double arithmetic bit for bit
-        n_fail = int(np.floor(np.float64(kn.fail_fraction) * N))
-        if it == int(kn.fail_at) and n_fail > 0:
+        n_fail = np.floor(kn.fail_fraction.astype(np.float64) * N)
+        fire = (its == kn.fail_at.astype(np.int64)) & (n_fail > 0)
+        if fire.any():
             # sub key 0 of the round key (rotate draws from keys 1 .. T + 1)
-            kr = rng.fold_in(state.key, it)
+            kr = rng.fold_in(state.key, int(its[0]) if same_it
+                             else lanes.it_rows(r))
             subs = rng.split(kr, p.rot_tries + 2)                 # [O, T+2, 2]
-            r = rng.uniform(subs[:, 0], (N,))
-            kidx = min(max(n_fail - 1, 0), N - 1)
-            kth = torch.sort(r, dim=-1).values[:, kidx:kidx + 1]
-            failed = failed | (r <= kth)
-            tfail = _lookup_rows(failed, state.active) & (state.active < N)
+            u = rng.uniform(subs[:, 0], (N,))
+            kidx = np.clip(n_fail.astype(np.int64) - 1, 0, N - 1)
+            srt = torch.sort(u, dim=-1).values
+            if (kidx == kidx[0]).all():
+                kth = srt[:, int(kidx[0]):int(kidx[0]) + 1]
+            else:
+                # the lanes' k-th thresholds, per row (a fail round only)
+                kth = srt.gather(1, torch.as_tensor(
+                    np.repeat(kidx, lanes.o), device=dev)[:, None])
+            hit = failed | (u <= kth)
+            hit_tf = _lookup_rows(hit, state.active) & (state.active < N)
+            if fire.all():
+                failed, tfail = hit, hit_tf
+            else:
+                # rows whose lane does not fire keep their bits
+                m = torch.as_tensor(np.repeat(fire, lanes.o), device=dev)
+                failed = torch.where(m[:, None], hit, failed)
+                tfail = torch.where(m[:, None, None], hit_tf, tfail)
 
-    # ---- continuous churn (faults.py): one hash per (iteration, node)
+    # ---- continuous churn (faults.py): one hash per (iteration, node) and
+    # lane; a lane's hash is shared by its rows
     if p.has_churn:
-        basis_c = round_basis(int(kn.impair_seed), it, SALT_CHURN)
-        hu = node_u32_t(basis_c, torch.arange(N, device=dev))
-        fail_ev = hu < rate_threshold(float(kn.churn_fail_rate))
-        rec_ev = hu < rate_threshold(float(kn.churn_recover_rate))
-        failed = torch.where(failed, ~rec_ev[None, :], fail_ev[None, :])
+        b_c = basis(SALT_CHURN)
+        nodes = torch.arange(N, device=dev)
+        if b_c.size == 1:
+            hu = node_u32_t(int(b_c[0]), nodes)[None, :]          # [1, N]
+        else:
+            # the lanes' bases differ (seeds or iterations): hashed on the
+            # device from the run's per-lane seeds and iterations
+            hu = node_u32_t(round_basis_t(
+                lanes.lane("seed", seeds),
+                lanes.lane("its0", lanes.its0) + int(r),
+                SALT_CHURN)[:, None], nodes)                      # [K, N]
+        thr_f = lanes.threshold("churn_fail_rate")
+        thr_r = lanes.threshold("churn_recover_rate")
+        if _lanes_differ(thr_f, thr_r):
+            fail_ev = hu < lanes.lane("thr_churn_fail", thr_f)[:, None]
+            rec_ev = hu < lanes.lane("thr_churn_recover", thr_r)[:, None]
+        else:
+            fail_ev, rec_ev = hu < int(thr_f[0]), hu < int(thr_r[0])
+        fail_ev = lanes.per_lane_rows(fail_ev)                    # [R|1, N]
+        rec_ev = lanes.per_lane_rows(rec_ev)
+        failed = torch.where(failed, ~rec_ev, fail_ev)
         tfail = _lookup_rows(failed, state.active) & (state.active < N)
 
     # ---- verb 1: push targets (kernel; gossip.rs:494-615) ---------------
     peer = state.active
-    partition = (partition_active(it, int(kn.partition_at), int(kn.heal_at))
+    partition = (partition_active_lanes(its, kn.partition_at, kn.heal_at)
                  if p.has_partition else None)
-    loss = ((round_basis(int(kn.impair_seed), it, SALT_EDGE),
-             rate_threshold(float(kn.packet_loss_rate)))
+    loss = ((basis(SALT_EDGE), lanes.threshold("packet_loss_rate"))
             if p.has_loss else None)
     # pull-only mode sends no push; the push machinery still runs on the
     # empty edge set (BFS, verbs 2-4 and rotation, which moves the state)
@@ -355,8 +518,8 @@ def round_step(params: EngineParams, tables: ClusterTables,
         state.rc_upserts, inb, tables.shi, tables.slo, tables.stakes,
         origins, received_cap=p.received_cap,
         min_num_upserts=p.min_num_upserts,
-        min_ingress_nodes=int(kn.min_ingress_nodes),
-        prune_stake_threshold=float(kn.prune_stake_threshold))
+        min_ingress_nodes=kn.min_ingress_nodes,
+        prune_stake_threshold=kn.prune_stake_threshold)
     n_pruned = mp.n_pruned
     m_prunes = n_pruned.sum(-1, dtype=i32)                        # [O]
 
@@ -369,28 +532,26 @@ def round_step(params: EngineParams, tables: ClusterTables,
     # 1 .. T + 1 of the round key fold_in(key, it) itself ------------------
     sm = tables.sampler
     new_active, new_pruned, new_tfail, rot_failed = K.rotate(
-        peer, pruned_bits, tfail, failed, state.key, it, origins,
+        peer, pruned_bits, tfail, failed, state.key, its, origins,
         tables.buckets, sm.perm, sm.class_start, sm.class_count,
-        sm.class_cdf, float(np.float32(kn.probability_of_rotation)),
-        p.rot_tries, rng.partitionable())
+        sm.class_cdf, kn.probability_of_rotation, p.rot_tries,
+        rng.partitionable())
 
     # ---- pull phase (kernel; pull.py): one request/response exchange
     # against this round's push outcome, every decision a counter hash ----
     if p.has_pull:
-        seed = int(kn.impair_seed)
-        basis = lambda salt: round_basis(seed, it, salt)
         pull = K.pull_exchange(
             reached, dist, failed, tables.side, sm.perm, sm.class_start,
             sm.class_count, sm.class_cdf[-1],
             state.adaptive_pull_on if p.has_adaptive else None,
-            fanout=int(kn.pull_fanout), slots=p.pull_slots,
-            pull_on=it % int(kn.pull_interval) == 0,
+            fanout=kn.pull_fanout, slots=p.pull_slots,
+            pull_on=its % kn.pull_interval.astype(np.int64) == 0,
             bases=(basis(SALT_PULL_CLASS), basis(SALT_PULL_MEMBER),
                    basis(SALT_PULL_BLOOM)),
-            bloom_threshold=rate_threshold(float(kn.pull_bloom_fp_rate)),
-            cap=int(kn.pull_request_cap), partition=partition,
+            bloom_threshold=lanes.threshold("pull_bloom_fp_rate"),
+            cap=kn.pull_request_cap, partition=partition,
             loss=((basis(SALT_PULL_LOSS),
-                   rate_threshold(float(kn.packet_loss_rate)))
+                   lanes.threshold("packet_loss_rate"))
                   if p.has_loss else None))
         # the delivery view of the stats (push BFS plus the pull rescues)
         # comes from the kernel
@@ -438,7 +599,11 @@ def round_step(params: EngineParams, tables: ClusterTables,
                       - 1.0, 0.0)
     branching = m_push.to(f32) / nn.clamp(min=1).to(f32)
 
-    g = 1 if it >= int(kn.warm_up_rounds) else 0
+    # the warm-up gate, per lane (rows only where the lanes disagree)
+    warm = kn.warm_up_rounds.astype(np.int64)
+    g = its >= warm
+    g = (int(g[0]) if (g == g[0]).all() else
+         (lanes.it_rows(r) >= lanes.rows("warm", warm)).to(i32)[:, None])
     egress_round, ingress_all = deg_out, ingress_round
     new_pull_hist = state.pull_hops_hist_acc
     new_pull_rescued = state.pull_rescued_acc
@@ -456,9 +621,15 @@ def round_step(params: EngineParams, tables: ClusterTables,
     new_adapt = state.adaptive_pull_on
     if p.has_adaptive:
         # re-decided from THIS round's push coverage (adaptive.py)
-        new_adapt = switch_update_arr(
-            n_reached, N, state.adaptive_pull_on,
-            kn.adaptive_switch_threshold, kn.adaptive_switch_hysteresis)
+        thr = kn.adaptive_switch_threshold.astype(np.float64)
+        hyst = kn.adaptive_switch_hysteresis.astype(np.float64)
+        if _lanes_differ(thr, hyst):
+            thr, hyst = (lanes.rows("adaptive_threshold", thr),
+                         lanes.rows("adaptive_hysteresis", hyst))
+        else:
+            thr, hyst = thr[0], hyst[0]
+        new_adapt = switch_update_arr(n_reached, N, state.adaptive_pull_on,
+                                      thr, hyst)
     new_state = SimState(
         key=state.key, active=new_active, pruned=new_pruned,
         tfail=new_tfail,
@@ -525,19 +696,30 @@ def round_step(params: EngineParams, tables: ClusterTables,
 # multi-round runner
 # --------------------------------------------------------------------------
 
-def run_rounds(params: EngineParams, tables: ClusterTables,
-               origins: torch.Tensor, state: SimState, num_iters: int,
-               start_it: int = 0, detail: bool = False,
-               edge_detail: bool = False, trace: bool = False):
-    """Run ``num_iters`` rounds from iteration ``start_it``.  Returns
-    (state, rows) with every row stacked on a leading [num_iters] axis."""
-    per_round = []
-    for i in range(int(num_iters)):
-        state, rows = round_step(params, tables, origins, state,
-                                 int(start_it) + i, detail=detail,
-                                 edge_detail=edge_detail, trace=trace)
-        per_round.append(rows)
+def _lanes_differ(*values: np.ndarray) -> bool:
+    """Whether the lanes differ in any of these per-lane values."""
+    return not all((np.asarray(v) == np.asarray(v).reshape(-1)[0]).all()
+                   for v in values)
+
+
+def stack_rows(per_round: list) -> dict:
+    """Per-round row dicts stacked on a leading [num_iters] axis."""
     if not per_round:
-        return state, {}
-    return state, {k: torch.stack([r[k] for r in per_round])
-                   for k in per_round[0]}
+        return {}
+    return {k: torch.stack([r[k] for r in per_round]) for k in per_round[0]}
+
+
+def run_rounds(params, tables: ClusterTables, origins: torch.Tensor,
+               state: SimState, num_iters: int, start_it: int = 0,
+               detail: bool = False, edge_detail: bool = False,
+               trace: bool = False, knobs: EngineKnobs | None = None):
+    """Run ``num_iters`` rounds from iteration ``start_it`` (``params`` and
+    ``knobs`` as :func:`round_step` takes them).  Returns (state, rows) with
+    every row stacked on a leading [num_iters] axis."""
+    p, lanes = _one_lane(params, knobs, origins, state, start_it, trace)
+    per_round = []
+    for r in range(int(num_iters)):
+        state, rows = lane_round(p, lanes, tables, origins, state, r,
+                                 detail, edge_detail)
+        per_round.append(rows)
+    return state, stack_rows(per_round)

@@ -38,6 +38,11 @@ kept: :meth:`EngineParams.validate` refuses it with
 reference's prune-apply budget ``pa_slots`` (the ``prune_apply`` kernel
 needs none) and the flight recorder's capture width come back with the
 slice that reads them.
+
+Sweep lanes (engine/lanes.py) share one ``EngineStatic``:
+:func:`merge_lane_statics` unions the lanes' gates and widest pull slots,
+and :func:`_check_knob_gates` refuses a knob vector whose active knob the
+static gates out.
 """
 
 from __future__ import annotations
@@ -264,7 +269,12 @@ class EngineParams(NamedTuple):
 
     def split(self) -> tuple[EngineStatic, EngineKnobs]:
         """(shapes and block gates, knobs at their dtypes)."""
-        static = EngineStatic(
+        return self.static_part(), self.knob_values()
+
+    def static_part(self) -> EngineStatic:
+        """The shapes, block gates, mode and layout this parameter set
+        selects."""
+        return EngineStatic(
             num_nodes=self.num_nodes,
             push_fanout=self.push_fanout,
             active_set_size=self.active_set_size,
@@ -284,7 +294,10 @@ class EngineParams(NamedTuple):
             traffic_slots=self.traffic_values if self.has_traffic else 0,
             representation=self.representation,
         )
-        knobs = EngineKnobs(
+
+    def knob_values(self) -> EngineKnobs:
+        """The numeric knobs at their dtypes."""
+        return EngineKnobs(
             probability_of_rotation=np.float32(self.probability_of_rotation),
             prune_stake_threshold=np.float64(self.prune_stake_threshold),
             min_ingress_nodes=np.int32(self.min_ingress_nodes),
@@ -310,7 +323,6 @@ class EngineParams(NamedTuple):
             node_egress_cap=np.int32(self.node_egress_cap),
             traffic_stall_rounds=np.int32(max(1, self.traffic_stall_rounds)),
         )
-        return static, knobs
 
     def validate(self) -> "EngineParams":
         """Refuse the unported feature (NotImplementedError naming the
@@ -391,3 +403,72 @@ class EngineParams(NamedTuple):
                     "(sort-key packing bound); caps that large are "
                     "equivalent to no cap — use 0")
         return self
+
+
+def _check_knob_gates(static: EngineStatic, kn: EngineKnobs) -> None:
+    """Refuse knob values that need a block the static gates out: the round
+    runs a gated block only where ``static`` says so, so an active knob
+    against a False gate (say a nonzero ``packet_loss_rate`` with
+    ``has_loss`` False) would be ignored.  The reverse is allowed: an off
+    knob against a True gate reduces exactly to the ungated round, which
+    lets a lane at a sweep's 0 endpoint share a gated static.  The
+    reference's ``_check_knob_gates`` (gossip_sim_tpu/engine/core.py:
+    390-420), with its wording."""
+    implied = {
+        "has_loss": float(kn.packet_loss_rate) > 0.0,
+        "has_churn": (float(kn.churn_fail_rate) > 0.0
+                      or float(kn.churn_recover_rate) > 0.0),
+        "has_partition": int(kn.partition_at) >= 0,
+        "has_fail": int(kn.fail_at) >= 0 and float(kn.fail_fraction) > 0.0,
+        # queue caps act only inside the traffic engine
+        "has_traffic": (int(kn.node_ingress_cap) > 0
+                        or int(kn.node_egress_cap) > 0),
+    }
+    missing = [g for g, want in implied.items()
+               if want and not getattr(static, g)]
+    if missing:
+        raise ValueError(
+            f"knob values require the {missing} impairment block(s) but the "
+            f"EngineStatic compile key gates them out — the compiled graph "
+            f"would silently ignore them. Build the EngineParams with the "
+            f"target values (or a matching static) instead.")
+
+
+def merge_lane_statics(statics) -> EngineStatic:
+    """The one ``EngineStatic`` a batch of sweep lanes runs under
+    (engine/lanes.py), as the reference's ``merge_lane_statics``
+    (gossip_sim_tpu/engine/params.py:215-258):
+
+    * the gates ``has_fail``/``has_loss``/``has_churn``/``has_partition``
+      are OR'd: a gated block at its off knob reduces exactly to the
+      ungated round, so a packet-loss sweep from rate 0 runs its 0 lane
+      through the loss-gated round with the same result;
+    * ``pull_slots`` takes the max: slots past a lane's ``pull_fanout``
+      send nothing and each slot's draw depends on (node, slot) only.
+
+    Any other field that differs is a difference of shape or structure and
+    raises ``ValueError`` naming the fields, so that a caller falls back to
+    the serial sweep."""
+    statics = list(statics)
+    if not statics:
+        raise ValueError("merge_lane_statics needs at least one lane")
+    merged = statics[0]._replace(
+        has_fail=any(s.has_fail for s in statics),
+        has_loss=any(s.has_loss for s in statics),
+        has_churn=any(s.has_churn for s in statics),
+        has_partition=any(s.has_partition for s in statics),
+        pull_slots=max(s.pull_slots for s in statics),
+    )
+    for s in statics:
+        norm = s._replace(has_fail=merged.has_fail, has_loss=merged.has_loss,
+                          has_churn=merged.has_churn,
+                          has_partition=merged.has_partition,
+                          pull_slots=merged.pull_slots)
+        if norm != merged:
+            diff = sorted(f for f in EngineStatic._fields
+                          if getattr(norm, f) != getattr(merged, f))
+            raise ValueError(
+                f"sweep lanes disagree on static compile-key field(s) "
+                f"{diff}; only traced-knob sweeps can share one lane-batched "
+                f"executable")
+    return merged

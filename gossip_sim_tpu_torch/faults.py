@@ -9,7 +9,9 @@ ids)``, so two backends make bit-identical decisions under a shared seed:
     recover(node)= same hash                                   < p_recov * 2^32
 
 The scalar functions work on Python ints (the per-round bases are host
-scalars).  The ``*_t`` functions work on int64 tensors holding u32 values:
+scalars); :func:`round_basis_lanes` and :func:`partition_active_lanes` give
+one value per sweep lane (numpy).  The ``*_t`` functions work on int64
+tensors holding u32 values:
 CPU PyTorch has no ``>>`` on uint32, so the lanes are int64 masked with
 ``& 0xFFFFFFFF``, and every 32-bit product is split in two 16-bit halves
 so that no int64 product overflows.
@@ -69,6 +71,46 @@ def partition_active(it: int, partition_at: int, heal_at: int) -> bool:
     if partition_at < 0:
         return False
     return it >= partition_at and (heal_at < 0 or it < heal_at)
+
+
+def fmix32_np(x: np.ndarray) -> np.ndarray:
+    """``fmix32`` on a uint64 array of u32 values (each product of two u32
+    values fits uint64 exactly)."""
+    x = x ^ (x >> np.uint64(16))
+    x = (x * np.uint64(0x7FEB352D)) & np.uint64(_M32)
+    x = x ^ (x >> np.uint64(15))
+    x = (x * np.uint64(0x846CA68B)) & np.uint64(_M32)
+    return x ^ (x >> np.uint64(16))
+
+
+def round_basis_lanes(seeds, its, salt: int) -> np.ndarray:
+    """:func:`round_basis` of each lane's (seed, iteration): an int64 array
+    of u32 values, one per lane (broadcast), or of one value where every
+    lane's is the same."""
+    seeds = np.asarray(seeds, np.int64).reshape(-1)
+    its = np.asarray(its, np.int64).reshape(-1)
+    if (seeds == seeds[0]).all() and (its == its[0]).all():
+        return np.array([round_basis(int(seeds[0]), int(its[0]), salt)],
+                        np.int64)
+    m = np.uint64(_M32)
+    h = (((its.astype(np.uint64) & m) * np.uint64(_GOLD)) & m) + np.uint64(salt)
+    b = fmix32_np((seeds.astype(np.uint64) & m) ^ fmix32_np(h & m))
+    return b.astype(np.int64)
+
+
+def round_basis_t(seeds: torch.Tensor, its: torch.Tensor,
+                  salt: int) -> torch.Tensor:
+    """:func:`round_basis` on int64 tensors of seeds and iterations
+    (broadcastable), on their device."""
+    h = (mul32_t(its & _M32, _GOLD) + salt) & _M32
+    return fmix32_t((seeds & _M32) ^ fmix32_t(h))
+
+
+def partition_active_lanes(its, partition_at, heal_at) -> np.ndarray:
+    """:func:`partition_active` of each lane (numpy, broadcast)."""
+    its, pa, heal = (np.asarray(a, np.int64) for a in
+                     (its, partition_at, heal_at))
+    return (pa >= 0) & (its >= pa) & ((heal < 0) | (its < heal))
 
 
 def stake_bipartition(stakes) -> np.ndarray:

@@ -4,6 +4,9 @@ Replaces the reference engine's ``round/bfs_propagate`` block
 (gossip_sim_tpu/engine/core.py:620-661; twin engine/sparse.py:64-95).
 The CUDA kernel is ``csrc/bfs_relax.cu``; :func:`bfs_relax_plain` is the
 same function in plain PyTorch, used for CPU tensors and as the spec.
+
+Sweep lanes (engine/lanes.py) run as more origin rows: the relaxation
+takes no knob, so a batch of K lanes is K times the rows, unchanged.
 """
 
 from __future__ import annotations

@@ -7,6 +7,9 @@ Replaces the reference engine's ``round/verb4_prune_apply`` join
 value axis shares one [N, S] active set.  The CUDA kernel is
 ``csrc/prune_apply.cu``; :func:`prune_apply_plain` is the same function in
 plain PyTorch, used for CPU tensors and as the spec.
+
+Sweep lanes (engine/lanes.py) run as more origin rows: applying the
+prunes takes no knob, so a batch of K lanes is K times the rows, unchanged.
 """
 
 from __future__ import annotations

@@ -7,6 +7,14 @@ the round stats build from it (core.py:1182-1190).  The CUDA kernel is
 origin, its CTAs owning slices of the nodes); :func:`launch_geometry` is
 the launch's shape and its only owner; :func:`pull_exchange_plain` is the
 same function in plain PyTorch, used for CPU tensors and as the spec.
+
+Sweep lanes (engine/lanes.py) run as more origin rows: every knob of the
+exchange (the fanout, ``pull_on``, the hash bases, the bloom threshold,
+the cap, the partition flag, the loss basis and threshold) may be per lane
+(``kernels/_lanes.py``).  The launch is shaped by the widest lane's fanout
+(at most ``slots``) and by whether any lane's cap is on; slots past a
+lane's fanout send nothing, and each slot's draw depends on (node, slot)
+only, so the shape never changes a lane's result.
 """
 
 from __future__ import annotations
@@ -14,10 +22,11 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..faults import edge_u32_t, node_u32_t
-from . import _build
+from . import _build, _lanes
 
 NAME = "pull_exchange"
 INF = 1 << 20          # engine/core.py INF: no pull delivery
@@ -27,6 +36,15 @@ COUNT_NAMES = ("pull_requests", "pull_responses", "pull_misses",
 MAX_CLUSTER = 16       # the H100's non-portable thread block cluster size
 MAX_THREADS = 1024     # csrc/pull_exchange.cu kMaxThreads
 MISC_WORDS = 128       # csrc/pull_exchange.cu kMiscWords: class tables, sums
+#: One lane's knobs in the launch's struct (csrc/pull_exchange.cu PullLane).
+LANE_DTYPE = np.dtype([("fp_threshold", "<u8"), ("loss_threshold", "<u8"),
+                       ("b_cls", "<u4"), ("b_mem", "<u4"), ("b_fp", "<u4"),
+                       ("b_loss", "<u4"), ("fanout", "<i4"),
+                       ("pull_on", "<i4"), ("cap", "<i4"),
+                       ("part_on", "<i4")])
+#: The per-lane knobs of a call, in LANE_DTYPE's names.
+KNOBS = ("fanout", "pull_on", "b_cls", "b_mem", "b_fp", "fp_threshold",
+         "cap", "part_on", "b_loss", "loss_threshold")
 
 
 class PullOut(NamedTuple):
@@ -141,28 +159,34 @@ def pull_peers_plain(n: int, slots: int, basis_cls: int, basis_mem: int,
     return perm[pos.clamp(max=n - 1).long()]
 
 
-def pull_exchange_plain(reached: torch.Tensor, dist: torch.Tensor,
+def lane_knobs(rows: int, *, fanout, pull_on, bases, bloom_threshold, cap,
+               partition, loss) -> tuple[int, dict]:
+    """(K, {knob: [K] array}) of a call over ``rows`` origin rows, in
+    :data:`KNOBS`' names (``part_on`` and the loss basis and threshold are
+    0 where their gate is absent)."""
+    u32 = lambda v: _lanes.values(v, np.int64) & 0xFFFFFFFF
+    b_loss, loss_thr = (0, 0) if loss is None else loss
+    kn = {"fanout": _lanes.values(fanout, np.int64),
+          "pull_on": _lanes.values(pull_on, np.int64) != 0,
+          "b_cls": u32(bases[0]), "b_mem": u32(bases[1]),
+          "b_fp": u32(bases[2]),
+          "fp_threshold": _lanes.values(bloom_threshold, np.int64),
+          "cap": _lanes.values(cap, np.int64),
+          "part_on": (np.zeros(1, bool) if partition is None
+                      else _lanes.values(partition, np.int64) != 0),
+          "b_loss": u32(b_loss),
+          "loss_threshold": _lanes.values(loss_thr, np.int64)}
+    return _lanes.count(rows, *kn.values()), kn
+
+
+def _plain_one(reached: torch.Tensor, dist: torch.Tensor,
                         failed: torch.Tensor, side: torch.Tensor,
                         perm: torch.Tensor, class_start: torch.Tensor,
                         class_count: torch.Tensor, cdf: torch.Tensor,
                         adaptive_on, *, fanout: int, slots: int,
                         pull_on: bool, bases: tuple, bloom_threshold: int,
                         cap: int, partition=None, loss=None) -> PullOut:
-    """One pull exchange against this round's push outcome.
-
-    ``reached``/``failed`` [O, N] bool and ``dist`` [O, N] i32 (the push
-    BFS), ``side`` [N + 1] i32 stake-bipartition sides, the sampler's
-    ``perm`` and class tables with its top-entry ``cdf`` [25] f32,
-    ``adaptive_on`` [O] bool (None outside the adaptive mode).  ``fanout``
-    live slots of ``slots``; ``pull_on`` whether this is a pull round;
-    ``bases`` the round's (class, member, bloom) hash bases;
-    ``bloom_threshold`` and ``cap`` the bloom false-positive threshold and
-    the request cap (<= 0 off); ``partition`` None without a partition
-    gate, else whether its window is on; ``loss`` None without packet
-    loss, else the round's (basis, threshold).  Returns :class:`PullOut`,
-    whose ``reached_all`` and ``dist_all`` are the delivery view of the
-    round stats: push BFS plus the pull rescues.
-    """
+    """One lane of :func:`pull_exchange_plain`: scalar knobs."""
     O, N = reached.shape
     dev = reached.device
     i32 = torch.int32
@@ -230,12 +254,61 @@ def pull_exchange_plain(reached: torch.Tensor, dist: torch.Tensor,
         dist_all=torch.where(reached, dist, pull_hop).contiguous())
 
 
+def pull_exchange_plain(reached: torch.Tensor, dist: torch.Tensor,
+                        failed: torch.Tensor, side: torch.Tensor,
+                        perm: torch.Tensor, class_start: torch.Tensor,
+                        class_count: torch.Tensor, cdf: torch.Tensor,
+                        adaptive_on, *, fanout, slots: int, pull_on, bases,
+                        bloom_threshold, cap, partition=None,
+                        loss=None) -> PullOut:
+    """One pull exchange against this round's push outcome.
+
+    ``reached``/``failed`` [O, N] bool and ``dist`` [O, N] i32 (the push
+    BFS), ``side`` [N + 1] i32 stake-bipartition sides, the sampler's
+    ``perm`` and class tables with its top-entry ``cdf`` [25] f32,
+    ``adaptive_on`` [O] bool (None outside the adaptive mode).  ``fanout``
+    live slots of ``slots``; ``pull_on`` whether this is a pull round;
+    ``bases`` the round's (class, member, bloom) hash bases;
+    ``bloom_threshold`` and ``cap`` the bloom false-positive threshold and
+    the request cap (<= 0 off); ``partition`` None without a partition
+    gate, else whether its window is on; ``loss`` None without packet
+    loss, else the round's (basis, threshold).  Each knob may be per lane
+    (``fanout`` at most ``slots`` in each): K values, lane k's for rows
+    ``[k O / K, (k + 1) O / K)``.  Returns :class:`PullOut`,
+    whose ``reached_all`` and ``dist_all`` are the delivery view of the
+    round stats: push BFS plus the pull rescues.
+    """
+    O = reached.shape[0]
+    k, kn = lane_knobs(O, fanout=fanout, pull_on=pull_on, bases=bases,
+                       bloom_threshold=bloom_threshold, cap=cap,
+                       partition=partition, loss=loss)
+    lanes = ([(0, slice(None))] if _lanes.uniform(*kn.values())
+             else _lanes.slices(O, k))
+    outs = []
+    for j, rows in lanes:
+        v = {name: _lanes.widen(a, k)[j] for name, a in kn.items()}
+        outs.append(_plain_one(
+            reached[rows], dist[rows], failed[rows], side, perm,
+            class_start, class_count, cdf,
+            None if adaptive_on is None else adaptive_on[rows],
+            fanout=int(v["fanout"]), slots=slots,
+            pull_on=bool(v["pull_on"]),
+            bases=(int(v["b_cls"]), int(v["b_mem"]), int(v["b_fp"])),
+            bloom_threshold=int(v["fp_threshold"]), cap=int(v["cap"]),
+            partition=None if partition is None else bool(v["part_on"]),
+            loss=(None if loss is None
+                  else (int(v["b_loss"]), int(v["loss_threshold"])))))
+    if len(outs) == 1:
+        return outs[0]
+    return PullOut(*(torch.cat(parts).contiguous() for parts in zip(*outs)))
+
+
 def _lib():
     fn = _build.library(NAME).pull_exchange_launch
     if fn.argtypes is None:
-        vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        fn.argtypes = ([vp] * 16 + [ci] * 7 + [u32] * 4
-                       + [ctypes.c_ulonglong] * 2 + [ci] * 5 + [vp])
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([vp] * 16 + [ci] * 5 + [vp, ci, ci] + [ci] * 5
+                       + [vp])
         fn.restype = ci
     return fn
 
@@ -276,9 +349,8 @@ def pull_exchange(reached: torch.Tensor, dist: torch.Tensor,
                   failed: torch.Tensor, side: torch.Tensor,
                   perm: torch.Tensor, class_start: torch.Tensor,
                   class_count: torch.Tensor, cdf: torch.Tensor, adaptive_on,
-                  *, fanout: int, slots: int, pull_on: bool, bases: tuple,
-                  bloom_threshold: int, cap: int, partition=None,
-                  loss=None) -> PullOut:
+                  *, fanout, slots: int, pull_on, bases, bloom_threshold,
+                  cap, partition=None, loss=None) -> PullOut:
     """The pull phase: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors.  Arguments and result as :func:`pull_exchange_plain`;
     the kernel takes ``side`` values of 0 and 1 (the stake bipartition).
@@ -300,7 +372,8 @@ def _launch(reached, dist, failed, side, perm, class_start, class_count, cdf,
             adaptive_on, g, *, fanout, slots, pull_on, bases,
             bloom_threshold, cap, partition, loss) -> PullOut:
     """Check the inputs and launch the kernel in geometry ``g`` (None:
-    the device's :func:`launch_geometry`)."""
+    the device's :func:`launch_geometry` for the widest lane's fanout and
+    the cap on where any lane's is)."""
     O, N = reached.shape
     dev = reached.device
     _build.check(reached, "reached", torch.bool, (O, N), dev)
@@ -313,17 +386,22 @@ def _launch(reached, dist, failed, side, perm, class_start, class_count, cdf,
     _build.check(cdf, "cdf", torch.float32, (25,), dev)
     if adaptive_on is not None:
         _build.check(adaptive_on, "adaptive_on", torch.bool, (O,), dev)
-    if not 0 <= fanout <= min(slots, 0xFFFF):
-        raise ValueError(f"{NAME}: fanout {fanout} outside [0, "
+    k, kn = lane_knobs(O, fanout=fanout, pull_on=pull_on, bases=bases,
+                       bloom_threshold=bloom_threshold, cap=cap,
+                       partition=partition, loss=loss)
+    wide = int(kn["fanout"].max())
+    if not ((kn["fanout"] >= 0) & (kn["fanout"] <= min(slots, 0xFFFF))).all():
+        raise ValueError(f"{NAME}: fanout {kn['fanout']} outside [0, "
                          f"{min(slots, 0xFFFF)}]")
-    if N >= 1 << 30 or N * max(fanout, 1) >= (1 << 31) - 1:
+    if N >= 1 << 30 or N * max(wide, 1) >= (1 << 31) - 1:
         raise ValueError(f"{NAME}: request keys node * fanout + slot pass "
-                         f"int32 at N={N}, fanout={fanout}")
-    b_loss, loss_thr = (0, 0) if loss is None else loss
-    for what, thr in (("bloom", bloom_threshold), ("loss", loss_thr)):
-        if not 0 <= thr <= 1 << 32:
-            raise ValueError(f"{NAME}: {what} threshold {thr} outside "
-                             f"[0, 2^32]")
+                         f"int32 at N={N}, fanout={wide}")
+    for what in ("fp_threshold", "loss_threshold"):
+        thr = kn[what]
+        if not ((thr >= 0) & (thr <= 1 << 32)).all():
+            raise ValueError(f"{NAME}: {what} {thr} outside [0, 2^32]")
+    capped = int((kn["cap"] > 0).any())
+    lanes = _lanes.pack(k, LANE_DTYPE, **kn)
     plane = lambda dt: torch.empty((O, N), dtype=dt, device=dev)
     out = PullOut(plane(torch.int32), plane(torch.int32), plane(torch.int32),
                   torch.empty((O, len(COUNT_NAMES)), dtype=torch.int32,
@@ -332,21 +410,18 @@ def _launch(reached, dist, failed, side, perm, class_start, class_count, cdf,
     if O == 0 or N == 0:
         return out
     if g is None:
-        g = geometry_for(O, N, fanout, cap, dev)
+        g = geometry_for(O, N, wide, capped, dev)
     scratch = (torch.empty(g.scratch_words, dtype=torch.int32, device=dev)
                if g.scratch_words else None)
     p = _build.ptr
-    b_cls, b_mem, b_fp = bases
     rc = _lib()(p(reached), p(dist), p(failed), p(side), p(perm),
                 p(class_start), p(class_count), p(cdf),
                 None if adaptive_on is None else p(adaptive_on),
                 p(out.pull_hop), p(out.egress), p(out.ingress),
                 p(out.reached_all), p(out.dist_all), p(out.counts),
                 None if scratch is None else p(scratch),
-                O, N, fanout, int(bool(pull_on)), cap, int(bool(partition)),
-                int(loss is not None), b_cls & 0xFFFFFFFF,
-                b_mem & 0xFFFFFFFF, b_fp & 0xFFFFFFFF, b_loss & 0xFFFFFFFF,
-                bloom_threshold, loss_thr, g.cs, g.slice_len, g.threads,
+                O, N, wide, capped, int(loss is not None),
+                lanes.ctypes.data, k, O // k, g.cs, g.slice_len, g.threads,
                 int(g.draw_words > 0), g.smem, _build.stream_of(reached))
     _build.launched(NAME, rc)
     return out

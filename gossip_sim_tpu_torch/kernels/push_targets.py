@@ -5,6 +5,10 @@ Replaces the reference engine's ``round/verb1_push_targets`` block
 (gossip_sim_tpu/faults.py:76-121).  The CUDA kernel is
 ``csrc/push_targets.cu``; :func:`push_targets_plain` is the same function in
 plain PyTorch, used for CPU tensors and as the spec.
+
+Sweep lanes (engine/lanes.py) run as more origin rows: the partition flag
+and the loss basis and threshold may be per lane (``kernels/_lanes.py``),
+read by each row from its lane.
 """
 
 from __future__ import annotations
@@ -12,12 +16,16 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..faults import edge_u32_t
-from . import _build
+from . import _build, _lanes
 
 NAME = "push_targets"
+#: One lane's knobs in the launch's struct (csrc/push_targets.cu PushLane).
+LANE_DTYPE = np.dtype([("threshold", "<u8"), ("basis", "<u4"),
+                       ("part_on", "<i4")])
 #: Input buffers in the kernel's ring (csrc/push_targets.cu kStages): the
 #: tile being scanned and the next ones, in flight.
 STAGES = 2
@@ -81,23 +89,11 @@ def blocks_per_sm(device: torch.device, rows_per_block: int, smem: int,
     return out.value
 
 
-def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
+def _plain_one(active: torch.Tensor, pruned: torch.Tensor,
                        tfail: torch.Tensor, origins: torch.Tensor,
                        side: torch.Tensor, fanout: int, partition=None,
                        loss=None, push_on: bool = True):
-    """The first ``F = min(fanout, S)`` valid slots of each row and their
-    delivery gates.
-
-    ``active`` [O, N, S] i32 (N = empty), ``pruned``/``tfail`` [O, N, S]
-    bool, ``origins`` [O], ``side`` [N + 1] i32 stake-bipartition sides.
-    ``partition`` is None without a partition gate, else whether its window
-    is on this round; ``loss`` is None without packet loss, else the round's
-    ``(basis, threshold)`` (faults.py ``round_basis``, ``rate_threshold``).
-    ``push_on`` False (the pull-only mode) makes no slot valid, as the
-    reference zeroes ``valid`` (core.py:566-571).  Returns ``tgt``
-    [O, N, F] i32 (the peer, or N) and the ``sup_mask`` and ``drop_mask``
-    [O, N, F] bool of the gates that are present (else None).
-    """
+    """One lane of :func:`push_targets_plain`: scalar knobs."""
     O, N, S = active.shape
     F = min(fanout, S)
     dev = active.device
@@ -127,12 +123,64 @@ def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
     return tgt, sup_mask, drop_mask
 
 
+def lane_knobs(rows: int, partition, loss):
+    """(K, partition flags, loss bases, loss thresholds) of a call over
+    ``rows`` origin rows: each knob as per-lane arrays (None where its gate
+    is absent)."""
+    part = None if partition is None else _lanes.values(partition, np.int32)
+    basis = thr = None
+    if loss is not None:
+        basis = _lanes.values(loss[0], np.int64) & 0xFFFFFFFF
+        thr = _lanes.values(loss[1], np.int64)
+    k = _lanes.count(rows, *(a for a in (part, basis, thr) if a is not None))
+    return k, part, basis, thr
+
+
+def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
+                       tfail: torch.Tensor, origins: torch.Tensor,
+                       side: torch.Tensor, fanout: int, partition=None,
+                       loss=None, push_on: bool = True):
+    """The first ``F = min(fanout, S)`` valid slots of each row and their
+    delivery gates.
+
+    ``active`` [O, N, S] i32 (N = empty), ``pruned``/``tfail`` [O, N, S]
+    bool, ``origins`` [O], ``side`` [N + 1] i32 stake-bipartition sides.
+    ``partition`` is None without a partition gate, else whether its window
+    is on this round; ``loss`` is None without packet loss, else the round's
+    ``(basis, threshold)`` (faults.py ``round_basis``, ``rate_threshold``).
+    Each may be per lane: K values, lane k's for rows ``[k O / K, (k + 1)
+    O / K)``.  ``push_on`` False (the pull-only mode) makes no slot valid,
+    as the reference zeroes ``valid`` (core.py:566-571).  Returns ``tgt``
+    [O, N, F] i32 (the peer, or N) and the ``sup_mask`` and ``drop_mask``
+    [O, N, F] bool of the gates that are present (else None).
+    """
+    k, part, basis, thr = lane_knobs(active.shape[0], partition, loss)
+    part, basis, thr = (None if a is None else _lanes.widen(a, k)
+                        for a in (part, basis, thr))
+    lanes = _lanes.slices(active.shape[0], k)
+    if k > 1 and _lanes.uniform(*(a for a in (part, basis, thr)
+                                  if a is not None)):
+        lanes = [(0, slice(None))]
+    outs = []
+    for j, rows in lanes:
+        outs.append(_plain_one(
+            active[rows], pruned[rows], tfail[rows], origins[rows], side,
+            fanout, None if part is None else bool(part[j]),
+            None if basis is None else (int(basis[j]), int(thr[j])),
+            push_on))
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(None if outs[0][i] is None
+                 else torch.cat([o[i] for o in outs]).contiguous()
+                 for i in range(3))
+
+
 def _lib():
     fn = _build.library(NAME).push_targets_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 8 + [ctypes.c_longlong] + [ci] * 8
-                       + [ctypes.c_uint32, ctypes.c_ulonglong, vp])
+        fn.argtypes = ([vp] * 8 + [ctypes.c_longlong] + [ci] * 7
+                       + [vp, ci, ci, vp])
         fn.restype = ci
     return fn
 
@@ -154,10 +202,13 @@ def push_targets(active: torch.Tensor, pruned: torch.Tensor,
     _build.check(tfail, "tfail", torch.bool, (O, N, S), dev)
     _build.check(origins, "origins", torch.int32, (O,), dev)
     _build.check(side, "side", torch.int32, (N + 1,), dev)
-    basis, threshold = (0, 0) if loss is None else loss
-    if not 0 <= threshold <= 1 << 32:
-        raise ValueError(f"{NAME}: loss threshold {threshold} outside "
-                         f"[0, 2^32]")
+    k, part, basis, thr = lane_knobs(O, partition, loss)
+    if thr is not None and not ((thr >= 0) & (thr <= 1 << 32)).all():
+        raise ValueError(f"{NAME}: loss threshold {thr} outside [0, 2^32]")
+    lanes = _lanes.pack(k, LANE_DTYPE,
+                        threshold=0 if thr is None else thr,
+                        basis=0 if basis is None else basis,
+                        part_on=0 if part is None else part != 0)
     mask = lambda: torch.empty((O, N, F), dtype=torch.bool, device=dev)
     tgt = torch.empty((O, N, F), dtype=torch.int32, device=dev)
     sup = None if partition is None else mask()
@@ -172,8 +223,7 @@ def push_targets(active: torch.Tensor, pruned: torch.Tensor,
     opt = lambda t: None if t is None else p(t)
     rc = _lib()(p(active), p(pruned), p(tfail), p(origins), p(side), p(tgt),
                 opt(sup), opt(drop), O * N, N, S, F, rows, grid, smem,
-                int(bool(push_on)), int(bool(partition)),
-                basis & 0xFFFFFFFF, threshold,
+                int(bool(push_on)), lanes.ctypes.data, k, O // k,
                 _build.stream_of(active))
     _build.launched(NAME, rc)
     return tgt, sup, drop

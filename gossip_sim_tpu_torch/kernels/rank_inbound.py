@@ -5,6 +5,9 @@ Replaces the reference engine's ``round/verb2_consume`` block
 The CUDA kernel is ``csrc/rank_inbound.cu``, one launch per call (a thread
 block cluster per origin); :func:`rank_inbound_plain` is the same function
 in plain PyTorch, used for CPU tensors and as the spec.
+
+Sweep lanes (engine/lanes.py) run as more origin rows: the ranking
+takes no knob, so a batch of K lanes is K times the rows, unchanged.
 """
 
 from __future__ import annotations

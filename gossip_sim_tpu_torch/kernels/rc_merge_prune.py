@@ -15,6 +15,10 @@ Called with ``rc_shi=None, rc_slo=None`` it is the sparse layout's variant
 stake planes come back zero-width ([O, N, 0]), and no ``live`` mask is
 taken.  On the card it is the kernel source's sparse instantiation
 (``rc_merge_prune_sparse_kernel``), counted as ``rc_merge_prune_sparse``.
+
+Sweep lanes (engine/lanes.py) run as more origin rows: ``min_ingress_nodes``
+and ``prune_stake_threshold`` may be per lane (``kernels/_lanes.py``), in
+both layouts; the traffic form (with ``live``) is one lane.
 """
 
 from __future__ import annotations
@@ -22,15 +26,20 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from . import _build
+from . import _build, _lanes
 
 NAME = "rc_merge_prune"
 SPARSE_NAME = "rc_merge_prune_sparse"  # launch count of the sparse variant
 BIG = 0x7FFFFFFF
 I32_MAX = 0x7FFFFFFF
 ROWS_PER_BLOCK = 8         # one warp per row
+#: One lane's knobs in the launch's struct (csrc/rc_merge_prune.cu
+#: MergeLane).
+LANE_DTYPE = np.dtype([("threshold", "<f8"), ("min_ingress", "<i4"),
+                       ("pad", "<i4")])
 
 
 class Geometry(NamedTuple):
@@ -110,6 +119,18 @@ def is_sparse(rc_shi, rc_slo, live) -> bool:
     return rc_shi is None
 
 
+def lane_knobs(rows: int, min_ingress_nodes, prune_stake_threshold, live):
+    """(K, min_ingress_nodes [K] i32, prune_stake_threshold [K] f64) of a
+    call over ``rows`` origin rows; the traffic form (``live``) is one
+    lane."""
+    mi = _lanes.values(min_ingress_nodes, np.int32)
+    thr = _lanes.values(prune_stake_threshold, np.float64)
+    k = _lanes.count(rows, mi, thr)
+    if live is not None and k > 1:
+        raise ValueError(f"{NAME}: the traffic form (live) takes one lane")
+    return k, mi, thr
+
+
 def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
                          shi, slo, stakes, origins, *, received_cap: int,
                          min_num_upserts: int, min_ingress_nodes: int,
@@ -124,8 +145,20 @@ def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
     (None, or [O] bool) gates which origins' rows may fire: the traffic
     round's value slots.  With ``rc_shi`` and ``rc_slo`` None (the sparse
     layout) the stake planes are ``shi[rc_src]``/``slo[rc_src]`` and come
-    back zero-width."""
+    back zero-width.  ``min_ingress_nodes`` and ``prune_stake_threshold``
+    may be per lane: K values, lane k's for rows ``[k O / K, (k + 1) O /
+    K)``."""
     sparse = is_sparse(rc_shi, rc_slo, live)
+    k, mi, thr = lane_knobs(rc_src.shape[0], min_ingress_nodes,
+                            prune_stake_threshold, live)
+    if _lanes.uniform(mi, thr):
+        min_ingress_nodes, prune_stake_threshold = int(mi[0]), float(thr[0])
+    else:
+        per = rc_src.shape[0] // k
+        row = lambda a: torch.as_tensor(np.repeat(a, per),
+                                        device=rc_src.device)
+        min_ingress_nodes = row(mi)[:, None, None]
+        prune_stake_threshold = row(thr)[:, None]
     if sparse:
         src = rc_src.long()
         rc_shi, rc_slo = shi[src], slo[src]
@@ -210,8 +243,7 @@ def _lib():
     fn = lib.rc_merge_prune_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 20 + [ci] * 10
-                       + [ctypes.c_double, ci, vp])
+        fn.argtypes = ([vp] * 20 + [ci] * 9 + [vp, ci, ci, ci, vp])
         fn.restype = ci
     return fn
 
@@ -238,6 +270,9 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
                                     rc_upserts, inb, shi, slo, stakes,
                                     origins, **kw)
     O, N, C = rc_src.shape
+    k, mi, thr = lane_knobs(O, min_ingress_nodes, prune_stake_threshold,
+                            live)
+    lanes = _lanes.pack(k, LANE_DTYPE, threshold=thr, min_ingress=mi)
     K = inb.shape[-1]
     dev = rc_src.device
     g = launch_geometry(C, K, _build.smem_optin(dev), sparse)
@@ -272,8 +307,7 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
                 p(inb), p(shi), p(slo), p(stakes), p(origins), p(live),
                 *(p(t) for t in out), O, N, C, K, g.rows_per_block,
                 g.key_slots, g.row_bytes, int(received_cap),
-                int(min_num_upserts), int(min_ingress_nodes),
-                float(prune_stake_threshold), int(sparse),
-                _build.stream_of(rc_src))
+                int(min_num_upserts), lanes.ctypes.data, k, O // k,
+                int(sparse), _build.stream_of(rc_src))
     _build.launched(SPARSE_NAME if sparse else NAME, rc)
     return out

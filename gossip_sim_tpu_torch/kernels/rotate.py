@@ -9,6 +9,10 @@ core.py:507-509, and the uniforms, :952-958).  The CUDA kernel is
 :func:`rotate_plain` is the same function in plain PyTorch, used for CPU
 tensors and as the spec, and :func:`sample_members_plain` is its sampler
 (``engine/sampler.py`` draws ``init_state``'s peers with it too).
+
+Sweep lanes (engine/lanes.py) run as more origin rows: the iteration ``it``
+(which the round key folds in) and the rotation probability may be per
+lane (``kernels/_lanes.py``).
 """
 
 from __future__ import annotations
@@ -18,10 +22,11 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..constants import NUM_PUSH_ACTIVE_SET_ENTRIES as NB
-from . import _build
+from . import _build, _lanes
 from .threefry import threefry_plain
 
 NAME = "rotate"
@@ -32,6 +37,16 @@ TABLE_BYTES = -(-(4 * NB * NB + 8 * NB) // 16) * 16
 #: Bytes of one key (the round key or a sub key) in shared memory: two u32
 #: words.
 KEY_BYTES = 8
+#: One lane's knobs in the launch's struct (csrc/rotate.cu RotateLane).
+LANE_DTYPE = np.dtype([("prob", "<f4"), ("it", "<u4")])
+
+
+def lane_knobs(rows: int, it, probability):
+    """(K, it [K] as u32 values, probability [K] f32) of a call over
+    ``rows`` origin rows."""
+    its = _lanes.values(it, np.int64) & 0xFFFFFFFF
+    prob = _lanes.values(probability, np.float32)
+    return _lanes.count(rows, its, prob), its, prob
 
 
 class Geometry(NamedTuple):
@@ -118,7 +133,8 @@ def sample_members_plain(buckets: torch.Tensor, origins: torch.Tensor,
 def draws_plain(key: torch.Tensor, it: int, n: int, tries: int,
                 partitionable: bool = True):
     """Verb 5's uniforms as the reference round draws them, in plain
-    PyTorch: the round key ``fold_in(key, it)``, its ``T + 2`` sub keys, the
+    PyTorch (``it`` an int, or one per key): the round key ``fold_in(key,
+    it)``, its ``T + 2`` sub keys, the
     rotation uniforms ``rot_u`` [O, N] (sub key 1) and the tries' class and
     member uniforms ``u_all`` [O, T, N, 2] (sub keys 2 .. T + 1)."""
     kr = threefry_plain(key, "fold_in", it)
@@ -140,13 +156,21 @@ def rotate_plain(active, pruned, tfail, failed, key, it, origins, buckets,
     [O], ``buckets`` and ``perm`` [N] i32, the class tables
     (``engine/sampler.py``), ``probability`` the rotation probability as a
     float32 value, ``tries`` the tries T per rotating row, ``partitionable``
-    the threefry layout.  The uniforms are :func:`draws_plain`'s.  Returns
-    ``new_active``, ``new_pruned``, ``new_tfail`` [O, N, S] and
-    ``rot_failed`` [O] i32."""
+    the threefry layout.  ``it`` and ``probability`` may be per lane: K
+    values, lane k's for rows ``[k O / K, (k + 1) O / K)``.  The uniforms
+    are :func:`draws_plain`'s.  Returns ``new_active``, ``new_pruned``,
+    ``new_tfail`` [O, N, S] and ``rot_failed`` [O] i32."""
     O, N, S = active.shape
     T = int(tries)
     dev = active.device
     i32 = torch.int32
+    k, its, probs = lane_knobs(O, it, probability)
+    if _lanes.uniform(its, probs):
+        it, probability = int(its[0]), float(probs[0])
+    else:
+        it = torch.as_tensor(np.repeat(its, O // k), device=dev)
+        probability = torch.as_tensor(np.repeat(probs, O // k),
+                                      device=dev)[:, None]
     iota_n = torch.arange(N, device=dev, dtype=i32)[None, :]
     rot_u, u_all = draws_plain(key, it, N, T, partitionable)
     rotate = rot_u < probability
@@ -191,8 +215,7 @@ def _lib():
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([vp] * 15 + [ci, ctypes.c_longlong, ci, ci, ci,
-                                    ctypes.c_float, ctypes.c_uint32, ci, ci,
-                                    ci, ci, vp])
+                                    vp, ci, ci, ci, ci, ci, ci, vp])
         fn.restype = ci
     return fn
 
@@ -229,13 +252,15 @@ def rotate(active, pruned, tfail, failed, key, it, origins, buckets, perm,
     rot_failed = torch.empty((O,), dtype=torch.int32, device=dev)
     if active.numel() == 0:
         return new_active, new_pruned, new_tfail, rot_failed.zero_()
+    k, its, probs = lane_knobs(O, it, probability)
+    lanes = _lanes.pack(k, LANE_DTYPE, prob=probs, it=its)
     g = launch_geometry(S, T, N, O, _build.smem_optin(dev))
     p = _build.ptr
     rc = _lib()(p(active), p(pruned), p(tfail), p(failed), p(key),
                 p(origins), p(buckets), p(perm), p(class_start),
                 p(class_count), p(class_cdf), p(new_active), p(new_pruned),
                 p(new_tfail), p(rot_failed), O, O * N, N, S, T,
-                float(probability), int(it) & 0xFFFFFFFF,
+                lanes.ctypes.data, k, O // k,
                 int(bool(partitionable)), g.rows, g.key_bytes, g.smem,
                 _build.stream_of(active))
     _build.launched(NAME, rc)

@@ -28,6 +28,10 @@ One function, four operations (``op``) on a batch of keys ``[..., 2]``
 * original: the counters ``0 .. size-1`` are split in two halves
   ``x0 = [0, h)``, ``x1 = [h, 2h)`` (``h = ceil(size / 2)``, an odd tail
   padded with 0), hashed pairwise, and the outputs concatenated.
+
+Sweep lanes (engine/lanes.py) run as more origin rows: the draws take
+no knob, each row its own key (and, in the fail round of lanes at their
+own iterations, its own ``fold_in`` data).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's engine round on one GPU for several checkouts, in turns.
 
-    python3 round_turns.py [--push-pull | --traffic | --calls] TREE ...
+    python3 round_turns.py [--push-pull | --traffic | --calls | --lanes]
+                           TREE ...
 
 Each TREE is the root of a checkout of the repository (``.`` for this
 one); give two trees in turns, e.g. ``build/parent . . build/parent``, to
@@ -32,7 +33,12 @@ traffic rounds/s and value-rounds/s over the engine calls' span.  With
 ``--calls`` each tree runs chip_smoke.py ``--profile-calls TREE``: the
 kernel-only and whole-call device ms of ``prune_apply``,
 ``traffic_admit`` and ``traffic_send`` on round 19's inputs of each shape
-chip_smoke times them at.  One JSON line per tree, then the card's name and power limit.
+chip_smoke times them at.  With ``--lanes`` it is the serial push round
+at O=32 (as without a flag) and, where the tree has sweep lanes
+(``engine.run_rounds_lanes``; a parent without them runs the serial half
+only), a round of K=8 lanes of one origin each (packet loss 0 to 0.35,
+chip_smoke.py's phase (k)) beside the serial round at O=1 under the same
+gates.  One JSON line per tree, then the card's name and power limit.
 Needs a CUDA device.
 """
 
@@ -48,6 +54,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 O, N, WARM, TIMED, PROFILED = 32, 10_000, 10, 50, 5
+LANES = 8              # --lanes: lanes of one origin each
 AO = 200               # all-origins on origins 0-199
 WARM_TRAFFIC = 20      # --traffic: rounds before the timed ones
 
@@ -80,24 +87,35 @@ def one(tree: str, mode: str) -> dict:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
 
-    def measure(o: int, params, tag: str) -> dict:
+    def measure(o: int, params, tag: str, lanes=None) -> dict:
+        """One shape's rounds: ``params`` at ``o`` origins, or with
+        ``lanes`` (parameter sets) those lanes of ``o`` origins each."""
         origins = torch.as_tensor(top[:o], device=dev)
         state = init_state(rng.prng_key(7, dev), tables, origins, params)
-        state, _ = run_rounds(params, tables, origins, state, WARM)
+        if lanes is None:
+            run = lambda st, n, s0: run_rounds(params, tables, origins, st,
+                                               n, start_it=s0)
+        else:
+            from gossip_sim_tpu_torch import engine
+            static = engine.merge_lane_statics(
+                [p.static_part() for p in lanes])
+            kstack = engine.stack_knobs([p.knob_values() for p in lanes])
+            state = engine.broadcast_state(state, len(lanes))
+            run = lambda st, n, s0: engine.run_rounds_lanes(
+                static, tables, origins, st, kstack, n, start_it=s0)
+        state, _ = run(state, WARM, 0)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        state, _ = run_rounds(params, tables, origins, state, TIMED,
-                              start_it=WARM)
+        state, _ = run(state, TIMED, WARM)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / TIMED
         peak = torch.cuda.max_memory_allocated() - base
         wrapper_launches = {k: v / TIMED for k, v in kernels.LAUNCHES.items()}
         prof = smoke.profile_rounds(
-            lambda p, t, o_, st, r: run_rounds(p, t, o_, st, r,
-                                               start_it=WARM + TIMED),
+            lambda p, t, o_, st, r: run(st, r, WARM + TIMED),
             params, tables, origins, state, out_dir, rounds=PROFILED,
             tag=" turns " + re.sub(r"\W", "_", tree) + tag)
         return {"o": o, "wall_ms_per_round": wall * 1e3,
@@ -110,6 +128,18 @@ def one(tree: str, mode: str) -> dict:
     res = {"tree": tree, "device": torch.cuda.get_device_name(0)}
     if mode == "traffic":
         res.update(traffic(tree, smoke, stakes, tables, out_dir))
+        return res
+    if mode == "lanes":
+        res.update(measure(O, EngineParams(num_nodes=N, warm_up_rounds=0),
+                           ""))
+        import gossip_sim_tpu_torch.engine as engine
+        if hasattr(engine, "run_rounds_lanes"):
+            lanes = [EngineParams(num_nodes=N, warm_up_rounds=0,
+                                  packet_loss_rate=0.05 * j)
+                     for j in range(LANES)]
+            res["lanes"] = measure(1, lanes[1], f" lanes K={LANES} O=1",
+                                   lanes)
+            res["serial_o1"] = measure(1, lanes[1], " serial O=1")
         return res
     if mode == "push":
         res.update(measure(O, EngineParams(num_nodes=N, warm_up_rounds=0),
@@ -243,7 +273,8 @@ def main(argv: list) -> int:
         print(json.dumps(one(argv[2], argv[1])), flush=True)
         return 0
     mode = "push"
-    if argv[:1] in (["--push-pull"], ["--traffic"], ["--calls"]):
+    if argv[:1] in (["--push-pull"], ["--traffic"], ["--calls"],
+                    ["--lanes"]):
         mode, argv = argv[0][2:], argv[1:]
     if not argv:
         raise SystemExit(__doc__)

@@ -100,7 +100,7 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_unported_flags_are_rejected():
-    for argv in (["--backend", "oracle"], ["--sweep-lanes", "2"],
+    for argv in (["--backend", "oracle"], ["--health"],
                  ["--checkpoint-path", "x.npz"], ["--resume", "x.npz"],
                  ["--trace-dir", "traces"]):
         with pytest.raises(SystemExit):

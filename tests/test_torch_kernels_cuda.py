@@ -1521,3 +1521,194 @@ def test_traffic_rescue_equals_plain_on_adaptive_rounds(cuda, case):
                       "traffic_rescue")
     assert int(rows["switched_to_pull"].sum()) > 0
     assert int(rows["pull_rescued"].sum()) > 0
+
+
+# --------------------------------------------------------------------------
+# sweep lanes: the four kernels that read a knob take it per lane
+# --------------------------------------------------------------------------
+
+LANES, LANE_ORIGINS = 8, 4          # 32 origin rows, lane j's rows 4j..4j+3
+
+
+def _lane_slices(k=LANES, o=LANE_ORIGINS):
+    return [(j, slice(j * o, (j + 1) * o)) for j in range(k)]
+
+
+def _lane_rows_equal(got, ones, what):
+    """Each lane's rows of the lane call equal its one-lane call."""
+    for j, rows in _lane_slices():
+        _assert_equal(tuple(None if t is None else t[rows]
+                            for t in _outputs(got)), ones[j], f"{what} {j}")
+
+
+@pytest.mark.parametrize("n", [2000, 10_000])
+def test_push_targets_lanes_equal_plain_and_one_lane_calls(cuda, n):
+    r = np.random.default_rng(n + 8)
+    active, pruned, tfail, origins = _active_rows(
+        r, LANES * LANE_ORIGINS, n, 12, cuda)
+    side = torch.as_tensor(r.integers(0, 2, size=n + 1).astype(np.int32),
+                           device=cuda)
+    part = [j % 2 == 0 for j in range(LANES)]
+    bases = [0x9E3779B1 + 17 * j for j in range(LANES)]
+    thr = [rate_threshold(0.05 * j) for j in range(LANES)]
+    kernels.reset_launch_counts()
+    got = kernels.push_targets(active, pruned, tfail, origins, side, 6, part,
+                               (bases, thr))
+    assert kernels.LAUNCHES["push_targets"] == 1
+    _assert_equal(got, kernels.push_targets_plain(
+        active, pruned, tfail, origins, side, 6, part, (bases, thr)), "lanes")
+    ones = [kernels.push_targets(active[s], pruned[s], tfail[s], origins[s],
+                                 side, 6, part[j], (bases[j], thr[j]))
+            for j, s in _lane_slices()]
+    _lane_rows_equal(got, ones, "push_targets")
+    assert bool(got[1].any()) and bool(got[2].any())
+
+
+def test_push_targets_at_the_most_lanes(cuda):
+    """64 lanes of one origin each, the largest per-launch struct."""
+    r = np.random.default_rng(64)
+    n = 1000
+    active, pruned, tfail, origins = _active_rows(r, 64, n, 12, cuda)
+    side = torch.as_tensor(r.integers(0, 2, size=n + 1).astype(np.int32),
+                           device=cuda)
+    loss = ([j * 977 for j in range(64)],
+            [rate_threshold(j / 64) for j in range(64)])
+    part = [j % 3 == 0 for j in range(64)]
+    got = kernels.push_targets(active, pruned, tfail, origins, side, 6,
+                               part, loss)
+    _assert_equal(got, kernels.push_targets_plain(
+        active, pruned, tfail, origins, side, 6, part, loss), "64 lanes")
+    with pytest.raises(ValueError, match="at most 64"):
+        kernels.push_targets(*_active_rows(r, 65, n, 12, cuda)[:4], side, 6,
+                             [True] * 65, None)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_rc_merge_prune_lanes_equal_plain_and_one_lane_calls(cuda, sparse):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _merge_inputs(81, 64, 16, o=LANES * LANE_ORIGINS)]
+    if sparse:
+        args[2] = args[3] = None
+    kw = dict(received_cap=50, min_num_upserts=20,
+              min_ingress_nodes=[1 + j % 4 for j in range(LANES)],
+              prune_stake_threshold=list(np.linspace(0.05, 0.4, LANES)))
+    name = "rc_merge_prune_sparse" if sparse else "rc_merge_prune"
+    kernels.reset_launch_counts()
+    got = kernels.rc_merge_prune(*args, **kw)
+    assert kernels.LAUNCHES[name] == 1
+    _assert_equal(got, kernels.rc_merge_prune_plain(*args, **kw), name)
+    ones = []
+    for j, s in _lane_slices():
+        a = [None if t is None else
+             (t[s] if t.shape[0] == LANES * LANE_ORIGINS else t)
+             for t in args]
+        ones.append(_outputs(kernels.rc_merge_prune(
+            *a, received_cap=50, min_num_upserts=20,
+            min_ingress_nodes=kw["min_ingress_nodes"][j],
+            prune_stake_threshold=kw["prune_stake_threshold"][j])))
+    _lane_rows_equal(got, ones, name)
+    assert len({int(got.n_pruned[s].sum()) for _, s in _lane_slices()}) > 1
+
+
+@pytest.mark.parametrize("part", [True, False],
+                         ids=["partitionable", "original"])
+def test_rotate_lanes_equal_plain_and_one_lane_calls(cuda, part):
+    r = np.random.default_rng(75)
+    args = list(_rotate_inputs(r, LANES * LANE_ORIGINS, 2000, 12, cuda))
+    its = [int(args[5]) + 3 * j for j in range(LANES)]
+    probs = [float(np.float32(1 / 75 + j * (1 / 5 - 1 / 75) / (LANES - 1)))
+             for j in range(LANES)]
+    args[5] = its
+    kernels.reset_launch_counts()
+    got = kernels.rotate(*args, probs, 8, part)
+    assert kernels.LAUNCHES["rotate"] == 1
+    _assert_equal(got, kernels.rotate_plain(*args, probs, 8, part), "lanes")
+    ones = []
+    for j, s in _lane_slices():
+        a = [t[s] if torch.is_tensor(t) and t.shape[0] == LANES *
+             LANE_ORIGINS else t for t in args]
+        a[5] = its[j]
+        ones.append(_outputs(kernels.rotate(*a, probs[j], 8, part)))
+    # rot_failed is per origin row
+    _lane_rows_equal(got, ones, "rotate")
+
+
+@pytest.mark.parametrize("cap", [0, 2])
+def test_pull_exchange_lanes_equal_plain_and_one_lane_calls(cuda, cap):
+    args, knobs = _pull_inputs(cuda, LANES * LANE_ORIGINS, 2000,
+                               dict(adaptive=True))
+    lanes = dict(
+        fanout=[2 + j % 7 for j in range(LANES)],
+        pull_on=[j != 3 for j in range(LANES)],
+        bases=([7 + j for j in range(LANES)], [9 + 2 * j for j in
+                                               range(LANES)],
+               [11 + 3 * j for j in range(LANES)]),
+        bloom_threshold=[rate_threshold(0.05 * j) for j in range(LANES)],
+        cap=[cap * (j % 2) for j in range(LANES)],
+        partition=[j % 2 == 1 for j in range(LANES)],
+        loss=([77 + j for j in range(LANES)],
+              [rate_threshold(0.04 * j) for j in range(LANES)]))
+    knobs.update(lanes)
+    kernels.reset_launch_counts()
+    got = kernels.pull_exchange(*args, **knobs)
+    assert kernels.LAUNCHES["pull_exchange"] == 1
+    _assert_equal(tuple(got), tuple(kernels.pull_exchange_plain(
+        *args, **knobs)), "lanes")
+    ones = []
+    for j, s in _lane_slices():
+        a = [t[s] if torch.is_tensor(t) and t.shape[0] == LANES *
+             LANE_ORIGINS else t for t in args]
+        one = dict(knobs, fanout=lanes["fanout"][j],
+                   pull_on=lanes["pull_on"][j],
+                   bases=tuple(b[j] for b in lanes["bases"]),
+                   bloom_threshold=lanes["bloom_threshold"][j],
+                   cap=lanes["cap"][j], partition=lanes["partition"][j],
+                   loss=(lanes["loss"][0][j], lanes["loss"][1][j]))
+        ones.append(tuple(kernels.pull_exchange(*a, **one)))
+    _lane_rows_equal(tuple(got), ones, "pull_exchange")
+    assert int(got.counts[:, 0].sum()) > 0
+
+
+LANE_RUNS = {
+    "push_impaired": (dict(warm_up_rounds=2, impair_seed=5), [
+        dict(), dict(packet_loss_rate=0.3), dict(churn_fail_rate=0.02,
+                                                 churn_recover_rate=0.2),
+        dict(partition_at=3, heal_at=9, min_ingress_nodes=4,
+             prune_stake_threshold=0.3, probability_of_rotation=0.2)]),
+    "push_pull": (dict(warm_up_rounds=2, impair_seed=5,
+                       gossip_mode="push-pull", packet_loss_rate=0.1), [
+        dict(pull_fanout=2), dict(pull_fanout=8, pull_request_cap=2),
+        dict(pull_fanout=5, pull_bloom_fp_rate=0.3),
+        dict(pull_fanout=3, pull_interval=2)]),
+}
+
+
+@pytest.mark.parametrize("case", list(LANE_RUNS))
+def test_lane_runs_equal_serial_runs_on_the_card(cuda, case):
+    from gossip_sim_tpu_torch.engine import (broadcast_state,
+                                             merge_lane_statics,
+                                             run_rounds_lanes, stack_knobs)
+    base, lanes = LANE_RUNS[case]
+    n = 2000
+    stakes = np.random.default_rng(2).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    plist = [EngineParams(num_nodes=n, **base, **kw) for kw in lanes]
+    static = merge_lane_statics([p.static_part() for p in plist])
+    tables = make_cluster_tables(stakes, device=cuda)
+    origins = torch.arange(2, dtype=torch.int32, device=cuda)
+    st0 = init_state(rng.prng_key(3, cuda), tables, origins, plist[0])
+    kernels.reset_launch_counts()
+    states, rows = run_rounds_lanes(
+        static, tables, origins, broadcast_state(st0, len(plist)),
+        stack_knobs([p.knob_values() for p in plist]), 21, detail=True)
+    lane_launches = dict(kernels.LAUNCHES)
+    for j, p in enumerate(plist):
+        kernels.reset_launch_counts()
+        s1, r1 = run_rounds(static, tables, origins, st0, 21, detail=True,
+                            knobs=p.knob_values())
+        assert dict(kernels.LAUNCHES) == lane_launches, j
+        for k in r1:
+            assert torch.equal(torch.nan_to_num(rows[k][:, j]),
+                               torch.nan_to_num(r1[k])), (j, k)
+        for f in s1._fields:
+            assert torch.equal(getattr(states, f)[j], getattr(s1, f)), (j, f)
