@@ -55,7 +55,7 @@ Phases (any failure exits non-zero before the final line):
       --iterations 300 --warm-up-rounds 200 on cuda; wall time, coverage
       and RMR means, ``threefry``'s launches (``init_state``'s only), and
       the same run in turns with verbs 1 and 5 in their plain versions
-      (plain, kernels, plain, for the wall time and equal means); the first
+      (plain, kernels, for the wall time and equal means); the first
       run's kernel launch counts go into the ``kernels`` line, and each
       kernel is held against its plain version on this run's own inputs of
       rounds 19 and 299 (O=1; ``threefry`` on ``init_state``'s) and timed
@@ -193,11 +193,40 @@ Phases (any failure exits non-zero before the final line):
       ``run_rounds_lanes_dyn`` with 4 lanes at their own origins and start
       iterations against each lane's solo run, and a splice that leaves
       the other lanes' bits unchanged; a churn lane sweep at N=2,000 on
-      cuda and cpu; the traffic lanes refusal (ROADMAP A9b);
-  (l) print the total wall, the card's name and power limit, the
+      cuda and cpu; a small traffic lane sweep (``--sweep-lanes 2``, a
+      tail batch of one point) equal to its serial sweep; a 66-point
+      packet-loss sweep at N=500 with ``--sweep-lanes 66`` (one batch,
+      run as groups of at most 64 lane records), points 0, 63, 64 and 65
+      equal to their serial runs;
+  (l) traffic lanes (``engine/traffic.py`` ``run_traffic_lanes``): round 19
+      of 4 lanes at M=256 (rate 16; loss, caps, churn and a partition
+      differing by lane; the rescue on 4 adaptive lanes' first round from
+      39 with values in their pull phase): each of the six traffic
+      kernels' lane calls held, lane by lane, against its one-lane call and
+      its plain version (tolerance 0), timed in turns beside the sum of
+      the 4 one-lane calls, its bound the sum of the lanes', and the lane
+      batch's peak memory; device ms of both and 5-round profiles of the
+      4-lane round and the 4 lanes' serial rounds, and of 8 lanes and 8
+      serial rounds at M=32, in a process of its own
+      (``--profile-traffic-lanes``); the engine (a lane batch, then its
+      lanes' serial rounds: wall, peak memory, kernel launches per round;
+      the end lanes equal to their serial runs); the CLI: a 4-point
+      traffic-rate sweep at M=256 (300 iterations, 200 warm-up,
+      ``--sweep-lanes 4``) and an 8-point packet-loss sweep at M=32 (100
+      iterations, 50 warm-up, ``--sweep-lanes 8``), each beside the serial
+      sweep (every point's summary, parity snapshot and deterministic
+      Influx lines equal; walls split into cluster build, engine and
+      harvest; peak memory), an adaptive-threshold lane sweep (0.5, 0.7,
+      0.9; 60 iterations) equal to its serial sweep, and a packet-loss lane
+      sweep at N=2,000, M=32 (8 iterations) with caps, churn and a
+      partition, cuda equal to cpu;
+  (m) print the total wall, the card's name and power limit, the
       ``kernels`` JSON line (the four knob kernels with a ``lanes`` object:
-      K, O, max_abs_err, the lane call's ms beside the one-lane call's)
-      and the final ``{"ok": true, ...}`` line.
+      K, O, max_abs_err, the lane call's ms beside the one-lane call's;
+      the six traffic kernels with a ``traffic_lanes`` object: K, M,
+      max_abs_err, the lane call's ms and device ms beside the sum of the
+      one-lane calls', the bound) and the final ``{"ok": true, ...}``
+      line.
 
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -883,7 +912,19 @@ def traffic_round19(kernels, prm, tables, ttables, stakes_np, dev):
     finally:
         for name in TRAFFIC_KERNELS:
             setattr(kernels, name, real[name])
-    return st, rows, calls
+    return st, rows, one_run_calls(calls, prm.traffic_values)
+
+
+def one_run_calls(calls: dict, v: int) -> dict:
+    """The serial round's kernel calls (the lane form with one lane: every
+    traffic kernel takes a leading lane axis since traffic lanes) in each
+    kernel's one-run form, the shapes (i) times and bounds."""
+    try:
+        from gossip_sim_tpu_torch.kernels._lanes import one_lane_call
+    except ImportError:  # a tree before traffic lanes: one-run calls
+        return calls
+    return {name: [one_lane_call(name, a, kw, 0, v) for a, kw in recorded]
+            for name, recorded in calls.items()}
 
 
 def adaptive_params(EngineParams, case: str, m: int = M_TRAFFIC,
@@ -926,7 +967,7 @@ def adaptive_round(kernels, prm, tables, ttables, stakes_np, dev,
         if int(rows["pull_active_values"]) > 0 and (
                 not capped or int(rows["pull_deferred"])
                 + int(rows["pull_queue_dropped"]) > 0):
-            return it, st, rows, calls
+            return it, st, rows, one_run_calls(calls, prm.traffic_values)
         st = nxt
     fail(f"(i) adaptive traffic: no value in its pull phase (capped "
          f"{capped}: and no pull request deferred or queue-dropped) by "
@@ -1284,6 +1325,139 @@ def lanes_child(dev) -> int:
     return 0
 
 
+# traffic lanes (l): a batch of 4 lanes at M=256 (about four fit the 80 GB
+# card: a full-width traffic run peaked at ~15 GB) and 8 at M=32, each
+# lane with its own loss, caps, churn and partition
+TL_K, TL_K_NARROW = 4, 8
+TRAFFIC_LANES_FLAG = "--profile-traffic-lanes"
+
+
+def traffic_lane_params(EngineParams, k: int, m: int = M_TRAFFIC,
+                        n: int = N_FULL, adaptive: bool = False) -> list:
+    """Phase (l)'s ``k`` traffic lanes at ``m`` value slots, rate 16: lane
+    0 uncapped and unimpaired, lane 1 loss 0.1 with (i)'s caps, lane 2
+    churn with caps 64/128, lane 3 a partition (rounds 10-29), loss 0.05
+    and caps 1/96, repeating, each with a hash seed of its own;
+    ``adaptive``: in adaptive mode at thresholds 0.5, 0.7, 0.9, 0.9."""
+    out = []
+    for j in range(k):
+        kw = dict(num_nodes=n, traffic_values=m, traffic_rate=TRAFFIC_RATE,
+                  warm_up_rounds=0, impair_seed=7 + j)
+        kw.update([{}, dict(packet_loss_rate=0.1,
+                            node_ingress_cap=TRAFFIC_CAPS[0],
+                            node_egress_cap=TRAFFIC_CAPS[1]),
+                   dict(churn_fail_rate=0.01, churn_recover_rate=0.2,
+                        node_ingress_cap=64, node_egress_cap=128),
+                   dict(partition_at=10, heal_at=30, packet_loss_rate=0.05,
+                        node_ingress_cap=1, node_egress_cap=96)][j % 4])
+        if adaptive:
+            kw.update(gossip_mode="adaptive",
+                      adaptive_switch_threshold=(0.5, 0.7, 0.9, 0.9)[j % 4])
+        out.append(EngineParams(**kw))
+    return out
+
+
+def traffic_lanes_at(kernels, plist, tables, ttables, stakes_np, dev,
+                     which, first: int = 19, last: int = 19):
+    """The lanes ``plist`` run to round ``first``; then their rounds up to
+    ``last`` with the calls of the kernels ``which`` recorded, up to the
+    first whose rows show values in their pull phase (adaptive lanes) or
+    the first round (push lanes).  Returns (that round, its rows, the
+    calls)."""
+    from gossip_sim_tpu_torch import engine
+    from gossip_sim_tpu_torch.engine import traffic as tr
+    static = engine.merge_lane_statics([p.static_part() for p in plist])
+    kstack = engine.stack_knobs([p.knob_values() for p in plist])
+    st = tr.broadcast_traffic_state(tr.init_traffic_state(
+        stakes_np, plist[0], 42, dev), len(plist))
+    st, _ = tr.run_traffic_lanes(static, tables, ttables, st, kstack, first)
+    for it in range(first, last + 1):
+        (st, rows), calls = record_calls(kernels, which, tr.run_traffic_lanes,
+                                         static, tables, ttables, st, kstack,
+                                         1, it)
+        if "pull_active_values" not in rows or int(
+                rows["pull_active_values"].sum()) > 0:
+            return it, rows, calls
+    fail(f"(l) adaptive lanes: no value in its pull phase by round {last}")
+
+
+def traffic_lanes_child(dev) -> int:
+    """``chip_smoke.py --profile-traffic-lanes``, started by phase (l): the
+    device ms of each traffic kernel's lane call (4 lanes, M=256; the
+    rescue on the adaptive lanes' first round from 39 with values in their
+    pull phase) beside the sum of its 4 one-lane calls, then 5-round
+    profiles (from round 20) of the 4-lane round and of the 4 lanes' serial
+    rounds, and of the 8-lane round and 8 serial rounds at M=32."""
+    import numpy as np
+    import torch
+    from gossip_sim_tpu_torch import cli, engine, kernels
+    from gossip_sim_tpu_torch.engine import EngineParams
+    from gossip_sim_tpu_torch.engine import traffic as tr
+    from gossip_sim_tpu_torch.identity import NodeIndex
+    from gossip_sim_tpu_torch.kernels import _lanes
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    accounts, _ = cli.load_cluster_accounts(
+        cli.Config(num_synthetic_nodes=N_FULL))
+    stakes_np = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
+    tables = engine.make_cluster_tables(stakes_np, device=dev)
+    ttables = tr.device_traffic_tables(stakes_np, dev)
+    real = {name: getattr(kernels, name) for name in ADAPTIVE_KERNELS}
+    out = {"kernels": {}, "rounds": {}}
+    # the kernels' calls first, then their profiler sessions back to back
+    _, _, calls = traffic_lanes_at(
+        kernels, traffic_lane_params(EngineParams, TL_K), tables, ttables,
+        stakes_np, dev, TRAFFIC_KERNELS)
+    _, _, rcalls = traffic_lanes_at(
+        kernels, traffic_lane_params(EngineParams, TL_K, adaptive=True),
+        tables, ttables, stakes_np, dev, ["traffic_rescue"], 39, 139)
+    calls.update(rcalls)
+    torch.cuda.synchronize()
+    for name in ADAPTIVE_KERNELS:
+        a, kw = calls[name][0]
+        ones = [_lanes.one_lane_call(name, a, kw, j, M_TRAFFIC)
+                for j in range(TL_K)]
+        out["kernels"][name] = {
+            "device_ms": device_ms(lambda: real[name](*a, **kw),
+                                   KERNEL_SYMBOLS[name]),
+            "one_lane_sum_device_ms": device_ms(
+                lambda: [real[name](*a1, **k1) for a1, k1 in ones],
+                KERNEL_SYMBOLS[name])}
+    del calls, rcalls, a, kw, ones
+    torch.cuda.empty_cache()
+    # the rounds: each lane batch and its lanes' serial runs from round 20
+    runs = []
+    for k, m in ((TL_K, M_TRAFFIC), (TL_K_NARROW, M_NARROW)):
+        plist = traffic_lane_params(EngineParams, k, m)
+        static = engine.merge_lane_statics([p.static_part() for p in plist])
+        kstack = engine.stack_knobs([p.knob_values() for p in plist])
+        st0 = tr.init_traffic_state(stakes_np, plist[0], 42, dev)
+        st, _ = tr.run_traffic_lanes(static, tables, ttables,
+                                     tr.broadcast_traffic_state(st0, k),
+                                     kstack, 20)
+        runs.append((f"lanes K={k} M={m}", lambda p, t, _o, s_, r, static=(
+            static), kstack=kstack: tr.run_traffic_lanes(
+                static, t, ttables, s_, kstack, r, start_it=20), st))
+        serial = [tr.run_traffic_rounds(p, tables, ttables, st0, 20)[0]
+                  for p in plist]
+
+        def serial_rounds(_p, t, _o, sts, r, plist=plist):
+            for p, s1 in zip(plist, sts):
+                tr.run_traffic_rounds(p, t, ttables, s1, r, start_it=20)
+
+        runs.append((f"serial x{k} M={m}", serial_rounds, serial))
+    torch.cuda.synchronize()
+    for tag, fn, st in runs:
+        prof = profile_rounds(fn, None, tables, torch.zeros(1), st, out_dir,
+                              tag=" traffic " + tag.replace("=", ""),
+                              phase="(l)")
+        out["rounds"][tag] = {k: prof.get(k) for k in ("busy_ms", "wall_ms",
+                                                       "launches")}
+        out["rounds"][tag]["device"] = prof["device"]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def engine_key(dev):
     from gossip_sim_tpu_torch import rng
     return rng.prng_key(42, dev)
@@ -1331,6 +1505,8 @@ def profile_child(flag: str) -> int:
         return sparse_child(dev)
     if flag == LANES_FLAG:
         return lanes_child(dev)
+    if flag == TRAFFIC_LANES_FLAG:
+        return traffic_lanes_child(dev)
     cfg = cli.Config(num_synthetic_nodes=N_FULL, all_origins=True)
     accounts, _ = cli.load_cluster_accounts(cfg)
     index = NodeIndex.from_stakes(accounts)
@@ -2104,9 +2280,9 @@ def main() -> int:
         f"{cov_mean:.6f}, RMR mean {rmr_mean:.6f}, launches {launches}")
     # the same CLI run in turns with verbs 1 and 5 in their plain versions
     # (as the port made them before their kernels, verb 5 with its plain
-    # draws; a comparison only): plain, kernels, plain, after the run above
+    # draws; a comparison only): plain, kernels, after the run above
     walls = {"kernels": [cli_s], "plain verbs 1 and 5": []}
-    for what in ("plain verbs 1 and 5", "kernels", "plain verbs 1 and 5"):
+    for what in ("plain verbs 1 and 5", "kernels"):
         swap = ("push_targets", "rotate") if what != "kernels" else ()
         for name in swap:
             setattr(kernels, name, plain[name])
@@ -3504,8 +3680,8 @@ def main() -> int:
     # all-origins: origins 0-199 at the auto batch and in one batch, each
     # width in both layouts in turns
     ao_sp = {}
-    for width, order in ((0, ("dense", "sparse", "sparse", "dense")),
-                         (O_WIDE, ("sparse", "dense", "dense", "sparse"))):
+    for width, order in ((0, ("dense", "sparse")),
+                         (O_WIDE, ("sparse", "dense"))):
         for which in order:
             cfg = dataclasses.replace(ao_cfg, origin_batch=width,
                                       engine_representation=which)
@@ -3916,7 +4092,7 @@ def main() -> int:
                              "--step-size", "0.05"]
     cli_k = {"lanes": [], "serial": []}
     ref_k = None
-    for what in ("lanes", "serial", "lanes"):
+    for what in ("lanes", "serial"):
         out = sweep(loss_sweep, LANE_K if what == "lanes" else 0)
         ref_k = ref_k or out
         same(out, ref_k, f"packet-loss sweep ({what})")
@@ -3993,27 +4169,343 @@ def main() -> int:
          "churn lane sweep cuda against cpu")
     say("(k) churn lane sweep at N=2,000: cuda equals cpu")
 
-    # the refusal: traffic lanes are a later slice
-    tr_cfg = cli.config_from_args(cli.build_parser().parse_args(
-        base_cli + ["--iterations", "300", "--warm-up-rounds", "200",
-                    "--traffic-values", "8", "--test-type", "traffic-rate",
-                    "--num-simulations", "2", "--step-size", "1",
-                    "--sweep-lanes", "2"]))
-    try:
-        cli.run_traffic(tr_cfg)
-        fail("(k) --sweep-lanes with a traffic sweep ran")
-    except NotImplementedError as e:
-        if "A9b" not in str(e):
-            fail(f"(k) the traffic lanes refusal does not name A9b: {e}")
-    say("(k) --sweep-lanes with a traffic sweep raises NotImplementedError "
-        "(ROADMAP A9b)")
+    # a traffic sweep with --sweep-lanes runs as lanes, equal to its serial
+    # sweep (phase (l) measures traffic lanes at full width)
+    tr_small = ["--num-synthetic-nodes", str(N_PARITY), "--iterations",
+                "30", "--warm-up-rounds", "10", "--traffic-values", "8",
+                "--test-type", "traffic-rate", "--num-simulations", "3",
+                "--step-size", "2", "--node-ingress-cap", "12"]
+    tr_runs = []
+    for lanes in (2, 0):
+        reset_unique_pubkeys()
+        cfg_ = cli.config_from_args(cli.build_parser().parse_args(
+            tr_small + ["--device", "cuda"]
+            + (["--sweep-lanes", str(lanes)] if lanes else [])))
+        coll_, q_ = TrafficStatsCollection(), DatapointQueue()
+        rep_ = cli.run_traffic(cfg_, "u", q_, "77", collection=coll_)
+        if rep_["sweep_lanes"] != lanes:
+            fail(f"(k) the traffic sweep at --sweep-lanes {lanes} reports "
+                 f"sweep_lanes {rep_['sweep_lanes']}")
+        tr_runs.append(([x.parity_snapshot() for x in coll_.collection],
+                        q_.drain_deterministic_lines()))
+    if tr_runs[0] != tr_runs[1]:
+        fail("(k) the traffic lane sweep differs from its serial sweep")
+    say("(k) a 3-point traffic-rate sweep at --sweep-lanes 2 (batches of 2 "
+        "and 1) equals its serial sweep (snapshots and Influx lines)")
+
+    # more than 64 lanes: a 66-point packet-loss sweep at N=500 in one
+    # batch of 66 lanes (run as groups of at most 64 records), its points
+    # at both ends of the groups against their serial runs
+    wide_argv = ["--num-synthetic-nodes", str(N_SMALL), "--iterations", "30",
+                 "--warm-up-rounds", "10", "--test-type", "packet-loss",
+                 "--num-simulations", "66", "--step-size", "0.005"]
+    reset_unique_pubkeys()
+    args_w = cli.build_parser().parse_args(
+        wide_argv + ["--device", "cuda", "--sweep-lanes", "66"])
+    cfg_w = cli.config_from_args(args_w)
+    coll_w = cli.GossipStatsCollection()
+    coll_w.set_number_of_simulations(cfg_w.num_simulations)
+    t0 = time.perf_counter()
+    times_w = cli.dispatch_sweeps(cfg_w, "u", args_w.origin_rank, coll_w,
+                                  None, "77")
+    wall_w = time.perf_counter() - t0
+    if (times_w or {}).get("lanes") != 66 or times_w.get("batches") != 1:
+        fail(f"(k) the 66-point sweep ran {times_w}, not one batch of 66 "
+             f"lanes")
+    for i in (0, 63, 64, 65):
+        reset_unique_pubkeys()
+        c_i, start_i = cli._stepped_sweep_config(cfg_w, i,
+                                                 args_w.origin_rank)
+        coll_i = cli.GossipStatsCollection()
+        cli.run_simulation(c_i, "u", coll_i, None, i, "77", start_i)
+        if (snapshot_strings(coll_i.collection[0].parity_snapshot())
+                != snapshot_strings(coll_w.collection[i].parity_snapshot())):
+            fail(f"(k) point {i} of the 66-lane sweep differs from its "
+                 f"serial run")
+    say(f"(k) a 66-point packet-loss sweep at N={N_SMALL} with --sweep-lanes "
+        f"66: 1 batch of 66 lanes ({wall_w:.3f} s: cluster build "
+        f"{times_w['cluster_s']:.3f} s, engine {times_w['engine_s']:.3f} s, "
+        f"harvest {times_w['harvest_s']:.3f} s); points 0, 63, 64 and 65 "
+        f"equal their serial runs")
     say(f"(k) lanes phase: {time.perf_counter() - t_k:.1f} s")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "lanes_k.json").write_text(json.dumps(
         as_builtins({"kernels": lane_k, "device": ln_dev,
                      "engine": eng_runs, "cli": cli_k}), indent=1))
 
-    # ---- (l) report -------------------------------------------------------
+    # ---- (l) traffic lanes at N=10,000 on cuda -----------------------------
+    t_l = time.perf_counter()
+    from gossip_sim_tpu_torch.engine import traffic as tr_eng
+    from gossip_sim_tpu_torch.kernels import _lanes
+    tr_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.traffic_rescue")
+    ttables_l = tr_eng.device_traffic_tables(stakes_k, dev)
+    # the six kernels' lane calls on round 19 of TL_K lanes at M=256 (the
+    # rescue on the adaptive lanes' first round from 39 with values in
+    # their pull phase): each lane's part against the kernel's one-lane
+    # call and the plain version's, lane by lane; timed in turns beside
+    # the sum of the one-lane calls; the bound the sum of the lanes'
+    base_l = fresh()
+    _, rows_l19, calls_l = traffic_lanes_at(
+        kernels, traffic_lane_params(EngineParams, TL_K), tables_k,
+        ttables_l, stakes_k, dev, TRAFFIC_KERNELS)
+    peak_l19 = peak_above(base_l)
+    r_it, rows_lr, rcalls_l = traffic_lanes_at(
+        kernels, traffic_lane_params(EngineParams, TL_K, adaptive=True),
+        tables_k, ttables_l, stakes_k, dev, ["traffic_rescue"], 39, 139)
+    calls_l.update(rcalls_l)
+    per_lane = lambda rows, k: rows[k].reshape(-1).tolist()
+    say(f"(l) round 19 of {TL_K} traffic lanes (M={M_TRAFFIC}, rate "
+        f"{TRAFFIC_RATE}): delivered {per_lane(rows_l19, 'delivered')}, "
+        f"deferred {per_lane(rows_l19, 'deferred')}, queue_dropped "
+        f"{per_lane(rows_l19, 'queue_dropped')}, dropped "
+        f"{per_lane(rows_l19, 'dropped')}, suppressed "
+        f"{per_lane(rows_l19, 'suppressed')}; peak {peak_l19:.1f} MiB above "
+        f"what was held over its 20 rounds; adaptive lanes' round {r_it}: "
+        f"pull_active_values {per_lane(rows_lr, 'pull_active_values')}, "
+        f"pull_rescued {per_lane(rows_lr, 'pull_rescued')}")
+    if not (per_lane(rows_l19, "dropped")[0] == 0
+            < per_lane(rows_l19, "dropped")[1]
+            and per_lane(rows_l19, "deferred")[1] > 0
+            and per_lane(rows_l19, "suppressed")[3] > 0):
+        fail("(l) the lanes' round 19 does not show each lane's own knobs")
+    lanes_l = {}
+    for name in ADAPTIVE_KERNELS:
+        if len(calls_l[name]) != 1:
+            fail(f"(l) {name}: {len(calls_l[name])} calls in a lane round")
+        a, kw = calls_l[name][0]
+        got = real[name](*a, **kw)
+        ones = [_lanes.one_lane_call(name, a, kw, j, M_TRAFFIC)
+                for j in range(TL_K)]
+        err, moved, hashes = 0, 0, [0, 0]
+        for j, (a1, k1) in enumerate(ones):
+            one = real[name](*a1, **k1)
+            part = _lanes.lane_part(name, got, j, M_TRAFFIC)
+            e1, e2 = (max_abs_err(part, one),
+                      max_abs_err(part, plain[name](*a1, **k1)))
+            if min(e1, e2) < 0:
+                fail(f"(l) {name}: lane {j}'s part of the lane call has "
+                     f"another shape or dtype than its one-lane call")
+            err = max(err, e1, e2)
+            if name == "traffic_rescue":
+                b, eh, nh = rescue_work(a1, k1, one, tr_mod)
+                moved, hashes = moved + b, [hashes[0] + eh, hashes[1] + nh]
+            else:
+                moved += traffic_bytes(name, a1, k1, one)
+            del one, part
+        worst[f"{name} lanes"] = err
+        if err != 0:
+            fail(f"(l) {name}: a lane of the lane call differs from its "
+                 f"one-lane call or plain version (max_abs_err {err})")
+        if name == "traffic_rescue":
+            b_ms, b_by = rescue_bound(moved, *hashes)
+        else:
+            b_ms, b_by = moved / HBM_BYTES_PER_S * 1e3, "bytes"
+        ms = {"lanes": [], "one_lane_sum": []}
+        for what in ("lanes", "one_lane_sum", "one_lane_sum", "lanes"):
+            ms[what].append(cuda_ms(
+                (lambda: real[name](*a, **kw)) if what == "lanes" else
+                (lambda: [real[name](*a1, **k1) for a1, k1 in ones]),
+                reps=10))
+        lanes_l[name] = dict(k=TL_K, m=M_TRAFFIC, max_abs_err=err,
+                             ms=ms["lanes"],
+                             one_lane_sum_ms=ms["one_lane_sum"],
+                             bound_ms=b_ms, bound_by=b_by, bytes=moved)
+        say(f"(l) {name}: the lane call of {TL_K} lanes x {M_TRAFFIC} values "
+            f"exact against each lane's one-lane call and plain version; "
+            f"CUDA-event ms in turns: lane call "
+            + " / ".join(f"{v:.4f}" for v in ms["lanes"])
+            + f", the {TL_K} one-lane calls "
+            + " / ".join(f"{v:.4f}" for v in ms["one_lane_sum"])
+            + f"; bound {b_ms:.4f} ms by {b_by} ({moved} bytes)")
+        del got, ones, a, kw
+    del calls_l, rcalls_l, rows_l19, rows_lr
+    torch.cuda.empty_cache()
+    tl_run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), TRAFFIC_LANES_FLAG],
+        capture_output=True, text=True, timeout=400, cwd=ROOT)
+    for line in tl_run.stdout.splitlines()[:-1]:
+        print(line, flush=True)
+    if tl_run.returncode != 0:
+        fail(f"(l) the --profile-traffic-lanes process failed (exit "
+             f"{tl_run.returncode}): {tl_run.stderr[-2000:]}")
+    tl_dev = json.loads(tl_run.stdout.splitlines()[-1])
+    for name, v in tl_dev["kernels"].items():
+        lanes_l[name].update(v)
+        say(f"(l) {name}: device ms lane call {fmt(v['device_ms'])}, the "
+            f"{TL_K} one-lane calls {fmt(v['one_lane_sum_device_ms'])}, "
+            f"bound {lanes_l[name]['bound_ms']:.4f} ms")
+    for tag, v in tl_dev["rounds"].items():
+        say(f"(l) a round of {tag} (5 from round 20): busy {v['busy_ms']} "
+            f"ms, wall {v['wall_ms']} ms, device launches {v['launches']}")
+
+    # the engine: a lane batch's rounds, then its lanes' serial rounds
+    # (wall, peak memory, kernel launches); each lane equal to its serial
+    # run
+    L_ROUNDS = 30
+    eng_l = {}
+
+    def timed_l(tag, fn):
+        base = fresh()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        eng_l.setdefault(tag, []).append(dict(
+            wall_ms=(time.perf_counter() - t0) / L_ROUNDS * 1e3,
+            peak_mib=peak_above(base),
+            launches={n: v / L_ROUNDS for n, v in kernels.LAUNCHES.items()
+                      if v}))
+        return out
+
+    for k_l, m_l in ((TL_K, M_TRAFFIC), (TL_K_NARROW, M_NARROW)):
+        plist = traffic_lane_params(EngineParams, k_l, m_l)
+        static = eng.merge_lane_statics([p.static_part() for p in plist])
+        kst = eng.stack_knobs([p.knob_values() for p in plist])
+        st0 = tr_eng.init_traffic_state(stakes_k, plist[0], 42, dev)
+        lane_tag, serial_tag = f"lanes K={k_l} M={m_l}", f"serial x{k_l} " \
+            f"M={m_l}"
+        timed_l(lane_tag, lambda: tr_eng.run_traffic_lanes(
+            static, tables_k, ttables_l,
+            tr_eng.broadcast_traffic_state(st0, k_l), kst, L_ROUNDS))
+        timed_l(serial_tag, lambda: [tr_eng.run_traffic_rounds(
+            p, tables_k, ttables_l, st0, L_ROUNDS) for p in plist])
+        want = {n: k_l * 1.0 for n in TRAFFIC_KERNELS}
+        got_l = eng_l[lane_tag][0]["launches"]
+        got_s = eng_l[serial_tag][0]["launches"]
+        if got_l != {n: 1.0 for n in TRAFFIC_KERNELS} or got_s != want:
+            fail(f"(l) kernel launches per round: {k_l} lanes {got_l}, "
+                 f"{k_l} serial rounds {got_s}")
+        states_b, rows_b = tr_eng.run_traffic_lanes(
+            static, tables_k, ttables_l,
+            tr_eng.broadcast_traffic_state(st0, k_l), kst, L_ROUNDS)
+        for j in sorted({0, k_l - 1}):
+            s_j, r_j = tr_eng.run_traffic_rounds(plist[j], tables_k,
+                                                 ttables_l, st0, L_ROUNDS)
+            bad = (rows_differ({k: v[:, j] for k, v in rows_b.items()}, r_j)
+                   + all_equal(tr_eng.traffic_lane_state(states_b, j), s_j))
+            if bad:
+                fail(f"(l) {lane_tag}: lane {j} differs from its serial run "
+                     f"in {bad}")
+        del states_b, rows_b, st0
+        for tag in (lane_tag, serial_tag):
+            runs_ = eng_l[tag]
+            say(f"(l) engine {tag}, {L_ROUNDS} rounds: per round "
+                + " / ".join(f"{r['wall_ms']:.3f}" for r in runs_)
+                + " ms wall, peak "
+                + " / ".join(f"{r['peak_mib']:.1f}" for r in runs_)
+                + " MiB above what was held; kernel launches per round "
+                + f"{sum(runs_[0]['launches'].values()):.0f}")
+        torch.cuda.empty_cache()
+
+    # the CLI: traffic lane sweeps against the serial sweeps, in turns
+    real_lane_sweep = cli._run_traffic_lane_sweep
+
+    def traffic_sweep(argv, lanes, device="cuda"):
+        reset_unique_pubkeys()
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            argv + ["--device", device]
+            + (["--sweep-lanes", str(lanes)] if lanes else [])))
+        coll, q = TrafficStatsCollection(), DatapointQueue()
+        times = []
+        cli._run_traffic_lane_sweep = lambda *a, **k_: times.append(
+            real_lane_sweep(*a, **k_))
+        try:
+            base = fresh() if device == "cuda" else 0
+            t0 = time.perf_counter()
+            report = cli.run_traffic(cfg, "u", q, "77", collection=coll)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = peak_above(base) if device == "cuda" else None
+        finally:
+            cli._run_traffic_lane_sweep = real_lane_sweep
+        if bool(lanes) != bool(times) or report["sweep_lanes"] != lanes:
+            fail(f"(l) {argv}: --sweep-lanes {lanes} ran "
+                 f"{'lanes' if times else 'serially'}")
+        return dict(summaries=[x.summary() for x in coll.collection],
+                    snapshots=[x.parity_snapshot() for x in coll.collection],
+                    lines=q.drain_deterministic_lines(), report=report,
+                    wall=wall, peak_mib=peak,
+                    times=times[0] if times else None)
+
+    def same_sweep(a, b, what):
+        if (a["summaries"] != b["summaries"] or a["snapshots"]
+                != b["snapshots"] or a["lines"] != b["lines"]):
+            fail(f"(l) {what}: summaries, parity snapshots or deterministic "
+                 f"lines differ")
+
+    cli_l = {}
+    for what, argv, k_l in (
+            (f"traffic-rate M={M_TRAFFIC}", base_cli + [
+                "--traffic-values", str(M_TRAFFIC), "--iterations", "300",
+                "--warm-up-rounds", "200", "--test-type", "traffic-rate",
+                "--traffic-rate", "4", "--num-simulations", str(TL_K),
+                "--step-size", "4", "--node-ingress-cap",
+                str(TRAFFIC_CAPS[0]), "--node-egress-cap",
+                str(TRAFFIC_CAPS[1])], TL_K),
+            (f"packet-loss M={M_NARROW}", base_cli + [
+                "--traffic-values", str(M_NARROW), "--traffic-rate", "4",
+                "--iterations", "100", "--warm-up-rounds", "50",
+                "--test-type", "packet-loss", "--num-simulations",
+                str(TL_K_NARROW), "--step-size", "0.05",
+                "--node-ingress-cap", "48", "--node-egress-cap", "64"],
+             TL_K_NARROW)):
+        runs_ = {"lanes": [], "serial": []}
+        iters = argv[argv.index("--iterations") + 1] + " (warm-up " + \
+            argv[argv.index("--warm-up-rounds") + 1] + ")"
+        for turn in ("lanes", "serial"):
+            out = traffic_sweep(argv, k_l if turn == "lanes" else 0)
+            runs_[turn].append(out)
+            same_sweep(out, runs_["lanes"][0], f"{what} ({turn})")
+            t_ = out["times"]
+            say(f"(l) {what} sweep, {k_l} points x {iters} iterations, "
+                f"{turn}: {out['wall']:.3f} s, peak "
+                f"{out['peak_mib']:.1f} MiB above what was held"
+                + ("" if t_ is None else
+                   f" (cluster build {t_['cluster_s']:.3f} s, engine "
+                   f"{t_['engine_s']:.3f} s, harvest {t_['harvest_s']:.3f} "
+                   f"s; {t_['lanes']} lanes, {t_['batches']} batch(es))"))
+        s0 = runs_["lanes"][0]["report"]["traffic"]
+        say(f"(l) {what}: the lane sweep equals the serial sweep (every "
+            f"point's summary, parity snapshot and deterministic Influx "
+            f"lines); values injected {s0['values_injected']}, delivered "
+            f"{s0['delivered']}, queue dropped {s0['queue_dropped']}")
+        cli_l[what] = {t_: [dict(wall=r["wall"], peak_mib=r["peak_mib"],
+                                 times=r["times"]) for r in rs]
+                       for t_, rs in runs_.items()}
+        del runs_
+    ad_argv = base_cli + [
+        "--traffic-values", str(M_NARROW), "--traffic-rate", "4",
+        "--iterations", "60", "--warm-up-rounds", "20", "--gossip-mode",
+        "adaptive", "--test-type", "adaptive-threshold",
+        "--adaptive-switch-threshold", "0.5", "--num-simulations", "3",
+        "--step-size", "0.2", "--node-ingress-cap", "48",
+        "--node-egress-cap", "64"]
+    ad_l = traffic_sweep(ad_argv, 3)
+    same_sweep(ad_l, traffic_sweep(ad_argv, 0), "adaptive-threshold")
+    ad_rep = ad_l["report"]["adaptive"]
+    if ad_rep["pull_sent"] <= 0:
+        fail(f"(l) adaptive-threshold lanes sent no pull request: {ad_rep}")
+    say(f"(l) adaptive-threshold lane sweep (0.5, 0.7, 0.9; M={M_NARROW}, "
+        f"60 iterations) equals the serial sweep; pull requests "
+        f"{ad_rep['pull_sent']}, nodes rescued {ad_rep['pull_rescued']}")
+    par_argv = ["--num-synthetic-nodes", str(N_PARITY), "--traffic-values",
+                str(M_NARROW), "--traffic-rate", "4", "--iterations", "8",
+                "--warm-up-rounds", "3", "--test-type", "packet-loss",
+                "--num-simulations", "3", "--step-size", "0.1",
+                "--node-ingress-cap", "24", "--node-egress-cap", "40",
+                "--churn-fail-rate", "0.01", "--churn-recover-rate", "0.2",
+                "--partition-at", "2", "--heal-at", "6"]
+    same_sweep(traffic_sweep(par_argv, 3), traffic_sweep(par_argv, 3, "cpu"),
+               "packet-loss lanes cuda against cpu")
+    say(f"(l) packet-loss lane sweep at N={N_PARITY}, M={M_NARROW} (caps, "
+        f"churn, a partition): cuda equals cpu")
+    say(f"(l) traffic lanes phase: {time.perf_counter() - t_l:.1f} s")
+    (ROOT / "chiprun_out" / "traffic_lanes_l.json").write_text(json.dumps(
+        as_builtins({"kernels": lanes_l, "device": tl_dev, "engine": eng_l,
+                     "cli": cli_l}), indent=1))
+
+    # ---- (m) report -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4172,6 +4664,13 @@ def main() -> int:
          "cli_n100k": {w: {k: v[k] for k in ("wall", "peak_mib")}
                        for w, v in cli_h.items()},
          "lanes": lanes_of(SPARSE)})
+    for entry in line["kernels"]:
+        if entry["name"] in ADAPTIVE_KERNELS and "variant" not in entry:
+            entry["traffic_lanes"] = {
+                f: lanes_l[entry["name"]].get(f)
+                for f in ("k", "m", "max_abs_err", "ms", "one_lane_sum_ms",
+                          "device_ms", "one_lane_sum_device_ms", "bound_ms",
+                          "bound_by")}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4186,5 +4685,5 @@ if __name__ == "__main__":
     sys.exit(profile_child(sys.argv[1])
              if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG], [PULL_FLAG],
                                  [TRAFFIC_FLAG], [SPARSE_FLAG],
-                                 [LANES_FLAG])
+                                 [LANES_FLAG], [TRAFFIC_LANES_FLAG])
              else main())

@@ -13,8 +13,9 @@ Layout:
              draw, the shared active set, retirement records
   rng        threefry keys and uniforms, bit-equal to jax.random
   engine     make_cluster_tables / init_state / round_step / run_rounds;
+             engine.lanes: sweep lanes (run_rounds_lanes);
              engine.traffic: init_traffic_state / traffic_round_step /
-             run_traffic_rounds
+             run_traffic_rounds, and traffic lanes (run_traffic_lanes)
   kernels    hand-written CUDA kernels (csrc/) + their plain versions
   stats      GossipStats suite (gossip_stats.rs), TrafficStats
   sinks      Influx line-protocol series and sender (influx_db.rs)

@@ -11,12 +11,12 @@ synthetic seeded recipe (``--num-synthetic-nodes``), a YAML account file
 ``getVoteAccounts`` pull (``--url``).  ``--influx l|i`` streams the
 reference's Influx series (sinks/influx.py).  ``--traffic-values`` > 1 or a
 queue cap (``--node-ingress-cap``, ``--node-egress-cap``) runs the
-concurrent-traffic engine in push mode instead (:func:`run_traffic`: one
-run, or a serial ``traffic-rate``, ``node-ingress-cap``, ``packet-loss`` or
-``churn`` sweep; ``--sweep-lanes`` with a traffic sweep raises
-``NotImplementedError``, ROADMAP A9b).  A flag the port lacks is rejected
-by argparse: traces, checkpoints, telemetry and the run report are later
-slices (ROADMAP A12-A16).
+concurrent-traffic engine instead (:func:`run_traffic`: one run, or a
+``traffic-rate``, ``node-ingress-cap``, ``packet-loss``, ``churn`` or
+``adaptive-threshold`` sweep, serial or, with ``--sweep-lanes K``, K points
+at a time as the lanes of one batch, :func:`_run_traffic_lane_sweep`).  A
+flag the port lacks is rejected by argparse: traces, checkpoints, telemetry
+and the run report are later slices (ROADMAP A12-A16).
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
@@ -53,8 +53,9 @@ from .engine import (EngineParams, broadcast_state, check_lane_knobs,
                      init_state, lane_state, make_cluster_tables,
                      merge_lane_statics, run_rounds, run_rounds_lanes,
                      stack_knobs)
-from .engine.traffic import (device_traffic_tables, init_traffic_state,
-                             run_traffic_rounds)
+from .engine.traffic import (broadcast_traffic_state, device_traffic_tables,
+                             init_traffic_state, run_traffic_lanes,
+                             run_traffic_rounds, traffic_lane_state)
 from .identity import NodeIndex
 from .ingest import (fetch_vote_accounts_rpc, filter_accounts,
                      load_accounts_yaml, log_cluster_summary,
@@ -62,7 +63,6 @@ from .ingest import (fetch_vote_accounts_rpc, filter_accounts,
 from .rng import prng_key
 from .rustrng import ChaChaRng
 from .sinks import DatapointQueue, InfluxDataPoint, InfluxThread, load_dotenv
-from .kernels._lanes import MAX_LANES
 from .stats.aggregate import AllOriginsStats, lane_rows
 from .stats.gossip_stats import GossipStats, GossipStatsCollection
 from .stats.traffic import (ADAPTIVE_ROUND_FIELDS, ROUND_FIELDS,
@@ -831,10 +831,6 @@ def run_lane_sweep(config: Config, json_rpc_url: str, origin_ranks,
     until their rows are on the host) and the harvest, in seconds."""
     K = config.num_simulations
     L = max(1, min(config.sweep_lanes, K))
-    if L > MAX_LANES:
-        log.warning("WARNING: --sweep-lanes %s: a batch runs at most %s "
-                    "lanes", L, MAX_LANES)
-        L = MAX_LANES
     n_batches = -(-K // L)
     sweep = [_stepped_sweep_config(config, i, origin_ranks)
              for i in range(K)]
@@ -1362,20 +1358,24 @@ def _push_sim_adaptive_point(dp_queue, sim_iter, start_ts, it, vals):
 
 
 def _feed_traffic_rows(stats, dp_queue, sim_iter, start_ts, rows, start_it,
-                       n_it, num_nodes):
+                       n_it, num_nodes, lane=None):
     """Harvested traffic rows (numpy) -> TrafficStats and the sim_traffic
     (and, for adaptive traffic, sim_adaptive) Influx points (measured
-    rounds only)."""
+    rounds only).  ``lane`` picks one lane of a lane batch's rows
+    ``[T, K, ...]``."""
+    sel = (lambda arr, t: arr[t]) if lane is None else (
+        lambda arr, t: arr[t, lane])
     adaptive = "pull_sent" in rows
     for t in range(n_it):
         it = start_it + t
-        vals = {k: int(rows[k][t]) for k in ROUND_FIELDS}
+        vals = {k: int(sel(rows[k], t)) for k in ROUND_FIELDS}
         if adaptive:
-            vals.update({k: int(rows[k][t]) for k in ADAPTIVE_ROUND_FIELDS})
+            vals.update({k: int(sel(rows[k], t))
+                         for k in ADAPTIVE_ROUND_FIELDS})
         stats.feed_round(it, vals)
         recs = []
-        for m in np.nonzero(rows["ret_mask"][t])[0]:
-            g = lambda name: rows[name][t][m]
+        for m in np.nonzero(sel(rows["ret_mask"], t))[0]:
+            g = lambda name: sel(rows[name], t)[m]
             recs.append(retire_record(
                 int(g("ret_vid")), int(g("ret_origin")), int(g("ret_birth")),
                 it, int(g("ret_holders")), num_nodes, int(g("ret_m")),
@@ -1442,6 +1442,84 @@ def _run_traffic_point(config: Config, params: EngineParams, stakes_np,
     stats.feed_final(_traffic_final_from_state(state))
 
 
+def _traffic_lane_blocker(config: Config, n_points: int):
+    """None when --sweep-lanes can serve this traffic sweep, else the
+    reason the run logs before it runs the serial sweep (reference cli.py:
+    3208-3223, without the backend, trace and checkpoint reasons: the port
+    has none of those flags yet)."""
+    if n_points < 2:
+        return "nothing to batch (num_simulations < 2)"
+    if config.test_type not in TRAFFIC_SWEEP_TYPES:
+        return (f"--test-type {config.test_type.value} does not step a "
+                f"traffic-sweepable knob")
+    if config.gossip_iterations <= config.warm_up_rounds:
+        return "no measured rounds (iterations <= warm-up-rounds)"
+    return None
+
+
+def _run_traffic_lane_sweep(config: Config, point_cfgs, stakes_np,
+                            collection, dp_queue, start_ts,
+                            point_starts) -> dict:
+    """A traffic knob sweep as lane batches (reference cli.py:3226-3310):
+    the K points' knobs stack into lanes of ``min(--sweep-lanes, K)`` and
+    run as ``ceil(K / lanes)`` batches (engine/traffic.py
+    ``run_traffic_lanes``: the warm-up, then the measured rounds, whose
+    rows come to the host in one copy).  Each lane then feeds the serial
+    path's stats and Influx series in sweep order, so the results are the
+    serial sweep's.  A tail batch runs only its points' lanes (the
+    reference pads it with the last point's knobs and drops the padded
+    lanes).  Returns the walls of the cluster build, the engine and the
+    harvest, in seconds, and the lane width and batch count."""
+    t0 = time.perf_counter()
+    N = len(stakes_np)
+    params_list = [_engine_params(c, N).validate() for c in point_cfgs]
+    static = merge_lane_statics([p.static_part() for p in params_list])
+    knob_list = [p.knob_values() for p in params_list]
+    check_lane_knobs(static, knob_list)
+    tables = make_cluster_tables(stakes_np, device=config.device)
+    dev = tables.stakes.device
+    ttables = device_traffic_tables(stakes_np, dev)
+    K = len(point_cfgs)
+    L = max(1, min(config.sweep_lanes, K))
+    n_batches = -(-K // L)
+    times = {"cluster_s": time.perf_counter() - t0, "engine_s": 0.0,
+             "harvest_s": 0.0, "lanes": L, "batches": n_batches}
+    log.info("##### TRAFFIC LANE SWEEP: %s points x %s lanes = %s batched "
+             "engine call(s) #####", K, L, n_batches)
+    warm = min(config.warm_up_rounds, config.gossip_iterations)
+    measured = config.gossip_iterations - warm
+    t_engine = time.perf_counter()
+    log.info("Building the shared traffic active set....")
+    base_state = init_traffic_state(stakes_np, params_list[0], config.seed,
+                                    dev)
+    times["engine_s"] += time.perf_counter() - t_engine
+    for b in range(n_batches):
+        ids = list(range(b * L, min((b + 1) * L, K)))
+        kstack = stack_knobs([knob_list[i] for i in ids])
+        t_blk = time.perf_counter()
+        states = broadcast_traffic_state(base_state, len(ids))
+        if warm > 0:
+            states, _ = run_traffic_lanes(static, tables, ttables, states,
+                                          kstack, warm)
+        states, trows = run_traffic_lanes(static, tables, ttables, states,
+                                          kstack, measured, start_it=warm)
+        # the one copy of the batch's rows to the host
+        rows = {k: v.cpu().numpy() for k, v in trows.items()}
+        times["engine_s"] += time.perf_counter() - t_blk
+        t_harvest = time.perf_counter()
+        for lane, i in enumerate(ids):
+            stats = TrafficStats()
+            _feed_traffic_rows(stats, dp_queue, i, start_ts, rows, warm,
+                               measured, N, lane=lane)
+            stats.feed_final(_traffic_final_from_state(
+                traffic_lane_state(states, lane)))
+            _push_sim_traffic_summary_point(dp_queue, i, start_ts,
+                                            stats.summary())
+            collection.push(point_starts[i], stats)
+        times["harvest_s"] += time.perf_counter() - t_harvest
+    return times
+
+
 def _log_traffic_summary(label, s):
     """The traffic run summary line: per-value outcomes and the queue caps'
     drops, egress side (sender deferrals) and ingress side (receiver
@@ -1477,8 +1555,9 @@ def _log_traffic_summary(label, s):
 def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
                 dp_queue=None, start_ts: str = "0", collection=None) -> dict:
     """The concurrent-traffic run path (reference cli.py:3313-3429): one
-    run, or a serial sweep over ``TRAFFIC_SWEEP_TYPES``, on one cluster
-    load.  Returns the report dict (``traffic``: the whole run's summary,
+    run, or a sweep over ``TRAFFIC_SWEEP_TYPES`` on one cluster load,
+    serial or, with ``--sweep-lanes``, in lane batches
+    (:func:`_run_traffic_lane_sweep`).  Returns the report dict (``traffic``: the whole run's summary,
     ``traffic_points``: each point's, ``num_points``, ``sweep_lanes``, and
     in adaptive mode ``adaptive``);
     ``collection`` (a TrafficStatsCollection) receives each point's
@@ -1486,17 +1565,15 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
     is_sweep = (config.test_type in TRAFFIC_SWEEP_TYPES
                 and config.num_simulations > 1)
     n_points = config.num_simulations if is_sweep else 1
+    lane_mode = False
     if config.sweep_lanes > 0:
-        if is_sweep and config.gossip_iterations > config.warm_up_rounds:
-            # the reference lanes this sweep; a serial run here would
-            # report a different run path
-            raise NotImplementedError(
-                "--sweep-lanes with a traffic sweep: traffic lanes are not "
-                "ported yet (ROADMAP A9b)")
-        log.warning("WARNING: --sweep-lanes %s ignored (%s); running the "
-                    "serial traffic sweep", config.sweep_lanes,
-                    "nothing to batch (num_simulations < 2)" if not is_sweep
-                    else "no measured rounds (iterations <= warm-up-rounds)")
+        blocker = _traffic_lane_blocker(config, n_points)
+        if blocker is None:
+            lane_mode = True
+        else:
+            log.warning("WARNING: --sweep-lanes %s ignored (%s); running "
+                        "the serial traffic sweep", config.sweep_lanes,
+                        blocker)
     if collection is None:
         collection = TrafficStatsCollection()
     point_cfgs, point_starts = [], []
@@ -1508,15 +1585,20 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
     accounts, _ = load_cluster_accounts(config, json_rpc_url)
     index = NodeIndex.from_stakes(accounts)
     stakes_np = index.stakes.astype(np.int64)
-    for i, c in enumerate(point_cfgs):
-        log.info("##### TRAFFIC SIMULATION: %s (%s) #####", i, c.test_type)
-        params = _engine_params(c, len(index)).validate()
-        stats = TrafficStats()
-        _run_traffic_point(c, params, stakes_np, stats, dp_queue, i,
-                           start_ts)
-        _push_sim_traffic_summary_point(dp_queue, i, start_ts,
-                                        stats.summary())
-        collection.push(point_starts[i], stats)
+    if lane_mode:
+        _run_traffic_lane_sweep(config, point_cfgs, stakes_np, collection,
+                                dp_queue, start_ts, point_starts)
+    else:
+        for i, c in enumerate(point_cfgs):
+            log.info("##### TRAFFIC SIMULATION: %s (%s) #####", i,
+                     c.test_type)
+            params = _engine_params(c, len(index)).validate()
+            stats = TrafficStats()
+            _run_traffic_point(c, params, stakes_np, stats, dp_queue, i,
+                               start_ts)
+            _push_sim_traffic_summary_point(dp_queue, i, start_ts,
+                                            stats.summary())
+            collection.push(point_starts[i], stats)
 
     summaries = collection.summaries()
     for i, s in enumerate(summaries):
@@ -1543,7 +1625,7 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
         "traffic": out,
         "traffic_points": summaries if n_points > 1 else [],
         "num_points": n_points,
-        "sweep_lanes": 0,
+        "sweep_lanes": config.sweep_lanes if lane_mode else 0,
     }
     if config.gossip_mode == "adaptive":
         # the switch configuration, the pull-rescue totals and the

@@ -7,7 +7,8 @@ numpy copies of them) and return this package's tensors on a device;
 threefry key back as uint32; the sparse layout's zero-width
 ``rc_shi``/``rc_slo`` cross unchanged, as ``[O, N, 0]``).
 ``traffic_state_from_numpy`` and ``traffic_state_to_numpy`` do the same
-for the traffic engine's ``TrafficState`` (same dtypes in both packages).
+for the traffic engine's ``TrafficState`` (same dtypes in both packages),
+a batch of traffic lanes ``[K, ...]`` (``run_traffic_lanes``) included.
 The parity tests use them to start both engines from one state.
 """
 

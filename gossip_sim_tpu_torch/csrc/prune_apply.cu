@@ -8,8 +8,11 @@
 // traffic.py:711-755), the same join on the value axis with one shared
 // active set.
 //
-// Input:  pruned_in [O, N, S] u8 carried pruned bits, active [O, N, S] i32
-//         (or [N, S], shared by every o: the traffic round's),
+// Input:  pruned_in [O, N, S] u8 carried pruned bits, active [O / G, N,
+//         S] i32: a plane per G rows (G = 1: the push round's, a set per
+//         origin row; G = O: one [N, S] set shared by every o, the traffic
+//         round's; G = V: a batch of traffic lanes, one set per lane of V
+//         value rows),
 //         src_sorted [O, N, C] i32 and pruned_slot [O, N, C] u8 from the
 //         prune decision (row = pruner t, entry = prunee u).
 // Output: pruned_out [O, N, S] u8 = pruned_in | hit, where hit[o, u, s] is
@@ -65,9 +68,8 @@ struct Pairs {
   const int32_t* __restrict__ active;
   const int32_t* __restrict__ src_sorted;
   uint8_t* __restrict__ out;
-  I n, c;
+  I n, c, group;  // group: origin rows per plane of active
   int s;
-  bool shared;
 
   // pair i (a flat pruned_slot index) with its prunee u read
   __device__ __forceinline__ void apply(I i, int u) const {
@@ -76,7 +78,9 @@ struct Pairs {
     const I o_n = row - row % n;         // o * n
     const int t = (int)(row - o_n);
     const I prow = (o_n + (I)u) * (I)s;  // (o * n + u) * s
-    const int32_t* arow = active + (shared ? (I)u * (I)s : prow);
+    // the prunee's row of active plane o / group
+    const int32_t* arow =
+        active + (group == 1 ? prow : ((o_n / n / group) * n + (I)u) * (I)s);
     for (int j = 0; j < s; ++j)
       if (__ldg(arow + j) == t) out[prow + j] = 1;
   }
@@ -134,12 +138,12 @@ prune_apply_kernel(const uint8_t* __restrict__ pruned_in,
                    const int32_t* __restrict__ src_sorted,
                    const uint8_t* __restrict__ pruned_slot,
                    uint8_t* __restrict__ pruned_out, I plane, I slots, I n,
-                   int s, I c, int shared) {
+                   int s, I c, I group) {
   cg::grid_group grid = cg::this_grid();
   const I tid = (I)blockIdx.x * kThreads + threadIdx.x;
   const I stride = (I)gridDim.x * kThreads;
   const unsigned lane = threadIdx.x & 31u;
-  const Pairs<I> pairs{active, src_sorted, pruned_out, n, c, s, shared != 0};
+  const Pairs<I> pairs{active, src_sorted, pruned_out, n, c, group, s};
 
   // 1. the copy, in 16-byte vectors where both planes are aligned
   const bool copy16 = ((reinterpret_cast<uintptr_t>(pruned_in) |
@@ -194,12 +198,13 @@ template <typename I>
 cudaError_t launch(const uint8_t* pruned_in, const int32_t* active,
                    const int32_t* src_sorted, const uint8_t* pruned_slot,
                    uint8_t* pruned_out, long long plane, long long slots,
-                   int n, int s, int c, int shared, int grid,
+                   int n, int s, int c, int group, int grid,
                    cudaStream_t stream) {
-  I plane_i = (I)plane, slots_i = (I)slots, n_i = (I)n, c_i = (I)c;
+  I plane_i = (I)plane, slots_i = (I)slots, n_i = (I)n, c_i = (I)c,
+    group_i = (I)group;
   void* args[] = {&pruned_in, &active,  &src_sorted, &pruned_slot,
                   &pruned_out, &plane_i, &slots_i,   &n_i,
-                  &s,          &c_i,     &shared};
+                  &s,          &c_i,     &group_i};
   return cudaLaunchCooperativeKernel((const void*)prune_apply_kernel<I>,
                                      dim3((unsigned)grid), dim3(kThreads),
                                      args, 0, stream);
@@ -212,6 +217,7 @@ bool narrow(long long plane, long long slots) {
 
 }  // namespace
 
+// group: origin rows per plane of active (G above).
 // grid: kernels/prune_apply.py grid_blocks (at most the blocks the card
 // holds at once, prune_apply_blocks_per_sm x SMs: a cooperative launch).
 extern "C" int prune_apply_launch(const uint8_t* pruned_in,
@@ -219,9 +225,10 @@ extern "C" int prune_apply_launch(const uint8_t* pruned_in,
                                   const int32_t* src_sorted,
                                   const uint8_t* pruned_slot,
                                   uint8_t* pruned_out, int o, int n, int s,
-                                  int c, int shared, int grid,
+                                  int c, int group, int grid,
                                   cudaStream_t stream) {
-  if (o < 0 || n < 1 || s < 1 || c < 0 || grid < 1)
+  if (o < 0 || n < 1 || s < 1 || c < 0 || grid < 1 || group < 1 ||
+      (o > 0 && o % group != 0))
     return (int)cudaErrorInvalidValue;
   const long long plane = (long long)o * n * s;
   const long long slots = (long long)o * n * c;
@@ -229,11 +236,11 @@ extern "C" int prune_apply_launch(const uint8_t* pruned_in,
   const cudaError_t err =
       narrow(plane, slots)
           ? launch<uint32_t>(pruned_in, active, src_sorted, pruned_slot,
-                             pruned_out, plane, slots, n, s, c, shared, grid,
+                             pruned_out, plane, slots, n, s, c, group, grid,
                              stream)
           : launch<unsigned long long>(pruned_in, active, src_sorted,
                                        pruned_slot, pruned_out, plane, slots,
-                                       n, s, c, shared, grid, stream);
+                                       n, s, c, group, grid, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

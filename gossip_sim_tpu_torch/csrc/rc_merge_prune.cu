@@ -34,8 +34,8 @@
 // traffic round).
 //
 // min_ingress_nodes and threshold are per lane (lanes.cuh: origin row o is
-// lane o / opl), so a batch of sweep lanes runs as more origin rows; the
-// traffic form (the live mask) is one lane.
+// lane o / opl), so a batch of sweep lanes runs as more origin rows, and a
+// batch of traffic lanes (the live mask) as K x V value rows, opl = V.
 //
 // Precondition (the cache invariant, which this function's own output
 // keeps): each rc_src row holds its members sorted ascending and unique,
@@ -376,7 +376,8 @@ rc_merge_prune_sparse_kernel(RC_MERGE_PRUNE_PARAMS) {
 // checked here.  sparse != 0 launches the sparse variant, which takes no
 // stake planes (rc_shi, rc_slo, o_shi, o_slo unused) and no live mask.
 // `lanes` points at nl MergeLane records in host memory, one per lane of
-// opl origin rows (nl * opl = o; one lane with the live mask).
+// opl origin rows (nl * opl = o; with the live mask, a traffic lane of opl
+// value rows).
 extern "C" int rc_merge_prune_launch(
     const int32_t* rc_src, const int32_t* rc_score, const int32_t* rc_shi,
     const int32_t* rc_slo, const int32_t* rc_ups, const int32_t* inb,
@@ -388,8 +389,7 @@ extern "C" int rc_merge_prune_launch(
     int min_num_upserts, const void* lanes, int nl, int opl,
     int sparse, cudaStream_t stream) {
   MergeLanes lane_args;
-  if (!lanes_from_host(&lane_args, static_cast<const MergeLane*>(lanes), nl, o, opl) ||
-      (live != nullptr && nl != 1))
+  if (!lanes_from_host(&lane_args, static_cast<const MergeLane*>(lanes), nl, o, opl))
     return (int)cudaErrorInvalidValue;
   if (c < 1 || k < 1 || (long long)o * n > 0x7FFFFFFF ||
       rows_per_block < 1 || rows_per_block > kMaxRowsPerBlock ||

@@ -11,8 +11,16 @@
 //         bit s of a (sender, value) word marks slot s a candidate / an
 //         arrival at peer active[sender, s].
 // Output: accepted [V, N, F] u8, arrived_node and accepted_node [N] i32.
-// Scratch (the wrapper's, one i32 buffer of 36 N words): cut [N] i64,
-//         deg [N], total [N], bucket [N, 32] i32.
+// Scratch (the wrapper's, one i32 buffer of 36 K N words): cut [K, N] i64,
+//         deg [K, N], total [K, N], bucket [K, N, 32] i32.
+// Lanes: a batch of K sweep lanes (engine/traffic.py run_traffic_lanes)
+//         runs in the same launches, the lane in each kernel's grid (y of
+//         the tally and cut grids, z of the write grid).  Each plane has a
+//         leading lane axis (active [K, N, S], the words [K, N, V], the
+//         plane [K * V, N, F], the counts [K, N]) and each lane its own
+//         ingress cap (lanes.cuh record): a lane's arrivals are ranked,
+//         and cut once per target, among its own only.  The serial round is
+//         K = 1.
 //
 // An arrival's rank at its target is its position among the target's
 // arrivals in flat (value, source, slot) order; with the ingress cap on,
@@ -23,21 +31,22 @@
 // target's cut.  No atomics decide an acceptance, and no sort is needed.
 //
 // Design: four device operations, in order on the stream.
-//   0. a memset of deg and total (2 N words);
+//   0. a memset of deg and total (2 K N words);
 //   1. tally, a warp per sender: its lanes read 32 consecutive value words
 //      of the sender (one 128-byte line) and a ballot per slot counts the
 //      slot's arrivals over the values; lane s then adds its count to the
 //      total of the target active[sender, s] and appends the entry
 //      sender * S + s to the target's bucket of 32 (atomics on integers:
 //      the totals are exact, the order within a bucket is arbitrary);
-//   2. cut (only with the cap on), a warp per target whose total passes the
-//      cap: its lanes over values sum the arrivals from the target's
-//      in-neighbours, a warp scan with a carried total places each value's
-//      ranks, and the one value that straddles the cap is walked: the
-//      in-neighbour whose arrival there has rank (cap - base) among the
-//      value's arrivals in entry order is the cut.  A target with more than
-//      32 in-neighbours (its bucket overflowed) finds them by a scan of the
-//      whole active set in entry order: correct, and slow only there;
+//   2. cut (only with a lane's cap on), a warp per target whose total
+//      passes the cap: its lanes over values sum the arrivals from the
+//      target's in-neighbours, a warp scan with a carried total places
+//      each value's ranks, and the one value that straddles the cap is
+//      walked: the in-neighbour whose arrival there has rank (cap - base)
+//      among the value's arrivals in entry order is the cut.  A target with
+//      more than 32 in-neighbours (its bucket overflowed) finds them by a
+//      scan of the whole active set in entry order: correct, and slow only
+//      there;
 //   3. write, a block per tile of 32 senders x 32 values: the tile's words
 //      are read once (coalesced rows) and transposed through shared memory,
 //      each (value, sender) sets its accepted arrivals' bytes (fanout slot:
@@ -54,7 +63,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
+
 namespace {
+
+// one lane's knobs (kernels/traffic_admit.py LANE_DTYPE)
+struct AdmitLane {
+  int32_t ingress_cap;  // <= 0: off
+  int32_t pad;
+};
+using AdmitLanes = LaneArray<AdmitLane>;
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWarps = 8;             // senders / targets per block
@@ -74,6 +92,14 @@ traffic_admit_tally_kernel(const int32_t* __restrict__ active,
   const int lane = threadIdx.x & 31;
   const int src = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (src >= n) return;  // whole warp
+  {  // the block's lane (blockIdx.y): its set, words and scratch
+    const long long kl = blockIdx.y;
+    active += kl * n * s;
+    arr_bits += kl * n * v_count;
+    deg += kl * n;
+    total += kl * n;
+    bucket += kl * n * kBucket;
+  }
   const int32_t* row = arr_bits + (long long)src * v_count;
   int count = 0;  // lane s: arrivals through slot s over every value
   for (int v0 = 0; v0 < v_count; v0 += 32 * kLines) {
@@ -128,10 +154,21 @@ traffic_admit_cut_kernel(const int32_t* __restrict__ active,
                          const int32_t* __restrict__ bucket,
                          const int32_t* __restrict__ arr_bits,
                          long long* __restrict__ cut, int v_count, int n,
-                         int s, int cap) {
+                         int s, const __grid_constant__ AdmitLanes lanes) {
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (t >= n) return;  // whole warp
+  const int cap = lanes.l[blockIdx.y].ingress_cap;
+  if (t >= n || cap <= 0) return;  // whole warp; a lane without the cap
+                                   // reads no cut
+  {  // the block's lane (blockIdx.y): its set, words and scratch
+    const long long kl = blockIdx.y;
+    active += kl * n * s;
+    arr_bits += kl * n * v_count;
+    deg += kl * n;
+    total += kl * n;
+    bucket += kl * n * kBucket;
+    cut += kl * n;
+  }
   if (__ldg(total + t) <= cap) {
     if (lane == 0) cut[t] = kAcceptAll;
     return;
@@ -227,7 +264,8 @@ traffic_admit_write_kernel(const int32_t* __restrict__ active,
                            uint8_t* __restrict__ accepted,
                            int32_t* __restrict__ arrived_node,
                            int32_t* __restrict__ accepted_node, int v_count,
-                           int n, int s, int f, int cap) {
+                           int n, int s, int f,
+                           const __grid_constant__ AdmitLanes lanes) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* sh_arr = reinterpret_cast<uint32_t*>(smem);    // [32][33]
   uint32_t* sh_cand = sh_arr + kTile * (kTile + 1);        // [32][33]
@@ -237,6 +275,18 @@ traffic_admit_write_kernel(const int32_t* __restrict__ active,
   const int row_bytes = kTile * f;  // a value's row of the tile
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int src0 = blockIdx.x * kTile, v0 = blockIdx.y * kTile;
+  const int cap = lanes.l[blockIdx.z].ingress_cap;
+  {  // the block's lane (blockIdx.z): its set, words, cuts and outputs
+    const long long kl = blockIdx.z;
+    active += kl * n * s;
+    cand_bits += kl * n * v_count;
+    arr_bits += kl * n * v_count;
+    cut += kl * n;
+    total += kl * n;
+    accepted += kl * v_count * n * f;
+    arrived_node += kl * n;
+    accepted_node += kl * n;
+  }
   const int n_src = min(kTile, n - src0), n_val = min(kTile, v_count - v0);
 
   if (blockIdx.y == 0 && threadIdx.x < n_src) {
@@ -315,37 +365,47 @@ traffic_admit_write_kernel(const int32_t* __restrict__ active,
 
 }  // namespace
 
-// scratch: 36 * n int32 words (cut [n] i64, deg [n], total [n], bucket
-// [n, 32]), uninitialised; the launcher zeroes deg and total.
+// A batch of nl lanes: active [nl, N, S], the words [nl, N, V], accepted
+// [nl * V, N, F], the node counts [nl, N]; `lanes` points at nl AdmitLane
+// records in host memory.  scratch: 36 * nl * n int32 words (cut [nl, n]
+// i64, deg [nl, n], total [nl, n], bucket [nl, n, 32]), uninitialised; the
+// launcher zeroes deg and total.
 extern "C" int traffic_admit_launch(const int32_t* active,
                                     const int32_t* cand_bits,
                                     const int32_t* arr_bits, int32_t* scratch,
                                     uint8_t* accepted, int32_t* arrived_node,
                                     int32_t* accepted_node, int v_count,
-                                    int n, int s, int f, int cap,
-                                    cudaStream_t stream) {
-  if (v_count < 0 || n < 1 || s < 1 || s > 32 || f < 1 || f > s ||
+                                    int n, int s, int f, const void* lanes,
+                                    int nl, cudaStream_t stream) {
+  AdmitLanes lane_args;
+  if (!lanes_from_host(&lane_args, static_cast<const AdmitLane*>(lanes), nl,
+                       nl, 1) ||
+      v_count < 0 || n < 1 || s < 1 || s > 32 || f < 1 || f > s ||
       (long long)n * s > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
+  bool capped = false;
+  for (int k = 0; k < nl; ++k) capped |= lane_args.l[k].ingress_cap > 0;
+  const size_t kn = (size_t)nl * n;
   long long* cut = reinterpret_cast<long long*>(scratch);
-  int32_t* deg = scratch + 2 * (size_t)n;
-  int32_t* total = deg + n;
-  int32_t* bucket = total + n;
+  int32_t* deg = scratch + 2 * kn;
+  int32_t* total = deg + kn;
+  int32_t* bucket = total + kn;
   cudaError_t err =
-      cudaMemsetAsync(deg, 0, 2 * (size_t)n * sizeof(int32_t), stream);
+      cudaMemsetAsync(deg, 0, 2 * kn * sizeof(int32_t), stream);
   if (err != cudaSuccess) return (int)err;
-  const unsigned warp_blocks = (unsigned)((n + kWarps - 1) / kWarps);
-  traffic_admit_tally_kernel<<<warp_blocks, 32 * kWarps, 0, stream>>>(
+  const dim3 warp_grid((unsigned)((n + kWarps - 1) / kWarps), (unsigned)nl);
+  traffic_admit_tally_kernel<<<warp_grid, 32 * kWarps, 0, stream>>>(
       active, arr_bits, deg, total, bucket, v_count, n, s);
-  if (cap > 0)
-    traffic_admit_cut_kernel<<<warp_blocks, 32 * kWarps, 0, stream>>>(
-        active, deg, total, bucket, arr_bits, cut, v_count, n, s, cap);
+  if (capped)
+    traffic_admit_cut_kernel<<<warp_grid, 32 * kWarps, 0, stream>>>(
+        active, deg, total, bucket, arr_bits, cut, v_count, n, s, lane_args);
   const dim3 grid((unsigned)((n + kTile - 1) / kTile),
-                  (unsigned)(v_count > 0 ? (v_count + kTile - 1) / kTile : 1));
+                  (unsigned)(v_count > 0 ? (v_count + kTile - 1) / kTile : 1),
+                  (unsigned)nl);
   const size_t smem = 2 * kTile * (kTile + 1) * sizeof(uint32_t) +
                       kTile * s * sizeof(int32_t) + kTile * kTile * f;
   traffic_admit_write_kernel<<<grid, kWriteThreads, smem, stream>>>(
       active, cand_bits, arr_bits, cut, total, accepted, arrived_node,
-      accepted_node, v_count, n, s, f, cap);
+      accepted_node, v_count, n, s, f, lane_args);
   return (int)cudaGetLastError();
 }

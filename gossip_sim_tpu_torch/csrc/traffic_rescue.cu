@@ -27,6 +27,15 @@
 // Scratch: fill [N] and meta [2] (zeroed with the outputs' counters by one
 //         memset), cut, offset and hard [N], eoff [8, N] (both caps on),
 //         and the buckets, one key per arrived request (ingress cap on).
+// Lanes: a batch of K sweep lanes (engine/traffic.py run_traffic_lanes)
+//         runs in the same launches, the lane the y index of every grid.
+//         Each plane above has a leading lane axis (side and the draw
+//         tables are shared), and each lane its own fanout, caps, partition
+//         window, hash bases and thresholds (lanes.cuh record).  A lane's
+//         requests, budgets, cuts, buckets and counts are its own: its
+//         budgets continue its own push sends and acceptances.  The count
+//         and fill walks return at once in a lane without the ingress cap.
+//         The serial round is K = 1.
 //
 // A request is (value v, requester r, slot s < fanout), its key the flat
 // index (v * N + r) * fanout + s: the reference's flat (value, requester,
@@ -92,6 +101,7 @@
 
 #include "class_draw.cuh"
 #include "faults.cuh"
+#include "lanes.cuh"
 
 namespace {
 
@@ -140,7 +150,59 @@ struct Args {
   int v, n, fanout, hist, pb, ecap, icap, part_on, has_loss, key_bits;
   uint32_t b_cls, b_mem, b_loss, b_bloom;
   unsigned long long loss_thr, bloom_thr;
+  int fmax;  // the widest lane's fanout: the stride of a lane's buckets
 };
+
+// one lane's knobs (kernels/traffic_rescue.py LANE_DTYPE)
+struct RescueLane {
+  unsigned long long loss_thr, bloom_thr;
+  int32_t fanout, ecap, icap, part_on;
+  uint32_t b_cls, b_mem, b_loss, b_bloom;
+};
+using RescueLanes = LaneArray<RescueLane>;
+
+constexpr int kCountWords = 16;  // a lane's counts, padded
+constexpr int kMetaWords = 4;    // a lane's ticket and listed peers, padded
+
+// The arguments of lane k: its knobs, and every plane at its lane (the
+// planes carry a leading lane axis; side and the draw tables are shared).
+__device__ __forceinline__ Args lane_args(const Args& a0,
+                                          const RescueLanes& lanes, int k) {
+  Args a = a0;
+  const RescueLane& l = lanes.l[k];
+  a.fanout = l.fanout;
+  a.ecap = l.ecap;
+  a.icap = l.icap;
+  a.part_on = l.part_on;
+  a.b_cls = l.b_cls;
+  a.b_mem = l.b_mem;
+  a.b_loss = l.b_loss;
+  a.b_bloom = l.b_bloom;
+  a.loss_thr = l.loss_thr;
+  a.bloom_thr = l.bloom_thr;
+  const size_t kv = (size_t)k * a0.v, kn = (size_t)k * a0.n;
+  a.pull_on += kv;
+  a.vid += kv;
+  a.holder_pre += kv * a0.n;
+  a.hop_pre += kv * a0.n;
+  a.holder += kv * a0.n;
+  a.failed += kn;
+  a.push_out += kn;
+  a.accepted_node += kn;
+  a.pull_del += kv * a0.n;
+  a.pull_hop += kv * a0.n;
+  a.counts += (size_t)k * kCountWords;
+  a.per_value += (size_t)kValueRows * kv;
+  a.per_node += 6 * kn;
+  a.fill += kn;
+  a.meta += (size_t)k * kMetaWords;
+  a.cut += kn;
+  a.offset += kn;
+  a.listed += kn;
+  if (a.eoff != nullptr) a.eoff += (size_t)kWarps * kn;
+  if (a.bucket != nullptr) a.bucket += kv * a0.n * a0.fmax;
+  return a;
+}
 
 __device__ __forceinline__ uint32_t value_basis(uint32_t b, int32_t vid) {
   return fmix32(b ^ ((uint32_t)vid * kGold));
@@ -217,7 +279,12 @@ __device__ void classify_peers(const Args& a,
 
 template <int kPhase>
 __global__ void __launch_bounds__(kThreads)
-    traffic_rescue_walk_kernel(const Args a) {
+    traffic_rescue_walk_kernel(const Args a0,
+                               const __grid_constant__ RescueLanes lanes) {
+  // the block's lane (blockIdx.y); the count and fill walks only serve the
+  // lanes with the ingress cap on
+  const Args a = lane_args(a0, lanes, blockIdx.y);
+  if (kPhase != kFinal && a.icap <= 0) return;  // whole block
   extern __shared__ int32_t s_pull[];  // the pull-phase values, ascending
   __shared__ int32_t s_thr[32], s_start[32], s_count[32], s_rising;
   __shared__ int32_t s_chunk[kWarps][32];
@@ -429,7 +496,9 @@ __global__ void __launch_bounds__(kThreads)
 // 0-based) of its bucket, by a radix select of 8 bits a pass.  Keys are
 // distinct, so exactly k keys are below it.
 __global__ void __launch_bounds__(kThreads)
-    traffic_rescue_select_kernel(const Args a) {
+    traffic_rescue_select_kernel(const Args a0,
+                                 const __grid_constant__ RescueLanes lanes) {
+  const Args a = lane_args(a0, lanes, blockIdx.y);  // its lane's list
   __shared__ int32_t hist[256];
   __shared__ int32_t s_sel[2];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -488,13 +557,16 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// ptrs: the 25 pointers of Args in order, then the counters' base;
-// vals: v, n, fanout, hist, pb, ecap, icap, part_on, has_loss, key_bits,
-// b_cls, b_mem, b_loss, b_bloom, loss_thr, bloom_thr, the counters' bytes,
-// the select grid.
+// ptrs: the 25 pointers of Args in order, then the counters' base (each
+// plane with a leading axis of nl lanes; the counters' regions lane-major:
+// counts [nl, 16], per_value [nl, 4, v], per_node [nl, 6, n], fill [nl, n],
+// meta [nl, 4]); vals: v, n, hist, pb, has_loss, key_bits (of the widest
+// lane's keys), the widest fanout, the counters' bytes, the select grid;
+// `lanes` points at nl RescueLane records in host memory.
 extern "C" int traffic_rescue_launch(void* const* ptrs, const long long* vals,
+                                     const void* lanes, int nl,
                                      cudaStream_t stream) {
-  Args a;
+  Args a = {};
   a.pull_on = static_cast<const uint8_t*>(ptrs[0]);
   a.vid = static_cast<const int32_t*>(ptrs[1]);
   a.holder_pre = static_cast<const uint8_t*>(ptrs[2]);
@@ -523,30 +595,31 @@ extern "C" int traffic_rescue_launch(void* const* ptrs, const long long* vals,
   void* zero = ptrs[25];
   a.v = (int)vals[0];
   a.n = (int)vals[1];
-  a.fanout = (int)vals[2];
-  a.hist = (int)vals[3];
-  a.pb = (int)vals[4];
-  a.ecap = (int)vals[5];
-  a.icap = (int)vals[6];
-  a.part_on = (int)vals[7];
-  a.has_loss = (int)vals[8];
-  a.key_bits = (int)vals[9];
-  a.b_cls = (uint32_t)vals[10];
-  a.b_mem = (uint32_t)vals[11];
-  a.b_loss = (uint32_t)vals[12];
-  a.b_bloom = (uint32_t)vals[13];
-  a.loss_thr = (unsigned long long)vals[14];
-  a.bloom_thr = (unsigned long long)vals[15];
-  const size_t zero_bytes = (size_t)vals[16];
-  const unsigned select_blocks = (unsigned)vals[17];
-  if (a.v < 1 || a.n < 2 || a.fanout < 1 || a.hist < 1 || a.key_bits < 1 ||
-      a.key_bits > 31 || select_blocks < 1 ||
-      (a.icap > 0 && (a.bucket == nullptr ||
-                      (a.ecap > 0 && a.eoff == nullptr))))
+  a.hist = (int)vals[2];
+  a.pb = (int)vals[3];
+  a.has_loss = (int)vals[4];
+  a.key_bits = (int)vals[5];
+  a.fmax = (int)vals[6];
+  const size_t zero_bytes = (size_t)vals[7];
+  const unsigned select_blocks = (unsigned)vals[8];
+  RescueLanes lane_args;
+  if (!lanes_from_host(&lane_args, static_cast<const RescueLane*>(lanes), nl,
+                       nl, 1) ||
+      a.v < 1 || a.n < 2 || a.fmax < 1 || a.hist < 1 || a.key_bits < 1 ||
+      a.key_bits > 31 || select_blocks < 1)
     return (int)cudaErrorInvalidValue;
+  bool icap_any = false;
+  for (int k = 0; k < nl; ++k) {
+    const RescueLane& l = lane_args.l[k];
+    if (l.fanout < 1 || l.fanout > a.fmax ||
+        (l.icap > 0 && (a.bucket == nullptr ||
+                        (l.ecap > 0 && a.eoff == nullptr))))
+      return (int)cudaErrorInvalidValue;
+    icap_any |= l.icap > 0;
+  }
   cudaError_t err = cudaMemsetAsync(zero, 0, zero_bytes, stream);
   if (err != cudaSuccess) return (int)err;
-  const unsigned tiles = (unsigned)((a.n + 31) / 32);
+  const dim3 tiles((unsigned)((a.n + 31) / 32), (unsigned)nl);
   // the walks' list of pull-phase values
   const size_t smem = (size_t)a.v * sizeof(int32_t);
   if (smem > 48 * 1024) {
@@ -559,14 +632,18 @@ extern "C" int traffic_rescue_launch(void* const* ptrs, const long long* vals,
       if (err != cudaSuccess) return (int)err;
     }
   }
-  if (a.icap > 0) {
-    traffic_rescue_walk_kernel<kCount><<<tiles, kThreads, smem, stream>>>(a);
+  if (icap_any) {
+    traffic_rescue_walk_kernel<kCount>
+        <<<tiles, kThreads, smem, stream>>>(a, lane_args);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    traffic_rescue_walk_kernel<kFill><<<tiles, kThreads, smem, stream>>>(a);
+    traffic_rescue_walk_kernel<kFill>
+        <<<tiles, kThreads, smem, stream>>>(a, lane_args);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    traffic_rescue_select_kernel<<<select_blocks, kThreads, 0, stream>>>(a);
+    traffic_rescue_select_kernel<<<dim3(select_blocks, (unsigned)nl),
+                                   kThreads, 0, stream>>>(a, lane_args);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  traffic_rescue_walk_kernel<kFinal><<<tiles, kThreads, smem, stream>>>(a);
+  traffic_rescue_walk_kernel<kFinal>
+      <<<tiles, kThreads, smem, stream>>>(a, lane_args);
   return (int)cudaGetLastError();
 }

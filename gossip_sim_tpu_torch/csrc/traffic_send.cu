@@ -16,9 +16,17 @@
 //         cand_bits / arr_bits [N, V] i32 (sender-major, for traffic_admit's
 //         walk over the values): bit s set where slot s is a candidate /
 //         its message arrived.
-// Scratch (egress cap on only; the wrapper's, 1 + ceil(V / 32) * N u64
-//         words): a block ticket, then one look-back word per (value chunk,
-//         sender); the launcher zeroes it.
+// Scratch (egress cap on only; the wrapper's, 1 + K * ceil(V / 32) * N
+//         u64 words): a block ticket, then one look-back word per (lane,
+//         value chunk, sender); the launcher zeroes it.
+// Lanes: a batch of K sweep lanes (engine/traffic.py run_traffic_lanes)
+//         runs in one launch.  Each plane above has a leading lane axis
+//         (active [K, N, S], failed [K, N], the value planes [K * V, ...],
+//         the slot words [K, N, V]); side is shared.  A lane's egress cap,
+//         partition window and loss basis and threshold come from its
+//         record (lanes.cuh).  The grid is lane-major: a lane's chunks never
+//         mix with another's, and the look-back restarts at each lane's
+//         first chunk.  The serial round is K = 1.
 //
 // A slot is valid when the sender is live, holds the value and has not
 // failed, the slot holds a peer, its prune bit is clear and the peer is not
@@ -28,8 +36,9 @@
 // whose hash is edge_u32(fmix32(basis ^ vid * GOLD), src, dst) (faults.cuh).
 //
 // Design: a block per tile of 32 senders x 32 values (a value chunk), 256
-// threads, a 1-D grid of ceil(N / 32) * ceil(V / 32) blocks in chunk-major
-// order.  A warp takes 4 of the tile's value rows, a lane per sender.
+// threads, a 1-D grid of K * ceil(N / 32) * ceil(V / 32) blocks in
+// lane-major, then chunk-major order.  A warp takes 4 of the tile's value
+// rows, a lane per sender.
 //   1. every load that needs no other, issued together: the senders'
 //      slots (a lane per sender, 4 slots per warp), their failed flags and
 //      sides, and each of a warp's 4 rows' live flag, holder bytes (one
@@ -66,8 +75,9 @@
 //      alignment does not allow them); the slot words go through a 32 x 32
 //      shared transpose, so each sender's 32 values leave as one 128-byte
 //      line of the [N, V] planes.
-// With the cap off the grid is the block index and nothing is scanned or
-// zeroed: one launch.  With it on: a memset of the scratch and one launch.
+// With every lane's cap off the grid is the block index and nothing is
+// scanned or zeroed: one launch.  With one on: a memset of the scratch and
+// one launch.
 //
 // Bound on the H100: memory.  It reads the [V, N, S] prune bits of the live
 // holders and the [V, N] holder plane and writes the [V, N, F] peers and
@@ -78,6 +88,7 @@
 #include <stdint.h>
 
 #include "faults.cuh"
+#include "lanes.cuh"
 #include "row_stage.cuh"
 
 namespace {
@@ -94,6 +105,16 @@ constexpr uint8_t kArrived = 1, kFailedTarget = 2, kSuppressed = 3,
                   kDropped = 4, kDeferred = 5;
 // look-back word: flag << 32 | count
 constexpr unsigned long long kAggregate = 1ull << 32, kPrefix = 2ull << 32;
+
+// one lane's knobs (kernels/traffic_send.py LANE_DTYPE)
+struct SendLane {
+  unsigned long long loss_threshold;  // 2^32 = every message
+  int32_t egress_cap;                 // <= 0: off
+  int32_t part_on;                    // the partition window is on
+  uint32_t loss_basis;
+  int32_t pad;
+};
+using SendLanes = LaneArray<SendLane>;
 
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
@@ -165,9 +186,9 @@ traffic_send_kernel(const int32_t* __restrict__ active,
                     uint8_t* __restrict__ code_out,
                     int32_t* __restrict__ cand_bits,
                     int32_t* __restrict__ arr_bits, unsigned long long* scan,
-                    int v_count, int n, int s, int f, int tiles,
-                    int egress_cap, int part_on, int loss, int prune_vec,
-                    uint32_t loss_basis, unsigned long long loss_threshold) {
+                    int v_count, int n, int s, int f, int tiles, int chunks,
+                    int ticketed, int loss, int prune_vec,
+                    const __grid_constant__ SendLanes lanes) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_block;
   const Layout L(s, f);
@@ -182,14 +203,38 @@ traffic_send_kernel(const int32_t* __restrict__ active,
   uint32_t* r_hm = r_basis + kTile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const bool capped = egress_cap > 0;
 
   int block = blockIdx.x;
-  if (capped) {  // tickets in start order: a block's earlier chunks run
+  if (ticketed) {  // tickets in start order: a block's earlier chunks run
     if (threadIdx.x == 0)
       s_block = (int)atomicAdd(reinterpret_cast<unsigned int*>(scan), 1u);
     __syncthreads();
     block = s_block;
+  }
+  // the block's lane (lane-major: every chunk of lane k before lane k + 1),
+  // its knobs and its planes
+  const int k_lane = block / (chunks * tiles);
+  block -= k_lane * chunks * tiles;
+  const SendLane& kn = lanes.l[k_lane];
+  const int egress_cap = kn.egress_cap;
+  const int part_on = kn.part_on;
+  const uint32_t loss_basis = kn.loss_basis;
+  const unsigned long long loss_threshold = kn.loss_threshold;
+  const bool capped = egress_cap > 0;
+  {
+    const long long kv = (long long)k_lane * v_count;
+    active += (long long)k_lane * n * s;
+    pruned += kv * n * s;
+    failed += (long long)k_lane * n;
+    v_live += kv;
+    v_holder += kv * n;
+    v_origin += kv;
+    v_vid += kv;
+    peer_out += kv * n * f;
+    code_out += kv * n * f;
+    cand_bits += kv * n;
+    arr_bits += kv * n;
+    if (scan != nullptr) scan += (long long)k_lane * chunks * n;
   }
   const int chunk = block / tiles;
   const int n0 = (block - chunk * tiles) * kTile;
@@ -435,26 +480,33 @@ traffic_send_kernel(const int32_t* __restrict__ active,
 
 }  // namespace
 
-// part: -1 no partition gate, 0 its window is off, 1 on.  loss: 0 or 1, with
-// the round's basis and threshold (2^32 = every message).  scan: with
-// egress_cap > 0, 1 + ceil(v_count / 32) * n u64 words (kernels/
-// traffic_send.py scan_words; zeroed here), else unused (may be null).
+// A batch of nl lanes: every plane carries a leading lane axis (active
+// [nl, N, S], pruned [nl * V, N, S], failed [nl, N], the value planes
+// [nl * V, ...], the outputs [nl * V, N, F] and [nl, N, V]); `lanes` points
+// at nl SendLane records in host memory.  loss: 0 or 1 (each lane's basis
+// and threshold in its record).  scan: with any lane's egress cap on,
+// 1 + nl * ceil(v_count / 32) * n u64 words (kernels/traffic_send.py
+// scan_words; zeroed here), else unused (may be null).
 extern "C" int traffic_send_launch(
     const int32_t* active, const uint8_t* pruned, const uint8_t* failed,
     const uint8_t* v_live, const uint8_t* v_holder, const int32_t* v_origin,
     const int32_t* v_vid, const int32_t* side, int32_t* peer_out,
     uint8_t* code_out, int32_t* cand_bits, int32_t* arr_bits,
-    unsigned long long* scan, int v_count, int n, int s, int f,
-    int egress_cap, int part, int loss, unsigned int loss_basis,
-    unsigned long long loss_threshold, cudaStream_t stream) {
-  if (v_count < 0 || n < 1 || s < 1 || s > 32 || f < 1 || f > s ||
-      (long long)v_count * n * s >= (1ll << 40) ||
-      (egress_cap > 0 && scan == nullptr))
+    unsigned long long* scan, int v_count, int n, int s, int f, int loss,
+    const void* lanes, int nl, cudaStream_t stream) {
+  SendLanes lane_args;
+  if (!lanes_from_host(&lane_args, static_cast<const SendLane*>(lanes), nl,
+                       nl, 1) ||
+      v_count < 0 || n < 1 || s < 1 || s > 32 || f < 1 || f > s ||
+      (long long)nl * v_count * n * s >= (1ll << 40))
     return (int)cudaErrorInvalidValue;
+  bool ticketed = false;
+  for (int k = 0; k < nl; ++k) ticketed |= lane_args.l[k].egress_cap > 0;
+  if (ticketed && scan == nullptr) return (int)cudaErrorInvalidValue;
   if (v_count == 0) return (int)cudaSuccess;
   const int tiles = (n + kTile - 1) / kTile;
   const long long chunks = (v_count + kTile - 1) / kTile;
-  const long long blocks = tiles * chunks;
+  const long long blocks = (long long)nl * tiles * chunks;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   const int smem = Layout(s, f).total;
   cudaError_t err = cudaSuccess;
@@ -463,8 +515,8 @@ extern "C" int traffic_send_launch(
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return (int)err;
-  if (egress_cap > 0) {
-    err = cudaMemsetAsync(scan, 0, (1 + chunks * n) * sizeof(*scan),
+  if (ticketed) {
+    err = cudaMemsetAsync(scan, 0, (1 + nl * chunks * n) * sizeof(*scan),
                           stream);
     if (err != cudaSuccess) return (int)err;
   }
@@ -474,7 +526,6 @@ extern "C" int traffic_send_launch(
   traffic_send_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       active, pruned, failed, v_live, v_holder, v_origin, v_vid, side,
       peer_out, code_out, cand_bits, arr_bits, scan, v_count, n, s, f, tiles,
-      egress_cap, part > 0 ? 1 : 0, loss, prune_vec, (uint32_t)loss_basis,
-      loss_threshold);
+      (int)chunks, ticketed ? 1 : 0, loss, prune_vec, lane_args);
   return (int)cudaGetLastError();
 }

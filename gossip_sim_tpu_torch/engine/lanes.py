@@ -17,7 +17,11 @@ read a sweep knob (``push_targets``, ``rc_merge_prune``, ``rotate``,
 Contract (tests/test_torch_lanes.py, chip_smoke.py (k)): a lane's rows and
 final state equal, bit for bit, a serial :func:`~.core.run_rounds` with the
 merged static and that lane's knobs, and the reference's lane run.  Every
-row is independent of the others, so batching them changes no value.
+row is independent of the others, so batching them changes no value, and
+a batch of more than :data:`MAX_LANES` lanes (the records a kernel launch
+holds) runs as groups of at most that many (:func:`lane_groups`).  The
+traffic engine's lanes (engine/traffic.py ``run_traffic_lanes``) group the
+same way.
 
 Rows come back as ``[iters, K, O, ...]`` (``stats.aggregate.lane_rows``
 slices one lane).  :func:`run_rounds_lanes_dyn` runs lanes with their own
@@ -116,19 +120,47 @@ def _unstack(knobs: EngineKnobs):
 
 def _run(static, tables, origin_rows, states, knobs, num_iters, its0,
          detail):
-    """The lanes' rounds over R = K * O rows; states and rows back in
-    ``[K, O, ...]``."""
-    if static.has_traffic:
-        raise NotImplementedError(
-            "traffic lanes are not ported yet (ROADMAP A9b)")
+    """The lanes' rounds; states and rows back in ``[K, O, ...]``.  A batch
+    of more than :data:`MAX_LANES` lanes (a kernel's per-launch records)
+    runs as groups of at most that many, one after another: the lanes are
+    independent, so the grouping changes no value."""
     _validate_static(static)
     check_lane_knobs(static, _unstack(knobs))
     k = num_lanes(knobs)
-    if k > MAX_LANES:
-        raise ValueError(f"{k} lanes: a batch takes at most {MAX_LANES}")
     if states.active.shape[0] != k:
         raise ValueError(f"states carry {states.active.shape[0]} lanes, "
                          f"knobs {k}")
+    if k <= MAX_LANES:
+        return _run_group(static, tables, origin_rows, states, knobs,
+                          num_iters, its0, detail)
+    o = origin_rows.shape[0] // k
+    parts = [_run_group(static, tables, origin_rows[g * o:(g + w) * o],
+                        SimState(*(x[g:g + w] for x in states)),
+                        EngineKnobs(*(np.asarray(v)[g:g + w] for v in knobs)),
+                        num_iters, its0[g:g + w], detail)
+             for g, w in lane_groups(k)]
+    return cat_lanes(parts, SimState)
+
+
+def lane_groups(k: int):
+    """``(first lane, width)`` of each group of at most :data:`MAX_LANES`
+    lanes of a batch of ``k``."""
+    return [(g, min(MAX_LANES, k - g)) for g in range(0, k, MAX_LANES)]
+
+
+def cat_lanes(parts, state_type):
+    """The ``(states, rows)`` of lane groups as one batch: states joined on
+    their lane axis (0), rows on theirs (1, after the round axis)."""
+    states = state_type(*(torch.cat(xs) for xs in zip(*(s for s, _ in parts))))
+    rows = {name: torch.cat([r[name] for _, r in parts], 1)
+            for name in parts[0][1]}
+    return states, rows
+
+
+def _run_group(static, tables, origin_rows, states, knobs, num_iters, its0,
+               detail):
+    """At most :data:`MAX_LANES` lanes' rounds over R = K * O rows."""
+    k = num_lanes(knobs)
     o = int(states.active.shape[1])
     dev = states.active.device
     flat = SimState(*(x.reshape((k * o,) + tuple(x.shape[2:])).contiguous()
@@ -158,7 +190,8 @@ def run_rounds_lanes(static: EngineStatic, tables: ClusterTables,
     ``knobs`` ``[K]`` leaves (:func:`stack_knobs`), ``origins`` the O
     origins every lane runs.  Returns ``(states, rows)``, every rows leaf
     ``[num_iters, K, O, ...]``; a lane's slice equals a serial
-    ``run_rounds(static, ..., knobs=<that lane's>)``."""
+    ``run_rounds(static, ..., knobs=<that lane's>)``.  K may pass
+    :data:`MAX_LANES`: the lanes then run in groups of at most that many."""
     k = num_lanes(knobs)
     origins = torch.as_tensor(origins).reshape(-1)
     return _run(static, tables, origins.repeat(k), states, knobs, num_iters,

@@ -10,6 +10,8 @@ plain PyTorch, used for CPU tensors and as the spec.
 
 Sweep lanes (engine/lanes.py) run as more origin rows: applying the
 prunes takes no knob, so a batch of K lanes is K times the rows, unchanged.
+Traffic lanes (engine/traffic.py) run as K x V value rows over K shared
+sets: ``active`` [K, N, S], lane k's set shared by its V rows.
 """
 
 from __future__ import annotations
@@ -34,14 +36,28 @@ def prune_apply_plain(pruned: torch.Tensor, active: torch.Tensor,
     """``pruned`` [O, N, S] bool | hit, where hit[o, u, s] is set iff
     ``active[o, u, s] == t`` for a live pair (pruner t = the row of
     ``pruned_slot``/``src_sorted`` [O, N, C], prunee u = its src).  An
-    ``active`` of shape [N, S] is shared by every o (the traffic round's)."""
+    ``active`` of shape [N, S] is shared by every o (the traffic round's);
+    one of [K, N, S] gives each of K groups of O / K rows its set (a batch
+    of traffic lanes; K = O is a set per row)."""
     out = pruned.clone()
     o_i, t_i, c_i = pruned_slot.nonzero(as_tuple=True)
     u_i = src_sorted[o_i, t_i, c_i].long()
-    rows = active[u_i] if active.dim() == 2 else active[o_i, u_i]  # [P, S]
+    g = group(pruned.shape[0], active)
+    rows = active[u_i] if active.dim() == 2 else active[o_i // g, u_i]
     p_i, s_i = (rows == t_i[:, None]).nonzero(as_tuple=True)
     out[o_i[p_i], u_i[p_i], s_i] = True
     return out
+
+
+def group(rows: int, active: torch.Tensor) -> int:
+    """Origin rows per plane of ``active`` ([N, S]: all ``rows``)."""
+    if active.dim() == 2:
+        return max(rows, 1)
+    planes = active.shape[0]
+    if planes < 1 or rows % planes:
+        raise ValueError(f"{NAME}: {rows} rows do not split over {planes} "
+                         f"active sets")
+    return rows // planes
 
 
 def grid_blocks(plane: int, slots: int, sms: int, blocks_per_sm: int) -> int:
@@ -101,8 +117,8 @@ def prune_apply(pruned: torch.Tensor, active: torch.Tensor,
                 pruned_slot: torch.Tensor) -> torch.Tensor:
     """Prune application: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns the new [O, N, S] pruned bits.
-    ``active`` is [O, N, S], or [N, S] shared by every o (no copy of it per
-    value is made).
+    ``active`` is [O, N, S], [N, S] shared by every o, or [K, N, S] shared
+    by each lane's O / K rows (no copy of it per value is made).
 
     On the card one cooperative launch copies ``pruned`` into the output
     and, after a grid barrier, finds the live pairs in 16-byte vectors of
@@ -113,17 +129,17 @@ def prune_apply(pruned: torch.Tensor, active: torch.Tensor,
     O, N, S = pruned.shape
     C = src_sorted.shape[-1]
     dev = active.device
-    shared = active.dim() == 2
+    g = group(O, active)
     _build.check(pruned, "pruned", torch.bool, (O, N, S), dev)
     _build.check(active, "active", torch.int32,
-                 (N, S) if shared else (O, N, S), dev)
+                 (N, S) if active.dim() == 2 else (O // g, N, S), dev)
     _build.check(src_sorted, "src_sorted", torch.int32, (O, N, C), dev)
     _build.check(pruned_slot, "pruned_slot", torch.bool, (O, N, C), dev)
     out = torch.empty((O, N, S), dtype=torch.bool, device=dev)
     plane, slots = O * N * S, O * N * C
     p = _build.ptr
     rc = _lib()(p(pruned), p(active), p(src_sorted), p(pruned_slot), p(out),
-                O, N, S, C, int(shared), _grid(dev, plane, slots),
+                O, N, S, C, g, _grid(dev, plane, slots),
                 _build.stream_of(active))
     _build.launched(NAME, rc)
     return out

@@ -18,7 +18,8 @@ taken.  On the card it is the kernel source's sparse instantiation
 
 Sweep lanes (engine/lanes.py) run as more origin rows: ``min_ingress_nodes``
 and ``prune_stake_threshold`` may be per lane (``kernels/_lanes.py``), in
-both layouts; the traffic form (with ``live``) is one lane.
+both layouts; traffic lanes (engine/traffic.py, with ``live``) run as
+K x V value rows, lane k's knobs for rows ``[k V, (k + 1) V)``.
 """
 
 from __future__ import annotations
@@ -119,15 +120,13 @@ def is_sparse(rc_shi, rc_slo, live) -> bool:
     return rc_shi is None
 
 
-def lane_knobs(rows: int, min_ingress_nodes, prune_stake_threshold, live):
+def lane_knobs(rows: int, min_ingress_nodes, prune_stake_threshold):
     """(K, min_ingress_nodes [K] i32, prune_stake_threshold [K] f64) of a
-    call over ``rows`` origin rows; the traffic form (``live``) is one
-    lane."""
+    call over ``rows`` origin rows (push lanes: K x O origin rows; traffic
+    lanes, with ``live``: K x V value rows)."""
     mi = _lanes.values(min_ingress_nodes, np.int32)
     thr = _lanes.values(prune_stake_threshold, np.float64)
     k = _lanes.count(rows, mi, thr)
-    if live is not None and k > 1:
-        raise ValueError(f"{NAME}: the traffic form (live) takes one lane")
     return k, mi, thr
 
 
@@ -150,12 +149,12 @@ def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
     K)``."""
     sparse = is_sparse(rc_shi, rc_slo, live)
     k, mi, thr = lane_knobs(rc_src.shape[0], min_ingress_nodes,
-                            prune_stake_threshold, live)
+                            prune_stake_threshold)
     if _lanes.uniform(mi, thr):
         min_ingress_nodes, prune_stake_threshold = int(mi[0]), float(thr[0])
     else:
         per = rc_src.shape[0] // k
-        row = lambda a: torch.as_tensor(np.repeat(a, per),
+        row = lambda a: torch.as_tensor(np.repeat(_lanes.widen(a, k), per),
                                         device=rc_src.device)
         min_ingress_nodes = row(mi)[:, None, None]
         prune_stake_threshold = row(thr)[:, None]
@@ -270,8 +269,7 @@ def rc_merge_prune(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb, shi,
                                     rc_upserts, inb, shi, slo, stakes,
                                     origins, **kw)
     O, N, C = rc_src.shape
-    k, mi, thr = lane_knobs(O, min_ingress_nodes, prune_stake_threshold,
-                            live)
+    k, mi, thr = lane_knobs(O, min_ingress_nodes, prune_stake_threshold)
     lanes = _lanes.pack(k, LANE_DTYPE, threshold=thr, min_ingress=mi)
     K = inb.shape[-1]
     dev = rc_src.device

@@ -13,14 +13,17 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from . import _build
+from . import _build, _lanes
 
 NAME = "traffic_admit"
 #: i32 words of scratch per node: the cut (i64), the in-degree, the
 #: arrivals and a bucket of 32 in-neighbours
 SCRATCH_WORDS = 2 + 1 + 1 + 32
+#: One lane's record of the launch (csrc/traffic_admit.cu AdmitLane).
+LANE_DTYPE = np.dtype([("ingress_cap", "<i4"), ("pad", "<i4")])
 
 
 class AdmitOut(NamedTuple):
@@ -31,7 +34,25 @@ class AdmitOut(NamedTuple):
 
 def traffic_admit_plain(cand_bits: torch.Tensor, arr_bits: torch.Tensor,
                         active: torch.Tensor, fanout: int,
-                        ingress_cap: int) -> AdmitOut:
+                        ingress_cap) -> AdmitOut:
+    """The ingress budget in plain PyTorch (see :func:`_admit_one`).  The
+    lane form takes ``cand_bits``/``arr_bits`` [K, N, V] and ``active``
+    [K, N, S] with ``ingress_cap`` a scalar or K per-lane values, runs each
+    lane with its own cap, and returns ``accepted`` [K, V, N, F] and the
+    node counts [K, N]."""
+    if active.dim() == 2:
+        return _admit_one(cand_bits, arr_bits, active, fanout,
+                          int(ingress_cap))
+    k = active.shape[0]
+    cap = _lanes.per_lane(ingress_cap, k, np.int64)
+    outs = [_admit_one(cand_bits[j], arr_bits[j], active[j], fanout,
+                       int(cap[j])) for j in range(k)]
+    return AdmitOut(*(torch.stack(x) for x in zip(*outs)))
+
+
+def _admit_one(cand_bits: torch.Tensor, arr_bits: torch.Tensor,
+               active: torch.Tensor, fanout: int,
+               ingress_cap: int) -> AdmitOut:
     """Rank every arrival among the arrivals at its target in flat (value,
     sender, fanout slot) order; with ``ingress_cap`` > 0 the ranks below it
     are accepted, else all.  ``cand_bits``/``arr_bits`` [N, V] and
@@ -65,43 +86,57 @@ def _lib():
     fn = _build.library(NAME).traffic_admit_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+        fn.argtypes = [vp] * 7 + [ci] * 4 + [vp, ci, vp]
         fn.restype = ci
     return fn
 
 
 def traffic_admit(cand_bits: torch.Tensor, arr_bits: torch.Tensor,
                   active: torch.Tensor, fanout: int,
-                  ingress_cap: int) -> AdmitOut:
+                  ingress_cap) -> AdmitOut:
     """The ingress budget: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns :class:`AdmitOut`.
+    version for CPU tensors.  Returns :class:`AdmitOut`; takes the one-run
+    form or the lane form of :func:`traffic_admit_plain` (at most
+    :data:`~._lanes.MAX_LANES` lanes).
 
     The accepted arrivals at a target are a prefix of its arrivals in flat
     (value, source, slot) order, so the cap is one cut per target.  On the
     card a tally (a warp per sender) counts each target's arrivals and
-    lists its in-neighbours, a cut kernel (cap on only; a warp per target
-    past the cap) finds the first rejected arrival, and a write kernel (a
-    tile of 32 senders x 32 values per block) writes every byte of the
-    acceptance plane once from the sender side (``csrc/traffic_admit.cu``).
+    lists its in-neighbours, a cut kernel (a lane's cap on only; a warp per
+    target past the cap) finds the first rejected arrival, and a write
+    kernel (a tile of 32 senders x 32 values per block) writes every byte
+    of the acceptance plane once from the sender side
+    (``csrc/traffic_admit.cu``); each has the lane in its grid.
     """
     if not arr_bits.is_cuda:
         return traffic_admit_plain(cand_bits, arr_bits, active, fanout,
                                    ingress_cap)
-    N, V = arr_bits.shape
+    if active.dim() == 2:
+        out = _launch(cand_bits[None], arr_bits[None], active[None], fanout,
+                      ingress_cap)
+        return AdmitOut(*(t[0] for t in out))
+    return _launch(cand_bits, arr_bits, active, fanout, ingress_cap)
+
+
+def _launch(cand_bits, arr_bits, active, fanout, ingress_cap) -> AdmitOut:
+    K, N, V = arr_bits.shape
     S = active.shape[-1]
     F = int(fanout)
     dev = arr_bits.device
+    _lanes.check_batch(K, NAME)
     i32 = torch.int32
-    _build.check(cand_bits, "cand_bits", i32, (N, V), dev)
-    _build.check(arr_bits, "arr_bits", i32, (N, V), dev)
-    _build.check(active, "active", i32, (N, S), dev)
-    scratch = torch.empty((SCRATCH_WORDS * N,), dtype=i32, device=dev)
-    out = AdmitOut(torch.empty((V, N, F), dtype=torch.bool, device=dev),
-                   torch.empty((N,), dtype=i32, device=dev),
-                   torch.empty((N,), dtype=i32, device=dev))
+    _build.check(cand_bits, "cand_bits", i32, (K, N, V), dev)
+    _build.check(arr_bits, "arr_bits", i32, (K, N, V), dev)
+    _build.check(active, "active", i32, (K, N, S), dev)
+    records = _lanes.pack(K, LANE_DTYPE, ingress_cap=_lanes.per_lane(
+        ingress_cap, K, np.int64))
+    scratch = torch.empty((SCRATCH_WORDS * K * N,), dtype=i32, device=dev)
+    out = AdmitOut(torch.empty((K, V, N, F), dtype=torch.bool, device=dev),
+                   torch.empty((K, N), dtype=i32, device=dev),
+                   torch.empty((K, N), dtype=i32, device=dev))
     p = _build.ptr
     rc = _lib()(p(active), p(cand_bits), p(arr_bits), p(scratch),
-                *(p(t) for t in out), V, N, S, F, int(ingress_cap),
+                *(p(t) for t in out), V, N, S, F, records.ctypes.data, K,
                 _build.stream_of(arr_bits))
     _build.launched(NAME, rc)
     return out

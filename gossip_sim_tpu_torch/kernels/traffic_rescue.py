@@ -16,11 +16,12 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..faults import edge_u32_t, node_u32_t
 from ..traffic import TrafficTables, class_draw_arr, u01_t, value_basis_t
-from . import _build
+from . import _build, _lanes
 
 NAME = "traffic_rescue"
 #: the round's counts, in the order of ``RescueOut.counts``: the eleven
@@ -39,6 +40,11 @@ COUNT_WORDS = 16   # counts, padded
 META_WORDS = 4     # the count walk's block ticket and listed peers, padded
 WALK_WARPS = 8     # value chunks of a requester tile (eoff rows)
 BIG = 0x7FFFFFFF
+#: One lane's record of the launch (csrc/traffic_rescue.cu RescueLane).
+LANE_DTYPE = np.dtype([("loss_thr", "<u8"), ("bloom_thr", "<u8"),
+                       ("fanout", "<i4"), ("ecap", "<i4"), ("icap", "<i4"),
+                       ("part_on", "<i4"), ("b_cls", "<u4"), ("b_mem", "<u4"),
+                       ("b_loss", "<u4"), ("b_bloom", "<u4")])
 
 
 class RescueOut(NamedTuple):
@@ -107,12 +113,60 @@ def rescue_requests(pull_on, v_vid, holder_pre, hop_pre, v_holder, failed,
                     dropped, live)
 
 
+def lane_knobs(k: int, fanout, egress_cap, ingress_cap, draw, bloom,
+               partition, loss) -> np.ndarray:
+    """The K lanes' records (:data:`LANE_DTYPE`) of a call: each knob a
+    scalar or K per-lane values (``draw``, ``bloom`` and ``loss`` pairs of
+    either; ``partition`` None or False: no gate; ``loss`` None: none)."""
+    per = lambda v: _lanes.per_lane(v, k, np.int64)
+    u32 = lambda v: per(v) & 0xFFFFFFFF
+    loss_basis, loss_thr = loss if loss is not None else (0, 0)
+    return _lanes.pack(
+        k, LANE_DTYPE, fanout=per(fanout), ecap=per(egress_cap),
+        icap=per(ingress_cap),
+        part_on=0 if partition is None else per(partition) != 0,
+        b_cls=u32(draw[0]), b_mem=u32(draw[1]), b_loss=u32(loss_basis),
+        b_bloom=u32(bloom[0]), loss_thr=per(loss_thr),
+        bloom_thr=per(bloom[1]))
+
+
 def traffic_rescue_plain(pull_on, v_vid, holder_pre, hop_pre, v_holder,
                          failed, side, perm, class_start, class_count, cdf,
-                         push_out, accepted_node, fanout: int,
-                         hist_bins: int, pb: int, egress_cap: int,
-                         ingress_cap: int, draw, bloom, partition=None,
-                         loss=None) -> RescueOut:
+                         push_out, accepted_node, fanout, hist_bins: int,
+                         pb: int, egress_cap, ingress_cap, draw, bloom,
+                         partition=None, loss=None) -> RescueOut:
+    """The pull rescue in plain PyTorch (see :func:`_rescue_one`).  The
+    lane form takes every per-run plane with a leading lane axis
+    (``pull_on``/``v_vid`` [K, V], the value planes [K, V, N], ``failed``,
+    ``push_out`` and ``accepted_node`` [K, N]; ``side`` and the draw tables
+    shared) and each knob as a scalar or K per-lane values
+    (:func:`lane_knobs`), runs each lane with its own, and returns every
+    output with a leading lane axis."""
+    if failed.dim() == 1:
+        return _rescue_one(pull_on, v_vid, holder_pre, hop_pre, v_holder,
+                           failed, side, perm, class_start, class_count, cdf,
+                           push_out, accepted_node, int(fanout), hist_bins,
+                           pb, int(egress_cap), int(ingress_cap), draw,
+                           bloom, partition, loss)
+    k = failed.shape[0]
+    kn = lane_knobs(k, fanout, egress_cap, ingress_cap, draw, bloom,
+                    partition, loss)
+    outs = [_rescue_one(
+        pull_on[j], v_vid[j], holder_pre[j], hop_pre[j], v_holder[j],
+        failed[j], side, perm, class_start, class_count, cdf, push_out[j],
+        accepted_node[j], int(r["fanout"]), hist_bins, pb, int(r["ecap"]),
+        int(r["icap"]), (int(r["b_cls"]), int(r["b_mem"])),
+        (int(r["b_bloom"]), int(r["bloom_thr"])), bool(r["part_on"]),
+        None if loss is None else (int(r["b_loss"]), int(r["loss_thr"])))
+        for j, r in enumerate(kn)]
+    return RescueOut(*(torch.stack(x) for x in zip(*outs)))
+
+
+def _rescue_one(pull_on, v_vid, holder_pre, hop_pre, v_holder, failed,
+                side, perm, class_start, class_count, cdf, push_out,
+                accepted_node, fanout: int, hist_bins: int, pb: int,
+                egress_cap: int, ingress_cap: int, draw, bloom,
+                partition=None, loss=None) -> RescueOut:
     """The pull rescue of one round.
 
     ``pull_on`` [V] bool (value live and in its pull phase), ``v_vid`` [V]
@@ -203,7 +257,7 @@ def _lib():
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_longlong),
-                       vp]
+                       vp, ctypes.c_int, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -215,61 +269,89 @@ def key_bits(v: int, n: int, fanout: int) -> int:
 
 def traffic_rescue(pull_on, v_vid, holder_pre, hop_pre, v_holder, failed,
                    side, perm, class_start, class_count, cdf, push_out,
-                   accepted_node, fanout: int, hist_bins: int, pb: int,
-                   egress_cap: int, ingress_cap: int, draw, bloom,
-                   partition=None, loss=None) -> RescueOut:
+                   accepted_node, fanout, hist_bins: int, pb: int,
+                   egress_cap, ingress_cap, draw, bloom, partition=None,
+                   loss=None) -> RescueOut:
     """The pull rescue: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  Returns :class:`RescueOut`.
+    for CPU tensors.  Returns :class:`RescueOut`; takes the one-run form or
+    the lane form of :func:`traffic_rescue_plain` (at most
+    :data:`~._lanes.MAX_LANES` lanes).
 
-    On the card: a memset of the counters and one walk kernel with the
-    ingress cap off; with it on, a count walk (its last block places each
-    peer's cut or bucket), a fill walk, a select kernel (the cut of each
-    peer whose cap falls inside its arrivals) and the final walk
-    (``csrc/traffic_rescue.cu``)."""
+    On the card: a memset of the counters and one walk kernel with every
+    lane's ingress cap off; with one on, a count walk (its last block per
+    lane places each peer's cut or bucket), a fill walk, a select kernel
+    (the cut of each peer whose cap falls inside its arrivals) and the
+    final walk (``csrc/traffic_rescue.cu``), each with the lane in its
+    grid."""
     if not holder_pre.is_cuda:
         return traffic_rescue_plain(
             pull_on, v_vid, holder_pre, hop_pre, v_holder, failed, side,
             perm, class_start, class_count, cdf, push_out, accepted_node,
             fanout, hist_bins, pb, egress_cap, ingress_cap, draw, bloom,
             partition, loss)
-    V, N = holder_pre.shape
-    F = int(fanout)
+    if failed.dim() == 1:
+        out = _launch(pull_on[None], v_vid[None], holder_pre[None],
+                      hop_pre[None], v_holder[None], failed[None], side,
+                      perm, class_start, class_count, cdf, push_out[None],
+                      accepted_node[None], fanout, hist_bins, pb, egress_cap,
+                      ingress_cap, draw, bloom, partition, loss)
+        return RescueOut(*(t[0] for t in out))
+    return _launch(pull_on, v_vid, holder_pre, hop_pre, v_holder, failed,
+                   side, perm, class_start, class_count, cdf, push_out,
+                   accepted_node, fanout, hist_bins, pb, egress_cap,
+                   ingress_cap, draw, bloom, partition, loss)
+
+
+def _launch(pull_on, v_vid, holder_pre, hop_pre, v_holder, failed, side,
+            perm, class_start, class_count, cdf, push_out, accepted_node,
+            fanout, hist_bins, pb, egress_cap, ingress_cap, draw, bloom,
+            partition, loss) -> RescueOut:
+    K, V, N = holder_pre.shape
     dev = holder_pre.device
-    if F < 1 or V * N * F >= 1 << 31 or 4 * V > _build.smem_optin(dev):
+    _lanes.check_batch(K, NAME)
+    kn = lane_knobs(K, fanout, egress_cap, ingress_cap, draw, bloom,
+                    partition, loss)
+    F = int(kn["fanout"].max())
+    if (int(kn["fanout"].min()) < 1 or V * N * F >= 1 << 31
+            or 4 * V > _build.smem_optin(dev)):
         raise ValueError(f"{NAME}: needs fanout >= 1, V * N * fanout < 2^31 "
                          f"and the list of V values in a block's shared "
                          f"memory, got V={V}, N={N}, fanout={F}")
     i32, u8 = torch.int32, torch.bool
-    _build.check(pull_on, "pull_on", u8, (V,), dev)
-    _build.check(v_vid, "v_vid", i32, (V,), dev)
-    _build.check(holder_pre, "holder_pre", u8, (V, N), dev)
-    _build.check(hop_pre, "hop_pre", i32, (V, N), dev)
-    _build.check(v_holder, "v_holder", u8, (V, N), dev)
-    _build.check(failed, "failed", u8, (N,), dev)
+    _build.check(pull_on, "pull_on", u8, (K, V), dev)
+    _build.check(v_vid, "v_vid", i32, (K, V), dev)
+    _build.check(holder_pre, "holder_pre", u8, (K, V, N), dev)
+    _build.check(hop_pre, "hop_pre", i32, (K, V, N), dev)
+    _build.check(v_holder, "v_holder", u8, (K, V, N), dev)
+    _build.check(failed, "failed", u8, (K, N), dev)
     _build.check(side, "side", i32, (N + 1,), dev)
     _build.check(perm, "perm", i32, (N,), dev)
     _build.check(class_start, "class_start", i32, (25,), dev)
     _build.check(class_count, "class_count", i32, (25,), dev)
     _build.check(cdf, "cdf", torch.float32, (25,), dev)
-    _build.check(push_out, "push_out", i32, (N,), dev)
-    _build.check(accepted_node, "accepted_node", i32, (N,), dev)
-    icap, ecap = int(ingress_cap), int(egress_cap)
-    zero = torch.empty(COUNT_WORDS + 4 * V + 6 * N + N + META_WORDS,
-                       dtype=i32, device=dev)
-    counts = zero[:len(COUNT_NAMES)]
-    per_value = zero[COUNT_WORDS:COUNT_WORDS + 4 * V].view(4, V)
-    at = COUNT_WORDS + 4 * V
-    per_node = zero[at:at + 6 * N].view(6, N)
-    fill = zero[at + 6 * N:at + 7 * N]
-    meta = zero[at + 7 * N:]
-    words = 3 * N + (WALK_WARPS * N if icap > 0 and ecap > 0 else 0)
-    scratch = torch.empty(words, dtype=i32, device=dev)
-    cut, offset, listed = scratch[:N], scratch[N:2 * N], scratch[2 * N:3 * N]
-    eoff = scratch[3 * N:] if icap > 0 and ecap > 0 else None
-    bucket = (torch.empty(V * N * F, dtype=i32, device=dev) if icap > 0
-              else None)
-    out = RescueOut(torch.empty((V, N), dtype=torch.bool, device=dev),
-                    torch.empty((V, N), dtype=i32, device=dev), per_value,
+    _build.check(push_out, "push_out", i32, (K, N), dev)
+    _build.check(accepted_node, "accepted_node", i32, (K, N), dev)
+    icap_on = kn["icap"] > 0
+    both = bool((icap_on & (kn["ecap"] > 0)).any())
+    # the counters, zeroed by one memset: counts [K, 16], per_value
+    # [K, 4, V], per_node [K, 6, N], fill [K, N], meta [K, 4]
+    at = np.cumsum([0, K * COUNT_WORDS, K * 4 * V, K * 6 * N, K * N,
+                    K * META_WORDS])
+    zero = torch.empty(int(at[-1]), dtype=i32, device=dev)
+    region = lambda j: zero[int(at[j]):int(at[j + 1])]
+    counts = region(0).view(K, COUNT_WORDS)[:, :len(COUNT_NAMES)]
+    per_value = region(1).view(K, 4, V)
+    per_node = region(2).view(K, 6, N)
+    fill, meta = region(3), region(4)
+    scratch = torch.empty(K * N * (3 + (WALK_WARPS if both else 0)),
+                          dtype=i32, device=dev)
+    cut, offset, listed = (scratch[j * K * N:(j + 1) * K * N]
+                           for j in range(3))
+    eoff = scratch[3 * K * N:] if both else None
+    bucket = (torch.empty(K * V * N * F, dtype=i32, device=dev)
+              if icap_on.any() else None)
+    out = RescueOut(torch.empty((K, V, N), dtype=torch.bool, device=dev),
+                    torch.empty((K, V, N), dtype=i32, device=dev), per_value,
                     per_node, counts)
     p = lambda t: None if t is None else t.data_ptr()
     ptrs = (ctypes.c_void_p * 26)(*(p(t) for t in (
@@ -277,13 +359,9 @@ def traffic_rescue(pull_on, v_vid, holder_pre, hop_pre, v_holder, failed,
         class_start, class_count, cdf, push_out, accepted_node, out.pull_del,
         out.pull_hop, counts, per_value, per_node, fill, meta, cut, offset,
         listed, eoff, bucket, zero)))
-    loss_basis, loss_thr = loss if loss is not None else (0, 0)
-    vals = (ctypes.c_longlong * 18)(
-        V, N, F, int(hist_bins), int(pb), ecap, icap,
-        int(bool(partition)), int(loss is not None), key_bits(V, N, F),
-        draw[0] & 0xFFFFFFFF, draw[1] & 0xFFFFFFFF, loss_basis & 0xFFFFFFFF,
-        bloom[0] & 0xFFFFFFFF, int(loss_thr), int(bloom[1]),
-        zero.numel() * 4, 2 * _build.sm_count(dev))
-    rc = _lib()(ptrs, vals, _build.stream_of(holder_pre))
+    vals = (ctypes.c_longlong * 9)(
+        V, N, int(hist_bins), int(pb), int(loss is not None),
+        key_bits(V, N, F), F, zero.numel() * 4, 2 * _build.sm_count(dev))
+    rc = _lib()(ptrs, vals, kn.ctypes.data, K, _build.stream_of(holder_pre))
     _build.launched(NAME, rc)
     return out

@@ -15,6 +15,13 @@ sender's 32 slot words as one line of the [N, V] planes.  With the egress
 cap on, the running count per sender crosses the value chunks by a
 decoupled look-back over a scratch of ``1 + ceil(V / 32) * N`` words that
 the launcher zeroes: a memset and one launch; with it off, one launch.
+
+A batch of K traffic lanes (engine/traffic.py ``run_traffic_lanes``) is one
+launch too: the lane is the outermost index of the grid, each lane reads
+its own active set, churn mask and value planes and its egress cap,
+partition flag and loss basis and threshold from its record
+(``LANE_DTYPE``, csrc/lanes.cuh), and the look-back restarts at each
+lane's first value chunk.
 """
 
 from __future__ import annotations
@@ -22,17 +29,22 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..traffic import (TRAFFIC_ACCEPTED, TRAFFIC_DEFERRED, TRAFFIC_DROPPED,
                        TRAFFIC_FAILED_TARGET, TRAFFIC_SUPPRESSED,
                        value_basis_t)
 from ..faults import edge_u32_t
-from . import _build
+from . import _build, _lanes
 
 NAME = "traffic_send"
 MAX_SLOTS = 32           # slot bitmasks are one 32-bit word
 TILE = 32                # senders and values of a kernel block
+#: One lane's record of the launch (csrc/traffic_send.cu SendLane).
+LANE_DTYPE = np.dtype([("loss_threshold", "<u8"), ("egress_cap", "<i4"),
+                       ("part_on", "<i4"), ("loss_basis", "<u4"),
+                       ("pad", "<i4")])
 
 
 class SendOut(NamedTuple):
@@ -51,12 +63,11 @@ def _as_i32(bits: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def traffic_send_plain(active: torch.Tensor, pruned: torch.Tensor,
-                       failed: torch.Tensor, v_live: torch.Tensor,
-                       v_holder: torch.Tensor, v_origin: torch.Tensor,
-                       v_vid: torch.Tensor, side: torch.Tensor, fanout: int,
-                       egress_cap: int, partition=None,
-                       loss=None) -> SendOut:
+def _send_one(active: torch.Tensor, pruned: torch.Tensor,
+              failed: torch.Tensor, v_live: torch.Tensor,
+              v_holder: torch.Tensor, v_origin: torch.Tensor,
+              v_vid: torch.Tensor, side: torch.Tensor, fanout: int,
+              egress_cap: int, partition=None, loss=None) -> SendOut:
     """Each (value, sender)'s first ``F = min(fanout, S)`` valid slots of
     the shared active set, the per-sender egress budget, then the gates.
 
@@ -115,18 +126,56 @@ def traffic_send_plain(active: torch.Tensor, pruned: torch.Tensor,
                    _as_i32(arr_bits).T.contiguous())
 
 
-def scan_words(v: int, n: int) -> int:
-    """The look-back scratch (u64 words) of a call with the egress cap on:
-    the block ticket, then a word per (value chunk, sender)."""
-    return 1 + -(-v // TILE) * n
+def traffic_send_plain(active: torch.Tensor, pruned: torch.Tensor,
+                       failed: torch.Tensor, v_live: torch.Tensor,
+                       v_holder: torch.Tensor, v_origin: torch.Tensor,
+                       v_vid: torch.Tensor, side: torch.Tensor, fanout: int,
+                       egress_cap, partition=None, loss=None) -> SendOut:
+    """The send block in plain PyTorch (see :func:`_send_one` for one
+    run).  The lane form takes every plane with a leading lane axis
+    (``active`` [K, N, S], ``pruned`` [K, V, N, S], ``failed`` [K, N], the
+    value planes [K, V, ...]) and each knob as a scalar or K per-lane
+    values (``loss``: a (basis, threshold) pair of either), and runs each
+    lane with its own scalars; its outputs carry the lane axis
+    (``peer``/``code`` [K, V, N, F], the slot words [K, N, V])."""
+    if active.dim() == 2:
+        return _send_one(active, pruned, failed, v_live, v_holder, v_origin,
+                         v_vid, side, fanout, int(egress_cap), partition,
+                         loss)
+    k = active.shape[0]
+    cap, part, basis, thr = lane_knobs(k, egress_cap, partition, loss)
+    outs = [_send_one(active[j], pruned[j], failed[j], v_live[j],
+                      v_holder[j], v_origin[j], v_vid[j], side, fanout,
+                      int(cap[j]), None if part is None else bool(part[j]),
+                      None if basis is None else (int(basis[j]), int(thr[j])))
+            for j in range(k)]
+    return SendOut(*(torch.stack(x) for x in zip(*outs)))
+
+
+def lane_knobs(k: int, egress_cap, partition, loss):
+    """Each of K lanes' egress cap, partition flag (None: no gate), loss
+    basis and threshold (None: no loss gate), as numpy arrays."""
+    cap = _lanes.per_lane(egress_cap, k, np.int64)
+    part = (None if partition is None
+            else _lanes.per_lane(partition, k, np.int64) != 0)
+    basis = thr = None
+    if loss is not None:
+        basis = _lanes.per_lane(loss[0], k, np.int64) & 0xFFFFFFFF
+        thr = _lanes.per_lane(loss[1], k, np.int64)
+    return cap, part, basis, thr
+
+
+def scan_words(v: int, n: int, k: int = 1) -> int:
+    """The look-back scratch (u64 words) of a call with an egress cap on:
+    the block ticket, then a word per (lane, value chunk, sender)."""
+    return 1 + k * -(-v // TILE) * n
 
 
 def _lib():
     fn = _build.library(NAME).traffic_send_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 13 + [ci] * 7
-                       + [ctypes.c_uint, ctypes.c_ulonglong, vp])
+        fn.argtypes = [vp] * 13 + [ci] * 5 + [vp, ci, vp]
         fn.restype = ci
     return fn
 
@@ -135,44 +184,61 @@ def traffic_send(active: torch.Tensor, pruned: torch.Tensor,
                  failed: torch.Tensor, v_live: torch.Tensor,
                  v_holder: torch.Tensor, v_origin: torch.Tensor,
                  v_vid: torch.Tensor, side: torch.Tensor, fanout: int,
-                 egress_cap: int, partition=None, loss=None) -> SendOut:
+                 egress_cap, partition=None, loss=None) -> SendOut:
     """The send block: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  Returns :class:`SendOut`.  On the card: one launch,
-    and with ``egress_cap`` > 0 a memset of its look-back scratch before
-    it."""
+    for CPU tensors.  Returns :class:`SendOut`.  Takes the one-run form or
+    the lane form of :func:`traffic_send_plain` (at most
+    :data:`~._lanes.MAX_LANES` lanes).  On the card: one launch (every
+    lane in its grid), and with an egress cap on in any lane a memset of
+    its look-back scratch before it."""
     if not pruned.is_cuda:
         return traffic_send_plain(active, pruned, failed, v_live, v_holder,
                                   v_origin, v_vid, side, fanout, egress_cap,
                                   partition, loss)
-    V, N, S = pruned.shape
+    if active.dim() == 2:
+        out = _launch(active[None], pruned[None], failed[None],
+                      v_live[None], v_holder[None], v_origin[None],
+                      v_vid[None], side, fanout, egress_cap, partition, loss)
+        return SendOut(*(t[0] for t in out))
+    return _launch(active, pruned, failed, v_live, v_holder, v_origin, v_vid,
+                   side, fanout, egress_cap, partition, loss)
+
+
+def _launch(active, pruned, failed, v_live, v_holder, v_origin, v_vid, side,
+            fanout, egress_cap, partition, loss) -> SendOut:
+    K, V, N, S = pruned.shape
     F = min(fanout, S)
     dev = pruned.device
     if S > MAX_SLOTS or F < 1:
         raise ValueError(f"{NAME}: needs 1 <= fanout and active_set_size "
                          f"<= {MAX_SLOTS}, got {fanout} and {S}")
+    _lanes.check_batch(K, NAME)
     i32 = torch.int32
-    _build.check(active, "active", i32, (N, S), dev)
-    _build.check(pruned, "pruned", torch.bool, (V, N, S), dev)
-    _build.check(failed, "failed", torch.bool, (N,), dev)
-    _build.check(v_live, "v_live", torch.bool, (V,), dev)
-    _build.check(v_holder, "v_holder", torch.bool, (V, N), dev)
-    _build.check(v_origin, "v_origin", i32, (V,), dev)
-    _build.check(v_vid, "v_vid", i32, (V,), dev)
+    _build.check(active, "active", i32, (K, N, S), dev)
+    _build.check(pruned, "pruned", torch.bool, (K, V, N, S), dev)
+    _build.check(failed, "failed", torch.bool, (K, N), dev)
+    _build.check(v_live, "v_live", torch.bool, (K, V), dev)
+    _build.check(v_holder, "v_holder", torch.bool, (K, V, N), dev)
+    _build.check(v_origin, "v_origin", i32, (K, V), dev)
+    _build.check(v_vid, "v_vid", i32, (K, V), dev)
     _build.check(side, "side", i32, (N + 1,), dev)
-    out = SendOut(torch.empty((V, N, F), dtype=i32, device=dev),
-                  torch.empty((V, N, F), dtype=torch.uint8, device=dev),
-                  torch.empty((N, V), dtype=i32, device=dev),
-                  torch.empty((N, V), dtype=i32, device=dev))
-    scan = (torch.empty(scan_words(V, N), dtype=torch.int64, device=dev)
-            if egress_cap > 0 else None)
-    basis, threshold = loss if loss is not None else (0, 0)
+    cap, part, basis, thr = lane_knobs(K, egress_cap, partition, loss)
+    records = _lanes.pack(
+        K, LANE_DTYPE, egress_cap=cap,
+        part_on=0 if part is None else part.astype(np.int64),
+        loss_basis=0 if basis is None else basis,
+        loss_threshold=0 if thr is None else thr)
+    out = SendOut(torch.empty((K, V, N, F), dtype=i32, device=dev),
+                  torch.empty((K, V, N, F), dtype=torch.uint8, device=dev),
+                  torch.empty((K, N, V), dtype=i32, device=dev),
+                  torch.empty((K, N, V), dtype=i32, device=dev))
+    scan = (torch.empty(scan_words(V, N, K), dtype=torch.int64, device=dev)
+            if (cap > 0).any() else None)
     p = _build.ptr
     rc = _lib()(p(active), p(pruned), p(failed), p(v_live), p(v_holder),
                 p(v_origin), p(v_vid), p(side), *(p(t) for t in out),
                 None if scan is None else p(scan), V, N, S, F,
-                int(egress_cap),
-                -1 if partition is None else int(bool(partition)),
-                int(loss is not None), basis & 0xFFFFFFFF, int(threshold),
+                int(loss is not None), records.ctypes.data, K,
                 _build.stream_of(pruned))
     _build.launched(NAME, rc)
     return out

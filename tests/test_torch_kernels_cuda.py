@@ -1273,6 +1273,8 @@ def test_rc_merge_prune_live_mask_and_shared_prune_apply(cuda):
         assert int(got.n_pruned[~live].sum()) == 0
     for pruned, active, src, slot in (c[0] for c in
                                       calls["prune_apply"][4:8]):
+        # the round passes its lane form, one set per lane: here [1, N, S]
+        active = active.reshape(active.shape[-2:])
         v = pruned.shape[0]
         each = active[None].expand(v, -1, -1).contiguous()
         _assert_equal(kernels.prune_apply(pruned, active, src, slot),
@@ -1712,3 +1714,151 @@ def test_lane_runs_equal_serial_runs_on_the_card(cuda, case):
                                torch.nan_to_num(r1[k])), (j, k)
         for f in s1._fields:
             assert torch.equal(getattr(states, f)[j], getattr(s1, f)), (j, f)
+
+
+# --------------------------------------------------------------------------
+# traffic lanes: the six traffic kernels' lane forms (one launch per call,
+# the lane in the grid), against their plain twins and one-lane calls
+# --------------------------------------------------------------------------
+
+TRAFFIC_LANE_KERNELS = ("traffic_send", "traffic_admit", "rank_inbound",
+                        "rc_merge_prune", "prune_apply", "traffic_rescue")
+#: case -> (N, V, rounds, adaptive, the lanes' knobs)
+TRAFFIC_LANE_RUNS = {
+    # one lane: the serial round's call shapes, capped and impaired
+    "k1": (2000, 16, 10, False, [dict(
+        node_ingress_cap=6, node_egress_cap=9, packet_loss_rate=0.1,
+        churn_fail_rate=0.02, churn_recover_rate=0.3, partition_at=3,
+        heal_at=8)]),
+    # V = 70 (three 32-value chunks, the last ragged): caps off, 1 and
+    # binding (the egress look-back of lane 2 crosses chunks), loss,
+    # churn and a partition in different lanes
+    "k3_ragged": (1500, 70, 10, False, [
+        dict(),
+        dict(node_ingress_cap=1, node_egress_cap=1, packet_loss_rate=0.1,
+             churn_fail_rate=0.02, churn_recover_rate=0.3),
+        dict(node_ingress_cap=12, node_egress_cap=40, partition_at=3,
+             heal_at=8, impair_seed=9, traffic_rate=6)]),
+    # the most lanes a launch takes, every knob varied
+    "k64": (300, 5, 6, False, [dict(
+        node_ingress_cap=j % 4, node_egress_cap=(3 * j) % 7,
+        packet_loss_rate=0.05 * (j % 3), traffic_rate=1 + j % 3,
+        impair_seed=j, probability_of_rotation=0.1 * (j % 4))
+        for j in range(64)]),
+    # adaptive lanes: thresholds 0.3-0.9, caps off, 1 and binding, and
+    # pull fanouts 2-4 (the draws sized for the widest)
+    "adaptive_k3": (1500, 40, 16, True, [
+        dict(adaptive_switch_threshold=0.3, pull_fanout=2),
+        dict(adaptive_switch_threshold=0.6, node_ingress_cap=1,
+             node_egress_cap=1, packet_loss_rate=0.1, pull_fanout=4),
+        dict(adaptive_switch_threshold=0.9, node_ingress_cap=20,
+             node_egress_cap=30, partition_at=4, heal_at=10, pull_fanout=3)]),
+}
+
+
+def _traffic_lanes_run(cuda, n, v, rounds, adaptive, lanes, record=True):
+    """The lanes' traffic rounds on the card (each kernel's calls recorded
+    with ``record``); returns (params, states, rows, calls, launches)."""
+    from gossip_sim_tpu_torch.engine import merge_lane_statics, stack_knobs
+    from gossip_sim_tpu_torch.engine import traffic as tt
+    stakes = np.random.default_rng(1).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    base = dict(num_nodes=n, traffic_values=v, traffic_rate=3,
+                warm_up_rounds=0, min_num_upserts=4,
+                probability_of_rotation=0.1, impair_seed=5)
+    if adaptive:
+        base["gossip_mode"] = "adaptive"
+    plist = [EngineParams(**{**base, **kw}) for kw in lanes]
+    static = merge_lane_statics([p.static_part() for p in plist])
+    tables = make_cluster_tables(stakes, device=cuda)
+    ttables = tt.device_traffic_tables(stakes, device=cuda)
+    st0 = tt.init_traffic_state(stakes, plist[0], 3, device=cuda)
+    calls = {name: [] for name in TRAFFIC_LANE_KERNELS}
+    real = {name: getattr(kernels, name) for name in TRAFFIC_LANE_KERNELS}
+
+    def recorder(name):
+        def rec(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return rec
+
+    kernels.reset_launch_counts()
+    if record:
+        for name in TRAFFIC_LANE_KERNELS:
+            setattr(kernels, name, recorder(name))
+    try:
+        states, rows = tt.run_traffic_lanes(
+            static, tables, ttables, tt.broadcast_traffic_state(
+                st0, len(plist)),
+            stack_knobs([p.knob_values() for p in plist]), rounds)
+    finally:
+        for name in TRAFFIC_LANE_KERNELS:
+            setattr(kernels, name, real[name])
+    torch.cuda.synchronize()
+    return (plist, static, tables, ttables, st0, states, rows, calls,
+            dict(kernels.LAUNCHES))
+
+
+@pytest.mark.parametrize("case", list(TRAFFIC_LANE_RUNS))
+def test_traffic_lane_kernels_equal_plain_and_one_lane_calls(cuda, case):
+    """One launch of each lane kernel a round for all the lanes; each
+    lane call equals its plain lane form and, lane by lane, the kernel's
+    one-lane calls (tolerance 0); each lane equals its serial run."""
+    from gossip_sim_tpu_torch.engine import traffic as tt
+    from gossip_sim_tpu_torch.kernels import _lanes
+    n, v, rounds, adaptive, lanes = TRAFFIC_LANE_RUNS[case]
+    (plist, _, tables, ttables, st0, states, rows, calls,
+     launches) = _traffic_lanes_run(cuda, n, v, rounds, adaptive, lanes)
+    names = TRAFFIC_LANE_KERNELS[:5 + int(adaptive)]
+    for name in TRAFFIC_LANE_KERNELS:
+        assert launches[name] == (rounds if name in names else 0), name
+    for name in names:
+        fn, plain = getattr(kernels, name), getattr(kernels, f"{name}_plain")
+        for r in (rounds // 2, rounds - 1):
+            args, kw = calls[name][r]
+            got = fn(*args, **kw)
+            _assert_equal(got, plain(*args, **kw), f"{name} round {r}")
+            for j in range(len(lanes)):
+                a1, k1 = _lanes.one_lane_call(name, args, kw, j, v)
+                _assert_equal(_lanes.lane_part(name, got, j, v),
+                              fn(*a1, **k1), f"{name} round {r} lane {j}")
+    total = lambda k: int(rows[k].sum())
+    assert total("delivered") > 0
+    if adaptive:
+        assert total("pull_rescued") > 0 and total("switched_to_pull") > 0
+    for j in {0, len(lanes) - 1}:
+        s1, r1 = tt.run_traffic_rounds(plist[j], tables, ttables, st0,
+                                       rounds)
+        for k in r1:
+            assert torch.equal(rows[k][:, j], r1[k]), (case, j, k)
+        for f in s1._fields:
+            assert torch.equal(getattr(states, f)[j], getattr(s1, f)), \
+                (case, j, f)
+
+
+def test_more_than_64_traffic_lanes_run_in_groups_on_the_card(cuda):
+    """66 traffic lanes run as a group of 64 and one of 2 (two launches
+    of each kernel a round); the lanes at the groups' ends equal their
+    serial runs."""
+    from gossip_sim_tpu_torch.engine import traffic as tt
+    lanes = [dict(node_ingress_cap=j % 3, packet_loss_rate=0.02 * (j % 4))
+             for j in range(66)]
+    (plist, _, tables, ttables, st0, states, rows, _,
+     launches) = _traffic_lanes_run(cuda, 200, 4, 5, False, lanes,
+                                    record=False)
+    for name in TRAFFIC_LANE_KERNELS[:5]:
+        assert launches[name] == 2 * 5, name
+    for j in (0, 63, 64, 65):
+        s1, r1 = tt.run_traffic_rounds(plist[j], tables, ttables, st0, 5)
+        for k in r1:
+            assert torch.equal(rows[k][:, j], r1[k]), (j, k)
+        for f in s1._fields:
+            assert torch.equal(getattr(states, f)[j], getattr(s1, f)), (j, f)
+
+
+def test_traffic_lane_wrappers_refuse_more_than_64_lanes(cuda):
+    """A launch takes at most 64 lane records; the engine groups more."""
+    act = torch.zeros((65, 10, 4), dtype=torch.int32, device=cuda)
+    words = torch.zeros((65, 10, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="a launch takes 1 to 64"):
+        kernels.traffic_admit(words, words, act, 2, 0)

@@ -402,11 +402,17 @@ def test_rc_merge_prune_plain_lanes_equal_one_lane_calls(sparse):
     _cat_equal(tuple(got), [tuple(o) for o in ones], "rc_merge_prune")
     if sparse:
         return
-    with pytest.raises(ValueError, match="one lane"):
-        kernels.rc_merge_prune_plain(
-            *args, received_cap=50, min_num_upserts=20, min_ingress_nodes=mi,
-            prune_stake_threshold=0.15,
-            live=torch.ones(rows, dtype=torch.bool))
+    # the traffic form (a live mask; traffic lanes) with one knob per lane
+    # and the other shared
+    live = torch.arange(rows) % 3 != 0
+    got = kernels.rc_merge_prune_plain(
+        *args, received_cap=50, min_num_upserts=20, min_ingress_nodes=mi,
+        prune_stake_threshold=0.15, live=live)
+    ones = [tuple(kernels.rc_merge_prune_plain(
+        *[t if t.shape[0] != rows else t[s] for t in args], received_cap=50,
+        min_num_upserts=20, min_ingress_nodes=mi[j],
+        prune_stake_threshold=0.15, live=live[s])) for j, s in _slices()]
+    _cat_equal(tuple(got), ones, "rc_merge_prune live")
 
 
 def test_rotate_plain_lanes_equal_one_lane_calls():
@@ -477,8 +483,25 @@ def test_lane_counts_the_struct_refuses():
 
 
 def test_traffic_lanes_are_refused():
+    """Once refused (ROADMAP A9b), traffic lanes now run through the
+    traffic engine's ``run_traffic_lanes`` (held against the reference by
+    tests/test_torch_traffic_lanes.py); ``run_rounds_lanes`` points a
+    traffic static there, as the serial ``round_step`` does."""
+    from gossip_sim_tpu_torch.engine import traffic as tt
     p = EngineParams(num_nodes=N, traffic_values=4)
     static = merge_lane_statics([p.static_part()])
-    with pytest.raises(NotImplementedError, match="A9b"):
+    knobs = stack_knobs([p.knob_values()])
+    with pytest.raises(ValueError, match="engine/traffic.py"):
         run_rounds_lanes(static, None, torch.zeros(1, dtype=torch.int32),
-                         None, stack_knobs([p.knob_values()]), 1)
+                         None, knobs, 1)
+    stakes = _stakes()
+    tables = make_cluster_tables(stakes, device="cpu")
+    ttables = tt.device_traffic_tables(stakes, device="cpu")
+    st0 = tt.init_traffic_state(stakes, p, 5, device="cpu")
+    states, rows = tt.run_traffic_lanes(
+        static, tables, ttables, tt.broadcast_traffic_state(st0, 1), knobs,
+        2)
+    s1, r1 = tt.run_traffic_rounds(p, tables, ttables, st0, 2)
+    assert_states_equal(tt.traffic_lane_state(states, 0), s1, "traffic")
+    assert_rows_equal({k: v[:, 0] for k, v in rows.items()}, r1,
+                      "traffic")

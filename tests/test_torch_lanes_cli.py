@@ -9,7 +9,7 @@
 * the sweeps lanes cannot serve (a shape sweep, no measured rounds, one
   simulation) run serially with the reference's warning words;
 * ``sweep-lanes must be >= 0``, and a traffic sweep with ``--sweep-lanes``
-  raises ``NotImplementedError`` naming ROADMAP A9b.
+  runs as lanes with the serial sweep's per-point summaries.
 
 Both threefry layouts are pinned to the partitionable one.  Tolerance: 0."""
 
@@ -101,9 +101,19 @@ def test_sweep_lanes_flag_and_its_bound():
 
 
 def test_traffic_sweep_lanes_are_refused():
+    """Once refused (ROADMAP A9b), a traffic sweep with ``--sweep-lanes``
+    now runs as lanes, with the serial sweep's per-point results
+    (tests/test_torch_traffic_lanes_cli.py holds it against the
+    reference)."""
     argv = BASE + ["--traffic-values", "4", "--test-type", "traffic-rate",
                    "--num-simulations", "2", "--step-size", "1",
-                   "--sweep-lanes", "2", "--device", "cpu"]
-    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        cli.run_traffic(cfg)
+                   "--device", "cpu"]
+    def run(a):
+        reset_unique_pubkeys()
+        return cli.run_traffic(cli.config_from_args(
+            cli.build_parser().parse_args(a)))
+    report = run(argv + ["--sweep-lanes", "2"])
+    assert report["sweep_lanes"] == 2 and report["num_points"] == 2
+    serial = run(argv)
+    assert serial["sweep_lanes"] == 0
+    assert report["traffic_points"] == serial["traffic_points"]

@@ -12,8 +12,8 @@ prunee from ``src_sorted``) scans the prunee's slots for the pruner and
 sets the bit.
 Held on the port engine's recorded calls: the push round (a per-origin
 active set) in the round whose upsert counters fire, and the traffic round
-(one shared [N, S] set), and on dense synthetic inputs whose planes end in
-a partial vector.  Also the launch's grid (``grid_blocks``: one wave, or
+(its lane form: one [N, S] set per lane, shared by the lane's values), and
+on dense synthetic inputs whose planes end in a partial vector.  Also the launch's grid (``grid_blocks``: one wave, or
 fewer where the planes are small).
 
 Tolerance: 0 (exact equality of the pruned bits)."""
@@ -66,7 +66,7 @@ def _prune_apply_schedule(pruned, active, src_sorted, pruned_slot,
     ``THREADS`` threads; returns the [O, N, S] pruned bits."""
     O, N, S = pruned.shape
     C = src_sorted.shape[-1]
-    shared = active.ndim == 2
+    group = O if active.ndim == 2 else O // active.shape[0]
     stride = grid * pa.THREADS
     flat_in = pruned.reshape(-1).astype(np.uint8)
     out = np.full(flat_in.size, 7, np.uint8)    # 7: never written
@@ -94,7 +94,8 @@ def _prune_apply_schedule(pruned, active, src_sorted, pruned_slot,
         if u < 0 or u >= N:
             return
         prow = (o_n + u) * S
-        arow = act[u * S:(u + 1) * S] if shared else act[prow:prow + S]
+        arow0 = prow if group == 1 else ((o_n // N // group) * N + u) * S
+        arow = act[arow0:arow0 + S]
         for j in range(S):
             if arow[j] == t:
                 out[prow + j] = 1
@@ -177,7 +178,9 @@ def _traffic_calls():
 def test_prune_apply_schedule_equals_plain_on_rounds(which):
     """The two calls with the most live pairs of each run."""
     calls = _push_calls() if which == "push" else _traffic_calls()
-    assert (calls[0][1].dim() == 2) == (which == "traffic")
+    # the traffic round's one set per lane is shared by the lane's values
+    assert ((calls[0][1].shape[0] < calls[0][0].shape[0])
+            == (which == "traffic"))
     live = [int(c[3].sum()) for c in calls]
     busiest = sorted(range(len(calls)), key=lambda i: -live[i])[:2]
     assert live[busiest[0]] > 20

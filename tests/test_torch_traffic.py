@@ -103,6 +103,21 @@ def _reference_step(static, trace):
         static, jt, jtt, st, it, detail=True, trace=trace, knobs=kn))
 
 
+#: the per-run planes of each recorded kernel's arguments: the engine's
+#: round calls every traffic kernel in its lane form, with a leading lane
+#: axis (one lane here); the other arguments are shared or scalars
+_LANE_ARGS = {"traffic_send": range(7), "traffic_admit": range(3),
+              "traffic_rescue": (0, 1, 2, 3, 4, 5, 11, 12)}
+
+
+def _one_run(name, args, out):
+    """A one-lane call of kernel ``name`` (arguments and outputs) in the
+    kernel's one-run form."""
+    args = tuple(a[0] if i in _LANE_ARGS[name] else a
+                 for i, a in enumerate(args))
+    return args, type(out)(*(t[0] for t in out))
+
+
 @functools.lru_cache(maxsize=None)
 def _run_case(case):
     """Both engines through the case's rounds from one seed.  Returns the
@@ -123,7 +138,8 @@ def _run_case(case):
     def recorder(name):
         def rec(*args, **kw):
             out = real[name](*args, **kw)
-            calls[name].append((args, kw, out))
+            one_args, one_out = _one_run(name, args, out)
+            calls[name].append((one_args, kw, one_out))
             return out
         return rec
 
