@@ -148,10 +148,18 @@ Phases (any failure exits non-zero before the final line):
       full-width adaptive CLI uncapped and capped (rounds/s, value-rounds/s,
       peak memory, launches, the TRAFFIC and ADAPTIVE SUMMARY counts); cuda
       == cpu at N=2,000, M=32 adaptive, capped and impaired;
-  (j) the sparse layout (``--engine-representation sparse``): device times
-      and 5-round profiles of both layouts in a process of its own
-      (``--profile-sparse``: O=32 and O=64 of N=10,000, O=41 of
-      N=100,000); ``rc_merge_prune``'s sparse variant on round 19's inputs
+  (j) the sparse layout (``--engine-representation sparse``): in a
+      process of its own (``--profile-sparse``), 5-round profiles of both
+      layouts (O=32 and O=64 of N=10,000, O=41 of N=100,000) and
+      ``rc_merge_prune`` and ``bfs_relax`` on the inputs of round 19 (rows
+      fire) and round 20 (rows do not): ``rc_merge_prune`` dense and
+      sparse at O=1, 32 and 64 of N=10,000 and O=41 of N=100,000 and its
+      traffic form at (i)'s M=256, ``bfs_relax`` at the same push shapes
+      and on (k)'s 8 lanes x 4 origins, each exact vs plain (tolerance 0),
+      timed (device ms and CUDA events) beside its bytes bound and, for
+      ``bfs_relax``, its latency floor (the geometry's cluster barriers,
+      compaction and DSMEM passes for the call's hop count, no edge work);
+      ``rc_merge_prune``'s sparse variant on round 19's inputs
       at O=32 held against its plain version and against the dense kernel
       given the planes ``shi/slo[rc_src]`` (tolerance 0), timed in turns
       with the dense kernel beside its plain version, its bound and the
@@ -485,6 +493,11 @@ def ptxas_summary(log: str) -> list:
         if m:
             name = next((sym for syms in KERNEL_SYMBOLS.values()
                          for sym in syms if sym in m.group(1)), m.group(1))
+            # a template's arguments (bool flags: Lb0E / Lb1E)
+            flags = re.findall(r"Lb([01])E", m.group(1).split("kernel")[-1])
+            if flags:
+                name += "<" + ", ".join("true" if f == "1" else "false"
+                                        for f in flags) + ">"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -1479,11 +1492,8 @@ def profile_child(flag: str) -> int:
     (i), and the same for adaptive traffic at M=256 (uncapped and capped,
     on the first round from 39 on with values in their pull phase; the
     5-round adaptive profile from round 20, as push mode's).
-    ``chip_smoke.py --profile-sparse``: ``rc_merge_prune``'s device time
-    on round 19's inputs in the dense and the sparse layout at O=32 and
-    O=64 (the highest stakes) of N=10,000 and at O=41 of N=100,000, and
-    the 5-round profiles of both layouts from round 19 at each shape,
-    started by phase (j).  ``chip_smoke.py --profile-lanes``: the device
+    ``chip_smoke.py --profile-sparse``: see :func:`sparse_child`.
+    ``chip_smoke.py --profile-lanes``: the device
     time of each kernel that reads a sweep knob on phase (k)'s round 19 of
     ``LANE_K`` lanes of ``LANE_O`` origins (push, sparse, push-pull), and of
     its one-lane call on the same rows, and the 5-round profiles from round
@@ -1501,8 +1511,6 @@ def profile_child(flag: str) -> int:
                                              make_cluster_tables, run_rounds)
     from gossip_sim_tpu_torch.identity import NodeIndex
     dev = torch.device("cuda")
-    if flag == SPARSE_FLAG:
-        return sparse_child(dev)
     if flag == LANES_FLAG:
         return lanes_child(dev)
     if flag == TRAFFIC_LANES_FLAG:
@@ -1629,61 +1637,189 @@ def profile_child(flag: str) -> int:
     return 0
 
 
-def sparse_child(dev) -> int:
-    """``chip_smoke.py --profile-sparse`` (see :func:`profile_child`)."""
-    import numpy as np
+#: the push round's shapes (N, O) at which ``--profile-sparse`` takes
+#: rc_merge_prune and bfs_relax on rounds 19 and 20; the round profiles are
+#: taken at those with O > 1
+SPARSE_SHAPES = ((N_FULL, 1), (N_FULL, O_KERNEL), (N_FULL, O_PULL),
+                 (N_HUGE, O_HUGE))
+
+
+def sparse_child(tree: Path) -> int:
+    """``chip_smoke.py --profile-sparse [TREE]``, started by phase (j): on
+    the inputs of rounds 19 (the first whose upsert counters fire) and 20
+    of the push round at each of ``SPARSE_SHAPES`` (the highest-stake
+    origins), ``rc_merge_prune`` in both layouts and ``bfs_relax``;
+    ``rc_merge_prune``'s traffic form (live mask) on rounds 19 and 20 of
+    (i)'s uncapped M=256 run (no value row fires in either); ``bfs_relax``
+    on rounds 19 and 20 of (k)'s 8 lanes x 4 origins (lanes of unequal hop
+    counts); and ``rc_merge_prune`` at O=32 (both layouts) and in the
+    traffic form on round 20's inputs with the upsert counters set to 18,
+    19 and 20 across rows (fired and unfired rows in one call).  First
+    every call's device ms under the profiler, ``bfs_relax``'s latency
+    floor at the call's geometry and hop count
+    (``kernels.bfs_relax._latency_floor``; where TREE is this checkout:
+    the floor is of this design's geometry) and the 5-round profiles of
+    both layouts from round 19 at the shapes with O > 1; then each call
+    held against its plain version (max abs err), timed with CUDA events,
+    its bytes counted (inputs once, outputs once) and its hops or fired
+    rows.  The package comes from TREE (default: this checkout), so that
+    ``round_turns.py --merge-bfs`` can compare a parent and a change in
+    turns.  Prints a JSON line, last: {"profiles": {"N=n O=o layout":
+    ...}, "cases": {...}}."""
     import torch
-    from gossip_sim_tpu_torch import cli, kernels, rng
-    from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
-                                             make_cluster_tables, run_rounds)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    sys.path.insert(0, str(tree.resolve()))
+    import numpy as np
+    from gossip_sim_tpu_torch import cli, engine, kernels, rng
+    from gossip_sim_tpu_torch.engine import EngineParams
+    from gossip_sim_tpu_torch.engine.traffic import (device_traffic_tables,
+                                                     traffic_round_step)
     from gossip_sim_tpu_torch.identity import NodeIndex
+    dev = torch.device("cuda")
+    kernels.build_all()
+    bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
+    floor = (bfs_mod._latency_floor if tree.resolve() == ROOT.resolve()
+             else None)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    real = kernels.rc_merge_prune
-    # every shape's round-19 state and call first, then the profiler
-    # sessions back to back
-    captured = []
-    for n, widths in ((N_FULL, (O_KERNEL, O_PULL)), (N_HUGE, (O_HUGE,))):
+    names = ("rc_merge_prune", "bfs_relax")
+    real = {n: getattr(kernels, n) for n in names}
+    plain = {n: getattr(kernels, f"{n}_plain") for n in names}
+    cases = []     # (key, kernel, profiler symbol key, (args, kw))
+    profiled = []  # (key, params, tables, origins, state after round 19)
+    for n in (N_FULL, N_HUGE):
         accounts, _ = cli.load_cluster_accounts(
             cli.Config(num_synthetic_nodes=n))
         stakes_np = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
-        tables = make_cluster_tables(stakes_np, device=dev)
+        tables = engine.make_cluster_tables(stakes_np, device=dev)
         top = np.argsort(-stakes_np, kind="stable").astype(np.int32)
-        for o in widths:
+        for o in (o for n_, o in SPARSE_SHAPES if n_ == n):
             orgs = torch.as_tensor(top[:o], device=dev)
             for rep in ("dense", "sparse"):
                 prm = EngineParams(num_nodes=n, warm_up_rounds=0,
                                    representation=rep)
-                st = init_state(rng.prng_key(42, dev), tables, orgs, prm)
-                st, _ = run_rounds(prm, tables, orgs, st, 19)
-                calls = []
-
-                def rec(*a, **kw):
-                    calls.append((a, kw))
-                    return real(*a, **kw)
-
-                kernels.rc_merge_prune = rec
-                try:
-                    run_rounds(prm, tables, orgs, st, 1, start_it=19)
-                finally:
-                    kernels.rc_merge_prune = real
-                captured.append((f"N={n} O={o} {rep}", prm, tables, orgs,
-                                 st, calls[0]))
+                st = engine.init_state(rng.prng_key(42, dev), tables, orgs,
+                                       prm)
+                st, _ = engine.run_rounds(prm, tables, orgs, st, 19)
+                _, calls = record_calls(kernels, names, engine.run_rounds,
+                                        prm, tables, orgs, st, 2, 19)
+                if o > 1:
+                    profiled.append((f"N={n} O={o} {rep}", prm, tables, orgs,
+                                     st))
+                del st
+                for r in (0, 1):
+                    cases.append((f"rc_merge_prune {rep} N={n} O={o} "
+                                  f"round {19 + r}", "rc_merge_prune",
+                                  SPARSE if rep == "sparse"
+                                  else "rc_merge_prune",
+                                  calls["rc_merge_prune"][r]))
+                    if rep == "dense":  # the layouts' targets are equal
+                        cases.append((f"bfs_relax N={n} O={o} round "
+                                      f"{19 + r}", "bfs_relax", "bfs_relax",
+                                      calls["bfs_relax"][r]))
+                del calls
+        if n == N_FULL:
+            # the traffic form: (i)'s uncapped M=256 run, rounds 19 and 20
+            ttables = device_traffic_tables(stakes_np, dev)
+            prm = traffic_params(EngineParams, "uncapped")
+            st, _, c19 = traffic_round19(kernels, prm, tables, ttables,
+                                         stakes_np, dev)
+            _, c20 = record_calls(kernels, ["rc_merge_prune"],
+                                  traffic_round_step, prm, tables, ttables,
+                                  st, 20)
+            c20 = one_run_calls(c20, prm.traffic_values)
+            del st
+            for r, c in ((19, c19), (20, c20)):
+                cases.append((f"rc_merge_prune traffic M={M_TRAFFIC} round "
+                              f"{r}", "rc_merge_prune", "rc_merge_prune",
+                              c["rc_merge_prune"][0]))
+            del c19, c20, ttables
+            # (k)'s lanes: 8 lanes x 4 origins, rounds 19 and 20
+            plist = lane_params(EngineParams)
+            static = engine.merge_lane_statics([p.static_part()
+                                                for p in plist])
+            kstack = engine.stack_knobs([p.knob_values() for p in plist])
+            lorgs = torch.as_tensor(top[:LANE_O], device=dev)
+            st = engine.broadcast_state(engine.init_state(
+                rng.prng_key(42, dev), tables, lorgs, plist[0]), LANE_K)
+            st, _ = engine.run_rounds_lanes(static, tables, lorgs, st,
+                                            kstack, 19)
+            _, calls = record_calls(kernels, ["bfs_relax"],
+                                    engine.run_rounds_lanes, static, tables,
+                                    lorgs, st, kstack, 2, 19)
+            del st
+            for r in (0, 1):
+                cases.append((f"bfs_relax lanes K={LANE_K} x O={LANE_O} "
+                              f"N={n} round {19 + r}", "bfs_relax",
+                              "bfs_relax", calls["bfs_relax"][r]))
+            del calls
+        del tables
+    # round 20's inputs with the upsert counters set to 18, 19 and 20
+    # across rows (seeded): about two rows in three fire, the rest do not
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for key, name, sym, (a, kw) in list(cases):
+        if name == "rc_merge_prune" and key.endswith("round 20") and (
+                "traffic" in key or f"N={N_FULL} O={O_KERNEL} " in key):
+            ups = torch.tensor([18, 19, 20], dtype=torch.int32, device=dev)[
+                torch.randint(0, 3, a[4].shape, generator=gen, device=dev)]
+            cases.append((key + ", counters 18-20", name, sym,
+                          (a[:4] + (ups,) + a[5:], kw)))
     torch.cuda.synchronize()
-    out = {}
-    for key, prm, tables, orgs, st, (a, kw) in captured:
-        sym = KERNEL_SYMBOLS[SPARSE if "sparse" in key else "rc_merge_prune"]
-        out[key] = {"device_ms": device_ms(lambda: real(*a, **kw), sym,
-                                           reps=10)}
+    # the profiler sessions back to back
+    out = {"profiles": {}, "cases": {key: {} for key, *_ in cases}}
+    for key, name, sym, (a, kw) in cases:
+        d = out["cases"][key]
+        d["device_ms"] = device_ms(lambda: real[name](*a, **kw),
+                                   KERNEL_SYMBOLS[sym], reps=10)
+        if name == "bfs_relax" and floor is not None:
+            reached, dist = real[name](*a, **kw)
+            d["hops"] = int(dist[reached].max())
+            d["floor_ms"] = device_ms(lambda: floor(a[0], a[1], d["hops"]),
+                                      KERNEL_SYMBOLS[sym], reps=10)
+            del reached, dist
+    for key, prm, tables, orgs, st in profiled:
         prof = profile_rounds(
-            lambda p, t, o_, s_, r: run_rounds(p, t, o_, s_, r, start_it=19),
-            prm, tables, orgs, st, out_dir, tag=" " + key.replace("=", ""),
-            phase="(j)")
-        out[key].update({k: prof.get(k) for k in ("busy_ms", "wall_ms",
-                                                  "launches")})
-        out[key]["kernel_ms_per_round"] = prof["device"].get(
-            SPARSE if "sparse" in key else "rc_merge_prune")
-    print(json.dumps(out), flush=True)
+            lambda p, t, o_, s_, r: engine.run_rounds(p, t, o_, s_, r,
+                                                      start_it=19),
+            prm, tables, orgs, st, out_dir,
+            tag=(" " if floor is not None else
+                 " turns " + re.sub(r"\W", "_", str(tree)) + " ")
+            + key.replace("=", ""), phase="(j)")
+        which = SPARSE if "sparse" in key else "rc_merge_prune"
+        n_o, rep = key.rsplit(" ", 1)
+        out["profiles"][key] = {
+            "device_ms": out["cases"][
+                f"rc_merge_prune {rep} {n_o} round 19"]["device_ms"],
+            **{k: prof.get(k) for k in ("busy_ms", "wall_ms", "launches")},
+            "kernel_ms_per_round": prof["device"].get(which)}
+    del profiled
+    torch.cuda.empty_cache()
+    # exactness, CUDA-event times, bytes, hops and fired rows
+    for key, name, _, (a, kw) in cases:
+        got = real[name](*a, **kw)
+        d = out["cases"][key]
+        d.update(max_abs_err=max_abs_err(got, plain[name](*a, **kw)),
+                 bytes=nbytes(*a, *got, kw.get("live")),
+                 ms=cuda_ms(lambda: real[name](*a, **kw)))
+        if name == "bfs_relax":
+            reached, dist = got
+            d["hops"] = int(dist[reached].max())
+            d["rows"] = int(reached.shape[0])
+            d["row_hops"] = [int(dist[i][reached[i]].max())
+                             for i in range(reached.shape[0])]
+        else:
+            n_ = a[0].shape[1]
+            ups = a[4] + (a[5][..., 0] < n_).to(torch.int32)
+            fired = ups >= kw["min_num_upserts"]
+            if kw.get("live") is not None:
+                fired &= kw["live"][:, None]
+            d["fired_rows"] = int(fired.sum())
+            d["rows"] = int(fired.numel())
+        del got
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": str(tree), "device": torch.cuda.get_device_name(
+        0), **out}), flush=True)
     return 0
 
 
@@ -1770,11 +1906,17 @@ def main() -> int:
             f"{g.smem - g.key_bytes} B of staged rows + "
             f"{table.group(1)} B of class tables (ptxas) = {total} B of "
             f"{smem_limit} B")
-    for o in (1, O_RANKS, O_KERNEL, O_BATCH, AO_ORIGINS):
-        g = bfs_mod.launch_geometry(o, N_FULL, sms, smem_limit)
-        say(f"(a) bfs_relax at O={o} N={N_FULL} on {sms} SMs: cluster size "
-            f"{g.cs}, slice {g.slice_len} nodes, {g.smem} B shared memory "
-            f"per CTA (of {smem_limit} B)")
+    for o, n_ in ((1, N_FULL), (LANE_K, N_FULL), (O_RANKS, N_FULL),
+                  (O_KERNEL, N_FULL), (O_BATCH, N_FULL),
+                  (LANE_K * LANE_O, N_FULL), (AO_ORIGINS, N_FULL),
+                  (O_HUGE, N_HUGE)):
+        g = bfs_mod.geometry_for(o, n_, dev)
+        say(f"(a) bfs_relax at O={o} N={n_} on {sms} SMs: cluster size "
+            f"{g.cs} ({bfs_mod.max_clusters(g)} such clusters fit the card "
+            f"at once), slice {g.slice_len} nodes, {g.chunk} frontier words "
+            f"a compaction pass, {g.smem} B shared memory per CTA (of "
+            f"{smem_limit} B), state in "
+            f"{'device memory' if g.scratch_words else 'shared memory'}")
     for c, k in ((64, 16), (64, 24), (128, 16)):
         g = merge_mod.launch_geometry(c, k, smem_limit)
         say(f"(a) rc_merge_prune at C={c} K={k}: {g.rows_per_block} rows "
@@ -3561,13 +3703,14 @@ def main() -> int:
     # device times and both layouts' round profiles, in a process of its own
     sp_run = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), SPARSE_FLAG],
-        capture_output=True, text=True, timeout=400, cwd=ROOT)
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
     for line in sp_run.stdout.splitlines()[:-1]:
         print(line, flush=True)
     if sp_run.returncode != 0:
         fail(f"(j) the --profile-sparse process failed (exit "
              f"{sp_run.returncode}): {sp_run.stderr[-2000:]}")
-    sp_dev = json.loads(sp_run.stdout.splitlines()[-1])
+    sp_out = json.loads(sp_run.stdout.splitlines()[-1])
+    sp_dev, rd = sp_out["profiles"], sp_out["cases"]
 
     def dev_line(n, o):
         d, s_ = sp_dev[f"N={n} O={o} dense"], sp_dev[f"N={n} O={o} sparse"]
@@ -3580,6 +3723,35 @@ def main() -> int:
 
     for n, o in ((N_FULL, O_KERNEL), (N_FULL, O_PULL), (N_HUGE, O_HUGE)):
         say("(j) " + dev_line(n, o))
+
+    # rc_merge_prune and bfs_relax on rounds 19 (rows fire) and 20 at every
+    # shape (the same child), exact vs plain, beside their bytes bound and
+    # bfs_relax's latency floor
+    for key, v in rd.items():
+        which = (SPARSE if key.startswith("rc_merge_prune sparse")
+                 else key.split()[0])
+        worst[which] = max(worst.get(which, 0), v["max_abs_err"])
+        if v["max_abs_err"] != 0:
+            fail(f"(j) {key}: differs from its plain version (max_abs_err "
+                 f"{v['max_abs_err']})")
+        bytes_ms = v["bytes"] / HBM_BYTES_PER_S * 1e3
+        txt = (f"(j) {key}: exact vs plain; device {fmt(v['device_ms'])}, "
+               f"CUDA events {v['ms']:.4f} ms; {v['bytes']} bytes, "
+               f"{bytes_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s")
+        if key.startswith("bfs_relax"):
+            fl = v.get("floor_ms")
+            v["bound_ms"] = max(bytes_ms, fl or 0.0)
+            v["bound_by"] = "latency floor" if (fl or 0) > bytes_ms \
+                else "bytes"
+            txt += (f"; {v['hops']} hops (rows: "
+                    f"{sorted(set(v['row_hops']))}); latency floor "
+                    f"{fmt(fl)} ({v['hops']} hops of cluster barriers, "
+                    f"compaction and DSMEM passes, no edge work); bound "
+                    f"{v['bound_ms']:.4f} ms by {v['bound_by']}")
+        else:
+            v["bound_ms"], v["bound_by"] = bytes_ms, "bytes"
+            txt += f"; fired rows {v['fired_rows']} of {v['rows']}"
+        say(txt)
 
     # the kernel on round 19's inputs at O=32: against its plain version,
     # and against the dense kernel given the planes shi/slo[rc_src]
@@ -4665,6 +4837,16 @@ def main() -> int:
                        for w, v in cli_h.items()},
          "lanes": lanes_of(SPARSE)})
     for entry in line["kernels"]:
+        if entry["name"] in ("bfs_relax", "rc_merge_prune"):
+            sparse_entry = entry.get("variant") == "sparse"
+            entry["rounds_19_20"] = {
+                k: {f: v.get(f) for f in (
+                    "max_abs_err", "device_ms", "ms", "bytes", "bound_ms",
+                    "bound_by", "floor_ms", "hops", "fired_rows", "rows")
+                    if f in v}
+                for k, v in rd.items() if k.startswith(entry["name"])
+                and ("rc_merge_prune sparse" in k) == sparse_entry}
+    for entry in line["kernels"]:
         if entry["name"] in ADAPTIVE_KERNELS and "variant" not in entry:
             entry["traffic_lanes"] = {
                 f: lanes_l[entry["name"]].get(f)
@@ -4682,8 +4864,11 @@ if __name__ == "__main__":
     if sys.argv[1:2] == [CALLS_FLAG] and len(sys.argv) <= 3:
         sys.exit(calls_child(Path(sys.argv[2]) if len(sys.argv) == 3
                              else ROOT))
+    if sys.argv[1:2] == [SPARSE_FLAG] and len(sys.argv) <= 3:
+        sys.exit(sparse_child(Path(sys.argv[2]) if len(sys.argv) == 3
+                              else ROOT))
     sys.exit(profile_child(sys.argv[1])
              if sys.argv[1:] in ([PROFILE_FLAG], [WIDE_FLAG], [PULL_FLAG],
-                                 [TRAFFIC_FLAG], [SPARSE_FLAG],
-                                 [LANES_FLAG], [TRAFFIC_LANES_FLAG])
+                                 [TRAFFIC_FLAG], [LANES_FLAG],
+                                 [TRAFFIC_LANES_FLAG])
              else main())

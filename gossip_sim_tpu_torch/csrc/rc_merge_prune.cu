@@ -22,7 +22,8 @@
 //      iff position >= min_ingress_nodes, cumsum >= int64(f64(min(stake_dst,
 //      stake_org)) * threshold), src != origin and the row fired
 //      (upserts >= min_num_upserts) and its origin is live (when the live
-//      mask is given);
+//      mask is given); src_sorted is a fired row's members in that order
+//      and an unfired row's merged members in source order, then N;
 //   5. a fired row's cache resets to empty.
 //
 // The sparse variant (rc_merge_prune_sparse_kernel, the same body with
@@ -43,14 +44,29 @@
 // pushes to distinct peers).  So every order below is strict and the result
 // is exact.
 //
-// Bound on the H100: memory.  Each call reads four [O, N, C] i32 planes and
+// Bound on the H100: memory in most rounds, the row-local prune order in
+// the rounds a row fires.  Each call reads four [O, N, C] i32 planes and
 // the [O, N, K] inbound rows and writes five [O, N, C] planes (sparse: two
-// and three, and the [N + 1] stake tables, which stay in L2); the row-local
-// work is a few hundred warp instructions per row.  Design: one warp per
-// row, several rows per block, each row staged in dynamic shared memory
-// (sized from C and K by the wrapper; no per-thread row arrays; ptxas gives
-// each variant 48 registers and no spill under the 256-thread launch
-// bound):
+// and three, and the [N + 1] stake tables, which stay in L2).  A row fires
+// only when its upsert counter reaches min_num_upserts (20), so rows fire
+// together about one round in twenty; in every other round the prune order
+// (the sparse variant's two random stake gathers per entry, 128-bit keys,
+// a bitonic sort of ~21 passes at C = 64, the stake scan) was work for
+// nothing: an unfired row prunes nothing and no one reads its src_sorted
+// (prune_apply reads it only at pruned slots).  So an unfired row does the
+// merge only (`fired` is decided once the merge's positions are known,
+// from rc_ups, inb[row, 0] and the live mask: uniform across the row, and
+// loaded late so that no register holds it through the lookup): its
+// src_sorted is the merged row in source order (the words of its new
+// rc_src), its pruned bytes 0.  The prune-order path runs in fired rows
+// only, and the sparse variant gathers stakes there only (in a pass of
+// its own, after the keys are placed).
+// Design: one warp per row, several rows per block, each row staged in
+// dynamic shared memory (sized from C and K by the wrapper; no per-thread
+// row arrays; under the 256-thread launch bound ptxas gives each variant
+// 48 registers, five blocks an SM: the sparse variant without spill, the
+// dense one with 16 bytes of spill stores and 28 of loads, which cost
+// less than the alternatives measured; see step 4):
 //   - lane j loads slots j, j+32, ... (16-byte vectors where C % 4 == 0),
 //     so every plane load and store of a warp is contiguous;
 //   - member lookup: each lane binary-searches one inbound source in the
@@ -61,8 +77,10 @@
 //   - merge by rank instead of a sort: a member's merged position is its
 //     slot plus the inserted sources smaller than it; an inserted source's
 //     is the members smaller than it plus the inserted sources before it;
-//   - prune order: a bitonic sort in shared memory of 128-bit keys over the
-//     kept entries, padded to a power of two;
+//     an unfired row places (src, score, stakes) there and stores them
+//     coalesced; a fired row places its prune keys there;
+//   - prune order (fired rows): a bitonic sort in shared memory of 128-bit
+//     keys over the kept entries, padded to a power of two;
 //   - the stake cumsum is a warp shuffle scan carried across 32-slot chunks,
 //     run only on a fired row's chunks that hold kept entries.
 
@@ -147,6 +165,58 @@ __device__ __forceinline__ int lower_bound(const int32_t* a, int len,
   return lo;
 }
 
+// The rest of a row that does not fire: the merge by rank into `ent`
+// (src, score, stakes; the sparse variant gathers no stake), then the
+// merged row stored coalesced as the cache and as src_sorted (the merged
+// row in source order: no prune reads it), its pruned bytes 0.
+template <bool kSparse>
+__device__ __forceinline__ void unfired_tail(
+    int4* ent, const int32_t* ms, const int32_t* msc, const int32_t* mhi,
+    const int32_t* mlo, const int32_t* ins_v, const int32_t* ins_lt,
+    const int32_t* ins_sc, const int32_t* __restrict__ shi,
+    const int32_t* __restrict__ slo, int32_t* o_src, int32_t* o_score,
+    int32_t* o_shi, int32_t* o_slo, int32_t* src_sorted, uint8_t* pruned,
+    int32_t* n_pruned, int members, int n_ins, int kept, int n, int c,
+    int lane) {
+  for (int j = lane; j < members; j += 32) {
+    const int32_t s = ms[j];
+    int pos = j;
+    for (int t = 0; t < n_ins; ++t) pos += ins_v[t] < s;
+    if (pos < c)
+      ent[pos] = make_int4(s, msc[j], kSparse ? 0 : mhi[j],
+                           kSparse ? 0 : mlo[j]);
+  }
+  for (int t = lane; t < n_ins; t += 32) {
+    const int32_t v = ins_v[t];
+    int pos = ins_lt[t];
+    for (int u = 0; u < n_ins; ++u) {
+      const int32_t w = ins_v[u];
+      pos += w < v || (w == v && u < t);
+    }
+    if (pos < c)
+      ent[pos] = make_int4(v, ins_sc[t], kSparse ? 0 : __ldg(shi + v),
+                           kSparse ? 0 : __ldg(slo + v));
+  }
+  __syncwarp();
+  for (int j = lane; j < c; j += 32) {
+    const int4 e = j < kept ? ent[j] : make_int4(n, 0, 0, 0);
+    o_src[j] = e.x;
+    o_score[j] = e.y;
+    if (!kSparse) {
+      o_shi[j] = e.z;
+      o_slo[j] = e.w;
+    }
+    src_sorted[j] = e.x;
+  }
+  if ((c & 3) == 0 && (reinterpret_cast<uintptr_t>(pruned) & 3) == 0) {
+    for (int j = lane; j < (c >> 2); j += 32)
+      reinterpret_cast<uint32_t*>(pruned)[j] = 0u;
+  } else {
+    for (int j = lane; j < c; j += 32) pruned[j] = 0;
+  }
+  if (lane == 0) *n_pruned = 0;
+}
+
 template <bool kSparse>
 __device__ __forceinline__ void merge_prune_row(
                       const int32_t* __restrict__ rc_src,
@@ -178,10 +248,12 @@ __device__ __forceinline__ void merge_prune_row(
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= rows) return;  // whole warp; no block-wide barrier follows
   // row layout (kernels/rc_merge_prune.py row_smem_bytes): key_slots prune
-  // keys, the member planes (four; sparse: src and score), three words per
-  // inserted inbound source
+  // keys (an unfired row keeps its merged entries there instead), the
+  // member planes (four; sparse: src and score), three words per inserted
+  // inbound source
   ulonglong2* key =
       reinterpret_cast<ulonglong2*>(smem + (size_t)warp * row_bytes);
+  int4* ent = reinterpret_cast<int4*>(key);
   int32_t* ms = reinterpret_cast<int32_t*>(key + key_slots);
   int32_t* msc = ms + c;
   int32_t* mhi = msc + c;
@@ -194,6 +266,7 @@ __device__ __forceinline__ void merge_prune_row(
   const long long base_c = row * c;
   const int32_t* ib = inb + row * k;
 
+  const int32_t v0 = __ldg(ib);
   stage(ms, rc_src + base_c, c, lane);
   stage(msc, rc_score + base_c, c, lane);
   if (!kSparse) {
@@ -208,7 +281,6 @@ __device__ __forceinline__ void merge_prune_row(
   }
 
   // 1 + 2: lookup, score bump, capacity scan; compact the inserted sources
-  const int32_t v0 = __ldg(ib);
   int n01 = 0, wanted = 0, n_ins = 0;
   for (int r0 = 0; r0 < k; r0 += 32) {
     const int r = r0 + lane;
@@ -243,12 +315,39 @@ __device__ __forceinline__ void merge_prune_row(
   const int m = members + n_ins;
   const int kept = m < c ? m : c;
   if (lane == 0 && m > c) atomicAdd(&overflow[o], m - c);
+  // whether the row fires: uniform across the warp; an unfired row ends
+  // with the merge
+  const int ups = __ldg(rc_ups + row) + (v0 < n ? 1 : 0);
+  const bool fired =
+      ups >= min_num_upserts && (live == nullptr || __ldg(live + o) != 0);
+  if (lane == 0) o_ups[row] = fired ? 0 : ups;
+  if (!fired) {
+    unfired_tail<kSparse>(ent, ms, msc, mhi, mlo, ins_v, ins_lt, ins_sc,
+                          shi, slo, o_src + base_c, o_score + base_c,
+                          o_shi + base_c, o_slo + base_c,
+                          src_sorted + base_c, pruned + base_c,
+                          n_pruned + row, members, n_ins, kept, n, c, lane);
+    return;
+  }
+
+  // a fired row: the cache resets to empty; the merged entries become
+  // prune keys
+  for (int j = lane; j < c; j += 32) {
+    o_src[base_c + j] = n;
+    o_score[base_c + j] = 0;
+    if (!kSparse) {
+      o_shi[base_c + j] = 0;
+      o_slo[base_c + j] = 0;
+    }
+  }
+  // (the sparse variant places its keys with stakes 0 and gathers the
+  // stakes in a pass of their own, in merged order)
   for (int j = lane; j < members; j += 32) {
     const int32_t s = ms[j];
     int pos = j;
     for (int t = 0; t < n_ins; ++t) pos += ins_v[t] < s;
     if (pos < c)
-      key[pos] = kSparse ? make_key(s, msc[j], __ldg(shi + s), __ldg(slo + s))
+      key[pos] = kSparse ? make_key(s, msc[j], 0, 0)
                          : make_key(s, msc[j], mhi[j], mlo[j]);
   }
   for (int t = lane; t < n_ins; t += 32) {
@@ -258,44 +357,54 @@ __device__ __forceinline__ void merge_prune_row(
       const int32_t w = ins_v[u];
       pos += w < v || (w == v && u < t);
     }
-    if (pos < c) key[pos] = make_key(v, ins_sc[t], __ldg(shi + v),
-                                     __ldg(slo + v));
+    if (pos < c)
+      key[pos] = kSparse ? make_key(v, ins_sc[t], 0, 0)
+                         : make_key(v, ins_sc[t], __ldg(shi + v),
+                                    __ldg(slo + v));
+  }
+  if (kSparse) {
+    __syncwarp();
+    for (int j = lane; j < kept; j += 32) {
+      const ulonglong2 kk = key[j];
+      const int32_t s = dec((uint32_t)kk.y);
+      key[j] = make_ulonglong2(
+          (kk.x & 0xFFFFFFFF00000000ull) | ~enc(__ldg(shi + s)),
+          ((unsigned long long)~enc(__ldg(slo + s)) << 32) |
+              (kk.y & 0xFFFFFFFFull));
+    }
   }
   const int p = pow2_ceil(kept);
   for (int j = kept + lane; j < p; j += 32)
     key[j] = make_ulonglong2(~0ull, ~0ull);
   __syncwarp();
 
-  const int ups = __ldg(rc_ups + row) + (v0 < n ? 1 : 0);
-  const bool fired =
-      ups >= min_num_upserts && (live == nullptr || __ldg(live + o) != 0);
-  if (lane == 0) o_ups[row] = fired ? 0 : ups;
-  for (int j = lane; j < c; j += 32) {
-    int32_t s = n, sc = 0, hi = 0, lo = 0;
-    if (!fired && j < kept) split_key(key[j], s, sc, hi, lo);
-    o_src[base_c + j] = s;
-    o_score[base_c + j] = sc;
-    if (!kSparse) {
-      o_shi[base_c + j] = hi;
-      o_slo[base_c + j] = lo;
-    }
+  // 4: prune order (bitonic sort of the kept keys), stake scan, decide.
+  // The sparse variant runs the sort's loops and the scan's rolled
+  // (`unroll 1`): unrolled, ptxas (CUDA 12.9, sm_90a) either spills them at
+  // 48 registers or takes 64, and 64 fit four blocks of 8 rows on an SM
+  // where 48 fit five.  The dense variant keeps them unrolled: rolled, it
+  // takes 64 registers (no spill) and measured 10-11% slower on rounds 19
+  // and 20 (H100 80GB HBM3, 700 W) than unrolled with its small spill.
+#define RC_SORT_LOOPS(ROLL)                                                   \
+  ROLL for (int size = 2; size <= p; size <<= 1) {                            \
+    ROLL for (int stride = size >> 1; stride > 0; stride >>= 1) {             \
+      ROLL for (int t = lane; t < (p >> 1); t += 32) {                        \
+        const int i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));        \
+        const ulonglong2 a = key[i], b = key[i + stride];                     \
+        if (key_less(b, a) == ((i & size) == 0)) {                            \
+          key[i] = b;                                                         \
+          key[i + stride] = a;                                                \
+        }                                                                     \
+      }                                                                       \
+      __syncwarp();                                                           \
+    }                                                                         \
   }
-  __syncwarp();  // every lane has read key[] before the sort moves it
-
-  // 4: prune order (bitonic sort of the kept keys), stake scan, decide
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = lane; t < (p >> 1); t += 32) {
-        const int i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
-        const ulonglong2 a = key[i], b = key[i + stride];
-        if (key_less(b, a) == ((i & size) == 0)) {
-          key[i] = b;
-          key[i + stride] = a;
-        }
-      }
-      __syncwarp();
-    }
+  if constexpr (kSparse) {
+    RC_SORT_LOOPS(_Pragma("unroll 1"))
+  } else {
+    RC_SORT_LOOPS()
   }
+#undef RC_SORT_LOOPS
   const int org = __ldg(origins + o);
   const MergeLane& lane_k = lanes.l[o / opl];
   const double threshold = lane_k.threshold;
@@ -305,37 +414,44 @@ __device__ __forceinline__ void merge_prune_row(
       (long long)((double)(sd < so ? sd : so) * threshold);
   long long carry = 0;
   int count = 0;
-  for (int j0 = 0; j0 < c; j0 += 32) {
-    const int j = j0 + lane;
-    const bool member = j < kept;
-    if (!fired || j0 >= kept) {  // nothing to prune in this chunk
-      if (j < c) {
-        src_sorted[base_c + j] = member ? dec((uint32_t)key[j].y) : n;
-        pruned[base_c + j] = 0;
-      }
-      continue;
-    }
-    int32_t s = n, sc = 0, hi = 0, lo = 0;
-    if (member) split_key(key[j], s, sc, hi, lo);
-    const long long st =
-        member ? (long long)(((unsigned long long)(long long)hi << 31) |
-                             (unsigned long long)(long long)lo)
-               : 0;
-    long long x = st;
-    for (int d = 1; d < 32; d <<= 1) {
-      const long long y = __shfl_up_sync(kFull, x, d);
-      if (lane >= d) x += y;
-    }
-    const long long cum = carry + x - st;
-    carry += __shfl_sync(kFull, x, 31);
-    const bool pr = member && fired && j >= min_ingress_nodes &&
-                    cum >= min_stake && s != org;
-    if (j < c) {
-      src_sorted[base_c + j] = s;
-      pruned[base_c + j] = pr ? 1 : 0;
-    }
-    count += __popc(__ballot_sync(kFull, pr));
+#define RC_SCAN_LOOP(ROLL)                                                    \
+  ROLL for (int j0 = 0; j0 < c; j0 += 32) {                                   \
+    const int j = j0 + lane;                                                  \
+    const bool member = j < kept;                                             \
+    if (j0 >= kept) { /* nothing to prune in this chunk */                   \
+      if (j < c) {                                                            \
+        src_sorted[base_c + j] = n;                                           \
+        pruned[base_c + j] = 0;                                               \
+      }                                                                       \
+      continue;                                                               \
+    }                                                                         \
+    int32_t s = n, sc = 0, hi = 0, lo = 0;                                    \
+    if (member) split_key(key[j], s, sc, hi, lo);                             \
+    const long long st =                                                      \
+        member ? (long long)(((unsigned long long)(long long)hi << 31) |      \
+                             (unsigned long long)(long long)lo)               \
+               : 0;                                                           \
+    long long x = st;                                                         \
+    for (int d = 1; d < 32; d <<= 1) {                                        \
+      const long long y = __shfl_up_sync(kFull, x, d);                        \
+      if (lane >= d) x += y;                                                  \
+    }                                                                         \
+    const long long cum = carry + x - st;                                     \
+    carry += __shfl_sync(kFull, x, 31);                                       \
+    const bool pr = member && j >= min_ingress_nodes && cum >= min_stake &&   \
+                    s != org;                                                 \
+    if (j < c) {                                                              \
+      src_sorted[base_c + j] = s;                                             \
+      pruned[base_c + j] = pr ? 1 : 0;                                        \
+    }                                                                         \
+    count += __popc(__ballot_sync(kFull, pr));                                \
   }
+  if constexpr (kSparse) {
+    RC_SCAN_LOOP(_Pragma("unroll 1"))
+  } else {
+    RC_SCAN_LOOP()
+  }
+#undef RC_SCAN_LOOP
   if (lane == 0) n_pruned[row] = count;
 }
 

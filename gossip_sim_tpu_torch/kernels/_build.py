@@ -35,6 +35,10 @@ KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
 #: Kernels built from another's source, counted apart: the sparse layout's
 #: variant of rc_merge_prune (csrc/rc_merge_prune.cu).
 VARIANT_NAMES = ("rc_merge_prune_sparse",)
+#: Libraries that :func:`build_all` leaves out and :func:`library` builds
+#: when first asked for: measurement aids that no engine path loads
+#: (``bfs_relax_floor``: csrc/bfs_relax.cu with BFS_RELAX_FLOOR defined).
+AID_NAMES = ("bfs_relax_floor",)
 #: Rows (threads) per block of the kernels that give a thread to each row.
 ROWS_PER_BLOCK = 128
 
@@ -70,12 +74,13 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all(force: bool = False) -> float:
-    """Compile every kernel library that is not built yet (every one with
-    ``force``), all in parallel.  Returns the wall seconds spent; raises with
-    the compiler output if any build fails."""
+def build_all(force: bool = False, names=KERNEL_NAMES) -> float:
+    """Compile every library of ``names`` (default: every kernel's) that is
+    not built yet (every one with ``force``), all in parallel.  Returns the
+    wall seconds spent; raises with the compiler output if any build
+    fails."""
     out_dir = _build_dir()
-    todo = [n for n in KERNEL_NAMES
+    todo = [n for n in names
             if force or not (out_dir / f"lib{n}.so").exists()]
     if not todo:
         return 0.0
@@ -102,10 +107,11 @@ def build_all(force: bool = False) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded ctypes library of kernel ``name`` (built on first use)."""
+    """The loaded ctypes library of kernel ``name`` (built on first use; an
+    aid of ``AID_NAMES`` alone)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all()
+        build_all(names=(name,) if name in AID_NAMES else KERNEL_NAMES)
         lib = ctypes.CDLL(str(_build_dir() / f"lib{name}.so"))
         _LIBS[name] = lib
     return lib

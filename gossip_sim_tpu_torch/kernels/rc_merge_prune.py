@@ -90,7 +90,9 @@ class MergePruneOut(NamedTuple):
     rc_shi: torch.Tensor       # [O, N, C] i32 ([O, N, 0] sparse)
     rc_slo: torch.Tensor       # [O, N, C] i32 ([O, N, 0] sparse)
     rc_upserts: torch.Tensor   # [O, N] i32 (0 if fired)
-    src_sorted: torch.Tensor   # [O, N, C] i32 members in prune order, N pad
+    src_sorted: torch.Tensor   # [O, N, C] i32 fired: members in prune order;
+    #                            unfired: the merged members in source order
+    #                            (prune_apply reads it at pruned slots only)
     pruned_slot: torch.Tensor  # [O, N, C] bool prune decision per slot
     n_pruned: torch.Tensor     # [O, N] i32
     rc_overflow: torch.Tensor  # [O] i32 sum of max(n_valid - C, 0)
@@ -144,7 +146,10 @@ def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
     (None, or [O] bool) gates which origins' rows may fire: the traffic
     round's value slots.  With ``rc_shi`` and ``rc_slo`` None (the sparse
     layout) the stake planes are ``shi[rc_src]``/``slo[rc_src]`` and come
-    back zero-width.  ``min_ingress_nodes`` and ``prune_stake_threshold``
+    back zero-width.  ``src_sorted`` is a fired row's members in prune
+    order and an unfired row's merged members in source order (its new
+    ``rc_src`` before any reset), N-padded: the kernel orders only the rows
+    that fire.  ``min_ingress_nodes`` and ``prune_stake_threshold``
     may be per lane: K values, lane k's for rows ``[k O / K, (k + 1) O /
     K)``."""
     sparse = is_sparse(rc_shi, rc_slo, live)
@@ -233,7 +238,8 @@ def rc_merge_prune_plain(rc_src, rc_score, rc_shi, rc_slo, rc_upserts, inb,
         rc_shi=torch.where(f3, 0, new_hi).to(torch.int32),
         rc_slo=torch.where(f3, 0, new_lo).to(torch.int32),
         rc_upserts=torch.where(fired, 0, ups).to(torch.int32),
-        src_sorted=src_sorted.to(torch.int32), pruned_slot=pruned_slot,
+        src_sorted=torch.where(f3, src_sorted, new_src).to(torch.int32),
+        pruned_slot=pruned_slot,
         n_pruned=n_pruned, rc_overflow=rc_overflow)
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's engine round on one GPU for several checkouts, in turns.
 
-    python3 round_turns.py [--push-pull | --traffic | --calls | --lanes]
-                           TREE ...
+    python3 round_turns.py [--push-pull | --traffic | --calls | --lanes |
+                            --merge-bfs] TREE ...
 
 Each TREE is the root of a checkout of the repository (``.`` for this
 one); give two trees in turns, e.g. ``build/parent . . build/parent``, to
@@ -33,7 +33,14 @@ traffic rounds/s and value-rounds/s over the engine calls' span.  With
 ``--calls`` each tree runs chip_smoke.py ``--profile-calls TREE``: the
 kernel-only and whole-call device ms of ``prune_apply``,
 ``traffic_admit`` and ``traffic_send`` on round 19's inputs of each shape
-chip_smoke times them at.  With ``--lanes`` it is the serial push round
+chip_smoke times them at.  With ``--merge-bfs`` each tree runs
+chip_smoke.py ``--profile-sparse TREE``: ``rc_merge_prune`` (dense,
+sparse, the traffic form) and ``bfs_relax`` on the inputs of rounds 19
+(rows fire) and 20 at O=1, 32 and 64 of N=10,000, O=41 of N=100,000, (i)'s
+M=256 and (k)'s 8 lanes x 4 origins: device ms, CUDA-event ms, exact
+against the tree's plain version, and (for this checkout) ``bfs_relax``'s
+latency floor; and the 5-round profiles of both layouts at O=32 and 64 of
+N=10,000 and O=41 of N=100,000.  With ``--lanes`` it is the serial push round
 at O=32 (as without a flag) and, where the tree has sweep lanes
 (``engine.run_rounds_lanes``; a parent without them runs the serial half
 only), a round of K=8 lanes of one origin each (packet loss 0 to 0.35,
@@ -274,14 +281,15 @@ def main(argv: list) -> int:
         return 0
     mode = "push"
     if argv[:1] in (["--push-pull"], ["--traffic"], ["--calls"],
-                    ["--lanes"]):
+                    ["--lanes"], ["--merge-bfs"]):
         mode, argv = argv[0][2:], argv[1:]
     if not argv:
         raise SystemExit(__doc__)
     for tree in argv:
-        cmd = ([sys.executable, str(ROOT / "chip_smoke.py"),
-                "--profile-calls", tree] if mode == "calls" else
-               [sys.executable, __file__, "--one", mode, tree])
+        child = {"calls": "--profile-calls",
+                 "merge-bfs": "--profile-sparse"}.get(mode)
+        cmd = ([sys.executable, str(ROOT / "chip_smoke.py"), child, tree]
+               if child else [sys.executable, __file__, "--one", mode, tree])
         out = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=900)
         if out.returncode != 0:

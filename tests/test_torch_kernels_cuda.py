@@ -235,6 +235,26 @@ def _path_edges(seed, o, n):
     return tgt, origins
 
 
+def _lane_edges(seed, n, f):
+    """Eight rows (a lane batch of 8 x O=1) whose BFS runs unequal hop
+    counts: rows 0-3 random edges with more and more slots empty, rows 4-7
+    a path in slot 0 through the first 50, 200, 1000 and n nodes of a
+    random order (the other slots empty)."""
+    r = np.random.default_rng(seed)
+    tgts, origins = [], []
+    for p_none in (0.3, 0.6, 0.75, 0.8):
+        t, o = _random_edges(int(r.integers(1 << 30)), 1, n, f, p_none)
+        tgts.append(t[0])
+        origins.append(o[0])
+    for m in (50, 200, 1000, n):
+        t = np.full((n, f), n, np.int32)
+        order = r.permutation(n)[:m]
+        t[order[:-1], 0] = order[1:]
+        tgts.append(t)
+        origins.append(order[0])
+    return np.stack(tgts), np.asarray(origins, np.int32)
+
+
 BFS_CASES = {
     # name: (edges, O, N, F, cluster size on a 132-SM card)
     "o1": ("random", 1, 1000, 6, 8),
@@ -242,24 +262,39 @@ BFS_CASES = {
     "o32": ("random", 32, 2000, 6, 4),
     "o200": ("random", 200, 500, 6, 1),
     "n_below_threads": ("random", 3, 40, 6, 8),
-    # state over the 48 KB default: 100 KB of opt-in shared memory per CTA
+    # state over the 48 KB default: ~160 KB of opt-in shared memory per CTA
     "opt_in_smem": ("random", 67, 200_000, 2, 1),
     "path_600_hops": ("path", 2, 600, 1, 8),
     # past the 16-bit hop counts of an earlier design, in shared memory
     "n_100k": ("random", 1, 100_000, 6, 8),
     "n_70k_o32": ("random", 32, 70_000, 6, 4),
+    # the sparse layout's shape: O = 41 (the auto batch) at N = 100,000, in
+    # clusters of 3
+    "n_100k_o41": ("random", 41, 100_000, 6, 3),
+    # the fanout sweep's widest F
+    "f12_o16": ("random", 16, 10_000, 12, 8),
+    # a lane batch of 8 rows with unequal hop counts
+    "lanes_unequal_hops": ("lanes", 8, 10_000, 6, 8),
     # past a block's shared memory: the state goes to device memory
     "n_1m_scratch": ("random", 1, 1_000_000, 6, 8),
     "n_600k_o67_scratch": ("random", 67, 600_000, 2, 1),
 }
 
 
+def _bfs_edges(case, seed):
+    kind, o, n, f, _ = BFS_CASES[case]
+    if kind == "random":
+        return _random_edges(seed, o, n, f)
+    if kind == "lanes":
+        return _lane_edges(seed, n, f)
+    return _path_edges(seed, o, n)
+
+
 @pytest.mark.parametrize("case", list(BFS_CASES))
 def test_bfs_relax_equals_plain(cuda, case):
     kind, o, n, f, cs = BFS_CASES[case]
-    assert bfs_mod.cluster_size(o, 132) == cs
-    tgt, origins = (_random_edges(7, o, n, f) if kind == "random"
-                    else _path_edges(7, o, n))
+    assert bfs_mod.launch_geometry(o, n, 132, 232_448).cs == cs
+    tgt, origins = _bfs_edges(case, 7)
     if case == "o3_ragged":
         tgt[1, origins[1]] = n                  # an origin with no targets
     t, org = torch.as_tensor(tgt, device=cuda), torch.as_tensor(
@@ -272,27 +307,51 @@ def test_bfs_relax_equals_plain(cuda, case):
     reached, dist = got
     if kind == "path":
         assert int(dist[reached].max()) == n - 1   # > 255 hops
+    if kind == "lanes":
+        hops = [int(dist[i][reached[i]].max()) for i in range(o)]
+        assert len(set(hops)) >= 5 and max(hops) == n - 1, hops
     if case == "o3_ragged":
         assert int(reached[1].sum()) == 1 and int(dist[1, origins[1]]) == 0
-    g = bfs_mod.launch_geometry(o, n, 132, 232_448)
+    g = bfs_mod.geometry_for(o, n, cuda)
+    assert g.cs <= cs and (o * g.cs <= 132 or g.cs == 1)
     assert (g.scratch_words > 0) == case.endswith("_scratch")
 
 
 @pytest.mark.parametrize("case", ["o1", "o3_ragged", "o32", "o200",
-                                  "path_600_hops"])
+                                  "path_600_hops", "n_100k_o41", "f12_o16",
+                                  "lanes_unequal_hops"])
 def test_bfs_relax_state_in_device_memory_equals_plain(cuda, case):
-    """The device-memory variant of the kernel at small shapes: the same
-    launch with a shared-memory limit of 0 bytes."""
-    kind, o, n, f, _ = BFS_CASES[case]
-    tgt, origins = (_random_edges(11, o, n, f) if kind == "random"
-                    else _path_edges(11, o, n))
+    """The device-memory variant of the kernel: the same launch with no
+    shared memory for the state (the frontier list stays in shared
+    memory)."""
+    o, n = BFS_CASES[case][1:3]
+    tgt, origins = _bfs_edges(case, 11)
     t, org = torch.as_tensor(tgt, device=cuda), torch.as_tensor(
         origins, device=cuda)
     g = bfs_mod.launch_geometry(o, n, torch.cuda.get_device_properties(
-        cuda).multi_processor_count, 0)
-    assert g.smem == 0 and g.scratch_words > 0
+        cuda).multi_processor_count, 0, bfs_mod.max_clusters)
+    assert g.smem == bfs_mod.list_bytes(n, g.cs) and g.scratch_words > 0
+    kernels.reset_launch_counts()
     _assert_equal(bfs_mod._launch(t, org, g),
                   kernels.bfs_relax_plain(t, org), case)
+    assert kernels.LAUNCHES["bfs_relax"] == 1
+
+
+@pytest.mark.parametrize("case", ["o1", "n_100k_o41", "n_1m_scratch"])
+def test_bfs_relax_latency_floor_reaches_nothing(cuda, case):
+    """The latency floor (a measurement aid) runs the geometry's hops with
+    an empty frontier: nothing reached, every dist 1 << 20, no launch
+    counted."""
+    o, n = BFS_CASES[case][1:3]
+    tgt, origins = _bfs_edges(case, 5)
+    t, org = torch.as_tensor(tgt, device=cuda), torch.as_tensor(
+        origins, device=cuda)
+    kernels.reset_launch_counts()
+    reached, dist = bfs_mod._latency_floor(t, org, 12)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bfs_relax"] == 0
+    assert not bool(reached.any())
+    assert bool((dist == bfs_mod.INF).all())
 
 
 def _merge_inputs(seed, c, k, o=2):
@@ -1280,6 +1339,99 @@ def test_rc_merge_prune_live_mask_and_shared_prune_apply(cuda):
         _assert_equal(kernels.prune_apply(pruned, active, src, slot),
                       kernels.prune_apply(pruned, each, src, slot),
                       "prune_apply")
+
+
+def _merge_calls_19_20(cuda, form):
+    """``rc_merge_prune``'s calls in rounds 19 (the first whose upsert
+    counters fire) and 20 of a round run at N = 2,000: the push round in
+    the dense or the sparse layout (O = 4), or the traffic round (M = 32
+    value rows, with the live mask)."""
+    n = 2000
+    stakes = np.random.default_rng(8).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    tables = make_cluster_tables(stakes, device=cuda)
+    calls = []
+    real = kernels.rc_merge_prune
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    kernels.rc_merge_prune = rec
+    try:
+        if form == "traffic":
+            from gossip_sim_tpu_torch.engine.traffic import (
+                device_traffic_tables, init_traffic_state,
+                run_traffic_rounds)
+            params = EngineParams(num_nodes=n, traffic_values=32,
+                                  traffic_rate=4, warm_up_rounds=0,
+                                  node_ingress_cap=24)
+            state = init_traffic_state(stakes, params, 3, device=cuda)
+            run_traffic_rounds(params, tables,
+                               device_traffic_tables(stakes, device=cuda),
+                               state, 21)
+        else:
+            params = EngineParams(num_nodes=n, warm_up_rounds=0,
+                                  representation=form)
+            origins = torch.arange(4, dtype=torch.int32, device=cuda)
+            state = init_state(rng.prng_key(3, cuda), tables, origins,
+                               params)
+            run_rounds(params, tables, origins, state, 21)
+    finally:
+        kernels.rc_merge_prune = real
+    torch.cuda.synchronize()
+    return calls[19], calls[20]
+
+
+def _fired_rows(args, kw, out):
+    """Rows that fired: the counter reached min_num_upserts (and the value
+    row was live)."""
+    ups = args[4] + (args[5][..., 0] < args[0].shape[1]).to(torch.int32)
+    fired = ups >= kw["min_num_upserts"]
+    if kw.get("live") is not None:
+        fired &= kw["live"][:, None]
+    assert torch.equal(out.rc_upserts == 0, fired | (ups == 0))
+    return fired
+
+
+@pytest.mark.parametrize("form", ["dense", "sparse", "traffic"])
+def test_rc_merge_prune_forms_on_rounds_19_20_and_mixed(cuda, form):
+    """The dense kernel, the sparse variant and the traffic form (live
+    mask) on round 19 (rows fire), round 20 (few or none do) and round
+    20's inputs with the upsert counters set to 18, 19 and 20 across rows
+    (fired and unfired rows in one call): equal to the plain version at
+    tolerance 0, an unfired row's src_sorted its new rc_src and its
+    pruned bytes 0."""
+    r19, r20 = _merge_calls_19_20(cuda, form)
+    assert (r19[0][2] is None) == (form == "sparse")
+    g = torch.Generator(device=cuda).manual_seed(17)
+    args, kw = r20
+    ups = torch.tensor([18, 19, 20], device=cuda, dtype=torch.int32)[
+        torch.randint(0, 3, args[4].shape, generator=g, device=cuda)]
+    mixed = (args[:4] + (ups,) + args[5:], kw)
+    fired_at = {}
+    for what, (a, k) in (("round 19", r19), ("round 20", r20),
+                         ("mixed", mixed)):
+        kernels.reset_launch_counts()
+        got = kernels.rc_merge_prune(*a, **k)
+        assert kernels.LAUNCHES["rc_merge_prune_sparse" if form == "sparse"
+                                else "rc_merge_prune"] == 1
+        _assert_equal(got, kernels.rc_merge_prune_plain(*a, **k),
+                      (form, what))
+        fired = _fired_rows(a, k, got)
+        fired_at[what] = int(fired.sum())
+        unfired = ~fired
+        n = a[0].shape[1]
+        new_src = torch.where(unfired[..., None], got.rc_src, n)
+        assert torch.equal(torch.where(unfired[..., None], got.src_sorted,
+                                       n), new_src), what
+        assert not bool(got.pruned_slot[unfired].any()), what
+        assert not bool(got.n_pruned[unfired].any()), what
+    rows = args[0].shape[0] * args[0].shape[1]
+    assert 0 < fired_at["mixed"] < rows
+    if form != "traffic":  # value rows start on their own rounds
+        assert 0 < fired_at["round 19"] and \
+            fired_at["round 20"] < fired_at["round 19"]
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,11 @@
 """The Python around the two redesigned kernels, on the CPU.
 
-* ``bfs_relax``: the cluster size from O, the word-aligned node slices of
-  a cluster's CTAs, and the state per CTA: in shared memory where it fits,
-  else in a device-memory scratch buffer (so any N is taken);
+* ``bfs_relax``: the cluster size from O (at most one CTA per SM, any
+  count up to 8, the largest whose clusters the card holds at once), the
+  word-aligned node slices of a cluster's CTAs, the frontier words a pass
+  compacts and the list they fill, and the state per CTA at the main
+  shapes: in shared memory after the list where it fits, else in a
+  device-memory scratch buffer (so any N is taken);
 * ``rc_merge_prune``: the shared-memory bytes of a row, the rows per block,
   and the row-width limit (raised in bytes, beyond one block's shared
   memory);
@@ -49,18 +52,39 @@ px = importlib.import_module("gossip_sim_tpu_torch.kernels.pull_exchange")
 SMS, SMEM_PER_BLOCK = 132, 232_448
 
 
-@pytest.mark.parametrize("o,cs", [(1, 8), (3, 8), (16, 8), (17, 4), (32, 4),
-                                  (33, 4), (34, 2), (66, 2), (67, 1),
-                                  (200, 1), (10_000, 1)])
-def test_cluster_size_fills_132_sms(o, cs):
-    assert bfs.cluster_size(o, SMS) == cs
-    assert o * cs <= 132 or cs == 1
-    assert cs == bfs.MAX_CLUSTER or o * cs * 2 > 132
+@pytest.mark.parametrize("o,cs", [(1, 8), (3, 8), (16, 8), (17, 7),
+                                  (18, 7), (19, 6), (32, 4), (33, 4),
+                                  (34, 3), (41, 3), (44, 3), (45, 2),
+                                  (66, 2), (67, 1), (200, 1), (10_000, 1)])
+def test_bfs_cluster_takes_one_sm_per_cta(o, cs):
+    """The most CTAs per origin, up to 8, at most one per SM of the 132:
+    any count, so O = 41 (the auto batch at N = 100,000) takes 3 x 41 =
+    123 SMs where powers of two left 50 empty."""
+    g = bfs.launch_geometry(o, 10_000, SMS, SMEM_PER_BLOCK)
+    assert g.cs == cs
+    assert o * cs <= SMS or cs == 1
+    assert cs == bfs.MAX_CLUSTER or o * (cs + 1) > SMS
+
+
+def test_bfs_cluster_fills_the_card_in_one_wave():
+    """A cluster size whose clusters the card does not hold at once (read
+    from the device) gives way to the next smaller one: a card that holds
+    30 clusters of 4 takes O = 32 in clusters of 3."""
+    held = {8: 15, 7: 16, 6: 20, 5: 24, 4: 30, 3: 40, 2: 64}
+    pick = lambda o: bfs.launch_geometry(o, 10_000, SMS, SMEM_PER_BLOCK,
+                                         lambda g: held[g.cs]).cs
+    assert [pick(o) for o in (1, 8, 15, 16, 20, 30, 32, 41, 44, 64, 65,
+                              200)] == [8, 8, 8, 7, 6, 4, 3, 2, 2, 2, 1, 1]
+    seen = []
+    bfs.launch_geometry(41, 100_000, SMS, SMEM_PER_BLOCK,
+                        lambda g: seen.append(g) or 0)
+    assert [g.cs for g in seen] == [3, 2]        # asked largest first
+    assert seen[0] == bfs.shape(41, 100_000, 3, SMEM_PER_BLOCK)
 
 
 @pytest.mark.parametrize("n", [1, 31, 40, 1000, 1001, 10_000, 32_767, 65_535,
                                65_536, 1_000_003])
-@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+@pytest.mark.parametrize("cs", [1, 2, 3, 8])
 def test_slices_tile_the_nodes_word_aligned(n, cs):
     bounds = bfs.slice_bounds(n, cs)
     s = bfs.slice_len(n, cs)
@@ -74,43 +98,133 @@ def test_slices_tile_the_nodes_word_aligned(n, cs):
         assert lo == n or lo == r * s           # each slice starts a word
 
 
-@pytest.mark.parametrize("n,cs,want", [(10_000, 8, 2888), (10_000, 4, 3168),
-                                       (40, 8, 80), (32_767, 1, 16_392),
-                                       (100_000, 8, 28_160)])
-def test_bfs_shared_memory_per_cta(n, cs, want):
-    # reached and frontier bitmaps of the slice, two sent bitmaps of all cs
-    # slices, two flag words
-    s = bfs.slice_len(n, cs)
-    words = bfs.state_words(n, cs)
-    assert 4 * words == want == 4 * ((2 + 2 * cs) * s // 32 + 2)
-    o = {8: 1, 4: 32, 1: 67}[cs]
+@pytest.mark.parametrize("n,cs,chunk", [
+    (1, 1, 32), (40, 8, 32), (1000, 1, 32), (1025, 1, 64), (10_000, 8, 64),
+    (10_000, 4, 96), (10_000, 2, 160), (10_000, 1, 320),
+    (100_000, 3, 512), (1_000_000, 8, 512)])
+def test_bfs_chunk_is_the_slice_up_to_512_words(n, cs, chunk):
+    """A pass compacts the slice's frontier words (whole warps of them, up
+    to 512), and the list holds 32 nodes a word: one pass always fits."""
+    assert bfs.chunk_words(n, cs) == chunk
+    assert chunk % 32 == 0 and chunk <= bfs.MAX_CHUNK <= bfs.THREADS
+    words = bfs.slice_len(n, cs) // 32
+    assert chunk >= min(words, bfs.MAX_CHUNK)
+    assert bfs.list_bytes(n, cs) == 4 * (32 * chunk + bfs.TOT_WORDS)
+
+
+# the main shapes: (O, N) -> (cs, slice, chunk, state words, smem, scratch,
+# the bytes the list and the state use); a cluster's CTA asks for 116,225
+# bytes (more than half an SM's) so that it has an SM to itself
+ONE_PER_SM = SMEM_PER_BLOCK // 2 + 1
+BFS_MAIN = {
+    "O=1 N=10,000": ((1, 10_000), (8, 1280, 64, 722, ONE_PER_SM, 0), 11_208),
+    "O=32 N=10,000": ((32, 10_000), (4, 2528, 96, 792, ONE_PER_SM, 0),
+                      15_584),
+    "O=64 N=10,000": ((64, 10_000), (2, 5024, 160, 944, ONE_PER_SM, 0),
+                      24_384),
+    "O=41 N=100,000": ((41, 100_000), (3, 33_344, 512, 8338, ONE_PER_SM, 0),
+                       99_016),
+    "8 lanes x O=1 N=10,000": ((8, 10_000),
+                               (8, 1280, 64, 722, ONE_PER_SM, 0), 11_208),
+    "O=200 N=10,000": ((200, 10_000), (1, 10_016, 320, 1254, 46_104, 0),
+                       46_104),
+    "O=1 N=1,000,000 (device memory)": (
+        (1, 1_000_000), (8, 125_024, 512, 70_328, ONE_PER_SM, 562_624),
+        65_664),
+    "O=41 N=600,000 (device memory)": (
+        (41, 600_000), (3, 200_000, 512, 50_002, ONE_PER_SM, 6_150_246),
+        65_664),
+}
+
+
+@pytest.mark.parametrize("case", list(BFS_MAIN))
+def test_bfs_geometry_of_the_main_shapes(case):
+    """The list (32 x chunk words and 32 warp totals) then the state:
+    reached and frontier bitmaps of the slice, two sent bitmaps of all cs
+    slices, two flag words; past the shared memory the state goes to
+    device memory and the list stays.  A cluster's CTA asks for more than
+    half of an SM's shared memory, one CTA per origin for what it uses."""
+    (o, n), want, used = BFS_MAIN[case]
     g = bfs.launch_geometry(o, n, SMS, SMEM_PER_BLOCK)
-    assert g == (cs, s, words, want, 0)
+    assert tuple(g) == want
+    words = g.slice_len // 32
+    assert g.state_words == (2 + 2 * g.cs) * words + 2
+    in_smem = g.scratch_words == 0
+    assert used == bfs.list_bytes(n, g.cs) + (4 * g.state_words
+                                              if in_smem else 0)
+    assert g.smem == bfs.one_per_sm(used, g.cs, SMEM_PER_BLOCK)
+    assert used <= g.smem <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("used", [0, 11_208, 99_016, 116_225, 180_000])
+@pytest.mark.parametrize("cs", [1, 2, 8])
+def test_bfs_cluster_ctas_take_an_sm_each(cs, used):
+    """Two CTAs that ask for one_per_sm's bytes do not fit one SM of the
+    H100 (228 KB of shared memory, 1 KB reserved per block); a lone CTA per
+    origin asks for what it uses."""
+    smem = bfs.one_per_sm(used, cs, SMEM_PER_BLOCK)
+    assert used <= smem <= max(used, SMEM_PER_BLOCK)
+    if cs > 1:
+        assert 2 * (smem + 1024) > 228 * 1024
+    else:
+        assert smem == used
 
 
 def test_bfs_geometry_takes_every_node_count_to_its_limit():
-    """State that fits a block's shared memory stays there; beyond it, the
-    state of every CTA goes to one device-memory scratch buffer, so the
-    kernel takes any N the engine does."""
-    for o in (1, 32, 67, 200):
+    """State that fits a block's shared memory beside the list stays
+    there; beyond it, the state of every CTA goes to one device-memory
+    scratch buffer, so the kernel takes any N the engine does."""
+    for o in (1, 32, 41, 67, 200):
         _check_node_counts(o)
 
 
 def _check_node_counts(o):
-    cs = bfs.cluster_size(o, SMS)
+    cs = bfs.launch_geometry(o, 10_000, SMS, SMEM_PER_BLOCK).cs
     fits = max(n for n in range(32, 1 << 21, 32)
-               if 4 * bfs.state_words(n, cs) <= SMEM_PER_BLOCK)
-    assert fits > 400_000                         # far past 16-bit hops
+               if bfs.list_bytes(n, cs) + 4 * bfs.state_words(n, cs)
+               <= SMEM_PER_BLOCK)
+    assert fits > 300_000                         # far past 16-bit hops
+    pad = lambda used: bfs.one_per_sm(used, cs, SMEM_PER_BLOCK)
     g = bfs.launch_geometry(o, fits, SMS, SMEM_PER_BLOCK)
-    assert g.smem == 4 * g.state_words <= SMEM_PER_BLOCK
-    assert g.scratch_words == 0
+    assert g.cs == cs and g.scratch_words == 0
+    assert g.smem == pad(bfs.list_bytes(fits, cs) + 4 * g.state_words)
     for n in (fits + 1, 5_000_000, 1 << 24):
         g = bfs.launch_geometry(o, n, SMS, SMEM_PER_BLOCK)
-        assert g.cs == cs and g.smem == 0
+        assert g.cs == cs and g.smem == pad(bfs.list_bytes(n, cs))
         assert g.scratch_words == o * cs * bfs.state_words(n, cs)
-        assert 4 * g.state_words > SMEM_PER_BLOCK
-    # a smaller shared memory moves the same shape to scratch
-    assert bfs.launch_geometry(o, 10_000, SMS, 1024).scratch_words > 0
+    # a smaller shared memory moves the same shape's state to scratch
+    g = bfs.launch_geometry(o, 10_000, SMS, 0)
+    assert g.scratch_words > 0 and g.smem == bfs.list_bytes(10_000, g.cs)
+
+
+@pytest.mark.parametrize("o,n", [(1, 10_000), (64, 10_000), (41, 100_000)])
+def test_bfs_geometry_is_read_once_per_shape(monkeypatch, o, n):
+    """``geometry_for`` asks the device (SMs, shared memory, one-wave
+    cluster counts) once per (O, N, device), not at every launch: the push
+    round is host-bound and calls it every round."""
+    asked = []
+    monkeypatch.setattr(bfs, "_GEOMETRY", {})
+    monkeypatch.setattr(bfs._build, "sm_count", lambda dev: SMS)
+    monkeypatch.setattr(bfs._build, "smem_optin", lambda dev: SMEM_PER_BLOCK)
+    monkeypatch.setattr(bfs, "max_clusters",
+                        lambda g: asked.append(g.cs) or 132 // g.cs)
+    dev = torch.device("cuda", 0)
+    g = bfs.geometry_for(o, n, dev)
+    first = len(asked)
+    assert first >= 1
+    assert g == bfs.launch_geometry(o, n, SMS, SMEM_PER_BLOCK,
+                                    lambda g_: 132 // g_.cs)
+    for _ in range(3):
+        assert bfs.geometry_for(o, n, dev) is g
+    assert len(asked) == first
+    bfs.geometry_for(o, n + 32, dev)             # another shape is read
+    assert len(asked) > first
+
+
+def test_bfs_geometry_refuses_empty_shapes():
+    for o, n in ((0, 10), (1, 0)):
+        with pytest.raises(ValueError, match="needs O, N"):
+            bfs.shape(o, n, 1, SMEM_PER_BLOCK)
 
 
 @pytest.mark.parametrize("c,k,row,sparse_row", [

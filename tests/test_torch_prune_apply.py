@@ -14,7 +14,10 @@ Held on the port engine's recorded calls: the push round (a per-origin
 active set) in the round whose upsert counters fire, and the traffic round
 (its lane form: one [N, S] set per lane, shared by the lane's values), and
 on dense synthetic inputs whose planes end in a partial vector.  Also the launch's grid (``grid_blocks``: one wave, or
-fewer where the planes are small).
+fewer where the planes are small), and (hypothesis) that neither the plain
+version nor the schedule reads ``src_sorted`` in rows whose
+``pruned_slot`` is all zero (``rc_merge_prune`` orders only the rows that
+fire).
 
 Tolerance: 0 (exact equality of the pruned bits)."""
 
@@ -23,6 +26,8 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from gossip_sim_tpu_torch import kernels, rng
 from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
@@ -229,3 +234,49 @@ def test_prune_apply_grid_is_one_wave_or_less(plane, slots, per_sm, want):
     assert pa.wide_index(plane, slots) is False
     assert pa.wide_index(1 << 31, 0) and pa.wide_index(0, 1 << 31)
     assert not pa.wide_index((1 << 31) - 1, (1 << 31) - 1)
+
+
+# ---- src_sorted is read at pruned slots only ------------------------------
+
+@st.composite
+def _rows_with_unfired(draw):
+    """A prune_apply call (a per-origin or shared active set) whose
+    ``pruned_slot`` rows are all zero in a drawn set of rows (the rows that
+    did not fire), and a second ``src_sorted`` that differs from the first
+    anywhere in those rows only."""
+    o = draw(st.integers(1, 3))
+    n = draw(st.integers(2, 24))
+    s = draw(st.integers(1, 8))
+    c = draw(st.integers(1, 12))
+    shared = draw(st.booleans())
+    seed = draw(st.integers(0, 2**32 - 1))
+    r = np.random.default_rng(seed)
+    pruned = r.random((o, n, s)) < 0.2
+    active = r.integers(0, n + 1, size=(n, s) if shared else (o, n, s))
+    src = r.integers(0, n + 1, size=(o, n, c))
+    slot = r.random((o, n, c)) < 0.5
+    unfired = r.random((o, n)) < draw(st.floats(0.0, 1.0))
+    slot[unfired] = False
+    src[slot] = r.integers(0, n, size=int(slot.sum()))  # pruned: a member
+    other = np.where(unfired[..., None], r.integers(0, n + 1,
+                                                    size=(o, n, c)), src)
+    as_t = lambda a, dt: torch.as_tensor(a.astype(dt))
+    return (as_t(pruned, np.bool_), as_t(active, np.int32),
+            as_t(src, np.int32), as_t(other, np.int32),
+            as_t(slot, np.bool_))
+
+
+@settings(max_examples=60, deadline=None)
+@given(_rows_with_unfired())
+def test_prune_apply_ignores_src_sorted_in_rows_without_a_prune(call):
+    """``rc_merge_prune`` leaves src_sorted of a row that did not fire in
+    source order, not prune order: ``prune_apply_plain`` (and the kernel,
+    whose schedule reads src_sorted at set pruned_slot bytes only) must
+    give the same bits whatever those rows hold."""
+    pruned, active, src, other, slot = call
+    want = kernels.prune_apply_plain(pruned, active, src, slot)
+    assert torch.equal(kernels.prune_apply_plain(pruned, active, other,
+                                                 slot), want)
+    sched = _prune_apply_schedule(pruned.numpy(), active.numpy(),
+                                  other.numpy(), slot.numpy())
+    assert np.array_equal(sched, want.numpy())

@@ -8,7 +8,9 @@ and against the port's own dense layout.
   port's dense run;
 * (b) the same under a fail round, loss, churn and a partition at N=1,000;
 * (c) N=40,000 (past the int32 key bounds' threshold), O=1, 3 rounds,
-  against the reference's sparse run;
+  against the reference's sparse run; one round from a state whose upsert
+  counters mix 18, 19 and 20 (fired and unfired rows in one round), in
+  both layouts, against the reference's round;
 * (d) the single-origin CLI (parity snapshot and deterministic Influx
   lines), all-origins (``AllOriginsStats`` and the summary) and a push
   sweep, each ``--device cpu`` sparse, equal to the reference's sparse run;
@@ -179,6 +181,38 @@ def test_rounds_equal_reference_at_40000_nodes(layout):
                        "N=40,000")
     assert ts.rc_shi.shape == (1, n, 0)
     assert float(trows["coverage"][-1, 0]) > 0.99
+
+
+@pytest.mark.parametrize("rep", ["sparse", "dense"])
+def test_round_with_fired_and_unfired_rows_equals_reference(layout, rep):
+    """One round from a state whose upsert counters are 18, 19 and 20
+    across rows, so the round fires some rows (20, and 19 with an inbound
+    source) and not others (18): every state field and row equal to the
+    JAX package's round, the state carried across with ``convert``
+    (``rc_merge_prune`` orders only the rows that fire)."""
+    n, o = 300, np.array([0, 151], dtype=np.int32)
+    stakes = _stakes(n, 3)
+    jt = je.make_cluster_tables(stakes)
+    tt = tc.make_cluster_tables(stakes, device="cpu")
+    kw = dict(num_nodes=n, warm_up_rounds=0, representation=rep)
+    jp, tp = je.EngineParams(**kw), PortParams(**kw)
+    js = je.init_state(jax.random.PRNGKey(5), jt, jnp.asarray(o), jp)
+    js, _ = je.run_rounds(jp, jt, jnp.asarray(o), js, 8)
+    ups = np.random.default_rng(1).choice(
+        np.array([18, 19, 20], np.int32), size=(2, n))
+    js = js._replace(rc_upserts=jnp.asarray(ups))
+    ts = state_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
+    _assert_state_equal(js, state_to_numpy(ts), "carried")
+    want_state, want_rows = je.run_rounds(jp, jt, jnp.asarray(o), js, 1,
+                                          start_it=8, detail=True)
+    got_state, got_rows = tc.round_step(tp, tt, torch.as_tensor(o), ts, 8,
+                                        detail=True)
+    _assert_state_equal(want_state, state_to_numpy(got_state), rep)
+    _assert_rows_equal({k: np.asarray(v)[0] for k, v in want_rows.items()},
+                       {k: v.numpy() for k, v in got_rows.items()}, rep)
+    after = got_state.rc_upserts
+    assert bool((after == 0).any()) and bool((after > 0).any())
+    assert int(got_rows["prunes_sent"].sum()) > 0
 
 
 # ---- (d) the entry points --------------------------------------------------
