@@ -228,7 +228,32 @@ Phases (any failure exits non-zero before the final line):
       0.9; 60 iterations) equal to its serial sweep, and a packet-loss lane
       sweep at N=2,000, M=32 (8 iterations) with caps, churn and a
       partition, cuda equal to cpu;
-  (m) print the total wall, the card's name and power limit, the
+  (m) checkpoints, the run journal, ``--resume`` and the device
+      supervisor, in a process of its own (``--resume-phase``, which runs
+      ``cli.main`` and sends itself SIGTERM through the kill hook), each
+      case at tolerance 0 against its uninterrupted run: the single-origin
+      CLI at N=10,000 (300 straight against 200 resumed to 300, every
+      array of the final ``.npz`` files), the same at N=100,000 sparse,
+      and a sparse file resumed dense; all-origins on origins 0-199 of
+      N=10,000 at batch 64 stopped after 2 committed batches (exit 75)
+      and resumed, a failed attempt retried, ``--on-device-failure
+      abort`` (exit 75) and resumed, ``cpu-fallback`` refused, and
+      ``--device-timeout-s 60`` timed in turns with the unsupervised run;
+      traffic at N=10,000, M=256 (150 rounds, resumed to 300: the TRAFFIC
+      SUMMARY and every state field), in a second process (``--resume-phase
+      traffic``) started after the timed turns, whose two saves overlap
+      the cases that follow; the serial active-set, 8-point
+      packet-loss lane (4 lanes) and origin-rank (ranks 1-16) sweeps at
+      N=2,000, each stopped after one unit and resumed (parity snapshots
+      and the deterministic Influx lines a capture server on 127.0.0.1
+      received); ``python -m gossip_sim_tpu_torch`` killed (process exit
+      75) and resumed; a card file continued on the CPU; the reference
+      package's fixtures ``tests/fixtures/checkpoints/v1-v8.npz`` (read as
+      data) on the card and on the CPU; the walls and sizes of
+      ``save_state`` and ``restore_sim_state`` at O=1 and O=16 of
+      N=10,000 and O=1 of N=100,000 sparse, and of a journal commit
+      (``chiprun_out/resume.json``);
+  (n) print the total wall, the card's name and power limit, the
       ``kernels`` JSON line (the four knob kernels with a ``lanes`` object:
       K, O, max_abs_err, the lane call's ms beside the one-lane call's;
       the six traffic kernels with a ``traffic_lanes`` object: K, M,
@@ -241,6 +266,7 @@ Imports nothing of JAX and nothing of the reference package.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import http.server
@@ -250,6 +276,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -323,6 +350,13 @@ NODE_HASH_OPS = dict(alu=7, fma=3, total=10)
 # N=100,000 at the reference's auto origin batch there, min(64, 2^22 // N)
 SPARSE = "rc_merge_prune_sparse"
 N_HUGE, O_HUGE = 100_000, 41
+
+
+def stop_process(proc) -> None:
+    """Kill ``proc`` (a ``subprocess.Popen``) if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
 
 
 def fail(msg: str) -> None:
@@ -1820,6 +1854,534 @@ def sparse_child(tree: Path) -> int:
         torch.cuda.empty_cache()
     print(json.dumps({"tree": str(tree), "device": torch.cuda.get_device_name(
         0), **out}), flush=True)
+    return 0
+
+
+RESUME_FLAG = "--resume-phase"
+#: ``--resume-phase traffic``: phase (m)'s traffic case alone
+TRAFFIC_PART = "traffic"
+#: phase (m)'s sweeps and cross-device run: N=2,000
+N_RESUME = 2000
+
+
+def traffic_child_argv(device: str) -> list:
+    """The command of phase (m)'s traffic case, a process of its own."""
+    return [sys.executable, str(ROOT / "chip_smoke.py"), RESUME_FLAG,
+            TRAFFIC_PART] + ([] if device == "cuda" else [device])
+
+
+def resume_child(device: str = "cuda", part: str = "main") -> int:
+    """``chip_smoke.py --resume-phase``, started by phase (m): checkpoints,
+    the run journal, ``--resume`` and the device supervisor, through
+    ``cli.main`` in this process (the kill hook sends SIGTERM to it), each
+    case against its uninterrupted run at tolerance 0.  Prints its findings
+    as ``chip_smoke: (m) ...`` lines and, last, one ``RESUME {json}``
+    line.  Deterministic Influx lines are caught by a capture server on
+    127.0.0.1 as in phase (g); their ``start_time`` tag, the run's start
+    time, is masked (a resumed run replays its committed units' lines with
+    the interrupted run's).  ``device`` is where the runs go (``cpu``
+    only to rehearse the control flow at a small size).
+
+    ``part`` ``"traffic"`` runs case (3) alone (``--resume-phase
+    traffic``): the main part starts it as a process of its own once the
+    timed all-origins turns are done, so that its two M=256 saves (one
+    host core's deflate each, ~30 s) overlap the cases after them, and
+    waits for it before it reports."""
+    import logging
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    logging.basicConfig(level=logging.WARNING)
+    from gossip_sim_tpu_torch import checkpoint, cli, resilience
+    from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
+                                             make_cluster_tables, run_rounds)
+    from gossip_sim_tpu_torch.identity import reset_unique_pubkeys
+    from gossip_sim_tpu_torch.rng import prng_key
+    from gossip_sim_tpu_torch.sinks import deterministic_wire_lines
+
+    # the cases' files (a traffic state at M=256 is ~2.7 GB of arrays) go
+    # to the git-ignored build/ and are removed at the end
+    out = ROOT / "build" / ("resume" if part == "main"
+                            else f"resume_{part}")
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    p = lambda name: str(out / name)
+    res = {"saves": [], "restores": [], "commits": {}}
+    dev = torch.device(device)
+    other = "cpu" if dev.type == "cuda" else device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # timing wrappers: every save and restore of the package, every commit
+    real_save, real_rs = checkpoint.save_state, checkpoint.restore_sim_state
+    real_rt, real_commit = (checkpoint.restore_traffic_state,
+                            resilience.RunJournal.commit)
+
+    def save_state(path, state, *a, **kw):
+        t0 = time.perf_counter()
+        real_save(path, state, *a, **kw)
+        res["saves"].append({
+            "kind": kw.get("kind", "sim"), "s": time.perf_counter() - t0,
+            "shape": list(state.active.shape),
+            "bytes": os.path.getsize(path), "raw_bytes": sum(
+                t.numel() * t.element_size() for t in state)})
+    checkpoint.save_state = save_state
+
+    def timed_restore(real):
+        def restore(path, *a, **kw):
+            t0 = time.perf_counter()
+            got = real(path, *a, **kw)
+            sync()
+            res["restores"].append({"s": time.perf_counter() - t0,
+                                    "bytes": os.path.getsize(path)})
+            return got
+        return restore
+    checkpoint.restore_sim_state = timed_restore(real_rs)
+    checkpoint.restore_traffic_state = timed_restore(real_rt)
+
+    def commit(self, unit, payload):
+        t0 = time.perf_counter()
+        real_commit(self, unit, payload)
+        res["commits"].setdefault(self.run_key["kind"], []).append(
+            time.perf_counter() - t0)
+    resilience.RunJournal.commit = commit
+
+    # what the entry points saw: all-origins' summary (on origins 0-199),
+    # a sweep's collection, a traffic run's report and final state
+    seen = {}
+    real_ao, real_ds = cli.run_all_origins, cli.dispatch_sweeps
+    real_tr, real_final = cli.run_traffic, cli._traffic_final_from_state
+    origin_idx = {"idx": np.arange(AO_ORIGINS, dtype=np.int32)}
+
+    def run_all_origins(config, *a, **kw):
+        kw.setdefault("origin_indices", origin_idx["idx"])
+        seen["ao"] = real_ao(config, *a, **kw)
+        return seen["ao"]
+
+    def dispatch_sweeps(config, url, ranks, collection, *a, **kw):
+        seen["coll"] = collection
+        return real_ds(config, url, ranks, collection, *a, **kw)
+
+    def run_traffic(*a, **kw):
+        seen["traffic"] = real_tr(*a, **kw)
+        return seen["traffic"]
+
+    def traffic_final(state):
+        seen["traffic_state"] = state
+        return real_final(state)
+    cli.run_all_origins, cli.dispatch_sweeps = run_all_origins, \
+        dispatch_sweeps
+    cli.run_traffic, cli._traffic_final_from_state = run_traffic, \
+        traffic_final
+
+    received = []
+
+    class Capture(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            received.append(self.rfile.read(
+                int(self.headers.get("Content-Length", 0))).decode())
+            self.send_response(204)
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    server = http.server.HTTPServer(("127.0.0.1", 0), Capture)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    cli.get_influx_url = lambda moniker: url
+    os.environ.update(GOSSIP_SIM_INFLUX_USERNAME="u",
+                      GOSSIP_SIM_INFLUX_PASSWORD="p",
+                      GOSSIP_SIM_INFLUX_DATABASE="gossip")
+
+    def run(argv, kill_after=0, hook=None, influx=False, want_rc=0):
+        """``cli.main`` on the card with the pubkey counter reset: (wall,
+        the deterministic Influx lines caught)."""
+        reset_unique_pubkeys()
+        received.clear()
+        seen.pop("ao", None)
+        if kill_after:
+            os.environ[resilience.KILL_AFTER_ENV] = str(kill_after)
+        resilience.set_fault_hook(hook)
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["--device", device]
+                          + (["--influx", "l"] if influx else []))
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop(resilience.KILL_AFTER_ENV, None)
+            resilience.set_fault_hook(None)
+        if rc != want_rc:
+            fail(f"(m) cli.main {' '.join(argv)}: exit {rc}, not {want_rc}")
+        lines = deterministic_wire_lines(
+            [ln for body in received for ln in body.splitlines()])
+        return wall, [re.sub(r"start_time=\d+", "start_time=T", ln)
+                      for ln in lines]
+
+    def same_npz(a, b, what):
+        with np.load(a) as za, np.load(b) as zb:
+            if set(za.files) != set(zb.files):
+                fail(f"(m) {what}: arrays {sorted(za.files)} vs "
+                     f"{sorted(zb.files)}")
+            diff = [k for k in za.files if k != "__meta__"
+                    and not np.array_equal(za[k], zb[k])]
+            metas = [json.loads(bytes(z["__meta__"]).decode())
+                     for z in (za, zb)]
+        if diff:
+            fail(f"(m) {what}: arrays differ: {diff}")
+        if metas[0]["iteration"] != metas[1]["iteration"]:
+            fail(f"(m) {what}: iterations {metas[0]['iteration']} and "
+                 f"{metas[1]['iteration']}")
+        return metas[1]
+
+    def units(path):
+        with open(resilience.journal_path(path)) as f:
+            return [json.loads(ln)["unit"] for ln in f.read().splitlines()[1:]]
+
+    if part == TRAFFIC_PART:
+        # (3) traffic at N=10,000, M=256, rate 16: 150 rounds, then resumed
+        tr = ["--num-synthetic-nodes", str(N_FULL), "--traffic-values",
+              str(M_TRAFFIC), "--traffic-rate", str(TRAFFIC_RATE),
+              "--warm-up-rounds", "200"]
+        w_t0, _ = run(tr + ["--iterations", "300"])
+        want_tr = seen["traffic"]["traffic"]
+        want_state = seen["traffic_state"]
+        w_t1, _ = run(tr + ["--iterations", "150", "--checkpoint-path",
+                            p("traffic.npz")])
+        w_t2, _ = run(tr + ["--iterations", "300", "--resume",
+                            p("traffic.npz")])
+        got_state = seen["traffic_state"]
+        diff = [f for f in want_state._fields if not torch.equal(
+            getattr(want_state, f), getattr(got_state, f))]
+        if diff or seen["traffic"]["traffic"] != want_tr:
+            fail(f"(m) traffic resumed: state differs in {diff}, or summary "
+                 f"{seen['traffic']['traffic']} != {want_tr}")
+        del want_state, got_state
+        seen.pop("traffic_state")
+        t_saves = [v for v in res["saves"] if v["kind"] == "traffic"]
+        res["traffic"] = {"straight_s": w_t0, "first_150_s": w_t1,
+                          "resume_s": w_t2, "saves": t_saves,
+                          "restore": res["restores"][-1]}
+        say(f"(m) traffic N={N_FULL} M={M_TRAFFIC} rate {TRAFFIC_RATE}: "
+            f"300 straight {w_t0:.3f} s; 150 then --resume to 300: "
+            f"{w_t1:.3f} + {w_t2:.3f} s; TRAFFIC SUMMARY and every "
+            f"TrafficState field equal; save_state of the traffic state "
+            f"({t_saves[0]['raw_bytes']} bytes of arrays, file "
+            f"{t_saves[0]['bytes']} bytes): "
+            + " / ".join(f"{v['s']:.3f}" for v in t_saves)
+            + f" s; restore_traffic_state {res['restores'][-1]['s']:.3f} s")
+        server.shutdown()
+        server.server_close()
+        shutil.rmtree(out, ignore_errors=True)
+        print("RESUME " + json.dumps({"traffic": res["traffic"]}),
+              flush=True)
+        return 0
+
+    # (1) single origin: 300 straight against 200 resumed to 300, at
+    # N=10,000 dense, N=100,000 sparse, and a sparse file resumed dense
+    walls = {}
+    for tag, n, layout in (("N=10,000 dense", N_FULL, []),
+                           ("N=100,000 sparse", N_HUGE,
+                            ["--engine-representation", "sparse"])):
+        base = ["--num-synthetic-nodes", str(n), "--warm-up-rounds", "200",
+                "--checkpoint-every-s", "3600"] + layout
+        key = tag.split()[0]
+        straight, part = p(f"straight_{key}.npz"), p(f"part_{key}.npz")
+        w0, _ = run(base + ["--iterations", "300", "--checkpoint-path",
+                            straight])
+        w1, _ = run(base + ["--iterations", "200", "--checkpoint-path",
+                            part])
+        w2, _ = run(base + ["--iterations", "300", "--resume", part,
+                            "--checkpoint-path", part])
+        meta = same_npz(straight, part, f"single origin {tag}")
+        if meta["repr"]["representation"] != (
+                "sparse" if layout else "dense"):
+            fail(f"(m) single origin {tag}: meta {meta['iteration']} "
+                 f"{meta['repr']}")
+        walls[tag] = {"straight_s": w0, "first_200_s": w1, "resume_s": w2}
+        say(f"(m) single origin {tag}, rank 1: 300 straight {w0:.3f} s; "
+            f"200 then --resume to 300: {w1:.3f} + {w2:.3f} s; every "
+            f"array of the two final .npz files equal")
+    sparse_part = p("sparse_10k_200.npz")
+    run(["--num-synthetic-nodes", str(N_FULL), "--warm-up-rounds", "200",
+         "--checkpoint-every-s", "3600", "--engine-representation",
+         "sparse", "--iterations", "200", "--checkpoint-path", sparse_part])
+    run(["--num-synthetic-nodes", str(N_FULL), "--warm-up-rounds", "200",
+         "--checkpoint-every-s", "3600", "--iterations", "300", "--resume",
+         sparse_part, "--checkpoint-path", p("sparse_to_dense.npz")])
+    same_npz(p("straight_N=10,000.npz"), p("sparse_to_dense.npz"),
+             "a sparse file resumed dense")
+    say("(m) a sparse-written file (N=10,000, 200 iterations) resumed dense "
+        "to 300: every array equal to the dense straight run's")
+    res["single"] = walls
+
+    # (2) all-origins on origins 0-199 of N=10,000 at the auto batch 64;
+    # (6) the supervisor on the same run
+    ao = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
+          "--warm-up-rounds", "200", "--all-origins"]
+
+    def same_aggregate(want, got, what):
+        a, b = want["stats"].state_dict(), got["stats"].state_dict()
+        diff = [k for k in a if k not in b or not np.array_equal(
+            np.asarray(a[k]), np.asarray(b[k]))]
+        keys = ("coverage_mean", "rmr_mean", "measured_points",
+                "padded_sims", "hop_clamped", "num_origins")
+        if diff or any(want[k] != got[k] for k in keys):
+            fail(f"(m) {what}: the aggregate differs in {diff} "
+                 f"{[(k, want[k], got[k]) for k in keys]}")
+
+    w_ao, _ = run(ao)
+    want_ao = seen["ao"]
+    ck = p("ao.npz")
+    w_kill, _ = run(ao + ["--checkpoint-path", ck], kill_after=2,
+                    want_rc=75)
+    if units(ck) != [0, 1]:
+        fail(f"(m) all-origins killed after 2 commits: units {units(ck)}")
+    w_res, _ = run(ao + ["--checkpoint-path", ck, "--resume", ck])
+    same_aggregate(want_ao, seen["ao"], "all-origins resumed")
+    say(f"(m) all-origins origins 0-{AO_ORIGINS - 1} of N={N_FULL}, batch "
+        f"{O_BATCH}: straight {w_ao:.3f} s; SIGTERM after 2 committed "
+        f"batches: exit 75 in {w_kill:.3f} s, journal units [0, 1]; "
+        f"--resume {w_res:.3f} s: the ALL-ORIGINS aggregate equal")
+    res["all_origins"] = {"straight_s": w_ao, "killed_s": w_kill,
+                          "resume_s": w_res}
+
+    def fail_first_of_unit_1(label, attempt):
+        if label == "origin-batch-1" and attempt == 0:
+            raise RuntimeError("injected device failure")
+
+    resilience.reset_counts()
+    run(ao, hook=fail_first_of_unit_1)
+    failures = resilience.COUNTS["resilience/device_failures"]
+    same_aggregate(want_ao, seen["ao"], "all-origins with a retried unit")
+
+    def dead_after_unit_0(label, attempt):
+        if label != "origin-batch-0":
+            raise RuntimeError("injected dead device")
+
+    ck2 = p("ao_abort.npz")
+    run(ao + ["--on-device-failure", "abort", "--device-retries", "1",
+              "--checkpoint-path", ck2], hook=dead_after_unit_0, want_rc=75)
+    if units(ck2) != [0]:
+        fail(f"(m) abort: journal units {units(ck2)}, not [0]")
+    run(ao + ["--checkpoint-path", ck2, "--resume", ck2])
+    same_aggregate(want_ao, seen["ao"], "all-origins aborted and resumed")
+    say(f"(m) supervisor: a failed first attempt of unit 1 retried "
+        f"({failures} device failure counted), aggregate equal; "
+        f"--on-device-failure abort with every later attempt failing: "
+        f"exit 75 with unit 0 committed, --resume: aggregate equal")
+    turns = []
+    for sup in (False, True, True, False):
+        run(ao + (["--device-timeout-s", "60"] if sup else []))
+        same_aggregate(want_ao, seen["ao"], "all-origins supervised")
+        s = seen["ao"]
+        turns.append({"supervised": sup, "elapsed_s": s["elapsed_s"],
+                      "origin_rounds_s": AO_ORIGINS * 300 / s["elapsed_s"],
+                      "rounds_s": sum(b["rounds_s"] for b in s["batches"])})
+    res["supervised_turns"] = turns
+    say(f"(m) all-origins batch {O_BATCH} in turns, unsupervised / "
+        f"--device-timeout-s 60 (each batch a unit on a worker thread, one "
+        f"batch in flight): " + ", ".join(
+            f"{'supervised' if t['supervised'] else 'plain'} "
+            f"{t['origin_rounds_s']:.1f} origin-rounds/s "
+            f"({t['elapsed_s']:.3f} s)" for t in turns))
+    # a unit never leaves the card after its kernels fail: the start-up
+    # checks refuse cpu-fallback there, before any engine work or journal
+    ck3 = p("ao_fallback.npz")
+    run(ao + ["--on-device-failure", "cpu-fallback", "--checkpoint-path",
+              ck3], want_rc=1)
+    if "ao" in seen or os.path.exists(resilience.journal_path(ck3)):
+        fail("(m) --on-device-failure cpu-fallback on the card: the run "
+             "started")
+    say("(m) --on-device-failure cpu-fallback on the card: refused at "
+        "start-up (exit 1, no journal, no unit run)")
+
+    # (3) traffic, in a process of its own (the TRAFFIC_PART branch above),
+    # started after the timed turns; its output goes to files, read before
+    # the report, and atexit stops it if this process fails first
+    with (out / "traffic.out").open("w") as t_out, \
+            (out / "traffic.err").open("w") as t_err:
+        traffic = subprocess.Popen(traffic_child_argv(device), stdout=t_out,
+                                   stderr=t_err, text=True, cwd=ROOT)
+    atexit.register(stop_process, traffic)
+
+    # (4) sweeps at N=2,000, snapshots and Influx lines.  The origin-rank
+    # sweep's Influx sender paces itself at 0.1 s a point (the reference's
+    # reporter loop until a lone start sentinel, which this sweep folds
+    # into its test-type point), so it measures 2 rounds, in blocks of 1
+    sw = ["--num-synthetic-nodes", str(N_RESUME), "--iterations", "60",
+          "--warm-up-rounds", "30"]
+    ranks = [str(r) for r in range(1, O_RANKS + 1)]
+    sweeps = {
+        "active-set serial (S 12, 16)": ["--test-type", "active-set-size",
+                                         "--num-simulations", "2",
+                                         "--step-size", "4"],
+        "packet-loss, 8 points, --sweep-lanes 4": [
+            "--test-type", "packet-loss", "--num-simulations", "8",
+            "--step-size", "0.05", "--sweep-lanes", "4"],
+        f"origin-rank 1-{O_RANKS}, 2 measured rounds in blocks of 1": [
+            "--test-type", "origin-rank", "--num-simulations",
+            str(O_RANKS), "--origin-rank", *ranks, "--iterations", "32"],
+    }
+    real_block = cli.HARVEST_BLOCK
+    for i, (tag, extra) in enumerate(sweeps.items()):
+        cli.HARVEST_BLOCK = 1 if "origin-rank" in tag else real_block
+        try:
+            w0, want_lines = run(sw + extra, influx=True)
+            want_snaps = [snapshot_strings(s.parity_snapshot())
+                          for s in seen["coll"].collection]
+            ck = p(f"sweep{i}.npz")
+            run(sw + extra + ["--checkpoint-path", ck], kill_after=1,
+                influx=True, want_rc=75)
+            w2, got_lines = run(sw + extra + ["--checkpoint-path", ck,
+                                              "--resume", ck], influx=True)
+        finally:
+            cli.HARVEST_BLOCK = real_block
+        got_snaps = [snapshot_strings(s.parity_snapshot())
+                     for s in seen["coll"].collection]
+        if got_snaps != want_snaps or got_lines != want_lines \
+                or not want_lines:
+            fail(f"(m) {tag}: the resumed sweep differs from the straight "
+                 f"one ({len(got_snaps)} vs {len(want_snaps)} sims, "
+                 f"{len(got_lines)} vs {len(want_lines)} lines)")
+        say(f"(m) sweep {tag} at N={N_RESUME}: stopped after unit 0 "
+            f"(exit 75), --resume in {w2:.3f} s (straight {w0:.3f} s): "
+            f"{len(want_snaps)} parity snapshots and {len(want_lines)} "
+            f"deterministic Influx lines (capture server) equal")
+    env = dict(os.environ, **{resilience.KILL_AFTER_ENV: "1"})
+    argv = ([sys.executable, "-m", "gossip_sim_tpu_torch"] + sw
+            + sweeps["active-set serial (S 12, 16)"]
+            + ["--checkpoint-path", p("process.npz"), "--device", device])
+    rcs = [subprocess.run(argv, env=env, capture_output=True, text=True,
+                          timeout=300, cwd=ROOT).returncode]
+    env.pop(resilience.KILL_AFTER_ENV)
+    rcs.append(subprocess.run(argv + ["--resume", p("process.npz")],
+                              env=env, capture_output=True, text=True,
+                              timeout=300, cwd=ROOT).returncode)
+    if rcs != [75, 0] or units(p("process.npz")) != [0, 1]:
+        fail(f"(m) python -m gossip_sim_tpu_torch killed then resumed: "
+             f"exit codes {rcs}, units {units(p('process.npz'))}")
+    say("(m) python -m gossip_sim_tpu_torch (the active-set sweep) SIGTERM "
+        "after unit 0: process exit 75; --resume: exit 0, units [0, 1]")
+
+    # (5) across devices: a card file continued on the CPU, the reference
+    # package's fixtures on both
+    x = ["--num-synthetic-nodes", str(N_RESUME), "--warm-up-rounds", "20",
+         "--packet-loss-rate", "0.1", "--churn-fail-rate", "0.01",
+         "--churn-recover-rate", "0.2", "--checkpoint-every-s", "3600"]
+    run(x + ["--iterations", "40", "--checkpoint-path", p("card40.npz")])
+    run(x + ["--iterations", "60", "--resume", p("card40.npz"),
+             "--checkpoint-path", p("card60.npz")])
+    reset_unique_pubkeys()
+    if cli.main(x + ["--iterations", "60", "--resume", p("card40.npz"),
+                     "--checkpoint-path", p("cpu60.npz"), "--device",
+                     other]) != 0:
+        fail("(m) the CPU continuation failed")
+    same_npz(p("card60.npz"), p("cpu60.npz"), "card file continued on cpu")
+    say(f"(m) a card-written file (N={N_RESUME}, 40 iterations, loss + "
+        f"churn) continued 20 rounds with --device cpu: every array equal "
+        f"to the card's continuation")
+    fixtures = sorted((ROOT / "tests" / "fixtures" / "checkpoints").glob(
+        "v*.npz"))
+    if [f.name for f in fixtures] != [f"v{v}.npz" for v in range(1, 9)]:
+        fail(f"(m) the reference's fixtures v1-v8 are not all there: "
+             f"{[f.name for f in fixtures]}")
+    prm = EngineParams(num_nodes=16, warm_up_rounds=0)
+    for f in fixtures:
+        with np.load(f) as z:
+            stakes = z["fixture.stakes"].astype(np.int64)
+        runs = {}
+        for d in (device, other):
+            tables = make_cluster_tables(stakes, device=d)
+            st, _, meta = checkpoint.restore_sim_state(str(f), prm, tables,
+                                                       device=d)
+            st, rows = run_rounds(prm, tables, torch.zeros(
+                1, dtype=torch.int32, device=d), st, 10,
+                start_it=int(meta.get("iteration", 3)), detail=True)
+            runs[d] = [t.cpu() for t in st] + [
+                rows[k].cpu() for k in sorted(rows)]
+        if not all(torch.equal(a, b) for a, b in zip(runs[device],
+                                                      runs[other])):
+            fail(f"(m) fixture {f.name}: cuda != cpu after 10 rounds")
+    say("(m) the reference's fixtures v1-v8 restored on cuda and on cpu "
+        "with tables from fixture.stakes, 10 rounds each: every field and "
+        "row equal")
+
+    # (7) walls and sizes of save_state and restore_sim_state: the O=1
+    # files of (1), and the origin-rank block's state, O=16 of N=10,000
+    res["saves"].clear()
+    res["restores"].clear()
+    reset_unique_pubkeys()
+    accts, _ = cli.load_cluster_accounts(cli.config_from_args(
+        cli.build_parser().parse_args(["--num-synthetic-nodes",
+                                       str(N_FULL)])))
+    from gossip_sim_tpu_torch.identity import NodeIndex
+    prm10 = EngineParams(num_nodes=N_FULL)
+    tables = make_cluster_tables(
+        NodeIndex.from_stakes(accts).stakes.astype(np.int64), device=dev)
+    orgs = torch.arange(O_RANKS, dtype=torch.int32, device=dev)
+    st, _ = run_rounds(prm10, tables, orgs, init_state(
+        prng_key(42, dev), tables, orgs, prm10), 30)
+    checkpoint.save_state(p("o16.npz"), st, prm10, iteration=30)
+    del st, tables
+    sizes = {}
+    for tag, path, prm_ in (
+            ("O=1 N=10,000", p("straight_N=10,000.npz"), prm10),
+            (f"O={O_RANKS} N=10,000", p("o16.npz"), prm10),
+            ("O=1 N=100,000 sparse", p("straight_N=100,000.npz"),
+             EngineParams(num_nodes=N_HUGE, representation="sparse"))):
+        res["saves"].clear()
+        res["restores"].clear()
+        for _ in range(2):
+            st, _, meta = checkpoint.restore_sim_state(path, prm_,
+                                                       device=dev)
+            checkpoint.save_state(p("walls.npz"), st, prm_,
+                                  iteration=meta["iteration"])
+            del st
+        s_ = sizes[tag] = {
+            "save_s": [v["s"] for v in res["saves"]],
+            "restore_s": [v["s"] for v in res["restores"]],
+            "file_bytes": res["saves"][-1]["bytes"],
+            "state_bytes": res["saves"][-1]["raw_bytes"]}
+        say(f"(m) {tag}: save_state {s_['save_s'][0]:.3f} / "
+            f"{s_['save_s'][1]:.3f} s, restore_sim_state (to {device}) "
+            f"{s_['restore_s'][0]:.3f} / {s_['restore_s'][1]:.3f} s; state "
+            f"{s_['state_bytes']} bytes, file {s_['file_bytes']} bytes "
+            f"(np.savez_compressed)")
+    res["walls"] = sizes
+    try:
+        traffic.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        fail("(m) the traffic case's process did not end within 900 s")
+    if traffic.returncode != 0:
+        fail(f"(m) the traffic case's process failed (exit "
+             f"{traffic.returncode}): "
+             f"{(out / 'traffic.err').read_text()[-3000:]}")
+    t_res = None
+    for ln in (out / "traffic.out").read_text().splitlines():
+        if ln.startswith("chip_smoke: (m)"):
+            print(ln, flush=True)
+        elif ln.startswith("RESUME "):
+            t_res = json.loads(ln[len("RESUME "):])
+    if t_res is None:
+        fail("(m) the traffic case's process printed no result")
+    res["traffic"] = t_res["traffic"]
+    commits = {k: {"n": len(v), "mean_s": sum(v) / len(v), "max_s": max(v)}
+               for k, v in res["commits"].items()}
+    res["commits"] = commits
+    say("(m) journal commit per unit (write + flush + fsync): " + ", ".join(
+        f"{k} {v['n']} units, mean {v['mean_s'] * 1e3:.3f} ms, max "
+        f"{v['max_s'] * 1e3:.3f} ms" for k, v in commits.items()))
+    server.shutdown()
+    server.server_close()
+    shutil.rmtree(out, ignore_errors=True)
+    res.pop("saves")
+    res.pop("restores")
+    print("RESUME " + json.dumps(res), flush=True)
     return 0
 
 
@@ -4677,7 +5239,28 @@ def main() -> int:
         as_builtins({"kernels": lanes_l, "device": tl_dev, "engine": eng_l,
                      "cli": cli_l}), indent=1))
 
-    # ---- (m) report -------------------------------------------------------
+    # ---- (m) checkpoints, the run journal, --resume, the supervisor -------
+    t_m = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           RESUME_FLAG], capture_output=True, text=True,
+                          timeout=900, cwd=ROOT)
+    (out_dir / "resume_phase.txt").write_text(
+        proc.stdout + "\n--- stderr ---\n" + proc.stderr[-200_000:])
+    if proc.returncode != 0:
+        fail(f"(m) the --resume-phase process failed (exit "
+             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    resume_res = None
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("chip_smoke: (m)"):
+            print(ln, flush=True)
+        elif ln.startswith("RESUME "):
+            resume_res = json.loads(ln[len("RESUME "):])
+    if resume_res is None:
+        fail("(m) the --resume-phase process printed no result")
+    (out_dir / "resume.json").write_text(json.dumps(resume_res, indent=1))
+    say(f"(m) checkpoint and resume phase: {time.perf_counter() - t_m:.1f} s")
+
+    # ---- (n) report -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4864,6 +5447,11 @@ if __name__ == "__main__":
     if sys.argv[1:2] == [CALLS_FLAG] and len(sys.argv) <= 3:
         sys.exit(calls_child(Path(sys.argv[2]) if len(sys.argv) == 3
                              else ROOT))
+    if sys.argv[1:] == [RESUME_FLAG]:
+        sys.exit(resume_child())
+    if sys.argv[1:3] == [RESUME_FLAG, TRAFFIC_PART] and len(sys.argv) <= 4:
+        sys.exit(resume_child(*(sys.argv[3:] or ["cuda"]),
+                              part=TRAFFIC_PART))
     if sys.argv[1:2] == [SPARSE_FLAG] and len(sys.argv) <= 3:
         sys.exit(sparse_child(Path(sys.argv[2]) if len(sys.argv) == 3
                               else ROOT))

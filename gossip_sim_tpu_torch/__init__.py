@@ -20,8 +20,12 @@ Layout:
   stats      GossipStats suite (gossip_stats.rs), TrafficStats
   sinks      Influx line-protocol series and sender (influx_db.rs)
   convert    carry state between the two packages as numpy arrays
+  checkpoint the reference's v9 state .npz, read and written both ways
+  resilience the run journal, graceful shutdown (exit 75) and the device
+             supervisor
   cli        experiment harness: account sources, --test-type sweeps,
-             all-origins, traffic (python -m gossip_sim_tpu_torch)
+             all-origins, traffic, checkpoints and --resume
+             (python -m gossip_sim_tpu_torch)
   write_accounts  the write-accounts binary
              (python -m gossip_sim_tpu_torch.write_accounts)
 """

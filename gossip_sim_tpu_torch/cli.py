@@ -14,9 +14,21 @@ queue cap (``--node-ingress-cap``, ``--node-egress-cap``) runs the
 concurrent-traffic engine instead (:func:`run_traffic`: one run, or a
 ``traffic-rate``, ``node-ingress-cap``, ``packet-loss``, ``churn`` or
 ``adaptive-threshold`` sweep, serial or, with ``--sweep-lanes K``, K points
-at a time as the lanes of one batch, :func:`_run_traffic_lane_sweep`).  A
-flag the port lacks is rejected by argparse: traces, checkpoints, telemetry
-and the run report are later slices (ROADMAP A12-A16).
+at a time as the lanes of one batch, :func:`_run_traffic_lane_sweep`).
+
+``--checkpoint-path`` makes a run resumable (checkpoint.py,
+resilience.py): a single run saves its state to the ``.npz`` after the
+warm-up, after each harvest block (at most every ``--checkpoint-every-s``)
+and at the end, and ``--resume`` continues it from the file's iteration; a
+multi-unit run (a serial, lane or origin-rank sweep, all-origins) keeps a
+journal beside it with one committed unit per finished sim, lane batch,
+measured block or origin batch, and ``--resume`` replays the committed
+units and runs the rest.  SIGTERM/SIGINT stop a run at its next unit
+boundary with exit code 75.  ``--device-timeout-s``, ``--device-retries``
+and ``--on-device-failure`` run each unit under the device supervisor
+(:func:`_dispatch_supervised`).  A flag the port lacks is rejected by
+argparse: traces, health, telemetry and the run report are later slices
+(ROADMAP A12-A16).
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
@@ -41,7 +53,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, resilience
 from .config import Config, StepSize, Testing
 from .constants import (AGGREGATE_HOPS_FAIL_NODES_HISTOGRAM_UPPER_BOUND,
                         AGGREGATE_HOPS_MIN_INGRESS_NODES_HISTOGRAM_UPPER_BOUND,
@@ -60,6 +72,12 @@ from .identity import NodeIndex
 from .ingest import (fetch_vote_accounts_rpc, filter_accounts,
                      load_accounts_yaml, log_cluster_summary,
                      synthetic_accounts)
+from .resilience import (RESUMABLE_EXIT_CODE, DeviceDispatchError,
+                         InfluxTee, ResumableInterrupt, RunJournal,
+                         check_interrupt, journal_path,
+                         replay_influx_lines, restore_pubkey_counter,
+                         restore_stats, run_key_from_config, signal_guard,
+                         stats_unit_payload, supervised_call, supervision)
 from .rng import prng_key
 from .rustrng import ChaChaRng
 from .sinks import DatapointQueue, InfluxDataPoint, InfluxThread, load_dotenv
@@ -305,6 +323,42 @@ def build_parser() -> argparse.ArgumentParser:
                         "(engine/lanes.py). 0 = serial. Shape-stepping "
                         "sweeps (active-set-size, push-fanout) and origin-"
                         "rank fall back to their existing paths")
+    p.add_argument("--checkpoint-path", default="",
+                   help="save the simulation state (SimState arrays + "
+                        "params) to this .npz after each measured block and "
+                        "at the end; resume with --resume")
+    p.add_argument("--resume", dest="resume_path", default="",
+                   help="tpu backend: continue an interrupted run "
+                        "bit-exactly. Single runs: load a "
+                        "--checkpoint-path .npz and continue from its "
+                        "recorded iteration (stats are recorded for the "
+                        "remaining rounds). Sweeps / --sweep-lanes / "
+                        "--all-origins: replay the run journal's "
+                        "committed units into stats/Influx verbatim and "
+                        "restart from the first uncommitted unit "
+                        "(resilience.py)")
+    p.add_argument("--checkpoint-every-s", type=float, default=0.0,
+                   help="minimum seconds between periodic checkpoint "
+                        "autosaves on the single-run path (0 = save "
+                        "after every harvest block)")
+    p.add_argument("--device-timeout-s", type=float, default=0.0,
+                   help="watchdog bound on one engine dispatch "
+                        "(resilience.py): a call exceeding this is "
+                        "treated as a hung device and retried with "
+                        "backoff (0 = no watchdog)")
+    p.add_argument("--device-retries", type=int, default=2,
+                   help="transient-failure retries per supervised "
+                        "engine dispatch (exponential backoff)")
+    p.add_argument("--on-device-failure", default="",
+                   choices=["", "cpu-fallback", "abort"],
+                   help="after the retry budget: cpu-fallback re-executes "
+                        "the failed unit on the CPU backend (only with "
+                        "--device cpu: refused on the card until the run "
+                        "report records it, ROADMAP A15); "
+                        "abort exits with the resumable exit code "
+                        f"({RESUMABLE_EXIT_CODE}) and a committed "
+                        "journal. Passing either value enables "
+                        "supervision even without --device-timeout-s")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the engine runs (default cuda; a run without "
                         "a GPU must ask for cpu)")
@@ -390,6 +444,12 @@ def config_from_args(args) -> Config:
         mesh_devices=args.mesh_devices,
         mesh_node_shards=args.mesh_node_shards,
         sweep_lanes=args.sweep_lanes,
+        checkpoint_path=args.checkpoint_path,
+        resume_path=args.resume_path,
+        checkpoint_every_s=args.checkpoint_every_s,
+        device_timeout_s=args.device_timeout_s,
+        device_retries=args.device_retries,
+        on_device_failure=args.on_device_failure,
         device=args.device,
     )
 
@@ -450,9 +510,13 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
                        stats: GossipStats, dp_queue=None, sim_iter: int = 0,
                        start_ts: str = "0"):
     """The simulation on the PyTorch engine: the warm-up rounds in one
-    call, then the measured rounds harvested per iteration into the stats
+    call, then the measured rounds harvested per block into the stats
     layer and the Influx series (the reference's per-iteration loop,
-    gossip_main.rs:425-565)."""
+    gossip_main.rs:425-565).  With ``--checkpoint-path`` the state is saved
+    after the warm-up, after each block (throttled by
+    ``--checkpoint-every-s``) and at the end; ``--resume`` continues from a
+    saved state's iteration (reference cli.py:1019-1200), and a shutdown
+    request stops the run at a block boundary with the state saved."""
     index = NodeIndex.from_stakes(accounts)
     stakes = dict(accounts)
     N = len(index)
@@ -463,39 +527,101 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
     origins = torch.tensor([index.index_of(origin_pubkey)],
                            dtype=torch.int32, device=dev)
 
-    log.info("Simulating Gossip and setting active sets. Please wait.....")
-    state = init_state(prng_key(config.seed, dev), tables, origins, params)
-    log.info("Simulation Complete!")
+    start_iter = 0
+    if config.resume_path:
+        from .checkpoint import restore_sim_state
+        state, _, meta = restore_sim_state(config.resume_path, params,
+                                           tables, device=dev)
+        start_iter = int(meta.get("iteration", 0))
+        saved_cfg = meta.get("config", {})
+        # any field that changes the round's dynamics breaks the bit-exact
+        # continuation: surface every drift
+        for f in ("origin_rank", "seed", "num_synthetic_nodes",
+                  "gossip_push_fanout", "gossip_active_set_size",
+                  "probability_of_rotation", "prune_stake_threshold",
+                  "min_ingress_nodes", "warm_up_rounds",
+                  "fraction_to_fail", "when_to_fail",
+                  "packet_loss_rate", "churn_fail_rate",
+                  "churn_recover_rate", "partition_at", "heal_at"):
+            if f in saved_cfg and saved_cfg[f] != getattr(config, f):
+                log.warning("WARNING: resuming with %s=%s but checkpoint "
+                            "was written with %s=%s — continuation is NOT "
+                            "bit-exact with a full run under the new value",
+                            f, getattr(config, f), f, saved_cfg[f])
+        log.info("Resumed simulation state from %s at iteration %s",
+                 config.resume_path, start_iter)
+        if start_iter >= config.gossip_iterations:
+            # do not fall through: the saves below would record the smaller
+            # --iterations beside the further-evolved state
+            log.warning("WARNING: checkpoint already at iteration %s >= "
+                        "--iterations %s; nothing to run", start_iter,
+                        config.gossip_iterations)
+            return stakes
+    else:
+        log.info("Simulating Gossip and setting active sets. Please "
+                 "wait.....")
+        state = init_state(prng_key(config.seed, dev), tables, origins,
+                           params)
+        log.info("Simulation Complete!")
 
     def _record_failed():
         failed_idx = np.nonzero(state.failed[0].cpu().numpy())[0]
         stats.set_failed_nodes({index.pubkeys[i] for i in failed_idx})
 
+    def _save(iteration):
+        from .checkpoint import save_state
+        save_state(config.checkpoint_path, state, params, config,
+                   iteration=iteration)
+
+    _save_checkpoint = _throttled_saver(config, _save)
+
+    if config.resume_path and 0 <= params.fail_at < start_iter:
+        _record_failed()
+
     warm = min(config.warm_up_rounds, config.gossip_iterations)
-    if warm > 0:
+    if start_iter < warm:
         # the reference loop's progress logs and config points every 10
         # iterations (gossip_main.rs:426-447)
-        for it in range(0, warm, 10):
+        for it in range(start_iter, warm, 10):
             log.info("GOSSIP ITERATION: %s", it)
             _push_config_point(config, dp_queue, sim_iter, start_ts)
-        state, wrows = run_rounds(params, tables, origins, state, warm)
+
+        def _warm_dispatch(st, d):
+            st, rws = run_rounds(params, _to_device(tables, d),
+                                 _to_device(origins, d), st,
+                                 warm - start_iter, start_it=start_iter)
+            return st, {"coverage": rws["coverage"].cpu().numpy()}
+
+        state, wrows = _dispatch_supervised(config, "warmup-scan",
+                                            _warm_dispatch, state, dev)
         if 0 <= config.heal_at < warm:
             # post-heal coverage inside the warm-up still feeds the
             # recovery metric (iteration-exact)
             for t, cov in enumerate(wrows["coverage"][:, 0].tolist()):
-                if t >= config.heal_at:
-                    stats.note_post_heal_coverage(t, cov)
-        if 0 <= params.fail_at < warm:
+                if start_iter + t >= config.heal_at:
+                    stats.note_post_heal_coverage(start_iter + t, cov)
+        if start_iter <= params.fail_at < warm:
             _record_failed()
+        _save_checkpoint(warm)
     measured = config.gossip_iterations - warm
-    done = 0
+    if measured <= 0:
+        _save_checkpoint(config.gossip_iterations)
+        return stakes
+    done = max(0, start_iter - warm)
     while done < measured:
         n_it = min(HARVEST_BLOCK, measured - done)
         start_it = warm + done
         t_blk = time.perf_counter()
-        state, trows = run_rounds(params, tables, origins, state, n_it,
-                                  start_it=start_it, detail=True)
-        rows = {k: v.cpu().numpy() for k, v in trows.items()}
+
+        def _block_dispatch(st, d):
+            st, rws = run_rounds(params, _to_device(tables, d),
+                                 _to_device(origins, d), st, n_it,
+                                 start_it=start_it, detail=True)
+            return st, {k: v.cpu().numpy() for k, v in rws.items()}
+
+        state, rows = _dispatch_supervised(
+            config, f"measured-block-{start_it}", _block_dispatch, state,
+            dev)
         blk_wall = time.perf_counter() - t_blk
         _warn_shape_truncation(rows, params)
         if (params.fail_at >= 0
@@ -511,10 +637,21 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
                                  start_ts)
         done += n_it
         _push_sim_perf_point(dp_queue, sim_iter, start_ts, blk_wall, n_it, 1)
-    if measured > 0:
-        _feed_message_counters(stats, state, 0, index)
-        if params.has_churn:
-            _record_failed()
+        _save_checkpoint(warm + done, force=False)
+        if resilience.shutdown_requested():
+            # this block's stats are fed and the state is saved before the
+            # run exits resumably
+            _save_checkpoint(warm + done)
+            raise ResumableInterrupt(
+                f"single-run checkpoint saved at iteration {warm + done}; "
+                f"resume with --resume {config.checkpoint_path}"
+                if config.checkpoint_path else
+                f"run stopped at iteration {warm + done} with no "
+                f"--checkpoint-path; this simulation restarts from scratch")
+    _feed_message_counters(stats, state, 0, index)
+    if params.has_churn:
+        _record_failed()
+    _save_checkpoint(config.gossip_iterations)
     return stakes
 
 
@@ -805,10 +942,51 @@ def dispatch_sweeps(config: Config, json_rpc_url: str, origin_ranks,
                                   collection, dp_queue, start_ts)
         log.warning("WARNING: --sweep-lanes %s ignored (%s); running the "
                     "serial sweep", config.sweep_lanes, blocker)
+    # with --checkpoint-path each finished sim of a sweep is one journal
+    # unit; --resume replays the committed sims into stats and Influx and
+    # restarts at the first uncommitted one (reference cli.py:3566-3615).
+    # A single run keeps the state npz of _run_torch_backend instead.
+    journal = (_open_journal(
+        config, "serial-sweep",
+        # the full rank list shapes ORIGIN_RANK units (Config holds only
+        # origin_ranks[0])
+        {"origin_ranks": [int(r) for r in
+                          origin_ranks[:config.num_simulations]]}
+        if config.test_type == Testing.ORIGIN_RANK else None)
+        if config.num_simulations > 1 else None)
+    feed = _unit_feed(journal, dp_queue)
+    first = journal.committed_prefix() if journal is not None else 0
     for i in range(config.num_simulations):
         c, start = _stepped_sweep_config(config, i, origin_ranks)
-        run_simulation(c, json_rpc_url, collection, dp_queue, i, start_ts,
+        if journal is not None:
+            # sim-level units own resumability; the sim must not also
+            # write the single-run state npz
+            c = c.stepped(checkpoint_path="", resume_path="")
+        if i < first:
+            payload = journal.records[i]
+            # load the cluster as the live sim did, so the synthetic pubkey
+            # counter (and every later sim's cluster) follows the
+            # uninterrupted run
+            accounts, _ = load_cluster_accounts(c, json_rpc_url)
+            log.info("##### SIMULATION ITERATION: %s (replayed from "
+                     "journal) #####", i)
+            _replay_finished_sim(payload.get("sim"), c, dict(accounts),
+                                 collection)
+            replay_influx_lines(dp_queue, payload.get("lines", []))
+            continue
+        before = len(collection.collection)
+        run_simulation(c, json_rpc_url, collection, feed, i, start_ts,
                        start)
+        if journal is not None:
+            sim_payload = (stats_unit_payload(collection.collection[-1])
+                           if len(collection.collection) > before else None)
+            journal.commit(i, {"sim": sim_payload,
+                               "lines": _take_unit_lines(feed)})
+        # with or without a journal, a shutdown stops the sweep at the sim
+        # boundary
+        check_interrupt(journal)
+    if journal is not None:
+        journal.close()
     return None
 
 
@@ -834,6 +1012,18 @@ def run_lane_sweep(config: Config, json_rpc_url: str, origin_ranks,
     n_batches = -(-K // L)
     sweep = [_stepped_sweep_config(config, i, origin_ranks)
              for i in range(K)]
+
+    # one journal unit per lane batch (reference cli.py:1545-1557): a
+    # batch commits its sims' parity snapshots and lines after its harvest;
+    # resume replays the committed batches and runs the rest (the base
+    # state derives from the seed, so no device state is stored)
+    journal = _open_journal(config, "lane-sweep")
+    first_batch = journal.committed_prefix() if journal is not None else 0
+    if journal is not None:
+        # the cluster load below must see the counter position the
+        # interrupted run recorded at the sweep's start
+        restore_pubkey_counter(journal.header_pubkey_counter())
+    feed = _unit_feed(journal, dp_queue)
 
     t0 = time.perf_counter()
     accounts, source_label = load_cluster_accounts(config, json_rpc_url)
@@ -880,24 +1070,41 @@ def run_lane_sweep(config: Config, json_rpc_url: str, origin_ranks,
     times["engine_s"] += time.perf_counter() - t_engine
     for b in range(n_batches):
         ids = list(range(b * L, min((b + 1) * L, K)))
+        if b < first_batch:
+            # journal replay: committed batches feed stats and Influx
+            # verbatim, never recomputed, never fed twice
+            payload = journal.records[b]
+            for i, sim_payload in payload.get("sims", []):
+                log.info("##### SIMULATION ITERATION: %s (replayed from "
+                         "journal) #####", i)
+                _replay_finished_sim(sim_payload, sweep[int(i)][0], stakes,
+                                     stats_collection)
+            replay_influx_lines(dp_queue, payload.get("lines", []))
+            continue
         padded = ids + [ids[-1]] * (L - len(ids))
         kstack = stack_knobs([knob_list[i] for i in padded])
         t_blk = time.perf_counter()
-        states = broadcast_state(base_state, L)
-        wrows = {}
-        if warm > 0:
-            states, wrows = run_rounds_lanes(static, tables, origins, states,
-                                             kstack, warm)
-        states, mrows = run_rounds_lanes(static, tables, origins, states,
-                                         kstack, measured, start_it=warm,
-                                         detail=True)
-        # the one copy of the batch's rows and final counters to the host
-        wrows = {"coverage": wrows["coverage"].cpu().numpy()} if wrows \
-            else {}
-        mrows = {k: v.cpu().numpy() for k, v in mrows.items()}
-        final = {f: getattr(states, f).cpu().numpy()
-                 for f in ("failed", "egress_acc", "ingress_acc",
-                           "prune_acc")}
+
+        def _lane_dispatch(base, d):
+            tb, og = _to_device(tables, d), _to_device(origins, d)
+            sts = broadcast_state(base, L)
+            wrs = {}
+            if warm > 0:
+                sts, wrs = run_rounds_lanes(static, tb, og, sts, kstack,
+                                            warm)
+            sts, mrs = run_rounds_lanes(static, tb, og, sts, kstack,
+                                        measured, start_it=warm,
+                                        detail=True)
+            # the one copy of the batch's rows and final counters to the
+            # host
+            wrs = {"coverage": wrs["coverage"].cpu().numpy()} if wrs else {}
+            return (wrs, {k: v.cpu().numpy() for k, v in mrs.items()},
+                    {f: getattr(sts, f).cpu().numpy()
+                     for f in ("failed", "egress_acc", "ingress_acc",
+                               "prune_acc")})
+
+        wrows, mrows, final = _dispatch_supervised(
+            config, f"lane-batch-{b}", _lane_dispatch, base_state, dev)
         blk_wall = time.perf_counter() - t_blk
         times["engine_s"] += blk_wall
         t_harvest = time.perf_counter()
@@ -907,13 +1114,21 @@ def run_lane_sweep(config: Config, json_rpc_url: str, origin_ranks,
             _harvest_lane(config, sweep[i], stats_list[i],
                           lane_rows(wrows, pos), lane_rows(mrows, pos),
                           lane_final, params_list[i], index, stakes,
-                          origin_pubkey, dp_queue, i, start_ts, warm, total,
+                          origin_pubkey, feed, i, start_ts, warm, total,
                           len(accounts), source_label)
             _finalize_sim_stats(sweep[i][0], stats_list[i], stakes,
-                                stats_collection, dp_queue, i, start_ts)
-        _push_sim_perf_point(dp_queue, ids[0], start_ts, blk_wall, measured,
+                                stats_collection, feed, i, start_ts)
+        _push_sim_perf_point(feed, ids[0], start_ts, blk_wall, measured,
                              len(ids))
         times["harvest_s"] += time.perf_counter() - t_harvest
+        if journal is not None:
+            journal.commit(b, {
+                "sims": [[i, stats_unit_payload(stats_list[i])]
+                         for i in ids],
+                "lines": _take_unit_lines(feed)})
+        check_interrupt(journal)
+    if journal is not None:
+        journal.close()
     return times
 
 
@@ -985,9 +1200,23 @@ def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
     through one ``init_state``, the warm-up in one ``run_rounds`` call and
     the measured blocks, and each origin column is harvested into its own
     stats and Influx points.  Each origin's draws depend only on its own
-    index, so every column equals its rank's serial run.  Returns the
-    engine's wall (rounds until their rows are on the host) and the
-    harvest's, in seconds."""
+    index, so every column equals its rank's serial run.  With a journal
+    each measured block is one unit: every column's parity snapshot and
+    the block's lines, beside the state npz (v5: it names the journal and
+    its committed units); resume restores the state and the columns' stats
+    and replays the lines.  Returns the engine's wall (rounds until their
+    rows are on the host) and the harvest's, in seconds."""
+    journal = _open_journal(
+        config, "origin-rank",
+        # Config carries only origin_ranks[0]; the full list shapes every
+        # unit, so it is part of the run key
+        {"origin_ranks": [int(r) for r in
+                          origin_ranks[:config.num_simulations]]})
+    if journal is not None:
+        restore_pubkey_counter(journal.header_pubkey_counter())
+    first_block = journal.committed_prefix() if journal is not None else 0
+    feed = _unit_feed(journal, dp_queue)
+
     accounts, source_label = load_cluster_accounts(config, json_rpc_url)
     index = NodeIndex.from_stakes(accounts)
     stakes = dict(accounts)
@@ -1017,45 +1246,89 @@ def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
         log.info("##### SIMULATION ITERATION: %s #####", i)
         log.info("ORIGIN: %s", origin_pks[i])
         stats_list.append(_new_stats(c, origin_pks[i], stakes))
-    if dp_queue is not None:
-        # the reference's sweep puts the start sentinel into the same
-        # datapoint as the test-type point
-        dp = _test_type_point(config, 0, start_ts, len(accounts),
-                              source_label, str(float(origin_ranks[0])),
-                              stats_list[0])
-        dp.set_start()
-        dp_queue.push_back(dp)
     harvest_s = time.perf_counter() - t_harvest
 
     warm = min(config.warm_up_rounds, config.gossip_iterations)
     measured = config.gossip_iterations - warm
+    done = 0
     t_engine = time.perf_counter()
-    log.info("Simulating Gossip and setting active sets. Please wait.....")
-    state = init_state(prng_key(config.seed, dev), tables, origins, params)
-    log.info("Simulation Complete!")
-    if warm > 0:
-        for it in range(0, warm, 10):
-            log.info("GOSSIP ITERATION: %s", it)
-        state, wrows = run_rounds(params, tables, origins, state, warm)
-        if 0 <= config.heal_at < warm:
-            # heal inside the warm-up: the recovery metric still needs
-            # every post-heal round
-            cov_w = wrows["coverage"].cpu().numpy()          # [warm, R]
-            for it in range(config.heal_at, warm):
-                for col in range(R):
-                    stats_list[col].note_post_heal_coverage(
-                        it, float(cov_w[it, col]))
+    if first_block > 0:
+        # resume: the state from the npz, each column's stats from the last
+        # committed unit, the lines replayed verbatim
+        from .checkpoint import restore_sim_state
+        ckpt = config.resume_path or config.checkpoint_path
+        state, _, meta = restore_sim_state(ckpt, params, tables, device=dev)
+        last = journal.records[first_block - 1]
+        stats_list = [restore_stats(p, configs[col], stakes)
+                      for col, p in enumerate(last["sims"])]
+        for b in range(first_block):
+            replay_influx_lines(dp_queue,
+                                journal.records[b].get("lines", []))
+        done = min(first_block * HARVEST_BLOCK, measured)
+        if int(meta.get("iteration", warm + done)) != warm + done:
+            # a kill between the state save and the journal commit leaves
+            # the state one block ahead of the journal; that block's stats
+            # cannot be rebuilt
+            raise SystemExit(
+                f"ERROR: checkpoint {ckpt} is at iteration "
+                f"{meta.get('iteration')} but the journal holds "
+                f"{first_block} committed block(s) (= iteration "
+                f"{warm + done}); the run died between the state save "
+                f"and the journal commit. Remove {journal.path} and "
+                f"{ckpt} to start fresh.")
+        log.info("resume: origin-rank sweep restored at iteration %s "
+                 "(%s/%s measured rounds done)", warm + done, done,
+                 measured)
+    else:
+        if feed is not None:
+            # the reference's sweep puts the start sentinel into the same
+            # datapoint as the test-type point
+            dp = _test_type_point(config, 0, start_ts, len(accounts),
+                                  source_label, str(float(origin_ranks[0])),
+                                  stats_list[0])
+            dp.set_start()
+            feed.push_back(dp)
+        log.info("Simulating Gossip and setting active sets. Please "
+                 "wait.....")
+        state = init_state(prng_key(config.seed, dev), tables, origins,
+                           params)
+        log.info("Simulation Complete!")
+        if warm > 0:
+            for it in range(0, warm, 10):
+                log.info("GOSSIP ITERATION: %s", it)
+
+            def _warm_dispatch(st, d):
+                st, rws = run_rounds(params, _to_device(tables, d),
+                                     _to_device(origins, d), st, warm)
+                return st, {"coverage": rws["coverage"].cpu().numpy()}
+
+            state, wrows = _dispatch_supervised(
+                config, "origin-rank-warmup", _warm_dispatch, state, dev)
+            if 0 <= config.heal_at < warm:
+                # heal inside the warm-up: the recovery metric still needs
+                # every post-heal round
+                cov_w = wrows["coverage"]                    # [warm, R]
+                for it in range(config.heal_at, warm):
+                    for col in range(R):
+                        stats_list[col].note_post_heal_coverage(
+                            it, float(cov_w[it, col]))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     engine_s = time.perf_counter() - t_engine
-    done = 0
+    unit = first_block
     while done < measured:
         n_it = min(HARVEST_BLOCK, measured - done)
         start_it = warm + done
         t_blk = time.perf_counter()
-        state, trows = run_rounds(params, tables, origins, state, n_it,
-                                  start_it=start_it, detail=True)
-        rows = {k: v.cpu().numpy() for k, v in trows.items()}
+
+        def _block_dispatch(st, d):
+            st, rws = run_rounds(params, _to_device(tables, d),
+                                 _to_device(origins, d), st, n_it,
+                                 start_it=start_it, detail=True)
+            return st, {k: v.cpu().numpy() for k, v in rws.items()}
+
+        state, rows = _dispatch_supervised(
+            config, f"origin-rank-block-{unit}", _block_dispatch, state, dev)
         blk_wall = time.perf_counter() - t_blk
         engine_s += blk_wall
         t_harvest = time.perf_counter()
@@ -1066,19 +1339,34 @@ def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
                 log.info("GOSSIP ITERATION: %s", it)
             for col in range(R):
                 if it % 10 == 0:
-                    _push_config_point(configs[col], dp_queue, col, start_ts)
+                    _push_config_point(configs[col], feed, col, start_ts)
                 _feed_measured_round(stats_list[col], rows, t, col, it,
                                      configs[col], index, stakes,
-                                     origin_pks[col], dp_queue, col,
-                                     start_ts)
+                                     origin_pks[col], feed, col, start_ts)
         done += n_it
-        _push_sim_perf_point(dp_queue, 0, start_ts, blk_wall, n_it, R)
+        _push_sim_perf_point(feed, 0, start_ts, blk_wall, n_it, R)
+        if journal is not None:
+            from .checkpoint import save_state
+            save_state(config.checkpoint_path or config.resume_path, state,
+                       params, config, iteration=warm + done,
+                       resilience={
+                           "journal": os.path.basename(journal.path),
+                           "committed_units": unit + 1})
+            journal.commit(unit, {
+                "iteration": warm + done,
+                "sims": [stats_unit_payload(stats_list[col])
+                         for col in range(R)],
+                "lines": _take_unit_lines(feed)})
+        unit += 1
         harvest_s += time.perf_counter() - t_harvest
+        check_interrupt(journal)
+    if journal is not None:
+        journal.close()
     t_harvest = time.perf_counter()
     for col in range(R):
         _feed_message_counters(stats_list[col], state, col, index)
         _finalize_sim_stats(configs[col], stats_list[col], stakes,
-                            stats_collection, dp_queue, col, start_ts)
+                            stats_collection, feed, col, start_ts)
     harvest_s += time.perf_counter() - t_harvest
     return {"engine_s": engine_s, "harvest_s": harvest_s}
 
@@ -1159,7 +1447,11 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
     starts from ``prng_key(seed)``, and the tail is padded with origin 0 to
     the full width, its padded sims cut off before the harvest
     (``padded_sims``).  Two batches are in flight: batch k + 1 is queued
-    before batch k is harvested.
+    before batch k is harvested (one at a time under the device
+    supervisor).  With ``--checkpoint-path`` each batch is one journal
+    unit, and its aggregates go to a ``.aggstate.npz`` sidecar before its
+    commit; ``--resume`` reloads the sidecar, replays the committed
+    batches' lines and runs the rest.
 
     Beyond the reference's keys the summary carries ``origin_iters`` and
     ``messages_delivered``, counted as the reference's run report counts
@@ -1172,6 +1464,16 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
             "splitting origin batches over more than one GPU "
             "(--mesh-devices / --mesh-node-shards > 1) is not ported yet "
             "(ROADMAP A6b)")
+    # one journal unit per origin batch (reference cli.py:1822-1831); the
+    # aggregate accumulators go to an .aggstate.npz sidecar at each commit,
+    # so resume reloads them and runs only the uncommitted batches
+    journal = _open_journal(config, "all-origins")
+    if journal is not None:
+        restore_pubkey_counter(journal.header_pubkey_counter())
+    first_unit = journal.committed_prefix() if journal is not None else 0
+    sidecar = (journal.path[: -len(".journal")] + ".aggstate.npz"
+               if journal is not None else None)
+    feed = _unit_feed(journal, dp_queue)
     if accounts is None:
         accounts, _ = load_cluster_accounts(config, json_rpc_url)
     index = NodeIndex.from_stakes(accounts)
@@ -1194,29 +1496,69 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
     harvested = HARVEST_STATE + (HARVEST_PULL_STATE if params.has_pull
                                  else ())
     batches = []
+    skip_lo = 0
+    if first_unit > 0:
+        stored_batch = int(journal.records[0].get("batch", batch))
+        if stored_batch != batch:
+            raise SystemExit(
+                f"ERROR: --resume origin batch {batch} does not match the "
+                f"journal's {stored_batch} (different --origin-batch / "
+                f"mesh?); remove {journal.path} to start fresh")
+        sd = _load_agg_sidecar(sidecar)
+        sidecar_units = int(sd.pop("committed_units", first_unit))
+        if sidecar_units == first_unit + 1:
+            # killed between the sidecar save and the journal commit: the
+            # sidecar already holds batch `first_unit`, so commit its
+            # record now instead of running the batch again and counting
+            # its origins twice
+            log.warning("WARNING: aggregate sidecar is one batch ahead of "
+                        "the journal (killed mid-commit); committing the "
+                        "missing unit %s record", first_unit)
+            journal.commit(first_unit, {"lo": int(first_unit * batch),
+                                        "batch": int(batch)})
+            first_unit += 1
+        elif sidecar_units != first_unit:
+            raise SystemExit(
+                f"ERROR: aggregate sidecar {sidecar} holds "
+                f"{sidecar_units} committed batch(es) but the journal "
+                f"holds {first_unit}; the two artifacts cannot be "
+                f"reconciled. Remove {journal.path} and {sidecar} to "
+                f"start fresh.")
+        counts["padded_sims"] = int(sd.pop("padded_sims", 0))
+        sd.pop("node_health_stack", None)
+        agg.load_state_dict(sd)
+        for b in range(first_unit):
+            replay_influx_lines(dp_queue,
+                                journal.records[b].get("lines", []))
+        skip_lo = first_unit * batch
+        log.info("resume: all-origins restored %s committed batch(es) "
+                 "(%s/%s origins) from %s", first_unit,
+                 min(skip_lo, total_o), total_o, sidecar)
     t0 = time.time()
 
-    def _dispatch(lo):
-        """Queue one origin batch (init + rounds) and the copy of what its
-        harvest reads, without waiting on the device."""
+    def _dispatch(lo, d=dev):
+        """Queue one origin batch (init + rounds) on ``d`` and the copy of
+        what its harvest reads, without waiting on the device."""
         chunk = all_origins[lo:lo + batch]
         n_valid = len(chunk)
         if n_valid < batch:
             chunk = np.concatenate(
                 [chunk, np.zeros(batch - n_valid, np.int32)])
-        origins = torch.as_tensor(chunk, dtype=torch.int32, device=dev)
+        origins = torch.as_tensor(chunk, dtype=torch.int32, device=d)
+        tb = _to_device(tables, d)
         t_host = time.perf_counter()
-        marks = [_mark(dev)]
-        state = init_state(key, tables, origins, params)
-        marks.append(_mark(dev))
-        state, rows = run_rounds(params, tables, origins, state, iters)
-        marks.append(_mark(dev))
+        marks = [_mark(d)]
+        state = init_state(_to_device(key, d), tb, origins, params)
+        marks.append(_mark(d))
+        state, rows = run_rounds(params, tb, origins, state, iters)
+        marks.append(_mark(d))
         host, ready = _start_copy(rows, state, n_valid, harvested)
         dispatch_s = time.perf_counter() - t_host
         return lo, n_valid, host, ready, marks, dispatch_s
 
     def _harvest(job):
-        """Wait for one batch's copy and fold it into the aggregates."""
+        """Wait for one batch's copy, fold it into the aggregates and, with
+        a journal, save the sidecar and commit the batch."""
         lo, n_valid, host, ready, marks, dispatch_s = job
         t = time.perf_counter()
         if ready is not None:
@@ -1240,21 +1582,46 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
                         "rounds_s": rounds_s,
                         "dispatch_s": dispatch_s, "copy_wait_s": waited,
                         "harvest_s": time.perf_counter() - t})
-        _push_sim_perf_point(dp_queue, 0, start_ts, rounds_s, iters, n_valid)
+        _push_sim_perf_point(feed, 0, start_ts, rounds_s, iters, n_valid)
         log.info("all-origins: %s/%s origins done",
                  min(lo + n_valid, total_o), total_o)
+        if journal is not None:
+            sd = agg.state_dict()
+            sd["padded_sims"] = counts["padded_sims"]
+            sd["committed_units"] = lo // batch + 1
+            _save_agg_sidecar(sidecar, sd)
+            journal.commit(lo // batch, {"lo": int(lo), "batch": int(batch),
+                                         "lines": _take_unit_lines(feed)})
 
-    # double-buffered: batch k + 1 is queued before batch k is harvested;
-    # batch k's device state is freed once its copy is queued, so the two
-    # batches' states never coexist on the device
+    # Unsupervised, two batches are in flight: batch k + 1 is queued before
+    # batch k is harvested, and batch k's device state is freed once its
+    # copy is queued, so the two batches' states never coexist on the
+    # device.  Batch k is harvested, its sidecar saved and its unit
+    # committed in that order; the queued batch k + 1 is simply run again
+    # on resume if the run stops first.  Supervised, each batch is one
+    # retryable unit whose copy is on the host before the next dispatch.
+    supervised = supervision(config) is not None
     pending = None
-    for lo in range(0, total_o, batch):
-        job = _dispatch(lo)
-        if pending is not None:
-            _harvest(pending)
-        pending = job
+    for lo in range(skip_lo, total_o, batch):
+        if supervised:
+            def _unit(_state, d, lo=lo):
+                job = _dispatch(lo, d)
+                if job[3] is not None:
+                    job[3].synchronize()
+                return job
+            _harvest(_dispatch_supervised(
+                config, f"origin-batch-{lo // batch}", _unit, None, dev))
+        else:
+            job = _dispatch(lo)
+            if pending is not None:
+                _harvest(pending)
+            pending = job
+        check_interrupt(journal)
     if pending is not None:
         _harvest(pending)
+        check_interrupt(journal)
+    if journal is not None:
+        journal.close()
     dt = time.time() - t0
 
     extra = {"origin_iters": counts["origin_iters"],
@@ -1414,44 +1781,102 @@ def _run_traffic_point(config: Config, params: EngineParams, stakes_np,
                        stats: TrafficStats, dp_queue, sim_iter: int,
                        start_ts: str) -> None:
     """One traffic simulation (reference cli.py:3026-3171 without its
-    checkpoint, trace, health and supervisor arms): the warm-up rounds in
-    one call, then the measured rounds harvested in blocks."""
+    trace and health arms): the warm-up rounds in one call, then the
+    measured rounds harvested in blocks.  With ``--checkpoint-path`` a
+    ``kind="traffic"`` file with the TrafficStats is saved after the
+    warm-up, after each block (throttled by ``--checkpoint-every-s``) and
+    at the end; ``--resume`` continues from it with the stats restored."""
     N = len(stakes_np)
     tables = make_cluster_tables(stakes_np, device=config.device)
     dev = tables.stakes.device
     ttables = device_traffic_tables(stakes_np, dev)
-    log.info("Building the shared traffic active set....")
-    state = init_traffic_state(stakes_np, params, config.seed, dev)
+    start_iter = 0
+    if config.resume_path:
+        from .checkpoint import restore_traffic_state
+        state, _, meta = restore_traffic_state(config.resume_path, params,
+                                               device=dev)
+        stats.load_state_dict(meta.get("traffic_stats") or {})
+        start_iter = int(meta.get("iteration", 0))
+        log.info("Resumed traffic state from %s at iteration %s "
+                 "(%s committed round(s), %s record(s))",
+                 config.resume_path, start_iter, len(stats.iterations),
+                 len(stats.records))
+        if start_iter >= config.gossip_iterations:
+            log.warning("WARNING: checkpoint already at iteration %s >= "
+                        "--iterations %s; nothing to run", start_iter,
+                        config.gossip_iterations)
+            stats.feed_final(_traffic_final_from_state(state))
+            return
+    else:
+        log.info("Building the shared traffic active set....")
+        state = init_traffic_state(stakes_np, params, config.seed, dev)
+
+    def _save(iteration):
+        from .checkpoint import save_traffic_state
+        save_traffic_state(config.checkpoint_path, state, params, config,
+                           iteration=iteration,
+                           traffic_stats=stats.state_dict())
+
+    _save_checkpoint = _throttled_saver(config, _save)
+
     warm = min(config.warm_up_rounds, config.gossip_iterations)
-    if warm > 0:
-        state, _ = run_traffic_rounds(params, tables, ttables, state, warm)
+    if start_iter < warm:
+        def _warm_dispatch(st, d):
+            st, _ = run_traffic_rounds(params, _to_device(tables, d),
+                                       _to_device(ttables, d), st,
+                                       warm - start_iter,
+                                       start_it=start_iter)
+            return st, None
+
+        state, _ = _dispatch_supervised(config, "traffic-warmup",
+                                        _warm_dispatch, state, dev)
+        _save_checkpoint(warm)
     measured = config.gossip_iterations - warm
-    done = 0
+    done = max(0, start_iter - warm)
     while done < measured:
         n_it = min(HARVEST_BLOCK, measured - done)
         start_it = warm + done
         t_blk = time.perf_counter()
-        state, trows = run_traffic_rounds(params, tables, ttables, state,
-                                          n_it, start_it=start_it)
-        rows = {k: v.cpu().numpy() for k, v in trows.items()}
+
+        def _block_dispatch(st, d):
+            st, rws = run_traffic_rounds(params, _to_device(tables, d),
+                                         _to_device(ttables, d), st, n_it,
+                                         start_it=start_it)
+            return st, {k: v.cpu().numpy() for k, v in rws.items()}
+
+        state, rows = _dispatch_supervised(
+            config, f"traffic-block-{start_it}", _block_dispatch, state, dev)
         blk_wall = time.perf_counter() - t_blk
         _feed_traffic_rows(stats, dp_queue, sim_iter, start_ts, rows,
                            start_it, n_it, N)
         done += n_it
         _push_sim_perf_point(dp_queue, sim_iter, start_ts, blk_wall, n_it, 1)
+        _save_checkpoint(warm + done, force=False)
+        if resilience.shutdown_requested():
+            stats.feed_final(_traffic_final_from_state(state))
+            _save_checkpoint(warm + done)
+            raise ResumableInterrupt(
+                f"traffic checkpoint saved at iteration {warm + done}; "
+                f"resume with --resume {config.checkpoint_path}"
+                if config.checkpoint_path else
+                f"traffic run stopped at iteration {warm + done} with no "
+                f"--checkpoint-path; a re-run starts from scratch")
     stats.feed_final(_traffic_final_from_state(state))
+    _save_checkpoint(config.gossip_iterations)
 
 
 def _traffic_lane_blocker(config: Config, n_points: int):
     """None when --sweep-lanes can serve this traffic sweep, else the
     reason the run logs before it runs the serial sweep (reference cli.py:
-    3208-3223, without the backend, trace and checkpoint reasons: the port
-    has none of those flags yet)."""
+    3208-3223, without the backend and trace reasons: the port has neither
+    flag yet)."""
     if n_points < 2:
         return "nothing to batch (num_simulations < 2)"
     if config.test_type not in TRAFFIC_SWEEP_TYPES:
         return (f"--test-type {config.test_type.value} does not step a "
                 f"traffic-sweepable knob")
+    if config.checkpoint_path or config.resume_path:
+        return "traffic checkpoints cover single runs only"
     if config.gossip_iterations <= config.warm_up_rounds:
         return "no measured rounds (iterations <= warm-up-rounds)"
     return None
@@ -1565,6 +1990,13 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
     is_sweep = (config.test_type in TRAFFIC_SWEEP_TYPES
                 and config.num_simulations > 1)
     n_points = config.num_simulations if is_sweep else 1
+    if is_sweep and (config.checkpoint_path or config.resume_path):
+        # every point would share one state file: point k + 1 overwrites
+        # point k's, and --resume would replay one point's state into all
+        raise ValueError(
+            "--checkpoint-path/--resume cover single traffic runs only; "
+            "a traffic sweep has no per-point journal yet — drop the "
+            "flag or run the sweep points as separate single runs")
     lane_mode = False
     if config.sweep_lanes > 0:
         blocker = _traffic_lane_blocker(config, n_points)
@@ -1646,6 +2078,167 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
                 out.get("adaptive_pull_queue_dropped", 0),
         }
     return report
+
+
+# --------------------------------------------------------------------------
+# run journal and supervised dispatch (resilience.py)
+# --------------------------------------------------------------------------
+
+def _map_tensors(obj, fn):
+    """``obj`` (a tensor, or a NamedTuple of them, nested) with ``fn``
+    applied to each tensor."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_map_tensors(v, fn) for v in obj))
+    return obj
+
+
+def _to_device(obj, dev):
+    """``obj`` (tensors, or NamedTuples of them) on ``dev``; itself where it
+    is there already.  The CPU arm of the supervisor passes the CPU."""
+    return _map_tensors(obj, lambda t: t.to(dev))
+
+
+def _open_journal(config: Config, kind: str, extra_key: dict | None = None):
+    """The run journal of a multi-unit path next to the checkpoint path,
+    or None without --checkpoint-path and --resume (reference cli.py:
+    2416-2451).  ``extra_key`` adds inputs outside the Config (the full
+    origin-rank list) to the run key."""
+    if (config.checkpoint_path and config.resume_path
+            and config.checkpoint_path != config.resume_path):
+        # a journal is one append-only file serving both roles, so a split
+        # pair would silently drop the units next to the old path
+        raise SystemExit(
+            "ERROR: journal-mode runs (sweeps, --sweep-lanes, "
+            "--all-origins) need --checkpoint-path and --resume to name "
+            "the SAME path; got "
+            f"{config.checkpoint_path!r} vs {config.resume_path!r}")
+    base = config.checkpoint_path or config.resume_path
+    if not base:
+        return None
+    jp = journal_path(base)
+    resume = bool(config.resume_path)
+    if resume and not os.path.exists(jp):
+        log.warning("WARNING: --resume given but journal %s does not "
+                    "exist; starting the run from scratch", jp)
+    journal = RunJournal(jp, run_key_from_config(config, kind, extra_key),
+                         resume=resume)
+    k = journal.committed_prefix()
+    if k:
+        resilience.COUNTS["resilience/resumed_units"] += k
+        log.info("resume: journal %s holds %s committed unit(s); "
+                 "replaying them verbatim and restarting at unit %s",
+                 jp, k, k)
+    return journal
+
+
+def _throttled_saver(config: Config, save):
+    """A single run's ``save_checkpoint(iteration, force=True)``: calls
+    ``save(iteration)`` when --checkpoint-path is set.  Block saves pass
+    ``force=False`` and are throttled by --checkpoint-every-s (0 = every
+    block); the saves at the warm-up's end, the run's end and a shutdown
+    always write."""
+    last_save = [float("-inf")]
+
+    def save_checkpoint(iteration, force=True):
+        if not config.checkpoint_path:
+            return
+        now = time.monotonic()
+        if (not force and config.checkpoint_every_s > 0
+                and now - last_save[0] < config.checkpoint_every_s):
+            return
+        save(iteration)
+        last_save[0] = now
+    return save_checkpoint
+
+
+def _save_agg_sidecar(path: str, state_dict: dict) -> None:
+    """Atomically write an ``AllOriginsStats.state_dict()`` (and the
+    padding and commit counts) next to the journal."""
+    from .checkpoint import atomic_savez
+    atomic_savez(path, **{k: np.asarray(v) for k, v in state_dict.items()})
+
+
+def _load_agg_sidecar(path: str) -> dict:
+    if not os.path.exists(path):
+        raise SystemExit(
+            f"ERROR: --resume found a journal but no aggregate sidecar at "
+            f"{path}; remove the journal to start fresh")
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _unit_feed(journal, dp_queue):
+    """Where a run path pushes its points: a tee that keeps each unit's
+    lines for its commit when a journal is open, else the queue."""
+    if journal is not None and dp_queue is not None:
+        return InfluxTee(dp_queue)
+    return dp_queue
+
+
+def _take_unit_lines(feed) -> list:
+    return feed.take_unit_lines() if isinstance(feed, InfluxTee) else []
+
+
+def _replay_finished_sim(payload, config, stakes, stats_collection):
+    """A journaled, finished sim into the collection: its stats restored,
+    the end-of-sim calculations rerun (pure functions of the restored
+    series) and pushed in sweep order.  Its Influx lines replay
+    apart."""
+    if not payload:
+        return None
+    stats = restore_stats(payload, config, stakes)
+    if not stats.is_empty():
+        _build_final_stats(config, stats, stakes)
+        stats_collection.push(stats)
+    return stats
+
+
+def _dispatch_supervised(config: Config, label: str, run_fn, state, dev):
+    """Run one engine unit, ``run_fn(state, device)``, under the device
+    supervisor when the run asks for it (resilience.supervision), else
+    call it straight (no added work).
+
+    ``run_fn`` copies its results to the host before it returns, so that a
+    device failure surfaces inside the attempt.  Supervised, ``state`` is
+    copied to the host first and every attempt builds fresh tensors from
+    that copy: on ``dev`` for the attempts, on the CPU for
+    ``--on-device-failure cpu-fallback``, which a run on the card refuses
+    (no unit leaves the card after its kernels fail).  An attempt under
+    ``--device-timeout-s`` runs on a worker thread, on ``dev`` and the
+    caller's current stream, except the process's first dispatch on the
+    card, which builds or loads the kernels and runs inline (reference
+    cli.py:2508-2550)."""
+    policy = supervision(config)
+    if policy is None:
+        return run_fn(state, dev)
+    if policy.on_failure == "cpu-fallback" and dev.type != "cpu":
+        raise ValueError("--on-device-failure cpu-fallback runs only with "
+                         "--device cpu; on the card use abort and --resume")
+    if (policy.timeout_s > 0 and dev.type == "cuda"
+            and not kernels._build.loaded()):
+        policy = resilience.DispatchPolicy(
+            timeout_s=0.0, retries=policy.retries,
+            backoff_s=policy.backoff_s, on_failure=policy.on_failure)
+    host = _map_tensors(state, lambda t: t.detach().to("cpu", copy=True))
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def _attempt():
+        st = _map_tensors(host, lambda t: t.to(dev, copy=True))
+        if stream is None:
+            return run_fn(st, dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            out = run_fn(st, dev)
+            # a device failure of the unit surfaces inside the attempt
+            stream.synchronize()
+        return out
+
+    def _fallback():
+        cpu = torch.device("cpu")
+        return run_fn(_map_tensors(host, lambda t: t.clone()), cpu)
+
+    return supervised_call(label, _attempt, policy, cpu_fallback=_fallback)
 
 
 # --------------------------------------------------------------------------
@@ -1825,6 +2418,12 @@ def _traffic_startup_checks(config: Config) -> int:
         return 1
     is_traffic_sweep = (config.test_type in TRAFFIC_SWEEP_TYPES
                         and config.num_simulations > 1)
+    if is_traffic_sweep and (config.checkpoint_path or config.resume_path):
+        log.error("ERROR: --checkpoint-path/--resume cover single "
+                  "traffic runs only; a traffic sweep has no "
+                  "per-point journal yet — drop the flag or run the "
+                  "sweep points as separate single runs")
+        return 1
     if config.num_simulations > 1 and not is_traffic_sweep:
         log.warning("WARNING: --num-simulations %s ignored in traffic "
                     "mode: --test-type %s does not step a "
@@ -1840,6 +2439,10 @@ def main(argv=None) -> int:
         format="[%(asctime)s %(levelname)s %(name)s] %(message)s")
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
+    # one process == one run: clear a shutdown request and the resilience
+    # counts an earlier in-process run left behind
+    resilience.reset_shutdown()
+    resilience.reset_counts()
     origin_ranks = args.origin_rank
     if any(r < 1 for r in origin_ranks):
         log.error("ERROR: --origin-rank values must be >= 1 (1 = highest "
@@ -1892,6 +2495,14 @@ def main(argv=None) -> int:
                         "threshold 1.0; shrink --step-size or "
                         "--num-simulations for distinct points",
                         n_dup, config.num_simulations)
+    if config.on_device_failure == "cpu-fallback" and config.device != "cpu":
+        log.error("ERROR: --on-device-failure cpu-fallback is not ported to "
+                  "--device cuda: the port moves no unit off the card after "
+                  "its kernels fail, and has no run report to record such a "
+                  "unit yet (ROADMAP A15); use --on-device-failure abort "
+                  "(exit %s with the journal committed, then --resume)",
+                  RESUMABLE_EXIT_CODE)
+        return 1
     rc = _traffic_startup_checks(config)
     if rc:
         return rc
@@ -1920,20 +2531,35 @@ def main(argv=None) -> int:
             dp_queue, spool_path=config.influx_spool)
 
     t0 = time.perf_counter()
-    if config.traffic_on:
-        run_traffic(config, args.json_rpc_url, dp_queue, start_ts)
-    elif config.all_origins:
-        if dp_queue is not None:
-            log.info("all-origins: emitting run-level aggregate Influx "
-                     "series (per-iteration series are a single-origin "
-                     "feature)")
-        run_all_origins(config, dp_queue=dp_queue, start_ts=start_ts,
-                        json_rpc_url=args.json_rpc_url)
-    else:
-        collection = GossipStatsCollection()
-        collection.set_number_of_simulations(config.num_simulations)
-        dispatch_sweeps(config, args.json_rpc_url, origin_ranks, collection,
-                        dp_queue, start_ts)
+    try:
+        with signal_guard():
+            if config.traffic_on:
+                run_traffic(config, args.json_rpc_url, dp_queue, start_ts)
+            elif config.all_origins:
+                if dp_queue is not None:
+                    log.info("all-origins: emitting run-level aggregate "
+                             "Influx series (per-iteration series are a "
+                             "single-origin feature)")
+                run_all_origins(config, dp_queue=dp_queue,
+                                start_ts=start_ts,
+                                json_rpc_url=args.json_rpc_url)
+            else:
+                collection = GossipStatsCollection()
+                collection.set_number_of_simulations(
+                    config.num_simulations)
+                dispatch_sweeps(config, args.json_rpc_url, origin_ranks,
+                                collection, dp_queue, start_ts)
+    except (ResumableInterrupt, DeviceDispatchError) as e:
+        # every finished unit is committed: drain what the sinks hold and
+        # exit with the resumable code, so a wrapper can loop on --resume
+        # (reference cli.py:3906-3950; its run report is ROADMAP A15)
+        log.warning("run interrupted resumably: %s", e)
+        _drain_influx(dp_queue, influx_thread)
+        ckpt = config.checkpoint_path or config.resume_path
+        log.warning("exiting with resumable code %s%s", RESUMABLE_EXIT_CODE,
+                    f"; resume with --resume {ckpt}" if ckpt else
+                    " (no --checkpoint-path: a re-run starts from scratch)")
+        return RESUMABLE_EXIT_CODE
     log.info("simulation wall time: %.3f s on %s", time.perf_counter() - t0,
              config.device)
     if config.device != "cpu":

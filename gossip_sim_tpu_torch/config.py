@@ -4,9 +4,10 @@ Mirrors the reference's ``Config`` (gossip.rs:111-133), ``Testing``
 (gossip.rs:33-76) and ``StepSize`` (gossip.rs:78-109).  Flag names and
 defaults are the compatibility contract (gossip_main.rs:53-241).  This
 package's ``Config`` carries the fields the experiment harness (account
-sources, sweeps, Influx), all-origins mode and the round layout
-(``engine_representation``) read, plus ``device`` (where
-the engine runs: ``"cuda"`` unless the CPU is asked for).
+sources, sweeps, Influx), all-origins mode, the round layout
+(``engine_representation``) and the checkpoints, run journal and device
+supervisor (resilience.py) read, plus ``device`` (where the engine runs:
+``"cuda"`` unless the CPU is asked for).
 """
 
 from __future__ import annotations
@@ -158,6 +159,23 @@ class Config:
                                     # (1 = origins axis only; ROADMAP A6b)
     sweep_lanes: int = 0            # >0: a knob sweep's points as lanes
                                     # of one batch (engine/lanes.py)
+    checkpoint_path: str = ""       # save sim state (periodically + at end);
+                                    # multi-unit runs (sweeps, lane mode,
+                                    # --all-origins) additionally keep a
+                                    # sibling run journal (resilience.py)
+    resume_path: str = ""           # load sim state / journal and continue
+    checkpoint_every_s: float = 0.0  # min seconds between periodic
+                                    # checkpoint autosaves on the single-
+                                    # run path (0 = every harvest block)
+    device_timeout_s: float = 0.0   # watchdog bound on one engine
+                                    # dispatch (resilience.py); 0 = off
+    device_retries: int = 2         # transient-failure retries per
+                                    # supervised dispatch
+    on_device_failure: str = ""     # "" = unsupervised unless a timeout
+                                    # is set; "cpu-fallback" re-executes
+                                    # the failed unit on the CPU;
+                                    # "abort" exits with the resumable
+                                    # exit code (journal committed)
     device: str = "cuda"            # "cuda" (default) or "cpu"
 
     def stepped(self, **kw) -> "Config":

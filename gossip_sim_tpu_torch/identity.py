@@ -114,6 +114,13 @@ def reset_unique_pubkeys(start: int = 1) -> None:
         _unique_counter = int(start)
 
 
+def peek_unique_pubkeys() -> int:
+    """The next value ``pubkey_new_unique`` will consume (the run journal's
+    position marker, resilience.py; does not advance the counter)."""
+    with _unique_lock:
+        return _unique_counter
+
+
 def stake_buckets_array(stakes_lamports: np.ndarray) -> np.ndarray:
     """Log2 stake bucket per node: ``min(bit_length(stake //
     LAMPORTS_PER_SOL), 24)`` (push_active_set.rs:190-196)."""

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -49,6 +50,10 @@ LAUNCHES = {name: 0 for name in KERNEL_NAMES + VARIANT_NAMES}
 
 _LIBS: dict = {}
 BUILD_LOG: dict = {}
+#: held while a library is built and loaded, so that a supervised dispatch
+#: on a worker thread (resilience.py) and the main thread never build one
+#: library twice at once
+_LIB_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -111,10 +116,20 @@ def library(name: str) -> ctypes.CDLL:
     aid of ``AID_NAMES`` alone)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all(names=(name,) if name in AID_NAMES else KERNEL_NAMES)
-        lib = ctypes.CDLL(str(_build_dir() / f"lib{name}.so"))
-        _LIBS[name] = lib
+        with _LIB_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build_all(names=(name,) if name in AID_NAMES
+                          else KERNEL_NAMES)
+                lib = ctypes.CDLL(str(_build_dir() / f"lib{name}.so"))
+                _LIBS[name] = lib
     return lib
+
+
+def loaded() -> bool:
+    """Whether any kernel library is loaded in this process (the first
+    dispatch of a run builds or loads them)."""
+    return bool(_LIBS)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -5,8 +5,10 @@ A traffic run produces per-round contention series (queue depths,
 deferrals, drops across the whole value axis) and per-value retirement
 records (coverage, latency, RMR per injected value).  ``TrafficStats``
 collects both and gives the deterministic ``parity_snapshot()`` (held
-against the reference package's) and the ``summary()`` the run report, the
-end-of-run Influx point and the CLI summary line read.
+against the reference package's), the ``summary()`` the run report, the
+end-of-run Influx point and the CLI summary line read, and
+``state_dict``/``load_state_dict``, which a ``kind="traffic"`` checkpoint
+carries as ``meta["traffic_stats"]`` (checkpoint.py).
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ class TrafficStats:
     def is_empty(self) -> bool:
         return not self.iterations
 
-    # -- parity -------------------------------------------------------------
+    # -- parity / persistence -----------------------------------------------
 
     def parity_snapshot(self) -> dict:
         """Every deterministic series and record as one dict: the traffic
@@ -90,6 +92,27 @@ class TrafficStats:
             snap["adaptive_rounds"] = {
                 k: list(v) for k, v in self.adaptive_rounds.items()}
         return snap
+
+    def state_dict(self) -> dict:
+        return self.parity_snapshot()
+
+    def load_state_dict(self, d: dict) -> None:
+        self.iterations = [int(x) for x in d.get("iterations", [])]
+        self.rounds = {k: [int(x) for x in d.get("rounds", {}).get(k, [])]
+                       for k in ROUND_FIELDS}
+        self.adaptive_rounds = {
+            k: [int(x) for x in d.get("adaptive_rounds", {}).get(k, [])]
+            for k in ADAPTIVE_ROUND_FIELDS}
+        self.records = []
+        for r in d.get("records", []):
+            rec = dict(r)
+            # pre-v7 checkpoints: records predate the root-causing fields
+            rec.setdefault("rescued_by_pull", 0)
+            rec.setdefault("qdrops", 0)
+            rec.setdefault("cause", "converged" if rec.get("converged")
+                           else "stalled")
+            self.records.append(rec)
+        self.final = dict(d.get("final", {}))
 
     # -- aggregation ------------------------------------------------------
 

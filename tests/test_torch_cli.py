@@ -7,8 +7,9 @@ port's isolation and device rules.
 * asking for the default device without a GPU raises;
 * ``--all-origins`` runs through ``main`` on the CPU and logs its summary,
   and more than one mesh device or node shard raises naming ROADMAP A6b;
-* a fresh interpreter that imports every port module (the sinks and the
-  ``write_accounts`` binary among them, and the chip smoke script) has no
+* a fresh interpreter that imports every port module (the sinks, the
+  ``write_accounts`` binary, ``checkpoint`` and ``resilience`` among them,
+  and the chip smoke script) has no
   ``jax``, no ``gossip_sim_tpu``/``gossip_sim_tpu.*`` and no ``yaml``
   module loaded.
 
@@ -101,8 +102,7 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 def test_unported_flags_are_rejected():
     for argv in (["--backend", "oracle"], ["--health"],
-                 ["--checkpoint-path", "x.npz"], ["--resume", "x.npz"],
-                 ["--trace-dir", "traces"]):
+                 ["--trace-dir", "traces"], ["--telemetry-port", "0"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(BASE + argv)
 
@@ -157,7 +157,9 @@ _, rows = run_traffic_rounds(
     init_traffic_state(st, p, 1, device="cpu"), 3)
 assert int(rows["delivered"].sum()) > 0
 for m in ("gossip_sim_tpu_torch.sinks", "gossip_sim_tpu_torch.sinks.influx",
-          "gossip_sim_tpu_torch.write_accounts"):
+          "gossip_sim_tpu_torch.write_accounts",
+          "gossip_sim_tpu_torch.checkpoint",
+          "gossip_sim_tpu_torch.resilience"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "gossip_sim_tpu" or m.startswith("gossip_sim_tpu.")

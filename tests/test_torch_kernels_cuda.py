@@ -2014,3 +2014,153 @@ def test_traffic_lane_wrappers_refuse_more_than_64_lanes(cuda):
     words = torch.zeros((65, 10, 3), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="a launch takes 1 to 64"):
         kernels.traffic_admit(words, words, act, 2, 0)
+
+
+# --------------------------------------------------------------------------
+# checkpoints and the device supervisor on the card (checkpoint.py,
+# resilience.py)
+# --------------------------------------------------------------------------
+
+FIXTURES = __file__.rsplit("/", 1)[0] + "/fixtures/checkpoints"
+
+
+def _restored_on(path, params, stakes, device):
+    from gossip_sim_tpu_torch import checkpoint
+    tables = make_cluster_tables(stakes, device=device)
+    state, _, meta = checkpoint.restore_sim_state(path, params, tables,
+                                                  device=device)
+    return state, meta, tables
+
+
+@pytest.mark.parametrize("version", range(1, 9))
+def test_fixture_restores_equal_on_cuda_and_cpu(cuda, version):
+    """The reference package's v1-v8 fixtures restore on the card to the
+    CPU's fields, and 5 rounds on stay equal."""
+    path = f"{FIXTURES}/v{version}.npz"
+    with np.load(path) as z:
+        stakes = z["fixture.stakes"].astype(np.int64)
+    params = EngineParams(num_nodes=16, warm_up_rounds=0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        st, meta, tables = _restored_on(path, params, stakes, dev)
+        before = [t.cpu() for t in st]
+        st, rows = run_rounds(params, tables, torch.zeros(
+            1, dtype=torch.int32, device=dev), st, 5,
+            start_it=int(meta.get("iteration", 3)), detail=True)
+        out[dev.type] = before + [t.cpu() for t in st] + [
+            rows[k].cpu() for k in sorted(rows)]
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+
+
+def test_sparse_file_at_n100k_restores_equal_on_cuda_and_cpu(cuda,
+                                                             tmp_path):
+    """A sparse state at O=41 of N=100,000 (the reference's auto batch
+    there), written from the card, restores on the card and on the CPU to
+    the same fields."""
+    from gossip_sim_tpu_torch import checkpoint
+    n, o = 100_000, 41
+    stakes = np.random.default_rng(3).integers(
+        1, 1 << 45, size=n).astype(np.int64)
+    params = EngineParams(num_nodes=n, representation="sparse")
+    tables = make_cluster_tables(stakes, device=cuda)
+    orgs = torch.arange(o, dtype=torch.int32, device=cuda)
+    st = init_state(rng.prng_key(5, cuda), tables, orgs, params)
+    st, _ = run_rounds(params, tables, orgs, st, 3)
+    path = str(tmp_path / "sparse.npz")
+    checkpoint.save_state(path, st, params, iteration=3)
+    want = [t.cpu() for t in st]
+    del st
+    for dev in (cuda, torch.device("cpu")):
+        got, meta, _ = _restored_on(path, params, stakes, dev)
+        assert meta["iteration"] == 3
+        assert got.rc_shi.shape == (o, n, 0)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(want, got))
+        del got
+
+
+def _supervised_case(cuda):
+    """N=2,000, O=4 under loss and churn: the tables, origins, a state and
+    a unit of 20 rounds from it, as ``cli._dispatch_supervised`` runs one
+    (its rows copied to the host), recording the thread it ran on."""
+    from gossip_sim_tpu_torch import cli
+    stakes = np.random.default_rng(11).integers(
+        1, 1 << 45, size=2000).astype(np.int64)
+    params = EngineParams(num_nodes=2000, warm_up_rounds=5,
+                          packet_loss_rate=0.1, churn_fail_rate=0.01,
+                          churn_recover_rate=0.2, impair_seed=4)
+    tables = make_cluster_tables(stakes, device=cuda)
+    orgs = torch.arange(4, dtype=torch.int32, device=cuda)
+    state = init_state(rng.prng_key(9, cuda), tables, orgs, params)
+    threads = []
+
+    def unit(st, d):
+        import threading
+        threads.append(threading.current_thread().name)
+        st, rows = run_rounds(params, cli._to_device(tables, d),
+                              cli._to_device(orgs, d), st, 20, start_it=5,
+                              detail=True)
+        return st, {k: v.cpu() for k, v in rows.items()}
+    return state, unit, threads
+
+
+def _clone(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def _same_unit(a, b):
+    (sa, ra), (sb, rb) = a, b
+    assert all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(sa, sb))
+    assert set(ra) == set(rb)
+    assert all(torch.equal(ra[k], rb[k]) for k in ra)
+
+
+def test_supervised_dispatch_on_a_worker_thread_equals_the_direct_call(
+        cuda):
+    """Under --device-timeout-s the process's first dispatch (which loads
+    the kernels) runs inline and later ones on a worker thread, on the
+    caller's stream; a worker thread that loads the kernels first works
+    too.  Every result equals the direct call's."""
+    from gossip_sim_tpu_torch import cli, resilience
+    from gossip_sim_tpu_torch.config import Config
+    from gossip_sim_tpu_torch.kernels import _build
+    state, unit, threads = _supervised_case(cuda)
+    want = unit(_clone(state), cuda)
+    cfg = Config(device="cuda", device_timeout_s=60.0)
+    libs = dict(_build._LIBS)
+    try:
+        _build._LIBS.clear()
+        _same_unit(want, cli._dispatch_supervised(cfg, "first", unit, state,
+                                                  cuda))
+        assert _build.loaded() and threads[-1] == "MainThread"
+        _same_unit(want, cli._dispatch_supervised(cfg, "second", unit,
+                                                  state, cuda))
+        assert threads[-1].startswith("device-dispatch:second")
+        _build._LIBS.clear()
+        copy = _clone(state)
+        _same_unit(want, resilience._call_with_timeout(
+            lambda: unit(copy, cuda), 60.0, "loads"))
+        assert threads[-1].startswith("device-dispatch:loads")
+    finally:
+        _build._LIBS.update(libs)
+
+
+def test_fault_hook_retry_on_the_card_gives_the_unfaulted_rows(cuda):
+    from gossip_sim_tpu_torch import cli, resilience
+    from gossip_sim_tpu_torch.config import Config
+    state, unit, _ = _supervised_case(cuda)
+    want = unit(_clone(state), cuda)
+    cfg = Config(device="cuda")
+    cfg.device_backoff_s = 0.001
+    resilience.reset_counts()
+
+    def hook(label, attempt):
+        if attempt == 0:
+            raise RuntimeError("injected device failure")
+
+    resilience.set_fault_hook(hook)
+    try:
+        got = cli._dispatch_supervised(cfg, "unit", unit, state, cuda)
+    finally:
+        resilience.set_fault_hook(None)
+    _same_unit(want, got)
+    assert resilience.COUNTS["resilience/device_failures"] == 1
