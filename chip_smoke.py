@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero before the final line):
 
-  (a) build the eleven CUDA kernel sources from ``gossip_sim_tpu_torch/csrc``
-      (twelve kernels: ``rc_merge_prune``'s source holds its sparse variant)
+  (a) build the thirteen CUDA kernel sources from
+      ``gossip_sim_tpu_torch/csrc`` (fifteen kernels: ``rc_merge_prune``'s
+      source holds its sparse variant, ``health_round``'s its traffic form)
       with nvcc for sm_90a (one nvcc per source, in parallel); print each
       kernel's registers, shared memory and spills (``-Xptxas -v``), check
       ``rotate``'s static shared memory (the class tables) against ptxas
@@ -53,9 +54,7 @@ Phases (any failure exits non-zero before the final line):
       only);
   (d) run the CLI main path in process: 10,000 synthetic nodes,
       --iterations 300 --warm-up-rounds 200 on cuda; wall time, coverage
-      and RMR means, ``threefry``'s launches (``init_state``'s only), and
-      the same run in turns with verbs 1 and 5 in their plain versions
-      (plain, kernels, for the wall time and equal means); the first
+      and RMR means, ``threefry``'s launches (``init_state``'s only); the
       run's kernel launch counts go into the ``kernels`` line, and each
       kernel is held against its plain version on this run's own inputs of
       rounds 19 and 299 (O=1; ``threefry`` on ``init_state``'s) and timed
@@ -74,9 +73,10 @@ Phases (any failure exits non-zero before the final line):
       device memory with two batches in flight, and equal aggregates at
       both widths; a 5-round profile at O=64 in a process of its own
       (``--profile-all-origins``); each kernel held against its plain
-      version on round 19's inputs of the padded tail batch; every origin of
-      a 500-node cluster on cuda and on cpu with equal aggregates and
-      summaries; and the full 10,000-origin run's time, extrapolated;
+      version on round 19's inputs of the padded tail batch; every fourth
+      origin of a 500-node cluster on cuda and on cpu with equal
+      aggregates and summaries; and the full 10,000-origin run's time,
+      extrapolated;
   (g) the experiment harness on the 10,000-node cluster (300 iterations,
       200 warm-up, cuda), each run with the launch counts set to 0 just
       before it and read just after: an active-set sweep (S = 12, 16, 20,
@@ -107,7 +107,7 @@ Phases (any failure exits non-zero before the final line):
       own (``--profile-pull``, which also profiles 5 push-pull rounds at
       O=32: the launches a pull round adds), beside its bound; the
       single-origin
-      CLI in push-pull (loss 0.1), adaptive and push, in turns (wall,
+      CLI in push-pull (loss 0.1), adaptive and push (wall,
       coverage, RMR, pull counters, launches), and each mode's cuda run
       equal to its cpu run at N=2,000 (``parity_snapshot()`` and
       deterministic Influx lines); all-origins in push-pull (origins
@@ -133,10 +133,10 @@ Phases (any failure exits non-zero before the final line):
       --traffic-rate 16``, 300 iterations, 200 warm-up) uncapped and
       capped, with the launch counts set to 0 just before each and read
       just after (wall, traffic rounds/s, value-rounds/s, peak memory, the
-      TRAFFIC SUMMARY counts); cuda == cpu at N=2,000, M=32 (60
+      TRAFFIC SUMMARY counts); cuda == cpu at N=2,000, M=32 (40
       iterations, capped and impaired: ``parity_snapshot()``,
       ``summary()`` and the deterministic Influx lines) and for a 3-point
-      ``traffic-rate`` sweep; then adaptive traffic (``--gossip-mode
+      ``traffic-rate`` sweep (20 iterations); then adaptive traffic (``--gossip-mode
       adaptive``, threshold 0.9): the first round from 39 on with values in
       their pull phase (capped: and pull requests deferred or
       queue-dropped), uncapped and capped + impaired, its six kernels held
@@ -147,7 +147,7 @@ Phases (any failure exits non-zero before the final line):
       process (with a 5-round adaptive profile beside the push one); the
       full-width adaptive CLI uncapped and capped (rounds/s, value-rounds/s,
       peak memory, launches, the TRAFFIC and ADAPTIVE SUMMARY counts); cuda
-      == cpu at N=2,000, M=32 adaptive, capped and impaired;
+      == cpu at N=2,000, M=32 adaptive, capped and impaired (40 iterations);
   (j) the sparse layout (``--engine-representation sparse``): in a
       process of its own (``--profile-sparse``), 5-round profiles of both
       layouts (O=32 and O=64 of N=10,000, O=41 of N=100,000) and
@@ -171,7 +171,7 @@ Phases (any failure exits non-zero before the final line):
       memory allocated just before its run, which earlier phases hold);
       at N=100,000 the engine at O=41, 20 rounds of each
       layout (rows and states equal) and the sparse variant exact vs plain
-      on its round 19, then the single-origin CLI, 300 iterations, sparse
+      on its round 19, then the single-origin CLI, 150 iterations, sparse
       (launch counts set to 0 just before, read just after: the ``kernels``
       line's launches of the variant) and dense, equal
       ``parity_snapshot()``s; cuda == cpu sparse at N=2,000 under loss +
@@ -191,8 +191,8 @@ Phases (any failure exits non-zero before the final line):
       (``--profile-lanes``); the engine, 8 lanes of one origin, 50 rounds
       beside the serial O=1 and O=8 rounds in turns (wall, peak memory,
       launches per round equal to the serial round's; every lane equal to
-      its serial run); the CLI: an 8-point packet-loss sweep (300
-      iterations, 200 warm-up) with ``--sweep-lanes 8`` and serially in
+      its serial run); the CLI: an 8-point packet-loss sweep (150
+      iterations, 100 warm-up) with ``--sweep-lanes 8`` and serially in
       turns (snapshots and deterministic Influx lines equal; the wall split
       into cluster build, engine and harvest), a 5-point fail-nodes sweep
       at 4 lanes (its tail padded), pull-fanout and adaptive-threshold lane
@@ -219,7 +219,7 @@ Phases (any failure exits non-zero before the final line):
       (``--profile-traffic-lanes``); the engine (a lane batch, then its
       lanes' serial rounds: wall, peak memory, kernel launches per round;
       the end lanes equal to their serial runs); the CLI: a 4-point
-      traffic-rate sweep at M=256 (300 iterations, 200 warm-up,
+      traffic-rate sweep at M=256 (150 iterations, 100 warm-up,
       ``--sweep-lanes 4``) and an 8-point packet-loss sweep at M=32 (100
       iterations, 50 warm-up, ``--sweep-lanes 8``), each beside the serial
       sweep (every point's summary, parity snapshot and deterministic
@@ -233,12 +233,13 @@ Phases (any failure exits non-zero before the final line):
       ``cli.main`` and sends itself SIGTERM through the kill hook), each
       case at tolerance 0 against its uninterrupted run: the single-origin
       CLI at N=10,000 (300 straight against 200 resumed to 300, every
-      array of the final ``.npz`` files), the same at N=100,000 sparse,
+      array of the final ``.npz`` files), 150 against 100 resumed to 150
+      at N=100,000 sparse,
       and a sparse file resumed dense; all-origins on origins 0-199 of
       N=10,000 at batch 64 stopped after 2 committed batches (exit 75)
       and resumed, a failed attempt retried, ``--on-device-failure
       abort`` (exit 75) and resumed, ``cpu-fallback`` refused, and
-      ``--device-timeout-s 60`` timed in turns with the unsupervised run;
+      ``--device-timeout-s 60`` timed beside the unsupervised run;
       traffic at N=10,000, M=256 (150 rounds, resumed to 300: the TRAFFIC
       SUMMARY and every state field), in a second process (``--resume-phase
       traffic``) started after the timed turns, whose two saves overlap
@@ -253,7 +254,31 @@ Phases (any failure exits non-zero before the final line):
       ``save_state`` and ``restore_sim_state`` at O=1 and O=16 of
       N=10,000 and O=1 of N=100,000 sparse, and of a journal commit
       (``chiprun_out/resume.json``);
-  (n) print the total wall, the card's name and power limit, the
+  (n) the node-health observatory (``--health``): in a process of its own
+      (``--health-phase``, its first profiler sessions) ``health_round``
+      on round 19 (rows fire) and round 20 (none fires) at O=32 of
+      N=10,000, dense and sparse, and on (k)'s 8 lanes x 4 origins; its
+      traffic form on (i)'s M=256 round 19 and on the adaptive round from
+      39 with pull rescues; ``health_digest`` on the sim, all-origins
+      (int64) and traffic stacks, on N=100,000 and on a crafted stack of
+      ties and int64-range values; each exact against its plain version
+      (tolerance 0), timed (CUDA events and device ms) beside its bytes
+      bound and a PyTorch call (``index_add_`` of the round's pairs; a
+      stable ``torch.sort`` of the stack); the 5-round profiles of the
+      O=32 push round without (117 launches, required) and with the gate;
+      then, in this process, the full-width CLI with ``--health`` against
+      the same run without it (the 10k single origin, all-origins on
+      origins 0-199 at the auto batch, the M=256 traffic run, N=100,000
+      sparse at 150 iterations), with the launch counts set to 0 just
+      before each and read just after: the stats and deterministic
+      Influx lines unchanged by the gate, every digest of the run exact
+      against its plain version; cuda == cpu at N=2,000 (push under loss
+      + churn + partition, push-pull, adaptive traffic: the
+      ``sim_node_health`` points, the ``node_health`` section, the stats
+      and the lines); an all-origins ``--health`` run stopped after 2
+      batches and resumed, equal to the straight run;
+  (o) print each phase's wall, the total wall, the card's name and power
+      limit, the
       ``kernels`` JSON line (the four knob kernels with a ``lanes`` object:
       K, O, max_abs_err, the lane call's ms beside the one-lane call's;
       the six traffic kernels with a ``traffic_lanes`` object: K, M,
@@ -471,7 +496,12 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                   "traffic_rescue": ("traffic_rescue_walk_kernel",
                                      "traffic_rescue_select_kernel"),
                   # the sparse layout's variant of rc_merge_prune
-                  SPARSE: ("rc_merge_prune_sparse_kernel",)}
+                  SPARSE: ("rc_merge_prune_sparse_kernel",),
+                  # the node-health kernels (phase (n)); the traffic form
+                  # of health_round is counted apart
+                  "health_round": ("health_round_kernel",),
+                  "health_round_traffic": ("health_round_traffic_kernel",),
+                  "health_digest": ("health_digest_kernel",)}
 
 
 def device_ms(fn, symbols, reps: int = 10):
@@ -2081,31 +2111,34 @@ def resume_child(device: str = "cuda", part: str = "main") -> int:
               flush=True)
         return 0
 
-    # (1) single origin: 300 straight against 200 resumed to 300, at
-    # N=10,000 dense, N=100,000 sparse, and a sparse file resumed dense
+    # (1) single origin: 300 straight against 200 resumed to 300 at
+    # N=10,000 dense, 150 against 100 resumed to 150 at N=100,000 sparse,
+    # and a sparse file resumed dense
     walls = {}
-    for tag, n, layout in (("N=10,000 dense", N_FULL, []),
-                           ("N=100,000 sparse", N_HUGE,
-                            ["--engine-representation", "sparse"])):
-        base = ["--num-synthetic-nodes", str(n), "--warm-up-rounds", "200",
-                "--checkpoint-every-s", "3600"] + layout
+    for tag, n, layout, (warm, total) in (
+            ("N=10,000 dense", N_FULL, [], (200, 300)),
+            ("N=100,000 sparse", N_HUGE,
+             ["--engine-representation", "sparse"], (100, 150))):
+        base = ["--num-synthetic-nodes", str(n), "--warm-up-rounds",
+                str(warm), "--checkpoint-every-s", "3600"] + layout
         key = tag.split()[0]
         straight, part = p(f"straight_{key}.npz"), p(f"part_{key}.npz")
-        w0, _ = run(base + ["--iterations", "300", "--checkpoint-path",
+        w0, _ = run(base + ["--iterations", str(total), "--checkpoint-path",
                             straight])
-        w1, _ = run(base + ["--iterations", "200", "--checkpoint-path",
+        w1, _ = run(base + ["--iterations", str(warm), "--checkpoint-path",
                             part])
-        w2, _ = run(base + ["--iterations", "300", "--resume", part,
+        w2, _ = run(base + ["--iterations", str(total), "--resume", part,
                             "--checkpoint-path", part])
         meta = same_npz(straight, part, f"single origin {tag}")
         if meta["repr"]["representation"] != (
                 "sparse" if layout else "dense"):
             fail(f"(m) single origin {tag}: meta {meta['iteration']} "
                  f"{meta['repr']}")
-        walls[tag] = {"straight_s": w0, "first_200_s": w1, "resume_s": w2}
-        say(f"(m) single origin {tag}, rank 1: 300 straight {w0:.3f} s; "
-            f"200 then --resume to 300: {w1:.3f} + {w2:.3f} s; every "
-            f"array of the two final .npz files equal")
+        walls[tag] = {"iterations": total, "straight_s": w0,
+                      "first_part_s": w1, "resume_s": w2}
+        say(f"(m) single origin {tag}, rank 1: {total} straight {w0:.3f} "
+            f"s; {warm} then --resume to {total}: {w1:.3f} + {w2:.3f} s; "
+            f"every array of the two final .npz files equal")
     sparse_part = p("sparse_10k_200.npz")
     run(["--num-synthetic-nodes", str(N_FULL), "--warm-up-rounds", "200",
          "--checkpoint-every-s", "3600", "--engine-representation",
@@ -2175,7 +2208,7 @@ def resume_child(device: str = "cuda", part: str = "main") -> int:
         f"--on-device-failure abort with every later attempt failing: "
         f"exit 75 with unit 0 committed, --resume: aggregate equal")
     turns = []
-    for sup in (False, True, True, False):
+    for sup in (False, True):
         run(ao + (["--device-timeout-s", "60"] if sup else []))
         same_aggregate(want_ao, seen["ao"], "all-origins supervised")
         s = seen["ao"]
@@ -2385,6 +2418,497 @@ def resume_child(device: str = "cuda", part: str = "main") -> int:
     return 0
 
 
+#: ``--health-phase``: phase (n)'s kernel checks and timings, in a process
+#: whose first profiler sessions they are
+HEALTH_FLAG = "--health-phase"
+#: the node-health kernels (phase (n)), and what each replaces
+HEALTH_SOURCES = {
+    "health_round": ("gossip_sim_tpu/engine/core.py:1255",
+                     "the p.health arm of round_step, core.py:1255-1283"),
+    "health_round_traffic": ("gossip_sim_tpu/engine/traffic.py:857",
+                             "the p.health arm of traffic_round_step, "
+                             "traffic.py:857-895"),
+    "health_digest": ("gossip_sim_tpu/obs/health.py:125",
+                      "_device_digest_fn / digest_stack, health.py:125-146"),
+}
+#: the pair comparisons of health_digest per (entry, entry) of a row:
+#: below, equal, equal at a lower id
+DIGEST_PAIR_OPS = 3
+
+
+def health_round_bytes(args, traffic: bool) -> int:
+    """Bytes a ``health_round`` call must move on these inputs: the planes
+    in and out, the delivery view (traffic: both [K, V, N] delivery planes
+    and the birth rounds), ``n_pruned`` once, and of the firing rows (gated
+    in) their ``pruned_slot`` bytes and ``src_sorted`` at the pruned slots."""
+    import numpy as np
+    import torch
+    if traffic:
+        planes, view = args[:4], args[4:7]
+        n_pruned, src, slot, gates = args[8], args[9], args[10], args[11]
+    else:
+        planes, view = args[:2], args[5:6]
+        n_pruned, src, slot, gates = args[2], args[3], args[4], args[7]
+    g = torch.as_tensor(np.atleast_1d(np.asarray(gates)).astype(np.int32),
+                        device=n_pruned.device)
+    rows = n_pruned.shape[0]
+    per = rows // g.numel()
+    fire = (n_pruned > 0) & (g.repeat_interleave(per)[:, None] > 0)
+    c = src.shape[-1]
+    pairs = int((slot & fire[..., None]).sum())
+    return (2 * nbytes(*planes) + nbytes(*view, n_pruned)
+            + int(fire.sum()) * c + 4 * pairs)
+
+
+def health_child() -> int:
+    """``chip_smoke.py --health-phase``, started by phase (n): first the
+    5-round profiles of the O=32 push round from round 19 without and with
+    the health gate (launches and device busy per round; a count the
+    profiler cut short is taken again, up to three times); then both forms
+    of ``health_round`` and ``health_digest`` held against their plain
+    versions (tolerance 0) and timed (CUDA events; device ms under the
+    profiler, among this process's first sessions), beside
+    their bytes bound and a PyTorch yardstick: the round form on round 19
+    (rows fire) and 20 (none fires) at O=32 of N=10,000, dense and sparse,
+    and on phase (k)'s 8 lanes x 4 origins; the traffic form on phase
+    (i)'s M=256 round 19 and its adaptive round from 39 with values in
+    their pull phase; the digest on the sim, all-origins (int64) and
+    traffic stacks of those states, on N=100,000 (O=41 sparse, 20 rounds)
+    and on a crafted stack of ties and int64-range values.  Prints
+    ``chip_smoke: (n)`` lines and, last, one ``HEALTH {json}`` line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    from gossip_sim_tpu_torch import cli, engine, kernels
+    from gossip_sim_tpu_torch.engine import EngineParams
+    from gossip_sim_tpu_torch.engine.traffic import (device_traffic_tables,
+                                                     init_traffic_state,
+                                                     run_traffic_rounds,
+                                                     traffic_round_step)
+    from gossip_sim_tpu_torch.identity import NodeIndex
+    dev = torch.device("cuda")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    accounts, _ = cli.load_cluster_accounts(
+        cli.Config(num_synthetic_nodes=N_FULL))
+    stakes_np = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
+    tables = engine.make_cluster_tables(stakes_np, device=dev)
+    top = np.argsort(-stakes_np, kind="stable").astype(np.int32)
+    res = {"round": {}, "traffic": {}, "digest": {}, "worst": {}}
+    forms = {"round": ("health_round", "health_round_plain"),
+             "traffic": ("health_round_traffic",
+                         "health_round_traffic_plain")}
+
+    def check_time(form, key, args):
+        """One call of a form held against its plain version and timed."""
+        name, plain_name = forms[form]
+        fn, plain = getattr(kernels, name), getattr(kernels, plain_name)
+        err = max_abs_err(fn(*args), plain(*args))
+        res["worst"][name] = max(res["worst"].get(name, 0), err)
+        if err:
+            fail(f"(n) {name} {key}: differs from its plain version "
+                 f"(max_abs_err {err})")
+        traffic = form == "traffic"
+        moved = health_round_bytes(args, traffic)
+        n_pruned, src, slot = (args[8:11] if traffic else args[2:5])
+        groups = args[0].shape[0]
+        n = n_pruned.shape[1]
+        seg = (torch.where(slot, src, n).long()
+               + (torch.arange(slot.shape[0], device=dev)
+                  // (slot.shape[0] // groups) * (n + 1))[:, None, None])
+        seg = seg.reshape(-1)
+        ones = slot.reshape(-1).to(torch.int32)
+        scratch = torch.zeros(groups * (n + 1), dtype=torch.int32,
+                              device=dev)
+        r = {"ms": cuda_ms(lambda: fn(*args), reps=20),
+             "device_ms": device_ms(lambda: fn(*args),
+                                    KERNEL_SYMBOLS[name], reps=20),
+             "plain_ms": cuda_ms(lambda: plain(*args), reps=3, warm=1),
+             "library_ms": cuda_ms(lambda: scratch.index_add_(0, seg, ones),
+                                   reps=20),
+             "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "max_abs_err": err,
+             "fired_rows": int((n_pruned > 0).sum()),
+             "pairs": int(slot.sum())}
+        res[form][key] = r
+        say(f"(n) {name} {key}: exact; wrapper {r['ms']:.4f} ms, device "
+            f"{r['device_ms'] if r['device_ms'] is None else round(r['device_ms'], 4)} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({moved} bytes), plain "
+            f"{r['plain_ms']:.4f} ms, index_add_ of the pairs "
+            f"{r['library_ms']:.4f} ms; {r['fired_rows']} firing rows, "
+            f"{r['pairs']} pairs")
+
+    def rounds_calls(prm, orgs, upto=(19, 20)):
+        """The engine's rounds 0-20 of ``prm`` at ``orgs``: the state after
+        round 19 and the health_round calls of rounds ``upto``."""
+        st = engine.init_state(engine_key(dev), tables, orgs, prm)
+        st, _ = engine.run_rounds(prm, tables, orgs, st, 19)
+        st19 = st
+        _, calls = record_calls(kernels, ["health_round"], engine.run_rounds,
+                                prm, tables, orgs, st, 2, 19)
+        return st19, dict(zip(upto, calls["health_round"]))
+
+    o32 = torch.as_tensor(top[:O_KERNEL], device=dev)
+    base = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, health=True)
+    # first (this process's first profiler sessions): the O=32 push round
+    # from round 19, without and with the gate; the profiler may drop an
+    # event, never add one, so a count short of a whole number is taken
+    # again, up to three times, and the most is kept
+    prof = {}
+    for gate in (False, True):
+        prm = base._replace(health=gate)
+        st = engine.init_state(engine_key(dev), tables, o32, prm)
+        st, _ = engine.run_rounds(prm, tables, o32, st, 19)
+        runs_p = []
+        while len(runs_p) < 3 and not any(
+                float(r.get("launches", 0)).is_integer()
+                and r.get("launches") for r in runs_p):
+            runs_p.append(profile_rounds(
+                lambda p_, t_, o_, s_, n_: engine.run_rounds(
+                    p_, t_, o_, s_, n_, start_it=19),
+                prm, tables, o32, st, out_dir, rounds=5,
+                tag=" health" if gate else " no health", phase="(n)"))
+        prof[gate] = max(runs_p, key=lambda r: r.get("launches") or 0)
+        prof[gate]["profiles"] = len(runs_p)
+    res["round_profile"] = {
+        ("health" if g else "no health"): {k: v.get(k) for k in (
+            "launches", "busy_ms", "wall_ms", "profiles")}
+        for g, v in prof.items()}
+    st19 = None
+    for rep in ("dense", "sparse"):
+        prm = base._replace(representation=rep)
+        st, calls = rounds_calls(prm, o32)
+        if rep == "dense":
+            st19 = st
+        for it, (args, kw) in calls.items():
+            check_time("round", f"O={O_KERNEL} {rep} round {it}", args)
+    # (k)'s lanes, round 19
+    plist = [p._replace(health=True) for p in lane_params(EngineParams)]
+    lcalls = lane_round19(kernels, engine, plist, tables,
+                          torch.as_tensor(top[:LANE_O], device=dev),
+                          ["health_round"], dev)
+    check_time("round", f"{LANE_K} lanes x {LANE_O} origins round 19",
+               lcalls["health_round"][0][0])
+    # the traffic form: (i)'s M=256 round 19, and its adaptive round from
+    # 39 with values in their pull phase
+    ttables = device_traffic_tables(stakes_np, dev)
+    tprm = traffic_params(EngineParams, "uncapped")._replace(health=True)
+    tst = init_traffic_state(stakes_np, tprm, 42, dev)
+    tst, _ = run_traffic_rounds(tprm, tables, ttables, tst, 19)
+    (tst, _), tcalls = record_calls(kernels, ["health_round_traffic"],
+                                    traffic_round_step, tprm, tables,
+                                    ttables, tst, 19)
+    check_time("traffic", f"M={M_TRAFFIC} round 19",
+               tcalls["health_round_traffic"][0][0])
+    aprm = adaptive_params(EngineParams, "uncapped")._replace(health=True)
+    ast = init_traffic_state(stakes_np, aprm, 42, dev)
+    ast, _ = run_traffic_rounds(aprm, tables, ttables, ast, 39)
+    for it in range(39, 140):
+        (nxt, rows), acalls = record_calls(
+            kernels, ["health_round_traffic"], traffic_round_step, aprm,
+            tables, ttables, ast, it)
+        args = acalls["health_round_traffic"][0][0]
+        if args[5] is not None and int(args[5].sum()) > 0:
+            check_time("traffic", f"adaptive M={M_TRAFFIC} round {it} "
+                       f"({int(rows['pull_active_values'])} values pulling)",
+                       args)
+            break
+        ast = nxt
+    else:
+        fail("(n) adaptive traffic: no pull rescue delivered by round 139")
+
+    # the digest: the sim, all-origins (int64) and traffic stacks of those
+    # states, N=100,000, and a crafted stack
+    h_prm = EngineParams(num_nodes=N_HUGE, warm_up_rounds=0, health=True,
+                         representation="sparse")
+    h_acc, _ = cli.load_cluster_accounts(
+        cli.Config(num_synthetic_nodes=N_HUGE))
+    h_stakes = NodeIndex.from_stakes(h_acc).stakes.astype(np.int64)
+    h_tables = engine.make_cluster_tables(h_stakes, device=dev)
+    h_org = torch.as_tensor(np.argsort(-h_stakes, kind="stable")[:O_HUGE]
+                            .astype(np.int32), device=dev)
+    h_st = engine.init_state(engine_key(dev), h_tables, h_org, h_prm)
+    h_st, _ = engine.run_rounds(h_prm, h_tables, h_org, h_st, 20)
+    r = np.random.default_rng(7)
+    crafted = torch.as_tensor(
+        np.where(r.random((9, N_FULL)) < 0.5, r.integers(0, 4, (9, N_FULL)),
+                 r.integers(-(1 << 36), 1 << 36, (9, N_FULL))),
+        dtype=torch.int64, device=dev)
+    stacks = {
+        f"sim O={O_KERNEL}": (cli._health_stack(st19, traffic=False),
+                              tables.stake_decile),
+        f"all-origins O={O_KERNEL} (int64)": (cli._sim_health_stack_valid(
+            st19, O_KERNEL), tables.stake_decile),
+        f"traffic M={M_TRAFFIC}": (cli._health_stack(tst, traffic=True),
+                                   tables.stake_decile),
+        f"N={N_HUGE} O={O_HUGE} sparse": (
+            cli._health_stack(h_st, traffic=False), h_tables.stake_decile),
+        "crafted ties + int64 range": (crafted, tables.stake_decile),
+    }
+    for key, (stack, ids) in stacks.items():
+        p_, n_ = stack.shape
+        k = min(10, n_)
+        fn = lambda s=stack, i=ids: kernels.health_digest(s, i, k)
+        err = max_abs_err(fn(), kernels.health_digest_plain(stack, ids, k))
+        res["worst"]["health_digest"] = max(
+            res["worst"].get("health_digest", 0), err)
+        if err:
+            fail(f"(n) health_digest {key}: differs from its plain version "
+                 f"(max_abs_err {err})")
+        moved = nbytes(stack, ids) + p_ * (12 * 8 + k * 12)
+        pairs = DIGEST_PAIR_OPS * p_ * n_ * n_
+        reps = 3 if n_ > N_FULL else 10
+        d = {"p": p_, "n": n_, "dtype": str(stack.dtype).split(".")[-1],
+             "ms": cuda_ms(fn, reps=reps),
+             "device_ms": device_ms(fn, KERNEL_SYMBOLS["health_digest"],
+                                    reps=reps),
+             "plain_ms": cuda_ms(lambda: kernels.health_digest_plain(
+                 stack, ids, k), reps=3, warm=1),
+             "library_ms": cuda_ms(lambda: torch.sort(stack, dim=-1,
+                                                      stable=True),
+                                   reps=reps),
+             "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "max_abs_err": err,
+             "pair_comparisons": pairs,
+             "pairs_ms": pairs / (ALU_LANES * SM_CLOCKS_PER_S) * 1e3}
+        res["digest"][key] = d
+        say(f"(n) health_digest {key} [{p_}, {n_}] {d['dtype']}: exact; "
+            f"wrapper {d['ms']:.4f} ms, device {d['device_ms']} ms, bound "
+            f"{d['bound_ms']:.5f} ms ({moved} bytes), its "
+            f"{pairs:,} pair comparisons at the ALU rate "
+            f"{d['pairs_ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, stable "
+            f"torch.sort of the stack {d['library_ms']:.4f} ms")
+
+    print("HEALTH " + json.dumps(as_builtins(res)), flush=True)
+    return 0
+
+
+def health_phase(exact, worst, out_dir):
+    """Phase (n), the node-health observatory: the ``--health-phase``
+    child's kernel checks, timings and round profiles; the full-width CLI
+    runs with ``--health`` against the same runs without it (the 10k
+    single origin, all-origins on origins 0-199 at the auto batch, the
+    M=256 traffic run, N=100,000 sparse at 150 iterations), each
+    digest held against its plain version (``exact``, which keeps
+    ``worst``); cuda == cpu at N=2,000; an all-origins ``--health`` run
+    stopped and resumed.  Returns (the child's result, the CLI runs, the
+    main path's digests timed, the round profiles)."""
+    import numpy as np
+    import torch
+    from gossip_sim_tpu_torch import cli, kernels
+    from gossip_sim_tpu_torch.identity import reset_unique_pubkeys
+    from gossip_sim_tpu_torch.sinks import (DatapointQueue,
+                                            deterministic_wire_lines)
+    # the kernels against their plain versions, timed and profiled, in a
+    # process of its own (its first profiler sessions)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           HEALTH_FLAG], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    (out_dir / "health_phase.txt").write_text(
+        proc.stdout + "\n--- stderr ---\n" + proc.stderr[-200_000:])
+    if proc.returncode != 0:
+        fail(f"(n) the {HEALTH_FLAG} process failed (exit "
+             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    health_res = None
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("chip_smoke: (n)"):
+            print(ln, flush=True)
+        elif ln.startswith("HEALTH "):
+            health_res = json.loads(ln[len("HEALTH "):])
+    if health_res is None:
+        fail("(n) the health process printed no result")
+    h_prof = health_res["round_profile"]
+    if h_prof["no health"]["launches"] != 117:
+        fail(f"(n) the O={O_KERNEL} push round launches "
+             f"{h_prof['no health']['launches']} a round without --health, "
+             f"not 117")
+    say(f"(n) O={O_KERNEL} push round from round 19: without --health "
+        f"{h_prof['no health']['launches']:.1f} launches, "
+        f"{h_prof['no health']['busy_ms']:.4f} ms busy; with --health "
+        f"{h_prof['health']['launches']:.1f} launches, "
+        f"{h_prof['health']['busy_ms']:.4f} ms busy")
+    from gossip_sim_tpu_torch import resilience
+    from gossip_sim_tpu_torch.stats.gossip_stats import GossipStatsCollection
+    from gossip_sim_tpu_torch.stats.traffic import TrafficStatsCollection
+    for name in ("health_round", "health_round_traffic", "health_digest"):
+        worst[name] = max(worst.get(name, 0),
+                          health_res["worst"].get(name, 0))
+    real_digest = kernels.health_digest
+    digest_calls = []
+
+    def recording_digest(*a, **kw):
+        digest_calls.append((a, kw))
+        return real_digest(*a, **kw)
+
+    def health_run(kind, argv, device="cuda", **kw):
+        """One CLI run through its entry point with an Influx queue and
+        the launch counts set to 0 just before it: (wall, what the stats
+        give to compare, deterministic lines, sim_node_health lines
+        without their timestamps, the node_health section, launches)."""
+        reset_unique_pubkeys()
+        resilience.reset_counts()
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            argv + ["--device", device]))
+        q = DatapointQueue()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if kind == "single":
+            coll = GossipStatsCollection()
+            cli.run_simulation(cfg, "", coll, q, 0, "0", 0.0)
+            got = [snapshot_strings(s.parity_snapshot())
+                   for s in coll.collection]
+        elif kind == "traffic":
+            coll = TrafficStatsCollection()
+            cli.run_traffic(cfg, "u", q, "0", collection=coll)
+            got = [(s.parity_snapshot(), s.summary())
+                   for s in coll.collection]
+        else:
+            summ = cli.run_all_origins(cfg, dp_queue=q, start_ts="0",
+                                       **kw)
+            got = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                   for k, v in summ["stats"].state_dict().items()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        raw = []
+        while len(q):
+            raw.extend(q.pop_front().data().splitlines())
+        return dict(wall=wall, got=got, lines=deterministic_wire_lines(raw),
+                    health=[ln.rsplit(" ", 1)[0] for ln in raw
+                            if ln.startswith("sim_node_health")],
+                    section=resilience.RUN_INFO.get("node_health"),
+                    launches=dict(kernels.LAUNCHES))
+
+    h_base = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
+              "--warm-up-rounds", "200"]
+    h_cases = {
+        "single 10k": ("single", h_base, {}),
+        f"all-origins 0-{AO_ORIGINS - 1}": (
+            "all-origins", h_base + ["--all-origins"],
+            dict(origin_indices=np.arange(AO_ORIGINS, dtype=np.int32))),
+        f"traffic M={M_TRAFFIC}": (
+            "traffic", h_base + ["--traffic-values", str(M_TRAFFIC),
+                                 "--traffic-rate", str(TRAFFIC_RATE)], {}),
+        f"sparse N={N_HUGE}": (
+            "single", ["--num-synthetic-nodes", str(N_HUGE), "--iterations",
+                       "150", "--warm-up-rounds", "100",
+                       "--engine-representation", "sparse"], {}),
+    }
+    h_runs, h_digest = {}, {}
+    for case, (kind, argv_h, kw) in h_cases.items():
+        off = health_run(kind, argv_h, **kw)
+        digest_calls.clear()
+        kernels.health_digest = recording_digest
+        try:
+            on = health_run(kind, argv_h + ["--health"], **kw)
+        finally:
+            kernels.health_digest = real_digest
+        if on["got"] != off["got"] or on["lines"] != off["lines"]:
+            fail(f"(n) {case}: --health moved the stats or the "
+                 f"deterministic Influx lines")
+        if off["health"] or off["section"] is not None or not on["health"]:
+            fail(f"(n) {case}: sim_node_health points {len(on['health'])} "
+                 f"with --health, {len(off['health'])} without")
+        iters = int(argv_h[argv_h.index("--iterations") + 1])
+        # all-origins runs its engine without the health gate, as the
+        # reference does (cli.all_origins_params); its digests run
+        want_round = {"single": ("health_round", iters),
+                      "traffic": ("health_round_traffic", iters),
+                      "all-origins": ("health_round", 0)}[kind]
+        if (on["launches"][want_round[0]] != want_round[1]
+                or on["launches"]["health_digest"] != len(digest_calls)
+                or off["launches"]["health_digest"]
+                or off["launches"]["health_round"]
+                or off["launches"]["health_round_traffic"]):
+            fail(f"(n) {case}: launches {on['launches']} with --health, "
+                 f"{off['launches']} without")
+        for args, kw_ in digest_calls:
+            exact("health_digest", args, kw_, f"(n) {case}'s digests")
+        stack, ids, k = digest_calls[-1][0]
+        reps = 3 if stack.shape[1] > N_FULL else 10
+        moved = nbytes(stack, ids) + stack.shape[0] * (12 * 8 + k * 12)
+        h_digest[case] = {
+            "p": int(stack.shape[0]), "n": int(stack.shape[1]),
+            "dtype": str(stack.dtype).split(".")[-1], "calls":
+            len(digest_calls),
+            "ms": cuda_ms(lambda: real_digest(stack, ids, k), reps=reps),
+            "plain_ms": cuda_ms(lambda: kernels.health_digest_plain(
+                stack, ids, k), reps=3, warm=1),
+            "library_ms": cuda_ms(lambda: torch.sort(stack, dim=-1,
+                                                     stable=True), reps=reps),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+        h_runs[case] = {"on": on, "off": off}
+        sec = on["section"]
+        say(f"(n) {case} --health: wall {on['wall']:.3f} s against "
+            f"{off['wall']:.3f} s without; stats and deterministic Influx "
+            f"lines equal; {len(on['health'])} sim_node_health points, "
+            f"section totals "
+            + ", ".join(f"{m} {v['total']}" for m, v in
+                        sec["metrics"].items())
+            + f"; launches health_round {on['launches']['health_round']}, "
+            f"traffic form {on['launches']['health_round_traffic']}, "
+            f"health_digest {on['launches']['health_digest']} (each "
+            f"exact vs plain; the last, [{h_digest[case]['p']}, "
+            f"{h_digest[case]['n']}] {h_digest[case]['dtype']}, "
+            f"{h_digest[case]['ms']:.4f} ms)")
+    # cuda == cpu at N=2,000
+    n2 = ["--num-synthetic-nodes", str(N_PARITY), "--iterations", "20",
+          "--warm-up-rounds", "10", "--health"]
+    impaired = ["--packet-loss-rate", "0.1", "--churn-fail-rate", "0.01",
+                "--churn-recover-rate", "0.2", "--partition-at", "12",
+                "--heal-at", "18"]
+    for case, (kind, argv_p) in {
+            "push impaired": ("single", n2 + impaired),
+            "push-pull": ("single", n2 + ["--gossip-mode", "push-pull",
+                                          "--packet-loss-rate", "0.1"]),
+            "adaptive traffic": ("traffic", n2 + [
+                "--gossip-mode", "adaptive", "--traffic-values",
+                str(M_NARROW), "--traffic-rate", "2",
+                "--node-ingress-cap", "40", "--node-egress-cap", "60"]),
+    }.items():
+        a, b = (health_run(kind, argv_p, device=d) for d in ("cuda", "cpu"))
+        if (a["health"] != b["health"] or a["section"] != b["section"]
+                or a["got"] != b["got"] or a["lines"] != b["lines"]):
+            fail(f"(n) N={N_PARITY} {case}: cuda and cpu differ")
+        say(f"(n) N={N_PARITY} {case} --health: cuda == cpu "
+            f"({len(a['health'])} sim_node_health points, the section, "
+            f"the stats and the deterministic lines); walls "
+            f"{a['wall']:.3f} / {b['wall']:.3f} s")
+    # an all-origins --health run stopped after 2 batches and resumed
+    ck_dir = ROOT / "build" / "health"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck_dir.mkdir(parents=True)
+    ao_case = f"all-origins 0-{AO_ORIGINS - 1}"
+    ao_kind, ao_argv, ao_kw = h_cases[ao_case]
+    ck = ["--checkpoint-path", str(ck_dir / "ao.npz")]
+    resilience.reset_shutdown()
+    resilience.set_kill_after_units(2)
+    try:
+        health_run(ao_kind, ao_argv + ["--health"] + ck, **ao_kw)
+        fail("(n) the all-origins --health run was not stopped")
+    except resilience.ResumableInterrupt:
+        pass
+    finally:
+        resilience.set_kill_after_units(0)
+        resilience.reset_shutdown()
+    resumed = health_run(ao_kind, ao_argv + ["--health"] + ck
+                         + ["--resume", ck[1]], **ao_kw)
+    straight = h_runs[ao_case]["on"]
+    if (resumed["section"] != straight["section"]
+            or resumed["health"] != straight["health"]
+            or resumed["got"] != straight["got"]):
+        fail("(n) the resumed all-origins --health run differs from the "
+             "straight run")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    say(f"(n) all-origins --health stopped after 2 batches and resumed: "
+        f"the final digest, every sim_node_health point and the aggregates "
+        f"equal the straight run's (resumed wall {resumed['wall']:.3f} s)")
+
+    return health_res, h_runs, h_digest, h_prof
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2423,13 +2947,26 @@ def main() -> int:
     # the push path's kernels; pull_exchange runs in the pull modes, (h),
     # and the two traffic kernels in the traffic round, (i)
     names = tuple(n for n in _build.KERNEL_NAMES
-                  if n not in ("pull_exchange",) + TRAFFIC_ONLY)
+                  if n not in ("pull_exchange",) + TRAFFIC_ONLY
+                  + tuple(HEALTH_SOURCES))
     dev = torch.device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
+    phase_walls = {}
+    current = {"name": None, "t": t_all}
+
+    def phase(name):
+        """Close the running phase (printing its wall) and start ``name``."""
+        now = time.perf_counter()
+        if current["name"] is not None:
+            phase_walls[current["name"]] = now - current["t"]
+            say(f"({current['name']}) phase wall "
+                f"{phase_walls[current['name']]:.1f} s")
+        current.update(name=name, t=now)
 
     # ---- (a) build -------------------------------------------------------
+    phase("a")
     build_s = kernels.build_all(force=True)
     say(f"(a) built {len(_build.KERNEL_NAMES)} kernels with nvcc (sm_90a) "
         f"in {build_s:.2f} s")
@@ -2515,6 +3052,7 @@ def main() -> int:
             f"{ops['fma']} on the FMA pipe (chiprun_out/sass_{name}.txt)")
 
     # ---- (b) kernels vs plain on a real round's inputs -------------------
+    phase("b")
     # the whole calls of prune_apply, traffic_admit and traffic_send at
     # every shape the phases time them at, in a process of its own (its
     # first profiler sessions); printed under each shape's phase
@@ -2782,6 +3320,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- (c) engine, 50 rounds at O=32, N=10,000 -------------------------
+    phase("c")
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     state = init_state(rng.prng_key(7, dev), tables, origins, params)
@@ -2882,6 +3421,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- (d) CLI main path at N=10,000 on cuda ---------------------------
+    phase("d")
     argv = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
             "--warm-up-rounds", "200", "--device", "cuda"]
     # keep the main path's own kernel inputs of two rounds (every call of
@@ -2982,31 +3522,6 @@ def main() -> int:
         fail(f"(d) implausible means: coverage {cov_mean}, rmr {rmr_mean}")
     say(f"(d) CLI {' '.join(argv)}: wall {cli_s:.3f} s, coverage mean "
         f"{cov_mean:.6f}, RMR mean {rmr_mean:.6f}, launches {launches}")
-    # the same CLI run in turns with verbs 1 and 5 in their plain versions
-    # (as the port made them before their kernels, verb 5 with its plain
-    # draws; a comparison only): plain, kernels, after the run above
-    walls = {"kernels": [cli_s], "plain verbs 1 and 5": []}
-    for what in ("plain verbs 1 and 5", "kernels"):
-        swap = ("push_targets", "rotate") if what != "kernels" else ()
-        for name in swap:
-            setattr(kernels, name, plain[name])
-        try:
-            reset_unique_pubkeys()
-            t0 = time.perf_counter()
-            c = cli.simulate(cli.config_from_args(
-                cli.build_parser().parse_args(argv)))
-            torch.cuda.synchronize()
-            walls[what].append(time.perf_counter() - t0)
-        finally:
-            for name in swap:
-                setattr(kernels, name, real[name])
-        st = c.collection[0]
-        if (st.coverage_stats.mean, st.rmr_stats.mean) != (cov_mean,
-                                                           rmr_mean):
-            fail(f"(d) the CLI run with {what} gave other means")
-    say("(d) CLI wall in turns: " + "; ".join(
-        f"{k} " + ", ".join(f"{w:.3f}" for w in v) + " s"
-        for k, v in walls.items()))
     # parts of the main path timed alone, after it: the host-side cluster
     # build, and the engine's 300 rounds for one origin without the harvest
     reset_unique_pubkeys()
@@ -3041,6 +3556,7 @@ def main() -> int:
         + ", ".join(f"{k} {v:.4f} s" for k, v in init_s.items()))
 
     # ---- (e) cuda vs cpu parity at N=2,000, 60 rounds --------------------
+    phase("e")
     snaps = {}
     for device in ("cuda", "cpu"):
         reset_unique_pubkeys()
@@ -3058,6 +3574,7 @@ def main() -> int:
     say("(e) cuda == cpu parity_snapshot at N=2000")
 
     # ---- (f) all-origins at N=10,000 in origin batches -------------------
+    phase("f")
     ao_argv = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
                "--warm-up-rounds", "200", "--all-origins", "--device", "cuda"]
     ao_cfg = cli.config_from_args(cli.build_parser().parse_args(ao_argv))
@@ -3195,7 +3712,8 @@ def main() -> int:
     del ao_calls, ao_outs, rows_t
     torch.cuda.empty_cache()
 
-    # cuda == cpu: every origin of a 500-node cluster at the auto batch
+    # cuda == cpu: every fourth origin of a 500-node cluster at the auto
+    # batch (a full batch and a padded tail)
     small = {}
     for device in ("cuda", "cpu"):
         reset_unique_pubkeys()
@@ -3203,11 +3721,14 @@ def main() -> int:
             ["--num-synthetic-nodes", str(N_SMALL), "--iterations", "30",
              "--warm-up-rounds", "10", "--all-origins", "--device", device]))
         t0 = time.perf_counter()
-        small[device] = cli.run_all_origins(cfg)
-        say(f"(f) all-origins N={N_SMALL}, 30 rounds on {device}: "
+        small[device] = cli.run_all_origins(
+            cfg, origin_indices=np.arange(0, N_SMALL, 4, dtype=np.int32))
+        say(f"(f) all-origins N={N_SMALL}, origins 0, 4, ..., "
+            f"{N_SMALL - 4}, 30 rounds on {device}: "
             f"{time.perf_counter() - t0:.3f} s")
     sizes = [b["n_valid"] for b in small["cuda"]["batches"]]
-    if sizes != [O_BATCH] * 7 + [52] or small["cuda"]["padded_sims"] != 12:
+    if sizes != [O_BATCH, N_SMALL // 4 - O_BATCH] or (
+            small["cuda"]["padded_sims"] != 2 * O_BATCH - N_SMALL // 4):
         fail(f"(f) N={N_SMALL}: batches of {sizes} valid origins")
     sd = {d: small[d]["stats"].state_dict() for d in small}
     diff = [k for k in sd["cuda"] if not np.array_equal(sd["cuda"][k],
@@ -3224,6 +3745,7 @@ def main() -> int:
         f"aggregate state_dict, finalized stats and summary equal")
 
     # ---- (g) the experiment harness at N=10,000 on cuda ----------------
+    phase("g")
     t_g = time.perf_counter()
     drv_argv = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
                 "--warm-up-rounds", "200", "--device", "cuda"]
@@ -3512,6 +4034,7 @@ def main() -> int:
     say(f"(g) experiment harness phase: {time.perf_counter() - t_g:.1f} s")
 
     # ---- (h) pull, push-pull and adaptive at N=10,000 on cuda -----------
+    phase("h")
     t_h = time.perf_counter()
     PX = "pull_exchange"
     top_all = np.argsort(-stakes_np, kind="stable").astype(np.int32)
@@ -3607,7 +4130,7 @@ def main() -> int:
         "push": [],
     }
     cli_runs = {}
-    for mode in ("push-pull", "adaptive", "push", "push-pull"):
+    for mode in ("push-pull", "adaptive", "push"):
         argv_m = drv_argv + mode_argv[mode]
         reset_unique_pubkeys()
         kernels.reset_launch_counts()
@@ -3646,7 +4169,7 @@ def main() -> int:
         cli_runs[mode]["walls"].append(wall)
         say(f"(h) CLI {' '.join(argv_m)}: wall {wall:.3f} s, coverage mean "
             f"{cov:.6f}, RMR mean {rmr:.6f}{pulls}; launches {got}")
-    say("(h) CLI wall in turns (push-pull, adaptive, push, push-pull): "
+    say("(h) CLI wall (push-pull, adaptive, push): "
         + "; ".join(f"{m} " + ", ".join(f"{w:.3f}" for w in r["walls"])
                     + " s" for m, r in cli_runs.items()))
     # cuda == cpu at N=2,000 in each pull mode: snapshots and Influx lines
@@ -3655,7 +4178,7 @@ def main() -> int:
         for device in ("cuda", "cpu"):
             reset_unique_pubkeys()
             a = cli.build_parser().parse_args(
-                ["--num-synthetic-nodes", "2000", "--iterations", "60",
+                ["--num-synthetic-nodes", "2000", "--iterations", "40",
                  "--warm-up-rounds", "20", "--device", device]
                 + mode_argv[mode])
             q = DatapointQueue()
@@ -3665,7 +4188,7 @@ def main() -> int:
                                 c, q, "1")
             snaps[device] = snapshot_strings(c.collection[0].parity_snapshot())
             lines[device] = q.drain_deterministic_lines()
-            say(f"(h) {mode} N=2000 60 rounds on {device}: "
+            say(f"(h) {mode} N=2000 40 rounds on {device}: "
                 f"{time.perf_counter() - t0:.3f} s")
         diff = [k for k in snaps["cuda"] if snaps["cuda"][k] != snaps["cpu"][k]]
         series = "sim_adaptive," if mode == "adaptive" else "sim_pull,"
@@ -3814,6 +4337,7 @@ def main() -> int:
     say(f"(h) pull modes phase: {time.perf_counter() - t_h:.1f} s")
 
     # ---- (i) the traffic engine at N=10,000, M=256 on cuda --------------
+    phase("i")
     t_i = time.perf_counter()
     from gossip_sim_tpu_torch.engine.traffic import device_traffic_tables
     from gossip_sim_tpu_torch.stats.traffic import TrafficStatsCollection
@@ -4030,14 +4554,14 @@ def main() -> int:
     par_argv = ["--num-synthetic-nodes", str(N_PARITY), "--traffic-values",
                 str(M_NARROW), "--traffic-rate", "4"]
     for what, extra in (
-            ("capped + impaired, 60 iterations",
-             ["--iterations", "60", "--warm-up-rounds", "20",
+            ("capped + impaired, 40 iterations",
+             ["--iterations", "40", "--warm-up-rounds", "20",
               "--node-ingress-cap", "40", "--node-egress-cap", "60",
               "--packet-loss-rate", "0.1", "--churn-fail-rate", "0.01",
-              "--churn-recover-rate", "0.2", "--partition-at", "25",
-              "--heal-at", "45"]),
-            ("traffic-rate sweep (4, 8, 12), 30 iterations",
-             ["--iterations", "30", "--warm-up-rounds", "10",
+              "--churn-recover-rate", "0.2", "--partition-at", "15",
+              "--heal-at", "30"]),
+            ("traffic-rate sweep (4, 8, 12), 20 iterations",
+             ["--iterations", "20", "--warm-up-rounds", "10",
               "--node-ingress-cap", "40", "--test-type", "traffic-rate",
               "--num-simulations", "3", "--step-size", "4"])):
         outs = {}
@@ -4185,12 +4709,12 @@ def main() -> int:
              "request")
 
     # cuda == cpu at N=2,000, M=32: adaptive, capped and impaired
-    ad_par = par_argv + ["--gossip-mode", "adaptive", "--iterations", "60",
+    ad_par = par_argv + ["--gossip-mode", "adaptive", "--iterations", "40",
                          "--warm-up-rounds", "20", "--node-ingress-cap", "40",
                          "--node-egress-cap", "60", "--packet-loss-rate",
                          "0.1", "--churn-fail-rate", "0.01",
                          "--churn-recover-rate", "0.2", "--partition-at",
-                         "25", "--heal-at", "45"]
+                         "15", "--heal-at", "30"]
     outs = {}
     for device in ("cuda", "cpu"):
         reset_unique_pubkeys()
@@ -4233,6 +4757,7 @@ def main() -> int:
     say(f"(i) traffic phase: {time.perf_counter() - t_i:.1f} s")
 
     # ---- (j) the sparse layout at N=10,000 and N=100,000 on cuda ---------
+    phase("j")
     t_j = time.perf_counter()
     PLANES = ("rc_shi", "rc_slo")
 
@@ -4520,14 +5045,14 @@ def main() -> int:
         f"prunes {prunes_h}; rc_merge_prune sparse exact vs plain on round "
         f"19, {h_ms:.4f} ms (CUDA events), bound {h_bound:.4f} ms")
 
-    # N=100,000 through the CLI, one origin, 300 iterations: sparse then
+    # N=100,000 through the CLI, one origin, 150 iterations: sparse then
     # dense; the sparse run's launches are this slice's main path's
     cli_h = {}
     for which in ("sparse", "dense"):
         reset_unique_pubkeys()
         cfg = cli.config_from_args(cli.build_parser().parse_args(
-            ["--num-synthetic-nodes", str(N_HUGE), "--iterations", "300",
-             "--warm-up-rounds", "200", "--engine-representation", which,
+            ["--num-synthetic-nodes", str(N_HUGE), "--iterations", "150",
+             "--warm-up-rounds", "100", "--engine-representation", which,
              "--device", "cuda"]))
         base = fresh()
         t0 = time.perf_counter()
@@ -4540,7 +5065,7 @@ def main() -> int:
             cov=coll.collection[0].coverage_stats.mean,
             rmr=coll.collection[0].rmr_stats.mean)
     ls = cli_h["sparse"]["launches"]
-    if (ls[SPARSE] != 300 or ls["rc_merge_prune"]
+    if (ls[SPARSE] != 150 or ls["rc_merge_prune"]
             or any(ls[n] <= 0 for n in names if n != "rc_merge_prune")):
         fail(f"(j) the sparse CLI at N={N_HUGE}: launches {ls}")
     diff = [k for k in cli_h["dense"]["snap"]
@@ -4548,8 +5073,8 @@ def main() -> int:
     if diff:
         fail(f"(j) the CLI at N={N_HUGE}: dense and sparse parity snapshots "
              f"differ in {diff}")
-    say(f"(j) CLI --num-synthetic-nodes {N_HUGE} --iterations 300 "
-        f"--warm-up-rounds 200: sparse wall {cli_h['sparse']['wall']:.3f} s"
+    say(f"(j) CLI --num-synthetic-nodes {N_HUGE} --iterations 150 "
+        f"--warm-up-rounds 100: sparse wall {cli_h['sparse']['wall']:.3f} s"
         f" (cluster build included), dense {cli_h['dense']['wall']:.3f} s; "
         f"parity_snapshot() equal; coverage mean "
         f"{cli_h['sparse']['cov']:.6f}, RMR mean {cli_h['sparse']['rmr']:.6f}"
@@ -4615,6 +5140,7 @@ def main() -> int:
     say(f"(j) sparse phase: {time.perf_counter() - t_j:.1f} s")
 
     # ---- (k) sweep lanes at N=10,000 on cuda ------------------------------
+    phase("k")
     t_k = time.perf_counter()
     from gossip_sim_tpu_torch import engine as eng
     reset_unique_pubkeys()
@@ -4820,8 +5346,8 @@ def main() -> int:
                  f"differ")
 
     base_cli = ["--num-synthetic-nodes", str(N_FULL)]
-    loss_sweep = base_cli + ["--iterations", "300", "--warm-up-rounds",
-                             "200", "--origin-rank", "1", "--test-type",
+    loss_sweep = base_cli + ["--iterations", "150", "--warm-up-rounds",
+                             "100", "--origin-rank", "1", "--test-type",
                              "packet-loss", "--num-simulations", str(LANE_K),
                              "--step-size", "0.05"]
     cli_k = {"lanes": [], "serial": []}
@@ -4831,7 +5357,7 @@ def main() -> int:
         ref_k = ref_k or out
         same(out, ref_k, f"packet-loss sweep ({what})")
         cli_k[what].append(dict(wall=out[2], times=out[3]))
-        say(f"(k) packet-loss sweep, {LANE_K} points x 300 iterations (200 "
+        say(f"(k) packet-loss sweep, {LANE_K} points x 150 iterations (100 "
             f"warm-up), {what}: {out[2]:.3f} s"
             + ("" if out[3] is None else
                f" (cluster build {out[3]['cluster_s']:.3f} s, engine "
@@ -4968,6 +5494,7 @@ def main() -> int:
                      "engine": eng_runs, "cli": cli_k}), indent=1))
 
     # ---- (l) traffic lanes at N=10,000 on cuda -----------------------------
+    phase("l")
     t_l = time.perf_counter()
     from gossip_sim_tpu_torch.engine import traffic as tr_eng
     from gossip_sim_tpu_torch.kernels import _lanes
@@ -5171,8 +5698,8 @@ def main() -> int:
     cli_l = {}
     for what, argv, k_l in (
             (f"traffic-rate M={M_TRAFFIC}", base_cli + [
-                "--traffic-values", str(M_TRAFFIC), "--iterations", "300",
-                "--warm-up-rounds", "200", "--test-type", "traffic-rate",
+                "--traffic-values", str(M_TRAFFIC), "--iterations", "150",
+                "--warm-up-rounds", "100", "--test-type", "traffic-rate",
                 "--traffic-rate", "4", "--num-simulations", str(TL_K),
                 "--step-size", "4", "--node-ingress-cap",
                 str(TRAFFIC_CAPS[0]), "--node-egress-cap",
@@ -5240,6 +5767,7 @@ def main() -> int:
                      "cli": cli_l}), indent=1))
 
     # ---- (m) checkpoints, the run journal, --resume, the supervisor -------
+    phase("m")
     t_m = time.perf_counter()
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
                            RESUME_FLAG], capture_output=True, text=True,
@@ -5260,13 +5788,21 @@ def main() -> int:
     (out_dir / "resume.json").write_text(json.dumps(resume_res, indent=1))
     say(f"(m) checkpoint and resume phase: {time.perf_counter() - t_m:.1f} s")
 
-    # ---- (n) report -------------------------------------------------------
+    # ---- (n) the node-health observatory (--health) ----------------------
+    phase("n")
+    health_res, h_runs, h_digest, h_prof = health_phase(exact, worst,
+                                                        out_dir)
+
+    # ---- (o) report -------------------------------------------------------
+    phase("o")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    say("phase walls: " + ", ".join(f"({k}) {v:.1f} s"
+                                    for k, v in phase_walls.items()))
     say(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi.stdout.strip().splitlines()[0], flush=True)
     line = {"kernels": [
@@ -5436,6 +5972,45 @@ def main() -> int:
                 for f in ("k", "m", "max_abs_err", "ms", "one_lane_sum_ms",
                           "device_ms", "one_lane_sum_device_ms", "bound_ms",
                           "bound_by")}
+    hr, ht, hd = (health_res[k] for k in ("round", "traffic", "digest"))
+    h_main_r = hr[f"O={O_KERNEL} dense round 19"]
+    h_main_t = ht[f"M={M_TRAFFIC} round 19"]
+    single, traffic_on = (h_runs["single 10k"]["on"],
+                          h_runs[f"traffic M={M_TRAFFIC}"]["on"])
+    src = "gossip_sim_tpu_torch/csrc/{}.cu".format
+    for name, variant, main, runs_, cases in (
+            ("health_round", None, h_main_r, single, hr),
+            ("health_round_traffic", "traffic", h_main_t, traffic_on, ht)):
+        entry = {"name": "health_round", "route": "cuda",
+                 "source": src("health_round"),
+                 "replaces": (f"{HEALTH_SOURCES[name][0]} "
+                              f"({HEALTH_SOURCES[name][1]})"),
+                 "launches": runs_["launches"][name],
+                 "max_abs_err": worst[name],
+                 "ms": main["ms"], "plain_ms": main["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": "bytes",
+                 "library_ms": main["library_ms"],
+                 "library_call": "index_add_ of the round's pairs",
+                 "device_ms": main["device_ms"], "cases": cases}
+        if variant:
+            entry["variant"] = variant
+        else:
+            entry["round_profile"] = h_prof
+        line["kernels"].append(entry)
+    d_main = h_digest["single 10k"]
+    line["kernels"].append(
+        {"name": "health_digest", "route": "cuda",
+         "source": src("health_digest"),
+         "replaces": (f"{HEALTH_SOURCES['health_digest'][0]} "
+                      f"({HEALTH_SOURCES['health_digest'][1]})"),
+         "launches": single["launches"]["health_digest"],
+         "max_abs_err": worst["health_digest"],
+         "ms": d_main["ms"], "plain_ms": d_main["plain_ms"],
+         "bound_ms": d_main["bound_ms"], "bound_by": "bytes",
+         "library_ms": d_main["library_ms"],
+         "library_call": "stable torch.sort of the [P, N] stack",
+         "device_ms": hd[f"sim O={O_KERNEL}"]["device_ms"],
+         "main_path": h_digest, "cases": hd})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5449,6 +6024,8 @@ if __name__ == "__main__":
                              else ROOT))
     if sys.argv[1:] == [RESUME_FLAG]:
         sys.exit(resume_child())
+    if sys.argv[1:] == [HEALTH_FLAG]:
+        sys.exit(health_child())
     if sys.argv[1:3] == [RESUME_FLAG, TRAFFIC_PART] and len(sys.argv) <= 4:
         sys.exit(resume_child(*(sys.argv[3:] or ["cuda"]),
                               part=TRAFFIC_PART))

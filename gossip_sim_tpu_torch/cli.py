@@ -26,9 +26,12 @@ measured block or origin batch, and ``--resume`` replays the committed
 units and runs the rest.  SIGTERM/SIGINT stop a run at its next unit
 boundary with exit code 75.  ``--device-timeout-s``, ``--device-retries``
 and ``--on-device-failure`` run each unit under the device supervisor
-(:func:`_dispatch_supervised`).  A flag the port lacks is rejected by
-argparse: traces, health, telemetry and the run report are later slices
-(ROADMAP A12-A16).
+(:func:`_dispatch_supervised`).  ``--health`` (obs/health.py) digests the
+engine's node-health planes per measured block into ``sim_node_health``
+points and a final ``node_health`` section (``resilience.RUN_INFO``) in
+the single run, all-origins and the traffic run.  A flag the port lacks
+is rejected by argparse: traces, telemetry and the run report are later
+slices (ROADMAP A13, A15, A16).
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
@@ -152,6 +155,7 @@ def _engine_params(config: Config, num_nodes: int) -> EngineParams:
         node_ingress_cap=config.node_ingress_cap,
         node_egress_cap=config.node_egress_cap,
         traffic_stall_rounds=config.traffic_stall_rounds,
+        health=config.health,
         representation=config.engine_representation)
 
 
@@ -275,6 +279,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--traffic-stall-rounds", type=int, default=3,
                    help="consecutive no-progress rounds before an "
                         "unconverged value retires and frees its slot")
+    p.add_argument("--health", action="store_true",
+                   help="node-health observatory (obs/health.py): "
+                        "accumulate per-node load/latency/drop planes "
+                        "inside the jitted round (egress/ingress, queue "
+                        "drops by side, prunes issued AND received, "
+                        "first-delivery rounds, pull rescues) and digest "
+                        "them on device per measured block — stake-decile "
+                        "segment sums + top-k hot nodes, so the host only "
+                        "harvests [10,·]/[k,·] arrays. Feeds the REQUIRED "
+                        "node_health run-report section, the "
+                        "sim_node_health Influx series, and "
+                        "tools/health_report.py. Off = bit-identical "
+                        "output to a build without the gate")
+    p.add_argument("--health-topk", type=int, default=10,
+                   help="hot nodes extracted per health digest metric "
+                        "(the [k,·] harvest; --health only)")
     p.add_argument("--engine-representation", default="dense",
                    choices=["dense", "sparse"],
                    help="gossip-round execution layout: dense keeps the "
@@ -397,6 +417,8 @@ def config_from_args(args) -> Config:
         raise SystemExit("mesh-node-shards must be >= 1")
     if args.sweep_lanes < 0:
         raise SystemExit("sweep-lanes must be >= 0")
+    if args.health_topk < 1:
+        raise SystemExit("health-topk must be >= 1")
     return Config(
         gossip_push_fanout=args.push_fanout,
         gossip_active_set_size=args.active_set_size,
@@ -436,6 +458,8 @@ def config_from_args(args) -> Config:
         node_egress_cap=args.node_egress_cap,
         traffic_stall_rounds=args.traffic_stall_rounds,
         engine_representation=args.engine_representation,
+        health=args.health,
+        health_topk=args.health_topk,
         influx_spool=args.influx_spool,
         seed=args.seed,
         num_synthetic_nodes=args.num_synthetic_nodes,
@@ -637,6 +661,8 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
                                  start_ts)
         done += n_it
         _push_sim_perf_point(dp_queue, sim_iter, start_ts, blk_wall, n_it, 1)
+        _emit_node_health(config, tables, state, dp_queue, sim_iter,
+                          start_ts, warm + done, traffic=False)
         _save_checkpoint(warm + done, force=False)
         if resilience.shutdown_requested():
             # this block's stats are fed and the state is saved before the
@@ -649,6 +675,8 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
                 f"run stopped at iteration {warm + done} with no "
                 f"--checkpoint-path; this simulation restarts from scratch")
     _feed_message_counters(stats, state, 0, index)
+    _emit_node_health(config, tables, state, None, sim_iter, start_ts,
+                      config.gossip_iterations, traffic=False, final=True)
     if params.has_churn:
         _record_failed()
     _save_checkpoint(config.gossip_iterations)
@@ -1384,11 +1412,14 @@ HARVEST_PULL_STATE = ("pull_hops_hist_acc", "pull_rescued_acc")
 
 
 def all_origins_params(config: Config, num_nodes: int) -> EngineParams:
-    """All-origins' EngineParams (reference cli.py:1841-1853): the
+    """All-origins' EngineParams (reference cli.py:1840-1851): the
     single-origin run's without the one-shot fail event, which all-origins
-    never arms, even on a FAIL_NODES run."""
-    return _engine_params(config, num_nodes)._replace(fail_at=-1,
-                                                      fail_fraction=0.0)
+    never arms, even on a FAIL_NODES run, and without the health gate,
+    which the reference's all-origins engine does not take: under
+    ``--health`` its digests read the planes the round always keeps, with
+    the prunes-received and first-delivery rows zero."""
+    return _engine_params(config, num_nodes)._replace(
+        fail_at=-1, fail_fraction=0.0, health=False)
 
 
 def _mark(dev: torch.device):
@@ -1408,17 +1439,20 @@ def _span_s(a, b) -> float:
     return a.elapsed_time(b) / 1e3
 
 
-def _start_copy(rows: dict, state, n_valid: int, fields=HARVEST_STATE):
+def _start_copy(rows: dict, state, n_valid: int, fields=HARVEST_STATE,
+                extra=None):
     """Start moving what the harvest reads of one batch to the host: every
-    row of the valid origins, and the accumulators ``fields`` summed over
-    them.  On the card the copies go into pinned buffers behind the
-    batch's rounds on the stream, and the returned event marks their end,
-    so the next batch's launches queue behind them and the harvest waits
-    for this batch only.  Returns (host tensors, event or None)."""
+    row of the valid origins, the accumulators ``fields`` summed over them
+    and the tensors of ``extra`` (by key).  On the card the copies go into
+    pinned buffers behind the batch's rounds on the stream, and the
+    returned event marks their end, so the next batch's launches queue
+    behind them and the harvest waits for this batch only.  Returns (host
+    tensors, event or None)."""
     out = {"row." + k: v[:, :n_valid] for k, v in rows.items()}
     for f in fields:
         out["sum." + f] = getattr(state, f)[:n_valid].sum(
             0, dtype=torch.int64, keepdim=True)
+    out.update(extra or {})
     if not next(iter(out.values())).is_cuda:
         return out, None
     host = {}
@@ -1451,7 +1485,11 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
     supervisor).  With ``--checkpoint-path`` each batch is one journal
     unit, and its aggregates go to a ``.aggstate.npz`` sidecar before its
     commit; ``--resume`` reloads the sidecar, replays the committed
-    batches' lines and runs the rest.
+    batches' lines and runs the rest.  With ``--health`` each batch's
+    health stack over its valid origins and its digest are queued behind
+    its rounds and copied with them: a ``sim_node_health`` point a batch,
+    and the digest of their sum (carried by the sidecar) as the final
+    ``node_health`` section.
 
     Beyond the reference's keys the summary carries ``origin_iters`` and
     ``messages_delivered``, counted as the reference's run report counts
@@ -1496,6 +1534,12 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
     harvested = HARVEST_STATE + (HARVEST_PULL_STATE if params.has_pull
                                  else ())
     batches = []
+    # node-health accumulation: each batch's planes over its valid origins
+    # sum into one [P, N] int64 stack (carried by the journal's sidecar,
+    # so a resumed run keeps the committed batches' counts)
+    health_acc = (np.zeros((len(SIM_HEALTH_METRICS), N), np.int64)
+                  if config.health else None)
+    decile_ids = tables.stake_decile.cpu().numpy() if config.health else None
     skip_lo = 0
     if first_unit > 0:
         stored_batch = int(journal.records[0].get("batch", batch))
@@ -1525,7 +1569,9 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
                 f"reconciled. Remove {journal.path} and {sidecar} to "
                 f"start fresh.")
         counts["padded_sims"] = int(sd.pop("padded_sims", 0))
-        sd.pop("node_health_stack", None)
+        restored_health = sd.pop("node_health_stack", None)
+        if health_acc is not None and restored_health is not None:
+            health_acc += np.asarray(restored_health, np.int64)
         agg.load_state_dict(sd)
         for b in range(first_unit):
             replay_influx_lines(dp_queue,
@@ -1552,7 +1598,18 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
         marks.append(_mark(d))
         state, rows = run_rounds(params, tb, origins, state, iters)
         marks.append(_mark(d))
-        host, ready = _start_copy(rows, state, n_valid, harvested)
+        extra = {}
+        if health_acc is not None:
+            # the batch's health stack and its digest, queued behind its
+            # rounds (the digest's outputs ride the batch's copy)
+            from .obs import health
+            bstack = _sim_health_stack_valid(state, n_valid)
+            dig = health.digest_tensors(bstack, tb.stake_decile,
+                                        config.health_topk)
+            extra = {"health.stack": bstack,
+                     **{"health." + f: getattr(dig, f)
+                        for f in dig._fields}}
+        host, ready = _start_copy(rows, state, n_valid, harvested, extra)
         dispatch_s = time.perf_counter() - t_host
         return lo, n_valid, host, ready, marks, dispatch_s
 
@@ -1576,6 +1633,19 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
         agg.add_batch(rows, sums, config.warm_up_rounds,
                       heal_at=config.heal_at,
                       impaired=config.impairments_on, pull=config.has_pull)
+        if health_acc is not None:
+            np.add(health_acc, host["health.stack"].numpy(), out=health_acc)
+            try:
+                dig = {k[len("health."):]: v.numpy()
+                       for k, v in host.items()
+                       if k.startswith("health.") and k != "health.stack"}
+                _publish_node_health(
+                    config, SIM_HEALTH_METRICS, dig, decile_ids, feed, 0,
+                    start_ts, lo // batch, source="all-origins",
+                    final=False)
+            except Exception as e:  # pragma: no cover - telemetry only
+                log.warning("WARNING: node-health digest not emitted (%s)",
+                            e)
         rounds_s = _span_s(marks[1], marks[2])
         batches.append({"lo": lo, "n_valid": n_valid,
                         "init_s": _span_s(marks[0], marks[1]),
@@ -1589,6 +1659,8 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
             sd = agg.state_dict()
             sd["padded_sims"] = counts["padded_sims"]
             sd["committed_units"] = lo // batch + 1
+            if health_acc is not None:
+                sd["node_health_stack"] = health_acc
             _save_agg_sidecar(sidecar, sd)
             journal.commit(lo // batch, {"lo": int(lo), "batch": int(batch),
                                          "lines": _take_unit_lines(feed)})
@@ -1640,6 +1712,17 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
             "stats": agg, **extra,
         }
     agg.finalize(config)
+    if health_acc is not None:
+        try:
+            from .obs import health
+            dig = health.digest_stack(torch.as_tensor(health_acc, device=dev),
+                                      tables.stake_decile,
+                                      config.health_topk)
+            _publish_node_health(config, SIM_HEALTH_METRICS, dig,
+                                 decile_ids, None, 0, start_ts, total_o,
+                                 source="all-origins", final=True)
+        except Exception as e:  # pragma: no cover - telemetry-only path
+            log.warning("WARNING: node-health digest not emitted (%s)", e)
     _warn_shape_truncation(
         {"inb_dropped": agg.inb_dropped, "rc_overflow": agg.rc_overflow,
          "hop_clamped": agg.hop_clamped,
@@ -1781,8 +1864,9 @@ def _run_traffic_point(config: Config, params: EngineParams, stakes_np,
                        stats: TrafficStats, dp_queue, sim_iter: int,
                        start_ts: str) -> None:
     """One traffic simulation (reference cli.py:3026-3171 without its
-    trace and health arms): the warm-up rounds in one call, then the
-    measured rounds harvested in blocks.  With ``--checkpoint-path`` a
+    trace arm): the warm-up rounds in one call, then the measured rounds
+    harvested in blocks, with ``--health`` a ``sim_node_health`` point per
+    block and the ``node_health`` section at the end.  With ``--checkpoint-path`` a
     ``kind="traffic"`` file with the TrafficStats is saved after the
     warm-up, after each block (throttled by ``--checkpoint-every-s``) and
     at the end; ``--resume`` continues from it with the stats restored."""
@@ -1851,6 +1935,8 @@ def _run_traffic_point(config: Config, params: EngineParams, stakes_np,
                            start_it, n_it, N)
         done += n_it
         _push_sim_perf_point(dp_queue, sim_iter, start_ts, blk_wall, n_it, 1)
+        _emit_node_health(config, tables, state, dp_queue, sim_iter,
+                          start_ts, warm + done, traffic=True)
         _save_checkpoint(warm + done, force=False)
         if resilience.shutdown_requested():
             stats.feed_final(_traffic_final_from_state(state))
@@ -1861,6 +1947,8 @@ def _run_traffic_point(config: Config, params: EngineParams, stakes_np,
                 if config.checkpoint_path else
                 f"traffic run stopped at iteration {warm + done} with no "
                 f"--checkpoint-path; a re-run starts from scratch")
+    _emit_node_health(config, tables, state, None, sim_iter, start_ts,
+                      config.gossip_iterations, traffic=True, final=True)
     stats.feed_final(_traffic_final_from_state(state))
     _save_checkpoint(config.gossip_iterations)
 
@@ -2239,6 +2327,116 @@ def _dispatch_supervised(config: Config, label: str, run_fn, state, dev):
         return run_fn(_map_tensors(host, lambda t: t.clone()), cpu)
 
     return supervised_call(label, _attempt, policy, cpu_fallback=_fallback)
+
+
+# --------------------------------------------------------------------------
+# the node-health observatory (obs/health.py; reference cli.py:2591-2700)
+# --------------------------------------------------------------------------
+
+#: node-health digest metric rows, in stack order.  The single-origin
+#: planes live on SimState, the traffic planes on TrafficState; "deferred"
+#: is the egress-side queue drop, "queue_dropped" the ingress side.
+SIM_HEALTH_METRICS = ("egress", "ingress", "prunes_sent", "prunes_recv",
+                      "rescued", "stranded", "first_round_sum", "delivered")
+TRAFFIC_HEALTH_METRICS = ("sent", "recv", "deferred", "queue_dropped",
+                          "prunes_sent", "prunes_recv", "rescued",
+                          "lat_sum", "delivered")
+
+
+def _sim_health_rows(state) -> list:
+    """The SimState planes of SIM_HEALTH_METRICS, [O, N] each."""
+    fr = state.health_first_round      # round + 1, 0 = never reached
+    return [state.egress_acc, state.ingress_acc, state.prune_acc,
+            state.health_prune_recv, state.pull_rescued_acc,
+            state.stranded_acc, torch.clamp(fr - 1, min=0),
+            (fr > 0).to(torch.int32)]
+
+
+def _health_stack(state, *, traffic: bool) -> torch.Tensor:
+    """[P, N] int32 stack of the run's health metric planes on the state's
+    device, rows in SIM_/TRAFFIC_HEALTH_METRICS order.  SimState planes
+    are [O, N]: the origin axis sums on the device, so the host never
+    takes an O(N)-per-origin array."""
+    if traffic:
+        return torch.stack([
+            state.sent_acc, state.recv_acc, state.defer_acc,
+            state.qdrop_acc, state.prune_acc, state.health_prune_recv,
+            state.health_rescued_acc, state.health_lat_acc,
+            state.health_del_acc])
+    return torch.stack([r.sum(0, dtype=torch.int32)
+                        for r in _sim_health_rows(state)])
+
+
+def _sim_health_stack_valid(state, n_valid: int) -> torch.Tensor:
+    """[P, N] int64 sums over the first ``n_valid`` origins of an
+    all-origins batch (its padded tail left out), on the state's device
+    (the reference's ``_sim_health_stack_np`` of the sliced batch)."""
+    return torch.stack([r[:n_valid].sum(0, dtype=torch.int64)
+                        for r in _sim_health_rows(state)])
+
+
+def _health_latency_table(names, dig, decile_sizes):
+    """Decile coverage-latency table: per-decile mean first-delivery
+    latency (traffic: lat_sum/delivered; sim: first_round_sum/delivered)
+    plus node counts, so the low-stake deciles' first-delivery gap is
+    directly readable from the report."""
+    i_lat = names.index("lat_sum" if "lat_sum" in names
+                        else "first_round_sum")
+    i_del = names.index("delivered")
+    lat = dig["deciles"][i_lat]
+    delivered = dig["deciles"][i_del]
+    return {
+        "decile_nodes": [int(x) for x in decile_sizes],
+        "lat_sum_deciles": [int(x) for x in lat],
+        "delivered_deciles": [int(x) for x in delivered],
+        "mean_latency_deciles": [
+            round(float(s) / float(d), 4) if d else 0.0
+            for s, d in zip(lat, delivered)],
+    }
+
+
+def _emit_node_health(config, tables, state, dp_queue, sim_iter, start_ts,
+                      block: int, *, traffic: bool, final: bool = False):
+    """Per-block node-health digest: one ``health_digest`` launch on the
+    card, whose host harvest is [10,·]/[k,·] arrays, emitted as a
+    ``sim_node_health`` point; ``final`` also keeps the ``node_health``
+    section in ``resilience.RUN_INFO``.  A telemetry failure never kills
+    a run."""
+    if not config.health:
+        return
+    try:
+        from .obs import health
+        names = TRAFFIC_HEALTH_METRICS if traffic else SIM_HEALTH_METRICS
+        dig = health.digest_stack(_health_stack(state, traffic=traffic),
+                                  tables.stake_decile, config.health_topk)
+        _publish_node_health(config, names, dig,
+                             tables.stake_decile.cpu().numpy(), dp_queue,
+                             sim_iter, start_ts, block,
+                             source="traffic" if traffic else "sim",
+                             final=final)
+    except Exception as e:  # pragma: no cover - telemetry-only path
+        log.warning("WARNING: node-health digest not emitted (%s)", e)
+
+
+def _publish_node_health(config, names, dig, decile_ids, dp_queue, sim_iter,
+                         start_ts, block, *, source, final):
+    """Shared back half of the health emitters: the per-block
+    ``sim_node_health`` point and (on ``final``) the run's ``node_health``
+    section (the reference's registry info, kept in
+    ``resilience.RUN_INFO`` until the run report is ported)."""
+    from .obs import health
+    k = config.health_topk
+    if dp_queue is not None:
+        dp = InfluxDataPoint(start_ts, sim_iter)
+        dp.create_sim_node_health_point(
+            block, health.influx_values(names, dig, topk=k))
+        dp_queue.push_back(dp)
+    if final:
+        sizes = np.bincount(np.asarray(decile_ids),
+                            minlength=health.NUM_DECILES)
+        resilience.RUN_INFO["node_health"] = health.build_node_health_section(
+            names, dig, enabled=True, topk=k, source=source,
+            latency=_health_latency_table(names, dig, sizes))
 
 
 # --------------------------------------------------------------------------

@@ -6,7 +6,9 @@ defaults are the compatibility contract (gossip_main.rs:53-241).  This
 package's ``Config`` carries the fields the experiment harness (account
 sources, sweeps, Influx), all-origins mode, the round layout
 (``engine_representation``) and the checkpoints, run journal and device
-supervisor (resilience.py) read, plus ``device`` (where the engine runs:
+supervisor (resilience.py) and the node-health observatory
+(``health``, ``health_topk``; obs/health.py) read, plus ``device`` (where
+the engine runs:
 ``"cuda"`` unless the CPU is asked for).
 """
 
@@ -144,6 +146,14 @@ class Config:
                                     # the cluster tables.  Bit-identical
                                     # rows and state either way; sparse is
                                     # push mode only, without traffic
+    health: bool = False            # node-health observatory (obs/health.py):
+                                    # accumulate per-node load/latency/drop
+                                    # planes in the round and digest them
+                                    # per measured block (decile sums +
+                                    # hot-node top-k).  Off = every output
+                                    # bit-identical to a run without it
+    health_topk: int = 10           # hot nodes extracted per digest (the
+                                    # [k,·] harvest; sim_node_health)
 
     influx_spool: str = ""          # durable spool file: Influx points
                                     # dropped after retry exhaustion or

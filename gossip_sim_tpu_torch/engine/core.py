@@ -20,6 +20,9 @@ and knobs.  The round's blocks run through the hand-written kernels of
 * the pull (anti-entropy) phase of the pull, push-pull and adaptive
   modes (pull.py): peer draw, request gates and
   cap, responses, rescue hop                      -> ``pull_exchange``
+* with ``health`` on, the node-health planes
+  (obs/health.py): prunes received per prunee and
+  each node's first delivery round                -> ``health_round``
 
 An unimpaired, churn, loss or partition round makes no other draw.  The
 other threefry draws go to the ``threefry`` kernel (``rng``):
@@ -138,8 +141,12 @@ class SimState(NamedTuple):
     pull_hops_hist_acc: torch.Tensor  # [O, H] i32 pull-sourced hop histogram
     pull_rescued_acc: torch.Tensor    # [O, N] i32 measured rounds each node
                                       # was rescued by a pull response
-    health_prune_recv: torch.Tensor   # [O, N] i32 (health gate; zeros here)
-    health_first_round: torch.Tensor  # [O, N] i32 (health gate; zeros here)
+    health_prune_recv: torch.Tensor   # [O, N] i32 measured-round prune
+                                      # messages each node received (zeros
+                                      # unless static.health)
+    health_first_round: torch.Tensor  # [O, N] i32 first round the node was
+                                      # reached, + 1 (0 = never; zeros
+                                      # unless static.health)
     adaptive_pull_on: torch.Tensor    # [O] bool: the pull phase runs this
                                       # round (adaptive mode; else False)
 
@@ -381,8 +388,8 @@ def round_step(params, tables: ClusterTables, origins: torch.Tensor,
     static gates out).  Returns (state, rows); ``detail`` adds the per-node
     rows, ``edge_detail`` the per-edge targets and hops [O, N, F] (-1 where
     no message was delivered).  Before it reads the state it refuses the
-    flight recorder and node-health planes (``NotImplementedError`` naming
-    their ROADMAP items), sparse with a pull mode or traffic
+    flight recorder (``NotImplementedError`` naming its ROADMAP item),
+    sparse with a pull mode or traffic
     (``ValueError``) and inbound keys past int32; then a state whose stake
     planes are not the representation's width (``ValueError``).  This is
     the one-lane case of the lane round (engine/lanes.py)."""
@@ -560,6 +567,17 @@ def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
     else:
         reached_all, dist_all = reached, dist
 
+    # ---- node-health planes (kernel; obs/health.py): the firing pruners'
+    # pairs into the prunees' counts (warm-up gated, per lane), and each
+    # node's first delivery round (not gated) -----------------------------
+    health_prune, health_first = (state.health_prune_recv,
+                                  state.health_first_round)
+    if p.health:
+        health_prune, health_first = K.health_round(
+            health_prune, health_first, n_pruned, mp.src_sorted,
+            mp.pruned_slot, reached_all, its,
+            its >= kn.warm_up_rounds.astype(np.int64))
+
     # ---- statistics (gossip_stats.rs) -------------------------------------
     # coverage, hops and stranded count pull rescues; m, n, rmr and
     # branching keep their push semantics
@@ -642,8 +660,8 @@ def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
         hops_hist_acc=state.hops_hist_acc + g * hr,
         pull_hops_hist_acc=new_pull_hist,
         pull_rescued_acc=new_pull_rescued,
-        health_prune_recv=state.health_prune_recv,
-        health_first_round=state.health_first_round,
+        health_prune_recv=health_prune,
+        health_first_round=health_first,
         adaptive_pull_on=new_adapt)
     rows = {
         # the reference's compiled round divides by the constant N as a

@@ -31,10 +31,10 @@ both caps off run the single-value engine untouched).  ``representation``
 selects the round's layout: ``"dense"`` carries the received cache's four
 planes, ``"sparse"`` carries ``rc_shi``/``rc_slo`` at zero width and
 derives the member stakes from the cluster tables (push mode without
-traffic only; results are bit for bit the dense round's).  Of the
-reference's features this port lacks yet, only the ``health`` selector is
-kept: :meth:`EngineParams.validate` refuses it with
-``NotImplementedError`` naming its ROADMAP item.  The
+traffic only; results are bit for bit the dense round's).  ``health``
+is the node-health observatory's static gate (obs/health.py): on, the
+round accumulates the health planes through the ``health_round`` kernel;
+off, the round carries no health work and leaves the planes zero.  The
 reference's prune-apply budget ``pa_slots`` (the ``prune_apply`` kernel
 needs none) and the flight recorder's capture width come back with the
 slice that reads them.
@@ -125,6 +125,7 @@ class EngineStatic(NamedTuple):
     pull_slots: int = 0
     traffic_slots: int = 0
     representation: str = "dense"
+    health: bool = False
 
     @property
     def k_inbound(self) -> int:
@@ -212,9 +213,11 @@ class EngineParams(NamedTuple):
     traffic_stall_rounds: int = 3    # consecutive no-progress rounds
                                      # before a value retires unconverged
 
-    # Selector of a reference feature not ported yet; only the default is
-    # accepted (validate raises NotImplementedError otherwise).
-    health: bool = False             # node-health planes: A12
+    # Node-health observatory gate (obs/health.py): True accumulates the
+    # per-node health planes (prune-received counts, first-delivery
+    # rounds, traffic latencies) in the round; False leaves them zero and
+    # the round without any health work.
+    health: bool = False
     # Round layout: "dense" carries the received cache's stake planes,
     # "sparse" carries them at zero width ([O, N, 0]) and derives the
     # member stakes from the cluster tables.  Rows and state are bit for
@@ -293,6 +296,7 @@ class EngineParams(NamedTuple):
             pull_slots=self.pull_slots_resolved if self.has_pull else 0,
             traffic_slots=self.traffic_values if self.has_traffic else 0,
             representation=self.representation,
+            health=self.health,
         )
 
     def knob_values(self) -> EngineKnobs:
@@ -325,9 +329,8 @@ class EngineParams(NamedTuple):
         )
 
     def validate(self) -> "EngineParams":
-        """Refuse the unported feature (NotImplementedError naming the
-        ROADMAP item) and the representations' unsupported modes
-        (ValueError), then check the slice's own fields."""
+        """Refuse the representations' unsupported modes (ValueError),
+        then check the slice's own fields."""
         if self.gossip_mode not in ("push", "pull", "push-pull", "adaptive"):
             raise ValueError(f"unknown gossip_mode: {self.gossip_mode!r}")
         if self.representation not in ("dense", "sparse"):
@@ -342,9 +345,6 @@ class EngineParams(NamedTuple):
                 raise ValueError(
                     "the sparse frontier round does not carry the traffic "
                     "subsystem yet; use representation='dense' with traffic")
-        if self.health:
-            raise NotImplementedError(
-                "node-health planes are not ported yet (ROADMAP A12)")
         assert self.num_nodes >= 2
         # The node-id cap (engine/core.py MAX_NODES) is enforced with a
         # ValueError in make_cluster_tables.

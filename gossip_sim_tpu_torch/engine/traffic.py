@@ -24,6 +24,10 @@ continue the round's queue budgets.  The round's blocks, in order:
 * prune apply on the shared edges (traffic.py:711-755) -> ``prune_apply``
 * the shared hash-driven rotation, retire, the direction
   switch and the round stats (traffic.py:757-1000)   plain PyTorch
+* with ``health`` on, the node-health planes (traffic.py:857-895):
+  prunes received, first deliveries, rescues and
+  their latencies per node                           -> ``health_round``
+                                                        (traffic form)
 
 Traffic lanes (``run_traffic_lanes``, the reference's ``vmap`` of the
 round over a lane axis): K runs of one cluster, each with its own shared
@@ -35,9 +39,8 @@ kernels take the K lanes in one launch each: ``traffic_send``,
 ``rank_inbound``, ``rc_merge_prune`` and ``prune_apply`` over the K x V
 value rows.  A knob every lane shares stays a host scalar.
 
-``trace=True`` (the flight recorder, ROADMAP A13) and the health planes
-(A12) are not ported: the health planes stay zero.  Entry points run on
-``cuda`` unless the CPU is asked for.
+``trace=True`` (the flight recorder, ROADMAP A13) is not ported.  Entry
+points run on ``cuda`` unless the CPU is asked for.
 """
 
 from __future__ import annotations
@@ -105,10 +108,11 @@ class TrafficState(NamedTuple):
     v_rescued: torch.Tensor    # [V] i32 nodes delivered via pull rescue
     v_qdrop: torch.Tensor      # [V] i32 ingress queue drops (push and pull
                                #   requests) that hit the value
-    health_prune_recv: torch.Tensor   # [N] i32 (health gate A12; zeros)
-    health_lat_acc: torch.Tensor      # [N] i32 (zeros)
-    health_del_acc: torch.Tensor      # [N] i32 (zeros)
-    health_rescued_acc: torch.Tensor  # [N] i32 (zeros)
+    # node-health planes (zeros unless static.health; measured rounds)
+    health_prune_recv: torch.Tensor   # [N] i32 prune messages received
+    health_lat_acc: torch.Tensor      # [N] i32 first-delivery latency sum
+    health_del_acc: torch.Tensor      # [N] i32 first deliveries (push+pull)
+    health_rescued_acc: torch.Tensor  # [N] i32 deliveries by pull rescue
 
 
 def device_traffic_tables(stakes, device="cuda") -> TrafficTables:
@@ -420,6 +424,19 @@ def traffic_lane_round(p: EngineStatic, lanes: TrafficLanes,
     pruned = K.prune_apply(pruned.view(k * V, N, S), active, mp.src_sorted,
                            mp.pruned_slot).view(k, V, N, S)
 
+    # ---- node-health planes (kernel; obs/health.py): the firing value
+    # rows' pairs into the prunees' counts, and each node's first
+    # deliveries, rescues and latencies summed over the values ------------
+    health = (state.health_prune_recv, state.health_lat_acc,
+              state.health_del_acc, state.health_rescued_acc)
+    if p.health:
+        warm = lanes.host("warm_up_rounds")
+        gates = (np.asarray(it >= np.asarray(warm, np.int64), np.int32)
+                 .reshape(-1))
+        health = K.health_round_traffic(
+            *health, new_del, resc.pull_del if resc is not None else None,
+            v_birth, it, mp.n_pruned, mp.src_sorted, mp.pruned_slot, gates)
+
     # ---- shared rotation: one hash-driven schedule per lane --------------
     u_rot = u01_t(node_u32_t(hb(SALT_TRAFFIC_ROT, 1), iota_n))
     rotate = u_rot < lane_col(lanes.knob("probability_of_rotation",
@@ -511,10 +528,8 @@ def traffic_lane_round(p: EngineStatic, lanes: TrafficLanes,
         recv_acc=state.recv_acc + g1 * recv_all,
         prune_acc=state.prune_acc + g1 * n_pruned.sum(1, dtype=i32),
         v_pull=new_v_pull, v_rescued=v_rescued, v_qdrop=v_qdrop,
-        health_prune_recv=state.health_prune_recv,
-        health_lat_acc=state.health_lat_acc,
-        health_del_acc=state.health_del_acc,
-        health_rescued_acc=state.health_rescued_acc)
+        health_prune_recv=health[0], health_lat_acc=health[1],
+        health_del_acc=health[2], health_rescued_acc=health[3])
     count = lambda c: (code == c).sum((1, 2, 3), dtype=i32)
     rows = {
         "injected": n_inj,

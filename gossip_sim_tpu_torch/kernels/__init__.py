@@ -9,6 +9,9 @@ CUDA tensor) and its plain version beside it in the same module.
 from ._build import (KERNEL_NAMES, LAUNCHES, build_all,
                      reset_launch_counts)
 from .bfs_relax import bfs_relax, bfs_relax_plain
+from .health_digest import Digest, health_digest, health_digest_plain
+from .health_round import (health_round, health_round_plain,
+                           health_round_traffic, health_round_traffic_plain)
 from .prune_apply import prune_apply, prune_apply_plain
 from .pull_exchange import PullOut, pull_exchange, pull_exchange_plain
 from .push_targets import push_targets, push_targets_plain
@@ -22,6 +25,7 @@ from .traffic_send import SendOut, traffic_send, traffic_send_plain
 
 __all__ = [
     "AdmitOut",
+    "Digest",
     "KERNEL_NAMES",
     "LAUNCHES",
     "MergePruneOut",
@@ -31,6 +35,12 @@ __all__ = [
     "bfs_relax",
     "bfs_relax_plain",
     "build_all",
+    "health_digest",
+    "health_digest_plain",
+    "health_round",
+    "health_round_plain",
+    "health_round_traffic",
+    "health_round_traffic_plain",
     "prune_apply",
     "prune_apply_plain",
     "pull_exchange",

@@ -32,10 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
                 "threefry", "push_targets", "rotate", "pull_exchange",
-                "traffic_send", "traffic_admit", "traffic_rescue")
+                "traffic_send", "traffic_admit", "traffic_rescue",
+                "health_round", "health_digest")
 #: Kernels built from another's source, counted apart: the sparse layout's
-#: variant of rc_merge_prune (csrc/rc_merge_prune.cu).
-VARIANT_NAMES = ("rc_merge_prune_sparse",)
+#: variant of rc_merge_prune (csrc/rc_merge_prune.cu) and the traffic form
+#: of health_round (csrc/health_round.cu).
+VARIANT_NAMES = ("rc_merge_prune_sparse", "health_round_traffic")
 #: Libraries that :func:`build_all` leaves out and :func:`library` builds
 #: when first asked for: measurement aids that no engine path loads
 #: (``bfs_relax_floor``: csrc/bfs_relax.cu with BFS_RELAX_FLOOR defined).

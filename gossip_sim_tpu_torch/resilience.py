@@ -53,8 +53,8 @@ rebuild and what it can recover:
 
 The reference counts committed, resumed, failed and fallen-back units in
 its observability registry and emits telemetry events; the port keeps the
-four counts in :data:`COUNTS` until the registry is ported (ROADMAP A15),
-and emits no events.
+four counts in :data:`COUNTS` and its info sections in :data:`RUN_INFO`
+until the registry is ported (ROADMAP A15), and emits no events.
 """
 
 from __future__ import annotations
@@ -101,9 +101,18 @@ COUNTS = {"resilience/committed_units": 0, "resilience/resumed_units": 0,
           "resilience/device_failures": 0, "resilience/fallback_units": 0}
 
 
+#: the run's info sections that the reference keeps in its registry
+#: (``get_registry().info``): ``node_health``, the final node-health
+#: section of a ``--health`` run (cli._publish_node_health)
+RUN_INFO: dict = {}
+
+
 def reset_counts() -> None:
+    """Zero :data:`COUNTS` and clear :data:`RUN_INFO` (the reference's
+    ``get_registry().reset()``)."""
     for k in COUNTS:
         COUNTS[k] = 0
+    RUN_INFO.clear()
 
 
 class ResumableInterrupt(Exception):

@@ -21,8 +21,9 @@ and ``sim_perf`` (wall time and throughput of a measured round block, and
 the sender's queue depth), ``sim_pull`` (pull-phase counters) and
 ``sim_adaptive`` (the adaptive direction bit), ``sim_traffic`` and
 ``sim_traffic_summary`` (concurrent traffic: per-round contention counts
-and the end-of-run aggregate).  The series of features the port lacks yet
-come with them: ``sim_node_health`` (A12), ``sim_trace`` (A13) and
+and the end-of-run aggregate) and ``sim_node_health`` (the node-health
+digest of a measured block, under ``--health``).  The series of features
+the port lacks yet come with them: ``sim_trace`` (A13) and
 ``sim_capacity`` (A15).
 """
 
@@ -87,7 +88,8 @@ class DatapointQueue:
     def drain_deterministic_lines(self) -> list:
         """Drain the queue into its deterministic wire payload: every line
         with the per-point ns timestamp (the trailing token) stripped and
-        the wall-clock-valued ``sim_perf`` series dropped.  This is THE
+        the telemetry-only series dropped (:func:`deterministic_wire_lines`).
+        This is THE
         normalized form two runs of the same simulation must agree on (and
         the reference package's runs of it): the Influx bit-exactness
         contract has this one definition."""
@@ -100,12 +102,16 @@ class DatapointQueue:
 def deterministic_wire_lines(lines) -> list:
     """Normalize raw line-protocol strings into the deterministic wire
     payload (the same filter/strip :meth:`DatapointQueue.
-    drain_deterministic_lines` applies).  The reference package also drops
-    its ``sim_capacity`` and ``sim_node_health`` series, which the port
-    does not emit yet (ROADMAP A12, A15)."""
+    drain_deterministic_lines` applies): the per-point timestamp stripped,
+    and the telemetry-only series dropped: ``sim_perf`` and
+    ``sim_capacity`` (wall-clock-valued; the port does not emit the second
+    yet, ROADMAP A15) and ``sim_node_health`` (only under the opt-in
+    ``--health`` gate, which must not move a bit of this payload)."""
     out = []
     for ln in lines:
-        if not ln or ln.startswith("sim_perf"):
+        if (not ln or ln.startswith("sim_perf")
+                or ln.startswith("sim_capacity")
+                or ln.startswith("sim_node_health")):
             continue
         out.append(ln.rsplit(" ", 1)[0])
     return out
@@ -302,6 +308,22 @@ class InfluxDataPoint:
             f"start_time={self.start_timestamp} "
             f"origins={origins},mean_iters={mean_iters},"
             f"max_iters={max_iters},unrecovered={unrecovered} ")
+        self.append_timestamp()
+
+    def create_sim_node_health_point(self, block: int, values: dict):
+        """Node-health observatory series (obs/health.py): one point per
+        measured harvest block with the flattened digest: per-metric
+        totals, hot-node (id, count) pairs and load-imbalance Gini.  The
+        series exists only under ``--health``, so
+        :func:`deterministic_wire_lines` drops it."""
+        parts = []
+        for k, v in sorted(values.items()):
+            parts.append(f"{k}={float(v)}" if isinstance(v, float)
+                         else f"{k}={int(v)}")
+        self.datapoint += (
+            f"sim_node_health,simulation_iter={self.simulation_iteration},"
+            f"start_time={self.start_timestamp} "
+            f"block={int(block)}," + ",".join(parts) + " ")
         self.append_timestamp()
 
     def create_sim_perf_point(self, round_wall_s, origin_iters_per_sec,

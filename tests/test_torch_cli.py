@@ -101,8 +101,8 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_unported_flags_are_rejected():
-    for argv in (["--backend", "oracle"], ["--health"],
-                 ["--trace-dir", "traces"], ["--telemetry-port", "0"]):
+    for argv in (["--backend", "oracle"], ["--trace-dir", "traces"],
+                 ["--telemetry-port", "0"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(BASE + argv)
 

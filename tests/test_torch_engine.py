@@ -145,12 +145,14 @@ def test_unported_features_raise():
         PortParams(40, **kw).validate()
 
 
-UNPORTED = (dict(health=True),)
-#: once refused, now ported: adaptive traffic (ROADMAP A11b) and the sparse
-#: representation (ROADMAP A7)
+#: every EngineParams selector of the reference is ported; the flight
+#: recorder (round_step's trace=True) is the one refusal left
+UNPORTED = ()
+#: once refused, now ported: adaptive traffic (ROADMAP A11b), the sparse
+#: representation (ROADMAP A7) and the node-health planes (ROADMAP A12)
 PORTED = (dict(traffic_values=2, gossip_mode="adaptive"),
           dict(node_egress_cap=4, gossip_mode="adaptive"),
-          dict(representation="sparse"))
+          dict(representation="sparse"), dict(health=True))
 
 
 def test_round_step_refuses_unported_features():

@@ -2164,3 +2164,180 @@ def test_fault_hook_retry_on_the_card_gives_the_unfaulted_rows(cuda):
         resilience.set_fault_hook(None)
     _same_unit(want, got)
     assert resilience.COUNTS["resilience/device_failures"] == 1
+
+
+# ---- the node-health kernels: health_round (both forms), health_digest ----
+
+#: engine runs with the health gate on: (nodes, origins, rounds, knobs);
+#: round 19 fires the upsert counters at min_num_upserts 20, round 20 not
+HEALTH_CASES = {
+    "push_impaired": (2000, 4, 22, dict(
+        warm_up_rounds=5, packet_loss_rate=0.1, churn_fail_rate=0.01,
+        churn_recover_rate=0.2, partition_at=3, heal_at=12, impair_seed=5)),
+    "sparse": (2000, 3, 22, dict(warm_up_rounds=5,
+                                 representation="sparse")),
+    "push_pull": (2000, 3, 22, dict(warm_up_rounds=5,
+                                    gossip_mode="push-pull",
+                                    packet_loss_rate=0.1)),
+    "adaptive": (1500, 2, 22, dict(warm_up_rounds=5, gossip_mode="adaptive",
+                                   adaptive_switch_threshold=0.5)),
+}
+
+
+def _recorded(names, fn):
+    """``fn()`` with every call of the kernels ``names`` recorded: (its
+    result, {name: [(args, kw), ...]})."""
+    calls = {name: [] for name in names}
+    real = {name: getattr(kernels, name) for name in names}
+
+    def recorder(name):
+        def rec(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return rec
+
+    for name in names:
+        setattr(kernels, name, recorder(name))
+    try:
+        out = fn()
+    finally:
+        for name in names:
+            setattr(kernels, name, real[name])
+    torch.cuda.synchronize()
+    return out, calls
+
+
+@pytest.mark.parametrize("case", list(HEALTH_CASES))
+def test_health_round_equals_plain_on_engine_rounds(cuda, case):
+    """One ``health_round`` launch a round with the gate on, each call
+    equal to its plain version, on rounds where pruners fire and where
+    none does; with the gate off no launch and zero planes."""
+    n, o, rounds, kw = HEALTH_CASES[case]
+    stakes = np.random.default_rng(4).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    tables = make_cluster_tables(stakes, device=cuda)
+    origins = torch.arange(o, dtype=torch.int32, device=cuda)
+    for gate in (True, False):
+        params = EngineParams(num_nodes=n, health=gate, **kw)
+        state = init_state(rng.prng_key(3, cuda), tables, origins, params)
+        kernels.reset_launch_counts()
+        (state, rows), calls = _recorded(
+            ("health_round",),
+            lambda: run_rounds(params, tables, origins, state, rounds))
+        assert kernels.LAUNCHES["health_round"] == (rounds if gate else 0)
+        if not gate:
+            assert int(state.health_prune_recv.abs().sum()) == 0
+            assert int(state.health_first_round.abs().sum()) == 0
+            continue
+        fired = [int(args[2].sum()) for args, _ in calls["health_round"]]
+        assert max(fired) > 0 and min(fired) == 0, fired
+        for args, kw_ in calls["health_round"]:
+            _assert_equal(kernels.health_round(*args, **kw_),
+                          kernels.health_round_plain(*args, **kw_),
+                          "health_round")
+        assert int(state.health_prune_recv.sum()) > 0
+        assert int((state.health_first_round > 0).sum()) > 0
+
+
+def test_health_round_equals_plain_on_lane_rounds(cuda):
+    """Three lanes of two origins with their own warm-up gates and start
+    iterations (``run_rounds_lanes_dyn``): each call of the kernel equal
+    to its plain version."""
+    from gossip_sim_tpu_torch.engine import (broadcast_state,
+                                             merge_lane_statics,
+                                             run_rounds_lanes_dyn,
+                                             stack_knobs, stack_origins)
+    n = 1500
+    stakes = np.random.default_rng(5).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    plist = [EngineParams(num_nodes=n, health=True, warm_up_rounds=w,
+                          packet_loss_rate=loss)
+             for w, loss in ((0, 0.0), (12, 0.1), (30, 0.2))]
+    static = merge_lane_statics([p.static_part() for p in plist])
+    tables = make_cluster_tables(stakes, device=cuda)
+    org = torch.tensor([0, 9], dtype=torch.int32, device=cuda)
+    st = init_state(rng.prng_key(3, cuda), tables, org, plist[0])
+    kernels.reset_launch_counts()
+    _, calls = _recorded(("health_round",), lambda: run_rounds_lanes_dyn(
+        static, tables, stack_origins([[0, 9], [4, 7], [1, 2]]).to(cuda),
+        broadcast_state(st, 3), stack_knobs([p.knob_values()
+                                             for p in plist]), 24,
+        [0, 3, 11]))
+    assert kernels.LAUNCHES["health_round"] == 24
+    for args, kw_ in calls["health_round"]:
+        _assert_equal(kernels.health_round(*args, **kw_),
+                      kernels.health_round_plain(*args, **kw_),
+                      "health_round lanes")
+
+
+@pytest.mark.parametrize("mode", ["push", "adaptive"])
+def test_health_round_traffic_equals_plain_on_traffic_rounds(cuda, mode):
+    """The traffic form: one launch a traffic round, each call equal to
+    its plain version (push: loss + caps, prunes firing; adaptive: rescues
+    delivering)."""
+    from gossip_sim_tpu_torch.engine.traffic import (device_traffic_tables,
+                                                     init_traffic_state,
+                                                     run_traffic_rounds)
+    n = 2000
+    stakes = np.random.default_rng(1).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    kw = (dict(packet_loss_rate=0.1, node_ingress_cap=40,
+               node_egress_cap=60) if mode == "push" else
+          dict(gossip_mode="adaptive", adaptive_switch_threshold=0.3,
+               node_ingress_cap=48, node_egress_cap=64))
+    params = EngineParams(num_nodes=n, traffic_values=32, traffic_rate=3,
+                          warm_up_rounds=4, min_num_upserts=4,
+                          probability_of_rotation=0.1, impair_seed=5,
+                          health=True, **kw)
+    tables = make_cluster_tables(stakes, device=cuda)
+    ttables = device_traffic_tables(stakes, device=cuda)
+    state = init_traffic_state(stakes, params, 3, device=cuda)
+    kernels.reset_launch_counts()
+    (state, _), calls = _recorded(
+        ("health_round_traffic",),
+        lambda: run_traffic_rounds(params, tables, ttables, state, 24))
+    assert kernels.LAUNCHES["health_round_traffic"] == 24
+    for args, kw_ in calls["health_round_traffic"]:
+        _assert_equal(kernels.health_round_traffic(*args, **kw_),
+                      kernels.health_round_traffic_plain(*args, **kw_),
+                      "health_round_traffic")
+    assert int(state.health_del_acc.sum()) > 0
+    assert int(state.health_lat_acc.sum()) > 0
+    if mode == "push":
+        assert int(state.health_prune_recv.sum()) > 0
+    else:
+        assert int(state.health_rescued_acc.sum()) > 0
+
+
+def _digest_stack(seed, p, n, hi, dtype, cuda):
+    r = np.random.default_rng(seed)
+    x = r.integers(-hi if dtype == torch.int64 else 0, hi, (p, n))
+    return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+
+#: (P, N, k, value range, dtype): the sim stack at N=10,000, the traffic
+#: stack, a row of N=100,000 (past one block's shared memory), ties
+#: everywhere, i64-range values (negative too), k = N, k above a short
+#: row's length clamped by the caller, a ragged N
+DIGEST_CASES = {
+    "sim_10k": (8, 10_000, 10, 300, torch.int32),
+    "traffic_10k": (9, 10_000, 10, 5_000, torch.int32),
+    "n_100k": (9, 100_000, 10, 1_000, torch.int64),
+    "ties": (3, 4_097, 25, 3, torch.int32),
+    "i64_range": (2, 3_000, 12, 1 << 36, torch.int64),
+    "k_is_n": (2, 700, 700, 40, torch.int32),
+    "one_node": (2, 1, 1, 9, torch.int64),
+}
+
+
+@pytest.mark.parametrize("case", list(DIGEST_CASES))
+def test_health_digest_equals_plain(cuda, case):
+    p, n, k, hi, dtype = DIGEST_CASES[case]
+    stack = _digest_stack(len(case), p, n, hi, dtype, cuda)
+    dec = torch.as_tensor(np.random.default_rng(1).integers(0, 10, n),
+                          dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    got = kernels.health_digest(stack, dec, k)
+    assert kernels.LAUNCHES["health_digest"] == 1
+    _assert_equal(got, kernels.health_digest_plain(stack, dec, k),
+                  f"health_digest {case}")

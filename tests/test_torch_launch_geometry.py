@@ -26,7 +26,11 @@
   and 200), each CTA's node slice, and the bytes of its shared memory
   (bitmaps, per-peer words, kept draws): the draws kept, a larger cluster
   where they do not fit, drawn again as the last resort, and past every
-  cluster's shared memory the per-peer words in device memory.
+  cluster's shared memory the per-peer words in device memory;
+* ``health_round``: the cooperative launch's one wave of blocks (fewer
+  where the elements do not fill it) and the per-lane records a call
+  packs; ``health_digest``: a block per 1,024 entries of a row, one grid
+  row per metric, at the sim and traffic widths and N = 100,000.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_cuda.py).
 """
@@ -582,3 +586,38 @@ def test_pull_geometry_raises_past_the_class_tables():
     assert g.scratch_words > 0 and g.smem == 512
     with pytest.raises(ValueError, match=r"needs 512 bytes of shared memory"):
         px.launch_geometry(3, 10_000, 2, 2, SMS, 511)
+
+
+hr_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.health_round")
+hd_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.health_digest")
+
+
+@pytest.mark.parametrize("elems,per_sm,want", [
+    (32 * 10_000, 8, 132 * 8),        # O=32 of N=10,000: one wave
+    (1 * 10_000, 8, 40),              # O=1: fewer blocks than a wave
+    (41 * 100_000, 4, 132 * 4),       # O=41 of N=100,000
+    (1, 8, 1), (0, 8, 1)])
+def test_health_round_grid_is_one_wave(elems, per_sm, want):
+    assert hr_mod.grid_blocks(elems, 132, per_sm) == want
+
+
+def test_health_round_packs_one_record_per_lane():
+    k, its, gates = hr_mod.lane_values(32, 19, 1)
+    assert k == 1 and its.tolist() == [19] and gates.tolist() == [1]
+    k, its, gates = hr_mod.lane_values(24, np.array([5, 9, 40]),
+                                       np.array([True, False, True]))
+    assert k == 3 and its.tolist() == [5, 9, 40]
+    assert gates.tolist() == [1, 0, 1]
+    recs = hr_mod._lanes.pack(k, hr_mod.LANE_DTYPE, it=its, gate=gates)
+    assert recs.itemsize == 16 and recs["it"].tolist() == [5, 9, 40]
+    with pytest.raises(ValueError, match="do not split"):
+        hr_mod.lane_values(10, np.array([1, 2, 3]), 1)
+
+
+@pytest.mark.parametrize("p,n,want", [(8, 10_000, (10, 8)),
+                                      (9, 10_000, (10, 9)),
+                                      (9, 100_000, (98, 9)),
+                                      (8, 1, (1, 8)), (2, 1024, (1, 2)),
+                                      (2, 1025, (2, 2))])
+def test_health_digest_grid_is_a_block_per_1024_entries(p, n, want):
+    assert hd_mod.grid(p, n) == want
