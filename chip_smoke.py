@@ -7,11 +7,13 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero before the final line):
 
-  (a) build the thirteen CUDA kernel sources from
-      ``gossip_sim_tpu_torch/csrc`` (fifteen kernels: ``rc_merge_prune``'s
+  (a) build the fourteen CUDA kernel sources from
+      ``gossip_sim_tpu_torch/csrc`` (sixteen kernels: ``rc_merge_prune``'s
       source holds its sparse variant, ``health_round``'s its traffic form)
       with nvcc for sm_90a (one nvcc per source, in parallel); print each
-      kernel's registers, shared memory and spills (``-Xptxas -v``), check
+      kernel's registers, shared memory and spills (``-Xptxas -v``; the
+      instantiations with and without the flight recorder's trace outputs
+      of ``push_targets``, ``rotate`` and ``pull_exchange`` apart), check
       ``rotate``'s static shared memory (the class tables) against ptxas
       and its keys and rows beside them against the block's limit,
       print the launch geometry of the cluster and row kernels (cluster
@@ -73,7 +75,7 @@ Phases (any failure exits non-zero before the final line):
       device memory with two batches in flight, and equal aggregates at
       both widths; a 5-round profile at O=64 in a process of its own
       (``--profile-all-origins``); each kernel held against its plain
-      version on round 19's inputs of the padded tail batch; every fourth
+      version on round 19's inputs of the padded tail batch; every sixth
       origin of a 500-node cluster on cuda and on cpu with equal
       aggregates and summaries; and the full 10,000-origin run's time,
       extrapolated;
@@ -113,7 +115,8 @@ Phases (any failure exits non-zero before the final line):
       deterministic Influx lines); all-origins in push-pull (origins
       0-199 at the auto batch of 64 and at ``--origin-batch 256``, one
       batch of the 200, with equal aggregates: origin-rounds/s, peak
-      memory), and at N=500 on cuda and cpu with equal aggregates; a
+      memory), and on every sixth origin of N=500 on cuda and cpu with
+      equal aggregates; a
       pull-fanout sweep
       (F_pull = 2, 5, 8) and an adaptive-threshold sweep (0.5, 0.7, 0.9)
       through ``cli.main``, each point's wall;
@@ -133,10 +136,10 @@ Phases (any failure exits non-zero before the final line):
       --traffic-rate 16``, 300 iterations, 200 warm-up) uncapped and
       capped, with the launch counts set to 0 just before each and read
       just after (wall, traffic rounds/s, value-rounds/s, peak memory, the
-      TRAFFIC SUMMARY counts); cuda == cpu at N=2,000, M=32 (40
+      TRAFFIC SUMMARY counts); cuda == cpu at N=2,000, M=32 (20
       iterations, capped and impaired: ``parity_snapshot()``,
       ``summary()`` and the deterministic Influx lines) and for a 3-point
-      ``traffic-rate`` sweep (20 iterations); then adaptive traffic (``--gossip-mode
+      ``traffic-rate`` sweep (12 iterations); then adaptive traffic (``--gossip-mode
       adaptive``, threshold 0.9): the first round from 39 on with values in
       their pull phase (capped: and pull requests deferred or
       queue-dropped), uncapped and capped + impaired, its six kernels held
@@ -147,7 +150,7 @@ Phases (any failure exits non-zero before the final line):
       process (with a 5-round adaptive profile beside the push one); the
       full-width adaptive CLI uncapped and capped (rounds/s, value-rounds/s,
       peak memory, launches, the TRAFFIC and ADAPTIVE SUMMARY counts); cuda
-      == cpu at N=2,000, M=32 adaptive, capped and impaired (40 iterations);
+      == cpu at N=2,000, M=32 adaptive, capped and impaired (20 iterations);
   (j) the sparse layout (``--engine-representation sparse``): in a
       process of its own (``--profile-sparse``), 5-round profiles of both
       layouts (O=32 and O=64 of N=10,000, O=41 of N=100,000) and
@@ -171,7 +174,7 @@ Phases (any failure exits non-zero before the final line):
       memory allocated just before its run, which earlier phases hold);
       at N=100,000 the engine at O=41, 20 rounds of each
       layout (rows and states equal) and the sparse variant exact vs plain
-      on its round 19, then the single-origin CLI, 150 iterations, sparse
+      on its round 19, then the single-origin CLI, 100 iterations, sparse
       (launch counts set to 0 just before, read just after: the ``kernels``
       line's launches of the variant) and dense, equal
       ``parity_snapshot()``s; cuda == cpu sparse at N=2,000 under loss +
@@ -191,8 +194,8 @@ Phases (any failure exits non-zero before the final line):
       (``--profile-lanes``); the engine, 8 lanes of one origin, 50 rounds
       beside the serial O=1 and O=8 rounds in turns (wall, peak memory,
       launches per round equal to the serial round's; every lane equal to
-      its serial run); the CLI: an 8-point packet-loss sweep (150
-      iterations, 100 warm-up) with ``--sweep-lanes 8`` and serially in
+      its serial run); the CLI: an 8-point packet-loss sweep (100
+      iterations, 60 warm-up) with ``--sweep-lanes 8`` and serially in
       turns (snapshots and deterministic Influx lines equal; the wall split
       into cluster build, engine and harvest), a 5-point fail-nodes sweep
       at 4 lanes (its tail padded), pull-fanout and adaptive-threshold lane
@@ -219,9 +222,9 @@ Phases (any failure exits non-zero before the final line):
       (``--profile-traffic-lanes``); the engine (a lane batch, then its
       lanes' serial rounds: wall, peak memory, kernel launches per round;
       the end lanes equal to their serial runs); the CLI: a 4-point
-      traffic-rate sweep at M=256 (150 iterations, 100 warm-up,
-      ``--sweep-lanes 4``) and an 8-point packet-loss sweep at M=32 (100
-      iterations, 50 warm-up, ``--sweep-lanes 8``), each beside the serial
+      traffic-rate sweep at M=256 (100 iterations, 60 warm-up,
+      ``--sweep-lanes 4``) and an 8-point packet-loss sweep at M=32 (60
+      iterations, 30 warm-up, ``--sweep-lanes 8``), each beside the serial
       sweep (every point's summary, parity snapshot and deterministic
       Influx lines equal; walls split into cluster build, engine and
       harvest; peak memory), an adaptive-threshold lane sweep (0.5, 0.7,
@@ -233,7 +236,7 @@ Phases (any failure exits non-zero before the final line):
       ``cli.main`` and sends itself SIGTERM through the kill hook), each
       case at tolerance 0 against its uninterrupted run: the single-origin
       CLI at N=10,000 (300 straight against 200 resumed to 300, every
-      array of the final ``.npz`` files), 150 against 100 resumed to 150
+      array of the final ``.npz`` files), 20 against 10 resumed to 20
       at N=100,000 sparse,
       and a sparse file resumed dense; all-origins on origins 0-199 of
       N=10,000 at batch 64 stopped after 2 committed batches (exit 75)
@@ -269,7 +272,8 @@ Phases (any failure exits non-zero before the final line):
       then, in this process, the full-width CLI with ``--health`` against
       the same run without it (the 10k single origin, all-origins on
       origins 0-199 at the auto batch, the M=256 traffic run, N=100,000
-      sparse at 150 iterations), with the launch counts set to 0 just
+      sparse at 20 iterations), with the
+      launch counts set to 0 just
       before each and read just after: the stats and deterministic
       Influx lines unchanged by the gate, every digest of the run exact
       against its plain version; cuda == cpu at N=2,000 (push under loss
@@ -277,14 +281,39 @@ Phases (any failure exits non-zero before the final line):
       ``sim_node_health`` points, the ``node_health`` section, the stats
       and the lines); an all-origins ``--health`` run stopped after 2
       batches and resumed, equal to the straight run;
-  (o) print each phase's wall, the total wall, the card's name and power
+  (o) the flight recorder (``--trace-dir``): in a process of its own
+      (``--trace-phase``, its first profiler sessions) the 5-round
+      profiles of the O=32 push round from round 19 without (117
+      launches, required) and with the trace; on round 19 of O=32 of
+      N=10,000, push under loss 0.1 + partition + churn and push-pull at
+      pull cap 2, the traced calls of ``push_targets``, ``rotate`` and
+      ``pull_exchange`` exact against their plain versions and the same
+      calls with the trace off bit for bit the calls without it, each
+      timed (CUDA events, device ms); ``trace_prune_pairs`` on round 19
+      (rows fire) and round 20 (none fires) at the auto cap and at a cap
+      that truncates, exact and timed beside its bytes bound and
+      ``torch.nonzero`` of the pruned slots with a gather of their
+      prunees; then, in this process, the full-width CLI with
+      ``--trace-dir`` against the same run without it (the 10k single
+      origin in push and push-pull under loss 0.1, all-origins on origins
+      0-199 at the auto batch with ``--trace-origins 4``), the launch
+      counts set to 0 just before each and read just after: the walls,
+      the replay's wall, the segment writes and bytes, the stats and
+      deterministic Influx lines unchanged, ``validate_trace_dir`` with no
+      errors, one ``trace_prune_pairs`` launch a traced round and every
+      other launch unchanged, the last call exact; cuda == cpu trace
+      directories at N=2,000 (push under loss + churn + partition over a
+      fail round, and adaptive; 30 iterations);
+  (p) print each phase's wall, the total wall, the card's name and power
       limit, the
       ``kernels`` JSON line (the four knob kernels with a ``lanes`` object:
       K, O, max_abs_err, the lane call's ms beside the one-lane call's;
       the six traffic kernels with a ``traffic_lanes`` object: K, M,
       max_abs_err, the lane call's ms and device ms beside the sum of the
-      one-lane calls', the bound) and the final ``{"ok": true, ...}``
-      line.
+      one-lane calls', the bound; a ``trace`` object on ``push_targets``,
+      ``rotate`` and ``pull_exchange``: their traced call's times beside
+      the trace-off call's, and ``trace_prune_pairs``' entry) and the final
+      ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -320,6 +349,9 @@ O_KERNEL, N_FULL = 32, 10_000
 # all-origins (f): the auto origin batch at N=10,000, min(64, 2^22 // N),
 # and a wider one; the first 200 node indices; a 500-node run on cuda and cpu
 O_BATCH, O_WIDE, AO_ORIGINS, N_SMALL = 64, 256, 200, 500
+# every SMALL_STRIDE-th origin of the N=500 cluster (84 origins: a full
+# batch of 64 and a padded tail of 20)
+SMALL_STRIDE = 6
 # the experiment harness (g): the batched origin-rank sweep's origins, and
 # the widest shapes its sweeps reach, (S, F): K = max(16, 2F)
 O_RANKS, WIDE_SHAPES = 16, ((24, 6), (12, 12))
@@ -501,7 +533,9 @@ KERNEL_SYMBOLS = {"bfs_relax": ("bfs_relax_kernel",),
                   # of health_round is counted apart
                   "health_round": ("health_round_kernel",),
                   "health_round_traffic": ("health_round_traffic_kernel",),
-                  "health_digest": ("health_digest_kernel",)}
+                  "health_digest": ("health_digest_kernel",),
+                  # the flight recorder's prune pairs (phase (o))
+                  "trace_prune_pairs": ("trace_prune_pairs_kernel",)}
 
 
 def device_ms(fn, symbols, reps: int = 10):
@@ -668,9 +702,10 @@ def single_pass_schedule(pt_mod):
 
 
 #: (library, kernel symbol in its SASS) whose inlined threefry block is
-#: counted: threefry's uniform mode, and rotate (csrc/threefry.cuh in both)
+#: counted: threefry's uniform mode, and rotate's trace-free instantiation
+#: (csrc/threefry.cuh in both)
 SASS_BLOCKS = {"threefry": ("threefry", "threefry_kernelILi3E"),
-               "rotate": ("rotate", "rotate_kernel")}
+               "rotate": ("rotate", "rotate_kernelILb0E")}
 
 
 def sass_block_ops(name: str, out_dir) -> dict:
@@ -2112,13 +2147,13 @@ def resume_child(device: str = "cuda", part: str = "main") -> int:
         return 0
 
     # (1) single origin: 300 straight against 200 resumed to 300 at
-    # N=10,000 dense, 150 against 100 resumed to 150 at N=100,000 sparse,
+    # N=10,000 dense, 20 against 10 resumed to 20 at N=100,000 sparse,
     # and a sparse file resumed dense
     walls = {}
     for tag, n, layout, (warm, total) in (
             ("N=10,000 dense", N_FULL, [], (200, 300)),
             ("N=100,000 sparse", N_HUGE,
-             ["--engine-representation", "sparse"], (100, 150))):
+             ["--engine-representation", "sparse"], (10, 20))):
         base = ["--num-synthetic-nodes", str(n), "--warm-up-rounds",
                 str(warm), "--checkpoint-every-s", "3600"] + layout
         key = tag.split()[0]
@@ -2690,7 +2725,7 @@ def health_phase(exact, worst, out_dir):
     child's kernel checks, timings and round profiles; the full-width CLI
     runs with ``--health`` against the same runs without it (the 10k
     single origin, all-origins on origins 0-199 at the auto batch, the
-    M=256 traffic run, N=100,000 sparse at 150 iterations), each
+    M=256 traffic run, N=100,000 sparse at 20 iterations), each
     digest held against its plain version (``exact``, which keeps
     ``worst``); cuda == cpu at N=2,000; an all-origins ``--health`` run
     stopped and resumed.  Returns (the child's result, the CLI runs, the
@@ -2793,7 +2828,7 @@ def health_phase(exact, worst, out_dir):
                                  "--traffic-rate", str(TRAFFIC_RATE)], {}),
         f"sparse N={N_HUGE}": (
             "single", ["--num-synthetic-nodes", str(N_HUGE), "--iterations",
-                       "150", "--warm-up-rounds", "100",
+                       "20", "--warm-up-rounds", "10",
                        "--engine-representation", "sparse"], {}),
     }
     h_runs, h_digest = {}, {}
@@ -2909,6 +2944,446 @@ def health_phase(exact, worst, out_dir):
     return health_res, h_runs, h_digest, h_prof
 
 
+#: ``--trace-phase``: phase (o)'s kernel checks and timings, in a process
+#: whose first profiler sessions they are
+TRACE_FLAG = "--trace-phase"
+#: the flight recorder's new kernel (phase (o)), and what it replaces
+TRACE_SOURCES = {
+    "trace_prune_pairs": ("gossip_sim_tpu/engine/core.py:864",
+                          "the prune-pair capture of round_step's trace "
+                          "arm, core.py:864-892"),
+}
+#: the kernels that gained a trace output, and the reference's trace block
+#: each computes
+TRACED_SOURCES = {"push_targets": "core.py:606-618 (slot codes)",
+                  "rotate": "core.py:1371 (rotation events)",
+                  "pull_exchange": "core.py:1165-1180 (pull codes)"}
+
+
+def prune_pairs_bytes(args, out) -> int:
+    """Bytes ``trace_prune_pairs`` must move on these inputs: ``n_pruned``
+    once, of each firing pruner whose pairs start below the cap its C
+    ``pruned_slot`` bytes, the prunee of each captured pair, and the two
+    [R, cap] outputs."""
+    import torch
+    n_pruned, slot = args[0], args[1]
+    cap = int(args[3])
+    offs = torch.cumsum(n_pruned, -1) - n_pruned
+    reading = (n_pruned > 0) & (offs < cap)
+    pairs = int(torch.clamp(n_pruned.sum(-1), max=cap).sum())
+    return (nbytes(n_pruned) + int(reading.sum()) * slot.shape[-1]
+            + 4 * pairs + nbytes(*out))
+
+
+def trace_child() -> int:
+    """``chip_smoke.py --trace-phase``, started by phase (o): first the
+    5-round profiles of the O=32 push round from round 19 without and with
+    the trace (launches and device busy per round; a count the profiler
+    cut short is taken again, up to three times); then, on round 19 of
+    O=32 of N=10,000, push under loss 0.1 + partition + churn and
+    push-pull at pull cap 2, each traced call of ``push_targets``,
+    ``rotate`` and ``pull_exchange`` held against its plain version
+    (tolerance 0), the same call with the trace off against the call
+    without the argument (bit for bit), both timed (CUDA events and
+    device ms); ``trace_prune_pairs`` on the push round's round 19 (rows
+    fire) and round 20 (none fires) at the auto cap and at a cap that
+    truncates, exact and timed beside its bytes bound and ``torch.nonzero``
+    of the pruned slots with a gather of their prunees.  Prints
+    ``chip_smoke: (o)`` lines and, last, one ``TRACE {json}`` line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    from gossip_sim_tpu_torch import cli, engine, kernels
+    from gossip_sim_tpu_torch.engine import EngineParams
+    from gossip_sim_tpu_torch.identity import NodeIndex
+    dev = torch.device("cuda")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    accounts, _ = cli.load_cluster_accounts(
+        cli.Config(num_synthetic_nodes=N_FULL))
+    stakes_np = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
+    tables = engine.make_cluster_tables(stakes_np, device=dev)
+    o32 = torch.as_tensor(np.argsort(-stakes_np, kind="stable")[:O_KERNEL]
+                          .astype(np.int32), device=dev)
+    base = EngineParams(num_nodes=N_FULL, warm_up_rounds=0)
+    res = {"calls": {}, "pairs": {}, "worst": {}}
+
+    def state19(prm):
+        st = engine.init_state(engine_key(dev), tables, o32, prm)
+        return engine.run_rounds(prm, tables, o32, st, 19)[0]
+
+    # first (this process's first profiler sessions): the O=32 push round
+    # from round 19 without and with the trace; the profiler may drop an
+    # event, never add one, so a count short of a whole number is taken
+    # again, up to three times, and the most is kept
+    prof = {}
+    st19 = state19(base)
+    for gate in (False, True):
+        runs_p = []
+        # the traced run's count is not a whole number: its stacked trace
+        # rows add launches once a call, so it is taken once
+        while len(runs_p) < (1 if gate else 3) and not any(
+                float(r.get("launches", 0)).is_integer()
+                and r.get("launches") for r in runs_p):
+            runs_p.append(profile_rounds(
+                lambda p_, t_, o_, s_, n_: engine.run_rounds(
+                    p_, t_, o_, s_, n_, start_it=19, trace=gate),
+                base, tables, o32, st19, out_dir, rounds=5,
+                tag=" trace" if gate else " no trace", phase="(o)"))
+        prof[gate] = max(runs_p, key=lambda r: r.get("launches") or 0)
+        prof[gate]["profiles"] = len(runs_p)
+    res["round_profile"] = {
+        ("trace" if g else "no trace"): {k: v.get(k) for k in (
+            "launches", "busy_ms", "wall_ms", "profiles")}
+        for g, v in prof.items()}
+
+    def traced_calls(prm, which):
+        """The traced engine's rounds 19 and 20 of ``prm``: the calls of
+        the kernels ``which``, {name: {19: (args, kw), 20: ...}}."""
+        _, calls = record_calls(kernels, which, engine.run_rounds, prm,
+                                tables, o32, state19(prm), 2, 19, False,
+                                False, True)
+        return {name: dict(zip((19, 20), c)) for name, c in calls.items()}
+
+    def check_traced(name, key, args, kw):
+        """A traced call against its plain version; the call with the trace
+        off against the call without the argument; both timed."""
+        fn, plain = getattr(kernels, name), getattr(kernels, f"{name}_plain")
+        off_kw = dict(kw, trace=False)
+        bare_kw = {k: v for k, v in kw.items() if k != "trace"}
+        got = fn(*args, **kw)
+        err = max_abs_err(got, plain(*args, **kw))
+        bare = fn(*args, **bare_kw)
+        off_err = max_abs_err(fn(*args, **off_kw), bare)
+        # the outputs that are set: the untraced call's, then the trace's
+        outs = lambda x: tuple(t for t in x if t is not None)
+        n_bare = len(outs(bare))
+        head_err = max_abs_err(outs(got)[:n_bare], outs(bare))
+        if err or off_err or head_err:
+            fail(f"(o) {name} {key}: traced call differs from its plain "
+                 f"version (max_abs_err {err}), or the trace changed the "
+                 f"call (off {off_err})")
+        res["worst"][name] = max(res["worst"].get(name, 0), err)
+        sym = KERNEL_SYMBOLS[name]
+        r = {"ms": cuda_ms(lambda: fn(*args, **kw), reps=20),
+             "device_ms": device_ms(lambda: fn(*args, **kw), sym, reps=20),
+             "off_ms": cuda_ms(lambda: fn(*args, **off_kw), reps=20),
+             "off_device_ms": device_ms(lambda: fn(*args, **off_kw), sym,
+                                        reps=20),
+             "plain_ms": cuda_ms(lambda: plain(*args, **kw), reps=3,
+                                 warm=1),
+             "max_abs_err": err,
+             "trace_bytes": nbytes(*outs(got)[n_bare:])}
+        res["calls"][f"{name} {key}"] = r
+        say(f"(o) {name} {key} traced: exact vs plain, trace off == no "
+            f"argument; wrapper {r['ms']:.4f} ms (off {r['off_ms']:.4f}), "
+            f"device {r['device_ms']} ms (off {r['off_device_ms']}), plain "
+            f"{r['plain_ms']:.4f} ms; {r['trace_bytes']} trace bytes")
+
+    impaired = base._replace(packet_loss_rate=0.1, churn_fail_rate=0.01,
+                             churn_recover_rate=0.2, partition_at=10,
+                             heal_at=40, impair_seed=5)
+    calls = traced_calls(impaired, ["push_targets", "rotate"])
+    for name in ("push_targets", "rotate"):
+        args, kw = calls[name][19]
+        check_traced(name, f"O={O_KERNEL} impaired round 19", args, kw)
+    pp = base._replace(gossip_mode="push-pull", pull_request_cap=2)
+    args, kw = traced_calls(pp, ["pull_exchange"])["pull_exchange"][19]
+    check_traced("pull_exchange", f"O={O_KERNEL} push-pull cap 2 round 19",
+                 args, kw)
+
+    # the prune pairs: rounds 19 (rows fire) and 20 (none fires) of the
+    # push round, at the auto cap and at one that truncates
+    pairs = traced_calls(base, ["trace_prune_pairs"])["trace_prune_pairs"]
+    fired19 = int((pairs[19][0][0] > 0).sum())
+    fired20 = int((pairs[20][0][0] > 0).sum())
+    if fired19 == 0 or 100 * fired20 > fired19:
+        fail(f"(o) trace_prune_pairs: {fired19} firing rows in round 19, "
+             f"{fired20} in round 20 (want many, then a few at most)")
+    totals = pairs[19][0][0].sum(-1)
+    small = max(1, int(totals.max()) // 2)
+    fn, plain = kernels.trace_prune_pairs, kernels.trace_prune_pairs_plain
+    for it, cap in ((19, None), (20, None), (19, small)):
+        (n_pruned, slot, src, auto), _ = pairs[it]
+        cap = auto if cap is None else cap
+        a = (n_pruned, slot, src, cap)
+        out = fn(*a)
+        err = max_abs_err(out, plain(*a))
+        res["worst"]["trace_prune_pairs"] = max(
+            res["worst"].get("trace_prune_pairs", 0), err)
+        if err:
+            fail(f"(o) trace_prune_pairs round {it} cap {cap}: differs from "
+                 f"its plain version (max_abs_err {err})")
+        moved = prune_pairs_bytes(a, out)
+        flat_slot, flat_src = slot.reshape(slot.shape[0], -1), src.reshape(
+            src.shape[0], -1)
+
+        def library():
+            idx = torch.nonzero(flat_slot)
+            return idx, flat_src[idx[:, 0], idx[:, 1]]
+
+        r = {"round": it, "cap": cap,
+             "ms": cuda_ms(lambda: fn(*a), reps=20),
+             "device_ms": device_ms(lambda: fn(*a), ("trace_prune_pairs",),
+                                    reps=20),
+             "plain_ms": cuda_ms(lambda: plain(*a), reps=3, warm=1),
+             "library_ms": cuda_ms(library, reps=20),
+             "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "max_abs_err": err,
+             "fired_rows": int((n_pruned > 0).sum()),
+             "pairs": int(n_pruned.sum()),
+             "truncated_rows": int((n_pruned.sum(-1) > cap).sum())}
+        key = f"O={O_KERNEL} round {it} cap {cap}"
+        res["pairs"][key] = r
+        say(f"(o) trace_prune_pairs {key}: exact; wrapper {r['ms']:.4f} ms, "
+            f"device {r['device_ms']} ms, bound {r['bound_ms']:.4f} ms "
+            f"({moved} bytes), plain {r['plain_ms']:.4f} ms, torch.nonzero "
+            f"+ gather {r['library_ms']:.4f} ms; {r['fired_rows']} firing "
+            f"rows, {r['pairs']} pairs, {r['truncated_rows']} rows "
+            f"truncated")
+    if res["pairs"][f"O={O_KERNEL} round 19 cap {small}"][
+            "truncated_rows"] == 0:
+        fail("(o) trace_prune_pairs: the small cap truncated no row")
+    print("TRACE " + json.dumps(as_builtins(res)), flush=True)
+    return 0
+
+
+def trace_dirs_equal(a: Path, b: Path) -> list:
+    """Where two trace directories differ: every segment array, and the
+    manifests but for each segment's ``bytes`` and the config's
+    ``device`` and ``trace_dir``."""
+    import numpy as np
+    ma = json.loads((a / "manifest.json").read_text())
+    mb = json.loads((b / "manifest.json").read_text())
+    strip = lambda m: dict(
+        m, segments=[{k: v for k, v in s.items() if k != "bytes"}
+                     for s in m["segments"]],
+        config={k: v for k, v in m["config"].items()
+                if k not in ("device", "trace_dir")})
+    diff = [] if strip(ma) == strip(mb) else ["manifest"]
+    for seg in ma["segments"]:
+        with np.load(a / seg["file"]) as za, np.load(b / seg["file"]) as zb:
+            diff += [f"{seg['file']}:{k}" for k in za.files
+                     if k not in zb.files or za[k].dtype != zb[k].dtype
+                     or not np.array_equal(za[k], zb[k])]
+    return diff
+
+
+def trace_phase(exact, worst, out_dir):
+    """Phase (o), the flight recorder: the ``--trace-phase`` child's kernel
+    checks, timings and round profiles; the full-width CLI runs with
+    ``--trace-dir`` against the same runs without it (the 10k single
+    origin in push and in push-pull under loss 0.1, all-origins on origins
+    0-199 at the auto batch with ``--trace-origins 4``), with the launch
+    counts set to 0 just before each and read just after; the last
+    ``trace_prune_pairs`` call of each held against its plain version
+    (``exact``); each trace directory validated by the port's
+    ``validate_trace_dir``; cuda == cpu trace directories at N=2,000.
+    Returns (the child's result, the CLI runs)."""
+    import numpy as np
+    import torch
+    from gossip_sim_tpu_torch import cli, kernels, resilience
+    from gossip_sim_tpu_torch.identity import reset_unique_pubkeys
+    from gossip_sim_tpu_torch.obs import trace as trace_mod
+    from gossip_sim_tpu_torch.sinks import (DatapointQueue,
+                                            deterministic_wire_lines)
+    from gossip_sim_tpu_torch.stats.gossip_stats import GossipStatsCollection
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           TRACE_FLAG], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    (out_dir / "trace_phase.txt").write_text(
+        proc.stdout + "\n--- stderr ---\n" + proc.stderr[-200_000:])
+    if proc.returncode != 0:
+        fail(f"(o) the {TRACE_FLAG} process failed (exit "
+             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    trace_res = None
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("chip_smoke: (o)"):
+            print(ln, flush=True)
+        elif ln.startswith("TRACE "):
+            trace_res = json.loads(ln[len("TRACE "):])
+    if trace_res is None:
+        fail("(o) the trace process printed no result")
+    t_prof = trace_res["round_profile"]
+    if t_prof["no trace"]["launches"] != 117:
+        fail(f"(o) the O={O_KERNEL} push round launches "
+             f"{t_prof['no trace']['launches']} a round without the trace, "
+             f"not 117")
+    say(f"(o) O={O_KERNEL} push round from round 19: without the trace "
+        f"{t_prof['no trace']['launches']:.1f} launches, "
+        f"{t_prof['no trace']['busy_ms']:.4f} ms busy; with it "
+        f"{t_prof['trace']['launches']:.1f} launches, "
+        f"{t_prof['trace']['busy_ms']:.4f} ms busy")
+    for name, err in trace_res["worst"].items():
+        worst[name] = max(worst.get(name, 0), err)
+
+    real_add = trace_mod.TraceWriter.add_block
+    real_replay = cli._trace_replay_origins
+    real_pairs = kernels.trace_prune_pairs
+    seen = {"writes": [], "replay": [], "pairs": None}
+
+    def timed_add(self, start, block):
+        t0 = time.perf_counter()
+        out = real_add(self, start, block)
+        seen["writes"].append((time.perf_counter() - t0, out["bytes"]))
+        return out
+
+    def timed_replay(*a, **kw):
+        # the batches' launches, before the replay adds its own
+        seen["batch_launches"] = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        real_replay(*a, **kw)
+        seen["replay"].append(time.perf_counter() - t0)
+
+    def last_pairs(*a, **kw):
+        seen["pairs"] = (a, kw)
+        return real_pairs(*a, **kw)
+
+    def trace_run(kind, argv, device="cuda", trace_dir=None, **kw):
+        """One CLI run through its entry point with an Influx queue and the
+        launch counts set to 0 just before it: (wall, the stats, the
+        deterministic lines but the sim_trace points, those points, the
+        launches, the segment writes and the replay's wall)."""
+        reset_unique_pubkeys()
+        resilience.reset_counts()
+        extra = ["--device", device]
+        if trace_dir is not None:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            extra += ["--trace-dir", str(trace_dir)]
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            argv + extra))
+        q = DatapointQueue()
+        seen.update(writes=[], replay=[], pairs=None, batch_launches=None)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if kind == "single":
+            coll = GossipStatsCollection()
+            cli.run_simulation(cfg, "", coll, q, 0, "0", 0.0)
+            got = [snapshot_strings(s.parity_snapshot())
+                   for s in coll.collection]
+        else:
+            summ = cli.run_all_origins(cfg, dp_queue=q, start_ts="0", **kw)
+            got = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                   for k, v in summ["stats"].state_dict().items()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        raw = []
+        while len(q):
+            raw.extend(q.pop_front().data().splitlines())
+        lines = deterministic_wire_lines(raw)
+        return dict(wall=wall, got=got,
+                    lines=[ln for ln in lines
+                           if not ln.startswith("sim_trace")],
+                    trace_lines=[ln for ln in lines
+                                 if ln.startswith("sim_trace")],
+                    launches=dict(kernels.LAUNCHES),
+                    batch_launches=seen["batch_launches"] or dict(
+                        kernels.LAUNCHES),
+                    writes=list(seen["writes"]), replay=list(seen["replay"]),
+                    pairs=seen["pairs"])
+
+    trace_mod.TraceWriter.add_block = timed_add
+    cli._trace_replay_origins = timed_replay
+    kernels.trace_prune_pairs = last_pairs
+    t_base = ["--num-synthetic-nodes", str(N_FULL), "--iterations", "300",
+              "--warm-up-rounds", "200"]
+    t_cases = {
+        "single 10k push": ("single", t_base, {}),
+        "single 10k push-pull": ("single", t_base + [
+            "--gossip-mode", "push-pull", "--packet-loss-rate", "0.1"], {}),
+        f"all-origins 0-{AO_ORIGINS - 1}": (
+            "all-origins", t_base + ["--all-origins", "--trace-origins", "4"],
+            dict(origin_indices=np.arange(AO_ORIGINS, dtype=np.int32))),
+    }
+    t_dir = ROOT / "build" / "trace"
+    t_runs = {}
+    try:
+        for case, (kind, argv_t, kw) in t_cases.items():
+            off = trace_run(kind, argv_t, **kw)
+            d = t_dir / case.replace(" ", "_")
+            on = trace_run(kind, argv_t, trace_dir=d, **kw)
+            if on["got"] != off["got"] or on["lines"] != off["lines"]:
+                fail(f"(o) {case}: --trace-dir moved the stats or the "
+                     f"deterministic Influx lines")
+            problems = trace_mod.validate_trace_dir(str(d))
+            if problems:
+                fail(f"(o) {case}: validate_trace_dir: {problems[:5]}")
+            man = json.loads((d / "manifest.json").read_text())
+            rounds = sum(s["end_round"] - s["start_round"]
+                         for s in man["segments"])
+            if (off["launches"]["trace_prune_pairs"]
+                    or on["launches"]["trace_prune_pairs"] != rounds
+                    or len(on["trace_lines"]) != len(man["segments"])
+                    or off["trace_lines"]):
+                fail(f"(o) {case}: trace_prune_pairs launched "
+                     f"{on['launches']['trace_prune_pairs']} times with "
+                     f"--trace-dir ({rounds} traced rounds), "
+                     f"{off['launches']['trace_prune_pairs']} without; "
+                     f"{len(on['trace_lines'])} sim_trace points")
+            a_, kw_ = on["pairs"]
+            exact("trace_prune_pairs", a_, kw_, f"(o) {case}'s last call")
+            # the engine's launches but the trace's (all-origins: the
+            # batches', before the replay)
+            same = {k: v == on["batch_launches"][k] for k, v in
+                    off["launches"].items() if k != "trace_prune_pairs"}
+            on["bytes"] = sum(s["bytes"] for s in man["segments"])
+            on["segments"] = len(man["segments"])
+            on["rounds"] = rounds
+            on["truncated"] = sum(len(s["truncated_prune_rounds"])
+                                  for s in man["segments"])
+            t_runs[case] = {"on": on, "off": off}
+            write_s = sum(w for w, _ in on["writes"])
+            say(f"(o) {case} --trace-dir: wall {on['wall']:.3f} s against "
+                f"{off['wall']:.3f} s without"
+                + (f" (the replay of {len(man['origins'])} origins "
+                   f"{on['replay'][0]:.3f} s of it)" if on["replay"] else "")
+                + f"; stats and deterministic Influx lines equal; "
+                f"{on['segments']} segment(s), {rounds} rounds, "
+                f"{on['bytes']} bytes, written in {write_s:.3f} s; "
+                f"{on['truncated']} truncated prune rounds; "
+                f"validate_trace_dir: no errors; trace_prune_pairs "
+                f"{on['launches']['trace_prune_pairs']} launches; every "
+                f"other kernel's launches "
+                f"{'unchanged' if all(same.values()) else 'CHANGED'}")
+            if not all(same.values()):
+                fail(f"(o) {case}: --trace-dir changed the launches of "
+                     f"{[k for k, v in same.items() if not v]}")
+        # cuda == cpu at N=2,000: push under loss + churn + partition over a
+        # fail round, and adaptive
+        n2 = ["--num-synthetic-nodes", str(N_PARITY), "--iterations", "30",
+              "--warm-up-rounds", "20"]
+        for case, argv_p in {
+                "push impaired + fail round": n2 + [
+                    "--packet-loss-rate", "0.1", "--churn-fail-rate", "0.01",
+                    "--churn-recover-rate", "0.2", "--partition-at", "22",
+                    "--heal-at", "27", "--test-type", "fail-nodes",
+                    "--when-to-fail", "24", "--fraction-to-fail", "0.1"],
+                "adaptive": n2 + ["--gossip-mode", "adaptive",
+                                  "--adaptive-switch-threshold", "0.5"],
+        }.items():
+            dirs = {dv: t_dir / f"n2000_{case.split()[0]}_{dv}"
+                    for dv in ("cuda", "cpu")}
+            runs = {dv: trace_run("single", argv_p, device=dv,
+                                  trace_dir=dirs[dv]) for dv in dirs}
+            diff = trace_dirs_equal(dirs["cuda"], dirs["cpu"])
+            if diff or runs["cuda"]["got"] != runs["cpu"]["got"]:
+                fail(f"(o) N={N_PARITY} {case}: cuda and cpu traces differ: "
+                     f"{diff[:8]}")
+            say(f"(o) N={N_PARITY} {case} --trace-dir: cuda == cpu (every "
+                f"segment array; the manifests but for the bytes written); "
+                f"walls {runs['cuda']['wall']:.3f} / "
+                f"{runs['cpu']['wall']:.3f} s")
+    finally:
+        trace_mod.TraceWriter.add_block = real_add
+        cli._trace_replay_origins = real_replay
+        kernels.trace_prune_pairs = real_pairs
+        shutil.rmtree(t_dir, ignore_errors=True)
+    return trace_res, t_runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2948,7 +3423,7 @@ def main() -> int:
     # and the two traffic kernels in the traffic round, (i)
     names = tuple(n for n in _build.KERNEL_NAMES
                   if n not in ("pull_exchange",) + TRAFFIC_ONLY
-                  + tuple(HEALTH_SOURCES))
+                  + tuple(HEALTH_SOURCES) + tuple(TRACE_SOURCES))
     dev = torch.device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -2980,7 +3455,8 @@ def main() -> int:
     sms, smem_limit = _build.sm_count(dev), _build.smem_optin(dev)
     # rotate's shared memory: ptxas's static bytes are the class tables, and
     # the keys and the rows (dynamic) fit beside them at every shape
-    table = re.search(r"rotate_kernel: \d+ registers, static shared memory "
+    table = re.search(r"rotate_kernel<false>: \d+ registers, static shared "
+                      r"memory "
                       r"(\d+) B", "\n".join(ptxas_summary(
                           _build.BUILD_LOG["rotate"])))
     if not table or int(table.group(1)) != rot_mod.TABLE_BYTES:
@@ -3712,7 +4188,7 @@ def main() -> int:
     del ao_calls, ao_outs, rows_t
     torch.cuda.empty_cache()
 
-    # cuda == cpu: every fourth origin of a 500-node cluster at the auto
+    # cuda == cpu: every sixth origin of a 500-node cluster at the auto
     # batch (a full batch and a padded tail)
     small = {}
     for device in ("cuda", "cpu"):
@@ -3722,13 +4198,16 @@ def main() -> int:
              "--warm-up-rounds", "10", "--all-origins", "--device", device]))
         t0 = time.perf_counter()
         small[device] = cli.run_all_origins(
-            cfg, origin_indices=np.arange(0, N_SMALL, 4, dtype=np.int32))
-        say(f"(f) all-origins N={N_SMALL}, origins 0, 4, ..., "
-            f"{N_SMALL - 4}, 30 rounds on {device}: "
+            cfg, origin_indices=np.arange(0, N_SMALL, SMALL_STRIDE,
+                                          dtype=np.int32))
+        say(f"(f) all-origins N={N_SMALL}, origins 0, {SMALL_STRIDE}, ..., "
+            f"{len(range(0, N_SMALL, SMALL_STRIDE)) * SMALL_STRIDE - SMALL_STRIDE}"
+            f", 30 rounds on {device}: "
             f"{time.perf_counter() - t0:.3f} s")
     sizes = [b["n_valid"] for b in small["cuda"]["batches"]]
-    if sizes != [O_BATCH, N_SMALL // 4 - O_BATCH] or (
-            small["cuda"]["padded_sims"] != 2 * O_BATCH - N_SMALL // 4):
+    n_small = len(range(0, N_SMALL, SMALL_STRIDE))
+    if sizes != [O_BATCH, n_small - O_BATCH] or (
+            small["cuda"]["padded_sims"] != 2 * O_BATCH - n_small):
         fail(f"(f) N={N_SMALL}: batches of {sizes} valid origins")
     sd = {d: small[d]["stats"].state_dict() for d in small}
     diff = [k for k in sd["cuda"] if not np.array_equal(sd["cuda"][k],
@@ -4273,10 +4752,11 @@ def main() -> int:
         t0 = time.perf_counter()
         small_pp[device] = (cli.run_all_origins(
             cfg, dp_queue=q, start_ts="1",
-            origin_indices=np.arange(0, N_SMALL, 4, dtype=np.int32)),
+            origin_indices=np.arange(0, N_SMALL, SMALL_STRIDE,
+                                     dtype=np.int32)),
             q.drain_deterministic_lines())
-        say(f"(h) all-origins push-pull N={N_SMALL}, origins 0, 4, ..., "
-            f"{N_SMALL - 4}, 30 rounds on {device}: "
+        say(f"(h) all-origins push-pull N={N_SMALL}, every "
+            f"{SMALL_STRIDE}th origin, 30 rounds on {device}: "
             f"{time.perf_counter() - t0:.3f} s")
     (s_cuda, l_cuda), (s_cpu, l_cpu) = small_pp["cuda"], small_pp["cpu"]
     sd_c, sd_p = s_cuda["stats"].state_dict(), s_cpu["stats"].state_dict()
@@ -4554,14 +5034,14 @@ def main() -> int:
     par_argv = ["--num-synthetic-nodes", str(N_PARITY), "--traffic-values",
                 str(M_NARROW), "--traffic-rate", "4"]
     for what, extra in (
-            ("capped + impaired, 40 iterations",
-             ["--iterations", "40", "--warm-up-rounds", "20",
+            ("capped + impaired, 20 iterations",
+             ["--iterations", "20", "--warm-up-rounds", "10",
               "--node-ingress-cap", "40", "--node-egress-cap", "60",
               "--packet-loss-rate", "0.1", "--churn-fail-rate", "0.01",
-              "--churn-recover-rate", "0.2", "--partition-at", "15",
-              "--heal-at", "30"]),
-            ("traffic-rate sweep (4, 8, 12), 20 iterations",
-             ["--iterations", "20", "--warm-up-rounds", "10",
+              "--churn-recover-rate", "0.2", "--partition-at", "12",
+              "--heal-at", "18"]),
+            ("traffic-rate sweep (4, 8, 12), 12 iterations",
+             ["--iterations", "12", "--warm-up-rounds", "8",
               "--node-ingress-cap", "40", "--test-type", "traffic-rate",
               "--num-simulations", "3", "--step-size", "4"])):
         outs = {}
@@ -4709,12 +5189,12 @@ def main() -> int:
              "request")
 
     # cuda == cpu at N=2,000, M=32: adaptive, capped and impaired
-    ad_par = par_argv + ["--gossip-mode", "adaptive", "--iterations", "40",
-                         "--warm-up-rounds", "20", "--node-ingress-cap", "40",
+    ad_par = par_argv + ["--gossip-mode", "adaptive", "--iterations", "20",
+                         "--warm-up-rounds", "10", "--node-ingress-cap", "40",
                          "--node-egress-cap", "60", "--packet-loss-rate",
                          "0.1", "--churn-fail-rate", "0.01",
                          "--churn-recover-rate", "0.2", "--partition-at",
-                         "15", "--heal-at", "30"]
+                         "12", "--heal-at", "18"]
     outs = {}
     for device in ("cuda", "cpu"):
         reset_unique_pubkeys()
@@ -4737,6 +5217,12 @@ def main() -> int:
     if not ("adaptive_rounds" in outs["cuda"][1][0]
             and any(ln.startswith("sim_adaptive,") for ln in lines_ad)):
         fail(f"(i) N={N_PARITY} adaptive: no adaptive series")
+    # the 20 rounds must reach the pull rescue and its caps
+    ad_sec = outs["cuda"][0]["adaptive"]
+    if not (ad_sec["switched_to_pull"] > 0 and ad_sec["pull_rescued"] > 0
+            and ad_sec["pull_deferred"] + ad_sec["pull_queue_dropped"] > 0):
+        fail(f"(i) N={N_PARITY} adaptive: no value in its pull phase, no "
+             f"rescue or no capped pull request: {ad_sec}")
     say(f"(i) N={N_PARITY} adaptive: cuda == cpu report (adaptive section "
         f"{outs['cuda'][0]['adaptive']}), parity_snapshot() with "
         f"adaptive_rounds, summary() and {len(lines_ad)} deterministic Influx "
@@ -5045,14 +5531,14 @@ def main() -> int:
         f"prunes {prunes_h}; rc_merge_prune sparse exact vs plain on round "
         f"19, {h_ms:.4f} ms (CUDA events), bound {h_bound:.4f} ms")
 
-    # N=100,000 through the CLI, one origin, 150 iterations: sparse then
+    # N=100,000 through the CLI, one origin, 100 iterations: sparse then
     # dense; the sparse run's launches are this slice's main path's
     cli_h = {}
     for which in ("sparse", "dense"):
         reset_unique_pubkeys()
         cfg = cli.config_from_args(cli.build_parser().parse_args(
-            ["--num-synthetic-nodes", str(N_HUGE), "--iterations", "150",
-             "--warm-up-rounds", "100", "--engine-representation", which,
+            ["--num-synthetic-nodes", str(N_HUGE), "--iterations", "100",
+             "--warm-up-rounds", "60", "--engine-representation", which,
              "--device", "cuda"]))
         base = fresh()
         t0 = time.perf_counter()
@@ -5065,7 +5551,7 @@ def main() -> int:
             cov=coll.collection[0].coverage_stats.mean,
             rmr=coll.collection[0].rmr_stats.mean)
     ls = cli_h["sparse"]["launches"]
-    if (ls[SPARSE] != 150 or ls["rc_merge_prune"]
+    if (ls[SPARSE] != 100 or ls["rc_merge_prune"]
             or any(ls[n] <= 0 for n in names if n != "rc_merge_prune")):
         fail(f"(j) the sparse CLI at N={N_HUGE}: launches {ls}")
     diff = [k for k in cli_h["dense"]["snap"]
@@ -5073,8 +5559,8 @@ def main() -> int:
     if diff:
         fail(f"(j) the CLI at N={N_HUGE}: dense and sparse parity snapshots "
              f"differ in {diff}")
-    say(f"(j) CLI --num-synthetic-nodes {N_HUGE} --iterations 150 "
-        f"--warm-up-rounds 100: sparse wall {cli_h['sparse']['wall']:.3f} s"
+    say(f"(j) CLI --num-synthetic-nodes {N_HUGE} --iterations 100 "
+        f"--warm-up-rounds 60: sparse wall {cli_h['sparse']['wall']:.3f} s"
         f" (cluster build included), dense {cli_h['dense']['wall']:.3f} s; "
         f"parity_snapshot() equal; coverage mean "
         f"{cli_h['sparse']['cov']:.6f}, RMR mean {cli_h['sparse']['rmr']:.6f}"
@@ -5346,8 +5832,8 @@ def main() -> int:
                  f"differ")
 
     base_cli = ["--num-synthetic-nodes", str(N_FULL)]
-    loss_sweep = base_cli + ["--iterations", "150", "--warm-up-rounds",
-                             "100", "--origin-rank", "1", "--test-type",
+    loss_sweep = base_cli + ["--iterations", "100", "--warm-up-rounds",
+                             "60", "--origin-rank", "1", "--test-type",
                              "packet-loss", "--num-simulations", str(LANE_K),
                              "--step-size", "0.05"]
     cli_k = {"lanes": [], "serial": []}
@@ -5357,7 +5843,7 @@ def main() -> int:
         ref_k = ref_k or out
         same(out, ref_k, f"packet-loss sweep ({what})")
         cli_k[what].append(dict(wall=out[2], times=out[3]))
-        say(f"(k) packet-loss sweep, {LANE_K} points x 150 iterations (100 "
+        say(f"(k) packet-loss sweep, {LANE_K} points x 100 iterations (60 "
             f"warm-up), {what}: {out[2]:.3f} s"
             + ("" if out[3] is None else
                f" (cluster build {out[3]['cluster_s']:.3f} s, engine "
@@ -5698,15 +6184,15 @@ def main() -> int:
     cli_l = {}
     for what, argv, k_l in (
             (f"traffic-rate M={M_TRAFFIC}", base_cli + [
-                "--traffic-values", str(M_TRAFFIC), "--iterations", "150",
-                "--warm-up-rounds", "100", "--test-type", "traffic-rate",
+                "--traffic-values", str(M_TRAFFIC), "--iterations", "100",
+                "--warm-up-rounds", "60", "--test-type", "traffic-rate",
                 "--traffic-rate", "4", "--num-simulations", str(TL_K),
                 "--step-size", "4", "--node-ingress-cap",
                 str(TRAFFIC_CAPS[0]), "--node-egress-cap",
                 str(TRAFFIC_CAPS[1])], TL_K),
             (f"packet-loss M={M_NARROW}", base_cli + [
                 "--traffic-values", str(M_NARROW), "--traffic-rate", "4",
-                "--iterations", "100", "--warm-up-rounds", "50",
+                "--iterations", "60", "--warm-up-rounds", "30",
                 "--test-type", "packet-loss", "--num-simulations",
                 str(TL_K_NARROW), "--step-size", "0.05",
                 "--node-ingress-cap", "48", "--node-egress-cap", "64"],
@@ -5793,8 +6279,12 @@ def main() -> int:
     health_res, h_runs, h_digest, h_prof = health_phase(exact, worst,
                                                         out_dir)
 
-    # ---- (o) report -------------------------------------------------------
+    # ---- (o) the flight recorder (--trace-dir) ---------------------------
     phase("o")
+    trace_res, t_runs = trace_phase(exact, worst, out_dir)
+
+    # ---- (p) report -------------------------------------------------------
+    phase("p")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -6011,6 +6501,43 @@ def main() -> int:
          "library_call": "stable torch.sort of the [P, N] stack",
          "device_ms": hd[f"sim O={O_KERNEL}"]["device_ms"],
          "main_path": h_digest, "cases": hd})
+    # the flight recorder: the traced calls of the three kernels that
+    # gained a trace output, and trace_prune_pairs
+    t_calls = trace_res["calls"]
+    t_single = t_runs["single 10k push"]["on"]
+    t_pp = t_runs["single 10k push-pull"]["on"]
+    for entry in line["kernels"]:
+        name = entry["name"]
+        if name in TRACED_SOURCES and "variant" not in entry:
+            key = next(k for k in t_calls if k.startswith(name + " "))
+            entry["trace"] = dict(
+                t_calls[key], call=key.split(" ", 1)[1],
+                replaces=f"gossip_sim_tpu/engine/{TRACED_SOURCES[name]}",
+                launches=(t_pp if name == "pull_exchange"
+                          else t_single)["launches"][name])
+    # the first case: round 19 at the auto cap
+    main_pairs = next(iter(trace_res["pairs"].values()))
+    line["kernels"].append(
+        {"name": "trace_prune_pairs", "route": "cuda",
+         "source": src("trace_prune_pairs"),
+         "replaces": (f"{TRACE_SOURCES['trace_prune_pairs'][0]} "
+                      f"({TRACE_SOURCES['trace_prune_pairs'][1]})"),
+         "launches": t_single["launches"]["trace_prune_pairs"],
+         "max_abs_err": worst["trace_prune_pairs"],
+         "ms": main_pairs["ms"], "plain_ms": main_pairs["plain_ms"],
+         "bound_ms": main_pairs["bound_ms"], "bound_by": "bytes",
+         "library_ms": main_pairs["library_ms"],
+         "library_call": "torch.nonzero of the pruned slots and a gather "
+                         "of their prunees",
+         "device_ms": main_pairs["device_ms"], "cases": trace_res["pairs"],
+         "round_profile": trace_res["round_profile"],
+         "cli": {case: {"wall": r["on"]["wall"], "off_wall": r["off"]["wall"],
+                        "replay_wall": (r["on"]["replay"] or [None])[0],
+                        "write_s": sum(w for w, _ in r["on"]["writes"]),
+                        "bytes": r["on"]["bytes"],
+                        "segments": r["on"]["segments"],
+                        "rounds": r["on"]["rounds"]}
+                 for case, r in t_runs.items()}})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6026,6 +6553,8 @@ if __name__ == "__main__":
         sys.exit(resume_child())
     if sys.argv[1:] == [HEALTH_FLAG]:
         sys.exit(health_child())
+    if sys.argv[1:] == [TRACE_FLAG]:
+        sys.exit(trace_child())
     if sys.argv[1:3] == [RESUME_FLAG, TRAFFIC_PART] and len(sys.argv) <= 4:
         sys.exit(resume_child(*(sys.argv[3:] or ["cuda"]),
                               part=TRAFFIC_PART))

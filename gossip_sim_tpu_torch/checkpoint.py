@@ -14,10 +14,9 @@ is read by the reference's ``load_state``/``restore_sim_state``/
 * the arrays carry the reference's dtypes: the threefry ``key`` goes out
   as uint32 words and comes back as the port's int64 words
   (``convert.state_to_numpy``/``state_from_numpy``);
-* ``params`` holds the reference's keys and values: the two fields the
+* ``params`` holds the reference's keys and values: the one field the
   port's ``EngineParams`` does not carry (``pa_slots``, the reference's
-  prune-apply budget, and ``trace_prune_cap``, the flight recorder's, A13)
-  are written with the reference's defaults;
+  prune-apply budget) is written with the reference's default;
 * ``config`` holds the port's own ``Config`` fields; the reference's
   single-run resume reads only the fields both have (its drift warnings).
 
@@ -62,7 +61,7 @@ _READABLE_VERSIONS = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 #: the reference's ``EngineParams`` fields the port's lacks, with the
 #: reference's defaults: a port file's ``params`` block has the reference's
 #: keys and values
-_REFERENCE_ONLY_PARAMS = {"pa_slots": 8, "trace_prune_cap": 0}
+_REFERENCE_ONLY_PARAMS = {"pa_slots": 8}
 
 # EngineParams fields that define array shapes; a mismatch makes the stored
 # state unusable under the new geometry.

@@ -30,8 +30,16 @@ and ``--on-device-failure`` run each unit under the device supervisor
 engine's node-health planes per measured block into ``sim_node_health``
 points and a final ``node_health`` section (``resilience.RUN_INFO``) in
 the single run, all-origins and the traffic run.  A flag the port lacks
-is rejected by argparse: traces, telemetry and the run report are later
-slices (ROADMAP A13, A15, A16).
+is rejected by argparse: telemetry and the run report are later slices
+(ROADMAP A15, A16).  ``--trace-dir`` (obs/trace.py) flight-records the
+measured rounds of a single run (one ``.npz`` segment per harvest block,
+each pushed as a ``sim_trace`` point, appended on ``--resume``), of a
+serial sweep (a ``simNNN`` directory per point), of the batched
+origin-rank sweep (one origin column per rank) and of the first
+``--trace-origins`` origins of all-origins (replayed after the batches);
+a lane sweep refuses it, as the reference does, and a traffic run refuses
+it at start-up (its recorder is ROADMAP A13b).  ``--trace-prune-cap``
+sets the prune pairs captured per origin and round.
 
 ``python -m gossip_sim_tpu_torch --num-synthetic-nodes 10000
 --iterations 300 --print-stats`` runs the 10,000-node synthetic cluster on
@@ -75,6 +83,7 @@ from .identity import NodeIndex
 from .ingest import (fetch_vote_accounts_rpc, filter_accounts,
                      load_accounts_yaml, log_cluster_summary,
                      synthetic_accounts)
+from .obs.trace import TraceWriter, block_from_engine_rows
 from .resilience import (RESUMABLE_EXIT_CODE, DeviceDispatchError,
                          InfluxTee, ResumableInterrupt, RunJournal,
                          check_interrupt, journal_path,
@@ -156,6 +165,7 @@ def _engine_params(config: Config, num_nodes: int) -> EngineParams:
         node_egress_cap=config.node_egress_cap,
         traffic_stall_rounds=config.traffic_stall_rounds,
         health=config.health,
+        trace_prune_cap=config.trace_prune_cap,
         representation=config.engine_representation)
 
 
@@ -304,6 +314,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "bit-identical rows and state, roughly half the "
                         "received-cache bytes. Push mode only; traffic "
                         "needs dense")
+    p.add_argument("--trace-dir", default="", metavar="DIR",
+                   help="flight recorder (obs/trace.py): capture per-round "
+                        "protocol events (delivery edges + outcomes, first-"
+                        "delivery tree, prune pairs, rotations, active-set "
+                        "snapshots) of the measured rounds into DIR as a "
+                        "versioned npz trace (gossip-sim-tpu/trace/v1); "
+                        "analyze with tools/trace_report.py")
+    p.add_argument("--trace-origins", type=int, default=4,
+                   help="--all-origins mode: flight-record this many "
+                        "sampled origins (their per-origin RNG streams "
+                        "replay bit-identically outside the batch)")
+    p.add_argument("--trace-prune-cap", type=int, default=0,
+                   help="flight recorder: prune pairs captured per "
+                        "(origin, round); 0 = auto (16 * num_nodes). "
+                        "Raise when the trace manifest flags "
+                        "truncated_prune_rounds")
     p.add_argument("--influx", default="n",
                    help="Influx for reporting metrics. i for "
                         "internal-metrics, l for localhost, n for none")
@@ -460,6 +486,9 @@ def config_from_args(args) -> Config:
         engine_representation=args.engine_representation,
         health=args.health,
         health_topk=args.health_topk,
+        trace_dir=args.trace_dir,
+        trace_origins=args.trace_origins,
+        trace_prune_cap=args.trace_prune_cap,
         influx_spool=args.influx_spool,
         seed=args.seed,
         num_synthetic_nodes=args.num_synthetic_nodes,
@@ -548,8 +577,10 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
     tables = make_cluster_tables(index.stakes.astype(np.int64),
                                  device=config.device)
     dev = tables.stakes.device
-    origins = torch.tensor([index.index_of(origin_pubkey)],
-                           dtype=torch.int32, device=dev)
+    origin_idx = index.index_of(origin_pubkey)
+    origins = torch.tensor([origin_idx], dtype=torch.int32, device=dev)
+    tracer = (_make_trace_writer(config, index, [origin_idx], params)
+              if config.trace_dir else None)
 
     start_iter = 0
     if config.resume_path:
@@ -640,13 +671,15 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
         def _block_dispatch(st, d):
             st, rws = run_rounds(params, _to_device(tables, d),
                                  _to_device(origins, d), st, n_it,
-                                 start_it=start_it, detail=True)
+                                 start_it=start_it, detail=True,
+                                 trace=tracer is not None)
             return st, {k: v.cpu().numpy() for k, v in rws.items()}
 
         state, rows = _dispatch_supervised(
             config, f"measured-block-{start_it}", _block_dispatch, state,
             dev)
         blk_wall = time.perf_counter() - t_blk
+        _trace_block(tracer, start_it, rows, dp_queue, sim_iter, start_ts)
         _warn_shape_truncation(rows, params)
         if (params.fail_at >= 0
                 and start_it <= params.fail_at < start_it + n_it):
@@ -668,12 +701,17 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
             # this block's stats are fed and the state is saved before the
             # run exits resumably
             _save_checkpoint(warm + done)
+            if tracer is not None:
+                tracer.finalize()
             raise ResumableInterrupt(
                 f"single-run checkpoint saved at iteration {warm + done}; "
                 f"resume with --resume {config.checkpoint_path}"
                 if config.checkpoint_path else
                 f"run stopped at iteration {warm + done} with no "
                 f"--checkpoint-path; this simulation restarts from scratch")
+    if tracer is not None:
+        tracer.finalize()
+        log.info("protocol trace written to %s", config.trace_dir)
     _feed_message_counters(stats, state, 0, index)
     _emit_node_health(config, tables, state, None, sim_iter, start_ts,
                       config.gossip_iterations, traffic=False, final=True)
@@ -681,6 +719,46 @@ def _run_torch_backend(config: Config, accounts, origin_pubkey,
         _record_failed()
     _save_checkpoint(config.gossip_iterations)
     return stakes
+
+
+def _make_trace_writer(config: Config, index, origin_indices, params):
+    """The flight recorder's writer for ``--trace-dir`` (obs/trace.py), or
+    None, with a warning, where the run has no measured rounds (reference
+    cli.py:255-289).  The manifest records the fanout after the engine's
+    clamp to the active-set size (the arrays' F), the resolved
+    ``prune_cap``, the mode and its pull slots, and the backend name the
+    reference's engine writes, so either package can continue the trace."""
+    if config.gossip_iterations <= config.warm_up_rounds:
+        log.warning("WARNING: --trace-dir set but no measured rounds "
+                    "(iterations <= warm-up-rounds); no trace written")
+        return None
+    return TraceWriter(
+        config.trace_dir, backend=resilience.ENGINE_BACKEND,
+        num_nodes=len(index),
+        push_fanout=min(config.gossip_push_fanout,
+                        config.gossip_active_set_size),
+        active_set_size=config.gossip_active_set_size,
+        prune_cap=params.prune_cap, gossip_mode=params.gossip_mode,
+        pull_slots=params.pull_slots_resolved if params.has_pull else 0,
+        origins=[int(i) for i in origin_indices],
+        origin_pubkeys=[index.pubkeys[int(i)].to_string()
+                        for i in origin_indices],
+        seed=config.seed, warm_up_rounds=config.warm_up_rounds,
+        iterations=config.gossip_iterations, config=config)
+
+
+def _trace_block(tracer, start_it, rows, dp_queue, sim_iter, start_ts):
+    """One measured block's trace rows (numpy) as a segment, and its
+    ``sim_trace`` point (reference cli.py:1148-1152, 2224-2232)."""
+    if tracer is None:
+        return
+    seg = tracer.add_block(start_it, block_from_engine_rows(rows))
+    if dp_queue is not None:
+        dp = InfluxDataPoint(start_ts, sim_iter)
+        dp.create_sim_trace_point(seg["end_round"] - seg["start_round"],
+                                  seg["delivered_edges"], seg["prunes"],
+                                  seg["bytes"])
+        dp_queue.push_back(dp)
 
 
 def _feed_measured_round(stats, rows, t, col, it, config, index, stakes,
@@ -986,6 +1064,11 @@ def dispatch_sweeps(config: Config, json_rpc_url: str, origin_ranks,
     first = journal.committed_prefix() if journal is not None else 0
     for i in range(config.num_simulations):
         c, start = _stepped_sweep_config(config, i, origin_ranks)
+        if config.trace_dir and config.num_simulations > 1:
+            # one flight-recorder directory per swept simulation, each with
+            # its own manifest and segments
+            c = c.stepped(trace_dir=os.path.join(config.trace_dir,
+                                                 f"sim{i:03d}"))
         if journal is not None:
             # sim-level units own resumability; the sim must not also
             # write the single-run state npz
@@ -1034,7 +1117,14 @@ def run_lane_sweep(config: Config, json_rpc_url: str, origin_ranks,
     loaded once (a synthetic cluster draws fresh pubkeys per load, so a
     serial arm compared with this one resets the pubkey counter per
     point).  Returns the walls of the cluster build, the engine (rounds
-    until their rows are on the host) and the harvest, in seconds."""
+    until their rows are on the host) and the harvest, in seconds.
+    ``--trace-dir`` is refused with the reference's words."""
+    if config.trace_dir:
+        raise SystemExit(
+            "ERROR: --trace-dir is not supported with --sweep-lanes: the "
+            "flight recorder captures one sim's event stream per trace and "
+            "a lane batch runs K sims inside one device program. Drop "
+            "--sweep-lanes to trace a serial sweep (one trace per sim).")
     K = config.num_simulations
     L = max(1, min(config.sweep_lanes, K))
     n_batches = -(-K // L)
@@ -1279,6 +1369,12 @@ def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
     warm = min(config.warm_up_rounds, config.gossip_iterations)
     measured = config.gossip_iterations - warm
     done = 0
+    # one trace, one origin column per swept rank (each column equals its
+    # rank's serial run); on resume the writer keeps the captured segments
+    tracer = (_make_trace_writer(config, index,
+                                 [index.index_of(pk) for pk in origin_pks],
+                                 params)
+              if config.trace_dir else None)
     t_engine = time.perf_counter()
     if first_block > 0:
         # resume: the state from the npz, each column's stats from the last
@@ -1352,7 +1448,8 @@ def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
         def _block_dispatch(st, d):
             st, rws = run_rounds(params, _to_device(tables, d),
                                  _to_device(origins, d), st, n_it,
-                                 start_it=start_it, detail=True)
+                                 start_it=start_it, detail=True,
+                                 trace=tracer is not None)
             return st, {k: v.cpu().numpy() for k, v in rws.items()}
 
         state, rows = _dispatch_supervised(
@@ -1360,6 +1457,7 @@ def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
         blk_wall = time.perf_counter() - t_blk
         engine_s += blk_wall
         t_harvest = time.perf_counter()
+        _trace_block(tracer, start_it, rows, feed, 0, start_ts)
         _warn_shape_truncation(rows, params)
         for t in range(n_it):
             it = start_it + t
@@ -1390,6 +1488,9 @@ def run_origin_rank_sweep(config: Config, json_rpc_url: str, origin_ranks,
         check_interrupt(journal)
     if journal is not None:
         journal.close()
+    if tracer is not None:
+        tracer.finalize()
+        log.info("protocol trace written to %s", config.trace_dir)
     t_harvest = time.perf_counter()
     for col in range(R):
         _feed_message_counters(stats_list[col], state, col, index)
@@ -1462,6 +1563,45 @@ def _start_copy(rows: dict, state, n_valid: int, fields=HARVEST_STATE,
     ready = torch.cuda.Event()
     ready.record()
     return host, ready
+
+
+#: measured rounds per block of the all-origins trace replay (the
+#: reference's literal, cli.py:1789)
+TRACE_REPLAY_BLOCK = 256
+
+
+def _trace_replay_origins(config: Config, params, tables, index,
+                          origin_sample, dp_queue, start_ts):
+    """Flight-record a sampled origin subset of an all-origins run
+    (reference cli.py:1752-1797): the first ``--trace-origins`` origins
+    replayed through a traced run after the batches, outside their walls.
+    Each origin-sim's draws fold only (seed, origin index, iteration), so
+    the replayed rounds equal those origins' sims inside the batches."""
+    tracer = _make_trace_writer(config, index, origin_sample, params)
+    if tracer is None:     # no measured rounds (already warned)
+        return
+    dev = tables.stakes.device
+    origins = torch.tensor(origin_sample, dtype=torch.int32, device=dev)
+    warm = min(config.warm_up_rounds, config.gossip_iterations)
+    measured = config.gossip_iterations - warm
+    log.info("all-origins: flight-recording %s sampled origin(s) "
+             "(bit-identical replay) into %s", len(origin_sample),
+             config.trace_dir)
+    state = init_state(prng_key(config.seed, dev), tables, origins, params)
+    if warm > 0:
+        state, _ = run_rounds(params, tables, origins, state, warm)
+    done = 0
+    while done < measured:
+        n_it = min(TRACE_REPLAY_BLOCK, measured - done)
+        state, rows = run_rounds(params, tables, origins, state, n_it,
+                                 start_it=warm + done, detail=True,
+                                 trace=True)
+        _trace_block(tracer, warm + done,
+                     {k: v.cpu().numpy() for k, v in rows.items()},
+                     dp_queue, 0, start_ts)
+        done += n_it
+    tracer.finalize()
+    log.info("protocol trace written to %s", config.trace_dir)
 
 
 def run_all_origins(config: Config, accounts=None, dp_queue=None,
@@ -1695,6 +1835,17 @@ def run_all_origins(config: Config, accounts=None, dp_queue=None,
     if journal is not None:
         journal.close()
     dt = time.time() - t0
+
+    if config.trace_dir:
+        if config.trace_origins <= 0:
+            log.warning("WARNING: --trace-dir set with --trace-origins 0; "
+                        "no trace written")
+        else:
+            _trace_replay_origins(
+                config, params, tables, index,
+                [int(o) for o in
+                 all_origins[:min(config.trace_origins, total_o)]],
+                dp_queue, start_ts)
 
     extra = {"origin_iters": counts["origin_iters"],
              "messages_delivered": counts["messages_delivered"],
@@ -1956,13 +2107,14 @@ def _run_traffic_point(config: Config, params: EngineParams, stakes_np,
 def _traffic_lane_blocker(config: Config, n_points: int):
     """None when --sweep-lanes can serve this traffic sweep, else the
     reason the run logs before it runs the serial sweep (reference cli.py:
-    3208-3223, without the backend and trace reasons: the port has neither
-    flag yet)."""
+    3208-3223, without the backend reason: the port has no --backend)."""
     if n_points < 2:
         return "nothing to batch (num_simulations < 2)"
     if config.test_type not in TRAFFIC_SWEEP_TYPES:
         return (f"--test-type {config.test_type.value} does not step a "
                 f"traffic-sweepable knob")
+    if config.trace_dir:
+        return "--trace-dir captures one sim's event stream"
     if config.checkpoint_path or config.resume_path:
         return "traffic checkpoints cover single runs only"
     if config.gossip_iterations <= config.warm_up_rounds:
@@ -2075,6 +2227,8 @@ def run_traffic(config: Config, json_rpc_url: str = API_MAINNET_BETA,
     in adaptive mode ``adaptive``);
     ``collection`` (a TrafficStatsCollection) receives each point's
     TrafficStats."""
+    if config.trace_dir:
+        raise SystemExit(f"ERROR: {TRAFFIC_TRACE_REFUSAL}")
     is_sweep = (config.test_type in TRAFFIC_SWEEP_TYPES
                 and config.num_simulations > 1)
     n_points = config.num_simulations if is_sweep else 1
@@ -2558,6 +2712,13 @@ def _drain_influx(dp_queue, influx_thread):
     return sender
 
 
+#: why a traffic run records no trace yet
+TRAFFIC_TRACE_REFUSAL = (
+    "--trace-dir is not supported with concurrent traffic yet: the traffic "
+    "flight recorder (trace schema v3/v4) is ROADMAP A13b; trace a "
+    "single-value run, or drop --trace-dir")
+
+
 def _traffic_startup_checks(config: Config) -> int:
     """The reference's traffic start-up checks (cli.py:3723-3794), with its
     messages and exit codes; 0 when the run may start."""
@@ -2582,6 +2743,9 @@ def _traffic_startup_checks(config: Config) -> int:
         return 1
     if not config.traffic_on:
         return 0
+    if config.trace_dir:
+        log.error("ERROR: %s", TRAFFIC_TRACE_REFUSAL)
+        return 1
     if config.all_origins:
         log.error("ERROR: --all-origins and concurrent traffic are "
                   "separate workload modes; traffic injects its own "

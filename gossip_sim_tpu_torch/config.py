@@ -6,10 +6,11 @@ defaults are the compatibility contract (gossip_main.rs:53-241).  This
 package's ``Config`` carries the fields the experiment harness (account
 sources, sweeps, Influx), all-origins mode, the round layout
 (``engine_representation``) and the checkpoints, run journal and device
-supervisor (resilience.py) and the node-health observatory
-(``health``, ``health_topk``; obs/health.py) read, plus ``device`` (where
-the engine runs:
-``"cuda"`` unless the CPU is asked for).
+supervisor (resilience.py), the node-health observatory
+(``health``, ``health_topk``; obs/health.py) and the flight recorder
+(``trace_dir``, ``trace_origins``, ``trace_prune_cap``; obs/trace.py)
+read, plus ``device`` (where the engine runs: ``"cuda"`` unless the CPU
+is asked for).
 """
 
 from __future__ import annotations
@@ -154,6 +155,17 @@ class Config:
                                     # bit-identical to a run without it
     health_topk: int = 10           # hot nodes extracted per digest (the
                                     # [k,·] harvest; sim_node_health)
+    trace_dir: str = ""             # flight recorder (obs/trace.py): write
+                                    # per-round protocol event traces
+                                    # (schema gossip-sim-tpu/trace/v4) here
+    trace_origins: int = 4          # --all-origins mode: how many sampled
+                                    # origins to flight-record (per-origin
+                                    # RNG streams make the sampled replay
+                                    # bit-identical to the batched sims)
+    trace_prune_cap: int = 0        # prune pairs captured per (origin,
+                                    # round); 0 = auto (16*num_nodes).
+                                    # Raise when the trace manifest flags
+                                    # truncated_prune_rounds
 
     influx_spool: str = ""          # durable spool file: Influx points
                                     # dropped after retry exhaustion or

@@ -25,6 +25,12 @@
 //         counts [O, 6] i32 = requests arrived, responses, misses (arrived
 //         - responses), dropped, suppressed, rescued (nodes with a
 //         transfer).
+//         With the flight recorder on (both set, else both null):
+//         trace_peers and trace_code [O, N, ps] i32 (core.py:1165-1180),
+//         each slot's sampled peer where the request was sent, else -1,
+//         and its PULL_* outcome (pull.py): peer failed > suppressed >
+//         dropped > capped > not held > already held > bloom false
+//         positive > response, 0 for a slot that sent nothing.
 // Scratch: the per-peer state of each origin in device memory, where the
 //         cluster's shared memory does not hold it.
 //
@@ -90,6 +96,11 @@
 //      arrival count of the cluster (rank 0 gathers); barrier; if it passes
 //      the cap, cap passes of the least key above the last, each closed by
 //      two barriers; 3. the transfers, reading the kept words;
+//   (trace) each owned node's ps slots, drawn again (or read from the kept
+//      words) and classified against the bitmaps, the counts of arrivals
+//      and the cap's keys: a pass of its own before phase 4, in the
+//      instantiation for the trace only (kTrace), so the trace-free
+//      kernel is the one without it;
 //   4. barrier; egress += responses sent, ingress += requests received;
 //      the counts, summed per CTA and gathered by rank 0; barrier.
 // Past the cluster's shared memory (N above ~206,000 with the cap off,
@@ -128,6 +139,10 @@ constexpr int kSums = 5, kMost = 5;
 // bits 30-31
 constexpr uint32_t kPeerMask = (1u << 30) - 1;
 constexpr uint32_t kOk = 0, kSelf = 1, kSup = 2, kDrop = 3;
+// the flight recorder's slot codes (pull.py PULL_*)
+constexpr int32_t kPullResponse = 1, kPullPeerFailed = 2, kPullSuppressed = 3,
+                  kPullDropped = 4, kPullNotHeld = 5, kPullAlreadyHeld = 6,
+                  kPullBloomFp = 7, kPullCapped = 8;
 
 // one lane's knobs (kernels/pull_exchange.py LANE_DTYPE)
 struct PullLane {
@@ -225,7 +240,7 @@ __device__ __forceinline__ uint32_t int_bits(const int32_t* side, int base,
   return w;
 }
 
-template <bool kSmem>
+template <bool kSmem, bool kTrace>
 __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
     const uint8_t* __restrict__ reached, const int32_t* __restrict__ dist,
     const uint8_t* __restrict__ failed, const int32_t* __restrict__ side,
@@ -234,8 +249,10 @@ __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
     const uint8_t* __restrict__ adaptive_on, int32_t* __restrict__ pull_hop,
     int32_t* __restrict__ egress, int32_t* __restrict__ ingress,
     uint8_t* __restrict__ reached_all, int32_t* __restrict__ dist_all,
-    int32_t* __restrict__ counts, int32_t* __restrict__ scratch, int n_,
-    int has_loss, const __grid_constant__ PullLanes lanes, int opl, Geo g) {
+    int32_t* __restrict__ counts, int32_t* __restrict__ scratch,
+    int32_t* __restrict__ trace_peers, int32_t* __restrict__ trace_code,
+    int n_, int has_loss, int ps, const __grid_constant__ PullLanes lanes,
+    int opl, Geo g) {
   extern __shared__ __align__(16) int32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -415,6 +432,8 @@ __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
   };
 
   int n_arr = 0, n_resp = 0, n_drop = 0, n_sup = 0, n_resc = 0;
+  // the cap ranked the requests (some peer received more than the cap)
+  bool ranked = false;
   // the draws of a node's slots two at a time (their loads in flight
   // together); past the fanout a self-draw, which sends nothing
   auto draw2 = [&](int i, int slot, uint32_t& w0, uint32_t& w1) {
@@ -505,7 +524,7 @@ __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
       atomicMax(cluster.map_shared_rank(sm + kTotal + kMost, 0),
                 sm[kLocal + kMost]);
     cluster.sync();
-    const bool ranked =
+    ranked =
         gate && *cluster.map_shared_rank(sm + kTotal + kMost, 0) > r.cap;
     if (ranked) {
       for (int pass = 0; pass < r.cap; ++pass) {
@@ -555,6 +574,54 @@ __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
       n_resc += best < kInf;
     }
   }
+
+  // (trace) each owned node's slots: the peer where the request was sent
+  // and its outcome, in the reference's order of overrides
+  if constexpr (kTrace) {
+    const bool kept = capped && g.keep;
+    for (int i = lo + tid; i < hi; i += nthreads) {
+      int32_t* tp = trace_peers + (row + i) * (size_t)ps;
+      int32_t* tc = trace_code + (row + i) * (size_t)ps;
+      const bool live = gate && !failed_of(i);
+      const bool lacks = !reached_of(i);
+      const bool fp =
+          (unsigned long long)node_u32(r.b_fp, i) < r.fp_threshold;
+      for (int slot = 0; slot < ps; ++slot) {
+        int32_t peer = -1, code = 0;
+        if (live && slot < r.fanout) {
+          const uint32_t w =
+              kept ? words[slot * slen + (i - lo)] : draw(i, slot);
+          const int p = (int)(w & kPeerMask);
+          const uint32_t c = w >> 30;
+          if (c != kSelf) {
+            peer = p;
+            if (failed_of(p)) {
+              code = kPullPeerFailed;
+            } else if (c == kSup) {
+              code = kPullSuppressed;
+            } else if (c == kDrop) {
+              code = kPullDropped;
+            } else {
+              const Slot q = owner(p);
+              if (ranked && get_at(req_in, q) > r.cap &&
+                  i * r.fanout + slot > get_at(kth, q))
+                code = kPullCapped;
+              else if (!reached_of(p))
+                code = kPullNotHeld;
+              else if (!lacks)
+                code = kPullAlreadyHeld;
+              else if (fp)
+                code = kPullBloomFp;
+              else
+                code = kPullResponse;
+            }
+          }
+        }
+        tp[slot] = peer;
+        tc[slot] = code;
+      }
+    }
+  }
   cluster.sync();
 
   // 4. the peers' side of the messages, and the counts
@@ -592,14 +659,14 @@ __global__ void __launch_bounds__(kMaxThreads) pull_exchange_kernel(
   }
 }
 
-template <bool kSmem>
+template <bool kSmem, bool kTrace>
 cudaError_t configure(int cs, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      pull_exchange_kernel<kSmem>,
+      pull_exchange_kernel<kSmem, kTrace>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && cs > 8)
     err = cudaFuncSetAttribute(
-        pull_exchange_kernel<kSmem>,
+        pull_exchange_kernel<kSmem, kTrace>,
         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
 }
@@ -620,7 +687,7 @@ cudaLaunchConfig_t config(cudaLaunchAttribute* attr, int grid, int cs,
   return cfg;
 }
 
-template <bool kSmem>
+template <bool kSmem, bool kTrace>
 cudaError_t launch(const uint8_t* reached, const int32_t* dist,
                    const uint8_t* failed, const int32_t* side,
                    const int32_t* perm, const int32_t* cstart,
@@ -628,19 +695,21 @@ cudaError_t launch(const uint8_t* reached, const int32_t* dist,
                    const uint8_t* adaptive_on, int32_t* pull_hop,
                    int32_t* egress, int32_t* ingress, uint8_t* reached_all,
                    int32_t* dist_all, int32_t* counts, int32_t* scratch,
-                   int o, int threads, int smem, int n, int has_loss,
+                   int32_t* trace_peers, int32_t* trace_code, int o,
+                   int threads, int smem, int n, int has_loss, int ps,
                    const PullLanes& lanes, int opl, const Geo& g,
                    cudaStream_t stream) {
-  cudaError_t err = configure<kSmem>(g.cs, smem);
+  cudaError_t err = configure<kSmem, kTrace>(g.cs, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       config(attr, o * g.cs, g.cs, threads, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, pull_exchange_kernel<kSmem>, reached, dist,
-                           failed, side, perm, cstart, ccount, cdf,
-                           adaptive_on, pull_hop, egress, ingress,
-                           reached_all, dist_all, counts, scratch, n,
-                           has_loss, lanes, opl, g);
+  err = cudaLaunchKernelEx(&cfg, pull_exchange_kernel<kSmem, kTrace>,
+                           reached, dist, failed, side, perm, cstart, ccount,
+                           cdf, adaptive_on, pull_hop, egress, ingress,
+                           reached_all, dist_all, counts, scratch,
+                           trace_peers, trace_code, n, has_loss, ps, lanes,
+                           opl, g);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -653,15 +722,15 @@ extern "C" int pull_exchange_max_clusters(int cs, int threads, int smem,
                                           int state_in_smem, int* clusters) {
   if (cs < 1 || cs > kMaxCluster || threads < 32 || threads > kMaxThreads)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = state_in_smem ? configure<true>(cs, smem)
-                                        : configure<false>(cs, smem);
+  const cudaError_t err = state_in_smem ? configure<true, false>(cs, smem)
+                                        : configure<false, false>(cs, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = config(attr, cs, cs, threads, smem, 0);
   return (int)cudaOccupancyMaxActiveClusters(
       clusters,
-      state_in_smem ? (void*)pull_exchange_kernel<true>
-                    : (void*)pull_exchange_kernel<false>,
+      state_in_smem ? (void*)pull_exchange_kernel<true, false>
+                    : (void*)pull_exchange_kernel<false, false>,
       &cfg);
 }
 
@@ -674,16 +743,19 @@ extern "C" int pull_exchange_max_clusters(int cs, int threads, int smem,
 // records in host memory, one per lane of opl origin rows (k * opl = o),
 // each lane's fanout in [0, fanout].  The keys node * fanout + slot must
 // fit int32, n < 2^30, and the thresholds lie in [0, 2^32]
-// (kernels/pull_exchange.py checks them).
+// (kernels/pull_exchange.py checks them).  trace_peers and trace_code
+// ([o, n, ps], ps >= fanout) are both set, for the instantiation with the
+// trace, or both null.
 extern "C" int pull_exchange_launch(
     const uint8_t* reached, const int32_t* dist, const uint8_t* failed,
     const int32_t* side, const int32_t* perm, const int32_t* cstart,
     const int32_t* ccount, const float* cdf, const uint8_t* adaptive_on,
     int32_t* pull_hop, int32_t* egress, int32_t* ingress,
     uint8_t* reached_all, int32_t* dist_all, int32_t* counts,
-    int32_t* scratch, int o, int n, int fanout, int capped, int has_loss,
-    const void* lanes, int k, int opl, int cs, int slen, int threads,
-    int keep, int smem, cudaStream_t stream) {
+    int32_t* scratch, int32_t* trace_peers, int32_t* trace_code, int o,
+    int n, int fanout, int capped, int has_loss, int ps, const void* lanes,
+    int k, int opl, int cs, int slen, int threads, int keep, int smem,
+    cudaStream_t stream) {
   PullLanes lane_args;
   if (!lanes_from_host(&lane_args, static_cast<const PullLane*>(lanes), k, o, opl))
     return (int)cudaErrorInvalidValue;
@@ -702,18 +774,21 @@ extern "C" int pull_exchange_launch(
       (long long)n * fanout >= 0x7FFFFFFFLL || cs < 1 || cs > kMaxCluster ||
       slen < 1 || (long long)slen * cs < n || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || smem < need ||
-      (keep && (!in_smem || !capped)))
+      (keep && (!in_smem || !capped)) ||
+      (trace_peers == nullptr) != (trace_code == nullptr) ||
+      (trace_peers != nullptr && ps < fanout))
     return (int)cudaErrorInvalidValue;
   const Geo g{cs, slen, keep, capped ? 4 : 2, 1.0f / (float)slen};
-  return (int)(in_smem
-                   ? launch<true>(reached, dist, failed, side, perm, cstart,
-                                  ccount, cdf, adaptive_on, pull_hop, egress,
-                                  ingress, reached_all, dist_all, counts,
-                                  scratch, o, threads, smem, n, has_loss,
-                                  lane_args, opl, g, stream)
-                   : launch<false>(reached, dist, failed, side, perm, cstart,
-                                   ccount, cdf, adaptive_on, pull_hop, egress,
-                                   ingress, reached_all, dist_all, counts,
-                                   scratch, o, threads, smem, n, has_loss,
-                                  lane_args, opl, g, stream));
+#define PULL_LAUNCH(SMEM, TRACE)                                            \
+  launch<SMEM, TRACE>(reached, dist, failed, side, perm, cstart, ccount, cdf, \
+                      adaptive_on, pull_hop, egress, ingress, reached_all,   \
+                      dist_all, counts, scratch, trace_peers, trace_code, o, \
+                      threads, smem, n, has_loss, ps, lane_args, opl, g,     \
+                      stream)
+  const bool trace = trace_peers != nullptr;
+  return (int)(in_smem ? (trace ? PULL_LAUNCH(true, true)
+                                : PULL_LAUNCH(true, false))
+                       : (trace ? PULL_LAUNCH(false, true)
+                                : PULL_LAUNCH(false, false)));
+#undef PULL_LAUNCH
 }

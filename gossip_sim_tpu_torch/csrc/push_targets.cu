@@ -13,7 +13,11 @@
 //         and threshold.
 // Output: tgt [O, N, F] i32, the peer of each of the first F valid slots
 //         in slot order, or N where the slot is missing or gated; sup and
-//         drop [O, N, F] u8 (each written only when its pointer is set).
+//         drop [O, N, F] u8 (each written only when its pointer is set);
+//         the flight recorder's trace_peers and trace_code [O, N, F] i32
+//         (core.py:606-618), set together or both null: each slot's peer
+//         (-1 where missing) and its outcome (0 missing, 1 candidate, 2
+//         failed target, 3 suppressed, 4 dropped).
 //
 // A slot is valid when its peer is < N, not pruned and not the origin.  A
 // valid slot's peer receives unless it is failed, else unless the
@@ -39,7 +43,11 @@
 // one buffer) times the same there: its resident blocks keep as many
 // loads in flight (chip_smoke.py times both).
 // The kernel is instantiated for the gates that are present, so an absent
-// gate costs the scan no instruction.
+// gate costs the scan no instruction, and for the trace: without it the
+// instantiation is the trace-free scan, with the same shared memory and
+// registers.  The trace's two planes are stored from each row's thread
+// straight to device memory (F consecutive words a row); only correctness
+// is asked of the traced round.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,14 +71,21 @@ struct PushLane {
 };
 using PushLanes = LaneArray<PushLane>;
 
+// the flight recorder's slot codes (obs/trace.py TRACE_*)
+constexpr int32_t kTraceCandidate = 1, kTraceFailedTarget = 2,
+                  kTraceSuppressed = 3, kTraceDropped = 4;
+
 // kPart: the partition gate is present (sup is set); kLoss: the loss gate
-// is (drop is set).  A gate that is absent costs the scan nothing.
-template <bool kPart, bool kLoss>
+// is (drop is set); kTrace: the trace planes are set.  What is absent
+// costs the scan nothing.
+template <bool kPart, bool kLoss, bool kTrace>
 __global__ void push_targets_kernel(
     const int32_t* __restrict__ active, const uint8_t* __restrict__ pruned,
     const uint8_t* __restrict__ tfail, const int32_t* __restrict__ origins,
     const int32_t* __restrict__ side, int32_t* __restrict__ tgt,
-    uint8_t* __restrict__ sup, uint8_t* __restrict__ drop, long long rows,
+    uint8_t* __restrict__ sup, uint8_t* __restrict__ drop,
+    int32_t* __restrict__ trace_peers, int32_t* __restrict__ trace_code,
+    long long rows,
     int n, int s, int f, int push_on, const __grid_constant__ PushLanes lanes,
     int opl) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -139,15 +154,23 @@ __global__ void push_targets_kernel(
       int32_t* t_out = s_tgt + i * f;
       uint8_t* sup_out = s_sup + i * f;
       uint8_t* drop_out = s_drop + i * f;
+      int32_t* tp_out = nullptr;
+      int32_t* tc_out = nullptr;
+      if constexpr (kTrace) {
+        tp_out = trace_peers + (r0 + i) * f;
+        tc_out = trace_code + (r0 + i) * f;
+      }
       int kk = 0;
       for (int j = 0; push_on && j < s && kk < f; ++j) {
         const int p = a[j];
         if (p >= n || pr[j] || p == org) continue;
         bool ok = !tf[j];
+        int32_t code = ok ? kTraceCandidate : kTraceFailedTarget;
         if constexpr (kPart) {
           const bool su = ok && part_on && __ldg(side + p) != side_n;
           sup_out[kk] = su;
           ok &= !su;
+          if (su) code = kTraceSuppressed;
         }
         if constexpr (kLoss) {
           const bool dr =
@@ -155,14 +178,23 @@ __global__ void push_targets_kernel(
                                                  (uint32_t)p) < threshold;
           drop_out[kk] = dr;
           ok &= !dr;
+          if (dr) code = kTraceDropped;
         }
         t_out[kk] = ok ? p : n;
+        if constexpr (kTrace) {
+          tp_out[kk] = p;
+          tc_out[kk] = code;
+        }
         ++kk;
       }
       for (; kk < f; ++kk) {
         t_out[kk] = n;
         if constexpr (kPart) sup_out[kk] = 0;
         if constexpr (kLoss) drop_out[kk] = 0;
+        if constexpr (kTrace) {
+          tp_out[kk] = -1;
+          tc_out[kk] = 0;
+        }
       }
     }
     __syncthreads();
@@ -175,17 +207,23 @@ __global__ void push_targets_kernel(
 
 using Kernel = void (*)(const int32_t*, const uint8_t*, const uint8_t*,
                         const int32_t*, const int32_t*, int32_t*, uint8_t*,
-                        uint8_t*, long long, int, int, int, int,
-                        const PushLanes, int);
+                        uint8_t*, int32_t*, int32_t*, long long, int, int,
+                        int, int, const PushLanes, int);
+
+template <bool kTrace>
+Kernel gates_for(bool part, bool loss) {
+  return part ? (loss ? push_targets_kernel<true, true, kTrace>
+                      : push_targets_kernel<true, false, kTrace>)
+              : (loss ? push_targets_kernel<false, true, kTrace>
+                      : push_targets_kernel<false, false, kTrace>);
+}
 
 // The instantiation for the gates that are present (part: sup is set,
-// loss: drop is), with its dynamic shared memory limit raised to smem
-// where that passes the default.
-cudaError_t kernel_for(bool part, bool loss, int smem, Kernel* kernel) {
-  *kernel = part ? (loss ? push_targets_kernel<true, true>
-                         : push_targets_kernel<true, false>)
-                 : (loss ? push_targets_kernel<false, true>
-                         : push_targets_kernel<false, false>);
+// loss: drop is) and the trace, with its dynamic shared memory limit
+// raised to smem where that passes the default.
+cudaError_t kernel_for(bool part, bool loss, bool trace, int smem,
+                       Kernel* kernel) {
+  *kernel = trace ? gates_for<true>(part, loss) : gates_for<false>(part, loss);
   if (smem <= kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(
       *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -197,26 +235,29 @@ cudaError_t kernel_for(bool part, bool loss, int smem, Kernel* kernel) {
 // launch geometry (kernels/push_targets.py launch_geometry and
 // persistent_grid, the latter from push_targets_blocks_per_sm).  sup and
 // drop may be null; sup set means the partition gate is present, drop set
-// the loss gate.  push_on 0 sends no push (the pull-only mode).  `lanes`
+// the loss gate.  trace_peers and trace_code are both set (the flight
+// recorder) or both null.  push_on 0 sends no push (the pull-only mode).  `lanes`
 // points at k PushLane records in host memory, one per lane of opl origin
 // rows (k * opl = rows / n).
 extern "C" int push_targets_launch(
     const int32_t* active, const uint8_t* pruned, const uint8_t* tfail,
     const int32_t* origins, const int32_t* side, int32_t* tgt, uint8_t* sup,
-    uint8_t* drop, long long rows, int n, int s, int f, int rows_per_block,
-    int grid, int smem, int push_on, const void* lanes, int k, int opl,
+    uint8_t* drop, int32_t* trace_peers, int32_t* trace_code,
+    long long rows, int n, int s, int f, int rows_per_block, int grid,
+    int smem, int push_on, const void* lanes, int k, int opl,
     cudaStream_t stream) {
   PushLanes lane_args;
   if (n < 1 || rows % n != 0 ||
+      (trace_peers == nullptr) != (trace_code == nullptr) ||
       !lanes_from_host(&lane_args, static_cast<const PushLane*>(lanes), k, rows / n, opl))
     return (int)cudaErrorInvalidValue;
   Kernel kernel;
-  const cudaError_t err =
-      kernel_for(sup != nullptr, drop != nullptr, smem, &kernel);
+  const cudaError_t err = kernel_for(sup != nullptr, drop != nullptr,
+                                     trace_peers != nullptr, smem, &kernel);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, rows_per_block, smem, stream>>>(
-      active, pruned, tfail, origins, side, tgt, sup, drop, rows, n, s, f,
-      push_on, lane_args, opl);
+      active, pruned, tfail, origins, side, tgt, sup, drop, trace_peers,
+      trace_code, rows, n, s, f, push_on, lane_args, opl);
   return (int)cudaGetLastError();
 }
 
@@ -226,7 +267,8 @@ extern "C" int push_targets_launch(
 extern "C" int push_targets_blocks_per_sm(int rows_per_block, int smem,
                                           int part, int loss, int* blocks) {
   Kernel kernel;
-  const cudaError_t err = kernel_for(part != 0, loss != 0, smem, &kernel);
+  const cudaError_t err =
+      kernel_for(part != 0, loss != 0, false, smem, &kernel);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, rows_per_block, (size_t)smem);

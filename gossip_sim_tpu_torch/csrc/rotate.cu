@@ -16,7 +16,11 @@
 //         perm [N] i32,
 //         class_start and class_count [25] i32, class_cdf [25, 25] f32.
 // Output: new_active, new_pruned, new_tfail [O, N, S]; rot_failed [O] i32,
-//         the rows that wanted to rotate and found no new peer in T tries.
+//         the rows that wanted to rotate and found no new peer in T tries;
+//         the flight recorder's rot [O, N] i32 where set (core.py:1371):
+//         the rotated-in peer, or -1 where the row did not rotate.  The
+//         kernel is instantiated for the trace, so without it (rot null)
+//         the trace-free instantiation runs.
 //
 // Draws (csrc/threefry.cuh, bit for bit as jax.random): the round key is
 // kr = fold_in(key[o], it); sub key 1 of split(kr, T + 2) draws the
@@ -69,6 +73,7 @@ struct RotateLane {
 };
 using RotateLanes = LaneArray<RotateLane>;
 
+template <bool kTrace>
 __global__ void rotate_kernel(
     const int32_t* __restrict__ active, const uint8_t* __restrict__ pruned,
     const uint8_t* __restrict__ tfail, const uint8_t* __restrict__ failed,
@@ -78,7 +83,8 @@ __global__ void rotate_kernel(
     const int32_t* __restrict__ class_count,
     const float* __restrict__ class_cdf, int32_t* __restrict__ new_active,
     uint8_t* __restrict__ new_pruned, uint8_t* __restrict__ new_tfail,
-    int32_t* __restrict__ rot_failed, long long rows, int n, int s,
+    int32_t* __restrict__ rot_failed, int32_t* __restrict__ rot,
+    long long rows, int n, int s,
     int tries, const __grid_constant__ RotateLanes lanes, int opl, int part,
     int key_bytes) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -126,6 +132,9 @@ __global__ void rotate_kernel(
   __syncthreads();
 
   const int i = threadIdx.x;
+  if constexpr (kTrace) {
+    if (i < nr) rot[r0 + i] = -1;   // a row that rotates overwrites it
+  }
   if (i < nr) {
     // the row's origin and node from the block's first row (a 32-bit
     // division only where the block passes an origin)
@@ -171,6 +180,7 @@ __global__ void rotate_kernel(
       if (!found) {
         atomicAdd(rot_failed + o, 1);
       } else {
+        if constexpr (kTrace) rot[r0 + i] = chosen;
         const uint8_t cf = __ldg(failed + (long long)o * n + min(chosen, n - 1));
         int members = 0;
         for (int j = 0; j < s; ++j) members += a[j] < n;
@@ -203,13 +213,15 @@ __global__ void rotate_kernel(
 // keys, 16-byte padded, ahead of the staged rows) and smem (both; the class
 // tables are static shared memory) come from kernels/rotate.py
 // launch_geometry.  `lanes` points at k RotateLane records in host memory,
-// one per lane of opl origin rows (k * opl = o).
+// one per lane of opl origin rows (k * opl = o).  rot null: the
+// trace-free instantiation.
 extern "C" int rotate_launch(
     const int32_t* active, const uint8_t* pruned, const uint8_t* tfail,
     const uint8_t* failed, const int64_t* key, const int32_t* origins,
     const int32_t* buckets, const int32_t* perm, const int32_t* class_start,
     const int32_t* class_count, const float* class_cdf, int32_t* new_active,
-    uint8_t* new_pruned, uint8_t* new_tfail, int32_t* rot_failed, int o,
+    uint8_t* new_pruned, uint8_t* new_tfail, int32_t* rot_failed,
+    int32_t* rot, int o,
     long long rows, int n, int s, int tries, const void* lanes, int k,
     int opl, int part, int rows_per_block, int key_bytes, int smem,
     cudaStream_t stream) {
@@ -219,16 +231,18 @@ extern "C" int rotate_launch(
   cudaError_t err = cudaMemsetAsync(rot_failed, 0, sizeof(int32_t) * o,
                                     stream);
   if (err != cudaSuccess) return (int)err;
+  const auto kernel = rot != nullptr ? rotate_kernel<true>
+                                     : rotate_kernel<false>;
   if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(rotate_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  rotate_kernel<<<(unsigned)blocks, rows_per_block, smem, stream>>>(
+  kernel<<<(unsigned)blocks, rows_per_block, smem, stream>>>(
       active, pruned, tfail, failed, key, origins, buckets, perm,
       class_start, class_count, class_cdf, new_active, new_pruned, new_tfail,
-      rot_failed, rows, n, s, tries, lane_args, opl, part, key_bytes);
+      rot_failed, rot, rows, n, s, tries, lane_args, opl, part, key_bytes);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,11 @@ and knobs.  The round's blocks run through the hand-written kernels of
 * with ``health`` on, the node-health planes
   (obs/health.py): prunes received per prunee and
   each node's first delivery round                -> ``health_round``
+* with ``trace`` on, the flight recorder's rows (obs/trace.py): the slot
+  codes of verb 1, the rotation events and the pull
+  codes come from ``push_targets``, ``rotate`` and
+  ``pull_exchange`` as outputs of their traced
+  instantiations, and the prune pairs      -> ``trace_prune_pairs``
 
 An unimpaired, churn, loss or partition round makes no other draw.  The
 other threefry draws go to the ``threefry`` kernel (``rng``):
@@ -51,7 +56,9 @@ mode without traffic) carries ``rc_shi``/``rc_slo`` at zero width,
 ``[O, N, 0]``, and ``rc_merge_prune`` reads each member's stake from
 ``tables.shi``/``tables.slo`` at its ``rc_src`` (index N, the pad, is 0 as
 on an empty dense slot).  Every other step is the same in both layouts,
-so rows and the other state fields are bit for bit the dense round's.
+so rows and the other state fields are bit for bit the dense round's.  The
+flight recorder runs in the dense layout and on one lane only, as the
+reference's does.
 The reference's ``gossip_sim_tpu/engine/sparse.py`` has no module here:
 its ``bfs_reach`` computes what the ``bfs_relax`` kernel does, its
 ``rank_inbound`` what the ``rank_inbound`` kernel does, and its direct
@@ -368,10 +375,13 @@ def _split_params(params, knobs):
 def _one_lane(params, knobs, origins, state, it0, trace):
     """The serial entry points' refusals (before the state is read) and
     their run as one lane from iteration ``it0``: (static, lanes)."""
-    if trace:
-        raise NotImplementedError(
-            "the flight recorder (trace=True) is not ported yet (ROADMAP A13)")
     p, kn = _split_params(params, knobs)
+    if trace and p.representation == "sparse":
+        # the reference's words (gossip_sim_tpu/engine/core.py:482-486)
+        raise ValueError(
+            "the flight recorder requires representation='dense' — "
+            "sparse rounds do not materialize the full-width edge "
+            "intermediates it captures")
     _check_key_bounds(p.num_nodes, p.hist_bins, p.k_inbound)
     one = EngineKnobs(*(np.asarray(v).reshape(1) for v in kn))
     return p, Lanes(one, int(origins.shape[0]), [int(it0)],
@@ -387,25 +397,29 @@ def round_step(params, tables: ClusterTables, origins: torch.Tensor,
     :class:`EngineStatic` with ``knobs`` (which must not need a block the
     static gates out).  Returns (state, rows); ``detail`` adds the per-node
     rows, ``edge_detail`` the per-edge targets and hops [O, N, F] (-1 where
-    no message was delivered).  Before it reads the state it refuses the
-    flight recorder (``NotImplementedError`` naming its ROADMAP item),
-    sparse with a pull mode or traffic
-    (``ValueError``) and inbound keys past int32; then a state whose stake
-    planes are not the representation's width (``ValueError``).  This is
-    the one-lane case of the lane round (engine/lanes.py)."""
+    no message was delivered), ``trace`` the flight recorder's rows
+    (obs/trace.py; the ``detail`` rows with them).  Before it reads the
+    state it refuses the flight recorder in the sparse layout, sparse with
+    a pull mode or traffic (``ValueError``) and inbound keys past int32;
+    then a state whose stake planes are not the representation's width
+    (``ValueError``).  This is the one-lane case of the lane round
+    (engine/lanes.py)."""
     p, lanes = _one_lane(params, knobs, origins, state, it, trace)
     return lane_round(p, lanes, tables, origins, state, 0, detail,
-                      edge_detail)
+                      edge_detail, trace)
 
 
 def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
                origins: torch.Tensor, state: SimState, r: int,
-               detail: bool = False, edge_detail: bool = False):
+               detail: bool = False, edge_detail: bool = False,
+               trace: bool = False):
     """Round ``r`` of a run of K lanes: ``origins`` and every state field
     have R = K * O rows (lane k's rows ``[k O, (k + 1) O)``), and each
     lane's knobs and iteration come from ``lanes``.  Returns (state, rows)
     with R rows.  The kernels take the knobs per lane; the plain parts take
-    a value every lane shares as a host scalar and the others as rows."""
+    a value every lane shares as a host scalar and the others as rows.
+    ``trace`` adds the flight recorder's rows; with it off the round makes
+    the launches and gives the bits it did before the recorder."""
     N, S, F, C, Kin, H = (p.num_nodes, p.active_set_size, p.push_fanout,
                           p.rc_slots, p.k_inbound, p.hist_bins)
     _check_key_bounds(N, H, Kin)
@@ -495,9 +509,10 @@ def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
             if p.has_loss else None)
     # pull-only mode sends no push; the push machinery still runs on the
     # empty edge set (BFS, verbs 2-4 and rotation, which moves the state)
-    tgt, sup_mask, drop_mask = K.push_targets(
+    pushed = K.push_targets(
         peer, state.pruned, tfail, origins, tables.side, F, partition, loss,
-        push_on=p.has_push)
+        push_on=p.has_push, trace=trace)
+    tgt, sup_mask, drop_mask = pushed[:3]
 
     # ---- BFS frontier relaxation (kernel) --------------------------------
     reached, dist = K.bfs_relax(tgt, origins)
@@ -529,6 +544,14 @@ def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
         prune_stake_threshold=kn.prune_stake_threshold)
     n_pruned = mp.n_pruned
     m_prunes = n_pruned.sum(-1, dtype=i32)                        # [O]
+    if trace:
+        # the flight recorder's first-delivery senders: rank 0 of each
+        # target's inbound ranking (ascending hop1 << pb | src) is its
+        # least (hop, src) delivered edge, kept however many pass K
+        first = inb[..., 0]
+        trace_first = torch.where(first < N, first, -1)
+        trace_prune = K.trace_prune_pairs(n_pruned, mp.pruned_slot,
+                                          mp.src_sorted, p.prune_cap)
 
     # ---- verb 4: prune apply (kernel) ------------------------------------
     pruned_bits = K.prune_apply(state.pruned, peer, mp.src_sorted,
@@ -538,11 +561,12 @@ def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
     # push_active_set.rs:153-186), drawing its uniforms from sub keys
     # 1 .. T + 1 of the round key fold_in(key, it) itself ------------------
     sm = tables.sampler
-    new_active, new_pruned, new_tfail, rot_failed = K.rotate(
+    rotated = K.rotate(
         peer, pruned_bits, tfail, failed, state.key, its, origins,
         tables.buckets, sm.perm, sm.class_start, sm.class_count,
         sm.class_cdf, kn.probability_of_rotation, p.rot_tries,
-        rng.partitionable())
+        rng.partitionable(), trace=trace)
+    new_active, new_pruned, new_tfail, rot_failed = rotated[:4]
 
     # ---- pull phase (kernel; pull.py): one request/response exchange
     # against this round's push outcome, every decision a counter hash ----
@@ -559,7 +583,8 @@ def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
             cap=kn.pull_request_cap, partition=partition,
             loss=((basis(SALT_PULL_LOSS),
                    lanes.threshold("packet_loss_rate"))
-                  if p.has_loss else None))
+                  if p.has_loss else None),
+            trace=trace)
         # the delivery view of the stats (push BFS plus the pull rescues)
         # comes from the kernel
         reached_all, dist_all = pull.reached_all, pull.dist_all
@@ -695,7 +720,7 @@ def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
         # the bit in effect this round, and whether this round flipped it
         rows["adaptive_pull_active"] = state.adaptive_pull_on
         rows["adaptive_switched"] = new_adapt != state.adaptive_pull_on
-    if detail:
+    if detail or trace:
         rows["stranded_mask"] = stranded
         # the push distance; pull_hop is the pull-sourced one (-1 = none)
         rows["dist"] = torch.where(reached, dist, -1).to(i32)
@@ -707,6 +732,18 @@ def lane_round(p: EngineStatic, lanes: Lanes, tables: ClusterTables,
         # gossip.rs:374-390): edge src -> tgt delivered at hop dist[src] + 1
         rows["push_targets"] = torch.where(delivered, tgt, -1)
         rows["edge_hops"] = torch.where(delivered, hop1[:, :, None], -1)
+    if trace:
+        # the flight recorder's rows (obs/trace.py), with the PRE-round
+        # active set and pruned bits that verb 1 pushed through
+        rows["trace_peers"], rows["trace_code"] = pushed[3:]
+        rows["trace_first"] = trace_first
+        rows["trace_prune_src"], rows["trace_prune_dst"] = trace_prune
+        rows["trace_rot"] = rotated[4]
+        rows["trace_active"] = torch.where(peer < N, peer, -1)
+        rows["trace_pruned"] = state.pruned
+        if p.has_pull:
+            rows["trace_pull_peers"] = pull.trace_peers
+            rows["trace_pull_code"] = pull.trace_code
     return new_state, rows
 
 
@@ -738,6 +775,6 @@ def run_rounds(params, tables: ClusterTables, origins: torch.Tensor,
     per_round = []
     for r in range(int(num_iters)):
         state, rows = lane_round(p, lanes, tables, origins, state, r,
-                                 detail, edge_detail)
+                                 detail, edge_detail, trace)
         per_round.append(rows)
     return state, stack_rows(per_round)

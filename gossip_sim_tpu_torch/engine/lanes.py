@@ -29,6 +29,10 @@ origins (``[K, O]``, :func:`stack_origins`) and start iterations, the
 dynamic-membership runner: :func:`splice_lane_state` admits a fresh state
 into one lane and leaves the others' bits as they were.
 
+Flight-recorder ``trace`` rows are not offered here, as in the reference:
+``trace=True`` raises ``ValueError`` with :data:`LANE_TRACE_REASON`, and
+the CLI refuses ``--trace-dir`` with ``--sweep-lanes``.
+
 The reference's ``lane_cache_size``/``clear_lane_cache`` and their dyn
 twins count compiled JAX executables; the port compiles nothing per shape
 (its kernels are built once from ``csrc/``), so they have no counterpart
@@ -44,6 +48,17 @@ from .core import (ClusterTables, Lanes, SimState, _validate_static,
                    lane_round, stack_rows)
 from .params import EngineKnobs, EngineStatic, _check_knob_gates
 from ..kernels._lanes import MAX_LANES
+
+#: why a lane batch records no trace (the reference's engine/lanes.py:40-43)
+LANE_TRACE_REASON = (
+    "flight-recorder trace rows are not offered in lane mode: per-lane "
+    "trace segments would interleave K sims' event streams in one capture "
+    "buffer; trace a serial run instead")
+
+
+def _refuse_trace(trace: bool) -> None:
+    if trace:
+        raise ValueError(LANE_TRACE_REASON)
 
 
 def stack_knobs(knob_list) -> EngineKnobs:
@@ -183,7 +198,7 @@ def _run_group(static, tables, origin_rows, states, knobs, num_iters, its0,
 def run_rounds_lanes(static: EngineStatic, tables: ClusterTables,
                      origins: torch.Tensor, states: SimState,
                      knobs: EngineKnobs, num_iters: int, start_it: int = 0,
-                     detail: bool = False):
+                     detail: bool = False, trace: bool = False):
     """Run ``num_iters`` rounds of K lanes from iteration ``start_it``.
 
     ``states`` carries a leading lane axis (:func:`broadcast_state`),
@@ -191,7 +206,9 @@ def run_rounds_lanes(static: EngineStatic, tables: ClusterTables,
     origins every lane runs.  Returns ``(states, rows)``, every rows leaf
     ``[num_iters, K, O, ...]``; a lane's slice equals a serial
     ``run_rounds(static, ..., knobs=<that lane's>)``.  K may pass
-    :data:`MAX_LANES`: the lanes then run in groups of at most that many."""
+    :data:`MAX_LANES`: the lanes then run in groups of at most that many.
+    ``trace`` is refused (:data:`LANE_TRACE_REASON`)."""
+    _refuse_trace(trace)
     k = num_lanes(knobs)
     origins = torch.as_tensor(origins).reshape(-1)
     return _run(static, tables, origins.repeat(k), states, knobs, num_iters,
@@ -200,13 +217,16 @@ def run_rounds_lanes(static: EngineStatic, tables: ClusterTables,
 
 def run_rounds_lanes_dyn(static: EngineStatic, tables: ClusterTables,
                          origins, states: SimState, knobs: EngineKnobs,
-                         num_iters: int, start_its, detail: bool = False):
+                         num_iters: int, start_its, detail: bool = False,
+                         trace: bool = False):
     """One block of K lanes that each run their own scenario: ``origins``
     ``[K, O]`` (:func:`stack_origins`) and ``start_its`` ``[K]``, so lane k
     runs rounds ``start_its[k] .. start_its[k] + num_iters`` from its own
     origins.  Rows come back as from :func:`run_rounds_lanes`; a lane's
     equal a solo run of its scenario.  An idle lane keeps stepping its last
-    state and its rows are the caller's to drop."""
+    state and its rows are the caller's to drop.  ``trace`` is refused
+    (:data:`LANE_TRACE_REASON`)."""
+    _refuse_trace(trace)
     k = num_lanes(knobs)
     origins = torch.as_tensor(origins)
     if origins.dim() != 2 or origins.shape[0] != k:

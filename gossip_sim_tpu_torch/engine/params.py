@@ -34,10 +34,11 @@ derives the member stakes from the cluster tables (push mode without
 traffic only; results are bit for bit the dense round's).  ``health``
 is the node-health observatory's static gate (obs/health.py): on, the
 round accumulates the health planes through the ``health_round`` kernel;
-off, the round carries no health work and leaves the planes zero.  The
-reference's prune-apply budget ``pa_slots`` (the ``prune_apply`` kernel
-needs none) and the flight recorder's capture width come back with the
-slice that reads them.
+off, the round carries no health work and leaves the planes zero.
+``trace_prune_cap`` is the flight recorder's prune-pair capture width
+(obs/trace.py; ``prune_cap`` resolves it).  The reference's prune-apply
+budget ``pa_slots`` has no field here: the ``prune_apply`` kernel needs
+none.
 
 Sweep lanes (engine/lanes.py) share one ``EngineStatic``:
 :func:`merge_lane_statics` unions the lanes' gates and widest pull slots,
@@ -52,6 +53,15 @@ from typing import NamedTuple
 import numpy as np
 
 from ..constants import MIN_NUM_UPSERTS, RECEIVED_CACHE_CAPACITY
+
+
+def _resolve_prune_cap(trace_prune_cap: int, num_nodes: int,
+                       rc_slots: int) -> int:
+    """Flight-recorder prune-pair capture width per (origin, round): 0 =
+    auto, 16 * N, and never more than the N * rc_slots pairs a round can
+    emit (the reference's rule, engine/params.py:41-47)."""
+    cap = trace_prune_cap or 16 * num_nodes
+    return min(cap, num_nodes * rc_slots)
 
 
 def _resolve_k_inbound(inbound_cap: int, push_fanout: int) -> int:
@@ -117,6 +127,7 @@ class EngineStatic(NamedTuple):
     hist_bins: int
     rot_tries: int
     init_draws: int
+    trace_prune_cap: int = 0
     has_fail: bool = False
     has_loss: bool = False
     has_churn: bool = False
@@ -130,6 +141,11 @@ class EngineStatic(NamedTuple):
     @property
     def k_inbound(self) -> int:
         return _resolve_k_inbound(self.inbound_cap, self.push_fanout)
+
+    @property
+    def prune_cap(self) -> int:
+        return _resolve_prune_cap(self.trace_prune_cap, self.num_nodes,
+                                  self.rc_slots)
 
     @property
     def stake_slots(self) -> int:
@@ -232,6 +248,11 @@ class EngineParams(NamedTuple):
     hist_bins: int = 64     # on-device hop-histogram bins
     rot_tries: int = 8      # rejection-sampling tries per rotation event
     init_draws: int = 64    # candidate draws per entry at initialization
+    trace_prune_cap: int = 0  # flight-recorder (obs/trace.py) prune pairs
+                              # captured per (origin, round); 0 = auto
+                              # (16 * num_nodes).  Overflow is counted in
+                              # the trace manifest; only the trace
+                              # truncates, never the simulation
 
     @property
     def has_churn(self) -> bool:
@@ -270,6 +291,14 @@ class EngineParams(NamedTuple):
         ``rows["inb_dropped"]`` and warned about by the CLI."""
         return _resolve_k_inbound(self.inbound_cap, self.push_fanout)
 
+    @property
+    def prune_cap(self) -> int:
+        """Resolved flight-recorder prune-pair capture width per round
+        (``trace_prune_cap``; 0 = auto: 16 * num_nodes, never more than
+        N * rc_slots)."""
+        return _resolve_prune_cap(self.trace_prune_cap, self.num_nodes,
+                                  self.rc_slots)
+
     def split(self) -> tuple[EngineStatic, EngineKnobs]:
         """(shapes and block gates, knobs at their dtypes)."""
         return self.static_part(), self.knob_values()
@@ -288,6 +317,7 @@ class EngineParams(NamedTuple):
             hist_bins=self.hist_bins,
             rot_tries=self.rot_tries,
             init_draws=self.init_draws,
+            trace_prune_cap=self.trace_prune_cap,
             has_fail=self.fail_at >= 0 and self.fail_fraction > 0.0,
             has_loss=self.packet_loss_rate > 0.0,
             has_churn=self.has_churn,

@@ -39,8 +39,10 @@ kernels take the K lanes in one launch each: ``traffic_send``,
 ``rank_inbound``, ``rc_merge_prune`` and ``prune_apply`` over the K x V
 value rows.  A knob every lane shares stays a host scalar.
 
-``trace=True`` (the flight recorder, ROADMAP A13) is not ported.  Entry
-points run on ``cuda`` unless the CPU is asked for.
+``trace=True`` (the traffic flight recorder, trace schema v3/v4, ROADMAP
+A13b) is not ported: the serial entry points raise ``NotImplementedError``
+naming it, and the lane runner refuses a trace as the push engine's lanes
+do.  Entry points run on ``cuda`` unless the CPU is asked for.
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ from ..traffic import (SALT_TRAFFIC_LOSS, SALT_TRAFFIC_OCLASS,
                        traffic_tables, u01_t)
 from .core import (ClusterTables, _check_key_bounds, _pack_base,
                    resolve_device, stack_rows)
-from .lanes import cat_lanes, check_lane_knobs, lane_groups, num_lanes
+from .lanes import (_refuse_trace, cat_lanes, check_lane_knobs, lane_groups,
+                    num_lanes)
 from .params import EngineKnobs, EngineParams, EngineStatic
 
 
@@ -591,7 +594,8 @@ def _one_lane(params: EngineParams, state: TrafficState, trace: bool):
     lanes, the state with a lane axis of one)."""
     if trace:
         raise NotImplementedError(
-            "the flight recorder (trace=True) is not ported yet (ROADMAP A13)")
+            "the traffic flight recorder (trace=True) is not ported yet "
+            "(ROADMAP A13b)")
     p, kn = params.validate().split()
     _check_traffic(p)
     one = EngineKnobs(*(np.asarray(v).reshape(1) for v in kn))
@@ -647,7 +651,8 @@ def traffic_lane_state(states: TrafficState, lane: int) -> TrafficState:
 def run_traffic_lanes(static: EngineStatic, tables: ClusterTables,
                       ttables: TrafficTables, lane_state: TrafficState,
                       lane_knobs: EngineKnobs, num_iters: int,
-                      start_it: int = 0, detail: bool = False):
+                      start_it: int = 0, detail: bool = False,
+                      trace: bool = False):
     """A lane-batched traffic sweep: K stacked knob vectors
     (``lanes.stack_knobs``; the static is ``merge_lane_statics`` of the
     lanes') over a ``[K, ...]`` stack of states
@@ -657,7 +662,9 @@ def run_traffic_lanes(static: EngineStatic, tables: ClusterTables,
     knobs, and the reference's lane.  Each round of up to
     :data:`~..kernels._lanes.MAX_LANES` lanes is one round body
     (:func:`traffic_lane_round`), each kernel one launch with the lane in
-    its grid; more lanes run in groups of at most that many."""
+    its grid; more lanes run in groups of at most that many.  ``trace`` is
+    refused (``lanes.LANE_TRACE_REASON``)."""
+    _refuse_trace(trace)
     k = num_lanes(lane_knobs)
     _check_traffic(static)
     check_lane_knobs(static, [EngineKnobs(*(np.asarray(v)[j]

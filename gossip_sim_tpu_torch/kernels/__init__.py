@@ -19,6 +19,7 @@ from .rank_inbound import rank_inbound, rank_inbound_plain
 from .rc_merge_prune import MergePruneOut, rc_merge_prune, rc_merge_prune_plain
 from .rotate import rotate, rotate_plain
 from .threefry import threefry, threefry_plain
+from .trace_prune_pairs import trace_prune_pairs, trace_prune_pairs_plain
 from .traffic_admit import AdmitOut, traffic_admit, traffic_admit_plain
 from .traffic_rescue import RescueOut, traffic_rescue, traffic_rescue_plain
 from .traffic_send import SendOut, traffic_send, traffic_send_plain
@@ -56,6 +57,8 @@ __all__ = [
     "rotate_plain",
     "threefry",
     "threefry_plain",
+    "trace_prune_pairs",
+    "trace_prune_pairs_plain",
     "traffic_admit",
     "traffic_admit_plain",
     "traffic_rescue",

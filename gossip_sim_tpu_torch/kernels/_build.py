@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNEL_NAMES = ("bfs_relax", "rank_inbound", "rc_merge_prune", "prune_apply",
                 "threefry", "push_targets", "rotate", "pull_exchange",
                 "traffic_send", "traffic_admit", "traffic_rescue",
-                "health_round", "health_digest")
+                "health_round", "health_digest", "trace_prune_pairs")
 #: Kernels built from another's source, counted apart: the sparse layout's
 #: variant of rc_merge_prune (csrc/rc_merge_prune.cu) and the traffic form
 #: of health_round (csrc/health_round.cu).

@@ -15,6 +15,11 @@ the cap, the partition flag, the loss basis and threshold) may be per lane
 (at most ``slots``) and by whether any lane's cap is on; slots past a
 lane's fanout send nothing, and each slot's draw depends on (node, slot)
 only, so the shape never changes a lane's result.
+
+With ``trace`` the result also carries the flight recorder's view of the
+request slots (core.py:1165-1180; obs/trace.py ``pull_peers`` and
+``pull_code``): each of the ``slots`` slots' sampled peer where the
+request was sent, else -1, and its ``PULL_*`` outcome (pull.py).
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ import numpy as np
 import torch
 
 from ..faults import edge_u32_t, node_u32_t
+from ..pull import (PULL_DROPPED, PULL_MISS_ALREADY_HELD, PULL_MISS_BLOOM_FP,
+                    PULL_MISS_CAPPED, PULL_MISS_NOT_HELD, PULL_PEER_FAILED,
+                    PULL_RESPONSE, PULL_SUPPRESSED)
 from . import _build, _lanes
 
 NAME = "pull_exchange"
@@ -54,6 +62,8 @@ class PullOut(NamedTuple):
     counts: torch.Tensor    # [O, 6] i32, columns COUNT_NAMES
     reached_all: torch.Tensor  # [O, N] bool reached by push or by pull
     dist_all: torch.Tensor     # [O, N] i32 dist where reached, else pull_hop
+    trace_peers: torch.Tensor | None = None  # [O, N, slots] i32 (trace)
+    trace_code: torch.Tensor | None = None   # [O, N, slots] i32 (trace)
 
 
 class Geometry(NamedTuple):
@@ -185,7 +195,8 @@ def _plain_one(reached: torch.Tensor, dist: torch.Tensor,
                         class_count: torch.Tensor, cdf: torch.Tensor,
                         adaptive_on, *, fanout: int, slots: int,
                         pull_on: bool, bases: tuple, bloom_threshold: int,
-                        cap: int, partition=None, loss=None) -> PullOut:
+                        cap: int, partition=None, loss=None,
+                        trace: bool = False) -> PullOut:
     """One lane of :func:`pull_exchange_plain`: scalar knobs."""
     O, N = reached.shape
     dev = reached.device
@@ -204,6 +215,7 @@ def _plain_one(reached: torch.Tensor, dist: torch.Tensor,
     arrived = sent & ~gather(failed)
     zero_o = torch.zeros(O, dtype=i32, device=dev)
     n_sup = n_drop = zero_o
+    sup = drop = None
     if partition is not None:
         sup = arrived & bool(partition) & (side[:N][:, None]
                                            != side[peer_ns.long()])[None]
@@ -233,8 +245,8 @@ def _plain_one(reached: torch.Tensor, dist: torch.Tensor,
         served = arrived & (rank.reshape(O, N, slots) < cap)
 
     fp = node_u32_t(b_fp, nodes) < bloom_threshold                # [N]
-    transfer = (served & gather(reached) & ~reached[:, :, None]
-                & ~fp[None, :, None])
+    holds, lacks = gather(reached), ~reached[:, :, None]
+    transfer = served & holds & lacks & ~fp[None, :, None]
     resp_out = torch.zeros((O, N + 1), dtype=i32, device=dev).scatter_add_(
         1, torch.where(transfer.reshape(O, -1), peer_flat, N),
         torch.ones_like(key, dtype=i32))[:, :N]
@@ -245,13 +257,33 @@ def _plain_one(reached: torch.Tensor, dist: torch.Tensor,
     n_resp = transfer.sum((1, 2), dtype=i32)
     counts = torch.stack([n_arr, n_resp, n_arr - n_resp, n_drop, n_sup,
                           (pull_hop < INF).sum(-1, dtype=i32)], dim=1)
+    trace_out = {}
+    if trace:
+        # the reference's order of overrides (core.py:1166-1177)
+        code = torch.zeros((O, N, slots), dtype=i32, device=dev)
+        for mask, c in (
+                (sent & gather(failed), PULL_PEER_FAILED),
+                (sup, PULL_SUPPRESSED), (drop, PULL_DROPPED),
+                (arrived & ~served, PULL_MISS_CAPPED),
+                (served & ~holds, PULL_MISS_NOT_HELD),
+                (served & holds & ~lacks, PULL_MISS_ALREADY_HELD),
+                (served & holds & lacks & fp[None, :, None],
+                 PULL_MISS_BLOOM_FP),
+                (transfer, PULL_RESPONSE)):
+            if mask is not None:
+                code = torch.where(mask, c, code)
+        trace_out = dict(
+            trace_peers=torch.where(sent, peer_ns[None], -1).to(
+                i32).contiguous(),
+            trace_code=code.contiguous())
     return PullOut(
         pull_hop=pull_hop.contiguous(),
         egress=(arrived.sum(-1, dtype=i32) + resp_out).contiguous(),
         ingress=(req_in + transfer.sum(-1, dtype=i32)).contiguous(),
         counts=counts.contiguous(),
         reached_all=(reached | (pull_hop < INF)).contiguous(),
-        dist_all=torch.where(reached, dist, pull_hop).contiguous())
+        dist_all=torch.where(reached, dist, pull_hop).contiguous(),
+        **trace_out)
 
 
 def pull_exchange_plain(reached: torch.Tensor, dist: torch.Tensor,
@@ -260,7 +292,7 @@ def pull_exchange_plain(reached: torch.Tensor, dist: torch.Tensor,
                         class_count: torch.Tensor, cdf: torch.Tensor,
                         adaptive_on, *, fanout, slots: int, pull_on, bases,
                         bloom_threshold, cap, partition=None,
-                        loss=None) -> PullOut:
+                        loss=None, trace: bool = False) -> PullOut:
     """One pull exchange against this round's push outcome.
 
     ``reached``/``failed`` [O, N] bool and ``dist`` [O, N] i32 (the push
@@ -276,7 +308,8 @@ def pull_exchange_plain(reached: torch.Tensor, dist: torch.Tensor,
     (``fanout`` at most ``slots`` in each): K values, lane k's for rows
     ``[k O / K, (k + 1) O / K)``.  Returns :class:`PullOut`,
     whose ``reached_all`` and ``dist_all`` are the delivery view of the
-    round stats: push BFS plus the pull rescues.
+    round stats: push BFS plus the pull rescues; with ``trace`` its
+    ``trace_peers`` and ``trace_code`` are set, else None.
     """
     O = reached.shape[0]
     k, kn = lane_knobs(O, fanout=fanout, pull_on=pull_on, bases=bases,
@@ -297,17 +330,20 @@ def pull_exchange_plain(reached: torch.Tensor, dist: torch.Tensor,
             bloom_threshold=int(v["fp_threshold"]), cap=int(v["cap"]),
             partition=None if partition is None else bool(v["part_on"]),
             loss=(None if loss is None
-                  else (int(v["b_loss"]), int(v["loss_threshold"])))))
+                  else (int(v["b_loss"]), int(v["loss_threshold"]))),
+            trace=trace))
     if len(outs) == 1:
         return outs[0]
-    return PullOut(*(torch.cat(parts).contiguous() for parts in zip(*outs)))
+    return PullOut(*(None if parts[0] is None
+                     else torch.cat(parts).contiguous()
+                     for parts in zip(*outs)))
 
 
 def _lib():
     fn = _build.library(NAME).pull_exchange_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 16 + [ci] * 5 + [vp, ci, ci] + [ci] * 5
+        fn.argtypes = ([vp] * 18 + [ci] * 6 + [vp, ci, ci] + [ci] * 5
                        + [vp])
         fn.restype = ci
     return fn
@@ -350,27 +386,31 @@ def pull_exchange(reached: torch.Tensor, dist: torch.Tensor,
                   perm: torch.Tensor, class_start: torch.Tensor,
                   class_count: torch.Tensor, cdf: torch.Tensor, adaptive_on,
                   *, fanout, slots: int, pull_on, bases, bloom_threshold,
-                  cap, partition=None, loss=None) -> PullOut:
+                  cap, partition=None, loss=None,
+                  trace: bool = False) -> PullOut:
     """The pull phase: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors.  Arguments and result as :func:`pull_exchange_plain`;
     the kernel takes ``side`` values of 0 and 1 (the stake bipartition).
+    Without ``trace`` the kernel's trace outputs are null and its
+    trace-free instantiation runs.
     """
     if not reached.is_cuda:
         return pull_exchange_plain(
             reached, dist, failed, side, perm, class_start, class_count, cdf,
             adaptive_on, fanout=fanout, slots=slots, pull_on=pull_on,
             bases=bases, bloom_threshold=bloom_threshold, cap=cap,
-            partition=partition, loss=loss)
+            partition=partition, loss=loss, trace=trace)
     return _launch(reached, dist, failed, side, perm, class_start,
                    class_count, cdf, adaptive_on, None, fanout=fanout,
                    slots=slots, pull_on=pull_on, bases=bases,
                    bloom_threshold=bloom_threshold, cap=cap,
-                   partition=partition, loss=loss)
+                   partition=partition, loss=loss, trace=trace)
 
 
 def _launch(reached, dist, failed, side, perm, class_start, class_count, cdf,
             adaptive_on, g, *, fanout, slots, pull_on, bases,
-            bloom_threshold, cap, partition, loss) -> PullOut:
+            bloom_threshold, cap, partition, loss,
+            trace: bool = False) -> PullOut:
     """Check the inputs and launch the kernel in geometry ``g`` (None:
     the device's :func:`launch_geometry` for the widest lane's fanout and
     the cap on where any lane's is)."""
@@ -403,10 +443,13 @@ def _launch(reached, dist, failed, side, perm, class_start, class_count, cdf,
     capped = int((kn["cap"] > 0).any())
     lanes = _lanes.pack(k, LANE_DTYPE, **kn)
     plane = lambda dt: torch.empty((O, N), dtype=dt, device=dev)
+    slot_plane = lambda: torch.empty((O, N, slots), dtype=torch.int32,
+                                     device=dev)
     out = PullOut(plane(torch.int32), plane(torch.int32), plane(torch.int32),
                   torch.empty((O, len(COUNT_NAMES)), dtype=torch.int32,
                               device=dev),
-                  plane(torch.bool), plane(torch.int32))
+                  plane(torch.bool), plane(torch.int32),
+                  *((slot_plane(), slot_plane()) if trace else ()))
     if O == 0 or N == 0:
         return out
     if g is None:
@@ -420,7 +463,9 @@ def _launch(reached, dist, failed, side, perm, class_start, class_count, cdf,
                 p(out.pull_hop), p(out.egress), p(out.ingress),
                 p(out.reached_all), p(out.dist_all), p(out.counts),
                 None if scratch is None else p(scratch),
-                O, N, wide, capped, int(loss is not None),
+                None if not trace else p(out.trace_peers),
+                None if not trace else p(out.trace_code),
+                O, N, wide, capped, int(loss is not None), slots,
                 lanes.ctypes.data, k, O // k, g.cs, g.slice_len, g.threads,
                 int(g.draw_words > 0), g.smem, _build.stream_of(reached))
     _build.launched(NAME, rc)

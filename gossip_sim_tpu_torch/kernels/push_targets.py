@@ -9,6 +9,12 @@ plain PyTorch, used for CPU tensors and as the spec.
 Sweep lanes (engine/lanes.py) run as more origin rows: the partition flag
 and the loss basis and threshold may be per lane (``kernels/_lanes.py``),
 read by each row from its lane.
+
+With ``trace`` the call also returns the flight recorder's view of the
+slots (core.py:606-618; obs/trace.py ``peers`` and ``code``): each of the
+F slots' peer (-1 where the row has fewer valid slots) and its outcome
+code, ``TRACE_CANDIDATE`` unless a gate took it (failed target >
+suppressed > dropped), 0 for a missing slot.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import numpy as np
 import torch
 
 from ..faults import edge_u32_t
+from ..obs.trace import (TRACE_CANDIDATE, TRACE_DROPPED, TRACE_FAILED_TARGET,
+                         TRACE_SUPPRESSED)
 from . import _build, _lanes
 
 NAME = "push_targets"
@@ -92,7 +100,8 @@ def blocks_per_sm(device: torch.device, rows_per_block: int, smem: int,
 def _plain_one(active: torch.Tensor, pruned: torch.Tensor,
                        tfail: torch.Tensor, origins: torch.Tensor,
                        side: torch.Tensor, fanout: int, partition=None,
-                       loss=None, push_on: bool = True):
+                       loss=None, push_on: bool = True,
+                       trace: bool = False):
     """One lane of :func:`push_targets_plain`: scalar knobs."""
     O, N, S = active.shape
     F = min(fanout, S)
@@ -107,7 +116,8 @@ def _plain_one(active: torch.Tensor, pruned: torch.Tensor,
     order = torch.sort(skey, dim=-1, stable=True).indices[..., :F]
     slot_ok = skey.gather(-1, order) < S
     peer = active.gather(-1, order)
-    deliver_ok = slot_ok & ~tfail.gather(-1, order)               # [O, N, F]
+    tf_slot = tfail.gather(-1, order)
+    deliver_ok = slot_ok & ~tf_slot                               # [O, N, F]
     sup_mask = drop_mask = None
     if partition is not None:
         side_dst = side[peer.clamp(max=N).long()]
@@ -120,7 +130,16 @@ def _plain_one(active: torch.Tensor, pruned: torch.Tensor,
         drop_mask = deliver_ok & (edge_u32_t(basis, src, peer) < threshold)
         deliver_ok = deliver_ok & ~drop_mask
     tgt = torch.where(deliver_ok, peer, N).to(i32).contiguous()
-    return tgt, sup_mask, drop_mask
+    if not trace:
+        return tgt, sup_mask, drop_mask
+    code = torch.where(slot_ok, TRACE_CANDIDATE, 0)
+    code = torch.where(slot_ok & tf_slot, TRACE_FAILED_TARGET, code)
+    for mask, c in ((sup_mask, TRACE_SUPPRESSED), (drop_mask, TRACE_DROPPED)):
+        if mask is not None:
+            code = torch.where(mask, c, code)
+    return (tgt, sup_mask, drop_mask,
+            torch.where(slot_ok, peer, -1).to(i32).contiguous(),
+            code.to(i32).contiguous())
 
 
 def lane_knobs(rows: int, partition, loss):
@@ -139,7 +158,7 @@ def lane_knobs(rows: int, partition, loss):
 def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
                        tfail: torch.Tensor, origins: torch.Tensor,
                        side: torch.Tensor, fanout: int, partition=None,
-                       loss=None, push_on: bool = True):
+                       loss=None, push_on: bool = True, trace: bool = False):
     """The first ``F = min(fanout, S)`` valid slots of each row and their
     delivery gates.
 
@@ -152,7 +171,8 @@ def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
     O / K)``.  ``push_on`` False (the pull-only mode) makes no slot valid,
     as the reference zeroes ``valid`` (core.py:566-571).  Returns ``tgt``
     [O, N, F] i32 (the peer, or N) and the ``sup_mask`` and ``drop_mask``
-    [O, N, F] bool of the gates that are present (else None).
+    [O, N, F] bool of the gates that are present (else None); with
+    ``trace``, then also the trace's ``peers`` and ``code`` [O, N, F] i32.
     """
     k, part, basis, thr = lane_knobs(active.shape[0], partition, loss)
     part, basis, thr = (None if a is None else _lanes.widen(a, k)
@@ -167,19 +187,19 @@ def push_targets_plain(active: torch.Tensor, pruned: torch.Tensor,
             active[rows], pruned[rows], tfail[rows], origins[rows], side,
             fanout, None if part is None else bool(part[j]),
             None if basis is None else (int(basis[j]), int(thr[j])),
-            push_on))
+            push_on, trace))
     if len(outs) == 1:
         return outs[0]
     return tuple(None if outs[0][i] is None
                  else torch.cat([o[i] for o in outs]).contiguous()
-                 for i in range(3))
+                 for i in range(len(outs[0])))
 
 
 def _lib():
     fn = _build.library(NAME).push_targets_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 8 + [ctypes.c_longlong] + [ci] * 7
+        fn.argtypes = ([vp] * 10 + [ctypes.c_longlong] + [ci] * 7
                        + [vp, ci, ci, vp])
         fn.restype = ci
     return fn
@@ -188,12 +208,14 @@ def _lib():
 def push_targets(active: torch.Tensor, pruned: torch.Tensor,
                  tfail: torch.Tensor, origins: torch.Tensor,
                  side: torch.Tensor, fanout: int, partition=None, loss=None,
-                 push_on: bool = True):
+                 push_on: bool = True, trace: bool = False):
     """Verb 1: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors.  Returns what :func:`push_targets_plain` does."""
+    tensors.  Returns what :func:`push_targets_plain` does; without
+    ``trace`` the kernel's trace outputs are null and its trace-free
+    instantiation runs."""
     if not active.is_cuda:
         return push_targets_plain(active, pruned, tfail, origins, side,
-                                  fanout, partition, loss, push_on)
+                                  fanout, partition, loss, push_on, trace)
     O, N, S = active.shape
     F = min(fanout, S)
     dev = active.device
@@ -213,8 +235,11 @@ def push_targets(active: torch.Tensor, pruned: torch.Tensor,
     tgt = torch.empty((O, N, F), dtype=torch.int32, device=dev)
     sup = None if partition is None else mask()
     drop = None if loss is None else mask()
+    plane = lambda: torch.empty((O, N, F), dtype=torch.int32, device=dev)
+    t_peers, t_code = (plane(), plane()) if trace else (None, None)
+    out = (tgt, sup, drop) + ((t_peers, t_code) if trace else ())
     if tgt.numel() == 0:
-        return tgt, sup, drop
+        return out
     rows, smem = launch_geometry(S, F, _build.smem_optin(dev))
     _, grid = persistent_grid(
         O * N, rows, _build.sm_count(dev),
@@ -222,8 +247,8 @@ def push_targets(active: torch.Tensor, pruned: torch.Tensor,
     p = _build.ptr
     opt = lambda t: None if t is None else p(t)
     rc = _lib()(p(active), p(pruned), p(tfail), p(origins), p(side), p(tgt),
-                opt(sup), opt(drop), O * N, N, S, F, rows, grid, smem,
-                int(bool(push_on)), lanes.ctypes.data, k, O // k,
-                _build.stream_of(active))
+                opt(sup), opt(drop), opt(t_peers), opt(t_code), O * N, N, S,
+                F, rows, grid, smem, int(bool(push_on)), lanes.ctypes.data,
+                k, O // k, _build.stream_of(active))
     _build.launched(NAME, rc)
-    return tgt, sup, drop
+    return out

@@ -13,6 +13,10 @@ tensors and as the spec, and :func:`sample_members_plain` is its sampler
 Sweep lanes (engine/lanes.py) run as more origin rows: the iteration ``it``
 (which the round key folds in) and the rotation probability may be per
 lane (``kernels/_lanes.py``).
+
+With ``trace`` the call also returns the flight recorder's rotation events
+(core.py:1371, obs/trace.py ``rot``): the rotated-in peer of each row that
+rotated, else -1.
 """
 
 from __future__ import annotations
@@ -147,7 +151,8 @@ def draws_plain(key: torch.Tensor, it: int, n: int, tries: int,
 
 def rotate_plain(active, pruned, tfail, failed, key, it, origins, buckets,
                  perm, class_start, class_count, class_cdf,
-                 probability: float, tries: int, partitionable: bool = True):
+                 probability: float, tries: int, partitionable: bool = True,
+                 trace: bool = False):
     """Verb 5 over every (origin, node) row.
 
     ``active`` [O, N, S] i32, ``pruned`` (this round's bits after verb 4)
@@ -159,7 +164,8 @@ def rotate_plain(active, pruned, tfail, failed, key, it, origins, buckets,
     the threefry layout.  ``it`` and ``probability`` may be per lane: K
     values, lane k's for rows ``[k O / K, (k + 1) O / K)``.  The uniforms
     are :func:`draws_plain`'s.  Returns ``new_active``, ``new_pruned``,
-    ``new_tfail`` [O, N, S] and ``rot_failed`` [O] i32."""
+    ``new_tfail`` [O, N, S] and ``rot_failed`` [O] i32, and with ``trace``
+    the trace's ``rot`` [O, N] i32."""
     O, N, S = active.shape
     T = int(tries)
     dev = active.device
@@ -206,15 +212,18 @@ def rotate_plain(active, pruned, tfail, failed, key, it, origins, buckets,
     new_pruned = torch.where(rot3 & full_row, shift_prn, pruned)
     new_tfail = torch.where(rot3, torch.where(full_row, shift_tf, append_tf),
                             tfail)
-    return (new_active.contiguous(), new_pruned.contiguous(),
-            new_tfail.contiguous(), rot_failed)
+    out = (new_active.contiguous(), new_pruned.contiguous(),
+           new_tfail.contiguous(), rot_failed)
+    if trace:
+        out += (torch.where(do_rot, chosen, -1).contiguous(),)
+    return out
 
 
 def _lib():
     fn = _build.library(NAME).rotate_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 15 + [ci, ctypes.c_longlong, ci, ci, ci,
+        fn.argtypes = ([vp] * 16 + [ci, ctypes.c_longlong, ci, ci, ci,
                                     vp, ci, ci, ci, ci, ci, ci, vp])
         fn.restype = ci
     return fn
@@ -222,13 +231,15 @@ def _lib():
 
 def rotate(active, pruned, tfail, failed, key, it, origins, buckets, perm,
            class_start, class_count, class_cdf, probability: float,
-           tries: int, partitionable: bool = True):
+           tries: int, partitionable: bool = True, trace: bool = False):
     """Verb 5: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors.  Returns what :func:`rotate_plain` does."""
+    tensors.  Returns what :func:`rotate_plain` does; without ``trace`` the
+    kernel's trace output is null and its trace-free instantiation runs."""
     if not active.is_cuda:
         return rotate_plain(active, pruned, tfail, failed, key, it, origins,
                             buckets, perm, class_start, class_count,
-                            class_cdf, probability, tries, partitionable)
+                            class_cdf, probability, tries, partitionable,
+                            trace)
     O, N, S = active.shape
     T = int(tries)
     if T < 0:
@@ -250,8 +261,13 @@ def rotate(active, pruned, tfail, failed, key, it, origins, buckets, perm,
     new_pruned = torch.empty_like(pruned)
     new_tfail = torch.empty_like(tfail)
     rot_failed = torch.empty((O,), dtype=torch.int32, device=dev)
+    rot = (torch.empty((O, N), dtype=torch.int32, device=dev) if trace
+           else None)
+    out = (new_active, new_pruned, new_tfail, rot_failed) + (
+        (rot,) if trace else ())
     if active.numel() == 0:
-        return new_active, new_pruned, new_tfail, rot_failed.zero_()
+        rot_failed.zero_()
+        return out
     k, its, probs = lane_knobs(O, it, probability)
     lanes = _lanes.pack(k, LANE_DTYPE, prob=probs, it=its)
     g = launch_geometry(S, T, N, O, _build.smem_optin(dev))
@@ -259,9 +275,9 @@ def rotate(active, pruned, tfail, failed, key, it, origins, buckets, perm,
     rc = _lib()(p(active), p(pruned), p(tfail), p(failed), p(key),
                 p(origins), p(buckets), p(perm), p(class_start),
                 p(class_count), p(class_cdf), p(new_active), p(new_pruned),
-                p(new_tfail), p(rot_failed), O, O * N, N, S, T,
-                lanes.ctypes.data, k, O // k,
+                p(new_tfail), p(rot_failed), None if rot is None else p(rot),
+                O, O * N, N, S, T, lanes.ctypes.data, k, O // k,
                 int(bool(partitionable)), g.rows, g.key_bytes, g.smem,
                 _build.stream_of(active))
     _build.launched(NAME, rc)
-    return new_active, new_pruned, new_tfail, rot_failed
+    return out

@@ -21,10 +21,10 @@ and ``sim_perf`` (wall time and throughput of a measured round block, and
 the sender's queue depth), ``sim_pull`` (pull-phase counters) and
 ``sim_adaptive`` (the adaptive direction bit), ``sim_traffic`` and
 ``sim_traffic_summary`` (concurrent traffic: per-round contention counts
-and the end-of-run aggregate) and ``sim_node_health`` (the node-health
-digest of a measured block, under ``--health``).  The series of features
-the port lacks yet come with them: ``sim_trace`` (A13) and
-``sim_capacity`` (A15).
+and the end-of-run aggregate), ``sim_node_health`` (the node-health
+digest of a measured block, under ``--health``) and ``sim_trace`` (one
+flight-recorder segment flush, under ``--trace-dir``).  The series of
+features the port lacks yet come with them: ``sim_capacity`` (A15).
 """
 
 from __future__ import annotations
@@ -362,6 +362,18 @@ class InfluxDataPoint:
             f"sim_adaptive,simulation_iter={self.simulation_iteration},"
             f"start_time={self.start_timestamp} "
             f"iteration={int(it)},{fields} ")
+        self.append_timestamp()
+
+    def create_sim_trace_point(self, rounds, delivered_edges, prunes,
+                               bytes_written):
+        """Flight-recorder series (obs/trace.py): one point per trace
+        segment flush — rounds captured, delivered edges and prune pairs
+        recorded, and the compressed bytes written to --trace-dir."""
+        self.datapoint += (
+            f"sim_trace,simulation_iter={self.simulation_iteration},"
+            f"start_time={self.start_timestamp} "
+            f"rounds={rounds},delivered_edges={delivered_edges},"
+            f"prunes={prunes},bytes_written={bytes_written} ")
         self.append_timestamp()
 
     def create_sim_traffic_point(self, it, values: dict):

@@ -7,9 +7,11 @@ port's isolation and device rules.
 * asking for the default device without a GPU raises;
 * ``--all-origins`` runs through ``main`` on the CPU and logs its summary,
   and more than one mesh device or node shard raises naming ROADMAP A6b;
+* the parser holds 60 of the reference's 76 options and ``--device``;
 * a fresh interpreter that imports every port module (the sinks, the
-  ``write_accounts`` binary, ``checkpoint`` and ``resilience`` among them,
-  and the chip smoke script) has no
+  ``write_accounts`` binary, ``checkpoint``, ``resilience``, the flight
+  recorder's ``obs/trace.py`` and ``stats/edges.py`` among them, and the
+  chip smoke script) has no
   ``jax``, no ``gossip_sim_tpu``/``gossip_sim_tpu.*`` and no ``yaml``
   module loaded.
 
@@ -101,10 +103,23 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_unported_flags_are_rejected():
-    for argv in (["--backend", "oracle"], ["--trace-dir", "traces"],
+    for argv in (["--backend", "oracle"], ["--run-report", "report.json"],
                  ["--telemetry-port", "0"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(BASE + argv)
+
+
+def test_parser_holds_60_of_the_reference_options():
+    """The port's parser: 60 of the reference's 76 options (``-h``
+    counted), and ``--device`` beside them."""
+    flags = lambda p: {s for a in p._actions for s in a.option_strings
+                       if s.startswith("--") or s == "-h"}
+    ref = {a.option_strings[0] for a in ref_cli.build_parser()._actions}
+    ours = {a.option_strings[0] for a in cli.build_parser()._actions}
+    assert len(ref) == 76
+    assert len(ours & ref) == 60 and ours - ref == {"--device"}
+    assert {"--trace-dir", "--trace-origins",
+            "--trace-prune-cap"} <= flags(cli.build_parser())
 
 
 def test_all_origins_main_logs_its_summary(caplog):
@@ -159,7 +174,9 @@ assert int(rows["delivered"].sum()) > 0
 for m in ("gossip_sim_tpu_torch.sinks", "gossip_sim_tpu_torch.sinks.influx",
           "gossip_sim_tpu_torch.write_accounts",
           "gossip_sim_tpu_torch.checkpoint",
-          "gossip_sim_tpu_torch.resilience"):
+          "gossip_sim_tpu_torch.resilience",
+          "gossip_sim_tpu_torch.obs.trace", "gossip_sim_tpu_torch.obs.report",
+          "gossip_sim_tpu_torch.stats.edges"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "gossip_sim_tpu" or m.startswith("gossip_sim_tpu.")

@@ -145,8 +145,8 @@ def test_unported_features_raise():
         PortParams(40, **kw).validate()
 
 
-#: every EngineParams selector of the reference is ported; the flight
-#: recorder (round_step's trace=True) is the one refusal left
+#: every EngineParams selector of the reference is ported, and the flight
+#: recorder (round_step's trace=True) too: it refuses the sparse layout
 UNPORTED = ()
 #: once refused, now ported: adaptive traffic (ROADMAP A11b), the sparse
 #: representation (ROADMAP A7) and the node-health planes (ROADMAP A12)
@@ -157,15 +157,18 @@ PORTED = (dict(traffic_values=2, gossip_mode="adaptive"),
 
 def test_round_step_refuses_unported_features():
     """The round refuses what ``init_state`` refuses, and the flight
-    recorder, before it touches the state."""
+    recorder in the sparse layout (the reference's words), before it
+    touches the state (here a dense one)."""
     tt = tc.make_cluster_tables(_stakes(40), device="cpu")
     o = torch.zeros(1, dtype=torch.int32)
     ts = tc.init_state(rng.prng_key(1), tt, o, PortParams(40))
     for kw in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tc.round_step(PortParams(40, **kw), tt, o, ts, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tc.round_step(PortParams(40), tt, o, ts, 0, trace=True)
+    with pytest.raises(ValueError, match="the flight recorder requires "
+                       "representation='dense'"):
+        tc.round_step(PortParams(40, representation="sparse"), tt, o, ts, 0,
+                      trace=True)
 
 
 @pytest.mark.parametrize("scenario,layout", [

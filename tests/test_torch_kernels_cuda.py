@@ -22,6 +22,7 @@ from gossip_sim_tpu_torch.engine import (EngineParams, init_state,
                                          run_rounds)
 from gossip_sim_tpu_torch.engine.sampler import build_sampler_tables
 from gossip_sim_tpu_torch.faults import edge_u32, rate_threshold
+from gossip_sim_tpu_torch.pull import PULL_MISS_CAPPED
 
 bfs_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.bfs_relax")
 rank_mod = importlib.import_module(
@@ -1010,6 +1011,42 @@ def test_pull_exchange_every_cluster_size_equals_plain(cuda, cs, keep):
     _assert_equal(tuple(px_mod._launch(*args, g, **knobs)),
                   tuple(kernels.pull_exchange_plain(*args, **knobs)),
                   (cs, keep))
+
+
+@pytest.mark.parametrize("case", [c for c in PULL_CASES
+                                  if c.endswith("_state_in_device_memory")])
+def test_traced_pull_exchange_state_in_device_memory_equals_plain(cuda, case):
+    """The traced build with the per-peer words in device memory: its
+    ``trace_peers`` and ``trace_code`` (the capped codes read back from
+    the scratch words) equal the plain version's."""
+    o, n, kw = PULL_CASES[case]
+    args, knobs = _pull_inputs(cuda, o, n, kw)
+    g = px_mod.launch_geometry(o, n, knobs["fanout"], knobs["cap"], 132,
+                               4 * px_mod.MISC_WORDS)
+    assert g.scratch_words > 0
+    kernels.reset_launch_counts()
+    got = px_mod._launch(*args, g, trace=True, **knobs)
+    assert kernels.LAUNCHES["pull_exchange"] == 1
+    want = kernels.pull_exchange_plain(*args, trace=True, **knobs)
+    assert got.trace_code is not None and want.trace_code is not None
+    _assert_equal(tuple(got), tuple(want), case)
+    assert bool((got.trace_code == PULL_MISS_CAPPED).any())
+
+
+@pytest.mark.parametrize("cs", [1, 4, 16])
+@pytest.mark.parametrize("keep", [True, False])
+def test_traced_pull_exchange_every_cluster_size_equals_plain(cuda, cs, keep):
+    """The traced build with the cap binding, the draws kept and drawn
+    again: its trace outputs equal the plain version's."""
+    o, n = 3, 5003
+    args, knobs = _pull_inputs(cuda, o, n, dict(cap=1, partition=True,
+                                                loss=0.1, fanout=4))
+    g = px_mod.shape(o, n, 4, 1, cs, keep=keep)
+    assert (g.draw_words > 0) == keep
+    got = px_mod._launch(*args, g, trace=True, **knobs)
+    want = kernels.pull_exchange_plain(*args, trace=True, **knobs)
+    _assert_equal(tuple(got), tuple(want), (cs, keep))
+    assert bool((got.trace_code == PULL_MISS_CAPPED).any())
 
 
 @pytest.mark.parametrize("o,n,s", [(20, 700, 1000), (3, 1001, 7)])
@@ -2341,3 +2378,111 @@ def test_health_digest_equals_plain(cuda, case):
     assert kernels.LAUNCHES["health_digest"] == 1
     _assert_equal(got, kernels.health_digest_plain(stack, dec, k),
                   f"health_digest {case}")
+
+
+# ---- the flight recorder (trace outputs; trace_prune_pairs) ---------------
+
+#: traced engine runs: push under loss + partition + churn with the
+#: inbound ranking truncated and a prune cap that truncates, push-pull at
+#: request cap 1, pull, adaptive
+TRACE_CONFIGS = {
+    "push_impaired": (2000, 4, 22, dict(
+        warm_up_rounds=0, packet_loss_rate=0.1, churn_fail_rate=0.01,
+        churn_recover_rate=0.2, partition_at=3, heal_at=12, impair_seed=5,
+        inbound_cap=4, trace_prune_cap=500)),
+    "push_pull_cap1": (2000, 4, 21, dict(
+        warm_up_rounds=0, gossip_mode="push-pull", pull_fanout=4,
+        pull_request_cap=1, packet_loss_rate=0.1, partition_at=3,
+        heal_at=12, impair_seed=5)),
+    "pull": (2000, 2, 21, dict(warm_up_rounds=0, gossip_mode="pull")),
+    "adaptive": (2000, 3, 21, dict(warm_up_rounds=0, gossip_mode="adaptive",
+                                   adaptive_switch_threshold=0.5)),
+}
+TRACED = ("push_targets", "rotate", "pull_exchange", "trace_prune_pairs")
+
+
+@pytest.mark.parametrize("config", list(TRACE_CONFIGS))
+def test_traced_kernels_equal_plain_on_engine_rounds(cuda, config):
+    """Each traced call of a traced run equals its plain version, the same
+    call without the trace gives the untraced call's outputs bit for bit,
+    and the run's rows and state equal the same run on the CPU; the trace
+    adds one ``trace_prune_pairs`` launch a round and nothing else."""
+    n, n_origins, rounds, kw = TRACE_CONFIGS[config]
+    stakes = np.random.default_rng(0).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    params = EngineParams(num_nodes=n, **kw)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        tables = make_cluster_tables(stakes, device=dev)
+        origins = torch.arange(n_origins, dtype=torch.int32, device=dev)
+        state = init_state(rng.prng_key(3, dev), tables, origins, params)
+        runs[dev.type] = (tables, origins, state)
+    tables, origins, state = runs["cuda"]
+    calls = {name: [] for name in TRACED}
+    real = {name: getattr(kernels, name) for name in TRACED}
+
+    def recorder(name):
+        def rec(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return rec
+
+    kernels.reset_launch_counts()
+    for name in TRACED:
+        setattr(kernels, name, recorder(name))
+    try:
+        st, rows = run_rounds(params, tables, origins, state, rounds,
+                              trace=True)
+    finally:
+        for name in TRACED:
+            setattr(kernels, name, real[name])
+    want = _launches_per_run(params, rounds)
+    want["trace_prune_pairs"] = rounds
+    assert {k: kernels.LAUNCHES[k] for k in want} == want
+    for name in TRACED:
+        plain = getattr(kernels, f"{name}_plain")
+        for args, kw in calls[name]:
+            got = real[name](*args, **kw)
+            _assert_equal(got, plain(*args, **kw), name)
+            if name != "trace_prune_pairs":
+                off = dict(kw, trace=False)
+                bare = {k: v for k, v in kw.items() if k != "trace"}
+                _assert_equal(real[name](*args, **off),
+                              real[name](*args, **bare), name + " off")
+                n_plain = len(_outputs(real[name](*args, **bare)))
+                _assert_equal(_outputs(got)[:n_plain],
+                              real[name](*args, **bare), name + " on")
+    c_tables, c_origins, c_state = runs["cpu"]
+    c_st, c_rows = run_rounds(params, c_tables, c_origins, c_state, rounds,
+                              trace=True)
+    for f in st._fields:
+        assert torch.equal(getattr(st, f).cpu(), getattr(c_st, f)), f
+    assert set(rows) == set(c_rows)
+    for k in rows:
+        assert torch.equal(rows[k].cpu().nan_to_num(),
+                           c_rows[k].nan_to_num()), k
+    if config == "push_impaired":
+        captured = (rows["trace_prune_src"] >= 0).sum(-1)
+        assert bool((rows["prunes_sent"] > captured).any())
+        assert int(rows["inb_dropped"].sum()) > 0
+
+
+@pytest.mark.parametrize("cap", [1, 37, 4000, 160_000])
+@pytest.mark.parametrize("r,n,c", [(1, 1, 64), (3, 1025, 9), (5, 3000, 64),
+                                   (2, 10_000, 64)])
+def test_trace_prune_pairs_equals_plain(cuda, r, n, c, cap):
+    """Rows that fire densely, sparsely and not at all, N past one chunk of
+    the scan and not a multiple of it, caps that truncate inside a row and
+    past every pair."""
+    g = np.random.default_rng(r * 7 + n + cap)
+    share = np.linspace(0.0, 0.6, r)[:, None, None]
+    slot = (g.random((r, n, c)) < share) & (g.random((r, n, 1)) < 0.3)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    args = (t(slot.sum(-1).astype(np.int32)), t(slot),
+            t(g.integers(0, n, (r, n, c)).astype(np.int32)), cap)
+    kernels.reset_launch_counts()
+    got = kernels.trace_prune_pairs(*args)
+    assert kernels.LAUNCHES["trace_prune_pairs"] == 1
+    _assert_equal(got, kernels.trace_prune_pairs_plain(*args),
+                  f"trace_prune_pairs r={r} n={n} c={c} cap={cap}")
+    assert bool((got[0][0] == -1).all())

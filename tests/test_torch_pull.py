@@ -452,9 +452,12 @@ def test_kernel_schedule_equals_plain(case):
         else adaptive.numpy(), fanout, pull_on, kw["bases"],
         kw["bloom_threshold"], cap, bool(partition), kw["loss"], cs,
         keep=keep, seed=case)
-    assert got._fields[:len(want)] == got._fields
-    for name, g, w in zip(got._fields, got, want):
-        assert np.array_equal(g.numpy(), w), name
+    # every output the plain version sets (the trace's are None without
+    # the trace) is one the schedule gives
+    fields = tuple(f for f in got._fields if getattr(got, f) is not None)
+    assert got._fields[:len(want)] == fields
+    for name, w in zip(fields, want):
+        assert np.array_equal(getattr(got, name).numpy(), w), name
     on = [pull_on and (adaptive is None or bool(adaptive[o]))
           for o in range(O)]
     live = [int((~failed[o]).sum()) * fanout if on[o] else 0
