@@ -261,13 +261,16 @@ Phases (any failure exits non-zero before the final line):
       (``--health-phase``, its first profiler sessions) ``health_round``
       on round 19 (rows fire) and round 20 (none fires) at O=32 of
       N=10,000, dense and sparse, and on (k)'s 8 lanes x 4 origins; its
-      traffic form on (i)'s M=256 round 19 and on the adaptive round from
-      39 with pull rescues; ``health_digest`` on the sim, all-origins
-      (int64) and traffic stacks, on N=100,000 and on a crafted stack of
-      ties and int64-range values; each exact against its plain version
-      (tolerance 0), timed (CUDA events and device ms) beside its bytes
-      bound and a PyTorch call (``index_add_`` of the round's pairs; a
-      stable ``torch.sort`` of the stack); the 5-round profiles of the
+      traffic form on (i)'s M=256 round 19, on the same round with its
+      value rows firing (the upsert counters set to 18-20) and on the
+      adaptive round from 39 with pull rescues; ``health_digest`` on the
+      sim, all-origins (int64) and traffic stacks, on N=100,000 and on a
+      crafted stack of ties and int64-range values (its radix passes and
+      launch geometry printed); each exact against its plain version
+      (tolerance 0), timed (CUDA events and device ms; the digest's also
+      as every device activity of the call) beside its bytes bound and a
+      PyTorch call (``index_add_`` of the round's pairs; a stable
+      ``torch.sort`` of the stack); the 5-round profiles of the
       O=32 push round without (117 launches, required) and with the gate;
       then, in this process, the full-width CLI with ``--health`` against
       the same run without it (the 10k single origin, all-origins on
@@ -2466,9 +2469,6 @@ HEALTH_SOURCES = {
     "health_digest": ("gossip_sim_tpu/obs/health.py:125",
                       "_device_digest_fn / digest_stack, health.py:125-146"),
 }
-#: the pair comparisons of health_digest per (entry, entry) of a row:
-#: below, equal, equal at a lower id
-DIGEST_PAIR_OPS = 3
 
 
 def health_round_bytes(args, traffic: bool) -> int:
@@ -2506,8 +2506,11 @@ def health_child() -> int:
     their bytes bound and a PyTorch yardstick: the round form on round 19
     (rows fire) and 20 (none fires) at O=32 of N=10,000, dense and sparse,
     and on phase (k)'s 8 lanes x 4 origins; the traffic form on phase
-    (i)'s M=256 round 19 and its adaptive round from 39 with values in
-    their pull phase; the digest on the sim, all-origins (int64) and
+    (i)'s M=256 round 19, the same round with the upsert counters set to
+    18-20 (value rows fire), and its adaptive round from 39 with values in
+    their pull phase; the round form again at O=41 of N=100,000 sparse
+    (its counts in device memory) on the round of its first 20 where most
+    rows fire and on round 19; the digest on the sim, all-origins (int64) and
     traffic stacks of those states, on N=100,000 (O=41 sparse, 20 rounds)
     and on a crafted stack of ties and int64-range values.  Prints
     ``chip_smoke: (n)`` lines and, last, one ``HEALTH {json}`` line."""
@@ -2531,6 +2534,10 @@ def health_child() -> int:
     stakes_np = NodeIndex.from_stakes(accounts).stakes.astype(np.int64)
     tables = engine.make_cluster_tables(stakes_np, device=dev)
     top = np.argsort(-stakes_np, kind="stable").astype(np.int32)
+    hd_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.health_digest")
+    hr_mod = importlib.import_module(
+        "gossip_sim_tpu_torch.kernels.health_round")
     res = {"round": {}, "traffic": {}, "digest": {}, "worst": {}}
     forms = {"round": ("health_round", "health_round_plain"),
              "traffic": ("health_round_traffic",
@@ -2567,13 +2574,23 @@ def health_child() -> int:
              "bound_by": "bytes", "max_abs_err": err,
              "fired_rows": int((n_pruned > 0).sum()),
              "pairs": int(slot.sum())}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if traffic:
+            k_, v_, n_ = args[4].shape
+            r["geometry"] = {"blocks": hr_mod.traffic_grid(
+                k_, v_, n_, sms, hr_mod.blocks_per_sm(dev))}
+        else:
+            r["geometry"] = hr_mod.round_geometry(
+                n_pruned.shape[0], n, sms,
+                torch.cuda.get_device_properties(
+                    dev).shared_memory_per_block_optin)._asdict()
         res[form][key] = r
         say(f"(n) {name} {key}: exact; wrapper {r['ms']:.4f} ms, device "
             f"{r['device_ms'] if r['device_ms'] is None else round(r['device_ms'], 4)} ms, "
             f"bound {r['bound_ms']:.4f} ms ({moved} bytes), plain "
             f"{r['plain_ms']:.4f} ms, index_add_ of the pairs "
             f"{r['library_ms']:.4f} ms; {r['fired_rows']} firing rows, "
-            f"{r['pairs']} pairs")
+            f"{r['pairs']} pairs; launch {r['geometry']}")
 
     def rounds_calls(prm, orgs, upto=(19, 20)):
         """The engine's rounds 0-20 of ``prm`` at ``orgs``: the state after
@@ -2589,8 +2606,9 @@ def health_child() -> int:
     base = EngineParams(num_nodes=N_FULL, warm_up_rounds=0, health=True)
     # first (this process's first profiler sessions): the O=32 push round
     # from round 19, without and with the gate; the profiler may drop an
-    # event, never add one, so a count short of a whole number is taken
-    # again, up to three times, and the most is kept
+    # event, never add one, so a count short of a whole number, or short
+    # of the round's 117 launches (118 with the gate), is taken again, up
+    # to three times, and the most is kept
     prof = {}
     for gate in (False, True):
         prm = base._replace(health=gate)
@@ -2598,8 +2616,9 @@ def health_child() -> int:
         st, _ = engine.run_rounds(prm, tables, o32, st, 19)
         runs_p = []
         while len(runs_p) < 3 and not any(
-                float(r.get("launches", 0)).is_integer()
-                and r.get("launches") for r in runs_p):
+                float(r.get("launches") or 0).is_integer()
+                and (r.get("launches") or 0) >= 117 + gate
+                for r in runs_p):
             runs_p.append(profile_rounds(
                 lambda p_, t_, o_, s_, n_: engine.run_rounds(
                     p_, t_, o_, s_, n_, start_it=19),
@@ -2632,11 +2651,28 @@ def health_child() -> int:
     tprm = traffic_params(EngineParams, "uncapped")._replace(health=True)
     tst = init_traffic_state(stakes_np, tprm, 42, dev)
     tst, _ = run_traffic_rounds(tprm, tables, ttables, tst, 19)
-    (tst, _), tcalls = record_calls(kernels, ["health_round_traffic"],
-                                    traffic_round_step, tprm, tables,
-                                    ttables, tst, 19)
-    check_time("traffic", f"M={M_TRAFFIC} round 19",
-               tcalls["health_round_traffic"][0][0])
+    (tst, _), tcalls = record_calls(
+        kernels, ["health_round_traffic", "rc_merge_prune"],
+        traffic_round_step, tprm, tables, ttables, tst, 19)
+    # the digest's traffic stack, then the state goes (the round's
+    # rc_merge_prune inputs are the state before it: [K V, N, C] planes)
+    t_stack = cli._health_stack(tst, traffic=True)
+    del tst
+    (h_args, _), = tcalls.pop("health_round_traffic")
+    check_time("traffic", f"M={M_TRAFFIC} round 19", h_args)
+    # the same round with its value rows firing: rc_merge_prune's inputs
+    # again with the upsert counters set to 18, 19 and 20 across rows
+    # (seeded; the threshold is 20), its prune decision into the call
+    (m_args, m_kw), = tcalls.pop("rc_merge_prune")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    ups = torch.tensor([18, 19, 20], dtype=torch.int32, device=dev)[
+        torch.randint(0, 3, m_args[4].shape, generator=gen, device=dev)]
+    mp = kernels.rc_merge_prune(*(m_args[:4] + (ups,) + m_args[5:]), **m_kw)
+    h_args = h_args[:8] + (mp.n_pruned, mp.src_sorted,
+                           mp.pruned_slot) + h_args[11:]
+    del m_args, m_kw, ups, mp
+    check_time("traffic", f"M={M_TRAFFIC} round 19, counters 18-20", h_args)
+    del h_args
     aprm = adaptive_params(EngineParams, "uncapped")._replace(health=True)
     ast = init_traffic_state(stakes_np, aprm, 42, dev)
     ast, _ = run_traffic_rounds(aprm, tables, ttables, ast, 39)
@@ -2665,7 +2701,21 @@ def health_child() -> int:
     h_org = torch.as_tensor(np.argsort(-h_stakes, kind="stable")[:O_HUGE]
                             .astype(np.int32), device=dev)
     h_st = engine.init_state(engine_key(dev), h_tables, h_org, h_prm)
-    h_st, _ = engine.run_rounds(h_prm, h_tables, h_org, h_st, 20)
+    # its rounds one at a time, keeping the health_round call of the round
+    # where most rows fire and of the last (the counts in device memory)
+    h_calls = {}
+    for it in range(20):
+        (h_st, _), calls = record_calls(kernels, ["health_round"],
+                                        engine.run_rounds, h_prm, h_tables,
+                                        h_org, h_st, 1, it)
+        (args, _), = calls["health_round"]
+        h_calls[it] = (int((args[2] > 0).sum()), args)
+        busiest = max(h_calls, key=lambda i: h_calls[i][0])
+        h_calls = {i: c for i, c in h_calls.items() if i in (busiest, it)}
+    for it, (_, args) in sorted(h_calls.items()):
+        check_time("round", f"O={O_HUGE} N={N_HUGE} sparse round {it}",
+                   args)
+    del h_calls, calls, args
     r = np.random.default_rng(7)
     crafted = torch.as_tensor(
         np.where(r.random((9, N_FULL)) < 0.5, r.integers(0, 4, (9, N_FULL)),
@@ -2676,8 +2726,7 @@ def health_child() -> int:
                               tables.stake_decile),
         f"all-origins O={O_KERNEL} (int64)": (cli._sim_health_stack_valid(
             st19, O_KERNEL), tables.stake_decile),
-        f"traffic M={M_TRAFFIC}": (cli._health_stack(tst, traffic=True),
-                                   tables.stake_decile),
+        f"traffic M={M_TRAFFIC}": (t_stack, tables.stake_decile),
         f"N={N_HUGE} O={O_HUGE} sparse": (
             cli._health_stack(h_st, traffic=False), h_tables.stake_decile),
         "crafted ties + int64 range": (crafted, tables.stake_decile),
@@ -2693,28 +2742,34 @@ def health_child() -> int:
             fail(f"(n) health_digest {key}: differs from its plain version "
                  f"(max_abs_err {err})")
         moved = nbytes(stack, ids) + p_ * (12 * 8 + k * 12)
-        pairs = DIGEST_PAIR_OPS * p_ * n_ * n_
-        reps = 3 if n_ > N_FULL else 10
+        wide = stack.dtype == torch.int64
+        lo, hi = stack.min(-1).values, stack.max(-1).values
+        bits = [(int(h) - int(l_)).bit_length() for l_, h in zip(lo, hi)]
         d = {"p": p_, "n": n_, "dtype": str(stack.dtype).split(".")[-1],
-             "ms": cuda_ms(fn, reps=reps),
+             "ms": cuda_ms(fn, reps=10),
              "device_ms": device_ms(fn, KERNEL_SYMBOLS["health_digest"],
-                                    reps=reps),
+                                    reps=10),
+             "whole_ms": device_ms(fn, None, reps=10),
              "plain_ms": cuda_ms(lambda: kernels.health_digest_plain(
                  stack, ids, k), reps=3, warm=1),
              "library_ms": cuda_ms(lambda: torch.sort(stack, dim=-1,
                                                       stable=True),
-                                   reps=reps),
+                                   reps=10),
              "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
              "bound_by": "bytes", "max_abs_err": err,
-             "pair_comparisons": pairs,
-             "pairs_ms": pairs / (ALU_LANES * SM_CLOCKS_PER_S) * 1e3}
+             "radix_passes": max(-(-b // 8) for b in bits),
+             "geometry": list(hd_mod.launch_geometry(
+                 p_, n_, torch.cuda.get_device_properties(
+                     dev).multi_processor_count,
+                 hd_mod.blocks_per_sm(dev, wide)))}
         res["digest"][key] = d
         say(f"(n) health_digest {key} [{p_}, {n_}] {d['dtype']}: exact; "
-            f"wrapper {d['ms']:.4f} ms, device {d['device_ms']} ms, bound "
-            f"{d['bound_ms']:.5f} ms ({moved} bytes), its "
-            f"{pairs:,} pair comparisons at the ALU rate "
-            f"{d['pairs_ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, stable "
-            f"torch.sort of the stack {d['library_ms']:.4f} ms")
+            f"wrapper {d['ms']:.4f} ms, device {d['device_ms']} ms (every "
+            f"device activity of the call {d['whole_ms']} ms), bound "
+            f"{d['bound_ms']:.5f} ms ({moved} bytes), "
+            f"{d['radix_passes']} radix passes, (tiles a row, blocks) "
+            f"{tuple(d['geometry'])}, plain {d['plain_ms']:.4f} ms, "
+            f"stable torch.sort of the stack {d['library_ms']:.4f} ms")
 
     print("HEALTH " + json.dumps(as_builtins(res)), flush=True)
     return 0
@@ -2862,7 +2917,7 @@ def health_phase(exact, worst, out_dir):
         for args, kw_ in digest_calls:
             exact("health_digest", args, kw_, f"(n) {case}'s digests")
         stack, ids, k = digest_calls[-1][0]
-        reps = 3 if stack.shape[1] > N_FULL else 10
+        reps = 10
         moved = nbytes(stack, ids) + stack.shape[0] * (12 * 8 + k * 12)
         h_digest[case] = {
             "p": int(stack.shape[0]), "n": int(stack.shape[1]),

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,8 +41,22 @@ from . import _build, _lanes
 
 NAME = "health_round"
 TRAFFIC_NAME = "health_round_traffic"  # launch count of the traffic form
-#: threads per block of both kernels (csrc/health_round.cu kThreads)
+#: threads per block of the traffic kernel (csrc/health_round.cu
+#: kThreads) and its warps, the pruner rows a warp takes in phase 2, and the
+#: nodes a traffic block's phase 1 tile holds (kTileNodes)
 THREADS = 256
+WARPS = THREADS // 32
+GROUP = 32
+TILE_NODES = 32
+#: the round form: a row's CTAs at most (the portable cluster size,
+#: kCluster), the CTAs and threads an SM is meant to hold, a CTA's threads
+#: (at most kRowThreads), and the room of the busy flag after a PLANE
+#: CTA's counts (kFlagBytes; the kernel has no static shared memory)
+MAX_CLUSTER = 8
+CTAS_PER_SM = 2
+THREADS_PER_SM = 512
+ROW_THREADS = (128, 1024)
+FLAG_BYTES = 16
 #: One lane's iteration and measured-round gate in the launch's struct
 #: (csrc/health_round.cu HealthLane).
 LANE_DTYPE = np.dtype([("it", "<i8"), ("gate", "<i4"), ("pad", "<i4")])
@@ -120,34 +135,76 @@ def health_round_traffic_plain(prune_recv, lat_acc, del_acc, resc_acc,
             (resc_acc + g * resc_nv.sum(1, dtype=i32)).to(i32))
 
 
-def grid_blocks(elems: int, sms: int, blocks_per_sm: int) -> int:
-    """Blocks of a cooperative launch over ``elems`` grid-stride elements:
-    one wave (``sms`` x ``blocks_per_sm``, all co-resident, as the grid
-    barrier needs), or fewer where one wave has more threads than
-    elements."""
-    return max(1, min(-(-elems // THREADS), sms * blocks_per_sm))
+#: where the round form counts (csrc/health_round.cu kDevice, kPlane): the
+#: output plane in device memory; each CTA a whole row's plane in shared
+#: memory
+DEVICE, PLANE = 0, 1
+
+
+class RoundGeometry(NamedTuple):
+    cs: int                 # CTAs of a row's cluster
+    chunk: int              # nodes a CTA owns (as pruners and as prunees)
+    smem: int               # its shared memory: the counts and the flag
+    mode: int               # PLANE or DEVICE
+    threads: int            # a CTA's threads
+
+
+def round_geometry(rows: int, n: int, sms: int,
+                   smem_limit: int) -> RoundGeometry:
+    """The round form's launch: a cluster of ``cs`` CTAs per row, as many
+    as fill about :data:`CTAS_PER_SM` CTAs an SM (``sms``) over the rows,
+    at most the portable 8 and at most ``n``, each of the power of two of
+    threads (128 to 1024) that keeps about :data:`THREADS_PER_SM` threads
+    an SM and a cluster at most 8,192.  Each CTA counts its pairs in a
+    whole row's plane of shared memory where ``n`` u32 counts (rounded up
+    to 4) and the :data:`FLAG_BYTES` of its busy flag fit in
+    ``smem_limit`` bytes (PLANE; a CTA owns a multiple of 4 nodes); past
+    that the counts are the output plane in device memory (DEVICE)."""
+    rows = max(rows, 1)
+    cs = max(1, min(MAX_CLUSTER, CTAS_PER_SM * sms // rows, n))
+    plane = -(-n // 4) * 16 + FLAG_BYTES    # n counts, a multiple of 4
+    if plane <= smem_limit:
+        chunk = -(-n // (4 * cs)) * 4
+        smem, mode = plane, PLANE
+    else:
+        chunk = -(-n // cs)
+        smem, mode = 0, DEVICE
+    cs = -(-n // chunk)
+    # and a cluster of at most 8,192 threads, which 8 SMs hold
+    want = min(THREADS_PER_SM * sms // (rows * cs), 8192 // cs)
+    threads = min(max(1 << max(want, 1).bit_length() - 1, ROW_THREADS[0]),
+                  ROW_THREADS[1])
+    return RoundGeometry(cs, chunk, smem, mode, threads)
+
+
+def traffic_grid(k: int, v: int, n: int, sms: int,
+                 blocks_per_sm: int) -> int:
+    """Blocks of the traffic form's cooperative launch: a block per
+    (lane, :data:`TILE_NODES` nodes) of phase 1 or a warp per
+    :data:`GROUP` of the K x V x N value-row pruners of phase 2, whichever
+    is more, at most one wave (``sms`` x ``blocks_per_sm``, all
+    co-resident, as the grid barrier needs)."""
+    tiles = k * -(-n // TILE_NODES)
+    groups = -(-k * v * n // GROUP)
+    work = max(tiles, -(-groups // WARPS))
+    return max(1, min(work, sms * blocks_per_sm))
 
 
 @functools.lru_cache(maxsize=8)
-def blocks_per_sm(device: torch.device, traffic: bool) -> int:
-    """Blocks of the round (or, ``traffic``, the traffic) kernel one SM of
-    ``device`` holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
-    read once per device and form)."""
-    fn = _build.library(NAME).health_round_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+def blocks_per_sm(device: torch.device) -> int:
+    """Blocks of the traffic kernel one SM of ``device`` holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, read once per
+    device)."""
+    fn = _build.library(NAME).health_round_traffic_blocks_per_sm
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = fn(int(traffic), ctypes.byref(out))
+        rc = fn(ctypes.byref(out))
     if rc != 0 or out.value < 1:
         raise RuntimeError(f"{NAME}: occupancy query failed (error {rc}, "
                            f"{out.value} blocks per SM)")
     return out.value
-
-
-def _grid(device: torch.device, elems: int, traffic: bool) -> int:
-    return grid_blocks(elems, _build.sm_count(device),
-                       blocks_per_sm(device, traffic))
 
 
 def _fn(symbol: str, nargs: tuple):
@@ -164,9 +221,12 @@ def health_round(prune_recv, first_round, n_pruned, src_sorted, pruned_slot,
     """The round form (see :func:`health_round_plain`): the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors.
 
-    On the card one cooperative launch writes the new first-round plane
-    and a copy of the prune plane, and after a grid barrier adds each
-    firing pruner's pairs to the copy with atomics."""
+    On the card one launch of a thread block cluster per row
+    (:func:`round_geometry`): each CTA counts the pairs of its own
+    pruners in shared memory (the slot bytes read as 16-byte words) and
+    writes its own nodes' new planes, their counts summed over the
+    cluster; past a plane's shared memory the pairs are global atomics on
+    the output, which each CTA first fills with its nodes' prune counts."""
     if not prune_recv.is_cuda:
         return health_round_plain(prune_recv, first_round, n_pruned,
                                   src_sorted, pruned_slot, reached, its,
@@ -186,11 +246,12 @@ def health_round(prune_recv, first_round, n_pruned, src_sorted, pruned_slot,
     out_prune = torch.empty((R, N), dtype=i32, device=dev)
     out_first = torch.empty((R, N), dtype=i32, device=dev)
     p = _build.ptr
-    rc = _fn("health_round_launch", "p" * 8 + "iiipiii" + "p")(
+    geo = round_geometry(R, N, _build.sm_count(dev), _build.smem_optin(dev))
+    rc = _fn("health_round_launch", "p" * 8 + "iiipiiiiii" + "p")(
         p(prune_recv), p(first_round), p(n_pruned), p(src_sorted),
         p(pruned_slot), p(reached), p(out_prune), p(out_first), R, N, C,
-        lanes.ctypes.data, k, R // k, _grid(dev, R * N, False),
-        _build.stream_of(prune_recv))
+        lanes.ctypes.data, k, R // k, geo.cs, geo.chunk, geo.mode,
+        geo.threads, _build.stream_of(prune_recv))
     _build.launched(NAME, rc)
     return out_prune, out_first
 
@@ -203,8 +264,10 @@ def health_round_traffic(prune_recv, lat_acc, del_acc, resc_acc, new_del,
 
     On the card one cooperative launch sums each (lane, node)'s
     deliveries, rescues and latencies over the values into the new planes
-    (and copies the prune plane), and after a grid barrier adds each
-    firing pruner's pairs to the copy with atomics."""
+    (a block per 32 nodes of a lane, its threads over slices of the
+    values, the slices met in shared memory; and copies the prune plane),
+    and after a grid barrier adds each firing pruner's pairs to the copy
+    with atomics (lanes of a warp that name one prunee add once)."""
     if not new_del.is_cuda:
         return health_round_traffic_plain(
             prune_recv, lat_acc, del_acc, resc_acc, new_del, pull_del,
@@ -231,7 +294,7 @@ def health_round_traffic(prune_recv, lat_acc, del_acc, resc_acc, new_del,
         p(prune_recv), p(lat_acc), p(del_acc), p(resc_acc), p(new_del),
         p(pull_del), p(v_birth), p(n_pruned), p(src_sorted), p(pruned_slot),
         *(p(t) for t in outs), K, V, N, C, lanes.ctypes.data, k, 1,
-        _grid(dev, max(K * N, K * V * N), True),
+        traffic_grid(K, V, N, _build.sm_count(dev), blocks_per_sm(dev)),
         _build.stream_of(new_del))
     _build.launched(TRAFFIC_NAME, rc)
     return tuple(outs)

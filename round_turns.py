@@ -2,7 +2,7 @@
 """Time the port's engine round on one GPU for several checkouts, in turns.
 
     python3 round_turns.py [--push-pull | --traffic | --calls | --lanes |
-                            --merge-bfs] TREE ...
+                            --merge-bfs | --health] TREE ...
 
 Each TREE is the root of a checkout of the repository (``.`` for this
 one); give two trees in turns, e.g. ``build/parent . . build/parent``, to
@@ -45,12 +45,18 @@ at O=32 (as without a flag) and, where the tree has sweep lanes
 (``engine.run_rounds_lanes``; a parent without them runs the serial half
 only), a round of K=8 lanes of one origin each (packet loss 0 to 0.35,
 chip_smoke.py's phase (k)) beside the serial round at O=1 under the same
-gates.  One JSON line per tree, then the card's name and power limit.
+gates.  With ``--health`` it is chip_smoke.py's phase (n) full-width
+``--health`` CLI runs, the single origin and the M=256 traffic run (300
+iterations, 200 warm-up), each once to warm up and once under
+torch.profiler: the node-health kernels' device ms summed over the whole
+run and their launches.  One JSON line per tree, then the card's name
+and power limit.
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import re
@@ -135,6 +141,9 @@ def one(tree: str, mode: str) -> dict:
     res = {"tree": tree, "device": torch.cuda.get_device_name(0)}
     if mode == "traffic":
         res.update(traffic(tree, smoke, stakes, tables, out_dir))
+        return res
+    if mode == "health":
+        res.update(health(smoke))
         return res
     if mode == "lanes":
         res.update(measure(O, EngineParams(num_nodes=N, warm_up_rounds=0),
@@ -275,13 +284,61 @@ def traffic(tree: str, smoke, stakes, tables, out_dir) -> dict:
     return res
 
 
+def health(smoke) -> dict:
+    """``--health``: each full-width ``--health`` CLI run once to warm up,
+    then once under torch.profiler: the wall, and per node-health kernel
+    its device ms summed over the run and its launches (the profiler's and
+    the wrapper's count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gossip_sim_tpu_torch import cli, kernels
+    from gossip_sim_tpu_torch.identity import reset_unique_pubkeys
+    symbols = {"health_round": "health_round_kernel",
+               "health_round_traffic": "health_round_traffic_kernel",
+               "health_digest": "health_digest_kernel"}
+    base = ["--num-synthetic-nodes", str(N), "--iterations", "300",
+            "--warm-up-rounds", "200", "--device", "cuda", "--health"]
+    res = {}
+    for case, extra in (("single 10k", []),
+                        (f"traffic M={smoke.M_TRAFFIC}",
+                         ["--traffic-values", str(smoke.M_TRAFFIC),
+                          "--traffic-rate", str(smoke.TRAFFIC_RATE)])):
+        for profiled in (False, True):
+            reset_unique_pubkeys()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                rc = cli.main(base + extra)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if rc != 0:
+                raise SystemExit(f"round_turns: {case} --health exit {rc}")
+        ms = dict.fromkeys(symbols, 0.0)
+        count = dict.fromkeys(symbols, 0)
+        for ev in prof.key_averages():
+            for name, sym in symbols.items():
+                if sym in ev.key:
+                    ms[name] += float(getattr(
+                        ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))) / 1e3
+                    count[name] += ev.count
+        res[case] = {"wall_s": wall, "device_ms": ms,
+                     "profiled_launches": count,
+                     "wrapper_launches": {k: kernels.LAUNCHES[k]
+                                          for k in symbols}}
+    return res
+
+
 def main(argv: list) -> int:
     if len(argv) == 3 and argv[0] == "--one":
         print(json.dumps(one(argv[2], argv[1])), flush=True)
         return 0
     mode = "push"
     if argv[:1] in (["--push-pull"], ["--traffic"], ["--calls"],
-                    ["--lanes"], ["--merge-bfs"]):
+                    ["--lanes"], ["--merge-bfs"], ["--health"]):
         mode, argv = argv[0][2:], argv[1:]
     if not argv:
         raise SystemExit(__doc__)

@@ -32,6 +32,7 @@ pt_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.push_targets")
 rot_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.rotate")
 px_mod = importlib.import_module(
     "gossip_sim_tpu_torch.kernels.pull_exchange")
+hr_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.health_round")
 
 pytestmark = pytest.mark.cuda
 
@@ -2378,6 +2379,157 @@ def test_health_digest_equals_plain(cuda, case):
     assert kernels.LAUNCHES["health_digest"] == 1
     _assert_equal(got, kernels.health_digest_plain(stack, dec, k),
                   f"health_digest {case}")
+
+
+def _pair_inputs(r, rows, n, c, cuda):
+    """Seeded prune decisions over ``rows`` pruner rows of ``n`` nodes and
+    ``c`` slots: about half the rows fire, 5% of their slots pruned."""
+    slot = r.random((rows, n, c), dtype=np.float32) < 0.05
+    slot[r.random((rows, n)) < 0.5] = False
+    src = r.integers(0, n, (rows, n, c), dtype=np.int32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    return (t(slot.sum(-1, dtype=np.int32)), t(src), t(slot))
+
+
+#: (R rows, lanes, N, C): the round form where each CTA counts a whole
+#: plane (C = 12: the slot bytes one by one; N = 58,108: the counts and the
+#: busy flag fill the opt-in shared memory exactly) and in device memory
+#: (N = 58,112, just past a plane; 60,000; 1,000,000)
+ROUND_EDGES = {"plane_c12": (6, 3, 3_000, 12),
+               "plane_limit": (2, 1, 58_108, 64),
+               "device_past_plane": (2, 1, 58_112, 64),
+               "device_60k": (2, 1, 60_000, 64),
+               "device": (1, 1, 1_000_000, 16)}
+
+
+@pytest.mark.parametrize("case", list(ROUND_EDGES))
+def test_health_round_equals_plain_on_crafted_rows(cuda, case):
+    rows, k, n, c = ROUND_EDGES[case]
+    r = np.random.default_rng(len(case))
+    n_pruned, src, slot = _pair_inputs(r, rows, n, c, cuda)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    prune = t(r.integers(2**31 - 5, 2**31, (rows, n)).astype(np.int32))
+    first = t(np.where(r.random((rows, n)) < 0.5, 0,
+                       r.integers(1, 9, (rows, n))).astype(np.int32))
+    reached = t(r.random((rows, n)) < 0.6)
+    its = np.arange(k, dtype=np.int64) + 40
+    gates = (np.arange(k) != 1).astype(np.int32)
+    args = (prune, first, n_pruned, src, slot, reached, its, gates)
+    geo = hr_mod.round_geometry(rows, n, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin)
+    assert geo.mode == (hr_mod.PLANE if case.startswith("plane")
+                        else hr_mod.DEVICE)
+    kernels.reset_launch_counts()
+    got = kernels.health_round(*args)
+    assert kernels.LAUNCHES["health_round"] == 1
+    _assert_equal(got, kernels.health_round_plain(*args),
+                  f"health_round {case}")
+
+
+def test_health_round_traffic_equals_plain_on_crafted_rows(cuda):
+    """The traffic form with N = 1,001 (rows not 4-byte aligned: the
+    delivery words byte by byte), C = 12 (slot bytes one by one), V = 300
+    (two age chunks), two lanes (the second gated out), rescues on."""
+    r = np.random.default_rng(12)
+    k, v, n, c = 2, 300, 1_001, 12
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    planes = [t(r.integers(2**31 - 50_000, 2**31, (k, n)).astype(np.int32))
+              for _ in range(4)]
+    new_del = t(r.random((k, v, n)) < 0.3)
+    pull_del = t(r.random((k, v, n)) < 0.2) & ~new_del
+    v_birth = t(r.integers(0, 100, (k, v)).astype(np.int32))
+    n_pruned, src, slot = _pair_inputs(r, k * v, n, c, cuda)
+    args = (*planes, new_del, pull_del, v_birth, 5_000, n_pruned, src, slot,
+            np.array([1, 0], np.int32))
+    kernels.reset_launch_counts()
+    got = kernels.health_round_traffic(*args)
+    assert kernels.LAUNCHES["health_round_traffic"] == 1
+    _assert_equal(got, kernels.health_round_traffic_plain(*args),
+                  "health_round_traffic crafted")
+
+
+def _digest_edge_stack(case, cuda):
+    """The crafted stacks of :data:`DIGEST_EDGES` (seeded)."""
+    r = np.random.default_rng(len(case))
+    if case == "runs_across_tiles":
+        run = np.repeat(np.arange(5), 1000)         # runs of 1,000 over tiles
+        x = np.stack([run, run[::-1], np.roll(run, 517)])
+    elif case == "constant_and_extremes":
+        x = np.stack([np.full(3000, -7),            # a constant row: no pass
+                      r.choice([-(1 << 62), 1 << 62, 0, -1, 1], 3000)])
+    elif case == "i64_both_signs_100k":
+        x = r.integers(-(1 << 40), 1 << 40, (2, 100_000))
+    else:
+        p, n = {"p1_k0": (1, 3000), "k_is_n_tiles": (2, 2500),
+                "one_past_a_tile": (3, 1025), "n1_p1": (1, 1)}[case]
+        x = r.integers(-50, 50, (p, n))
+    dtype = torch.int64 if case in (
+        "constant_and_extremes", "i64_both_signs_100k",
+        "k_is_n_tiles") else torch.int32
+    return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+
+#: (k) of each crafted stack: runs of equal values across tile and block
+#: boundaries, a constant row beside one of 64-bit extremes (8 passes),
+#: int64 of both signs at N = 100,000, P = 1 with k = 0, k = N over
+#: several tiles, N one past a tile, N = 1
+DIGEST_EDGES = {"runs_across_tiles": 30, "constant_and_extremes": 20,
+                "i64_both_signs_100k": 10, "p1_k0": 0, "k_is_n_tiles": 2500,
+                "one_past_a_tile": 7, "n1_p1": 1}
+
+
+@pytest.mark.parametrize("case", list(DIGEST_EDGES))
+def test_health_digest_equals_plain_on_crafted_stacks(cuda, case):
+    stack = _digest_edge_stack(case, cuda)
+    n = stack.shape[1]
+    dec = torch.as_tensor(np.random.default_rng(2).integers(0, 10, n),
+                          dtype=torch.int32, device=cuda)
+    k = DIGEST_EDGES[case]
+    kernels.reset_launch_counts()
+    got = kernels.health_digest(stack, dec, k)
+    assert kernels.LAUNCHES["health_digest"] == 1
+    _assert_equal(got, kernels.health_digest_plain(stack, dec, k),
+                  f"health_digest {case}")
+
+
+def test_health_round_traffic_equals_plain_on_firing_value_rows(cuda):
+    """The traffic form on a round whose value rows fire: the round's
+    ``rc_merge_prune`` inputs again with the upsert counters set to 18, 19
+    and 20 across rows (seeded; the threshold is 20), its prune decision
+    into the traffic form's call, against the plain form."""
+    from gossip_sim_tpu_torch.engine.traffic import (device_traffic_tables,
+                                                     init_traffic_state,
+                                                     run_traffic_rounds,
+                                                     traffic_round_step)
+    n = 2000
+    stakes = np.random.default_rng(6).integers(1, 1 << 45,
+                                               size=n).astype(np.int64)
+    params = EngineParams(num_nodes=n, traffic_values=64, traffic_rate=6,
+                          warm_up_rounds=2, min_num_upserts=20,
+                          packet_loss_rate=0.05, health=True)
+    tables = make_cluster_tables(stakes, device=cuda)
+    ttables = device_traffic_tables(stakes, device=cuda)
+    state = init_traffic_state(stakes, params, 4, device=cuda)
+    state, _ = run_traffic_rounds(params, tables, ttables, state, 12)
+    _, calls = _recorded(("rc_merge_prune", "health_round_traffic"),
+                         lambda: traffic_round_step(params, tables, ttables,
+                                                    state, 12))
+    (ma, mkw), = calls["rc_merge_prune"]
+    (ha, hkw), = calls["health_round_traffic"]
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    ups = torch.tensor([18, 19, 20], dtype=torch.int32, device=cuda)[
+        torch.randint(0, 3, ma[4].shape, generator=gen, device=cuda)]
+    mp = kernels.rc_merge_prune(*(ma[:4] + (ups,) + ma[5:]), **mkw)
+    args = ha[:8] + (mp.n_pruned, mp.src_sorted, mp.pruned_slot) + ha[11:]
+    assert int((mp.n_pruned > 0).sum()) > 0 and int(mp.pruned_slot.sum()) > 0
+    kernels.reset_launch_counts()
+    got = kernels.health_round_traffic(*args, **hkw)
+    assert kernels.LAUNCHES["health_round_traffic"] == 1
+    want = kernels.health_round_traffic_plain(*args, **hkw)
+    _assert_equal(got, want, "health_round_traffic firing value rows")
+    assert int((want[0] - ha[0]).sum()) == int(
+        (mp.pruned_slot & (mp.n_pruned > 0)[..., None]).sum())
 
 
 # ---- the flight recorder (trace outputs; trace_prune_pairs) ---------------

@@ -27,10 +27,12 @@
   (bitmaps, per-peer words, kept draws): the draws kept, a larger cluster
   where they do not fit, drawn again as the last resort, and past every
   cluster's shared memory the per-peer words in device memory;
-* ``health_round``: the cooperative launch's one wave of blocks (fewer
-  where the elements do not fill it) and the per-lane records a call
-  packs; ``health_digest``: a block per 1,024 entries of a row, one grid
-  row per metric, at the sim and traffic widths and N = 100,000.
+* ``health_round``: the round form's cluster per row (its CTAs, the
+  nodes each owns, where it counts: a whole plane, its own nodes, past
+  both device memory), the traffic form's cooperative launch of one wave of blocks
+  at most, and the per-lane records a call packs; ``health_digest``: its tiles of 1,024 entries, its grid (a block
+  per tile or per 8 scan warps, at most one wave) and its scratch regions,
+  at the sim and traffic widths, N = 1, 1,025 and 100,000.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_cuda.py).
 """
@@ -592,13 +594,52 @@ hr_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.health_round")
 hd_mod = importlib.import_module("gossip_sim_tpu_torch.kernels.health_digest")
 
 
-@pytest.mark.parametrize("elems,per_sm,want", [
-    (32 * 10_000, 8, 132 * 8),        # O=32 of N=10,000: one wave
-    (1 * 10_000, 8, 40),              # O=1: fewer blocks than a wave
-    (41 * 100_000, 4, 132 * 4),       # O=41 of N=100,000
-    (1, 8, 1), (0, 8, 1)])
-def test_health_round_grid_is_one_wave(elems, per_sm, want):
-    assert hr_mod.grid_blocks(elems, 132, per_sm) == want
+SMEM = 232_448                    # the H100's opt-in shared memory a block
+
+#: (R rows, N, (cs, chunk, shared bytes, mode, threads)): a cluster of cs
+#: CTAs a row, about two CTAs and 512 threads an SM over the rows, at most
+#: 8 CTAs and 8,192 threads: O=32 of N=10,000 (the portable 8 of 256
+#: threads, a whole plane each, a multiple of 4 nodes each), O=1 (8 of
+#: 1,024), 8 lanes x 4 origins, O=64 (4), O=200 (one CTA a row), N=45 (6
+#: CTAs of 8), N=1; N=58,108, the most whose counts and 16-byte busy flag
+#: fill the opt-in shared memory exactly, and N=58,112 past it; past a
+#: plane the counts in device memory: O=41 of N=100,000 (6 CTAs of
+#: 16,667 nodes), N=500,000 and 1,000,000
+ROUND_GEOMETRY = [
+    (32, 10_000, (8, 1_252, 40_016, hr_mod.PLANE, 256)),
+    (1, 10_000, (8, 1_252, 40_016, hr_mod.PLANE, 1_024)),
+    (8 * 4, 10_000, (8, 1_252, 40_016, hr_mod.PLANE, 256)),
+    (64, 10_000, (4, 2_500, 40_016, hr_mod.PLANE, 256)),
+    (200, 10_000, (1, 10_000, 40_016, hr_mod.PLANE, 256)),
+    (6, 45, (6, 8, 208, hr_mod.PLANE, 1_024)),
+    (1, 1, (1, 4, 32, hr_mod.PLANE, 1_024)),
+    (1, 58_108, (8, 7_264, SMEM, hr_mod.PLANE, 1_024)),
+    (32, 58_112, (8, 7_264, 0, hr_mod.DEVICE, 256)),
+    (41, 100_000, (6, 16_667, 0, hr_mod.DEVICE, 256)),
+    (8, 500_000, (8, 62_500, 0, hr_mod.DEVICE, 1_024)),
+    (1, 1_000_000, (8, 125_000, 0, hr_mod.DEVICE, 1_024)),
+]
+
+
+@pytest.mark.parametrize("rows,n,want", ROUND_GEOMETRY)
+def test_health_round_geometry_is_a_cluster_per_row(rows, n, want):
+    g = hr_mod.round_geometry(rows, n, 132, SMEM)
+    assert tuple(g) == want
+    assert g.cs * g.chunk >= n > (g.cs - 1) * g.chunk
+    assert g.smem <= SMEM and g.cs <= hr_mod.MAX_CLUSTER
+    assert (g.smem == -(-n // 4) * 16 + hr_mod.FLAG_BYTES
+            if g.mode == hr_mod.PLANE else g.smem == 0)
+    assert g.threads & (g.threads - 1) == 0 and g.cs * g.threads <= 8_192
+
+
+#: (K, V, N, blocks per SM, blocks): the traffic form at M=256 of N=10,000
+#: (its 2,560,000 value-row pruners fill a wave), at V=0 (a block per 32
+#: nodes) and on 4 lanes of M=32 (one wave)
+@pytest.mark.parametrize("k,v,n,per_sm,want", [
+    (1, 256, 10_000, 6, 132 * 6), (1, 0, 10_000, 8, 313),
+    (4, 32, 10_000, 3, 132 * 3)])
+def test_health_round_traffic_grid_is_at_most_one_wave(k, v, n, per_sm, want):
+    assert hr_mod.traffic_grid(k, v, n, 132, per_sm) == want
 
 
 def test_health_round_packs_one_record_per_lane():
@@ -614,10 +655,39 @@ def test_health_round_packs_one_record_per_lane():
         hr_mod.lane_values(10, np.array([1, 2, 3]), 1)
 
 
-@pytest.mark.parametrize("p,n,want", [(8, 10_000, (10, 8)),
-                                      (9, 10_000, (10, 9)),
-                                      (9, 100_000, (98, 9)),
-                                      (8, 1, (1, 8)), (2, 1024, (1, 2)),
-                                      (2, 1025, (2, 2))])
-def test_health_digest_grid_is_a_block_per_1024_entries(p, n, want):
-    assert hd_mod.grid(p, n) == want
+#: (P, N, wide, tiles per row, blocks at 8 a SM): the sim stack [8,
+#: 10,000], the traffic stack [9, 10,000] (a block per 8 (row, digit)
+#: scan warps: 9 x 32), [8, 100,000] (a block per tile), N = 1, N one past
+#: a tile, a wide stack past one wave
+DIGEST_GEOMETRY = [
+    (8, 10_000, False, 10, 256),
+    (9, 10_000, False, 10, 288),
+    (8, 100_000, False, 98, 784),
+    (8, 100_000, True, 98, 784),
+    (2, 1, True, 1, 64),
+    (2, 1_025, False, 2, 64),
+    (41, 100_000, True, 98, 132 * 8),
+]
+
+
+@pytest.mark.parametrize("p,n,wide,tpr,blocks", DIGEST_GEOMETRY)
+def test_health_digest_geometry_and_scratch(p, n, wide, tpr, blocks):
+    """The digest's tiles and grid, and its scratch regions: 256-byte
+    aligned, disjoint, each as large as its array (two key buffers of u32
+    or u64 and two of i32 ids over [P, N], the tile stats, the [P, 256,
+    tiles] counts, a total per (row, pass, digit) for 4 or 8 passes)."""
+    g = hd_mod.launch_geometry(p, n, 132, 8)
+    assert (g.tiles_per_row, g.blocks) == (tpr, blocks)
+    assert (tpr - 1) * hd_mod.TILE < n <= tpr * hd_mod.TILE
+    lay = hd_mod.scratch_layout(p, n, wide)
+    key = 8 if wide else 4
+    want = {"keys": 2 * p * n * key, "ids": 2 * p * n * 4,
+            "tstat": p * tpr * 13 * 8, "counts": p * 256 * tpr * 4,
+            "totals": p * key * 256 * 4, "rowmax": p * 8, "rowpasses": p * 4,
+            "ctrl": 4}
+    end = 0
+    for name, size in want.items():
+        off, got = lay[name]
+        assert got == size and off % 256 == 0 and off >= end, name
+        end = off + size
+    assert end <= lay["total"] < end + 256
